@@ -1,0 +1,36 @@
+"""Same-state control error (counterpart of
+``pspde/eval/test_error.py:control_test_error``)."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+
+@torch.no_grad()
+def control_test_error(problem, model, K: int = 4096,
+                       generator: Optional[torch.Generator] = None) -> float:
+    """Relative control L2 error sqrt(E int |u_hat - u*|^2 dt /
+    E int |u*|^2 dt), both evaluated at the SAME state X_n along paths
+    driven by the learned control, on the model's own time grid."""
+    dev = problem.X_0.device
+    control_fn = model._control_fn()
+    N, dt = model.N, model.delta_t
+    sq_dt = float(np.sqrt(dt))
+    sig = problem.sigma_struct
+    u_ref = problem.u_ref_fn(np.arange(N) * dt)
+    X = problem.X_0.to(torch.float32).expand(K, problem.d)
+    num = torch.zeros(K, dtype=torch.float32, device=dev)
+    den = torch.zeros_like(num)
+    for n in range(N):
+        t = float(np.float32(n) * np.float32(dt))
+        Z, _ = control_fn(X, n, t)
+        u_hat = -Z
+        u_star = u_ref(X, n)
+        num = num + torch.sum((u_hat - u_star) ** 2, dim=-1) * dt
+        den = den + torch.sum(u_star ** 2, dim=-1) * dt
+        xi = torch.randn(X.shape, generator=generator, device=dev)
+        X = X + (problem.b(X) + sig.apply(u_hat)) * dt + sig.apply(xi) * sq_dt
+    return float(torch.sqrt(torch.mean(num) / torch.mean(den)))

@@ -1,0 +1,88 @@
+"""Build and load the port's CUDA kernels.
+
+The sources in ``pspde_torch/csrc/*.cu`` are compiled with ``nvcc`` for
+``sm_90a`` into one shared library with a plain C interface, on first use,
+into ``build/pspde_torch/`` at the repository root (listed in
+``.gitignore``).  The file name carries a hash of the sources and flags,
+so an edited source is rebuilt.  The library is loaded with ``ctypes``;
+pointers and the stream are passed as ``c_void_p``.  Importing this
+module needs neither ``nvcc`` nor a GPU.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "pspde_torch")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# filled by library(): path, sources, seconds (0.0 when loaded from an
+# existing build), log (nvcc's output, -Xptxas -v register report included)
+build_info: dict = {}
+_lib = None
+_lock = threading.Lock()
+
+
+def _nvcc() -> str:
+    for cand in (os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
+                 shutil.which("nvcc") or "",
+                 "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("pspde_torch: nvcc not found (set CUDA_HOME); the "
+                       "CUDA kernels are built from pspde_torch/csrc on "
+                       "first use on a CUDA tensor")
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of the kernels' library."""
+    vp = ctypes.c_void_p
+    lib.pspde_controlled_rollout.argtypes = [
+        vp, vp, vp, ctypes.POINTER(ctypes.c_int),
+        ctypes.POINTER(ctypes.c_float), ctypes.c_ulonglong, ctypes.c_int, vp]
+    lib.pspde_controlled_rollout.restype = ctypes.c_int
+    lib.pspde_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.pspde_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def library() -> ctypes.CDLL:
+    """The kernels' library, built on first call."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        for path in sorted(glob.glob(os.path.join(CSRC, "*"))):
+            with open(path, "rb") as f:
+                h.update(os.path.basename(path).encode() + f.read())
+        out = os.path.join(BUILD_DIR,
+                           f"libpspde_torch_{h.hexdigest()[:16]}.so")
+        seconds, log = 0.0, ""
+        if not os.path.isfile(out):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f"{out}.{os.getpid()}.tmp"
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources]
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            seconds = time.perf_counter() - t0
+            log = proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                raise RuntimeError(f"pspde_torch: nvcc failed "
+                                   f"({proc.returncode}):\n{' '.join(cmd)}\n"
+                                   f"{log}")
+            os.replace(tmp, out)
+        build_info.update(path=out, sources=sources, seconds=seconds, log=log)
+        _lib = bind(ctypes.CDLL(out))
+        return _lib

@@ -1,0 +1,82 @@
+"""Flax parameter trees -> the port's modules.
+
+A Flax parameter tree arrives as nested dicts of numpy arrays, e.g. the
+``TanhMLP`` control
+
+    {'params': {'Dense_0': {'kernel': (in, out), 'bias': (out,)}, ...}}
+
+A Flax ``Dense`` kernel is (in, out); an ``nn.Linear.weight`` is (out, in),
+so kernels are transposed on the way in.  ``load_control_npz`` reads the
+exported control asset (``experiments/export_llgc_control.py``): the flat
+tree under '/'-joined keys plus a JSON metadata string under ``__meta__``.
+"""
+
+from __future__ import annotations
+
+import json
+
+import numpy as np
+import torch
+
+from ..ansatz import ScalarParam, TanhMLP
+
+
+def unflatten_tree(flat: dict) -> dict:
+    """{'a/b/c': array} -> {'a': {'b': {'c': array}}}."""
+    tree: dict = {}
+    for key, val in flat.items():
+        node = tree
+        *path, leaf = key.split("/")
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = val
+    return tree
+
+
+def _dense_layers(tree: dict):
+    """The ordered (kernel, bias) pairs of a Flax MLP parameter tree."""
+    params = tree["params"] if "params" in tree else tree
+    names = sorted((k for k in params if k.startswith("Dense_")),
+                   key=lambda k: int(k.split("_")[1]))
+    if not names or len(names) != len(params):
+        raise ValueError("expected a tree of Dense_i layers, got keys "
+                         f"{sorted(params)}")
+    return [(np.asarray(params[n]["kernel"], dtype=np.float32),
+             np.asarray(params[n]["bias"], dtype=np.float32)) for n in names]
+
+
+def tanh_mlp_state_dict(tree: dict) -> dict:
+    """Flax TanhMLP tree -> ``TanhMLP.state_dict()`` (kernels transposed)."""
+    state = {}
+    for i, (kernel, bias) in enumerate(_dense_layers(tree)):
+        state[f"layers.{i}.weight"] = torch.from_numpy(
+            np.ascontiguousarray(kernel.T))
+        state[f"layers.{i}.bias"] = torch.tensor(bias)
+    return state
+
+
+def tanh_mlp_from_flax(tree: dict, device=None) -> TanhMLP:
+    """Build a ``TanhMLP`` whose widths are read off the Flax tree and load
+    its parameters."""
+    layers = _dense_layers(tree)
+    widths = [k.shape[0] for k, _ in layers] + [layers[-1][0].shape[1]]
+    net = TanhMLP(widths[0], widths[-1], hidden=widths[1:-1], device=device)
+    net.load_state_dict(tanh_mlp_state_dict(tree))
+    return net
+
+
+def scalar_param_from_flax(tree: dict, device=None) -> ScalarParam:
+    params = tree["params"] if "params" in tree else tree
+    mod = ScalarParam(initial=0.0, device=device)
+    with torch.no_grad():
+        mod.Y_0.copy_(torch.tensor(
+            np.asarray(params["Y_0"], dtype=np.float32).reshape(1)))
+    return mod
+
+
+def load_control_npz(path: str):
+    """Read an exported control asset -> (param tree, metadata dict)."""
+    with np.load(path, allow_pickle=False) as z:
+        flat = {k: z[k] for k in z.files if k != "__meta__"}
+        meta = json.loads(str(z["__meta__"])) if "__meta__" in z.files else {}
+    return unflatten_tree(flat), meta
