@@ -1,0 +1,105 @@
+// Device code shared by the rollout kernels (controlled_rollout.cu,
+// train_rollout.cu): the counter-based noise stream, the two
+// bits -> normal maps, and the chunked FP32 matrix-vector products of the
+// TanhMLP and the dense coefficients.
+//
+// Per-path arrays are [row][stride] in shared memory: thread p of a block
+// reads row i of its own path at in[i * stride], so a warp reads 32
+// consecutive words.  Matrices are (rows, cols) row-major with cols padded
+// to kChunk on the host, read as float4 broadcasts.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace pspde {
+
+constexpr int kMaxLayers = 8;   // pspde_torch/rollout/kernels.py _MAX_LAYERS
+constexpr int kChunk = 8;       // ... _CHUNK
+constexpr int kMaxTile = 128;   // ... _MAX_TILE
+
+__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0,
+                                               uint32_t k1) {
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    if (r > 0) {
+      k0 += 0x9E3779B9u;
+      k1 += 0xBB67AE85u;
+    }
+    const uint32_t hi0 = __umulhi(0xD2511F53u, c.x);
+    const uint32_t lo0 = 0xD2511F53u * c.x;
+    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c.z);
+    const uint32_t lo1 = 0xCD9E8D57u * c.z;
+    c = make_uint4(hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0);
+  }
+  return c;
+}
+
+// bits -> float in [1, 2) -> [0, 1) -> 2u - 1 clipped to +-(1 - 1e-7)
+// (float32 constants) -> sqrt(2) erfinv.
+__device__ __forceinline__ float normal_from_bits(uint32_t bits) {
+  const float u01 = __uint_as_float((bits >> 9) | 0x3F800000u) - 1.0f;
+  const float u = fminf(fmaxf(2.0f * u01 - 1.0f, -0.99999988079071044921875f),
+                        0.99999988079071044921875f);
+  return 1.41421353816986083984375f * erfinvf(u);
+}
+
+// Moment-matched normals: (popcount(b1) - 16 + (b2 & 0x7FFF) 2^-15 - 1/2)
+// / sqrt(8 + 1/12).  Every step before the final product is exact, so the
+// value is bitwise that of the plain version.
+__device__ __forceinline__ float normal_from_bits_binom(uint32_t b1,
+                                                        uint32_t b2) {
+  const float pc = static_cast<float>(__popc(b1) - 16);
+  const float u = static_cast<float>(b2 & 0x7FFFu) * 3.0517578125e-05f;
+  return ((pc + u) - 0.5f) * 0.351726233959198f;
+}
+
+// acc[c] += sum_{i < rows} in[i] * MT[i][j0 + c] for one chunk of outputs.
+// `in` points at this thread's column of a [row][stride] array.
+__device__ __forceinline__ void matvec_chunk(const float* __restrict__ MT,
+                                             int rows, int cols, int j0,
+                                             const float* in, int stride,
+                                             float (&acc)[kChunk]) {
+#pragma unroll 4
+  for (int i = 0; i < rows; ++i) {
+    const float a = in[i * stride];
+    const float4 w0 = *reinterpret_cast<const float4*>(MT + i * cols + j0);
+    const float4 w1 =
+        *reinterpret_cast<const float4*>(MT + i * cols + j0 + 4);
+    acc[0] = fmaf(a, w0.x, acc[0]);
+    acc[1] = fmaf(a, w0.y, acc[1]);
+    acc[2] = fmaf(a, w0.z, acc[2]);
+    acc[3] = fmaf(a, w0.w, acc[3]);
+    acc[4] = fmaf(a, w1.x, acc[4]);
+    acc[5] = fmaf(a, w1.y, acc[5]);
+    acc[6] = fmaf(a, w1.z, acc[6]);
+    acc[7] = fmaf(a, w1.w, acc[7]);
+  }
+}
+
+// out = act(in @ W + b), W (rows, cols) row-major.  For the first layer
+// (t_row) row 0 of W multiplies the scalar t and `in` holds rows 1.. .
+__device__ __forceinline__ void dense(const float* __restrict__ W,
+                                      const float* __restrict__ b, int rows,
+                                      int cols, const float* in, int stride,
+                                      float* out, bool tanh_act, bool t_row,
+                                      float t) {
+  for (int j0 = 0; j0 < cols; j0 += kChunk) {
+    float acc[kChunk];
+#pragma unroll
+    for (int c = 0; c < kChunk; ++c) acc[c] = t_row ? t * W[j0 + c] : 0.0f;
+    if (t_row) {
+      matvec_chunk(W + cols, rows - 1, cols, j0, in, stride, acc);
+    } else {
+      matvec_chunk(W, rows, cols, j0, in, stride, acc);
+    }
+#pragma unroll
+    for (int c = 0; c < kChunk; ++c) {
+      const float v = acc[c] + b[j0 + c];
+      out[(j0 + c) * stride] = tanh_act ? tanhf(v) : v;
+    }
+  }
+}
+
+}  // namespace pspde

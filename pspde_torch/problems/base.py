@@ -5,9 +5,10 @@ function over batched inputs ``x: (K, d)``.  A problem lives on one
 device, chosen at construction (``device=``); its constant tensors and
 ``X_0`` are created there.
 
-The hand-written rollout kernel covers one family of coefficients, and a
-problem states whether it belongs to it through ``drift_family`` and
-``running_cost_family`` (``None`` means outside the family).
+The hand-written rollout kernels cover one family of coefficients, and a
+problem states whether it belongs to it through ``drift_family``,
+``running_cost_family`` and, for the training kernels, ``h_family``
+(``None`` means outside the family).
 """
 
 from __future__ import annotations
@@ -153,6 +154,12 @@ class Problem:
     def running_cost_family(self):
         """('zero', None) for f = 0, ('quadratic', P) for f = x^T P x, or
         None when f is outside the kernel family."""
+        return None
+
+    def h_family(self):
+        """('quadratic_z', c_h, f_coef) for the Y-free
+        h(t, x, y, z) = c_h |z|^2 / 2 + f_coef f(x, t), or None when h is
+        outside the training kernels' family."""
         return None
 
     def running_cost(self, x: torch.Tensor, t: float) -> torch.Tensor:

@@ -72,6 +72,9 @@ class LLGC(Problem):
     def running_cost_family(self):
         return ("zero", None)
 
+    def h_family(self):
+        return ("quadratic_z", self.h_sign, 0.0)
+
     # -- reference solution ------------------------------------------------
     def _expm_AT(self, tau: float) -> np.ndarray:
         return expm(self._A_np.T * tau)
@@ -187,6 +190,9 @@ class LQGC(Problem):
 
     def running_cost_family(self):
         return ("quadratic", self.P)
+
+    def h_family(self):
+        return ("quadratic_z", -1.0, -1.0)
 
     def u_ref_fn(self, ts: np.ndarray):
         """u*(x, t) = -Q^{-1} B^T F_n x with n = ceil(t/dt)."""

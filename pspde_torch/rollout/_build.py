@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 The sources in ``pspde_torch/csrc/*.cu`` are compiled with ``nvcc`` for
-``sm_90a`` into one shared library with a plain C interface, on first use,
+``sm_90a`` (one process per source, in parallel) and linked into one
+shared library with a plain C interface, on first use,
 into ``build/pspde_torch/`` at the repository root (listed in
 ``.gitignore``).  The file name carries a hash of the sources and flags,
 so an edited source is rebuilt.  The library is loaded with ``ctypes``;
@@ -24,7 +25,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "pspde_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # filled by library(): path, sources, seconds (0.0 when loaded from an
 # existing build), log (nvcc's output, -Xptxas -v register report included)
@@ -47,13 +48,58 @@ def _nvcc() -> str:
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C interface of the kernels' library."""
     vp = ctypes.c_void_p
-    lib.pspde_controlled_rollout.argtypes = [
-        vp, vp, vp, ctypes.POINTER(ctypes.c_int),
-        ctypes.POINTER(ctypes.c_float), ctypes.c_ulonglong, ctypes.c_int, vp]
-    lib.pspde_controlled_rollout.restype = ctypes.c_int
+    tail = [ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_float),
+            ctypes.c_ulonglong, ctypes.c_int, vp]
+    # (params, host_noise, outputs..., iargs, fargs, seed, device, stream)
+    for name, n_ptr in (("pspde_controlled_rollout", 3),
+                        ("pspde_train_rollout_fwd", 6),
+                        ("pspde_train_rollout_bwd", 5)):
+        fn = getattr(lib, name)
+        fn.argtypes = [vp] * n_ptr + tail
+        fn.restype = ctypes.c_int
     lib.pspde_cuda_error_string.argtypes = [ctypes.c_int]
     lib.pspde_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _run(cmd, proc=None) -> str:
+    """Wait for ``proc`` (or run ``cmd``); raise with nvcc's output on
+    failure, else return that output."""
+    proc = proc or subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"pspde_torch: nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{log}")
+    return log
+
+
+def _compile_and_link(sources, out: str) -> str:
+    """One nvcc per source, all started together, then one link into
+    ``out``; returns the concatenated compiler output."""
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}.tmp"
+    objs = [os.path.join(BUILD_DIR, f"{os.path.basename(s)}.{tag}.o")
+            for s in sources]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, s]
+            for s, o in zip(sources, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    try:
+        log = "".join(_run(c, p) for c, p in zip(cmds, procs))
+        tmp = f"{out}.{tag}"
+        log += _run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", tmp, *objs])
+        os.replace(tmp, out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
+    return log
 
 
 def library() -> ctypes.CDLL:
@@ -72,17 +118,9 @@ def library() -> ctypes.CDLL:
         seconds, log = 0.0, ""
         if not os.path.isfile(out):
             os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{out}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources]
             t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
+            log = _compile_and_link(sources, out)
             seconds = time.perf_counter() - t0
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"pspde_torch: nvcc failed "
-                                   f"({proc.returncode}):\n{' '.join(cmd)}\n"
-                                   f"{log}")
-            os.replace(tmp, out)
         build_info.update(path=out, sources=sources, seconds=seconds, log=log)
         _lib = bind(ctypes.CDLL(out))
         return _lib

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from ..ansatz import TanhMLP
+from .sde import HJBRolloutConfig, hjb_rollout, step_constants, step_time
 
 
 class ISRolloutOut(NamedTuple):
@@ -86,29 +87,70 @@ def normals_from_bits(bits: torch.Tensor) -> torch.Tensor:
     return _SQRT2 * torch.erfinv(u)
 
 
-def philox_normals(seed: int, K: int, n: int, d: int,
-                   device=None) -> torch.Tensor:
-    """(K, d) float32 normals of step n: path k, dimensions 4g..4g+3 come
-    from Philox4x32-10 with counter (k, n, g, 0) and key (seed mod 2^32,
-    seed >> 32) - the kernel's stream, independent of its tile size."""
+_BINOM_SCALE = float(np.float32(1.0 / np.sqrt(8.0 + 1.0 / 12.0)))
+
+
+def popcount32(x: torch.Tensor) -> torch.Tensor:
+    """Set bits of each 32-bit word held in int64 (SWAR popcount)."""
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) & _M32) >> 24
+
+
+def normals_from_bits_binom(b1: torch.Tensor,
+                            b2: torch.Tensor) -> torch.Tensor:
+    """Moment-matched cheap normals of two uint32 words (in int64):
+    z = (popcount(b1) - 16 + (b2 & 0x7FFF) 2^-15 - 1/2) / sqrt(8 + 1/12),
+    with pspde's float32 operation order, so the kernel's values agree
+    bitwise.  Mean, variance and skewness are exact; |z| <= 5.8."""
+    pc = (popcount32(b1) - 16).to(torch.float32)
+    u = (b2 & 0x7FFF).to(torch.float32) * (2.0 ** -15)
+    return ((pc + u) - 0.5) * _BINOM_SCALE
+
+
+def philox_bits(seed: int, K: int, n: int, d: int, c3: int = 0,
+                device=None) -> torch.Tensor:
+    """(K, d) uint32 words (in int64) of step n: path k, dimensions
+    4g..4g+3 are the four words of Philox4x32-10 at counter (k, n, g, c3)
+    with key (seed mod 2^32, seed >> 32) - the kernels' stream,
+    independent of their tile size."""
     G = -(-d // 4)
     k = torch.arange(K, dtype=torch.int64, device=device)[:, None]
     g = torch.arange(G, dtype=torch.int64, device=device)[None, :]
     c0 = k.expand(K, G)
     c1 = torch.full((K, G), int(n) & _M32, dtype=torch.int64, device=device)
     c2 = g.expand(K, G)
-    c3 = torch.zeros((K, G), dtype=torch.int64, device=device)
+    c3 = torch.full((K, G), int(c3) & _M32, dtype=torch.int64, device=device)
     seed = int(seed) & 0xFFFFFFFFFFFFFFFF
     words = philox4x32_10(c0, c1, c2, c3, seed & _M32, seed >> 32)
-    bits = torch.stack(words, dim=-1).reshape(K, 4 * G)[:, :d]
-    return normals_from_bits(bits)
+    return torch.stack(words, dim=-1).reshape(K, 4 * G)[:, :d]
+
+
+def philox_normals(seed: int, K: int, n: int, d: int,
+                   device=None) -> torch.Tensor:
+    """(K, d) float32 normals of step n: the erfinv map of the words at
+    counter (k, n, g, 0)."""
+    return normals_from_bits(philox_bits(seed, K, n, d, 0, device))
+
+
+RNG_MAPS = ("erfinv", "binom")
+
+
+def train_normals(seed: int, K: int, n: int, d: int, rng: str = "binom",
+                  device=None) -> torch.Tensor:
+    """(K, d) normals of step n of the training kernels: 'erfinv' is
+    ``philox_normals``; 'binom' maps b1 from counter (k, n, g, 0) and b2
+    from (k, n, g, 1) through ``normals_from_bits_binom``."""
+    if rng == "erfinv":
+        return philox_normals(seed, K, n, d, device)
+    if rng == "binom":
+        return normals_from_bits_binom(philox_bits(seed, K, n, d, 0, device),
+                                       philox_bits(seed, K, n, d, 1, device))
+    raise ValueError(f"rng={rng!r} must be one of {RNG_MAPS}")
 
 
 # -- plain version ---------------------------------------------------------
-
-def _step_constants(delta_t: float):
-    return float(np.float32(delta_t)), float(np.float32(np.sqrt(delta_t)))
-
 
 @torch.no_grad()
 def reference_controlled_rollout(problem, z_net, K: int, N: int,
@@ -122,13 +164,13 @@ def reference_controlled_rollout(problem, z_net, K: int, N: int,
     d = problem.d
     dev = problem.X_0.device
     sig = problem.sigma_struct
-    dt, sq_dt = _step_constants(delta_t)
+    dt, sq_dt = step_constants(delta_t)
     X = problem.X_0.to(torch.float32).expand(K, d)
     ito = torch.zeros(K, dtype=torch.float32, device=dev)
     riem = torch.zeros_like(ito)
     fint = torch.zeros_like(ito)
     for n in range(N):
-        t = float(np.float32(n) * np.float32(dt))
+        t = step_time(n, dt)
         if host_noise is not None:
             xi = host_noise[n]
         else:
@@ -169,24 +211,24 @@ def _outside(msg: str):
                       f"{KERNEL_FAMILY}")
 
 
-def _check_family(problem, z_net, with_f, noise_sign):
+def _check_family(problem, z_net, with_f, noise_sign, outside=_outside):
     d = problem.d
     if not isinstance(z_net, TanhMLP):
-        raise _outside(f"control net {type(z_net).__name__} is not a TanhMLP")
+        raise outside(f"control net {type(z_net).__name__} is not a TanhMLP")
     if z_net.d_in != d + 1 or z_net.d_out != d:
-        raise _outside(f"TanhMLP widths {z_net.d_in}->{z_net.d_out} do not "
-                       f"match d={d} (need {d + 1}->{d})")
+        raise outside(f"TanhMLP widths {z_net.d_in}->{z_net.d_out} do not "
+                      f"match d={d} (need {d + 1}->{d})")
     if len(z_net.layers) > _MAX_LAYERS:
-        raise _outside(f"TanhMLP has {len(z_net.layers)} layers")
+        raise outside(f"TanhMLP has {len(z_net.layers)} layers")
     drift = problem.drift_family()
     if drift is None:
-        raise _outside(f"drift of {type(problem).__name__} is not linear")
+        raise outside(f"drift of {type(problem).__name__} is not linear")
     cost = problem.running_cost_family() if with_f else ("zero", None)
     if cost is None:
-        raise _outside(f"running cost f of {type(problem).__name__} is not "
-                       "zero or quadratic")
+        raise outside(f"running cost f of {type(problem).__name__} is not "
+                      "zero or quadratic")
     if float(noise_sign) not in (1.0, -1.0):
-        raise _outside(f"noise_sign={noise_sign}")
+        raise outside(f"noise_sign={noise_sign}")
     return drift, cost
 
 
@@ -196,14 +238,33 @@ class _Packed(NamedTuple):
     fargs: list
 
 
-def _pack(problem, z_net, drift, cost, K, N, delta_t, tile, host_noise,
-          noise_sign) -> _Packed:
-    """Lay the net (last layer negated, so the kernel's output is u = -Z),
-    X_0 and the constant matrices out in one buffer, every width padded to
-    _CHUNK and every section aligned to 4 floats (float4 loads).  Matrices
-    are stored transposed, M^T (d, dp), so a chunk of outputs is
-    contiguous.  ``tile`` None picks the tile from the shared memory the
-    block needs."""
+class _Layout(NamedTuple):
+    buf: torch.Tensor      # the flat float32 buffer
+    n_layers: int
+    rows: list             # per layer: input rows (layer 0: d + 1)
+    cols: list             # per layer: output width padded to _CHUNK
+    w_off: list            # per layer: offset of W (rows, cols)
+    b_off: list            # per layer: offset of b (cols,)
+    hmax: int              # widest hidden layer
+    x0_off: int            # X_0 padded to dp; the staged prefix ends here
+    drift_kind: int
+    a_off: int
+    sig_kind: int
+    sig_off: int
+    sig_scale: float
+    f_kind: int
+    p_off: int
+    u_off: int             # (N, dp) reference-control table, or 0
+
+
+def _layout(problem, z_net, drift, cost, negate_last: bool,
+            u_tab: Optional[torch.Tensor] = None) -> _Layout:
+    """Lay the net, X_0, the constant matrices and the u_tab table out in
+    one buffer, every width padded to _CHUNK and every section aligned to
+    4 floats (float4 loads).  Weights are stored (in, out), matrices
+    transposed, M^T (d, dp), so a chunk of outputs is contiguous.  The net
+    and X_0 come first: the training kernels stage only that prefix in
+    shared memory and read the rest from device memory."""
     d = problem.d
     dp = _ceil_to(d, _CHUNK)
     dev = problem.X_0.device
@@ -231,7 +292,7 @@ def _pack(problem, z_net, drift, cost, K, N, delta_t, tile, host_noise,
     for l, lin in enumerate(z_net.layers):
         W = lin.weight.detach().to(torch.float32).T      # (in, out)
         b = lin.bias.detach().to(torch.float32)
-        if l == n_layers - 1:
+        if negate_last and l == n_layers - 1:
             W, b = -W, -b
         c = _ceil_to(W.shape[1], _CHUNK)
         w_off.append(add(padded(W, rows_in, c)))
@@ -256,17 +317,39 @@ def _pack(problem, z_net, drift, cost, K, N, delta_t, tile, host_noise,
     else:
         sig_off = add_T(sig.mat)
     f_kind, p_off = (0, 0) if cost[0] == "zero" else (1, add_T(cost[1]))
+    u_off = 0 if u_tab is None else add(padded(u_tab, u_tab.shape[0], dp))
+    return _Layout(torch.cat(parts), n_layers, rows, cols, w_off, b_off,
+                   hmax, x0_off, drift_kind, a_off, sig_kind, sig_off,
+                   sig_scale, f_kind, p_off, u_off)
 
-    dense = drift_kind == 1 or sig_kind == 2
-    tile = _choose_tile(off, dp * (3 if dense else 2) + 2 * hmax, tile)
-    iargs = [K, N, d, dp, n_layers, hmax, tile, drift_kind, a_off, sig_kind,
-             sig_off, f_kind, p_off, x0_off, off,
-             int(host_noise is not None)]
-    for per_layer in (rows, cols, w_off, b_off):
-        iargs += per_layer + [0] * (_MAX_LAYERS - n_layers)
-    dt, sq_dt = _step_constants(delta_t)
-    fargs = [dt, sq_dt, float(noise_sign), sig_scale]
-    return _Packed(torch.cat(parts), iargs, fargs)
+
+def _pack(problem, z_net, drift, cost, K, N, delta_t, tile, host_noise,
+          noise_sign) -> _Packed:
+    """The serve kernel's arguments: the buffer of ``_layout`` with the
+    last layer negated, so the kernel's net returns u = -Z, all of it
+    staged in shared memory.  ``tile`` None picks the tile from the shared
+    memory the block needs."""
+    d = problem.d
+    dp = _ceil_to(d, _CHUNK)
+    lay = _layout(problem, z_net, drift, cost, negate_last=True)
+    off = lay.buf.numel()
+    dense = lay.drift_kind == 1 or lay.sig_kind == 2
+    per_path = dp * (3 if dense else 2) + 2 * lay.hmax
+    tile = _choose_tile(lambda t: _smem_bytes(off, per_path, t), tile)
+    iargs = [K, N, d, dp, lay.n_layers, lay.hmax, tile, lay.drift_kind,
+             lay.a_off, lay.sig_kind, lay.sig_off, lay.f_kind, lay.p_off,
+             lay.x0_off, off, int(host_noise is not None)]
+    iargs += _per_layer_args(lay)
+    dt, sq_dt = step_constants(delta_t)
+    fargs = [dt, sq_dt, float(noise_sign), lay.sig_scale]
+    return _Packed(lay.buf, iargs, fargs)
+
+
+def _per_layer_args(lay: _Layout) -> list:
+    out = []
+    for per_layer in (lay.rows, lay.cols, lay.w_off, lay.b_off):
+        out += per_layer + [0] * (_MAX_LAYERS - lay.n_layers)
+    return out
 
 
 def _smem_bytes(n_params: int, per_path: int, tile: int) -> int:
@@ -277,7 +360,9 @@ def _smem_bytes(n_params: int, per_path: int, tile: int) -> int:
     return 4 * (n_params + per_path * tile)
 
 
-def _choose_tile(n_params: int, per_path: int, tile: Optional[int]) -> int:
+def _choose_tile(smem_bytes, tile: Optional[int], outside=_outside) -> int:
+    """``tile``, or the largest of 64 and 32 whose block fits the shared
+    memory, ``smem_bytes(tile)`` bytes."""
     if tile is not None:
         if not (0 < tile <= _MAX_TILE and tile % 32 == 0):
             raise ValueError(f"tile={tile} must be a multiple of 32 "
@@ -286,11 +371,11 @@ def _choose_tile(n_params: int, per_path: int, tile: Optional[int]) -> int:
     else:
         candidates = (64, 32)
     for t in candidates:
-        if _smem_bytes(n_params, per_path, t) <= _SMEM_LIMIT:
+        if smem_bytes(t) <= _SMEM_LIMIT:
             return t
-    need = _smem_bytes(n_params, per_path, candidates[-1])
-    raise _outside(f"{need} bytes of shared memory at tile={candidates[-1]} "
-                   f"exceed the {_SMEM_LIMIT}-byte limit of one block")
+    raise outside(f"{smem_bytes(candidates[-1])} bytes of shared memory at "
+                  f"tile={candidates[-1]} exceed the {_SMEM_LIMIT}-byte "
+                  "limit of one block")
 
 
 def _check_tensor(name, t, shape, device):
@@ -303,6 +388,26 @@ def _check_tensor(name, t, shape, device):
                          f"{tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} is not contiguous")
+
+
+def _launch(fn_name: str, who: str, packed: _Packed, tensors, seed: int,
+            dev: torch.device):
+    """Call the library's C entry ``fn_name`` with the tensors' pointers
+    (None -> null), the packed arguments, the seed, the device and its
+    current stream; raise if the launch is refused."""
+    from ._build import library
+    lib = library()
+    iargs = (ctypes.c_int * len(packed.iargs))(*packed.iargs)
+    fargs = (ctypes.c_float * len(packed.fargs))(*packed.fargs)
+    ptrs = [0 if t is None else t.data_ptr() for t in tensors]
+    dev_index = dev.index if dev.index is not None else \
+        torch.cuda.current_device()
+    err = getattr(lib, fn_name)(
+        *ptrs, iargs, fargs, int(seed) & 0xFFFFFFFFFFFFFFFF, dev_index,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{who}: kernel launch failed: "
+                           + lib.pspde_cuda_error_string(err).decode())
 
 
 @torch.no_grad()
@@ -333,26 +438,303 @@ def fused_controlled_rollout(problem, z_net, K: int, N: int, delta_t: float,
         raise ValueError(f"fused_controlled_rollout: no kernel for device "
                          f"{dev}")
 
-    from ._build import library
-    lib = library()
     packed = _pack(problem, z_net, drift, cost, K, N, delta_t, tile,
                    host_noise, noise_sign)
     out = torch.empty((K, d + 3), dtype=torch.float32, device=dev)
-    iargs = (ctypes.c_int * len(packed.iargs))(*packed.iargs)
-    fargs = (ctypes.c_float * len(packed.fargs))(*packed.fargs)
-    noise_ptr = 0 if host_noise is None else host_noise.data_ptr()
-    dev_index = dev.index if dev.index is not None else \
-        torch.cuda.current_device()
-    err = lib.pspde_controlled_rollout(
-        packed.params.data_ptr(), noise_ptr, out.data_ptr(), iargs, fargs,
-        int(seed) & 0xFFFFFFFFFFFFFFFF, dev_index,
-        torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(
-            "fused_controlled_rollout: kernel launch failed: "
-            + lib.pspde_cuda_error_string(err).decode())
+    _launch("pspde_controlled_rollout", "fused_controlled_rollout", packed,
+            [packed.params, host_noise, out], seed, dev)
     fused_controlled_rollout.launches += 1
     return ISRolloutOut(out[:, :d], out[:, d], out[:, d + 1], out[:, d + 2])
 
 
 fused_controlled_rollout.launches = 0
+
+
+# -- the training rollout (counterpart of make_fused_train_rollout) --------
+
+class FusedTrainOut(NamedTuple):
+    X: torch.Tensor       # (K, d) final state, no gradient
+    Y: torch.Tensor       # (K,) accumulated value increments (Y_0 excluded)
+    Z_sum: torch.Tensor   # (K,) KL / Ito accumulator
+    u_l2: torch.Tensor    # (K,) control-error accumulator, no gradient
+
+
+TRAIN_KERNEL_FAMILY = (KERNEL_FAMILY + "; h = c_h |z|^2/2 + f_coef f "
+                       "(Problem.h_family); u_tab only for a problem with a "
+                       "state-independent reference control (u_ref_table); "
+                       "rng 'erfinv' or 'binom'")
+
+
+def _train_outside(msg: str):
+    return ValueError(f"fused_train_rollout: {msg}; the kernel covers "
+                      f"{TRAIN_KERNEL_FAMILY}")
+
+
+def reference_train_rollout(problem, z_net, K: int, N: int, delta_t: float,
+                            seed: int = 0, *, adaptive_forward: bool = True,
+                            accumulate_kl: bool = False,
+                            kl_ito_term: bool = False,
+                            u_tab: Optional[torch.Tensor] = None,
+                            rng: str = "binom", noise_sign: float = 1.0,
+                            host_noise: Optional[torch.Tensor] = None
+                            ) -> FusedTrainOut:
+    """Plain version of the training kernels: ``hjb_rollout`` with a
+    detached forward on the kernels' noise stream (``host_noise`` (N, K, d)
+    or ``train_normals(seed, ...)``, times ``noise_sign``), from X_0 with
+    Y_0 = 0.  Differentiable in ``z_net``'s parameters by autograd; any
+    callable ``z_net`` (tX (K, d+1) -> Z (K, d)) is accepted."""
+    d = problem.d
+    dev = problem.X_0.device
+    sign = float(noise_sign)
+
+    def noise_fn(n):
+        xi = (host_noise[n] if host_noise is not None
+              else train_normals(seed, K, n, d, rng, dev))
+        return xi if sign == 1.0 else sign * xi
+
+    def control(X, n, t):
+        tX = torch.cat([torch.full((K, 1), t, dtype=torch.float32,
+                                   device=dev), X], dim=1)
+        return z_net(tX), None
+
+    u_ref = None if u_tab is None else (lambda X, n: u_tab[n].expand(K, d))
+    cfg = HJBRolloutConfig(N=N, delta_t=delta_t,
+                           adaptive_forward=adaptive_forward,
+                           detach_forward=True, accumulate_kl=accumulate_kl,
+                           kl_ito_term=kl_ito_term,
+                           track_u_l2=u_tab is not None)
+    out = hjb_rollout(cfg, problem, control,
+                      problem.X_0.to(torch.float32).expand(K, d),
+                      torch.zeros((K,), dtype=torch.float32, device=dev),
+                      u_ref=u_ref, noise_fn=noise_fn)
+    return FusedTrainOut(out.X, out.Y, out.Z_sum, out.u_l2)
+
+
+def _check_train_family(problem, z_net, N, noise_sign, u_tab, rng):
+    drift, cost = _check_family(problem, z_net, True, noise_sign,
+                                outside=_train_outside)
+    hfam = problem.h_family()
+    if hfam is None or hfam[0] != "quadratic_z":
+        raise _train_outside(f"h of {type(problem).__name__} is not "
+                             "c_h |z|^2/2 + f_coef f")
+    if u_tab is not None:
+        if not hasattr(problem, "u_ref_table"):
+            raise _train_outside(
+                f"u_tab given for {type(problem).__name__}, whose reference "
+                "control is state-dependent (no u_ref_table)")
+        if tuple(u_tab.shape) != (N, problem.d):
+            raise _train_outside(f"u_tab has shape {tuple(u_tab.shape)}, "
+                                 f"expected {(N, problem.d)}")
+    if rng not in RNG_MAPS:
+        raise _train_outside(f"rng={rng!r}")
+    return drift, cost, hfam
+
+
+def _train_smem_bytes(fixed: int, per_path: int, tile: int) -> int:
+    """Shared memory of one training block: ``fixed`` floats (the staged
+    net and X_0, plus the gradient buffer in the backward) and
+    ``per_path`` floats per path at stride tile + 1 - the formula of
+    train_rollout.cu:smem_floats."""
+    return 4 * (fixed + per_path * (tile + 1))
+
+
+def _pack_train(problem, z_net, drift, cost, hfam, K, N, delta_t, tile, *,
+                backward, host_noise, noise_sign, adaptive_forward,
+                accumulate_kl, kl_ito_term, u_tab, rng) -> _Packed:
+    """The training kernels' arguments (train_rollout.cu: TrainArgs): the
+    buffer of ``_layout`` with the net as it is (the kernel's net returns
+    Z) and the u_tab table, and the per-layer offsets of one block's
+    gradient buffer, [W (rows, cols); b (1, cols)] per layer."""
+    d = problem.d
+    dp = _ceil_to(d, _CHUNK)
+    lay = _layout(problem, z_net, drift, cost, negate_last=False,
+                  u_tab=u_tab)
+    _, c_h, f_coef = hfam
+    need_f = lay.f_kind == 1 and (f_coef != 0.0 or accumulate_kl)
+    dense = lay.drift_kind == 1 or lay.sig_kind == 2
+    hidden = sum(lay.cols[:-1])
+    g_off, n_grad = [], 0
+    for rows, cols in zip(lay.rows, lay.cols):
+        g_off.append(n_grad)
+        n_grad += (rows + 1) * cols
+    n_stage = lay.x0_off + dp
+    if backward:
+        fixed, per_path = n_stage + n_grad, dp * (4 if dense else 3) + 2 * hidden
+    else:
+        fixed, per_path = n_stage, dp * (3 if dense else 2) + hidden
+    tile = _choose_tile(lambda t: _train_smem_bytes(fixed, per_path, t),
+                        tile, _train_outside)
+    iargs = [K, N, d, dp, lay.n_layers, tile, lay.drift_kind, lay.a_off,
+             lay.sig_kind, lay.sig_off, int(need_f), lay.p_off, lay.x0_off,
+             n_stage, lay.u_off, int(u_tab is not None),
+             int(host_noise is not None), int(adaptive_forward),
+             int(accumulate_kl), int(kl_ito_term), RNG_MAPS.index(rng),
+             n_grad]
+    iargs += _per_layer_args(lay) + g_off + [0] * (_MAX_LAYERS - lay.n_layers)
+    dt, sq_dt = step_constants(delta_t)
+    fargs = [dt, sq_dt, float(noise_sign), lay.sig_scale, float(c_h),
+             float(f_coef)]
+    return _Packed(lay.buf, iargs, fargs)
+
+
+class _TrainCall(NamedTuple):
+    """One ``fused_train_rollout`` call: what the backward replays."""
+    problem: object
+    z_net: torch.nn.Module
+    K: int
+    N: int
+    delta_t: float
+    seed: int
+    families: tuple          # (drift, cost, hfam) of the family check
+    opts: dict               # adaptive_forward, accumulate_kl, kl_ito_term,
+                             # u_tab, rng, noise_sign, host_noise
+    tile: Optional[int]
+
+    def plain(self) -> FusedTrainOut:
+        return reference_train_rollout(self.problem, self.z_net, self.K,
+                                       self.N, self.delta_t, self.seed,
+                                       **self.opts)
+
+    def pack(self, backward: bool) -> _Packed:
+        o = self.opts
+        return _pack_train(
+            self.problem, self.z_net, *self.families, self.K, self.N,
+            self.delta_t, self.tile, backward=backward,
+            host_noise=o["host_noise"], noise_sign=o["noise_sign"],
+            adaptive_forward=o["adaptive_forward"],
+            accumulate_kl=o["accumulate_kl"], kl_ito_term=o["kl_ito_term"],
+            u_tab=o["u_tab"], rng=o["rng"])
+
+
+def _train_forward_kernel(call: _TrainCall) -> FusedTrainOut:
+    dev = call.problem.X_0.device
+    K, d = call.K, call.problem.d
+    packed = call.pack(backward=False)
+    X = torch.empty((K, d), dtype=torch.float32, device=dev)
+    acc = [torch.empty((K,), dtype=torch.float32, device=dev)
+           for _ in range(3)]
+    _launch("pspde_train_rollout_fwd", "fused_train_rollout", packed,
+            [packed.params, call.opts["host_noise"], X, *acc], call.seed, dev)
+    fused_train_rollout.launches += 1
+    return FusedTrainOut(X, *acc)
+
+
+def _train_backward_kernel(call: _TrainCall, gY, gKL) -> list:
+    dev = call.problem.X_0.device
+    packed = call.pack(backward=True)
+    ia = packed.iargs
+    tile, n_grad = ia[5], ia[21]
+    n_layers = ia[4]
+    n_blocks = -(-call.K // tile)
+    part = torch.empty((n_blocks, n_grad), dtype=torch.float32, device=dev)
+    _launch("pspde_train_rollout_bwd", "fused_train_rollout", packed,
+            [packed.params, call.opts["host_noise"], gY.contiguous(),
+             gKL.contiguous(), part], call.seed, dev)
+    fused_train_rollout.backward_launches += 1
+    total = part.sum(dim=0)
+    rows = ia[22:22 + n_layers]
+    cols = ia[22 + _MAX_LAYERS:22 + _MAX_LAYERS + n_layers]
+    g_off = ia[22 + 4 * _MAX_LAYERS:22 + 4 * _MAX_LAYERS + n_layers]
+    grads = []
+    for l, lin in enumerate(call.z_net.layers):
+        G = total[g_off[l]:g_off[l] + (rows[l] + 1) * cols[l]].reshape(
+            rows[l] + 1, cols[l])
+        grads.append(G[:lin.in_features, :lin.out_features].T.contiguous())
+        grads.append(G[rows[l], :lin.out_features].contiguous())
+    return grads
+
+
+def _reference_train_backward(call: _TrainCall, gY, gKL) -> list:
+    """Plain version of the backward kernel: replay the plain forward with
+    autograd and pull (gY, gKL) back to the net's parameters."""
+    params = list(call.z_net.parameters())
+    with torch.enable_grad():
+        out = call.plain()
+        pairs = [(o, g) for o, g in ((out.Y, gY), (out.Z_sum, gKL))
+                 if o.requires_grad]
+        if not pairs:
+            return [torch.zeros_like(p) for p in params]
+        grads = torch.autograd.grad([o for o, _ in pairs],
+                                    params, [g for _, g in pairs],
+                                    allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g
+            for p, g in zip(params, grads)]
+
+
+class _FusedTrainFn(torch.autograd.Function):
+    """Forward and replay backward of one call.  The forward saves only
+    the parameters (and the call, which holds the seed); X and u_l2 carry
+    no gradient; a None cotangent of Y or Z_sum counts as zeros."""
+
+    @staticmethod
+    def forward(ctx, call: _TrainCall, *params):
+        ctx.call = call
+        ctx.save_for_backward(*params)
+        ctx.set_materialize_grads(False)
+        if call.problem.X_0.device.type == "cpu":
+            out = call.plain()
+        else:
+            out = _train_forward_kernel(call)
+        ctx.mark_non_differentiable(out.X, out.u_l2)
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, gX, gY, gKL, gU):
+        call = ctx.call
+        params = ctx.saved_tensors
+        if gY is None and gKL is None:
+            return (None,) + tuple(torch.zeros_like(p) for p in params)
+        like = gY if gY is not None else gKL
+        gY = torch.zeros_like(like) if gY is None else gY
+        gKL = torch.zeros_like(like) if gKL is None else gKL
+        if call.problem.X_0.device.type == "cpu":
+            grads = _reference_train_backward(call, gY, gKL)
+        else:
+            grads = _train_backward_kernel(call, gY, gKL)
+        return (None,) + tuple(grads)
+
+
+def fused_train_rollout(problem, z_net, K: int, N: int, delta_t: float,
+                        seed: int = 0, *, adaptive_forward: bool = True,
+                        accumulate_kl: bool = False,
+                        kl_ito_term: bool = False,
+                        u_tab: Optional[torch.Tensor] = None,
+                        rng: str = "binom", noise_sign: float = 1.0,
+                        host_noise: Optional[torch.Tensor] = None,
+                        tile: Optional[int] = None) -> FusedTrainOut:
+    """Training rollout of K paths over N steps with a detached forward,
+    Z = z_net([t, X]): X (K, d), Y, Z_sum and u_l2 (K,), differentiable in
+    z_net's parameters through Y and Z_sum (a ``torch.autograd.Function``
+    whose backward replays the forward on the same noise).
+
+    The device is the problem's: the net, ``u_tab`` (N, d) and
+    ``host_noise`` (N, K, d) must live there.  CPU: the plain version
+    (forward, and an autograd replay as the backward).  CUDA: the forward
+    and backward kernels of ``csrc/train_rollout.cu``, counted by
+    ``fused_train_rollout.launches`` and ``.backward_launches``.  Noise is
+    ``host_noise`` or the Philox stream of ``seed`` through ``rng``
+    ('binom', the default, or 'erfinv'), times ``noise_sign``; antithetic
+    training is two calls over K/2 paths with one seed and signs +1, -1.
+    Raises ValueError outside ``TRAIN_KERNEL_FAMILY``."""
+    families = _check_train_family(problem, z_net, N, noise_sign, u_tab, rng)
+    d = problem.d
+    dev = problem.X_0.device
+    for name, p in z_net.named_parameters():
+        _check_tensor(f"z_net.{name}", p, p.shape, dev)
+    if u_tab is not None:
+        _check_tensor("u_tab", u_tab, (N, d), dev)
+    if host_noise is not None:
+        _check_tensor("host_noise", host_noise, (N, K, d), dev)
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_train_rollout: no kernel for device {dev}")
+    call = _TrainCall(problem, z_net, K, N, delta_t, int(seed), families,
+                      dict(adaptive_forward=adaptive_forward,
+                           accumulate_kl=accumulate_kl,
+                           kl_ito_term=kl_ito_term, u_tab=u_tab, rng=rng,
+                           noise_sign=noise_sign, host_noise=host_noise),
+                      tile)
+    return FusedTrainOut(*_FusedTrainFn.apply(call, *z_net.parameters()))
+
+
+fused_train_rollout.launches = 0
+fused_train_rollout.backward_launches = 0

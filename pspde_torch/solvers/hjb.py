@@ -1,38 +1,71 @@
 """HJB / parabolic path-space solver (counterpart of
-``pspde/solvers/hjb.py:HJBSolver``), the part that holds a model.
+``pspde/solvers/hjb.py:HJBSolver``).
 
-Ported: the constructor for ``approx_method='control'`` with the 'inner'
-time approximation (the TanhMLP control net on [t, X] and the learnable
-Y_0), ``_control_fn``, ``Z_n`` / ``u``, and ``load_jax_params`` to serve a
-control trained by the JAX package.  Training is not ported yet.
+Ported: ``approx_method='control'`` with the 'inner' time approximation
+(the TanhMLP control net on [t, X] and the learnable Y_0), training with
+the whole loss zoo that the ported rollout supports, Adam with a separate
+``lr_y0`` group, the u_L2 diagnostic, early stopping, and two engines:
+
+  * 'scan': the plain autograd rollout (``rollout/sde.py:hjb_rollout``);
+  * 'fused_train': the training kernels (``rollout/kernels.py:
+    fused_train_rollout``): one forward and one replay-backward launch
+    per step.
+
+Deviation from the JAX package, deliberate: where a 'fused_train' gate
+fails on a CUDA problem, the solver raises a ValueError naming the gate
+instead of warning and falling back to the scan.  On a CPU problem the
+kernels do not exist and 'fused_train' resolves to 'scan' with a warning,
+as JAX does off the TPU.  ``steps_per_call`` is accepted; every step is
+one Python iteration (CUDA-graph capture is later work).
 """
 
 from __future__ import annotations
+
+import time
+import warnings
 
 import numpy as np
 import torch
 
 from ..ansatz import ScalarParam, TanhMLP
+from ..losses.pathspace import hjb_loss, log_variance_y0_losses
+from ..rollout.kernels import (FusedTrainOut, RNG_MAPS, _check_train_family,
+                               fused_train_rollout)
+from ..rollout.sde import HJBRolloutConfig, HJBRolloutOut, hjb_rollout
 from ..utils.convert import (load_control_npz, scalar_param_from_flax,
                              tanh_mlp_from_flax)
 
+# options of the JAX solver that the port does not have yet: a value other
+# than the default raises (ROADMAP.md, Queue 1 items 6, 10 and 11)
+_NOT_PORTED = ("random_X_0", "compute_gradient_variance", "IS_variance_K",
+               "metastability_logs", "save_results", "log_gradient",
+               "plot_trajectories", "mesh", "value_net")
+# TPU-only levers of the JAX solver, accepted and ignored
+_TPU_ONLY = ("rng_impl", "layout", "fused_unroll", "IS_variance_iter")
+
 
 class HJBSolver:
-    """Holds the control model of a parabolic/HJB problem.
+    """Trains (and holds) the control model of a parabolic/HJB problem.
 
     Constructor arguments mirror ``pspde.solvers.HJBSolver``; the port
     adds ``device=``.  Parameters are initialised from a
     ``torch.Generator`` seeded with ``seed`` (N(0, 0.01) weights and
-    biases, Y_0 = 0), not from the JAX initialisation: load trained
-    parameters with ``load_jax_params``.
+    biases, Y_0 = 0), not from the JAX initialisation: load JAX
+    parameters with ``load_jax_params``.  The scan engine's noise comes
+    from a generator on the problem's device seeded with seed + 1; the
+    kernels' per-step seeds from a CPU generator seeded with seed + 2.
     """
 
     def __init__(self, name, problem, lr=0.001, L=10000, K=50, delta_t=0.05,
                  approx_method="control", loss_method="log-variance",
                  time_approx="outer", learn_Y_0=False,
                  adaptive_forward_process=True, detach_forward=False,
-                 early_stopping_time=10000, seed=42, verbose=True,
-                 control_net=None, lr_y0=None, device=None, **kwargs):
+                 early_stopping_time=10000, print_every=100, seed=42,
+                 u_l2_error_flag=True, burgers_drift=False, verbose=True,
+                 control_net=None, lr_y0=None, remat=None,
+                 dtype=torch.float32, rollout_mode="scan",
+                 steps_per_call="auto", antithetic=False, fused_tile=None,
+                 fused_rng=None, device=None, **kwargs):
         if approx_method != "control":
             raise NotImplementedError(
                 f"approx_method={approx_method!r} is not ported to "
@@ -41,6 +74,25 @@ class HJBSolver:
             raise NotImplementedError(
                 f"time_approx={time_approx!r} is not ported to pspde_torch "
                 "yet (ROADMAP.md, Queue 1 item 6); use 'inner'")
+        for key, val in kwargs.items():
+            if key in _NOT_PORTED:
+                if val:
+                    raise NotImplementedError(
+                        f"{key}={val!r} is not ported to pspde_torch yet "
+                        "(ROADMAP.md, Queue 1)")
+            elif key not in _TPU_ONLY:
+                raise TypeError(f"HJBSolver got an unexpected argument "
+                                f"{key!r}")
+        if dtype != torch.float32:
+            raise NotImplementedError("pspde_torch trains in float32 only")
+        if rollout_mode not in ("scan", "fused_train"):
+            raise NotImplementedError(
+                f"rollout_mode={rollout_mode!r} is not ported to pspde_torch "
+                "('batched_grad' and the legacy 'fused' are on the do-not-"
+                "port list of ROADMAP.md); use 'scan' or 'fused_train'")
+        if fused_rng is not None and fused_rng not in RNG_MAPS:
+            raise ValueError(f"fused_rng={fused_rng!r} must be one of "
+                             f"{RNG_MAPS}")
         self.problem = problem
         self.name = name
         self.d = problem.d
@@ -59,24 +111,74 @@ class HJBSolver:
         self.adaptive_forward_process = adaptive_forward_process
         self.detach_forward = detach_forward
         self.early_stopping_time = early_stopping_time
+        self.burgers_drift = burgers_drift
+        self.print_every = print_every
         self.verbose = verbose
-        # options of the JAX solver that only training reads
-        self.train_options = dict(kwargs)
+        self.remat = (self.N > 512) if remat is None else remat
+        self.rollout_mode = rollout_mode
+        self.steps_per_call = steps_per_call
+        self.fused_tile = fused_tile
+        self.fused_rng = fused_rng
         self.device = (problem.X_0.device if device is None
                        else torch.device(device))
+
+        if self.loss_method == "relative_entropy":
+            self.adaptive_forward_process = True
+        if self.loss_method == "cross_entropy":
+            self.learn_Y_0 = False
+        if detach_forward and self.loss_method == "relative_entropy":
+            warnings.warn(
+                "loss_method='relative_entropy' with detach_forward=True "
+                "has a degenerate gradient (the on-policy measure term is "
+                "detached; the remaining term only shrinks Z toward 0) - "
+                "use detach_forward=False, or a detach-compatible loss "
+                "(log-variance / moment / cross_entropy)", stacklevel=2)
+        if antithetic and K % 2:
+            raise ValueError("antithetic training needs even K")
+        self.antithetic = antithetic
+
+        self.has_ref_solution = (hasattr(problem, "u_ref_fn")
+                                 or hasattr(problem, "u_ref"))
+        self.u_l2_error_flag = u_l2_error_flag and self.has_ref_solution
+        self._u_ref = None
+        # the kernels' (N, d) reference-control table, made once
+        self._u_tab = None
+        if self.u_l2_error_flag:
+            ts = np.arange(self.N) * self.delta_t
+            if hasattr(problem, "u_ref_fn"):
+                self._u_ref = problem.u_ref_fn(ts)
+            else:
+                self._u_ref = lambda x, n: problem.u_ref(x)
+            if hasattr(problem, "u_ref_table"):
+                self._u_tab = problem.u_ref_table(ts)
 
         gen = torch.Generator().manual_seed(int(seed))
         if control_net is None:
             control_net = TanhMLP(self.d + 1, self.d, generator=gen)
         self.z_net = control_net.to(self.device)
         self.y0_net = ScalarParam(initial=0.0, device=self.device)
+        self._noise_gen = torch.Generator(device=self.device).manual_seed(
+            int(seed) + 1)
+        self._seed_gen = torch.Generator().manual_seed(int(seed) + 2)
+        self._make_optimizer()
 
-    def train(self):
-        raise NotImplementedError(
-            "HJBSolver.train is not ported to pspde_torch yet (ROADMAP.md, "
-            "Queue 1 items 4-6 and Queue 2 item 1: the training step and "
-            "its fused forward/backward kernels); train with pspde and "
-            "load the parameters with load_jax_params")
+        # logs (the reference's names)
+        self.Y_0_log = []
+        self.loss_log = []
+        self.u_L2_loss = []
+        self.times = []
+        self.iteration = 0
+        self.resolved_rollout_mode = self._resolve_engine()
+        self.resolved_steps_per_call = 1
+
+    # -- model ---------------------------------------------------------------
+    def _make_optimizer(self):
+        """Adam over the control net, with Y_0 in its own lr_y0 group."""
+        groups = [{"params": list(self.z_net.parameters()), "lr": self.lr}]
+        if self.learn_Y_0:
+            groups.append({"params": list(self.y0_net.parameters()),
+                           "lr": self.lr_y0})
+        self.optimizer = torch.optim.Adam(groups, lr=self.lr)
 
     def _control_fn(self):
         """(X, n, t) -> (Z, None): the 'inner' control Z = net([t, X])."""
@@ -103,8 +205,9 @@ class HJBSolver:
 
     def load_jax_params(self, tree_or_npz):
         """Load a JAX ``HJBSolver.params`` tree ({'z': ..., 'y0': ...},
-        nested dicts of arrays) or the path of an exported ``.npz``.
-        Returns the asset's metadata (empty for a tree)."""
+        nested dicts of arrays) or the path of an exported ``.npz``, and
+        start a fresh optimizer.  Returns the asset's metadata (empty for a
+        tree)."""
         meta = {}
         tree = tree_or_npz
         if isinstance(tree_or_npz, str):
@@ -113,4 +216,177 @@ class HJBSolver:
         if "y0" in tree:
             self.y0_net = scalar_param_from_flax(tree["y0"],
                                                  device=self.device)
+        self._make_optimizer()
+        self.resolved_rollout_mode = self._resolve_engine()
         return meta
+
+    # -- engine --------------------------------------------------------------
+    def _rollout_cfg(self, phase: int) -> HJBRolloutConfig:
+        lm = self.loss_method
+        return HJBRolloutConfig(
+            N=self.N, delta_t=self.delta_t,
+            adaptive_forward=self.adaptive_forward_process,
+            detach_forward=self.detach_forward,
+            accumulate_kl="relative_entropy" in lm,
+            kl_ito_term=(lm == "relative_entropy_BSDE"),
+            reparametrization=(lm == "reparametrization"),
+            repa_phase=(phase if lm == "log-variance-repa" else None),
+            burgers_drift=self.burgers_drift,
+            track_u_l2=self.u_l2_error_flag,
+            remat=self.remat,
+            antithetic=self.antithetic,
+        )
+
+    def _fused_train_gates(self):
+        """The gates of 'fused_train' (pspde's _build_step) that fail, by
+        name; the TPU test becomes 'problem on a CUDA device'."""
+        problem, lm = self.problem, self.loss_method
+        failed = []
+        if not self.detach_forward:
+            failed.append("detach_forward=True")
+        if not getattr(problem, "h_is_y_free", False):
+            failed.append("h independent of Y (problem.h_is_y_free)")
+        if lm in ("log-variance-repa", "reparametrization"):
+            failed.append(f"a loss without repa phases or the "
+                          f"reparametrization sum (got {lm!r})")
+        if self.burgers_drift:
+            failed.append("burgers_drift=False")
+        if self.u_l2_error_flag and not hasattr(problem, "u_ref_table"):
+            failed.append("u_l2_error_flag=False or a problem with a "
+                          "u_ref_table (state-independent reference control)")
+        else:
+            try:
+                _check_train_family(problem, self.z_net, self.N, 1.0,
+                                    self._u_tab,
+                                    self.fused_rng or "binom")
+            except ValueError as e:
+                failed.append(f"the training kernels' family ({e})")
+        if self.device.type != "cuda":
+            failed.append("problem on a CUDA device")
+        return failed
+
+    def _resolve_engine(self) -> str:
+        if self.rollout_mode != "fused_train":
+            return "scan"
+        failed = self._fused_train_gates()
+        if not failed:
+            return "fused_train"
+        if self.device.type == "cuda":
+            raise ValueError("rollout_mode='fused_train': gate failed: "
+                             + "; ".join(failed))
+        warnings.warn("rollout_mode='fused_train' fell back to 'scan' (a "
+                      "gate failed: " + "; ".join(failed) + ")",
+                      stacklevel=3)
+        return "scan"
+
+    def _rollout_outputs(self, cfg: HJBRolloutConfig, host_noise=None
+                         ) -> HJBRolloutOut:
+        """One rollout of K paths from X_0 with Y = Y_0 + sum of the
+        increments.  ``host_noise`` (N, K, d), or (N, K/2, d) with
+        antithetic pairs, replaces the engine's own noise."""
+        K, d = self.K, self.d
+        X0 = self.problem.X_0.to(torch.float32).expand(K, d)
+        Y0 = (self.y0_net(X0[:, :1]) if self.learn_Y_0
+              else torch.zeros((K,), dtype=torch.float32,
+                               device=self.device))
+        if self.resolved_rollout_mode != "fused_train":
+            return hjb_rollout(cfg, self.problem, self._control_fn(), X0, Y0,
+                               generator=self._noise_gen, u_ref=self._u_ref,
+                               host_noise=host_noise)
+        seed = int(torch.randint(0, 2 ** 31 - 1, (1,),
+                                 generator=self._seed_gen))
+        kw = dict(adaptive_forward=cfg.adaptive_forward,
+                  accumulate_kl=cfg.accumulate_kl,
+                  kl_ito_term=cfg.kl_ito_term, u_tab=self._u_tab,
+                  rng=self.fused_rng or "binom", host_noise=host_noise,
+                  tile=self.fused_tile)
+        K_f = K // 2 if self.antithetic else K
+        out = fused_train_rollout(self.problem, self.z_net, K_f, self.N,
+                                  self.delta_t, seed, **kw)
+        if self.antithetic:
+            # the same seed with the noise mirrored: paths i and i + K/2
+            # form the (xi, -xi) pair
+            neg = fused_train_rollout(self.problem, self.z_net, K_f, self.N,
+                                      self.delta_t, seed, noise_sign=-1.0,
+                                      **kw)
+            out = FusedTrainOut(*(torch.cat([a, b]) for a, b in zip(out,
+                                                                     neg)))
+        return HJBRolloutOut(out.X, Y0 + out.Y, out.Z_sum, out.u_l2,
+                             torch.zeros_like(out.Y))
+
+    # -- training ------------------------------------------------------------
+    def _phase(self, l: int) -> int:
+        if self.loss_method == "log-variance-repa":
+            return l % 2
+        if self.loss_method == "relative_entropy_log-variance":
+            return 0 if l < 1000 else 1
+        return 0
+
+    def step(self, host_noise=None) -> dict:
+        """One training step (pspde's ``_build_step``): rollout, loss,
+        backward, Adam.  Appends to the logs and returns the metrics."""
+        phase = self._phase(self.iteration)
+        cfg = self._rollout_cfg(phase)
+        out = self._rollout_outputs(cfg, host_noise)
+        gX = self.problem.g(out.X)
+        self.optimizer.zero_grad(set_to_none=True)
+        if self.loss_method == "log-variance-y_0":
+            # the variance part updates the control net, the squared-mean
+            # part updates y_0: one forward, two pullbacks
+            var_part, meansq_part = log_variance_y0_losses(out.Y, gX)
+            z_params = list(self.z_net.parameters())
+            grads = torch.autograd.grad(var_part, z_params,
+                                        retain_graph=self.learn_Y_0)
+            if self.learn_Y_0:
+                (self.y0_net.Y_0.grad,) = torch.autograd.grad(
+                    meansq_part, [self.y0_net.Y_0])
+            for p, g in zip(z_params, grads):
+                p.grad = g
+            loss = var_part + meansq_part
+        else:
+            loss = hjb_loss(self.loss_method, out.Y, gX, out.Z_sum,
+                            adaptive=self.adaptive_forward_process,
+                            phase=phase)
+            loss = loss + torch.mean(out.add_loss)
+            loss.backward()
+        self.optimizer.step()
+        metrics = {"loss": float(loss.detach()),
+                   "u_l2": float(out.u_l2.mean())}
+        if self.learn_Y_0:
+            metrics["Y_0"] = float(self.y0_net.Y_0.detach()[0])
+        self.loss_log.append(metrics["loss"])
+        self.u_L2_loss.append(metrics["u_l2"])
+        if "Y_0" in metrics:
+            self.Y_0_log.append(metrics["Y_0"])
+        self.iteration += 1
+        return metrics
+
+    def _early_stop(self, done: int) -> bool:
+        """u-L2 plateau early stopping (pspde's rule)."""
+        est = self.early_stopping_time
+        if est is None or done <= est:
+            return False
+        return (np.std(self.u_L2_loss[-est:])
+                / (self.u_L2_loss[-1] + 1e-30) < 0.02)
+
+    def train(self):
+        if self.verbose:
+            print("d = %d, L = %d, K = %d, delta_t = %.2e, lr = %.2e, %s, "
+                  "%s, %s, %s, engine %s"
+                  % (self.d, self.L, self.K, self.delta_t, self.lr,
+                     self.approx_method, self.time_approx, self.loss_method,
+                     "adaptive" if self.adaptive_forward_process else "",
+                     self.resolved_rollout_mode))
+        for l in range(self.iteration, self.L):
+            t0 = time.time()
+            self.step()
+            self.times.append(time.time() - t0)
+            if self.verbose and l % self.print_every == 0:
+                s = ("%d - loss: %.4e - u L2: %.4e - time/iter: %.2fs"
+                     % (l, self.loss_log[-1], self.u_L2_loss[-1],
+                        np.mean(self.times[-self.print_every:])))
+                if self.Y_0_log:
+                    s += " - Y_0: %.4e" % self.Y_0_log[-1]
+                print(s)
+            if self._early_stop(l):
+                break

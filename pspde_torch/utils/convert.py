@@ -65,6 +65,18 @@ def tanh_mlp_from_flax(tree: dict, device=None) -> TanhMLP:
     return net
 
 
+def tanh_mlp_to_flax(tensors) -> dict:
+    """The inverse direction, for parameters or their gradients: the
+    tensors of ``TanhMLP.parameters()`` order (weight (out, in), bias per
+    layer) -> a Flax tree of numpy arrays, kernels transposed to (in, out),
+    so a test can compare leaf by leaf."""
+    tensors = [t.detach().cpu().numpy() for t in tensors]
+    return {"params": {f"Dense_{i}": {"kernel": np.ascontiguousarray(W.T),
+                                       "bias": b}
+                       for i, (W, b) in enumerate(zip(tensors[::2],
+                                                      tensors[1::2]))}}
+
+
 def scalar_param_from_flax(tree: dict, device=None) -> ScalarParam:
     params = tree["params"] if "params" in tree else tree
     mod = ScalarParam(initial=0.0, device=device)

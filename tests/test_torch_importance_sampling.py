@@ -98,8 +98,8 @@ def test_importance_sampling_generator_and_guards():
         importance_sampling_fused(pt, ts, 512, mesh=object())
     with pytest.raises(NotImplementedError, match="make_is_runner"):
         make_is_runner(pt, ts, 512)
-    with pytest.raises(NotImplementedError, match="train"):
-        ts.train()
+    with pytest.raises(NotImplementedError, match="approx_method"):
+        HJBSolver("v", pt, approx_method="value")
     with pytest.raises(NotImplementedError, match="time_approx"):
         HJBSolver("o", pt, time_approx="outer")
 
