@@ -30,7 +30,21 @@ control is learned.  This script
      control), checks the final u_L2, and serves IS with the result;
   9. times the training kernels, the training step and the plain step at
      the bench shape K=131072, N=32, for both noise maps, and profiles a
-     few training steps.
+     few training steps;
+ 10. compares the stopped-path training kernels (forward and replay
+     backward) with their plain version at K=8192, N=20, d=50: on
+     ExponentialOnBallNonlinearSin(alpha=0.1) with DenseNet (30, 30),
+     adaptive and not, on ExponentialOnSphere, and with the notebook net
+     DenseNet (70, 50, 50, 50); host noise and the Philox stream (erfinv,
+     binom).  Outputs on the paths whose exit step agrees, the count of
+     paths whose exit step differs (at most 1e-3 K: |X|^2 is summed in
+     another order), and per-leaf diffusion-loss gradients;
+ 11. trains EllipticSolver(rollout_mode='fused_train') on the slice's
+     recipe (d=50, N=20, dt=1e-3, lr=1e-3, K=8192, 2000 iterations,
+     K_test_log=4096): 2000 launches of each kernel, tail-50 test L2
+     <= 1e-3;
+ 12. times both stopped kernels, one solver step and the plain versions
+     at K=65536, N=20 for both nets, and profiles three solver steps.
 
 Any failure exits nonzero.  The last line is one JSON object naming the
 device.  Run from the repository root:
@@ -69,8 +83,38 @@ REL_TOL = 1e-4
 GRAD_TOL = 1e-3
 SERVE_SOURCE = "pspde_torch/csrc/controlled_rollout.cu"
 TRAIN_SOURCE = "pspde_torch/csrc/train_rollout.cu"
+STOPPED_SOURCE = "pspde_torch/csrc/stopped_rollout.cu"
 N_TRAIN, DT_TRAIN = 32, 1.0 / 32
 K_TRAIN_CHECK, K_BENCH = 8192, 131072
+# the stopped slice (experiments/proto_fused_stopped.py:27-42)
+D_ELL, N_ELL, DT_ELL, ALPHA_ELL = 50, 20, 1e-3, 0.1
+K_ELL_CHECK, K_ELL_TRAIN, K_ELL_BENCH, L_ELL = 8192, 8192, 65536, 2000
+NETS_ELL = {"DenseNet (30, 30)": (30, 30),
+            "notebook DenseNet (70, 50, 50, 50)": (70, 50, 50, 50)}
+# paths whose exit step may differ between kernel and plain: |X|^2 sums in
+# another order, so a path within ~1e-7 of the sphere can leave one step
+# apart
+MASK_TOL = 1e-3
+TEST_L2_BOUND = 1e-3
+# The least time of a kernel's work: the larger of its FP32 operations over
+# the H100 SXM's 67 TFLOP/s and its bytes (each input read once, each output
+# written once) over 3.35 TB/s: NVIDIA's data sheet for the H100 SXM at
+# 700 W.  Operations count the FP32 arithmetic of the net and the step,
+# not the noise generation.
+PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
+
+
+def roofline(flops, nbytes):
+    t_op, t_b = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+    return {"bound_ms": 1e3 * max(t_op, t_b),
+            "bound_by": "operations" if t_op >= t_b else "bytes",
+            "library_ms": None}
+
+
+def mlp_flops(widths):
+    """Multiply-adds of a dense stack (2 per weight) and its activations."""
+    prod = sum(a * b for a, b in zip(widths[:-1], widths[1:]))
+    return 2 * prod + sum(widths[1:-1])
 
 
 def check(ok, what):
@@ -82,6 +126,7 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this "
                  "script needs one CUDA card")
+    t_start = time.perf_counter()
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
     from pspde_torch.eval import (control_test_error,
@@ -236,14 +281,25 @@ def main():
     print(f"  plain  {plain_ms} ms -> {steps / p_ms * 1e3:.4e} path-steps/s")
     print(f"  card: {smi}")
 
+    # per path-step: the TanhMLP [101, 30, 30, 100] and 10 operations per
+    # dimension (the Euler step, the Ito and Riemann sums)
+    n_par = sum(p.numel() for p in solver.z_net.parameters())
     serve_row = {"name": "fused_controlled_rollout", "route": "cuda",
                  "source": SERVE_SOURCE,
                  "replaces": "pspde/rollout/kernels.py:339",
                  "launches": launches, "max_abs_err": worst_abs, "ms": ms,
-                 "plain_ms": p_ms}
+                 "plain_ms": p_ms,
+                 **roofline(steps * (mlp_flops([D + 1, 30, 30, D])
+                                     + 10 * D),
+                            4 * (n_par + K_SERVE * (D + 3)))}
+    print(f"  bound {serve_row['bound_ms']:.3f} ms "
+          f"({serve_row['bound_by']})")
     train_rows = train_phases(dev, smi, llgc, solver, lqgc, gen, timed)
+    stopped_rows = stopped_phases(dev, smi, timed)
 
-    print(json.dumps({"kernels": [serve_row] + train_rows}))
+    print(f"chip_smoke: all phases passed in "
+          f"{time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": [serve_row] + train_rows + stopped_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -426,44 +482,285 @@ def train_phases(dev, smi, llgc, solver, lqgc, gen, timed):
     print(f"  card: {smi}")
 
     bench.fused_rng = "binom"
-    try:
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(3):
-                bench.step()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        # device rows only: a CPU op's row repeats the time of the kernels
-        # it launched
-        dev_time = {}
-        for ev in prof.key_averages():
-            t = getattr(ev, "self_device_time_total",
-                        getattr(ev, "self_cuda_time_total", 0.0))
-            if ev.device_type == DeviceType.CUDA and t > 0:
-                dev_time[ev.key] = t
-        total = sum(dev_time.values())
-        print(f"  profiler, 3 binom training steps: device time "
-              f"{total / 1e3:.3f} ms of {wall * 1e3:.3f} ms wall (device "
-              f"idle {100 * max(0.0, 1 - total / 1e6 / wall):.2f}%)")
-        for key, t in sorted(dev_time.items(), key=lambda kv: -kv[1])[:8]:
-            print(f"    {100 * t / max(total, 1e-9):6.2f}%  {t / 1e3:9.3f} "
-                  f"ms  {key[:90]}")
-    except Exception as e:  # the profiler is a report, not a check
-        print(f"  profiler unavailable: {type(e).__name__}: {e}")
+    profile_steps("3 binom training steps", bench.step)
 
+    # per path-step: the forward is the net plus 15 operations per dimension
+    # (Euler step, the Z.c, Z.xi, |Z|^2 and u_L2 sums); the backward replays
+    # it, backpropagates dZ through the hidden layers and forms the weight
+    # outer products (2 operations per weight and bias)
+    widths = [D + 1, 30, 30, D]
+    n_par = sum(p.numel() for p in net.parameters())
+    fwd_flops = mlp_flops(widths) + 15 * D
+    bwd_flops = (fwd_flops + 2 * sum(a * b for a, b in zip(widths[1:-1],
+                                                          widths[2:]))
+                 + 3 * sum(widths[1:-1]) + 2 * n_par)
     row = {"route": "cuda", "source": TRAIN_SOURCE}
-    return [
+    rows = [
         dict(row, name="fused_train_rollout.forward",
              replaces="pspde/rollout/kernels.py:696", launches=fwd_launches,
              max_abs_err=worst["out"], ms=times["binom"]["forward"][0],
-             plain_ms=times["binom"]["forward"][1]),
+             plain_ms=times["binom"]["forward"][1],
+             **roofline(steps * fwd_flops,
+                        4 * (n_par + N * D + Kb * (D + 3)))),
         dict(row, name="fused_train_rollout.backward",
              replaces="pspde/rollout/kernels.py:788", launches=bwd_launches,
              max_abs_err=worst["grad"], ms=times["binom"]["backward"][0],
-             plain_ms=times["binom"]["backward"][1]),
+             plain_ms=times["binom"]["backward"][1],
+             **roofline(steps * bwd_flops,
+                        4 * (2 * n_par + N * D + 2 * Kb))),
+    ]
+    for r in rows:
+        print(f"  {r['name']} bound {r['bound_ms']:.3f} ms ({r['bound_by']})")
+    return rows
+
+
+def profile_steps(what, step):
+    """Device time and idle share of three calls of ``step`` under
+    torch.profiler, and the kernels that took most of it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # device rows only: a CPU op's row repeats the time of the kernels it
+    # launched
+    dev_time = {}
+    for ev in prof.key_averages():
+        t = getattr(ev, "self_device_time_total",
+                    getattr(ev, "self_cuda_time_total", 0.0))
+        if ev.device_type == DeviceType.CUDA and t > 0:
+            dev_time[ev.key] = t
+    total = sum(dev_time.values())
+    print(f"  profiler, {what}: device time {total / 1e3:.3f} ms of "
+          f"{wall * 1e3:.3f} ms wall (device idle "
+          f"{100 * max(0.0, 1 - total / 1e6 / wall):.2f}%)")
+    for key, t in sorted(dev_time.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"    {100 * t / max(total, 1e-9):6.2f}%  {t / 1e3:9.3f} ms  "
+              f"{key[:90]}")
+
+
+def stopped_flops(v_net, d, adaptive):
+    """FP32 operations of one advancing path-step of the stopped kernels,
+    counted from their code (csrc/stopped_rollout.cu): (V only, forward,
+    backward).  V: the dense products, bias, relu and square of each
+    hidden layer, the output dot; grad V: the transposed products and
+    2 relu(h) g; the step: 9 per dimension.  The backward replays V (and
+    grad V when adaptive), the tangent sweep, the pair sweep and the weight
+    outer products (4 per weight: two terms)."""
+    widths = list(v_net.arch)
+    ins = [d + sum(widths[:l]) for l in range(len(widths))]
+    F = d + sum(widths)
+    v = sum(2 * n * w + 3 * w for n, w in zip(ins, widths)) + 2 * F
+    grad = sum(2 * n * w + 2 * w for n, w in zip(ins, widths))
+    fwd = v + grad + 9 * d
+    bwd = (v + (grad if adaptive else 0) + 8 * d
+           + sum(2 * n * w + 2 * w for n, w in zip(ins, widths))
+           + sum(6 * w + 4 * (n - d) * w for n, w in zip(ins, widths))
+           + sum(4 * (n + 1) * w for n, w in zip(ins, widths)) + 4 * F + 2)
+    return v, fwd, bwd
+
+
+def stopped_phases(dev, smi, timed):
+    """Phases 10-12: the stopped-path training kernels against their plain
+    version, the elliptic training run, and the timings.  Returns the
+    kernels' JSON rows."""
+    import numpy as np
+    from pspde_torch.ansatz import DenseNet
+    from pspde_torch.problems import (ExponentialOnBallNonlinearSin,
+                                      ExponentialOnSphere)
+    from pspde_torch.rollout import kernels as km
+    from pspde_torch.rollout.sampling import sample_domain
+    from pspde_torch.solvers import EllipticSolver
+
+    t_phases = time.perf_counter()
+    d, N, dt, Kc = D_ELL, N_ELL, DT_ELL, K_ELL_CHECK
+    sin = ExponentialOnBallNonlinearSin(d=d, alpha=ALPHA_ELL, device=dev)
+    sphere = ExponentialOnSphere(d=d, alpha=ALPHA_ELL, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(11)
+
+    def net_of(arch, seed):
+        return DenseNet(1, arch, d_in=d, device=dev,
+                        generator=torch.Generator(dev).manual_seed(seed))
+
+    cases = [("Sin, DenseNet (30, 30)", sin, net_of((30, 30), 1), False),
+             ("Sin, DenseNet (30, 30), adaptive", sin, net_of((30, 30), 2),
+              True),
+             ("ExponentialOnSphere, DenseNet (30, 30)", sphere,
+              net_of((30, 30), 3), False),
+             ("Sin, notebook DenseNet (70, 50, 50, 50), adaptive", sin,
+              net_of((70, 50, 50, 50), 4), True)]
+    worst = {"out": 0.0, "grad": 0.0}
+
+    def diffusion_loss(net, X0, out):
+        return torch.mean((net(out.X)[:, 0] - net(X0)[:, 0] - out.Y) ** 2)
+
+    def compare(tag, prob, net, adaptive, X0, kw):
+        params = list(net.parameters())
+        t0 = torch.zeros(X0.shape[0], device=dev)
+        kern = km.fused_stopped_train_rollout(
+            prob, net, X0, t0, N, dt, adaptive_forward=adaptive, **kw)
+        g_kern = torch.autograd.grad(diffusion_loss(net, X0, kern), params)
+        plain = km.reference_stopped_train_rollout(
+            prob, net, X0, t0, N, dt, adaptive_forward=adaptive, **kw)
+        g_plain = torch.autograd.grad(diffusion_loss(net, X0, plain), params)
+        torch.cuda.synchronize()
+        agree = (kern.hitting == plain.hitting) & (kern.stopped
+                                                   == plain.stopped)
+        n_dis = int((~agree).sum())
+        check(n_dis <= MASK_TOL * X0.shape[0],
+              f"{tag}: {n_dis} paths exit at another step")
+        for name in ("X", "Y", "v_l2", "adv_steps"):
+            a = getattr(kern, name).detach()[agree]
+            b = getattr(plain, name).detach()[agree]
+            check(bool(torch.isfinite(a).all()), f"{tag} {name} not finite")
+            err = float((a - b).abs().max())
+            rel = err / (1.0 + float(b.abs().max()))
+            worst["out"] = max(worst["out"], err)
+            check(rel <= REL_TOL, f"{tag} {name} rel {rel:.3e} > {REL_TOL}")
+        rels = []
+        for (pname, _), a, b in zip(net.named_parameters(), g_kern, g_plain):
+            err = float((a - b).abs().max())
+            scale = float(b.abs().max())
+            worst["grad"] = max(worst["grad"], err)
+            rels.append(err / scale)
+            check(scale > 0 and err <= GRAD_TOL * scale,
+                  f"{tag} grad {pname} max_abs {err:.3e} > {GRAD_TOL} * "
+                  f"{scale:.3e}")
+        print(f"  {tag}: exit step differs on {n_dis} of {X0.shape[0]} "
+              f"paths; advancing steps {float(plain.adv_steps.sum()):.0f}; "
+              f"outputs ok; grad max|kern-plain|/max|plain| per leaf "
+              f"{['%.1e' % r for r in rels]}")
+
+    # -- phase 10: stopped kernels vs plain ----------------------------------
+    print(f"phase 10: stopped kernels vs plain, K={Kc}, N={N}, d={d}, "
+          f"outputs rel {REL_TOL:g} on agreeing paths, exit-step "
+          f"disagreements <= {MASK_TOL:g} K, diffusion-loss gradients "
+          f"{GRAD_TOL:g} x max|plain|")
+    for tag, prob, net, adaptive in cases:
+        X0 = sample_domain(gen, prob.geometry, Kc, d)
+        noise = torch.randn((N, Kc, d), generator=gen, device=dev)
+        compare(f"[{tag}, host noise]", prob, net, adaptive, X0,
+                dict(host_noise=noise))
+        del noise
+        for rng in ("erfinv", "binom"):
+            compare(f"[{tag}, {rng}]", prob, net, adaptive, X0,
+                    dict(seed=4321, rng=rng))
+
+    # -- phase 11: the training run -------------------------------------------
+    print(f"phase 11: EllipticSolver(rollout_mode='fused_train').train(), "
+          f"ExponentialOnBallNonlinearSin d={d} alpha={ALPHA_ELL}, diffusion, "
+          f"N={N}, dt={dt}, lr 1e-3, K={K_ELL_TRAIN}, {L_ELL} iterations, "
+          f"K_test_log=4096, DenseNet (30, 30)")
+    trainer = EllipticSolver(sin, "elliptic_d50", loss_method="diffusion",
+                             K=K_ELL_TRAIN, N=N, delta_t=dt, lr=1e-3,
+                             L=L_ELL, K_test_log=4096, verbose=False,
+                             rollout_mode="fused_train", device=dev)
+    check(trainer.resolved_rollout_mode == "fused_train",
+          f"engine {trainer.resolved_rollout_mode}")
+    km.fused_stopped_train_rollout.launches = 0
+    km.fused_stopped_train_rollout.backward_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fwd_launches = km.fused_stopped_train_rollout.launches
+    bwd_launches = km.fused_stopped_train_rollout.backward_launches
+    tail = float(np.mean(trainer.V_test_L2[-50:]))
+    print(f"  {len(trainer.loss_log)} steps in {wall:.2f} s; kernel "
+          f"launches: forward {fwd_launches}, backward {bwd_launches}")
+    print(f"  test L2 every 250: "
+          f"{['%.3e' % v for v in trainer.V_test_L2[::250]]}; loss "
+          f"{trainer.loss_log[0]:.4e} -> {trainer.loss_log[-1]:.4e}; "
+          f"advancing path-steps per step {np.mean(trainer.K_log):.0f}; "
+          f"tail-50 test L2 {tail:.4e} (bound {TEST_L2_BOUND:g})")
+    check(fwd_launches == L_ELL and bwd_launches == L_ELL,
+          "the training path launched both stopped kernels every step")
+    check(all(math.isfinite(v) for v in trainer.loss_log), "finite losses")
+    check(tail <= TEST_L2_BOUND, f"tail-50 test L2 {tail:.4e}")
+
+    # -- phase 12: timing -----------------------------------------------------
+    Kb = K_ELL_BENCH
+    print(f"phase 12: timing at K={Kb}, N={N}, d={d}, erfinv Philox noise, "
+          "CUDA events")
+    X0 = sample_domain(gen, sin.geometry, Kb, d)
+    t0b = torch.zeros(Kb, device=dev)
+    gY = torch.randn(Kb, generator=gen, device=dev) / Kb
+    times = {}
+    for tag, arch in NETS_ELL.items():
+        net = net_of(arch, 5)
+        call = km._StoppedCall(
+            sin, net, X0, t0b, N, dt, 17,
+            km._check_stopped_family(sin, net, "erfinv"),
+            dict(adaptive_forward=False, rng="erfinv", host_noise=None), None)
+        probe = km._stopped_forward_kernel(call)
+        hit = float(probe.hitting.sum())
+        adv = float(probe.adv_steps.sum())
+        n_par = sum(p.numel() for p in net.parameters())
+        v_f, fwd_f, bwd_f = stopped_flops(net, d, adaptive=False)
+        b_fwd = roofline((hit - adv) * v_f + adv * fwd_f,
+                      4 * (n_par + Kb * (2 * d + 5)))
+        b_bwd = roofline(adv * bwd_f, 4 * (2 * n_par + Kb * (d + 1)))
+        steppers = {}
+        for mode in ("fused_train", "scan"):
+            steppers[mode] = EllipticSolver(
+                sin, "bench", loss_method="diffusion", K=Kb, N=N,
+                delta_t=dt, lr=1e-3, L=1, K_test_log=4096, verbose=False,
+                rollout_mode=mode, value_net=net_of(arch, 6), device=dev)
+
+        def fwd():
+            km._stopped_forward_kernel(call)
+
+        def plain_fwd():
+            with torch.no_grad():
+                call.plain()
+
+        def bwd():
+            km._stopped_backward_kernel(call, gY)
+
+        def plain_bwd():
+            km._reference_stopped_backward(call, gY)
+
+        r = {}
+        for name, kern_fn, plain_fn, reps in (
+                ("forward", fwd, plain_fwd, 10), ("backward", bwd, plain_bwd,
+                                                   5),
+                ("step", steppers["fused_train"].step,
+                 steppers["scan"].step, 5)):
+            p1 = timed(plain_fn, 1)
+            k = [timed(kern_fn, reps), timed(kern_fn, reps)]
+            p2 = timed(plain_fn, 1)
+            r[name] = (min(k), min(p1, p2))
+            print(f"  {tag:36s} {name:8s} kernel {k[0]:.3f}, {k[1]:.3f} ms; "
+                  f"plain {p1:.3f}, {p2:.3f} ms")
+        print(f"  {tag}: {hit:.0f} active and {adv:.0f} advancing "
+              f"path-steps of K N = {Kb * N}; bound forward "
+              f"{b_fwd['bound_ms']:.4f} ms, backward {b_bwd['bound_ms']:.4f}"
+              f" ms ({b_fwd['bound_by']}); step {r['step'][0]:.3f} ms -> "
+              f"{Kb * N / r['step'][0] * 1e3:.4e} path-steps/s (K N per "
+              f"step time)")
+        times[tag] = (r, b_fwd, b_bwd, steppers["fused_train"])
+    print(f"  card: {smi}")
+
+    first = next(iter(NETS_ELL))
+    profile_steps(f"3 solver steps, {first}, K={Kb}", times[first][3].step)
+
+    print(f"  phases 10-12 took {time.perf_counter() - t_phases:.1f} s")
+    r, b_fwd, b_bwd, _ = times[first]
+    row = {"route": "cuda", "source": STOPPED_SOURCE}
+    return [
+        dict(row, name="fused_stopped_train_rollout.forward",
+             replaces="pspde/rollout/kernels.py:1184", launches=fwd_launches,
+             max_abs_err=worst["out"], ms=r["forward"][0],
+             plain_ms=r["forward"][1], **b_fwd),
+        dict(row, name="fused_stopped_train_rollout.backward",
+             replaces="pspde/rollout/kernels.py:1272", launches=bwd_launches,
+             max_abs_err=worst["grad"], ms=r["backward"][0],
+             plain_ms=r["backward"][1], **b_bwd),
     ]
 
 

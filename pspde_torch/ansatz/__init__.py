@@ -1,3 +1,3 @@
-from .nets import ScalarParam, TanhMLP
+from .nets import DenseNet, ScalarParam, TanhMLP
 
-__all__ = ["ScalarParam", "TanhMLP"]
+__all__ = ["DenseNet", "ScalarParam", "TanhMLP"]

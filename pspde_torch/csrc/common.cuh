@@ -1,7 +1,7 @@
 // Device code shared by the rollout kernels (controlled_rollout.cu,
-// train_rollout.cu): the counter-based noise stream, the two
-// bits -> normal maps, and the chunked FP32 matrix-vector products of the
-// TanhMLP and the dense coefficients.
+// train_rollout.cu, stopped_rollout.cu): the counter-based noise stream,
+// the two bits -> normal maps, and the chunked FP32 matrix-vector
+// products of the nets and the dense coefficients.
 //
 // Per-path arrays are [row][stride] in shared memory: thread p of a block
 // reads row i of its own path at in[i * stride], so a warp reads 32
@@ -53,6 +53,29 @@ __device__ __forceinline__ float normal_from_bits_binom(uint32_t b1,
   const float pc = static_cast<float>(__popc(b1) - 16);
   const float u = static_cast<float>(b2 & 0x7FFFu) * 3.0517578125e-05f;
   return ((pc + u) - 0.5f) * 0.351726233959198f;
+}
+
+// The four normals of dimension group g (dimensions 4g..4g+3) of path k at
+// step n: Philox4x32-10 at counter (k, n, g, 0) through the erfinv map
+// (rng 0), or b1 from counter word 3 = 0 and b2 from word 3 = 1 through
+// the binom map (rng 1).
+__device__ __forceinline__ void philox_normals4(uint32_t k, uint32_t n,
+                                                uint32_t g, uint32_t key0,
+                                                uint32_t key1, int rng,
+                                                float (&xi)[4]) {
+  const uint4 r = philox4x32_10(make_uint4(k, n, g, 0u), key0, key1);
+  if (rng == 1) {
+    const uint4 r2 = philox4x32_10(make_uint4(k, n, g, 1u), key0, key1);
+    xi[0] = normal_from_bits_binom(r.x, r2.x);
+    xi[1] = normal_from_bits_binom(r.y, r2.y);
+    xi[2] = normal_from_bits_binom(r.z, r2.z);
+    xi[3] = normal_from_bits_binom(r.w, r2.w);
+  } else {
+    xi[0] = normal_from_bits(r.x);
+    xi[1] = normal_from_bits(r.y);
+    xi[2] = normal_from_bits(r.z);
+    xi[3] = normal_from_bits(r.w);
+  }
 }
 
 // acc[c] += sum_{i < rows} in[i] * MT[i][j0 + c] for one chunk of outputs.

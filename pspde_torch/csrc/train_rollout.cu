@@ -99,25 +99,8 @@ __device__ __forceinline__ void draw4(const TrainArgs& a,
       xi[q] = live && 4 * g + q < a.d ? src[4 * g + q] : 0.0f;
     return;
   }
-  const uint4 r = philox4x32_10(
-      make_uint4(static_cast<uint32_t>(k), static_cast<uint32_t>(n),
-                 static_cast<uint32_t>(g), 0u),
-      a.key0, a.key1);
-  if (a.rng == 1) {
-    const uint4 r2 = philox4x32_10(
-        make_uint4(static_cast<uint32_t>(k), static_cast<uint32_t>(n),
-                   static_cast<uint32_t>(g), 1u),
-        a.key0, a.key1);
-    xi[0] = normal_from_bits_binom(r.x, r2.x);
-    xi[1] = normal_from_bits_binom(r.y, r2.y);
-    xi[2] = normal_from_bits_binom(r.z, r2.z);
-    xi[3] = normal_from_bits_binom(r.w, r2.w);
-  } else {
-    xi[0] = normal_from_bits(r.x);
-    xi[1] = normal_from_bits(r.y);
-    xi[2] = normal_from_bits(r.z);
-    xi[3] = normal_from_bits(r.w);
-  }
+  philox_normals4(static_cast<uint32_t>(k), static_cast<uint32_t>(n),
+                  static_cast<uint32_t>(g), a.key0, a.key1, a.rng, xi);
 }
 
 // Shared memory of one block, in floats: the staged prefix, the gradient

@@ -1,5 +1,5 @@
 from .importance_sampling import importance_sampling, importance_sampling_fused
-from .test_error import control_test_error
+from .test_error import compute_test_error, control_test_error
 
-__all__ = ["control_test_error", "importance_sampling",
+__all__ = ["compute_test_error", "control_test_error", "importance_sampling",
            "importance_sampling_fused"]

@@ -1,5 +1,6 @@
-"""Same-state control error (counterpart of
-``pspde/eval/test_error.py:control_test_error``)."""
+"""Test errors (counterpart of ``pspde/eval/test_error.py``): the value
+error ``compute_test_error`` on fresh in-domain samples and the same-state
+control error ``control_test_error``."""
 
 from __future__ import annotations
 
@@ -7,6 +8,30 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from ..rollout.sampling import sample_domain
+
+
+@torch.no_grad()
+def compute_test_error(v_fn, problem, K: int,
+                       generator: Optional[torch.Generator] = None,
+                       modus: str = "elliptic"):
+    """(L2 error, mean absolute error, mean relative error) of the value
+    approximation ``v_fn`` (X (K, d) -> (K,)) against ``problem.v_ref`` on
+    K fresh uniform samples of the domain (utilities.py:440-472), as
+    0-d tensors on the problem's device.  ``modus='parabolic'`` belongs to
+    the GeneralSolver slice and raises."""
+    if modus != "elliptic":
+        raise NotImplementedError(
+            f"compute_test_error(modus={modus!r}) is not ported to "
+            "pspde_torch yet: it comes with the GeneralSolver slice "
+            "(ROADMAP.md, Queue 1 item 9)")
+    X = sample_domain(generator, problem.geometry, K, problem.d,
+                      device=problem.X_0.device)
+    v_true = problem.v_ref(X)
+    diff = v_true - v_fn(X)
+    return (torch.mean(diff ** 2), torch.mean(torch.abs(diff)),
+            torch.mean(torch.abs(diff) / v_true))
 
 
 @torch.no_grad()

@@ -2,13 +2,16 @@
 
 Same duck-typed protocol as the JAX package, with every method a torch
 function over batched inputs ``x: (K, d)``.  A problem lives on one
-device, chosen at construction (``device=``); its constant tensors and
-``X_0`` are created there.
+device, chosen at construction (``device=``, the CUDA card when None:
+``utils/device.py``); its constant tensors and ``X_0`` are created there.
 
 The hand-written rollout kernels cover one family of coefficients, and a
 problem states whether it belongs to it through ``drift_family``,
 ``running_cost_family`` and, for the training kernels, ``h_family``
-(``None`` means outside the family).
+(``None`` means outside the family).  The stopped-path problems
+(``problems/elliptic.py``) state their h through ``h_family`` too, in the
+stopped kernels' form, and their closed-form reference through
+``v_ref_family``.
 """
 
 from __future__ import annotations
@@ -18,6 +21,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from ..utils.device import resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,6 +55,7 @@ class DiffusionMatrix:
     """
 
     def __init__(self, mat, device=None):
+        device = resolve_device(device)
         host = np.asarray(mat, dtype=np.float32)
         if host.ndim != 2 or host.shape[0] != host.shape[1]:
             raise ValueError(f"diffusion matrix must be square, got shape "
@@ -126,7 +132,7 @@ class Problem:
     def __init__(self, d: int, T: Optional[float] = None, device=None):
         self.d = d
         self.T = T
-        self.device = torch.device("cpu" if device is None else device)
+        self.device = resolve_device(device)
         self.X_0 = torch.zeros((d,), dtype=torch.float32, device=self.device)
 
     def _t(self, a) -> torch.Tensor:
@@ -148,7 +154,8 @@ class Problem:
     # -- rollout-kernel family ---------------------------------------------
     def drift_family(self):
         """('neg_identity', None) for b(x) = -x, ('matrix', A) for
-        b(x) = A x, or None when the drift is outside the kernel family."""
+        b(x) = A x, ('zero', None) for b = 0, or None when the drift is
+        outside every kernel's family."""
         return None
 
     def running_cost_family(self):
@@ -157,9 +164,21 @@ class Problem:
         return None
 
     def h_family(self):
-        """('quadratic_z', c_h, f_coef) for the Y-free
-        h(t, x, y, z) = c_h |z|^2 / 2 + f_coef f(x, t), or None when h is
-        outside the training kernels' family."""
+        """The family of h that a training kernel covers, or None when h is
+        outside every kernel's family:
+
+        * ('quadratic_z', c_h, f_coef): the Y-free HJB
+          h(t, x, y, z) = c_h |z|^2 / 2 + f_coef f(x, t) (the HJB
+          training kernels);
+        * ('ball_exp', c_y, c_yr2, k, phi): the z-free elliptic
+          h(x, y, z) = y (c_y + c_yr2 |x|^2) + phi(exp(k |x|^2) - y^2)
+          with phi in ('none', 'identity', 'sin') (the stopped kernels).
+        """
+        return None
+
+    def v_ref_family(self):
+        """('exp_r2', a) for the closed form v_ref(x) = exp(a |x|^2), which
+        the stopped kernels evaluate in-kernel, or None."""
         return None
 
     def running_cost(self, x: torch.Tensor, t: float) -> torch.Tensor:

@@ -53,7 +53,9 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     # (params, host_noise, outputs..., iargs, fargs, seed, device, stream)
     for name, n_ptr in (("pspde_controlled_rollout", 3),
                         ("pspde_train_rollout_fwd", 6),
-                        ("pspde_train_rollout_bwd", 5)):
+                        ("pspde_train_rollout_bwd", 5),
+                        ("pspde_stopped_rollout_fwd", 5),
+                        ("pspde_stopped_rollout_bwd", 5)):
         fn = getattr(lib, name)
         fn.argtypes = [vp] * n_ptr + tail
         fn.restype = ctypes.c_int

@@ -1,6 +1,8 @@
-"""The controlled-rollout kernel of the serve path (counterpart of
-``pspde/rollout/kernels.py:fused_controlled_rollout``) and its plain
-PyTorch version.
+"""The port's rollout kernels and their plain PyTorch versions
+(counterparts of ``pspde/rollout/kernels.py``): the controlled rollout of
+the serve path (``fused_controlled_rollout``), the HJB training rollout
+(``fused_train_rollout``) and the stopped-path training rollout
+(``fused_stopped_train_rollout``).
 
 ``fused_controlled_rollout`` simulates the controlled Euler-Maruyama chain
 
@@ -33,8 +35,10 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..ansatz import TanhMLP
-from .sde import HJBRolloutConfig, hjb_rollout, step_constants, step_time
+from ..ansatz import DenseNet, TanhMLP
+from .sampling import inside_fn
+from .sde import (HJBRolloutConfig, StoppedRolloutConfig, hjb_rollout,
+                  step_constants, step_time, stopped_rollout, value_and_z)
 
 
 class ISRolloutOut(NamedTuple):
@@ -221,8 +225,8 @@ def _check_family(problem, z_net, with_f, noise_sign, outside=_outside):
     if len(z_net.layers) > _MAX_LAYERS:
         raise outside(f"TanhMLP has {len(z_net.layers)} layers")
     drift = problem.drift_family()
-    if drift is None:
-        raise outside(f"drift of {type(problem).__name__} is not linear")
+    if drift is None or drift[0] not in ("neg_identity", "matrix"):
+        raise outside(f"drift of {type(problem).__name__} is not -x or A x")
     cost = problem.running_cost_family() if with_f else ("zero", None)
     if cost is None:
         raise outside(f"running cost f of {type(problem).__name__} is not "
@@ -738,3 +742,438 @@ def fused_train_rollout(problem, z_net, K: int, N: int, delta_t: float,
 
 fused_train_rollout.launches = 0
 fused_train_rollout.backward_launches = 0
+
+
+# -- the stopped training rollout (make_fused_stopped_train_rollout) -------
+
+class FusedStoppedOut(NamedTuple):
+    X: torch.Tensor          # (K, d) state at stopping (or final) time
+    Y: torch.Tensor          # (K,) accumulated masked value increments
+    t: torch.Tensor          # (K,) per-path elapsed time (t0: no stopping
+                             # in time in this family)
+    stopped: torch.Tensor    # (K,) float 0/1
+    hitting: torch.Tensor    # (K,) number of active steps
+    v_l2: torch.Tensor       # (K,) accumulated V-vs-reference L2 error
+    adv_steps: torch.Tensor  # (K,) advanced steps (the K_log numerator)
+
+
+STOPPED_KERNEL_FAMILY = (
+    "zero drift; sigma scalar; geometry 'sphere' (exit tested on the current "
+    "state); h = y (c_y + c_yr2 |x|^2) + phi(exp(k |x|^2) - y^2) with phi "
+    "none, identity or sin (Problem.h_family 'ball_exp'); v_ref "
+    "exp(a |x|^2) or none (Problem.v_ref_family); a DenseNet value net of "
+    "input width d, d_out=1, output_relu=False and 1-4 hidden layers; rng "
+    "'erfinv' or 'binom'; no time_stopping and no lambda leaf")
+_MAX_HIDDEN = 4            # csrc/stopped_rollout.cu kMaxHidden
+_STOPPED_TILES = (64, 32)  # csrc kStoppedTile bounds the block
+_PHI = ("none", "identity", "sin")
+
+
+def _stopped_outside(msg: str):
+    return ValueError(f"fused_stopped_train_rollout: {msg}; the kernels "
+                      f"cover STOPPED_KERNEL_FAMILY: {STOPPED_KERNEL_FAMILY}")
+
+
+def _check_stopped_family(problem, v_net, rng, time_stopping=False,
+                          lam=None):
+    """(h_family, v_ref_family) of a problem and net inside the stopped
+    kernels' family; raises ValueError naming STOPPED_KERNEL_FAMILY
+    outside it."""
+    name = type(problem).__name__
+    if time_stopping:
+        raise _stopped_outside("time_stopping belongs to the GeneralSolver "
+                               "slice (ROADMAP.md, Queue 1 item 9)")
+    if lam is not None:
+        raise _stopped_outside("a lambda leaf belongs to the EigenSolver "
+                               "slice (ROADMAP.md, Queue 1 item 9)")
+    if problem.drift_family() != ("zero", None):
+        raise _stopped_outside(f"drift of {name} is not zero")
+    if problem.sigma_struct.kind != "scalar":
+        raise _stopped_outside(f"sigma of {name} is "
+                               f"{problem.sigma_struct.kind}, not scalar")
+    geom = problem.geometry
+    if geom is None or geom.kind != "sphere":
+        raise _stopped_outside(f"geometry of {name} is "
+                               f"{getattr(geom, 'kind', None)!r}")
+    hfam = problem.h_family()
+    if hfam is None or hfam[0] != "ball_exp" or hfam[4] not in _PHI:
+        raise _stopped_outside(f"h of {name} is not in the 'ball_exp' "
+                               "family")
+    vfam = problem.v_ref_family()
+    if vfam is not None and vfam[0] != "exp_r2":
+        raise _stopped_outside(f"v_ref of {name} is not exp(a |x|^2)")
+    if not isinstance(v_net, DenseNet):
+        raise _stopped_outside(f"value net {type(v_net).__name__} is not a "
+                               "DenseNet")
+    if v_net.d_in != problem.d or v_net.d_out != 1 or v_net.output_relu:
+        raise _stopped_outside(
+            f"DenseNet d_in={v_net.d_in}, d_out={v_net.d_out}, "
+            f"output_relu={v_net.output_relu} (need {problem.d}, 1, False)")
+    if not 1 <= len(v_net.arch) <= _MAX_HIDDEN:
+        raise _stopped_outside(f"DenseNet has {len(v_net.arch)} hidden "
+                               "layers")
+    if rng not in RNG_MAPS:
+        raise _stopped_outside(f"rng={rng!r}")
+    return hfam, vfam
+
+
+def reference_stopped_train_rollout(problem, v_net, X0: torch.Tensor,
+                                    t0: torch.Tensor, N: int, delta_t: float,
+                                    seed: int = 0, *,
+                                    adaptive_forward: bool = False,
+                                    rng: str = "erfinv",
+                                    host_noise: Optional[torch.Tensor] = None,
+                                    with_v_ref: bool = True
+                                    ) -> FusedStoppedOut:
+    """Plain version of the stopped training kernels: ``stopped_rollout``
+    with a detached forward from (X0, t0) with Y_0 = 0, on the kernels'
+    noise stream (``host_noise`` (N, K, d) or ``train_normals(seed, ...)``
+    through ``rng``), v_l2 against ``problem.v_ref`` when ``with_v_ref``.
+    Differentiable in ``v_net``'s parameters by autograd (second order
+    through Z = sigma^T grad V); any problem and value net are accepted."""
+    K, d = X0.shape
+    dev = X0.device
+    cfg = StoppedRolloutConfig(N=N, delta_t=delta_t,
+                               adaptive_forward=adaptive_forward,
+                               detach_forward=True)
+    out = stopped_rollout(
+        cfg, problem, value_and_z(v_net, problem.sigma_struct),
+        X0.to(torch.float32), torch.zeros((K,), dtype=torch.float32,
+                                          device=dev),
+        t0, inside_fn(problem.geometry),
+        v_ref=problem.v_ref if with_v_ref and problem.has_v_ref else None,
+        host_noise=host_noise,
+        noise_fn=lambda n: train_normals(seed, K, n, d, rng, dev))
+    stopped = out.stopped.to(torch.float32)
+    return FusedStoppedOut(out.X, out.Y, out.t, stopped, out.hitting,
+                           out.v_l2, out.hitting - stopped)
+
+
+def _stopped_smem_bytes(n_stage: int, per_path: int, tile: int) -> int:
+    """Shared memory of one stopped block: ``n_stage`` floats of staged net
+    and ``per_path`` floats per path at stride tile + 1 - the formula of
+    stopped_rollout.cu:smem_floats."""
+    return 4 * (n_stage + per_path * (tile + 1))
+
+
+def _stopped_tile(n_params: int, per_path: int, tile: Optional[int]):
+    """(tile, stage): the largest tile of ``_STOPPED_TILES`` (or the given
+    one) whose per-path arrays fit, with the net staged in shared memory
+    when it fits beside them, else read from device memory."""
+    if tile is not None and tile not in _STOPPED_TILES:
+        raise ValueError(f"tile={tile} must be one of {_STOPPED_TILES}")
+    for t in ((tile,) if tile is not None else _STOPPED_TILES):
+        for stage in (True, False):
+            if _stopped_smem_bytes(n_params if stage else 0, per_path,
+                                   t) <= _SMEM_LIMIT:
+                return t, stage
+    raise _stopped_outside(f"{_stopped_smem_bytes(0, per_path, 32)} bytes "
+                           "of per-path shared memory at tile=32 exceed "
+                           f"the {_SMEM_LIMIT}-byte limit of one block")
+
+
+class _StoppedLayout(NamedTuple):
+    buf: torch.Tensor      # the packed net
+    widths: list           # hidden widths
+    w_off: list            # per hidden layer: offset of W (n_in, padded w)
+    b_off: list
+    g_off: list            # per hidden layer: offset of its gradient block
+    wL_off: int
+    bL_off: int
+    gL_off: int
+    n_grad: int
+    F: int                 # d + sum(widths)
+
+
+def _stopped_layout(v_net: DenseNet) -> _StoppedLayout:
+    """The DenseNet in one buffer: per hidden layer W (n_in, width padded
+    to _CHUNK) as (in, out) and its bias, then the output row and bias;
+    sections aligned to 4 floats.  And the layout of one block's gradient
+    row: per hidden layer [W (n_in, width); b (1, width)], then [wL (F);
+    bL]."""
+    dev = v_net.layers[0].weight.device
+    parts, off = [], 0
+
+    def add(t):
+        nonlocal off
+        t = t.detach().reshape(-1).to(torch.float32)
+        at = off
+        pad = _ceil_to(t.numel(), 4) - t.numel()
+        parts.extend([t, torch.zeros(pad, dtype=torch.float32, device=dev)])
+        off += t.numel() + pad
+        return at
+
+    widths, w_off, b_off, g_off = [], [], [], []
+    n_in, n_grad = v_net.d_in, 0
+    for lin in v_net.layers[:-1]:
+        w = lin.out_features
+        wp = _ceil_to(w, _CHUNK)
+        W = torch.zeros((n_in, wp), dtype=torch.float32, device=dev)
+        W[:, :w] = lin.weight.detach().T
+        bias = torch.zeros(wp, dtype=torch.float32, device=dev)
+        bias[:w] = lin.bias.detach()
+        widths.append(w)
+        w_off.append(add(W))
+        b_off.append(add(bias))
+        g_off.append(n_grad)
+        n_grad += (n_in + 1) * w
+        n_in += w
+    out = v_net.layers[-1]
+    wL_off, bL_off = add(out.weight[0]), add(out.bias)
+    return _StoppedLayout(torch.cat(parts), widths, w_off, b_off, g_off,
+                          wL_off, bL_off, n_grad, n_grad + n_in + 1, n_in)
+
+
+def _pad_hidden(vals: list) -> list:
+    return vals + [0] * (_MAX_HIDDEN - len(vals))
+
+
+def _pack_stopped(problem, v_net, hfam, vfam, K, N, delta_t, tile, *,
+                  backward, host_noise, adaptive_forward, rng) -> _Packed:
+    """The stopped kernels' arguments (stopped_rollout.cu: StoppedArgs)."""
+    d = problem.d
+    lay = _stopped_layout(v_net)
+    H = lay.F - d
+    per_path = 3 * lay.F + 3 * H + 1 if backward else 2 * lay.F + H
+    n_params = lay.buf.numel()
+    tile, stage = _stopped_tile(n_params, per_path, tile)
+    _, c_y, c_yr2, k_exp, phi = hfam
+    iargs = [K, N, d, len(lay.widths), lay.F, tile, int(stage), n_params,
+             int(host_noise is not None), int(adaptive_forward),
+             RNG_MAPS.index(rng), _PHI.index(phi), int(vfam is not None),
+             lay.n_grad]
+    iargs += (_pad_hidden(lay.widths) + _pad_hidden(lay.w_off)
+              + _pad_hidden(lay.b_off) + _pad_hidden(lay.g_off))
+    iargs += [lay.wL_off, lay.bL_off, lay.gL_off]
+    dt, sq_dt = step_constants(delta_t)
+    fargs = [dt, sq_dt, problem.sigma_struct.scale,
+             float(problem.geometry.boundary_distance), float(c_y),
+             float(c_yr2), float(k_exp),
+             float(vfam[1]) if vfam is not None else 0.0]
+    return _Packed(lay.buf, iargs, fargs)
+
+
+class _StoppedCall(NamedTuple):
+    """One ``fused_stopped_train_rollout`` call: what the backward
+    replays."""
+    problem: object
+    v_net: torch.nn.Module
+    X0: torch.Tensor
+    t0: torch.Tensor
+    N: int
+    delta_t: float
+    seed: int
+    families: tuple          # (h_family, v_ref_family)
+    opts: dict               # adaptive_forward, rng, host_noise
+    tile: Optional[int]
+
+    def plain(self) -> FusedStoppedOut:
+        return reference_stopped_train_rollout(
+            self.problem, self.v_net, self.X0, self.t0, self.N, self.delta_t,
+            self.seed, with_v_ref=self.families[1] is not None, **self.opts)
+
+    def pack(self, backward: bool) -> _Packed:
+        o = self.opts
+        return _pack_stopped(
+            self.problem, self.v_net, *self.families, self.X0.shape[0],
+            self.N, self.delta_t, self.tile, backward=backward,
+            host_noise=o["host_noise"],
+            adaptive_forward=o["adaptive_forward"], rng=o["rng"])
+
+
+def _stopped_forward_kernel(call: _StoppedCall) -> FusedStoppedOut:
+    X0 = call.X0
+    K, d = X0.shape
+    packed = call.pack(backward=False)
+    X = torch.empty((K, d), dtype=torch.float32, device=X0.device)
+    acc = torch.empty((5, K), dtype=torch.float32, device=X0.device)
+    _launch("pspde_stopped_rollout_fwd", "fused_stopped_train_rollout",
+            packed, [packed.params, call.opts["host_noise"], X0, X, acc],
+            call.seed, X0.device)
+    fused_stopped_train_rollout.launches += 1
+    return FusedStoppedOut(X, acc[0], call.t0.clone(), *acc[1:])
+
+
+def _stopped_grads_from_row(v_net: DenseNet, lay: _StoppedLayout,
+                            total: torch.Tensor) -> list:
+    """One summed gradient row -> the gradients of ``v_net.parameters()``
+    (weight (out, in) and bias per layer)."""
+    grads, n_in = [], v_net.d_in
+    for w, g0 in zip(lay.widths, lay.g_off):
+        G = total[g0:g0 + (n_in + 1) * w].reshape(n_in + 1, w)
+        grads += [G[:n_in].T.contiguous(), G[n_in].contiguous()]
+        n_in += w
+    grads += [total[lay.gL_off:lay.gL_off + lay.F][None].contiguous(),
+              total[lay.gL_off + lay.F:lay.gL_off + lay.F + 1].contiguous()]
+    return grads
+
+
+def _stopped_backward_kernel(call: _StoppedCall, gY) -> list:
+    X0 = call.X0
+    packed = call.pack(backward=True)
+    tile, n_grad = packed.iargs[5], packed.iargs[13]
+    part = torch.empty((-(-X0.shape[0] // tile), n_grad),
+                       dtype=torch.float32, device=X0.device)
+    _launch("pspde_stopped_rollout_bwd", "fused_stopped_train_rollout",
+            packed, [packed.params, call.opts["host_noise"], X0,
+                     gY.contiguous(), part], call.seed, X0.device)
+    fused_stopped_train_rollout.backward_launches += 1
+    return _stopped_grads_from_row(call.v_net, _stopped_layout(call.v_net),
+                                   part.sum(dim=0))
+
+
+@torch.no_grad()
+def _reference_stopped_backward(call: _StoppedCall, gY) -> list:
+    """Plain version of the backward kernel, its math in batched torch:
+    replay the plain forward's X chain and masks, and accumulate per step
+    d/dtheta [alpha V(X) + w^T grad V(X)] with alpha = gY adv (-dh/dy) dt
+    and w = gY adv s (xi sqrt(dt) + c dt), by one tangent sweep through the
+    DenseNet in direction w and one reverse sweep over the pair."""
+    problem, net = call.problem, call.v_net
+    X = call.X0.to(torch.float32)
+    K, d = X.shape
+    sig = problem.sigma_struct
+    dt, sq_dt = step_constants(call.delta_t)
+    _, c_y, c_yr2, k_exp, phi = call.families[0]
+    o = call.opts
+    vg = value_and_z(net, sig)
+    ins = inside_fn(problem.geometry)
+    hidden, out = list(net.layers[:-1]), net.layers[-1]
+    wL = out.weight[0]
+    grads = [torch.zeros_like(p) for p in net.parameters()]
+    stopped = torch.zeros((K,), dtype=torch.bool, device=X.device)
+    for n in range(call.N):
+        xi = (o["host_noise"][n] if o["host_noise"] is not None
+              else train_normals(call.seed, K, n, d, o["rng"], X.device))
+        active = ~stopped
+        # the X chain and the masks, as the plain forward computes them
+        V, Z = vg(X, call.t0)
+        c = -Z if o["adaptive_forward"] else torch.zeros_like(X)
+        drift = (problem.b(X) + sig.apply(c)) * dt + sig.apply(xi) * sq_dt
+        X_prop = X + drift * active[:, None].to(X.dtype)
+        new_sel = ins(X, X_prop)
+        adv = new_sel & active
+        # this step's cotangents
+        r2 = torch.sum(X * X, dim=-1)
+        dh_dy = c_y + c_yr2 * r2
+        if phi != "none":
+            u = torch.exp(k_exp * r2) - V * V
+            dh_dy = dh_dy - 2.0 * V * (1.0 if phi == "identity"
+                                       else torch.cos(u))
+        g = gY * adv.to(torch.float32)
+        alpha = -g * dh_dy * dt
+        w = g[:, None] * sig.apply(xi * sq_dt + c * dt)
+        # primal and tangent sweeps
+        f, fd, pre, hds = X, w, [], []
+        for lin in hidden:
+            h = lin(f)
+            hd = fd @ lin.weight.T
+            r = torch.relu(h)
+            pre.append(h)
+            hds.append(hd)
+            f = torch.cat([f, r * r], dim=-1)
+            fd = torch.cat([fd, 2.0 * r * hd], dim=-1)
+        # reverse sweep over the pair
+        grads[-2] += (alpha[:, None] * f + fd).sum(dim=0)[None]
+        grads[-1] += alpha.sum()[None]
+        fb = alpha[:, None] * wL
+        fdb = wL.expand(K, -1).clone()
+        o_end = f.shape[1]
+        for l in range(len(hidden) - 1, -1, -1):
+            lin = hidden[l]
+            w_l = lin.out_features
+            o_l = o_end - w_l
+            r = torch.relu(pre[l])
+            ab, adb = fb[:, o_l:o_end], fdb[:, o_l:o_end]
+            hb = (pre[l] > 0).to(torch.float32) * (2.0 * r * ab
+                                                   + 2.0 * hds[l] * adb)
+            hdb = 2.0 * r * adb
+            grads[2 * l] += hb.T @ f[:, :o_l] + hdb.T @ fd[:, :o_l]
+            grads[2 * l + 1] += hb.sum(dim=0)
+            fb = fb[:, :o_l] + hb @ lin.weight
+            fdb = fdb[:, :o_l] + hdb @ lin.weight
+            o_end = o_l
+        X = torch.where(adv[:, None], X_prop, X)
+        stopped = stopped | ~new_sel
+    return grads
+
+
+class _FusedStoppedFn(torch.autograd.Function):
+    """Forward and replay backward of one stopped call.  Only Y carries a
+    gradient (X chain and masks are parameter-free; X0 and t0 are sampled
+    data); a None cotangent of Y counts as zeros."""
+
+    @staticmethod
+    def forward(ctx, call: _StoppedCall, *params):
+        ctx.call = call
+        ctx.set_materialize_grads(False)
+        if call.X0.device.type == "cpu":
+            out = call.plain()
+            out = out._replace(t=out.t.clone())
+        else:
+            out = _stopped_forward_kernel(call)
+        ctx.mark_non_differentiable(*(v for k, v in out._asdict().items()
+                                      if k != "Y"))
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, gX, gY, *rest):
+        call = ctx.call
+        if gY is None:
+            return (None,) + tuple(torch.zeros_like(p)
+                                   for p in call.v_net.parameters())
+        if call.X0.device.type == "cpu":
+            grads = _reference_stopped_backward(call, gY)
+        else:
+            grads = _stopped_backward_kernel(call, gY)
+        return (None,) + tuple(grads)
+
+
+def fused_stopped_train_rollout(problem, v_net, X0: torch.Tensor,
+                                t0: torch.Tensor, N: int, delta_t: float,
+                                seed: int = 0, *,
+                                adaptive_forward: bool = False,
+                                rng: str = "erfinv",
+                                host_noise: Optional[torch.Tensor] = None,
+                                tile: Optional[int] = None,
+                                time_stopping: bool = False,
+                                lam=None) -> FusedStoppedOut:
+    """Stopped training rollout of the K paths starting at X0 (K, d), t0
+    (K,), over at most N steps with a detached forward: ``FusedStoppedOut``,
+    differentiable in v_net's parameters through Y (a
+    ``torch.autograd.Function`` whose backward replays the forward on the
+    same noise).  Y_0 = V(X_0) and the terminal V(X_tau) stay with the
+    caller.
+
+    The device is the problem's: the net, X0, t0 and ``host_noise``
+    (N, K, d) must live there.  CPU: the plain version (forward, and
+    ``_reference_stopped_backward``).  CUDA: the kernels of
+    ``csrc/stopped_rollout.cu``, counted by
+    ``fused_stopped_train_rollout.launches`` and ``.backward_launches``.
+    Noise is ``host_noise`` or the Philox stream of ``seed`` through
+    ``rng`` ('erfinv', the default, or 'binom').  Raises ValueError
+    outside ``STOPPED_KERNEL_FAMILY``, on the CPU and on CUDA alike."""
+    families = _check_stopped_family(problem, v_net, rng, time_stopping,
+                                     lam)
+    dev = problem.X_0.device
+    K, d = X0.shape
+    if d != problem.d:
+        raise ValueError(f"X0 has {d} columns, the problem d={problem.d}")
+    for name, p in v_net.named_parameters():
+        _check_tensor(f"v_net.{name}", p, p.shape, dev)
+    _check_tensor("X0", X0, (K, d), dev)
+    _check_tensor("t0", t0, (K,), dev)
+    if host_noise is not None:
+        _check_tensor("host_noise", host_noise, (N, K, d), dev)
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_stopped_train_rollout: no kernel for device "
+                         f"{dev}")
+    call = _StoppedCall(problem, v_net, X0, t0, N, float(delta_t),
+                        int(seed), families,
+                        dict(adaptive_forward=adaptive_forward, rng=rng,
+                             host_noise=host_noise), tile)
+    return FusedStoppedOut(*_FusedStoppedFn.apply(call, *v_net.parameters()))
+
+
+fused_stopped_train_rollout.launches = 0
+fused_stopped_train_rollout.backward_launches = 0

@@ -1,5 +1,6 @@
-"""Euler-Maruyama rollout of the HJB/parabolic solver as a plain autograd
-loop (counterpart of ``pspde/rollout/sde.py:hjb_rollout``).
+"""Euler-Maruyama rollouts as plain autograd loops (counterpart of
+``pspde/rollout/sde.py``): ``hjb_rollout`` for the HJB/parabolic solver
+and ``stopped_rollout`` for the stopped-path (first-exit) family.
 
 This is the scan engine of ``HJBSolver`` and the plain version of the
 training kernels (``kernels.py:reference_train_rollout`` calls it on the
@@ -18,6 +19,15 @@ Ported: control mode with adaptive or fixed forward process,
 the u_L2 diagnostic, antithetic pairs and per-step recomputation
 (``remat``, ``torch.utils.checkpoint``).  Value mode, the repa phases,
 the reparametrization accumulator and the Burgers drift raise.
+
+``stopped_rollout`` (``sde.py:536``) is the scan engine of
+``EllipticSolver`` and the plain version of the stopped training kernels
+(``kernels.py:reference_stopped_train_rollout``).  Its masking algebra is
+the JAX package's step for step: the exit test gives ``new_sel``, Y
+advances on ``adv = new_sel & active``, X freezes once a path has left,
+``hitting`` counts the active steps.  Z = sigma^T grad V comes from
+``value_and_z`` (autograd with ``create_graph``, so the loss is
+differentiable through Z: the second-order path).
 """
 
 from __future__ import annotations
@@ -154,3 +164,149 @@ def hjb_rollout(
         else:
             X, Y, Z_sum, u_l2 = step(n, t, X, Y, Z_sum, u_l2, xi)
     return HJBRolloutOut(X, Y, Z_sum, u_l2, torch.zeros_like(Y))
+
+
+# -- stopped-path (first-exit) rollout ---------------------------------------
+
+class StoppedRolloutOut(NamedTuple):
+    X: torch.Tensor          # (K, d) state at stopping (or final) time
+    Y: torch.Tensor          # (K,) accumulated value increments
+    t: torch.Tensor          # (K,) per-path elapsed time (general solver)
+    stopped: torch.Tensor    # (K,) bool
+    hitting: torch.Tensor    # (K,) number of active steps taken
+    v_l2: torch.Tensor       # (K,) accumulated V-vs-reference L2 error
+    step_loss: torch.Tensor  # () accumulated per-step losses (BSDE-2/3)
+    active_count: torch.Tensor  # () total advancing path-steps (K_log)
+
+
+@dataclasses.dataclass(frozen=True)
+class StoppedRolloutConfig:
+    N: int
+    delta_t: float
+    adaptive_forward: bool = False
+    detach_forward: bool = True
+    recursive_y_in_h: bool = False   # BSDE-2 / BSDE-4: h sees recursive Y
+    step_loss: Optional[str] = None  # None | 'BSDE-2' | 'BSDE-3'
+    time_stopping: bool = False      # general solver: stop when t + dt > T
+    no_y_update: bool = False        # solve_linear_L2_projection flag
+    remat: bool = False
+    alpha0: float = 1.0
+
+
+def value_and_z(net, sigma) -> Callable:
+    """(X, t) -> (V, Z) with V = net(X)[:, 0] and Z = sigma^T grad_x V.
+    With grad mode on, Z keeps its graph (``create_graph``), so a loss of
+    Z is differentiable in the net's parameters."""
+
+    def fn(X, t):
+        graph = torch.is_grad_enabled()
+        with torch.enable_grad():
+            Xg = X if X.requires_grad else X.detach().requires_grad_(True)
+            V = net(Xg)[:, 0]
+            (gX,) = torch.autograd.grad(V.sum(), Xg, create_graph=graph)
+        return (V if graph else V.detach()), sigma.apply_T(gX)
+
+    return fn
+
+
+def _call_h(problem, t, x, y, z):
+    """The reference's two h signatures: elliptic h(x, y, z)
+    (problems.py:985), parabolic h(t, x, y, z) (problems.py:45)."""
+    if getattr(problem, "T", None) is None:
+        return problem.h(x, y, z)
+    return problem.h(t, x, y, z)
+
+
+def stopped_rollout(
+    cfg: StoppedRolloutConfig,
+    problem,
+    value_grad_fn: Callable,   # (X, t) -> (V, Z), Z = sigma^T grad V
+    X0: torch.Tensor,          # (K, d)
+    Y0: torch.Tensor,          # (K,)
+    t0: torch.Tensor,          # (K,) start times (zeros for elliptic)
+    inside_fn: Callable,       # (X, X_prop) -> (K,) bool domain test
+    generator: Optional[torch.Generator] = None,
+    v_ref: Optional[Callable] = None,           # (X,) -> (K,)
+    host_noise: Optional[torch.Tensor] = None,  # (N, K, d)
+    noise_fn: Optional[Callable] = None,        # n -> (K, d)
+) -> StoppedRolloutOut:
+    """Fixed-length rollout with stopped-path masking (solver.py:723-785),
+    differentiable in the parameters ``value_grad_fn`` closes over.  The
+    noise of step n is ``host_noise[n]``, else ``noise_fn(n)``, else
+    ``torch.randn`` from ``generator`` on X0's device."""
+    K, d = X0.shape
+    f32 = torch.float32
+    dt, sq_dt = step_constants(cfg.delta_t)
+    sig = problem.sigma_struct
+    T = problem.T if cfg.time_stopping else None
+    if host_noise is not None and tuple(host_noise.shape) != (cfg.N, K, d):
+        raise ValueError(f"host_noise has shape {tuple(host_noise.shape)}, "
+                         f"expected {(cfg.N, K, d)}")
+
+    def draw(n):
+        if host_noise is not None:
+            return host_noise[n]
+        if noise_fn is not None:
+            return noise_fn(n)
+        return torch.randn((K, d), generator=generator, dtype=f32,
+                           device=X0.device)
+
+    def step(X, Y, t, stopped, hitting, v_l2, step_loss, active_count, xi):
+        active = ~stopped
+        V_here, Z = value_grad_fn(X, t)
+        if v_ref is not None:
+            err = (V_here.detach() - v_ref(X)) ** 2
+            v_l2 = v_l2 + torch.where(active, err, 0.0) * dt
+        c = -Z if cfg.adaptive_forward else torch.zeros_like(X)
+        if cfg.detach_forward:
+            c = c.detach()
+        drift = (problem.b(X) + sig.apply(c)) * dt + sig.apply(xi) * sq_dt
+        X_prop = X + drift * active[:, None].to(X.dtype)
+        new_sel = inside_fn(X, X_prop)
+        if cfg.time_stopping:
+            new_sel = new_sel & ((t + dt) <= T)
+        adv = new_sel & active
+        advf = adv.to(X.dtype)
+        hitting = hitting + active.to(X.dtype)
+        if cfg.step_loss == "BSDE-2":
+            # solver.py:762-763
+            step_loss = step_loss + cfg.alpha0 * torch.mean(
+                (V_here - Y) ** 2 * advf)
+        if cfg.no_y_update:
+            # solve_linear_L2_projection (solver.py:1099, 1136): Y stays at
+            # its initial value V(X_0, t_0)
+            Y_new = Y
+            h_val = torch.zeros_like(Y)
+        else:
+            y_in_h = Y if cfg.recursive_y_in_h else V_here
+            h_val = _call_h(problem, t, X, y_in_h, Z)
+            dY = ((-h_val + torch.sum(Z * c, dim=-1)) * dt
+                  + torch.sum(Z * xi, dim=-1) * sq_dt)
+            Y_new = Y + dY * advf
+        X_new = torch.where(adv[:, None], X_prop, X)
+        t_new = t + dt * advf if cfg.time_stopping else t
+        if cfg.step_loss == "BSDE-3":
+            # one-step residual, solver.py:782-785
+            V_next, _ = value_grad_fn(X_new, t_new)
+            resid = (V_next - V_here
+                     + (h_val - torch.sum(Z * c, dim=-1)) * dt
+                     - torch.sum(Z * xi, dim=-1) * sq_dt)
+            step_loss = step_loss + cfg.alpha0 * torch.mean(resid ** 2 * advf)
+        active_count = active_count + torch.sum(advf)
+        stopped_new = stopped | ~new_sel
+        return (X_new, Y_new, t_new, stopped_new, hitting, v_l2, step_loss,
+                active_count)
+
+    zeros = torch.zeros((K,), dtype=f32, device=X0.device)
+    scalar = torch.zeros((), dtype=f32, device=X0.device)
+    carry = (X0, Y0.to(f32), t0.to(f32),
+             torch.zeros((K,), dtype=torch.bool, device=X0.device), zeros,
+             zeros, scalar, scalar)
+    for n in range(cfg.N):
+        xi = draw(n)
+        if cfg.remat and torch.is_grad_enabled():
+            # the noise is drawn outside, so recomputation sees the same xi
+            carry = checkpoint(step, *carry, xi, use_reentrant=False)
+        else:
+            carry = step(*carry, xi)
+    return StoppedRolloutOut(*carry)

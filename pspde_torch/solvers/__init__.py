@@ -1,3 +1,4 @@
+from .elliptic import EllipticSolver
 from .hjb import HJBSolver
 
-__all__ = ["HJBSolver"]
+__all__ = ["EllipticSolver", "HJBSolver"]

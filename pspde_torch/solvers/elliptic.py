@@ -1,0 +1,374 @@
+"""Elliptic boundary-value solver (counterpart of
+``pspde/solvers/elliptic.py:EllipticSolver``, solver.py:560-931).
+
+One step per iteration: boundary and domain sampling, the stopped
+Euler-Maruyama rollout with Z = sigma^T grad V per step, the loss of the
+method (diffusion with or without ``variance_moment_split``, BSDE,
+BSDE-2/3/4, ``loss_with_stopped``, the Dirichlet or Neumann boundary
+loss), one Adam update, and the ``K_test_log`` test errors.  Two engines:
+
+  * 'scan': the plain autograd rollout (``rollout/sde.py:stopped_rollout``;
+    second-order autograd through Z);
+  * 'fused_train': the stopped training kernels (``rollout/kernels.py:
+    fused_stopped_train_rollout``): one forward and one replay-backward
+    launch per step, for 'diffusion' and 'BSDE' with ``detach_forward``.
+
+Deviation from the JAX package, as in ``HJBSolver``: on a CUDA problem a
+failed 'fused_train' gate raises a ValueError naming the gate; on the CPU
+the kernels do not exist and 'fused_train' resolves to 'scan' with a
+warning, as JAX does off the TPU.  PINN, ``layout='dk'``, ``rng_impl``,
+``mesh``, ``steps_per_call`` other than one step per call, and save/load
+raise NotImplementedError naming their ROADMAP.md item.
+"""
+
+from __future__ import annotations
+
+import time
+import warnings
+
+import numpy as np
+import torch
+
+from ..ansatz import DenseNet
+from ..eval.test_error import compute_test_error
+from ..rollout.kernels import (RNG_MAPS, _check_stopped_family,
+                               fused_stopped_train_rollout)
+from ..rollout.sampling import inside_fn, sample_boundary, sample_domain
+from ..rollout.sde import (StoppedRolloutConfig, StoppedRolloutOut,
+                           stopped_rollout, value_and_z)
+from ..utils.device import solver_device
+
+
+def _unbiased_var(x):
+    n = x.shape[0]
+    return torch.var(x, correction=0) * n / max(n - 1, 1)
+
+
+def masked_mean(x, mask):
+    m = mask.to(x.dtype)
+    return torch.sum(x * m) / torch.clamp(torch.sum(m), min=1.0)
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(f"EllipticSolver: {what} is not ported to "
+                               f"pspde_torch yet (ROADMAP.md, {item})")
+
+
+class EllipticSolver:
+    """Trains (and holds) the value net of an elliptic problem.
+
+    Constructor arguments mirror ``pspde.solvers.EllipticSolver``; the port
+    adds ``device=``, the CUDA card when None, which must be the problem's
+    device.  The default value net is ``DenseNet(d_out=1)`` initialised
+    from a ``torch.Generator`` seeded with ``seed`` (0.1 N(0, 1) weights,
+    zero biases), not from the JAX initialisation: load JAX parameters
+    with ``load_jax_params``.  Sampling and the scan engine's noise come
+    from a generator on the problem's device seeded with seed + 1, the
+    kernels' per-step seeds from a CPU generator seeded with seed + 2, the
+    test samples from a device generator seeded with seed + 3.
+    ``fused_unroll`` is a TPU lever, accepted and ignored.
+    """
+
+    def __init__(self, problem, name, seed=42, delta_t=0.01, N=50, lr=0.001,
+                 L=100000, K=200, K_boundary=50, alpha=(1.0, 1.0),
+                 adaptive_forward_process=False, detach_forward=True,
+                 print_every=100, verbose=True, approx_method="Y",
+                 sample_center=False, loss_method="diffusion",
+                 loss_with_stopped=False, K_test_log=None,
+                 PINN_log_variance=False, log_loss_parts=False,
+                 boundary_loss=True, boundary_type="Dirichlet",
+                 variance_moment_split=False, full_hessian=False,
+                 uniform_square=False, value_net=None, remat=None,
+                 mesh=None, steps_per_call="auto", rng_impl="threefry",
+                 layout="auto", rollout_mode="scan", fused_tile=None,
+                 fused_unroll=None, fused_rng=None, device=None):
+        if approx_method != "Y":
+            # as pspde: the reference's 'Z' branch is dead code
+            # (solver.py:723-729)
+            raise ValueError(
+                "approx_method=%r is not supported: the reference's 'Z' "
+                "branch is dead code (its training loop only uses V, "
+                "solver.py:723-729); use approx_method='Y'"
+                % (approx_method,))
+        if loss_method == "PINN":
+            raise _not_ported("loss_method='PINN' (losses/pinn.py)",
+                              "Queue 1 item 9")
+        if layout == "dk":
+            raise _not_ported("layout='dk', a TPU lane-layout lever,",
+                              "'Do not port'")
+        if rng_impl != "threefry":
+            raise _not_ported(f"rng_impl={rng_impl!r}, a TPU lever,",
+                              "'Do not port'")
+        if mesh is not None:
+            raise _not_ported("mesh=", "Queue 1 item 11")
+        if steps_per_call not in ("auto", 1):
+            raise _not_ported(f"steps_per_call={steps_per_call!r} (CUDA-graph "
+                              "capture of several steps)", "Queue 1 item 6")
+        if rollout_mode not in ("scan", "fused_train"):
+            raise _not_ported(f"rollout_mode={rollout_mode!r}",
+                              "Queue 1 item 9")
+        if fused_rng is not None and fused_rng not in RNG_MAPS:
+            raise ValueError(f"fused_rng={fused_rng!r} must be one of "
+                             f"{RNG_MAPS}")
+        self.problem = problem
+        self.name = name
+        self.d = problem.d
+        self.seed = seed
+        self.delta_t = float(delta_t)
+        self.N = N
+        self.lr = lr
+        self.L = L
+        self.K = K
+        self.K_boundary = K_boundary
+        self.alpha = tuple(alpha)
+        self.boundary_type = boundary_type
+        self.adaptive_forward_process = adaptive_forward_process
+        self.detach_forward = detach_forward
+        self.approx_method = approx_method
+        self.sample_center = sample_center
+        self.loss_method = loss_method
+        self.loss_with_stopped = loss_with_stopped
+        self.boundary_loss = boundary_loss
+        self.PINN_log_variance = PINN_log_variance
+        self.variance_moment_split = variance_moment_split
+        self.full_hessian = full_hessian
+        self.uniform_square = uniform_square
+        self.print_every = print_every
+        self.verbose = verbose
+        self.log_loss_parts = log_loss_parts
+        self.steps_per_call = steps_per_call
+        self.remat = (N > 512) if remat is None else remat
+        self.rollout_mode = rollout_mode
+        self.fused_tile = fused_tile
+        self.fused_unroll = fused_unroll
+        self.fused_rng = fused_rng
+        self.device = solver_device(problem, device)
+
+        if value_net is None:
+            value_net = DenseNet(d_out=1, d_in=self.d,
+                                 generator=torch.Generator().manual_seed(
+                                     int(seed)), device=self.device)
+        self.V_net = value_net.to(self.device)
+        self.optimizer = torch.optim.Adam(self.V_net.parameters(), lr=lr)
+        self._gen = torch.Generator(device=self.device).manual_seed(
+            int(seed) + 1)
+        self._seed_gen = torch.Generator().manual_seed(int(seed) + 2)
+        self._test_gen = torch.Generator(device=self.device).manual_seed(
+            int(seed) + 3)
+
+        # logs (solver.py:613-626)
+        self.K_test_log = K_test_log
+        self.loss_log = []
+        self.loss_log_domain = []
+        self.loss_log_boundary = []
+        self.V_L2_log = []
+        self.V_test_L2 = []
+        self.V_test_abs = []
+        self.V_test_rel_abs = []
+        self.K_log = []
+        self.times = []
+        self.not_all_stopped_count = 0
+        self.iteration = 0
+        self.resolved_rollout_mode = self._resolve_engine()
+
+    # -- model ---------------------------------------------------------------
+    def V(self, X):
+        return self.V_net(X)[:, 0]
+
+    def load_jax_params(self, tree):
+        """Load a JAX ``EllipticSolver.params`` tree (a Flax DenseNet tree,
+        nested dicts of arrays) into the value net and start a fresh
+        optimizer."""
+        from ..utils.convert import dense_net_from_flax
+        out_relu = getattr(self.V_net, "output_relu", False)
+        self.V_net = dense_net_from_flax(tree, output_relu=out_relu,
+                                         device=self.device)
+        self.optimizer = torch.optim.Adam(self.V_net.parameters(), lr=self.lr)
+        self.resolved_rollout_mode = self._resolve_engine()
+
+    def save_networks(self, out_dir="output"):
+        raise _not_ported("save_networks", "Queue 1 item 12")
+
+    def load_networks(self, path):
+        raise _not_ported("load_networks", "Queue 1 item 12")
+
+    def save_training_state(self, out_dir="output"):
+        raise _not_ported("save_training_state", "Queue 1 item 12")
+
+    def load_training_state(self, path):
+        raise _not_ported("load_training_state", "Queue 1 item 12")
+
+    # -- engine --------------------------------------------------------------
+    def _fused_train_gates(self):
+        """The gates of 'fused_train' (pspde's _resolve_fused) that fail,
+        by name; the TPU test becomes 'problem on a CUDA device'."""
+        failed = []
+        if self.loss_method not in ("diffusion", "BSDE"):
+            failed.append("loss_method 'diffusion' or 'BSDE' (got "
+                          f"{self.loss_method!r})")
+        if not self.detach_forward:
+            failed.append("detach_forward=True")
+        try:
+            _check_stopped_family(self.problem, self.V_net,
+                                  self.fused_rng or "erfinv")
+        except ValueError as e:
+            failed.append(f"the stopped kernels' family ({e})")
+        if self.device.type != "cuda":
+            failed.append("problem on a CUDA device")
+        return failed
+
+    def _resolve_engine(self) -> str:
+        if self.rollout_mode != "fused_train":
+            return "scan"
+        failed = self._fused_train_gates()
+        if not failed:
+            return "fused_train"
+        if self.device.type == "cuda":
+            raise ValueError("rollout_mode='fused_train': gate failed: "
+                             + "; ".join(failed))
+        warnings.warn("rollout_mode='fused_train' fell back to 'scan' (a "
+                      "gate failed: " + "; ".join(failed) + ")",
+                      stacklevel=3)
+        return "scan"
+
+    def _rollout_cfg(self) -> StoppedRolloutConfig:
+        lm = self.loss_method
+        return StoppedRolloutConfig(
+            N=self.N, delta_t=self.delta_t,
+            adaptive_forward=self.adaptive_forward_process,
+            detach_forward=self.detach_forward,
+            recursive_y_in_h=lm in ("BSDE-2", "BSDE-4"),
+            step_loss=lm if lm in ("BSDE-2", "BSDE-3") else None,
+            remat=self.remat, alpha0=self.alpha[0])
+
+    def _rollout(self, X0, Y0, host_noise) -> StoppedRolloutOut:
+        problem, K = self.problem, X0.shape[0]
+        t0 = torch.zeros((K,), dtype=torch.float32, device=self.device)
+        if self.resolved_rollout_mode != "fused_train":
+            return stopped_rollout(
+                self._rollout_cfg(), problem,
+                value_and_z(self.V_net, problem.sigma_struct), X0, Y0, t0,
+                inside_fn(problem.geometry), generator=self._gen,
+                v_ref=problem.v_ref if problem.has_v_ref else None,
+                host_noise=host_noise)
+        seed = int(torch.randint(0, 2 ** 31 - 1, (1,),
+                                 generator=self._seed_gen))
+        fo = fused_stopped_train_rollout(
+            problem, self.V_net, X0, t0, self.N, self.delta_t, seed,
+            adaptive_forward=self.adaptive_forward_process,
+            rng=self.fused_rng or "erfinv", host_noise=host_noise,
+            tile=self.fused_tile)
+        v_l2 = fo.v_l2
+        if problem.v_ref_family() is None and problem.has_v_ref:
+            # the kernel has no in-kernel reference for this problem: NaN,
+            # not a 0.0 that would read as a perfect fit (as pspde)
+            v_l2 = torch.full_like(v_l2, float("nan"))
+        return StoppedRolloutOut(
+            X=fo.X, Y=Y0 + fo.Y, t=fo.t, stopped=fo.stopped > 0.5,
+            hitting=fo.hitting, v_l2=v_l2,
+            step_loss=torch.zeros((), device=self.device),
+            active_count=torch.sum(fo.adv_steps))
+
+    # -- training ------------------------------------------------------------
+    def _boundary_loss(self, Xb):
+        """Dirichlet value matching or Neumann radial-derivative matching
+        (solver.py:676-685)."""
+        g = self.problem.g(Xb)
+        if self.boundary_type == "Dirichlet":
+            return torch.mean((self.V(Xb) - g) ** 2)
+        Xg = Xb.detach().requires_grad_(True)
+        V = self.V(Xg)
+        (grad_V,) = torch.autograd.grad(V.sum(), Xg, create_graph=True)
+        lhs = torch.sum(grad_V * Xb, dim=-1)
+        rhs = torch.sum(g * Xb, dim=-1)
+        return torch.mean((lhs - rhs) ** 2)
+
+    def step(self, X0=None, Xb=None, host_noise=None) -> dict:
+        """One training step (pspde's ``_build_step``): sampling, rollout,
+        loss, backward, Adam, test errors.  ``X0`` (K, d), ``Xb``
+        (K_boundary, d) and ``host_noise`` (N, K, d) replace the solver's
+        own draws.  Appends to the logs and returns the metrics."""
+        problem, geom, lm = self.problem, self.problem.geometry, \
+            self.loss_method
+        K, Kb, d = self.K, self.K_boundary, self.d
+        a0, a1 = self.alpha
+        dev = self.device
+        self.optimizer.zero_grad(set_to_none=True)
+        loss = torch.zeros((), device=dev)
+        if self.sample_center and problem.has_v_ref:
+            Xc = torch.zeros((1, d), device=dev)
+            loss = loss + torch.mean((self.V(Xc) - problem.v_ref(Xc)) ** 2)
+        bound_l = torch.zeros((), device=dev)
+        if (lm not in ("BSDE-4", "BSDE") and self.boundary_loss
+                and geom.bounded):
+            if Xb is None:
+                Xb = sample_boundary(self._gen, geom, Kb, d)
+            bound_l = self._boundary_loss(Xb)
+            loss = loss + a1 * bound_l
+        if X0 is None:
+            X0 = sample_domain(self._gen, geom, K, d,
+                               uniform_square=self.uniform_square)
+        if lm in ("BSDE-2", "BSDE-4", "BSDE", "diffusion"):
+            Y0 = self.V(X0)
+        else:
+            Y0 = torch.zeros((K,), device=dev)
+        out = self._rollout(X0, Y0, host_noise)
+        loss = loss + out.step_loss
+        if lm == "diffusion":
+            r = self.V(out.X) - out.Y
+            if self.variance_moment_split:
+                # solver.py:788-789
+                loss = loss + a0 * (_unbiased_var(r) + torch.mean(r[:1] ** 2))
+            else:
+                loss = loss + a0 * torch.mean(r ** 2)
+        if lm in ("BSDE-4", "BSDE"):
+            loss = loss + torch.mean((problem.g(out.X) - out.Y) ** 2)
+        if self.loss_with_stopped:
+            loss = loss + masked_mean((problem.g(out.X) - out.Y) ** 2,
+                                      out.stopped)
+        loss.backward()
+        self.optimizer.step()
+        aux = {"loss": loss.detach(), "boundary": bound_l.detach(),
+               "domain": (loss - a1 * bound_l).detach(),
+               "V_L2": torch.mean(out.v_l2.detach()),
+               "K_count": out.active_count.detach(),
+               "all_stopped": torch.all(out.stopped)}
+        if self.K_test_log is not None:
+            aux["test_L2"], aux["test_abs"], aux["test_rel_abs"] = \
+                compute_test_error(self.V, problem, self.K_test_log,
+                                   self._test_gen)
+        self._record(aux)
+        self.iteration += 1
+        return aux
+
+    def _record(self, aux):
+        """Append one iteration's metrics to the reference-name logs (one
+        device-to-host copy for all of them)."""
+        keys = [k for k in ("loss", "V_L2", "K_count", "all_stopped",
+                            "domain", "boundary", "test_L2", "test_abs",
+                            "test_rel_abs") if k in aux]
+        vals = dict(zip(keys, torch.stack(
+            [aux[k].to(torch.float32) for k in keys]).tolist()))
+        self.loss_log.append(vals["loss"])
+        self.V_L2_log.append(vals["V_L2"])
+        self.K_log.append(vals["K_count"])
+        if not vals["all_stopped"] and self.loss_method in ("BSDE",
+                                                            "BSDE-4"):
+            self.not_all_stopped_count += 1
+        if self.log_loss_parts:
+            self.loss_log_domain.append(vals["domain"])
+            self.loss_log_boundary.append(vals["boundary"])
+        if self.K_test_log is not None:
+            self.V_test_L2.append(vals["test_L2"])
+            self.V_test_abs.append(vals["test_abs"])
+            self.V_test_rel_abs.append(vals["test_rel_abs"])
+
+    def train(self):
+        for l in range(self.iteration, self.L):
+            t0 = time.time()
+            self.step()
+            self.times.append(time.time() - t0)
+            if self.verbose and l % self.print_every == 0:
+                print("%d - loss = %.4e, v L2 error = %.4e, %.2f"
+                      % (l, self.loss_log[-1], self.V_L2_log[-1],
+                         np.mean(self.times[-self.print_every:])))

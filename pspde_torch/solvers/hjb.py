@@ -34,6 +34,7 @@ from ..rollout.kernels import (FusedTrainOut, RNG_MAPS, _check_train_family,
 from ..rollout.sde import HJBRolloutConfig, HJBRolloutOut, hjb_rollout
 from ..utils.convert import (load_control_npz, scalar_param_from_flax,
                              tanh_mlp_from_flax)
+from ..utils.device import solver_device
 
 # options of the JAX solver that the port does not have yet: a value other
 # than the default raises (ROADMAP.md, Queue 1 items 6, 10 and 11)
@@ -48,7 +49,8 @@ class HJBSolver:
     """Trains (and holds) the control model of a parabolic/HJB problem.
 
     Constructor arguments mirror ``pspde.solvers.HJBSolver``; the port
-    adds ``device=``.  Parameters are initialised from a
+    adds ``device=``, the CUDA card when None, which must be the problem's
+    device.  Parameters are initialised from a
     ``torch.Generator`` seeded with ``seed`` (N(0, 0.01) weights and
     biases, Y_0 = 0), not from the JAX initialisation: load JAX
     parameters with ``load_jax_params``.  The scan engine's noise comes
@@ -119,8 +121,7 @@ class HJBSolver:
         self.steps_per_call = steps_per_call
         self.fused_tile = fused_tile
         self.fused_rng = fused_rng
-        self.device = (problem.X_0.device if device is None
-                       else torch.device(device))
+        self.device = solver_device(problem, device)
 
         if self.loss_method == "relative_entropy":
             self.adaptive_forward_process = True
@@ -154,7 +155,8 @@ class HJBSolver:
 
         gen = torch.Generator().manual_seed(int(seed))
         if control_net is None:
-            control_net = TanhMLP(self.d + 1, self.d, generator=gen)
+            control_net = TanhMLP(self.d + 1, self.d, generator=gen,
+                                  device=self.device)
         self.z_net = control_net.to(self.device)
         self.y0_net = ScalarParam(initial=0.0, device=self.device)
         self._noise_gen = torch.Generator(device=self.device).manual_seed(

@@ -6,7 +6,10 @@ A Flax parameter tree arrives as nested dicts of numpy arrays, e.g. the
     {'params': {'Dense_0': {'kernel': (in, out), 'bias': (out,)}, ...}}
 
 A Flax ``Dense`` kernel is (in, out); an ``nn.Linear.weight`` is (out, in),
-so kernels are transposed on the way in.  ``load_control_npz`` reads the
+so kernels are transposed on the way in.  The ``DenseNet`` value net has
+the same tree, with layer i's kernel (d_in + sum(arch[:i]), arch[i]).
+Modules are built on ``device=``, the CUDA card when None
+(``utils/device.py``).  ``load_control_npz`` reads the
 exported control asset (``experiments/export_llgc_control.py``): the flat
 tree under '/'-joined keys plus a JSON metadata string under ``__meta__``.
 """
@@ -18,7 +21,7 @@ import json
 import numpy as np
 import torch
 
-from ..ansatz import ScalarParam, TanhMLP
+from ..ansatz import DenseNet, ScalarParam, TanhMLP
 
 
 def unflatten_tree(flat: dict) -> dict:
@@ -46,10 +49,11 @@ def _dense_layers(tree: dict):
 
 
 def tanh_mlp_state_dict(tree: dict) -> dict:
-    """Flax TanhMLP tree -> ``TanhMLP.state_dict()`` (kernels transposed)."""
+    """Flax TanhMLP (or DenseNet) tree -> the module's ``state_dict()``
+    (kernels transposed)."""
     state = {}
     for i, (kernel, bias) in enumerate(_dense_layers(tree)):
-        state[f"layers.{i}.weight"] = torch.from_numpy(
+        state[f"layers.{i}.weight"] = torch.tensor(
             np.ascontiguousarray(kernel.T))
         state[f"layers.{i}.bias"] = torch.tensor(bias)
     return state
@@ -67,14 +71,36 @@ def tanh_mlp_from_flax(tree: dict, device=None) -> TanhMLP:
 
 def tanh_mlp_to_flax(tensors) -> dict:
     """The inverse direction, for parameters or their gradients: the
-    tensors of ``TanhMLP.parameters()`` order (weight (out, in), bias per
-    layer) -> a Flax tree of numpy arrays, kernels transposed to (in, out),
-    so a test can compare leaf by leaf."""
+    tensors of ``TanhMLP.parameters()`` (or ``DenseNet.parameters()``)
+    order (weight (out, in), bias per layer) -> a Flax tree of numpy
+    arrays, kernels transposed to (in, out), so a test can compare leaf by
+    leaf."""
     tensors = [t.detach().cpu().numpy() for t in tensors]
     return {"params": {f"Dense_{i}": {"kernel": np.ascontiguousarray(W.T),
                                        "bias": b}
                        for i, (W, b) in enumerate(zip(tensors[::2],
                                                       tensors[1::2]))}}
+
+
+def dense_net_from_flax(tree: dict, output_relu: bool = False,
+                        device=None) -> DenseNet:
+    """Build a ``DenseNet`` whose d_in, arch and d_out are read off the
+    Flax tree and load its parameters (``output_relu`` is not in the tree:
+    pass the Flax module's)."""
+    layers = _dense_layers(tree)
+    d_in = layers[0][0].shape[0]
+    arch = tuple(k.shape[1] for k, _ in layers[:-1])
+    for i, (k, _) in enumerate(layers):
+        if k.shape[0] != d_in + sum(arch[:i]):
+            raise ValueError(f"Dense_{i} kernel {k.shape} is not a "
+                             f"concat-skip layer of d_in={d_in}, arch={arch}")
+    net = DenseNet(d_out=layers[-1][0].shape[1], arch=arch,
+                   output_relu=output_relu, d_in=d_in, device=device)
+    net.load_state_dict(tanh_mlp_state_dict(tree))
+    return net
+
+
+dense_net_to_flax = tanh_mlp_to_flax
 
 
 def scalar_param_from_flax(tree: dict, device=None) -> ScalarParam:

@@ -54,7 +54,8 @@ def _port_solver(engine, jax_params=None, **kw):
     wrapper, antithetic halves - through the wrapper's plain version."""
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
-        solver = TSolver("t", tp.LLGC(d=D, T=1.0), rollout_mode=engine, **kw)
+        solver = TSolver("t", tp.LLGC(d=D, T=1.0, device="cpu"),
+                         rollout_mode=engine, device="cpu", **kw)
         if jax_params is not None:
             solver.load_jax_params(jax_params)
     solver.resolved_rollout_mode = engine
@@ -103,17 +104,20 @@ def test_fused_train_gates_on_cpu():
     LQGC (no u_ref_table) needs u_l2_error_flag=False."""
     kw = _solver_kw("log-variance", False)
     with pytest.warns(UserWarning, match="problem on a CUDA device"):
-        s = TSolver("t", tp.LLGC(d=D, T=1.0), rollout_mode="fused_train",
-                    **kw)
+        s = TSolver("t", tp.LLGC(d=D, T=1.0, device="cpu"),
+                    rollout_mode="fused_train", device="cpu", **kw)
     assert s.resolved_rollout_mode == "scan"
     assert s._fused_train_gates() == ["problem on a CUDA device"]
-    lqgc = tp.LQGC(d=D, T=1.0)
+    lqgc = tp.LQGC(d=D, T=1.0, device="cpu")
     with pytest.warns(UserWarning, match="u_l2_error_flag=False"):
-        TSolver("t", lqgc, rollout_mode="fused_train", **kw)
-    s2 = TSolver("t", lqgc, rollout_mode="scan", u_l2_error_flag=False, **kw)
+        TSolver("t", lqgc, rollout_mode="fused_train", device="cpu",
+                **kw)
+    s2 = TSolver("t", lqgc, rollout_mode="scan", u_l2_error_flag=False,
+                 device="cpu", **kw)
     assert s2._fused_train_gates() == ["problem on a CUDA device"]
     with pytest.warns(UserWarning, match="detach_forward=True"):
-        TSolver("t", tp.LLGC(d=D, T=1.0), rollout_mode="fused_train",
+        TSolver("t", tp.LLGC(d=D, T=1.0, device="cpu"),
+                rollout_mode="fused_train", device="cpu",
                 **dict(kw, detach_forward=False))
 
 

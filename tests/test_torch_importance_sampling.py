@@ -46,7 +46,7 @@ def _models(jprob, tprob, delta_t, seed=0):
         lambda a: (0.3 * rng.standard_normal(a.shape)).astype(np.float32),
         jax.device_get(js.params))
     ts = HJBSolver("is", tprob, K=32, delta_t=delta_t, time_approx="inner",
-                   learn_Y_0=True)
+                   learn_Y_0=True, device="cpu")
     ts.load_jax_params(js.params)
     return js, ts
 
@@ -60,9 +60,9 @@ def test_importance_sampling_matches_jax_on_host_noise(case, control,
     through its QMC noise hook; the port takes it as host_noise."""
     kw = dict(d=3, T=1.0, off_diag=0.1)
     if case == "llgc":
-        pj, pt = jp.LLGC(**kw), tp.LLGC(**kw)
+        pj, pt = jp.LLGC(**kw), tp.LLGC(**kw, device="cpu")
     else:
-        pj, pt = jp.LQGC(**kw), tp.LQGC(**kw)
+        pj, pt = jp.LQGC(**kw), tp.LQGC(**kw, device="cpu")
     K, delta_t = 256, 0.05
     N = int(np.ceil(pj.T / delta_t))
     noise = np.random.default_rng(5).standard_normal((N, K, pj.d)).astype(
@@ -80,8 +80,9 @@ def test_importance_sampling_matches_jax_on_host_noise(case, control,
 
 
 def test_importance_sampling_generator_and_guards():
-    pt = tp.LLGC(d=2, T=0.5)
-    ts = HJBSolver("g", pt, K=32, delta_t=0.05, time_approx="inner")
+    pt = tp.LLGC(d=2, T=0.5, device="cpu")
+    ts = HJBSolver("g", pt, K=32, delta_t=0.05, time_approx="inner",
+                   device="cpu")
     a = importance_sampling(pt, ts, 512, delta_t=0.05,
                             generator=torch.Generator().manual_seed(1))
     b = importance_sampling(pt, ts, 512, delta_t=0.05,
@@ -99,23 +100,23 @@ def test_importance_sampling_generator_and_guards():
     with pytest.raises(NotImplementedError, match="make_is_runner"):
         make_is_runner(pt, ts, 512)
     with pytest.raises(NotImplementedError, match="approx_method"):
-        HJBSolver("v", pt, approx_method="value")
+        HJBSolver("v", pt, approx_method="value", device="cpu")
     with pytest.raises(NotImplementedError, match="time_approx"):
-        HJBSolver("o", pt, time_approx="outer")
+        HJBSolver("o", pt, time_approx="outer", device="cpu")
 
 
 @pytest.fixture(scope="module")
 def trained_d8():
     """JAX HJBSolver on LLGC d=8 after 50 training iterations, and the
     port's solver holding the converted parameters."""
-    pj, pt = jp.LLGC(d=8, T=1.0), tp.LLGC(d=8, T=1.0)
+    pj, pt = jp.LLGC(d=8, T=1.0), tp.LLGC(d=8, T=1.0, device="cpu")
     js = JHJBSolver("slice", pj, lr=1e-2, L=50, K=256, delta_t=0.05,
                     time_approx="inner", loss_method="log-variance",
                     detach_forward=True, learn_Y_0=True, verbose=False,
                     early_stopping_time=None)
     js.train()
     ts = HJBSolver("slice", pt, lr=1e-2, L=50, K=256, delta_t=0.05,
-                   time_approx="inner", learn_Y_0=True)
+                   time_approx="inner", learn_Y_0=True, device="cpu")
     ts.load_jax_params(jax.device_get(js.params))
     return pj, pt, js, ts
 

@@ -24,7 +24,7 @@ CASES = {
 
 def _pair(case):
     jcls, tcls, kw = CASES[case]
-    return jcls(**kw), tcls(**kw)
+    return jcls(**kw), tcls(**kw, device="cpu")
 
 
 def _inputs(d, K=64, seed=0):
@@ -73,7 +73,7 @@ def test_diffusion_matrix_kinds():
     for mat, kind in ((2.0 * np.eye(d), "scalar"),
                       (np.diag(np.arange(1.0, d + 1)), "diag"),
                       (np.eye(d) + 0.1 * np.ones((d, d)), "full")):
-        sj, st = jp.DiffusionMatrix(mat), tp.DiffusionMatrix(mat)
+        sj, st = jp.DiffusionMatrix(mat), tp.DiffusionMatrix(mat, device="cpu")
         assert st.kind == sj.kind == kind
         x, _, _ = _inputs(d, seed=2)
         _close(sj.apply(jnp.asarray(x)), st.apply(torch.from_numpy(x)))
@@ -106,9 +106,22 @@ def test_lqgc_reference_solutions_match():
 
 
 def test_kernel_family_flags():
-    assert tp.LLGC(d=3).drift_family() == ("neg_identity", None)
-    kind, A = tp.LLGC(d=3, off_diag=0.1).drift_family()
+    assert tp.LLGC(d=3, device="cpu").drift_family() == ("neg_identity", None)
+    kind, A = tp.LLGC(d=3, off_diag=0.1, device="cpu").drift_family()
     assert kind == "matrix" and A.shape == (3, 3)
-    assert tp.LLGC(d=3).running_cost_family() == ("zero", None)
-    kind, P = tp.LQGC(d=3).running_cost_family()
+    assert tp.LLGC(d=3, device="cpu").running_cost_family() == ("zero", None)
+    kind, P = tp.LQGC(d=3, device="cpu").running_cost_family()
     assert kind == "quadratic" and P.shape == (3, 3)
+
+
+def test_default_device_is_the_card(monkeypatch):
+    """With no device given a constructor resolves to CUDA; where CUDA is
+    absent it raises and names device="cpu", which builds on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        tp.LLGC(d=4)
+    p = tp.LLGC(d=4, device="cpu")
+    assert p.X_0.device.type == "cpu" and p.A.device.type == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    from pspde_torch.utils import resolve_device
+    assert resolve_device(None) == torch.device("cuda")

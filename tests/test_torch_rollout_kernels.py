@@ -23,10 +23,16 @@ from pspde_torch.utils.convert import tanh_mlp_from_flax
 
 ATOL = 2e-5
 
+def _on_cpu(m):
+    """The port's constructors take device="cpu"; pspde's take none."""
+    return {"device": "cpu"} if m is tp else {}
+
+
 PROBLEMS = {
-    "llgc_scalar_sigma": lambda m: m.LLGC(d=4, T=1.0),
-    "llgc_full_sigma": lambda m: m.LLGC(d=4, T=1.0, off_diag=0.1),
-    "lqgc": lambda m: m.LQGC(d=4, T=1.0, off_diag=0.1),
+    "llgc_scalar_sigma": lambda m: m.LLGC(d=4, T=1.0, **_on_cpu(m)),
+    "llgc_full_sigma": lambda m: m.LLGC(d=4, T=1.0, off_diag=0.1,
+                                        **_on_cpu(m)),
+    "lqgc": lambda m: m.LQGC(d=4, T=1.0, off_diag=0.1, **_on_cpu(m)),
 }
 
 
@@ -47,7 +53,7 @@ def _control(d, seed=0, hidden=(30, 30)):
         return -net.apply(jax.tree.unflatten(treedef, list(leaves_t)), tX)
 
     return u_apply, tuple(jnp.asarray(x) for x in leaves), \
-        tanh_mlp_from_flax(tree)
+        tanh_mlp_from_flax(tree, device="cpu")
 
 
 def _noise(N, K, d, seed=1):
@@ -145,7 +151,7 @@ def test_rollout_philox_stream_and_antithetic_pairs():
     """Without host noise the plain version draws philox_normals, and two
     runs with noise_sign +1 / -1 on the same seed equal runs on the host
     stream and its negation."""
-    pt = tp.LLGC(d=4, T=1.0)
+    pt = tp.LLGC(d=4, T=1.0, device="cpu")
     _, _, net = _control(4)
     K, N, dt, seed = 64, 6, 0.05, 99
     noise = torch.stack([tk.philox_normals(seed, K, n, 4) for n in range(N)])
@@ -162,8 +168,8 @@ class _CubicDrift(tp.Problem):
     """dX = -X^3 dt + dW: a drift outside the kernel family."""
 
     def __init__(self, d):
-        super().__init__(d=d, T=1.0)
-        self._sigma = tp.DiffusionMatrix(np.eye(d))
+        super().__init__(d=d, T=1.0, device="cpu")
+        self._sigma = tp.DiffusionMatrix(np.eye(d), device="cpu")
 
     @property
     def sigma_struct(self):
@@ -174,7 +180,7 @@ class _CubicDrift(tp.Problem):
 
 
 def test_outside_kernel_family_raises():
-    pt = tp.LLGC(d=4, T=1.0)
+    pt = tp.LLGC(d=4, T=1.0, device="cpu")
     _, _, net = _control(4)
     with pytest.raises(ValueError, match="the kernel covers"):
         tk.fused_controlled_rollout(_CubicDrift(4), net, 8, 2, 0.1)
@@ -204,10 +210,11 @@ def test_kernel_layout_at_serve_shapes(case, tile):
     sections, widths padded to the chunk, the last layer negated, and a
     tile that fits the 227 KB a block may use."""
     if case == "llgc_d100":
-        pt = tp.LLGC(d=100, T=1.0)
+        pt = tp.LLGC(d=100, T=1.0, device="cpu")
     else:
-        pt = tp.LQGC(d=100, T=1.0, off_diag=0.05)
-    net = tk.TanhMLP(101, 100, generator=torch.Generator().manual_seed(0))
+        pt = tp.LQGC(d=100, T=1.0, off_diag=0.05, device="cpu")
+    net = tk.TanhMLP(101, 100, generator=torch.Generator().manual_seed(0),
+                     device="cpu")
     drift, cost = tk._check_family(pt, net, True, 1.0)
     packed = tk._pack(pt, net, drift, cost, K=1000, N=100, delta_t=0.01,
                       tile=None, host_noise=None, noise_sign=1.0)

@@ -37,9 +37,14 @@ from pspde_torch.utils.convert import tanh_mlp_from_flax, tanh_mlp_to_flax
 K, D, N, DT = 64, 6, 12, 1.0 / 12
 X_TOL, Y_TOL, G_RTOL, G_ATOL = 2e-5, 2e-4, 5e-3, 5e-6
 
+def _on_cpu(m):
+    """The port's constructors take device="cpu"; pspde's take none."""
+    return {"device": "cpu"} if m is tp else {}
+
+
 PROBLEMS = {
-    "llgc": lambda m: m.LLGC(d=D, T=1.0),
-    "lqgc": lambda m: m.LQGC(d=D, T=1.0, off_diag=0.1),
+    "llgc": lambda m: m.LLGC(d=D, T=1.0, **_on_cpu(m)),
+    "lqgc": lambda m: m.LQGC(d=D, T=1.0, off_diag=0.1, **_on_cpu(m)),
 }
 
 
@@ -92,7 +97,7 @@ def test_hjb_rollout_matches_jax(case, adaptive, detach, kl, ito, antithetic,
     pj, pt = PROBLEMS[case](jp), PROBLEMS[case](tp)
     tree = _tree()
     net_j = ja.TanhMLP(d_out=D)
-    net_t = tanh_mlp_from_flax(tree)
+    net_t = tanh_mlp_from_flax(tree, device="cpu")
     cfg_kw = dict(N=N, delta_t=DT, adaptive_forward=adaptive,
                   detach_forward=detach, accumulate_kl=kl, kl_ito_term=ito,
                   antithetic=antithetic, remat=remat)
@@ -143,9 +148,9 @@ def test_fused_train_rollout_matches_jax_kernel(kl, sign, adaptive):
     from pspde.ansatz.transposed import make_transposed_apply
     from pspde.rollout.kernels import make_fused_train_rollout
 
-    pj, pt = jp.LLGC(d=D, T=1.0), tp.LLGC(d=D, T=1.0)
+    pj, pt = jp.LLGC(d=D, T=1.0), tp.LLGC(d=D, T=1.0, device="cpu")
     tree = _tree(seed=1)
-    net_t = tanh_mlp_from_flax(tree)
+    net_t = tanh_mlp_from_flax(tree, device="cpu")
     noise = _jax_noise(jax.random.PRNGKey(3), K)             # (N, K, d)
     ts = np.arange(N) * DT
     u_tab = None if kl else pt.u_ref_table(ts)
@@ -188,8 +193,8 @@ def test_fused_train_rollout_cotangents_and_antithetic_pairs():
     """Y alone, Z_sum alone (a None cotangent is zeros), and two calls with
     one seed and signs +1/-1 equal the plain version on the Philox stream
     and its negation."""
-    pt = tp.LLGC(d=D, T=1.0)
-    net = tanh_mlp_from_flax(_tree(seed=2))
+    pt = tp.LLGC(d=D, T=1.0, device="cpu")
+    net = tanh_mlp_from_flax(_tree(seed=2), device="cpu")
     params = list(net.parameters())
     kw = dict(accumulate_kl=True, rng="erfinv")
     out = tk.fused_train_rollout(pt, net, K, N, DT, seed=11, **kw)
@@ -262,9 +267,9 @@ class _YDependentH(tp.LLGC):
 
 
 def test_outside_train_kernel_family_raises():
-    llgc = tp.LLGC(d=D, T=1.0)
-    lqgc = tp.LQGC(d=D, T=1.0)
-    net = tanh_mlp_from_flax(_tree())
+    llgc = tp.LLGC(d=D, T=1.0, device="cpu")
+    lqgc = tp.LQGC(d=D, T=1.0, device="cpu")
+    net = tanh_mlp_from_flax(_tree(), device="cpu")
     u_tab = llgc.u_ref_table(np.arange(N) * DT)
     relu = nn.Sequential(nn.Linear(D + 1, 4), nn.ReLU(), nn.Linear(4, D))
     with pytest.raises(ValueError, match="not a TanhMLP.*the kernel covers"):
@@ -272,7 +277,8 @@ def test_outside_train_kernel_family_raises():
     with pytest.raises(ValueError, match="state-dependent"):
         tk.fused_train_rollout(lqgc, net, K, N, DT, u_tab=u_tab)
     with pytest.raises(ValueError, match="h of _YDependentH"):
-        tk.fused_train_rollout(_YDependentH(d=D, T=1.0), net, K, N, DT)
+        tk.fused_train_rollout(_YDependentH(d=D, T=1.0, device="cpu"), net,
+                               K, N, DT)
     with pytest.raises(ValueError, match="rng="):
         tk.fused_train_rollout(llgc, net, K, N, DT, rng="boxmuller")
     with pytest.raises(ValueError, match="u_tab has shape"):
@@ -294,11 +300,13 @@ def test_train_kernel_layout_at_bench_shapes(case, tile):
     the staged prefix ends after X_0, and both kernels' shared memory at
     the chosen tile fits one block."""
     if case == "llgc_d100":
-        pt = tp.LLGC(d=100, T=1.0)
+        pt = tp.LLGC(d=100, T=1.0, device="cpu")
         u_tab = pt.u_ref_table(np.arange(32) / 32)
     else:
-        pt, u_tab = tp.LQGC(d=100, T=1.0, off_diag=0.05), None
-    net = tk.TanhMLP(101, 100, generator=torch.Generator().manual_seed(0))
+        pt, u_tab = tp.LQGC(d=100, T=1.0, off_diag=0.05,
+                                  device="cpu"), None
+    net = tk.TanhMLP(101, 100, generator=torch.Generator().manual_seed(0),
+                     device="cpu")
     fam = tk._check_train_family(pt, net, 32, 1.0, u_tab, "binom")
     for backward in (False, True):
         packed = tk._pack_train(
