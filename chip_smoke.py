@@ -45,6 +45,22 @@ control is learned.  This script
      <= 1e-3;
  12. times both stopped kernels, one solver step and the plain versions
      at K=65536, N=20 for both nets, and profiles three solver steps.
+ 13. runs the HJB-family kernels on their device plan (the net read from
+     device memory, each path's arrays in a [row][K] workspace) at LLGC
+     d=1000, N=200, K=2048 against their plain versions (serve, training
+     outputs and gradients; host noise, binom, erfinv), and forces the
+     device plan at d=100, K=8192 against the shared plan;
+ 14. trains BASELINE config 5 (LLGC d=1000, T=2, dt=0.01, K=98304,
+     log-variance, fused_train, binom) for a few steps on the device plan,
+     serves it, times its kernels and steps at those shapes (the plain
+     step at K=8192) and profiles one step;
+ 15. holds the roofline kernels (csrc/roofline.cu) against their plain
+     versions (fma_chain over 4 links and by its time at 2P over P
+     passes; normals_sum at the rates' shape; every ladder stage on the
+     shared plan at d=100 and on the device plan at d=1000, and `full` at
+     the bench shape), then measures the FP32 FMA rate, the normals rates
+     of both maps, the roofline model at d=100 and d=1000, and the
+     ablation ladders at the bench shape and at config 5.
 
 Any failure exits nonzero.  The last line is one JSON object naming the
 device.  Run from the repository root:
@@ -96,6 +112,29 @@ NETS_ELL = {"DenseNet (30, 30)": (30, 30),
 # apart
 MASK_TOL = 1e-3
 TEST_L2_BOUND = 1e-3
+# BASELINE config 5 (experiments/baseline_configs.py:234-253) at the K of
+# experiments/proto_d1000_roofline.py; the plain step is timed at K5_PLAIN,
+# since at K5 its per-step checkpoints alone would need N K d 4 B = 79 GB
+D5, T5, DT5, N5 = 1000, 2.0, 0.01, 200
+K5, K5_CHECK, K5_PLAIN, K5_SERVE, STEPS5 = 98304, 2048, 8192, 8192, 3
+LOG_E5_EXACT = 246.746092
+ROOFLINE_SOURCE = "pspde_torch/csrc/roofline.cu"
+# the roofline kernels' main-path shapes: the (d, tile) carry of
+# pspde/utils/roofline.py, with more passes than its P=512 so that one
+# call lasts a millisecond or more (roofline.FMA_P, roofline.NORMALS_P)
+FMA_TILE = 4096
+# fma_chain vs plain over 4 links (P=1, chain 4: the pass loop's remainder;
+# P=4, chain 1: its 4-fold unrolled body): fmaf rounds once where x * x + c
+# rounds twice, and each link multiplies an error by |2x| <= 3.83, so one
+# ulp of 1 (1.2e-7) can grow to 3.83^4 x 4 ulp ~ 1e-4 at most
+FMA_TOL = 1e-4
+# fma_chain's time at 2P passes over its time at P: 2 if every pass runs
+PASS_RATIO = (1.8, 2.2)
+# 32-bit integer multiplies (IMAD, IMAD.HI) per second: 64 per clock per
+# SM on compute capability 9.0 (the arithmetic-instruction throughput
+# table of NVIDIA's CUDA C++ documentation), 132 SMs at the 1.98 GHz boost
+# clock of the H100 SXM data sheet
+INT_MUL_RATE = 64 * 132 * 1.98e9
 # The least time of a kernel's work: the larger of its FP32 operations over
 # the H100 SXM's 67 TFLOP/s and its bytes (each input read once, each output
 # written once) over 3.35 TB/s: NVIDIA's data sheet for the H100 SXM at
@@ -117,9 +156,129 @@ def mlp_flops(widths):
     return 2 * prod + sum(widths[1:-1])
 
 
+def train_flops(widths, n_par):
+    """FP32 operations of one path-step of the training kernels, (forward,
+    backward): the forward is the net plus 15 operations per dimension
+    (Euler step, the Z.c, Z.xi, |Z|^2 and u_L2 sums); the backward replays
+    it, backpropagates dZ through the hidden layers and forms the weight
+    outer products (2 operations per weight and bias)."""
+    d = widths[-1]
+    fwd = mlp_flops(widths) + 15 * d
+    bwd = (fwd + 2 * sum(a * b for a, b in zip(widths[1:-1], widths[2:]))
+           + 3 * sum(widths[1:-1]) + 2 * n_par)
+    return fwd, bwd
+
+
 def check(ok, what):
     if not ok:
         raise RuntimeError(f"chip_smoke: check failed: {what}")
+
+
+def compare_serve(tag, kern, plain):
+    """Serve kernel against its plain version, output by output, within
+    REL_TOL; returns the largest absolute difference."""
+    torch.cuda.synchronize()
+    worst = 0.0
+    for name in ("X", "ito", "riemann", "f_int"):
+        a, b = getattr(kern, name), getattr(plain, name)
+        check(a.shape == b.shape, f"{tag} {name} shape {a.shape} vs {b.shape}")
+        check(bool(torch.isfinite(a).all()), f"{tag} {name} not finite")
+        err = float((a - b).abs().max())
+        scale = float(b.abs().max())
+        rel = err / (1.0 + scale)
+        worst = max(worst, err)
+        print(f"  {tag} {name:8s} max_abs {err:.3e} max|plain| "
+              f"{scale:.3e} rel {rel:.3e}")
+        check(rel <= REL_TOL, f"{tag} {name} rel {rel:.3e} > {REL_TOL}")
+    return worst
+
+
+def timed(fn, reps, warm=True):
+    """ms per call of ``fn`` over ``reps`` calls, CUDA events, after one
+    warm-up call unless ``warm`` is False."""
+    if warm:
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def timed_out(fn):
+    """(ms, output) of one call of ``fn``, CUDA events, no warm-up."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop), out
+
+
+def compare_rel(tag, a, b):
+    """max |a - b| / (1 + max |b|) within REL_TOL, a finite; returns
+    max |a - b|."""
+    torch.cuda.synchronize()
+    check(a.shape == b.shape, f"{tag} shape {a.shape} vs {b.shape}")
+    check(bool(torch.isfinite(a).all()), f"{tag} not finite")
+    err = float((a - b).abs().max())
+    rel = err / (1.0 + float(b.abs().max()))
+    print(f"  {tag}: max_abs {err:.3e} rel {rel:.3e}")
+    check(rel <= REL_TOL, f"{tag} rel {rel:.3e} > {REL_TOL}")
+    return err
+
+
+def train_loss(prob, out, kw):
+    """The log-variance loss (+ the KL term where it is accumulated) whose
+    gradients the training checks compare."""
+    from pspde_torch.losses import log_variance_loss
+    gX = prob.g(out.X)
+    loss = log_variance_loss(out.Y, gX)
+    if kw.get("accumulate_kl"):
+        loss = loss + torch.mean(out.Z_sum + gX)
+    return loss
+
+
+def compare_train(tag, prob, net, K, N, dt, kw, worst):
+    """Training kernels (forward outputs, and per-leaf gradients of
+    ``train_loss`` through the backward kernel) against their plain
+    version, within REL_TOL and GRAD_TOL; updates ``worst`` ("out",
+    "grad": largest absolute differences) and returns the kernel's
+    outputs and gradients."""
+    from pspde_torch.rollout import kernels as km
+    params = list(net.parameters())
+    kern = km.fused_train_rollout(prob, net, K, N, dt, **kw)
+    g_kern = torch.autograd.grad(train_loss(prob, kern, kw), params)
+    plain = km.reference_train_rollout(
+        prob, net, K, N, dt, **{k: v for k, v in kw.items() if k != "plan"})
+    g_plain = torch.autograd.grad(train_loss(prob, plain, kw), params)
+    torch.cuda.synchronize()
+    for name in ("X", "Y", "Z_sum", "u_l2"):
+        a, b = getattr(kern, name).detach(), getattr(plain, name).detach()
+        check(a.shape == b.shape, f"{tag} {name} shape")
+        check(bool(torch.isfinite(a).all()), f"{tag} {name} not finite")
+        err = float((a - b).abs().max())
+        rel = err / (1.0 + float(b.abs().max()))
+        worst["out"] = max(worst["out"], err)
+        check(rel <= REL_TOL, f"{tag} {name} rel {rel:.3e} > {REL_TOL}")
+    rels = []
+    for (pname, _), a, b in zip(net.named_parameters(), g_kern, g_plain):
+        err = float((a - b).abs().max())
+        scale = float(b.abs().max())
+        worst["grad"] = max(worst["grad"], err)
+        rels.append(err / scale)
+        check(scale > 0 and err <= GRAD_TOL * scale,
+              f"{tag} grad {pname} max_abs {err:.3e} > {GRAD_TOL} * "
+              f"{scale:.3e}")
+    print(f"  {tag}: outputs ok; grad max|kern-plain|/max|plain| per "
+          f"leaf {['%.1e' % r for r in rels]}")
+    return kern, g_kern
 
 
 def main():
@@ -177,19 +336,7 @@ def main():
 
     def compare(tag, kern, plain):
         nonlocal worst_abs
-        torch.cuda.synchronize()
-        for name in ("X", "ito", "riemann", "f_int"):
-            a, b = getattr(kern, name), getattr(plain, name)
-            check(a.shape == b.shape,
-                  f"{tag} {name} shape {a.shape} vs {b.shape}")
-            check(bool(torch.isfinite(a).all()), f"{tag} {name} not finite")
-            err = float((a - b).abs().max())
-            scale = float(b.abs().max())
-            rel = err / (1.0 + scale)
-            worst_abs = max(worst_abs, err)
-            print(f"  {tag} {name:8s} max_abs {err:.3e} max|plain| "
-                  f"{scale:.3e} rel {rel:.3e}")
-            check(rel <= REL_TOL, f"{tag} {name} rel {rel:.3e} > {REL_TOL}")
+        worst_abs = max(worst_abs, compare_serve(tag, kern, plain))
 
     # -- phase 2: kernel vs plain on host noise ------------------------------
     print(f"phase 2: kernel vs plain on host noise, K={K_CHECK}, "
@@ -252,18 +399,6 @@ def main():
     print(f"phase 5: kernel vs plain, LLGC d=100, K={K_SERVE}, N={N_STEPS}, "
           "Philox noise, CUDA events")
 
-    def timed(fn, reps):
-        fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        stop.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(stop) / reps
-
     def kern():
         return km.fused_controlled_rollout(llgc, solver.z_net, K_SERVE,
                                            N_STEPS, DT_IS, seed=5)
@@ -296,10 +431,13 @@ def main():
           f"({serve_row['bound_by']})")
     train_rows = train_phases(dev, smi, llgc, solver, lqgc, gen, timed)
     stopped_rows = stopped_phases(dev, smi, timed)
+    config5, wide_rows = wide_phases(dev, smi, llgc, solver)
+    roofline_rows = roofline_phases(dev, smi, llgc, solver, config5)
 
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [serve_row] + train_rows + stopped_rows}))
+    print(json.dumps({"kernels": [serve_row] + train_rows + stopped_rows
+                      + roofline_rows + wide_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -326,39 +464,8 @@ def train_phases(dev, smi, llgc, solver, lqgc, gen, timed):
               dict(accumulate_kl=True, kl_ito_term=True))]
     worst = {"out": 0.0, "grad": 0.0}
 
-    def loss_of(prob, out, kw):
-        gX = prob.g(out.X)
-        loss = log_variance_loss(out.Y, gX)
-        if kw.get("accumulate_kl"):
-            loss = loss + torch.mean(out.Z_sum + gX)
-        return loss
-
     def compare(tag, prob, net, kw):
-        params = list(net.parameters())
-        kern = km.fused_train_rollout(prob, net, Kc, N, dt, **kw)
-        g_kern = torch.autograd.grad(loss_of(prob, kern, kw), params)
-        plain = km.reference_train_rollout(prob, net, Kc, N, dt, **kw)
-        g_plain = torch.autograd.grad(loss_of(prob, plain, kw), params)
-        torch.cuda.synchronize()
-        for name in ("X", "Y", "Z_sum", "u_l2"):
-            a, b = getattr(kern, name).detach(), getattr(plain, name).detach()
-            check(a.shape == b.shape, f"{tag} {name} shape")
-            check(bool(torch.isfinite(a).all()), f"{tag} {name} not finite")
-            err = float((a - b).abs().max())
-            rel = err / (1.0 + float(b.abs().max()))
-            worst["out"] = max(worst["out"], err)
-            check(rel <= REL_TOL, f"{tag} {name} rel {rel:.3e} > {REL_TOL}")
-        rels = []
-        for (pname, _), a, b in zip(net.named_parameters(), g_kern, g_plain):
-            err = float((a - b).abs().max())
-            scale = float(b.abs().max())
-            worst["grad"] = max(worst["grad"], err)
-            rels.append(err / scale)
-            check(scale > 0 and err <= GRAD_TOL * scale,
-                  f"{tag} grad {pname} max_abs {err:.3e} > {GRAD_TOL} * "
-                  f"{scale:.3e}")
-        print(f"  {tag}: outputs ok; grad max|kern-plain|/max|plain| per "
-              f"leaf {['%.1e' % r for r in rels]}")
+        compare_train(tag, prob, net, Kc, N, dt, kw, worst)
 
     # -- phase 6: training kernels vs plain on host noise --------------------
     print(f"phase 6: training kernels vs plain on host noise, K={Kc}, N={N}, "
@@ -484,16 +591,8 @@ def train_phases(dev, smi, llgc, solver, lqgc, gen, timed):
     bench.fused_rng = "binom"
     profile_steps("3 binom training steps", bench.step)
 
-    # per path-step: the forward is the net plus 15 operations per dimension
-    # (Euler step, the Z.c, Z.xi, |Z|^2 and u_L2 sums); the backward replays
-    # it, backpropagates dZ through the hidden layers and forms the weight
-    # outer products (2 operations per weight and bias)
-    widths = [D + 1, 30, 30, D]
     n_par = sum(p.numel() for p in net.parameters())
-    fwd_flops = mlp_flops(widths) + 15 * D
-    bwd_flops = (fwd_flops + 2 * sum(a * b for a, b in zip(widths[1:-1],
-                                                          widths[2:]))
-                 + 3 * sum(widths[1:-1]) + 2 * n_par)
+    fwd_flops, bwd_flops = train_flops([D + 1, 30, 30, D], n_par)
     row = {"route": "cuda", "source": TRAIN_SOURCE}
     rows = [
         dict(row, name="fused_train_rollout.forward",
@@ -514,15 +613,15 @@ def train_phases(dev, smi, llgc, solver, lqgc, gen, timed):
     return rows
 
 
-def profile_steps(what, step):
-    """Device time and idle share of three calls of ``step`` under
+def profile_steps(what, step, n=3):
+    """Device time and idle share of ``n`` calls of ``step`` under
     torch.profiler, and the kernels that took most of it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(3):
+        for _ in range(n):
             step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -761,6 +860,420 @@ def stopped_phases(dev, smi, timed):
              replaces="pspde/rollout/kernels.py:1272", launches=bwd_launches,
              max_abs_err=worst["grad"], ms=r["backward"][0],
              plain_ms=r["backward"][1], **b_bwd),
+    ]
+
+
+def reset_counts(fn, *names):
+    """Set a wrapper's launch counts (ints and per-plan dicts) to 0."""
+    for name in names:
+        val = getattr(fn, name)
+        setattr(fn, name, dict.fromkeys(val, 0) if isinstance(val, dict)
+                else 0)
+
+
+def wide_phases(dev, smi, llgc, solver):
+    """Phases 13-14: the device plan of the HJB-family kernels against
+    their plain versions at d=1000 and against the shared plan at d=100,
+    and BASELINE config 5 trained and served on the card.  Returns the
+    kernels' JSON rows on the device plan and the config-5 solver."""
+    import numpy as np
+    from pspde_torch.ansatz import TanhMLP
+    from pspde_torch.problems import LLGC
+    from pspde_torch.rollout import kernels as km
+    from pspde_torch.solvers import HJBSolver
+
+    t_phases = time.perf_counter()
+    d, N, dt, Kc = D5, N5, DT5, K5_CHECK
+    llgc5 = LLGC(d=d, T=T5, device=dev)
+    trainer = HJBSolver("config5", llgc5, lr=1e-2, L=STEPS5, K=K5,
+                        delta_t=dt, time_approx="inner",
+                        loss_method="log-variance", detach_forward=True,
+                        learn_Y_0=True, verbose=False,
+                        early_stopping_time=None, seed=5,
+                        rollout_mode="fused_train", fused_rng="binom",
+                        device=dev)
+    check(trainer.resolved_rollout_mode == "fused_train",
+          f"engine {trainer.resolved_rollout_mode}")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    net5 = TanhMLP(d + 1, d, init_scale=0.1, generator=gen, device=dev)
+    u5 = trainer._u_tab
+    worst = {"serve": 0.0, "out": 0.0, "grad": 0.0}
+
+    # -- phase 13: the device plan against plain and against shared ---------
+    print(f"phase 13: device plan, LLGC d={d}, T={T5}, N={N}, TanhMLP "
+          f"[{d + 1},30,30,{d}], K={Kc}: kernels vs plain, outputs rel "
+          f"{REL_TOL:g}, gradients {GRAD_TOL:g} x max|plain|")
+    reset_counts(km.fused_controlled_rollout, "launches_by_plan")
+    noise = torch.randn((N, Kc, d), generator=gen, device=dev)
+    for tag, kw in (("host noise", dict(host_noise=noise)),
+                    ("Philox, sign +1", dict(seed=1234)),
+                    ("Philox, sign -1", dict(seed=1234, noise_sign=-1.0))):
+        kern = km.fused_controlled_rollout(llgc5, net5, Kc, N, dt, **kw)
+        plain = km.reference_controlled_rollout(llgc5, net5, Kc, N, dt, **kw)
+        worst["serve"] = max(worst["serve"], compare_serve(
+            f"[serve d={d}, {tag}]", kern, plain))
+    check(km.fused_controlled_rollout.launches_by_plan
+          == {"shared": 0, "device": 3}, "serve d=1000 ran the device plan: "
+          f"{km.fused_controlled_rollout.launches_by_plan}")
+    reset_counts(km.fused_train_rollout, "launches_by_plan",
+                 "backward_launches_by_plan")
+    for tag, kw in (("host noise", dict(host_noise=noise)),
+                    ("binom", dict(seed=4321, rng="binom")),
+                    ("erfinv", dict(seed=4321, rng="erfinv"))):
+        compare_train(f"[train d={d}, u_tab, {tag}]", llgc5, net5, Kc, N, dt,
+                      dict(kw, u_tab=u5), worst)
+    by_plan = (km.fused_train_rollout.launches_by_plan,
+               km.fused_train_rollout.backward_launches_by_plan)
+    check(by_plan == ({"shared": 0, "device": 3},) * 2,
+          f"training d=1000 ran the device plan: {by_plan}")
+    del noise
+
+    print(f"  d={D}, K={K_CHECK}: the device plan forced against the shared "
+          "plan (same tile 64)")
+    u1 = llgc.u_ref_table(np.arange(N_TRAIN) * DT_TRAIN)
+    plans = {}
+    for plan in ("shared", "device"):
+        o = km.fused_controlled_rollout(llgc, solver.z_net, K_CHECK, N_STEPS,
+                                        DT_IS, seed=9, plan=plan)
+        t_out = km.fused_train_rollout(llgc, solver.z_net, K_CHECK, N_TRAIN,
+                                       DT_TRAIN, 9, u_tab=u1, plan=plan)
+        g = torch.autograd.grad(train_loss(llgc, t_out, {}),
+                                list(solver.z_net.parameters()))
+        plans[plan] = (o, t_out, g)
+    torch.cuda.synchronize()
+    for i, what in enumerate(("serve outputs", "training outputs",
+                              "training gradients")):
+        pairs = list(zip(plans["shared"][i], plans["device"][i]))
+        diff = max(float((a.detach() - b.detach()).abs().max())
+                   for a, b in pairs)
+        scale = max(float(a.detach().abs().max()) for a, _ in pairs)
+        bitwise = all(torch.equal(a, b) for a, b in pairs)
+        print(f"  {what}: max |shared - device| {diff:.3e} (bitwise "
+              f"{bitwise})")
+        check(diff <= (GRAD_TOL if i == 2 else REL_TOL) * (1.0 + scale),
+              f"device vs shared plan, {what}: {diff:.3e}")
+
+    # the training kernels' plain times: at the check shape (the plain
+    # backward at K5 would need 79 GB)
+    kw = dict(u_tab=u5, rng="binom")
+    call = km._TrainCall(llgc5, net5, Kc, N, dt, 17,
+                         km._check_train_family(llgc5, net5, N, 1.0, u5,
+                                                "binom"),
+                         dict(adaptive_forward=True, accumulate_kl=False,
+                              kl_ito_term=False, u_tab=u5, rng="binom",
+                              noise_sign=1.0, host_noise=None), None)
+    gY = torch.randn(Kc, generator=gen, device=dev)
+    gKL = torch.zeros(Kc, device=dev)
+
+    def no_grad(fn):
+        def run():
+            with torch.no_grad():
+                fn()
+        return run
+
+    pairs = {
+        "forward":(no_grad(lambda: km.fused_train_rollout(
+                        llgc5, net5, Kc, N, dt, 17, **kw)),
+                    no_grad(lambda: km.reference_train_rollout(
+                        llgc5, net5, Kc, N, dt, 17, **kw))),
+        "backward": (lambda: km._train_backward_kernel(call, gY, gKL),
+                     lambda: km._reference_train_backward(call, gY, gKL)),
+    }
+    times = {}
+    for name, (kern_fn, plain_fn) in pairs.items():
+        p1 = timed(plain_fn, 1)
+        k = [timed(kern_fn, 2), timed(kern_fn, 2)]
+        p2 = timed(plain_fn, 1)
+        times[name] = (min(k), min(p1, p2))
+        print(f"  {name:8s} d={d} K={Kc} kernel {k[0]:.3f}, {k[1]:.3f} ms; "
+              f"plain {p1:.3f}, {p2:.3f} ms")
+
+    # -- phase 14: BASELINE config 5 on the card ----------------------------
+    print(f"phase 14: config 5, HJBSolver(LLGC(d={d}, T={T5}), delta_t={dt}, "
+          f"K={K5}, 'inner', log-variance, detach_forward, learn_Y_0, "
+          f"fused_train, binom), {STEPS5} steps")
+    reset_counts(km.fused_train_rollout, "launches", "backward_launches",
+                 "launches_by_plan", "backward_launches_by_plan")
+    reset_counts(km.fused_controlled_rollout, "launches", "launches_by_plan")
+    step_ms = [timed(trainer.step, 1, warm=False) for _ in range(STEPS5)]
+    print(f"  steps {['%.1f' % t for t in step_ms]} ms -> "
+          f"{K5 * N / min(step_ms) * 1e3:.4e} path-steps/s; loss "
+          f"{['%.4e' % v for v in trainer.loss_log]}; u_L2 "
+          f"{['%.3f' % v for v in trainer.u_L2_loss]}")
+    # the serve entry point with the trained control: log E of the d=1000
+    # chain is 1/2 d dt sum_{j<N} (1 - dt)^{2j}; a control trained for a
+    # few steps leaves a wide estimator, so only finiteness is checked
+    out = km.fused_controlled_rollout(llgc5, trainer.z_net, K5_SERVE, N, dt,
+                                      seed=2026)
+    logw = -out.f_int - llgc5.g(out.X) - out.ito - 0.5 * out.riemann
+    log_mean = float(torch.logsumexp(logw, 0)) - math.log(K5_SERVE)
+    print(f"  serve, K={K5_SERVE}: log mean {log_mean:.3f} (exact "
+          f"{LOG_E5_EXACT})")
+    launches = {"serve": dict(km.fused_controlled_rollout.launches_by_plan),
+                "forward": dict(km.fused_train_rollout.launches_by_plan),
+                "backward": dict(
+                    km.fused_train_rollout.backward_launches_by_plan)}
+    print(f"  launches by plan: {launches}")
+    check(all(math.isfinite(v) for v in trainer.loss_log), "finite losses")
+    check(math.isfinite(log_mean), f"serve log mean {log_mean}")
+    check(launches["forward"] == launches["backward"]
+          == {"shared": 0, "device": STEPS5}
+          and launches["serve"] == {"shared": 0, "device": 1},
+          "config 5 ran every launch on the device plan")
+
+    u_tab5 = trainer._u_tab
+    fwd_ms = [timed(no_grad(lambda: km.fused_train_rollout(
+        llgc5, trainer.z_net, K5, N, dt, 3, u_tab=u_tab5)), 1)
+        for _ in range(2)]
+    call5 = km._TrainCall(llgc5, trainer.z_net, K5, N, dt, 3,
+                          km._check_train_family(llgc5, trainer.z_net, N,
+                                                 1.0, u_tab5, "binom"),
+                          dict(adaptive_forward=True, accumulate_kl=False,
+                               kl_ito_term=False, u_tab=u_tab5, rng="binom",
+                               noise_sign=1.0, host_noise=None), None)
+    gY5 = torch.randn(K5, generator=gen, device=dev) / K5
+    bwd_ms = timed(lambda: km._train_backward_kernel(
+        call5, gY5, torch.zeros_like(gY5)), 1, warm=False)
+    print(f"  K={K5}: forward kernel {['%.1f' % t for t in fwd_ms]} ms, "
+          f"backward kernel {bwd_ms:.1f} ms, step {min(step_ms):.1f} ms")
+
+    def serve5():
+        return km.fused_controlled_rollout(llgc5, trainer.z_net, K5_SERVE, N,
+                                           dt, seed=5)
+
+    def plain_serve5():
+        return km.reference_controlled_rollout(llgc5, trainer.z_net,
+                                               K5_SERVE, N, dt, seed=5)
+
+    with torch.no_grad():
+        p1 = timed(plain_serve5, 1)
+        k = [timed(serve5, 2), timed(serve5, 2)]
+        p2 = timed(plain_serve5, 1)
+    serve_ms = (min(k), min(p1, p2))
+    print(f"  serve K={K5_SERVE}: kernel {k[0]:.3f}, {k[1]:.3f} ms; plain "
+          f"{p1:.3f}, {p2:.3f} ms")
+    profile_steps(f"1 config-5 step, K={K5}", trainer.step, n=1)
+    del call5
+    torch.cuda.empty_cache()
+    plain = HJBSolver("config5_plain", llgc5, lr=1e-2, L=1, K=K5_PLAIN,
+                      delta_t=dt, time_approx="inner",
+                      loss_method="log-variance", detach_forward=True,
+                      learn_Y_0=True, verbose=False,
+                      early_stopping_time=None, seed=5, rollout_mode="scan",
+                      device=dev)
+    p_ms = timed(plain.step, 1, warm=False)
+    fused_small = HJBSolver("config5_small", llgc5, lr=1e-2, L=1, K=K5_PLAIN,
+                            delta_t=dt, time_approx="inner",
+                            loss_method="log-variance", detach_forward=True,
+                            learn_Y_0=True, verbose=False,
+                            early_stopping_time=None, seed=5,
+                            rollout_mode="fused_train", fused_rng="binom",
+                            device=dev)
+    f_ms = timed(fused_small.step, 1)
+    print(f"  K={K5_PLAIN}: plain (scan) step {p_ms:.1f} ms, fused step "
+          f"{f_ms:.1f} ms; card: {smi}")
+    print(f"  phases 13-14 took {time.perf_counter() - t_phases:.1f} s")
+
+    # the rows: the kernels' times at the main path's shapes (phase 14),
+    # the plain versions' where they can run (the training kernels' at the
+    # check shape, phase 13)
+    n_par = sum(p.numel() for p in trainer.z_net.parameters())
+    widths = [d + 1, 30, 30, d]
+    fwd_f, bwd_f = train_flops(widths, n_par)
+    steps = K5 * N
+    row = {"route": "cuda", "source": TRAIN_SOURCE,
+           "shape": f"d={d}, K={K5}, N={N}",
+           "plain_shape": f"d={d}, K={Kc}, N={N}"}
+    return trainer, [
+        dict(row, name="fused_controlled_rollout.device_plan_d1000",
+             source=SERVE_SOURCE, replaces="pspde/rollout/kernels.py:339",
+             shape=f"d={d}, K={K5_SERVE}, N={N}",
+             plain_shape=f"d={d}, K={K5_SERVE}, N={N}",
+             launches=launches["serve"]["device"],
+             max_abs_err=worst["serve"], ms=serve_ms[0],
+             plain_ms=serve_ms[1],
+             **roofline(K5_SERVE * N * (mlp_flops(widths) + 10 * d),
+                        4 * (n_par + K5_SERVE * (d + 3)))),
+        dict(row, name="fused_train_rollout.forward.device_plan_d1000",
+             replaces="pspde/rollout/kernels.py:696",
+             launches=launches["forward"]["device"],
+             max_abs_err=worst["out"], ms=min(fwd_ms),
+             plain_ms=times["forward"][1],
+             **roofline(steps * fwd_f, 4 * (n_par + N * d + K5 * (d + 3)))),
+        dict(row, name="fused_train_rollout.backward.device_plan_d1000",
+             replaces="pspde/rollout/kernels.py:788",
+             launches=launches["backward"]["device"],
+             max_abs_err=worst["grad"], ms=bwd_ms,
+             plain_ms=times["backward"][1],
+             **roofline(steps * bwd_f, 4 * (2 * n_par + N * d + 2 * K5))),
+    ]
+
+
+def roofline_phases(dev, smi, llgc, solver, config5):
+    """Phase 15: the roofline kernels against their plain versions at the
+    main path's shapes, then the measured rates, the roofline model and the
+    ablation ladders at the bench shape (``solver``: LLGC d=100, N=32, the
+    exported control) and at config 5 (``config5``).  Returns the kernels'
+    JSON rows."""
+    from pspde_torch.utils import roofline as rf
+
+    t_phases = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(15)
+    llgc5 = config5.problem
+    print("phase 15: the roofline kernels vs plain; the FMA and normals "
+          "rates; the roofline model; the ablation ladders")
+
+    # fma_chain: 4 links against plain (the map is chaotic, so no longer
+    # chain can be compared), then at the main path's size the time at 2P
+    # passes over the time at P, and the map's invariant interval
+    x0 = 0.3 + 0.01 * torch.randn((D, FMA_TILE), generator=gen, device=dev)
+    fma_err = 0.0
+    for P, chain in ((1, 4), (4, 1)):
+        y = rf.fma_chain(x0.clone(), P, chain)
+        err = float((y - rf.reference_fma_chain(x0.clone(), P, chain))
+                    .abs().max())
+        fma_err = max(fma_err, err)
+        print(f"  fma_chain P={P}, chain {chain}: max |kernel - plain| "
+              f"{err:.3e} (bound {FMA_TOL:g})")
+        check(err <= FMA_TOL, f"fma_chain P={P}, chain {chain}: {err:.3e}")
+    x = torch.full((D, FMA_TILE), 0.3, device=dev)
+    t_fma = [timed(lambda: rf.fma_chain(x, rf.FMA_P, 16), 5)
+             for _ in range(2)]
+    t_fma2 = timed(lambda: rf.fma_chain(x, 2 * rf.FMA_P, 16), 5)
+    ratio = t_fma2 / min(t_fma)
+    x_max = float(x.abs().max())
+    print(f"  fma_chain chain 16: P={rf.FMA_P} {t_fma} ms, P={2 * rf.FMA_P} "
+          f"{t_fma2:.4f} ms (ratio {ratio:.4f}, bounds {PASS_RATIO}); max "
+          f"|x| {x_max:.4f} <= 1.92")
+    check(PASS_RATIO[0] <= ratio <= PASS_RATIO[1],
+          f"fma_chain 2P / P time ratio {ratio:.4f}")
+    check(bool(torch.isfinite(x).all()) and x_max <= 1.92,
+          f"fma_chain left the invariant interval: {x_max}")
+    p_fma = timed(lambda: rf.reference_fma_chain(x, rf.FMA_P, 16), 1,
+                  warm=False)
+
+    # normals_sum at the main path's shape, both maps
+    normals_err, t_nrm, p_nrm = 0.0, {}, {}
+    for rng in ("erfinv", "binom"):
+        def kern():
+            return rf.normals_sum(7, D, FMA_TILE, rf.NORMALS_P, rng, dev)
+        t_nrm[rng] = [timed(kern, 5) for _ in range(2)]
+        p_nrm[rng], b = timed_out(lambda: rf.reference_normals_sum(
+            7, D, FMA_TILE, rf.NORMALS_P, rng, dev))
+        normals_err = max(normals_err, compare_rel(
+            f"normals_sum {rng}, P={rf.NORMALS_P}", kern(), b))
+        print(f"    kernel {t_nrm[rng]} ms, plain {p_nrm[rng]:.1f} ms")
+
+    # every ladder stage on both plans: the shared plan at d=100, K=8192,
+    # N=32, the device plan at config 5's width (d=1000, K=2048, N=200);
+    # then `full` at the bench shape, timed.  The noise stage at d=1000
+    # sums 2e5 normals into one float32 per path (|acc| ~ 1.7e3, ulp
+    # 1.2e-4) where the plain version sums each step's 1000 first, so it
+    # reads ~2e-5 relative, the most of any stage.
+    ladder_err = 0.0
+    for tag, prob, net, K, N, dt, plan in (
+            (f"d={D}, K={K_TRAIN_CHECK}, N={N_TRAIN}", llgc, solver.z_net,
+             K_TRAIN_CHECK, N_TRAIN, DT_TRAIN, "shared"),
+            (f"d={D5}, K={K5_CHECK}, N={N5}", llgc5, config5.z_net,
+             K5_CHECK, N5, DT5, "device")):
+        reset_counts(rf.ablation, "launches_by_plan")
+        for stage in rf.ABLATION_STAGES:
+            a = rf.ablation(stage, prob, net, K, N, dt, seed=11)
+            b = rf.reference_ablation(stage, prob, net, K, N, dt, seed=11)
+            ladder_err = max(ladder_err, compare_rel(
+                f"ablation {stage:12s} {tag}", a, b))
+        by_plan = rf.ablation.launches_by_plan
+        check(by_plan[plan] == len(rf.ABLATION_STAGES),
+              f"ablation {tag} ran the {plan} plan: {by_plan}")
+
+    def full():
+        return rf.ablation("full", llgc, solver.z_net, K_BENCH, N_TRAIN,
+                           DT_TRAIN)
+
+    t_lad = [timed(full, 5) for _ in range(2)]
+    p_lad, b = timed_out(lambda: rf.reference_ablation(
+        "full", llgc, solver.z_net, K_BENCH, N_TRAIN, DT_TRAIN))
+    ladder_err = max(ladder_err, compare_rel(
+        f"ablation full, d={D}, K={K_BENCH}, N={N_TRAIN}", full(), b))
+    print(f"  fma_chain P={rf.FMA_P}: kernel {t_fma} ms, plain {p_fma:.1f} "
+          f"ms; ablation full K={K_BENCH}: kernel {t_lad} ms, plain "
+          f"{p_lad:.1f} ms")
+
+    # the main path: the rates, the model, the ladders
+    for fn in (rf.fma_chain, rf.normals_sum):
+        reset_counts(fn, "launches")
+    reset_counts(rf.ablation, "launches", "launches_by_plan")
+    fma_rate = rf.vpu_fma_rate(P=rf.FMA_P, device=dev)
+    print(f"  vpu_fma_rate(P={rf.FMA_P}): {fma_rate:.6e} flop/s "
+          f"({100 * fma_rate / PEAK_FLOPS:.1f}% of the data sheet's "
+          f"{PEAK_FLOPS:.3g}); card: {smi}")
+    normals = {rng: rf.prng_normals_rate(P=rf.NORMALS_P, rng=rng, device=dev)
+               for rng in ("erfinv", "binom")}
+    for rng, r in normals.items():
+        print(f"  prng_normals_rate(P={rf.NORMALS_P}, rng={rng!r}): {r:.6e} "
+              f"normals/s; card: {smi}")
+    for tag, prob, s in (("d=100, N=32", llgc, solver),
+                         ("config 5, d=1000, N=200", llgc5, config5)):
+        for rng in ("binom", "erfinv"):
+            m = rf.fused_train_vpu_roofline(prob, s, fma_rate=fma_rate,
+                                            normals_rate=normals[rng])
+            print(f"  roofline model, {tag}, {rng}: "
+                  f"{m['roofline_path_steps_per_sec']:.4e} path-steps/s "
+                  f"(normals {m['normals_per_path_step']:.0f}, elem "
+                  f"{m['elem_ops_per_path_step']:.0f}, mm "
+                  f"{m['mm_flops_per_path_step']:.0f} FLOP, sfu "
+                  f"{m['sfu_per_path_step']:.0f} per path-step; unknown "
+                  f"{m['unknown_prims']})")
+            check(not m["unknown_prims"], "every traced op counted")
+    for tag, prob, s, K, reps in (
+            (f"d={D}, K={K_BENCH}, N={N_TRAIN}", llgc, solver, K_BENCH, 10),
+            (f"config 5, d={D5}, K={K5}, N={N5}", llgc5, config5, K5, 1)):
+        t0 = time.perf_counter()
+        lad = rf.fused_ablation_rates(prob, s, K=K, reps=reps)
+        print(f"  ablation ladder, {tag} ({time.perf_counter() - t0:.1f} s):")
+        for stage, r in lad.items():
+            print(f"    {stage:12s} {r:.4e} path-steps/s, "
+                  f"{K * s.N / r * 1e3:.3f} ms per launch")
+        print(f"    noise / 2 (the training step's replay ceiling): "
+              f"{lad['noise'] / 2:.4e}; card: {smi}")
+    launches = {"fma_chain": rf.fma_chain.launches,
+                "normals_sum": rf.normals_sum.launches,
+                "ablation": rf.ablation.launches}
+    by_plan = dict(rf.ablation.launches_by_plan)
+    print(f"  launches on the main path: {launches}; ablation by plan "
+          f"{by_plan}")
+    check(all(n > 0 for n in launches.values())
+          and all(n > 0 for n in by_plan.values()),
+          "the main path launched every roofline kernel, the ladder on "
+          "both plans")
+    print(f"  phase 15 took {time.perf_counter() - t_phases:.1f} s")
+
+    n_fma = D * FMA_TILE
+    n_normals = D * FMA_TILE * rf.NORMALS_P
+    # Philox4x32-10: 10 rounds of 2 mul.lo and 2 mul.hi per 4 words, one
+    # block per 4 erfinv draws: 10 integer multiplies per normal, the
+    # least of its work (the map's FP32 and SFU work comes on top)
+    t_int = 10 * n_normals / INT_MUL_RATE
+    n_par = sum(p.numel() for p in solver.z_net.parameters())
+    return [
+        {"name": "fma_chain", "route": "cuda", "source": ROOFLINE_SOURCE,
+         "replaces": "pspde/utils/roofline.py:112",
+         "launches": launches["fma_chain"], "max_abs_err": fma_err,
+         "ms": min(t_fma), "plain_ms": p_fma,
+         **roofline(2.0 * n_fma * 16 * rf.FMA_P, 8 * n_fma)},
+        {"name": "normals_sum", "route": "cuda", "source": ROOFLINE_SOURCE,
+         "replaces": "pspde/utils/roofline.py:138",
+         "launches": launches["normals_sum"], "max_abs_err": normals_err,
+         "ms": min(t_nrm["erfinv"]), "plain_ms": p_nrm["erfinv"],
+         "bound_ms": 1e3 * max(t_int, 4 * FMA_TILE / PEAK_BYTES),
+         "bound_by": "operations", "library_ms": None},
+        {"name": "ablation", "route": "cuda", "source": ROOFLINE_SOURCE,
+         "replaces": "pspde/utils/roofline.py:327",
+         "launches": launches["ablation"], "max_abs_err": ladder_err,
+         "ms": min(t_lad), "plain_ms": p_lad,
+         **roofline(K_BENCH * N_TRAIN * (mlp_flops([D + 1, 30, 30, D])
+                                         + 13 * D),
+                    4 * (n_par + K_BENCH))},
     ]
 
 

@@ -1,0 +1,125 @@
+#!/usr/bin/env python3
+"""Time the PyTorch port's serve and HJB training kernels at the bench
+shapes on one CUDA card, and print one JSON line.
+
+    python3 experiments/torch_kernel_times.py [--root DIR]
+
+``--root`` names the checkout whose ``pspde_torch`` is timed (default:
+the one this script lives in).  Two trees are compared on one card in one
+command: unpack the other with ``git archive`` into a directory that
+``.gitignore`` lists and run parent, change, change, parent, e.g.
+
+    for r in build/parent . . build/parent; do
+        python3 experiments/torch_kernel_times.py --root $r; done
+
+Each kernel is timed with CUDA events, best of two rounds: the serve
+kernel at LLGC d=100 with the exported control, K=2^20, N=100, Philox
+noise; the training forward and replay backward at K=131072, N=32, binom
+noise, u_tab; and one ``HJBSolver.step()`` at that shape.  Where the
+tree's kernels take ``plan=``, the three kernels are timed again with the
+device memory plan forced (the net read from device memory, each path's
+arrays in a [row][K] workspace), against the shared plan they choose at
+d=100.
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+D, N_SERVE, DT_SERVE, K_SERVE = 100, 100, 0.01, 2 ** 20
+N_TRAIN, K_TRAIN = 32, 131072
+
+
+def timed(fn, reps, rounds=2):
+    """Best ms per call of ``fn`` over ``rounds`` rounds of ``reps`` calls,
+    after one warm-up call."""
+    fn()
+    best = float("inf")
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(reps):
+            fn()
+        stop.record()
+        torch.cuda.synchronize()
+        best = min(best, start.elapsed_time(stop) / reps)
+    return best
+
+
+def main():
+    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", default=here,
+                    help="checkout whose pspde_torch is timed")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("torch_kernel_times: this script needs one CUDA card")
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+    from pspde_torch.problems import LLGC
+    from pspde_torch.rollout import kernels as km
+    from pspde_torch.solvers import HJBSolver
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda:0")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    llgc = LLGC(d=D, T=1.0, device=dev)
+    solver = HJBSolver("llgc_d100", llgc, K=1024, delta_t=1 / 32,
+                       time_approx="inner", learn_Y_0=True, device=dev)
+    solver.load_jax_params(os.path.join(root, "pspde_torch", "assets",
+                                        "llgc_d100_tanhmlp.npz"))
+    bench = HJBSolver("llgc_d100_bench", llgc, lr=1e-3, L=1, K=K_TRAIN,
+                      delta_t=1 / N_TRAIN, time_approx="inner",
+                      loss_method="log-variance", detach_forward=True,
+                      learn_Y_0=True, verbose=False, early_stopping_time=None,
+                      rollout_mode="fused_train", device=dev)
+    bench.fused_rng = "binom"
+    net, dt = bench.z_net, 1.0 / N_TRAIN
+    u_tab = llgc.u_ref_table(np.arange(N_TRAIN) * dt)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    gY = torch.randn(K_TRAIN, generator=gen, device=dev)
+    gKL = torch.zeros(K_TRAIN, device=dev)
+    call = km._TrainCall(
+        llgc, net, K_TRAIN, N_TRAIN, dt, 17,
+        km._check_train_family(llgc, net, N_TRAIN, 1.0, u_tab, "binom"),
+        dict(adaptive_forward=True, accumulate_kl=False, kl_ito_term=False,
+             u_tab=u_tab, rng="binom", noise_sign=1.0, host_noise=None),
+        None)
+    has_plans = "plan" in km._TrainCall._fields
+
+    def kernels(plan):
+        kw = {} if plan is None else {"plan": plan}
+        c = call if plan is None else call._replace(plan=plan)
+
+        def serve():
+            km.fused_controlled_rollout(llgc, solver.z_net, K_SERVE, N_SERVE,
+                                        DT_SERVE, seed=5, **kw)
+
+        def fwd():
+            km.fused_train_rollout(llgc, net, K_TRAIN, N_TRAIN, dt, 17,
+                                   u_tab=u_tab, rng="binom", **kw)
+
+        with torch.no_grad():
+            return {"serve": timed(serve, 5), "fwd": timed(fwd, 10),
+                    "bwd": timed(lambda: km._train_backward_kernel(c, gY,
+                                                                   gKL), 5)}
+
+    out = {"root": os.path.relpath(root, here), "card": card}
+    out.update({f"{k}_default": v for k, v in kernels(None).items()})
+    if has_plans:
+        out.update({f"{k}_device": v for k, v in kernels("device").items()})
+    out["step"] = timed(bench.step, 5)
+    print(json.dumps(out))
+
+
+if __name__ == "__main__":
+    main()

@@ -24,6 +24,12 @@
 // The only device-memory traffic is the host noise (test mode) and the
 // final write.  Occupancy is bounded by the ~1.1 KB of per-path state in
 // shared memory; that is the first thing to change when making it fast.
+// At wide d the staged buffer and the per-path state fit no tile's block
+// (d = 1000, TanhMLP (30, 30): 532 KB at tile 32).  The device plan then
+// reads the buffer from device memory (the same words for every thread:
+// L1 and L2 serve them) and keeps each path's arrays in a workspace of
+// device memory laid out [row][ws_stride], ws_stride the grid's paths, so
+// that a warp still reads 32 consecutive words; the step code is the same.
 //
 // Family (the wrapper raises a ValueError outside it): drift -x or A x;
 // sigma scalar, diag or full; f zero or x^T P x evaluated at (X_new, t);
@@ -53,40 +59,57 @@ struct Args {
   int p_off, x0_off, n_params, host_noise;
   int rows[kMaxLayers], cols[kMaxLayers], w_off[kMaxLayers],
       b_off[kMaxLayers];
+  int plan;         // 0: shared (all staged), 1: device (workspace)
+  int ws_stride;    // device plan: the row stride of the workspace
   float dt, sq_dt, noise_sign, sig_scale;
   uint32_t key0, key1;
 };
-constexpr int kNumIntArgs = 16 + 4 * kMaxLayers;   // the ints before `dt`
+constexpr int kNumIntArgs = 18 + 4 * kMaxLayers;   // the ints before `dt`
 static_assert(offsetof(Args, dt) == kNumIntArgs * sizeof(int),
               "Args must start with kNumIntArgs ints, as the wrapper packs");
 
+// kDevice: the plan, a template parameter so that the shared plan's arrays
+// are known to be in shared memory (shared-memory loads)
+template <bool kDevice>
 __global__ void __launch_bounds__(kMaxTile)
 controlled_rollout_kernel(const Args a, const float* __restrict__ params,
                           const float* __restrict__ noise,
-                          float* __restrict__ out) {
+                          float* __restrict__ out, float* ws) {
   extern __shared__ float4 smem4[];
   float* S = reinterpret_cast<float*>(smem4);
   const int tile = a.tile;
   const int tid = threadIdx.x;
-  for (int i = tid; i < a.n_params; i += tile) S[i] = params[i];
-  __syncthreads();
   const int k = blockIdx.x * tile + tid;
+  // where the buffer is read, this thread's first array and the row stride
+  const float* W;
+  float* col;
+  int ts;
+  if (!kDevice) {
+    for (int i = tid; i < a.n_params; i += tile) S[i] = params[i];
+    W = S;
+    col = S + a.n_params + tid;
+    ts = tile;
+  } else {
+    W = params;
+    col = ws + k;
+    ts = a.ws_stride;
+  }
+  __syncthreads();
   if (k >= a.K) return;   // no barrier below: each thread owns its column
 
   const bool dense_update = a.drift_kind == 1 || a.sig_kind == 2;
-  float* col = S + a.n_params + tid;
   float* X = col;
-  col += a.dp * tile;
+  col += a.dp * ts;
   float* Xn = X;
   if (dense_update) {
     Xn = col;
-    col += a.dp * tile;
+    col += a.dp * ts;
   }
   float* U = col;
-  col += a.dp * tile;
-  float* H[2] = {col, col + a.hmax * tile};
+  col += a.dp * ts;
+  float* H[2] = {col, col + a.hmax * ts};
 
-  for (int j = 0; j < a.dp; ++j) X[j * tile] = S[a.x0_off + j];
+  for (int j = 0; j < a.dp; ++j) X[j * ts] = W[a.x0_off + j];
   float ito = 0.0f, riem = 0.0f, fint = 0.0f;
 
   for (int n = 0; n < a.N; ++n) {
@@ -97,7 +120,7 @@ controlled_rollout_kernel(const Args a, const float* __restrict__ params,
     for (int l = 0; l < a.n_layers; ++l) {
       const bool last = l == a.n_layers - 1;
       float* o = last ? U : H[l & 1];
-      dense(S + a.w_off[l], S + a.b_off[l], a.rows[l], a.cols[l], in, tile,
+      dense(W + a.w_off[l], W + a.b_off[l], a.rows[l], a.cols[l], in, ts,
             o, !last, l == 0, t);
       in = o;
     }
@@ -127,15 +150,15 @@ controlled_rollout_kernel(const Args a, const float* __restrict__ params,
         const int j = 4 * g + q;
         if (j >= a.d) break;
         const float x = a.noise_sign * xi[q];
-        const float u = U[j * tile];
+        const float u = U[j * ts];
         s_ux = fmaf(u, x, s_ux);
         s_uu = fmaf(u, u, s_uu);
         if (dense_update) {
-          U[j * tile] = u * a.dt + x * a.sq_dt;
+          U[j * ts] = u * a.dt + x * a.sq_dt;
         } else {
-          const float s = a.sig_kind == 0 ? a.sig_scale : S[a.sig_off + j];
-          const float xo = X[j * tile];
-          X[j * tile] = (xo + (s * u - xo) * a.dt) + s * x * a.sq_dt;
+          const float s = a.sig_kind == 0 ? a.sig_scale : W[a.sig_off + j];
+          const float xo = X[j * ts];
+          X[j * ts] = (xo + (s * u - xo) * a.dt) + s * x * a.sq_dt;
         }
       }
     }
@@ -148,24 +171,24 @@ controlled_rollout_kernel(const Args a, const float* __restrict__ params,
         float bx[kChunk], sv[kChunk];
 #pragma unroll
         for (int c = 0; c < kChunk; ++c) {
-          bx[c] = a.drift_kind == 1 ? 0.0f : -X[(j0 + c) * tile];
+          bx[c] = a.drift_kind == 1 ? 0.0f : -X[(j0 + c) * ts];
           sv[c] = 0.0f;
         }
         if (a.drift_kind == 1)
-          matvec_chunk(S + a.a_off, a.d, a.dp, j0, X, tile, bx);
+          matvec_chunk(W + a.a_off, a.d, a.dp, j0, X, ts, bx);
         if (a.sig_kind == 2) {
-          matvec_chunk(S + a.sig_off, a.d, a.dp, j0, U, tile, sv);
+          matvec_chunk(W + a.sig_off, a.d, a.dp, j0, U, ts, sv);
         } else {
 #pragma unroll
           for (int c = 0; c < kChunk; ++c) {
             const float s =
-                a.sig_kind == 0 ? a.sig_scale : S[a.sig_off + j0 + c];
-            sv[c] = s * U[(j0 + c) * tile];
+                a.sig_kind == 0 ? a.sig_scale : W[a.sig_off + j0 + c];
+            sv[c] = s * U[(j0 + c) * ts];
           }
         }
 #pragma unroll
         for (int c = 0; c < kChunk; ++c)
-          Xn[(j0 + c) * tile] = X[(j0 + c) * tile] + bx[c] * a.dt + sv[c];
+          Xn[(j0 + c) * ts] = X[(j0 + c) * ts] + bx[c] * a.dt + sv[c];
       }
       float* tmp = X;
       X = Xn;
@@ -176,16 +199,16 @@ controlled_rollout_kernel(const Args a, const float* __restrict__ params,
       float f = 0.0f;
       for (int j0 = 0; j0 < a.dp; j0 += kChunk) {
         float px[kChunk] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-        matvec_chunk(S + a.p_off, a.d, a.dp, j0, X, tile, px);
+        matvec_chunk(W + a.p_off, a.d, a.dp, j0, X, ts, px);
 #pragma unroll
-        for (int c = 0; c < kChunk; ++c) f = fmaf(X[(j0 + c) * tile], px[c], f);
+        for (int c = 0; c < kChunk; ++c) f = fmaf(X[(j0 + c) * ts], px[c], f);
       }
       fint += f * a.dt;
     }
   }
 
   float* dst = out + static_cast<size_t>(k) * (a.d + 3);
-  for (int j = 0; j < a.d; ++j) dst[j] = X[j * tile];
+  for (int j = 0; j < a.d; ++j) dst[j] = X[j * ts];
   dst[a.d] = ito;
   dst[a.d + 1] = riem;
   dst[a.d + 2] = fint;
@@ -195,10 +218,12 @@ controlled_rollout_kernel(const Args a, const float* __restrict__ params,
 
 // Launch on `stream` of CUDA device `device`; returns the cudaError_t of
 // the launch (0 = success).  `iargs` and `fargs` are host arrays in the
-// order of Args.
+// order of Args; `ws` is the device plan's workspace (null in the shared
+// plan).
 extern "C" int pspde_controlled_rollout(const float* params,
                                         const float* host_noise, float* out,
-                                        const int* iargs, const float* fargs,
+                                        float* ws, const int* iargs,
+                                        const float* fargs,
                                         unsigned long long seed, int device,
                                         void* stream) {
   Args a;
@@ -210,7 +235,8 @@ extern "C" int pspde_controlled_rollout(const float* params,
   a.key0 = static_cast<uint32_t>(seed & 0xFFFFFFFFull);
   a.key1 = static_cast<uint32_t>(seed >> 32);
   if (a.tile <= 0 || a.tile > kMaxTile || a.n_layers < 1 ||
-      a.n_layers > kMaxLayers || a.K <= 0)
+      a.n_layers > kMaxLayers || a.K <= 0 || a.plan < 0 || a.plan > 1 ||
+      (a.plan == 1 && a.ws_stride < (a.K + a.tile - 1) / a.tile * a.tile))
     return static_cast<int>(cudaErrorInvalidValue);
 
   cudaError_t e = cudaSetDevice(device);
@@ -218,15 +244,17 @@ extern "C" int pspde_controlled_rollout(const float* params,
   const bool dense_update = a.drift_kind == 1 || a.sig_kind == 2;
   const size_t per_path = static_cast<size_t>(a.dp) * (dense_update ? 3 : 2)
                           + 2 * static_cast<size_t>(a.hmax);
-  const size_t smem = sizeof(float) * (a.n_params + per_path * a.tile);
-  e = cudaFuncSetAttribute(
-      controlled_rollout_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  const size_t smem =
+      a.plan == 1 ? 0 : sizeof(float) * (a.n_params + per_path * a.tile);
+  auto kernel = a.plan == 1 ? controlled_rollout_kernel<true>
+                            : controlled_rollout_kernel<false>;
+  e = cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
   const unsigned grid = static_cast<unsigned>((a.K + a.tile - 1) / a.tile);
-  controlled_rollout_kernel<<<grid, a.tile, smem,
-                              static_cast<cudaStream_t>(stream)>>>(
-      a, params, host_noise, out);
+  kernel<<<grid, a.tile, smem, static_cast<cudaStream_t>(stream)>>>(
+      a, params, host_noise, out, ws);
   return static_cast<int>(cudaGetLastError());
 }
 

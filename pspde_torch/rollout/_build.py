@@ -50,15 +50,25 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     vp = ctypes.c_void_p
     tail = [ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_float),
             ctypes.c_ulonglong, ctypes.c_int, vp]
-    # (params, host_noise, outputs..., iargs, fargs, seed, device, stream)
-    for name, n_ptr in (("pspde_controlled_rollout", 3),
-                        ("pspde_train_rollout_fwd", 6),
-                        ("pspde_train_rollout_bwd", 5),
+    # (params, host_noise, outputs..., [workspace,] iargs, fargs, seed,
+    # device, stream)
+    for name, n_ptr in (("pspde_controlled_rollout", 4),
+                        ("pspde_train_rollout_fwd", 7),
+                        ("pspde_train_rollout_bwd", 6),
                         ("pspde_stopped_rollout_fwd", 5),
                         ("pspde_stopped_rollout_bwd", 5)):
         fn = getattr(lib, name)
         fn.argtypes = [vp] * n_ptr + tail
         fn.restype = ctypes.c_int
+    # the roofline kernels (csrc/roofline.cu)
+    c_int = ctypes.c_int
+    lib.pspde_ablation.argtypes = [vp, vp, vp, c_int] + tail
+    lib.pspde_fma_chain.argtypes = [vp, c_int, c_int, c_int,
+                                    ctypes.POINTER(ctypes.c_float), c_int, vp]
+    lib.pspde_normals_sum.argtypes = [vp, c_int, c_int, c_int, c_int,
+                                      ctypes.c_ulonglong, c_int, vp]
+    for name in ("pspde_ablation", "pspde_fma_chain", "pspde_normals_sum"):
+        getattr(lib, name).restype = ctypes.c_int
     lib.pspde_cuda_error_string.argtypes = [ctypes.c_int]
     lib.pspde_cuda_error_string.restype = ctypes.c_char_p
     return lib

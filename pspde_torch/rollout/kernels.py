@@ -15,7 +15,10 @@ CUDA tensor it launches the hand-written kernel in
 ``pspde_torch/csrc/controlled_rollout.cu`` (built on first use by
 ``_build.py``); on a CPU tensor it runs ``reference_controlled_rollout``.
 There is no fallback from CUDA to the plain version: a CUDA call either
-launches the kernel or raises.
+launches the kernel or raises.  The serve and HJB training kernels have
+two memory plans (``_choose_plan``): the net staged in each block's shared
+memory beside its paths' arrays where that fits, else read from device
+memory with the arrays in a [row][K] workspace (d=1000).
 
 Noise is either given (``host_noise``, (N, K, d)) or drawn from a
 counter-based Philox4x32-10 stream keyed by (seed, path k, step n,
@@ -204,6 +207,8 @@ _MAX_LAYERS = 8            # csrc kMaxLayers
 _MAX_TILE = 128            # csrc __launch_bounds__
 _SMEM_LIMIT = 232_448      # bytes of shared memory one block may use (sm_90)
 _SIG_KIND = {"scalar": 0, "diag": 1, "full": 2}
+# where a block keeps the net and its paths' arrays (csrc/train_step.cuh)
+PLANS = ("shared", "device")
 
 
 def _ceil_to(n: int, m: int) -> int:
@@ -238,8 +243,10 @@ def _check_family(problem, z_net, with_f, noise_sign, outside=_outside):
 
 class _Packed(NamedTuple):
     params: torch.Tensor   # one flat float32 buffer, staged in shared memory
+                           # in the shared plan
     iargs: list
     fargs: list
+    ws_floats: int = 0     # the device plan's workspace; 0: shared plan
 
 
 class _Layout(NamedTuple):
@@ -328,25 +335,26 @@ def _layout(problem, z_net, drift, cost, negate_last: bool,
 
 
 def _pack(problem, z_net, drift, cost, K, N, delta_t, tile, host_noise,
-          noise_sign) -> _Packed:
+          noise_sign, plan=None) -> _Packed:
     """The serve kernel's arguments: the buffer of ``_layout`` with the
     last layer negated, so the kernel's net returns u = -Z, all of it
-    staged in shared memory.  ``tile`` None picks the tile from the shared
-    memory the block needs."""
+    staged in shared memory (shared plan) or read from device memory
+    (device plan): ``_choose_plan``."""
     d = problem.d
     dp = _ceil_to(d, _CHUNK)
     lay = _layout(problem, z_net, drift, cost, negate_last=True)
     off = lay.buf.numel()
     dense = lay.drift_kind == 1 or lay.sig_kind == 2
     per_path = dp * (3 if dense else 2) + 2 * lay.hmax
-    tile = _choose_tile(lambda t: _smem_bytes(off, per_path, t), tile)
+    tile, plan, stride = _choose_plan(
+        lambda t: _smem_bytes(off, per_path, t), per_path, K, tile, plan)
     iargs = [K, N, d, dp, lay.n_layers, lay.hmax, tile, lay.drift_kind,
              lay.a_off, lay.sig_kind, lay.sig_off, lay.f_kind, lay.p_off,
              lay.x0_off, off, int(host_noise is not None)]
-    iargs += _per_layer_args(lay)
+    iargs += _per_layer_args(lay) + [PLANS.index(plan), stride]
     dt, sq_dt = step_constants(delta_t)
     fargs = [dt, sq_dt, float(noise_sign), lay.sig_scale]
-    return _Packed(lay.buf, iargs, fargs)
+    return _Packed(lay.buf, iargs, fargs, per_path * stride)
 
 
 def _per_layer_args(lay: _Layout) -> list:
@@ -364,22 +372,55 @@ def _smem_bytes(n_params: int, per_path: int, tile: int) -> int:
     return 4 * (n_params + per_path * tile)
 
 
-def _choose_tile(smem_bytes, tile: Optional[int], outside=_outside) -> int:
-    """``tile``, or the largest of 64 and 32 whose block fits the shared
-    memory, ``smem_bytes(tile)`` bytes."""
-    if tile is not None:
-        if not (0 < tile <= _MAX_TILE and tile % 32 == 0):
-            raise ValueError(f"tile={tile} must be a multiple of 32 "
-                             f"in [32, {_MAX_TILE}]")
-        candidates = (tile,)
-    else:
-        candidates = (64, 32)
-    for t in candidates:
-        if smem_bytes(t) <= _SMEM_LIMIT:
-            return t
-    raise outside(f"{smem_bytes(candidates[-1])} bytes of shared memory at "
-                  f"tile={candidates[-1]} exceed the {_SMEM_LIMIT}-byte "
-                  "limit of one block")
+def _choose_plan(smem_bytes, per_path: int, K: int, tile: Optional[int],
+                 plan: Optional[str], outside=_outside):
+    """(tile, plan, ws_stride) of a launch.
+
+    The shared plan stages the packed net in shared memory beside each
+    path's arrays: ``tile``, or the largest of 64 and 32 whose block fits,
+    ``smem_bytes(tile)`` bytes.  Where no tile fits (or ``plan='device'``),
+    the device plan reads the net from device memory and keeps each path's
+    ``per_path`` floats in a [row][ws_stride] workspace, ws_stride = K
+    rounded up to the tile (64 unless given); its indices are 32-bit, so
+    ``per_path * ws_stride`` must stay below 2^31.  ``plan='shared'`` where
+    no tile fits, or a workspace past that, raises ``outside``'s
+    ValueError."""
+    _check_plan(plan)
+    if tile is not None and not (0 < tile <= _MAX_TILE and tile % 32 == 0):
+        raise ValueError(f"tile={tile} must be a multiple of 32 "
+                         f"in [32, {_MAX_TILE}]")
+    if plan != "device":
+        candidates = (tile,) if tile is not None else (64, 32)
+        for t in candidates:
+            if smem_bytes(t) <= _SMEM_LIMIT:
+                return t, "shared", 0
+        if plan == "shared":
+            raise outside(f"{smem_bytes(candidates[-1])} bytes of shared "
+                          f"memory at tile={candidates[-1]} exceed the "
+                          f"{_SMEM_LIMIT}-byte limit of one block "
+                          "(plan='shared')")
+    t = 64 if tile is None else tile
+    stride = _ceil_to(K, t)
+    if per_path * stride >= 2 ** 31:
+        raise outside(f"the device plan's workspace of {per_path} x {stride}"
+                      " floats exceeds the kernels' 32-bit indices")
+    return t, "device", stride
+
+
+def _check_plan(plan):
+    if plan not in (None,) + PLANS:
+        raise ValueError(f"plan={plan!r} must be None or one of {PLANS}")
+
+
+def _workspace(packed: _Packed, dev) -> Optional[torch.Tensor]:
+    """The device plan's per-path workspace, or None (shared plan)."""
+    if not packed.ws_floats:
+        return None
+    return torch.empty(packed.ws_floats, dtype=torch.float32, device=dev)
+
+
+def _plan_of(packed: _Packed) -> str:
+    return PLANS[packed.iargs[-2]]
 
 
 def _check_tensor(name, t, shape, device):
@@ -419,14 +460,18 @@ def fused_controlled_rollout(problem, z_net, K: int, N: int, delta_t: float,
                              seed: int = 0, with_f: bool = True,
                              host_noise: Optional[torch.Tensor] = None,
                              noise_sign: float = 1.0,
-                             tile: Optional[int] = None) -> ISRolloutOut:
+                             tile: Optional[int] = None,
+                             plan: Optional[str] = None) -> ISRolloutOut:
     """Controlled rollout of K paths over N steps, u = -z_net([t, X]).
 
     The device is the problem's (``problem.X_0.device``): the net and
     ``host_noise`` must live there too.  CPU: the plain version.  CUDA:
     the kernel, one block per ``tile`` paths (auto: 64, or 32 when the
-    shared memory demands it); ``fused_controlled_rollout.launches``
-    counts its launches.  Raises ValueError outside ``KERNEL_FAMILY``."""
+    shared memory demands it), in the shared plan where a block fits and
+    else the device plan (``plan`` forces one: ``_choose_plan``);
+    ``fused_controlled_rollout.launches`` counts its launches and
+    ``.launches_by_plan`` them per plan.  Raises ValueError outside
+    ``KERNEL_FAMILY``."""
     drift, cost = _check_family(problem, z_net, with_f, noise_sign)
     d = problem.d
     dev = problem.X_0.device
@@ -434,6 +479,7 @@ def fused_controlled_rollout(problem, z_net, K: int, N: int, delta_t: float,
         _check_tensor(f"z_net.{name}", p, p.shape, dev)
     if host_noise is not None:
         _check_tensor("host_noise", host_noise, (N, K, d), dev)
+    _check_plan(plan)
     if dev.type == "cpu":
         return reference_controlled_rollout(
             problem, z_net, K, N, delta_t, seed=seed, with_f=with_f,
@@ -443,15 +489,18 @@ def fused_controlled_rollout(problem, z_net, K: int, N: int, delta_t: float,
                          f"{dev}")
 
     packed = _pack(problem, z_net, drift, cost, K, N, delta_t, tile,
-                   host_noise, noise_sign)
+                   host_noise, noise_sign, plan)
     out = torch.empty((K, d + 3), dtype=torch.float32, device=dev)
     _launch("pspde_controlled_rollout", "fused_controlled_rollout", packed,
-            [packed.params, host_noise, out], seed, dev)
+            [packed.params, host_noise, out, _workspace(packed, dev)], seed,
+            dev)
     fused_controlled_rollout.launches += 1
+    fused_controlled_rollout.launches_by_plan[_plan_of(packed)] += 1
     return ISRolloutOut(out[:, :d], out[:, d], out[:, d + 1], out[:, d + 2])
 
 
 fused_controlled_rollout.launches = 0
+fused_controlled_rollout.launches_by_plan = dict.fromkeys(PLANS, 0)
 
 
 # -- the training rollout (counterpart of make_fused_train_rollout) --------
@@ -535,20 +584,22 @@ def _check_train_family(problem, z_net, N, noise_sign, u_tab, rng):
 
 
 def _train_smem_bytes(fixed: int, per_path: int, tile: int) -> int:
-    """Shared memory of one training block: ``fixed`` floats (the staged
-    net and X_0, plus the gradient buffer in the backward) and
-    ``per_path`` floats per path at stride tile + 1 - the formula of
-    train_rollout.cu:smem_floats."""
+    """Shared memory of one training block in the shared plan: ``fixed``
+    floats (the staged net and X_0, plus the gradient buffer in the
+    backward) and ``per_path`` floats per path at stride tile + 1 - the
+    formula of train_step.cuh:train_smem_floats."""
     return 4 * (fixed + per_path * (tile + 1))
 
 
 def _pack_train(problem, z_net, drift, cost, hfam, K, N, delta_t, tile, *,
                 backward, host_noise, noise_sign, adaptive_forward,
-                accumulate_kl, kl_ito_term, u_tab, rng) -> _Packed:
-    """The training kernels' arguments (train_rollout.cu: TrainArgs): the
+                accumulate_kl, kl_ito_term, u_tab, rng,
+                plan=None) -> _Packed:
+    """The training kernels' arguments (train_step.cuh: TrainArgs): the
     buffer of ``_layout`` with the net as it is (the kernel's net returns
-    Z) and the u_tab table, and the per-layer offsets of one block's
-    gradient buffer, [W (rows, cols); b (1, cols)] per layer."""
+    Z) and the u_tab table, the per-layer offsets of one block's gradient
+    buffer, [W (rows, cols); b (1, cols)] per layer, and the memory plan
+    (``_choose_plan``)."""
     d = problem.d
     dp = _ceil_to(d, _CHUNK)
     lay = _layout(problem, z_net, drift, cost, negate_last=False,
@@ -566,8 +617,9 @@ def _pack_train(problem, z_net, drift, cost, hfam, K, N, delta_t, tile, *,
         fixed, per_path = n_stage + n_grad, dp * (4 if dense else 3) + 2 * hidden
     else:
         fixed, per_path = n_stage, dp * (3 if dense else 2) + hidden
-    tile = _choose_tile(lambda t: _train_smem_bytes(fixed, per_path, t),
-                        tile, _train_outside)
+    tile, plan, stride = _choose_plan(
+        lambda t: _train_smem_bytes(fixed, per_path, t), per_path, K, tile,
+        plan, _train_outside)
     iargs = [K, N, d, dp, lay.n_layers, tile, lay.drift_kind, lay.a_off,
              lay.sig_kind, lay.sig_off, int(need_f), lay.p_off, lay.x0_off,
              n_stage, lay.u_off, int(u_tab is not None),
@@ -575,10 +627,11 @@ def _pack_train(problem, z_net, drift, cost, hfam, K, N, delta_t, tile, *,
              int(accumulate_kl), int(kl_ito_term), RNG_MAPS.index(rng),
              n_grad]
     iargs += _per_layer_args(lay) + g_off + [0] * (_MAX_LAYERS - lay.n_layers)
+    iargs += [PLANS.index(plan), stride]
     dt, sq_dt = step_constants(delta_t)
     fargs = [dt, sq_dt, float(noise_sign), lay.sig_scale, float(c_h),
              float(f_coef)]
-    return _Packed(lay.buf, iargs, fargs)
+    return _Packed(lay.buf, iargs, fargs, per_path * stride)
 
 
 class _TrainCall(NamedTuple):
@@ -593,6 +646,7 @@ class _TrainCall(NamedTuple):
     opts: dict               # adaptive_forward, accumulate_kl, kl_ito_term,
                              # u_tab, rng, noise_sign, host_noise
     tile: Optional[int]
+    plan: Optional[str] = None
 
     def plain(self) -> FusedTrainOut:
         return reference_train_rollout(self.problem, self.z_net, self.K,
@@ -607,7 +661,7 @@ class _TrainCall(NamedTuple):
             host_noise=o["host_noise"], noise_sign=o["noise_sign"],
             adaptive_forward=o["adaptive_forward"],
             accumulate_kl=o["accumulate_kl"], kl_ito_term=o["kl_ito_term"],
-            u_tab=o["u_tab"], rng=o["rng"])
+            u_tab=o["u_tab"], rng=o["rng"], plan=self.plan)
 
 
 def _train_forward_kernel(call: _TrainCall) -> FusedTrainOut:
@@ -618,8 +672,10 @@ def _train_forward_kernel(call: _TrainCall) -> FusedTrainOut:
     acc = [torch.empty((K,), dtype=torch.float32, device=dev)
            for _ in range(3)]
     _launch("pspde_train_rollout_fwd", "fused_train_rollout", packed,
-            [packed.params, call.opts["host_noise"], X, *acc], call.seed, dev)
+            [packed.params, call.opts["host_noise"], X, *acc,
+             _workspace(packed, dev)], call.seed, dev)
     fused_train_rollout.launches += 1
+    fused_train_rollout.launches_by_plan[_plan_of(packed)] += 1
     return FusedTrainOut(X, *acc)
 
 
@@ -633,8 +689,10 @@ def _train_backward_kernel(call: _TrainCall, gY, gKL) -> list:
     part = torch.empty((n_blocks, n_grad), dtype=torch.float32, device=dev)
     _launch("pspde_train_rollout_bwd", "fused_train_rollout", packed,
             [packed.params, call.opts["host_noise"], gY.contiguous(),
-             gKL.contiguous(), part], call.seed, dev)
+             gKL.contiguous(), part, _workspace(packed, dev)], call.seed,
+            dev)
     fused_train_rollout.backward_launches += 1
+    fused_train_rollout.backward_launches_by_plan[_plan_of(packed)] += 1
     total = part.sum(dim=0)
     rows = ia[22:22 + n_layers]
     cols = ia[22 + _MAX_LAYERS:22 + _MAX_LAYERS + n_layers]
@@ -705,7 +763,8 @@ def fused_train_rollout(problem, z_net, K: int, N: int, delta_t: float,
                         u_tab: Optional[torch.Tensor] = None,
                         rng: str = "binom", noise_sign: float = 1.0,
                         host_noise: Optional[torch.Tensor] = None,
-                        tile: Optional[int] = None) -> FusedTrainOut:
+                        tile: Optional[int] = None,
+                        plan: Optional[str] = None) -> FusedTrainOut:
     """Training rollout of K paths over N steps with a detached forward,
     Z = z_net([t, X]): X (K, d), Y, Z_sum and u_l2 (K,), differentiable in
     z_net's parameters through Y and Z_sum (a ``torch.autograd.Function``
@@ -715,7 +774,9 @@ def fused_train_rollout(problem, z_net, K: int, N: int, delta_t: float,
     ``host_noise`` (N, K, d) must live there.  CPU: the plain version
     (forward, and an autograd replay as the backward).  CUDA: the forward
     and backward kernels of ``csrc/train_rollout.cu``, counted by
-    ``fused_train_rollout.launches`` and ``.backward_launches``.  Noise is
+    ``fused_train_rollout.launches`` and ``.backward_launches`` (per plan:
+    ``.launches_by_plan``, ``.backward_launches_by_plan``); ``tile`` and
+    ``plan`` as ``fused_controlled_rollout`` takes them.  Noise is
     ``host_noise`` or the Philox stream of ``seed`` through ``rng``
     ('binom', the default, or 'erfinv'), times ``noise_sign``; antithetic
     training is two calls over K/2 paths with one seed and signs +1, -1.
@@ -731,17 +792,20 @@ def fused_train_rollout(problem, z_net, K: int, N: int, delta_t: float,
         _check_tensor("host_noise", host_noise, (N, K, d), dev)
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_train_rollout: no kernel for device {dev}")
+    _check_plan(plan)
     call = _TrainCall(problem, z_net, K, N, delta_t, int(seed), families,
                       dict(adaptive_forward=adaptive_forward,
                            accumulate_kl=accumulate_kl,
                            kl_ito_term=kl_ito_term, u_tab=u_tab, rng=rng,
                            noise_sign=noise_sign, host_noise=host_noise),
-                      tile)
+                      tile, plan)
     return FusedTrainOut(*_FusedTrainFn.apply(call, *z_net.parameters()))
 
 
 fused_train_rollout.launches = 0
 fused_train_rollout.backward_launches = 0
+fused_train_rollout.launches_by_plan = dict.fromkeys(PLANS, 0)
+fused_train_rollout.backward_launches_by_plan = dict.fromkeys(PLANS, 0)
 
 
 # -- the stopped training rollout (make_fused_stopped_train_rollout) -------

@@ -314,7 +314,7 @@ def test_train_kernel_layout_at_bench_shapes(case, tile):
             host_noise=None, noise_sign=1.0, adaptive_forward=True,
             accumulate_kl=False, kl_ito_term=False, u_tab=u_tab, rng="binom")
         ia = packed.iargs
-        assert len(ia) == 22 + 5 * tk._MAX_LAYERS
+        assert len(ia) == 24 + 5 * tk._MAX_LAYERS
         assert ia[5] == tile and ia[13] == ia[12] + 104   # n_stage
         assert ia[21] == 102 * 32 + 33 * 32 + 33 * 104   # n_grad
         w2 = ia[22 + 2 * tk._MAX_LAYERS + 2]
