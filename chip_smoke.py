@@ -61,6 +61,24 @@ control is learned.  This script
      the bench shape), then measures the FP32 FMA rate, the normals rates
      of both maps, the roofline model at d=100 and d=1000, and the
      ablation ladders at the bench shape and at config 5.
+ 16. compares the time_stopping branch of the stopped kernels (each path's
+     clock, the net on [X, t]) with its plain version at the main path's
+     shape: ExponentialOnSphereNonlinearParabolic(d=50), DenseNet (30, 30)
+     of input width 51, K=65536, N=20, dt=1e-3, host noise and both Philox
+     maps, plain and adaptive_forward; and at the heat shape (BASELINE
+     config 2: HeatEquation(d=50, T=0.2) on the whole space, N=100,
+     K=4096), where every path runs until its clock ends and no exit step
+     may differ.  The clock t must be equal wherever the exit step agrees;
+ 17. drives the main path: GeneralSolver(rollout_mode='fused_train') steps
+     at K=65536 (one forward and one backward launch per step and no call
+     of a plain version), times the step against the scan engine's and
+     both kernels against their plain versions, and profiles three steps;
+     on the card a problem outside the kernels' family (AllenCahn) raises;
+ 18. trains that recipe at K=8192, lr 1e-3, K_test_log=4096 for 2000 steps:
+     tail-50 test L2 <= 0.12;
+ 19. takes a few steps of BASELINE config 2 at full width under its cosine
+     schedule cosine_decay_schedule(1e-2, 3000, alpha=3e-4) and times the
+     step and both kernels there.
 
 Any failure exits nonzero.  The last line is one JSON object naming the
 device.  Run from the repository root:
@@ -112,11 +130,24 @@ NETS_ELL = {"DenseNet (30, 30)": (30, 30),
 # apart
 MASK_TOL = 1e-3
 TEST_L2_BOUND = 1e-3
+# the space-time slice: the gen50 cell and its convergence leg
+# (experiments/proto_fused_stopped_breadth.py:64-77, 113-125) and BASELINE
+# config 2 (experiments/baseline_configs.py:41-66)
+D_GEN, N_GEN, DT_GEN, K_GEN = 50, 20, 1e-3, 65536
+K_GEN_TRAIN, L_GEN = 8192, 2000
+STEPS_GEN = 5
+# the JAX package's tail-50 test L2 of this recipe is 0.0579, fused and
+# scan alike (RESULTS.md:87); v_ref = exp(|x|^2 + t) lies in [1, e^2], and
+# an untrained net reads ~8
+TEST_L2_BOUND_GEN = 0.12
+D_HEAT, T_HEAT, R_HEAT, DT_HEAT, N_HEAT = 50, 0.2, 6.0, 2e-3, 100
+K_HEAT, KB_HEAT, L_HEAT, STEPS_HEAT = 4096, 2048, 3000, 5
 # BASELINE config 5 (experiments/baseline_configs.py:234-253) at the K of
 # experiments/proto_d1000_roofline.py; the plain step is timed at K5_PLAIN,
 # since at K5 its per-step checkpoints alone would need N K d 4 B = 79 GB
 D5, T5, DT5, N5 = 1000, 2.0, 0.01, 200
 K5, K5_CHECK, K5_PLAIN, K5_SERVE, STEPS5 = 98304, 2048, 8192, 8192, 3
+L5 = 20000   # the decay steps of config 5's cosine schedule
 LOG_E5_EXACT = 246.746092
 ROOFLINE_SOURCE = "pspde_torch/csrc/roofline.cu"
 # the roofline kernels' main-path shapes: the (d, tile) carry of
@@ -433,11 +464,12 @@ def main():
     stopped_rows = stopped_phases(dev, smi, timed)
     config5, wide_rows = wide_phases(dev, smi, llgc, solver)
     roofline_rows = roofline_phases(dev, smi, llgc, solver, config5)
+    general_rows = general_phases(dev, smi)
 
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [serve_row] + train_rows + stopped_rows
-                      + roofline_rows + wide_rows}))
+                      + roofline_rows + wide_rows + general_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -645,22 +677,84 @@ def profile_steps(what, step, n=3):
 def stopped_flops(v_net, d, adaptive):
     """FP32 operations of one advancing path-step of the stopped kernels,
     counted from their code (csrc/stopped_rollout.cu): (V only, forward,
-    backward).  V: the dense products, bias, relu and square of each
-    hidden layer, the output dot; grad V: the transposed products and
-    2 relu(h) g; the step: 9 per dimension.  The backward replays V (and
-    grad V when adaptive), the tangent sweep, the pair sweep and the weight
-    outer products (4 per weight: two terms)."""
-    widths = list(v_net.arch)
-    ins = [d + sum(widths[:l]) for l in range(len(widths))]
-    F = d + sum(widths)
+    backward).  The net reads ``v_net.d_in`` inputs (d, or d + 1 with
+    time_stopping) and the step moves d coordinates.  V: the dense
+    products, bias, relu and square of each hidden layer, the output dot;
+    grad V: the transposed products and 2 relu(h) g; the step: 9 per
+    dimension.  The backward replays V (and grad V when adaptive), the
+    tangent sweep, the pair sweep and the weight outer products (4 per
+    weight: two terms)."""
+    widths, d_in = list(v_net.arch), v_net.d_in
+    ins = [d_in + sum(widths[:l]) for l in range(len(widths))]
+    F = d_in + sum(widths)
     v = sum(2 * n * w + 3 * w for n, w in zip(ins, widths)) + 2 * F
     grad = sum(2 * n * w + 2 * w for n, w in zip(ins, widths))
     fwd = v + grad + 9 * d
     bwd = (v + (grad if adaptive else 0) + 8 * d
            + sum(2 * n * w + 2 * w for n, w in zip(ins, widths))
-           + sum(6 * w + 4 * (n - d) * w for n, w in zip(ins, widths))
+           + sum(6 * w + 4 * (n - d_in) * w for n, w in zip(ins, widths))
            + sum(4 * (n + 1) * w for n, w in zip(ins, widths)) + 4 * F + 2)
     return v, fwd, bwd
+
+
+def compare_stopped(tag, prob, net, X0, t0, N, dt, kw, worst, mask_tol,
+                    time_stopping=False, zero_leaves=()):
+    """Stopped kernels against their plain version from (X0, t0): outputs
+    (and the clock t, which must be equal) on the paths whose exit step
+    agrees, the count of paths whose exit step differs (at most
+    ``mask_tol`` K), and per-leaf gradients of the diffusion loss through
+    the backward kernel.  ``zero_leaves`` names the leaves whose gradient
+    vanishes by construction (with h = 0 the loss does not see the output
+    bias): those are held to 1e-3 GRAD_TOL of the largest leaf.  Updates
+    ``worst`` ("out", "grad": largest absolute differences)."""
+    from pspde_torch.rollout import kernels as km
+    params = list(net.parameters())
+    kw = dict(kw, time_stopping=time_stopping)
+
+    def V(X, t):
+        if time_stopping:
+            X = torch.cat([X, t[:, None]], dim=-1)
+        return net(X)[:, 0]
+
+    def diffusion_loss(out):
+        return torch.mean((V(out.X, out.t) - V(X0, t0) - out.Y) ** 2)
+
+    kern = km.fused_stopped_train_rollout(prob, net, X0, t0, N, dt, **kw)
+    g_kern = torch.autograd.grad(diffusion_loss(kern), params)
+    plain = km.reference_stopped_train_rollout(prob, net, X0, t0, N, dt,
+                                               **kw)
+    g_plain = torch.autograd.grad(diffusion_loss(plain), params)
+    torch.cuda.synchronize()
+    agree = (kern.hitting == plain.hitting) & (kern.stopped == plain.stopped)
+    n_dis = int((~agree).sum())
+    check(n_dis <= mask_tol * X0.shape[0],
+          f"{tag}: {n_dis} paths exit at another step")
+    check(torch.equal(kern.t[agree], plain.t[agree]),
+          f"{tag}: the clocks differ on paths whose exit step agrees")
+    for name in ("X", "Y", "v_l2", "adv_steps"):
+        a = getattr(kern, name).detach()[agree]
+        b = getattr(plain, name).detach()[agree]
+        check(bool(torch.isfinite(a).all()), f"{tag} {name} not finite")
+        err = float((a - b).abs().max())
+        rel = err / (1.0 + float(b.abs().max()))
+        worst["out"] = max(worst["out"], err)
+        check(rel <= REL_TOL, f"{tag} {name} rel {rel:.3e} > {REL_TOL}")
+    rels = []
+    top = max(float(b.abs().max()) for b in g_plain)
+    for (pname, _), a, b in zip(net.named_parameters(), g_kern, g_plain):
+        err = float((a - b).abs().max())
+        scale = float(b.abs().max())
+        worst["grad"] = max(worst["grad"], err)
+        if pname in zero_leaves:
+            scale = 1e-3 * top
+        rels.append(err / scale)
+        check(scale > 0 and err <= GRAD_TOL * scale,
+              f"{tag} grad {pname} max_abs {err:.3e} > {GRAD_TOL} * "
+              f"{scale:.3e}")
+    print(f"  {tag}: exit step differs on {n_dis} of {X0.shape[0]} "
+          f"paths; advancing steps {float(plain.adv_steps.sum()):.0f}; "
+          f"outputs ok; grad max|kern-plain|/max|plain| per leaf "
+          f"{['%.1e' % r for r in rels]}")
 
 
 def stopped_phases(dev, smi, timed):
@@ -694,45 +788,10 @@ def stopped_phases(dev, smi, timed):
               net_of((70, 50, 50, 50), 4), True)]
     worst = {"out": 0.0, "grad": 0.0}
 
-    def diffusion_loss(net, X0, out):
-        return torch.mean((net(out.X)[:, 0] - net(X0)[:, 0] - out.Y) ** 2)
-
     def compare(tag, prob, net, adaptive, X0, kw):
-        params = list(net.parameters())
-        t0 = torch.zeros(X0.shape[0], device=dev)
-        kern = km.fused_stopped_train_rollout(
-            prob, net, X0, t0, N, dt, adaptive_forward=adaptive, **kw)
-        g_kern = torch.autograd.grad(diffusion_loss(net, X0, kern), params)
-        plain = km.reference_stopped_train_rollout(
-            prob, net, X0, t0, N, dt, adaptive_forward=adaptive, **kw)
-        g_plain = torch.autograd.grad(diffusion_loss(net, X0, plain), params)
-        torch.cuda.synchronize()
-        agree = (kern.hitting == plain.hitting) & (kern.stopped
-                                                   == plain.stopped)
-        n_dis = int((~agree).sum())
-        check(n_dis <= MASK_TOL * X0.shape[0],
-              f"{tag}: {n_dis} paths exit at another step")
-        for name in ("X", "Y", "v_l2", "adv_steps"):
-            a = getattr(kern, name).detach()[agree]
-            b = getattr(plain, name).detach()[agree]
-            check(bool(torch.isfinite(a).all()), f"{tag} {name} not finite")
-            err = float((a - b).abs().max())
-            rel = err / (1.0 + float(b.abs().max()))
-            worst["out"] = max(worst["out"], err)
-            check(rel <= REL_TOL, f"{tag} {name} rel {rel:.3e} > {REL_TOL}")
-        rels = []
-        for (pname, _), a, b in zip(net.named_parameters(), g_kern, g_plain):
-            err = float((a - b).abs().max())
-            scale = float(b.abs().max())
-            worst["grad"] = max(worst["grad"], err)
-            rels.append(err / scale)
-            check(scale > 0 and err <= GRAD_TOL * scale,
-                  f"{tag} grad {pname} max_abs {err:.3e} > {GRAD_TOL} * "
-                  f"{scale:.3e}")
-        print(f"  {tag}: exit step differs on {n_dis} of {X0.shape[0]} "
-              f"paths; advancing steps {float(plain.adv_steps.sum()):.0f}; "
-              f"outputs ok; grad max|kern-plain|/max|plain| per leaf "
-              f"{['%.1e' % r for r in rels]}")
+        compare_stopped(tag, prob, net, X0,
+                        torch.zeros(X0.shape[0], device=dev), N, dt,
+                        dict(kw, adaptive_forward=adaptive), worst, MASK_TOL)
 
     # -- phase 10: stopped kernels vs plain ----------------------------------
     print(f"phase 10: stopped kernels vs plain, K={Kc}, N={N}, d={d}, "
@@ -881,12 +940,14 @@ def wide_phases(dev, smi, llgc, solver):
     from pspde_torch.problems import LLGC
     from pspde_torch.rollout import kernels as km
     from pspde_torch.solvers import HJBSolver
+    from pspde_torch.utils import cosine_decay_schedule
 
     t_phases = time.perf_counter()
     d, N, dt, Kc = D5, N5, DT5, K5_CHECK
     llgc5 = LLGC(d=d, T=T5, device=dev)
-    trainer = HJBSolver("config5", llgc5, lr=1e-2, L=STEPS5, K=K5,
-                        delta_t=dt, time_approx="inner",
+    trainer = HJBSolver("config5", llgc5,
+                        lr=cosine_decay_schedule(1e-2, L5, alpha=1e-2),
+                        L=STEPS5, K=K5, delta_t=dt, time_approx="inner",
                         loss_method="log-variance", detach_forward=True,
                         learn_Y_0=True, verbose=False,
                         early_stopping_time=None, seed=5,
@@ -991,7 +1052,8 @@ def wide_phases(dev, smi, llgc, solver):
     # -- phase 14: BASELINE config 5 on the card ----------------------------
     print(f"phase 14: config 5, HJBSolver(LLGC(d={d}, T={T5}), delta_t={dt}, "
           f"K={K5}, 'inner', log-variance, detach_forward, learn_Y_0, "
-          f"fused_train, binom), {STEPS5} steps")
+          f"fused_train, binom, lr cosine_decay_schedule(1e-2, {L5}, "
+          f"alpha=1e-2)), {STEPS5} steps")
     reset_counts(km.fused_train_rollout, "launches", "backward_launches",
                  "launches_by_plan", "backward_launches_by_plan")
     reset_counts(km.fused_controlled_rollout, "launches", "launches_by_plan")
@@ -1275,6 +1337,254 @@ def roofline_phases(dev, smi, llgc, solver, config5):
                                          + 13 * D),
                     4 * (n_par + K_BENCH))},
     ]
+
+
+def general_phases(dev, smi):
+    """Phases 16-19: the time_stopping branch of the stopped kernels
+    against its plain version at the main path's shape and at the heat
+    shape, the GeneralSolver main path, its convergence leg and BASELINE
+    config 2.  Returns the kernels' JSON rows."""
+    import numpy as np
+    from pspde_torch.ansatz import DenseNet
+    from pspde_torch.problems import (AllenCahn,
+                                      ExponentialOnSphereNonlinearParabolic,
+                                      Geometry, HeatEquation)
+    from pspde_torch.rollout import kernels as km
+    from pspde_torch.rollout.sampling import sample_domain
+    from pspde_torch.solvers import GeneralSolver
+    from pspde_torch.utils import cosine_decay_schedule
+
+    t_phases = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(16)
+    ball = ExponentialOnSphereNonlinearParabolic(d=D_GEN, device=dev)
+    heat = HeatEquation(d=D_HEAT, T=T_HEAT, device=dev)
+    # the diffusion spread sqrt(tr(2 I) T) = 4.5 leaves the default sampling
+    # radius 1: config 2 widens it
+    heat.geometry = Geometry(kind="unbounded", boundary_distance=R_HEAT)
+    shapes = {
+        "gen50": (ball, D_GEN, K_GEN, N_GEN, DT_GEN, MASK_TOL, ()),
+        "heat": (heat, D_HEAT, K_HEAT, N_HEAT, DT_HEAT, 0.0,
+                 ("layers.2.bias",)),
+    }
+
+    def net_of(d, seed):
+        return DenseNet(1, (30, 30), d_in=d + 1, device=dev,
+                        generator=torch.Generator(dev).manual_seed(seed))
+
+    def starts(prob, K, d):
+        X0 = sample_domain(gen, prob.geometry, K, d)
+        return X0, torch.rand(K, generator=gen, device=dev) * prob.T
+
+    # -- phase 16: kernels vs plain ------------------------------------------
+    print(f"phase 16: time_stopping kernels vs plain, DenseNet (30, 30) on "
+          f"[X, t]: gen50 (the unit ball, d={D_GEN}, K={K_GEN}, N={N_GEN}, "
+          f"dt={DT_GEN}, T=1) and heat (the whole space, d={D_HEAT}, "
+          f"K={K_HEAT}, N={N_HEAT}, dt={DT_HEAT}, T={T_HEAT}); outputs rel "
+          f"{REL_TOL:g} and equal clocks on agreeing paths, exit-step "
+          f"disagreements <= {MASK_TOL:g} K (gen50) and none (heat), "
+          f"gradients {GRAD_TOL:g} x max|plain|")
+    worst = {tag: {"out": 0.0, "grad": 0.0} for tag in shapes}
+    for tag, (prob, d, K, N, dt, mask_tol, zero) in shapes.items():
+        for adaptive in (False, True):
+            net = net_of(d, 1 + adaptive)
+            X0, t0 = starts(prob, K, d)
+            noise = torch.randn((N, K, d), generator=gen, device=dev)
+            for what, kw in (("host noise", dict(host_noise=noise)),
+                             ("erfinv", dict(seed=4321, rng="erfinv")),
+                             ("binom", dict(seed=4321, rng="binom"))):
+                compare_stopped(
+                    f"[{tag}{', adaptive' if adaptive else ''}, {what}]",
+                    prob, net, X0, t0, N, dt,
+                    dict(kw, adaptive_forward=adaptive), worst[tag],
+                    mask_tol, time_stopping=True, zero_leaves=zero)
+            del noise
+
+    # -- phase 17: the main path ---------------------------------------------
+    print(f"phase 17: GeneralSolver(ExponentialOnSphereNonlinearParabolic("
+          f"d={D_GEN}), loss_method='diffusion', K={K_GEN}, N={N_GEN}, "
+          f"delta_t={DT_GEN}, lr=1e-3, rollout_mode='fused_train'), "
+          f"{STEPS_GEN} steps")
+    solvers = {mode: GeneralSolver(
+        ball, f"gen50-{mode}", loss_method="diffusion", K=K_GEN, N=N_GEN,
+        delta_t=DT_GEN, lr=1e-3, L=STEPS_GEN, verbose=False,
+        rollout_mode=mode, device=dev) for mode in ("fused_train", "scan")}
+    main = solvers["fused_train"]
+    check(main.resolved_rollout_mode == "fused_train"
+          and main.V_net.d_in == D_GEN + 1 and main.V_net.arch == (30, 30),
+          f"engine {main.resolved_rollout_mode}, net {main.V_net.d_in} -> "
+          f"{main.V_net.arch}")
+    try:
+        GeneralSolver(AllenCahn(d=D_GEN, device=dev), "ac", K=64,
+                      rollout_mode="fused_train", verbose=False, device=dev)
+        raised = ""
+    except ValueError as e:
+        raised = str(e)
+    check("STOPPED_KERNEL_FAMILY" in raised, "AllenCahn on fused_train "
+          f"raises a ValueError naming the family (got {raised[:80]!r})")
+    # count the plain versions' calls during the main path: none may run
+    plain_calls = {"n": 0}
+    originals = (km.reference_stopped_train_rollout,
+                 km._reference_stopped_backward)
+
+    def counting(fn):
+        def wrapped(*a, **k):
+            plain_calls["n"] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    km.reference_stopped_train_rollout = counting(originals[0])
+    km._reference_stopped_backward = counting(originals[1])
+    reset_counts(km.fused_stopped_train_rollout, "launches",
+                 "backward_launches")
+    try:
+        step_ms = [timed(main.step, 1, warm=False) for _ in range(STEPS_GEN)]
+    finally:
+        (km.reference_stopped_train_rollout,
+         km._reference_stopped_backward) = originals
+    launches = (km.fused_stopped_train_rollout.launches,
+                km.fused_stopped_train_rollout.backward_launches)
+    print(f"  steps {['%.2f' % t for t in step_ms]} ms; launches forward "
+          f"{launches[0]}, backward {launches[1]}; plain-version calls "
+          f"{plain_calls['n']}; loss {['%.4e' % v for v in main.loss_log]}; "
+          f"advancing path-steps per step {np.mean(main.K_log):.0f} of "
+          f"K N = {K_GEN * N_GEN}")
+    check(launches == (STEPS_GEN, STEPS_GEN) and plain_calls["n"] == 0,
+          "one forward and one backward launch per step, no plain call")
+    check(all(math.isfinite(v) for v in main.loss_log), "finite losses")
+    check(all(math.isnan(v) for v in main.V_L2_log),
+          "V_L2 reads NaN without an in-kernel reference")
+
+    # timing: the step against the scan engine's, the kernels against
+    # their plain versions, at both shapes
+    times = {}
+    for tag, (prob, d, K, N, dt, _, _) in shapes.items():
+        net = net_of(d, 5)
+        X0, t0 = starts(prob, K, d)
+        gY = torch.randn(K, generator=gen, device=dev) / K
+        call = km._StoppedCall(
+            prob, net, X0, t0, N, dt, 17,
+            km._check_stopped_family(prob, net, "erfinv",
+                                     time_stopping=True),
+            dict(adaptive_forward=False, rng="erfinv", host_noise=None,
+                 time_stopping=True), None)
+        probe = km._stopped_forward_kernel(call)
+        hit, adv = float(probe.hitting.sum()), float(probe.adv_steps.sum())
+        n_par = sum(p.numel() for p in net.parameters())
+        v_f, fwd_f, bwd_f = stopped_flops(net, d, adaptive=False)
+        b_fwd = roofline((hit - adv) * v_f + adv * fwd_f,
+                         4 * (n_par + K * (2 * d + 7)))
+        b_bwd = roofline(adv * bwd_f, 4 * (2 * n_par + K * (d + 2)))
+
+        def plain_fwd():
+            with torch.no_grad():
+                call.plain()
+
+        r = {}
+        for name, kern_fn, plain_fn, reps in (
+                ("forward", lambda: km._stopped_forward_kernel(call),
+                 plain_fwd, 10),
+                ("backward", lambda: km._stopped_backward_kernel(call, gY),
+                 lambda: km._reference_stopped_backward(call, gY), 5)):
+            p1 = timed(plain_fn, 1)
+            k = [timed(kern_fn, reps), timed(kern_fn, reps)]
+            p2 = timed(plain_fn, 1)
+            r[name] = (min(k), min(p1, p2))
+            print(f"  {tag:6s} {name:8s} kernel {k[0]:.3f}, {k[1]:.3f} ms; "
+                  f"plain {p1:.3f}, {p2:.3f} ms")
+        print(f"  {tag}: {hit:.0f} active and {adv:.0f} advancing "
+              f"path-steps of K N = {K * N}; bound forward "
+              f"{b_fwd['bound_ms']:.4f} ms, backward "
+              f"{b_bwd['bound_ms']:.4f} ms ({b_fwd['bound_by']})")
+        times[tag] = (r, b_fwd, b_bwd)
+    p1 = timed(solvers["scan"].step, 1)
+    k = [timed(main.step, 5), timed(main.step, 5)]
+    p2 = timed(solvers["scan"].step, 1)
+    print(f"  gen50 step: fused_train {k[0]:.3f}, {k[1]:.3f} ms -> "
+          f"{K_GEN * N_GEN / min(k) * 1e3:.4e} path-steps/s (K N per step "
+          f"time); scan {p1:.3f}, {p2:.3f} ms; card: {smi}")
+    profile_steps(f"3 GeneralSolver steps, K={K_GEN}", main.step)
+    del solvers
+
+    # -- phase 18: convergence -----------------------------------------------
+    print(f"phase 18: GeneralSolver(rollout_mode='fused_train').train(), the "
+          f"same recipe at K={K_GEN_TRAIN}, all {L_GEN} iterations, "
+          f"K_test_log=4096")
+    trainer = GeneralSolver(ball, "gen50-conv", loss_method="diffusion",
+                            K=K_GEN_TRAIN, N=N_GEN, delta_t=DT_GEN, lr=1e-3,
+                            L=L_GEN, K_test_log=4096, verbose=False,
+                            rollout_mode="fused_train", device=dev)
+    reset_counts(km.fused_stopped_train_rollout, "launches",
+                 "backward_launches")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    conv_launches = (km.fused_stopped_train_rollout.launches,
+                     km.fused_stopped_train_rollout.backward_launches)
+    tail = float(np.mean(trainer.V_test_L2[-50:]))
+    print(f"  {len(trainer.loss_log)} steps in {wall:.2f} s; kernel launches "
+          f"{conv_launches}; test L2 every 250: "
+          f"{['%.3e' % v for v in trainer.V_test_L2[::250]]}; loss "
+          f"{trainer.loss_log[0]:.4e} -> {trainer.loss_log[-1]:.4e}; "
+          f"tail-50 test L2 {tail:.4e} (bound {TEST_L2_BOUND_GEN:g})")
+    check(conv_launches == (L_GEN, L_GEN),
+          "the training path launched both kernels every step")
+    check(all(math.isfinite(v) for v in trainer.loss_log), "finite losses")
+    check(tail <= TEST_L2_BOUND_GEN, f"tail-50 test L2 {tail:.4e}")
+
+    # -- phase 19: BASELINE config 2 -----------------------------------------
+    print(f"phase 19: config 2, GeneralSolver(HeatEquation(d={D_HEAT}, "
+          f"T={T_HEAT}), boundary_distance {R_HEAT}, delta_t={DT_HEAT}, "
+          f"N={N_HEAT}, K={K_HEAT}, K_boundary={KB_HEAT}, diffusion, lr "
+          f"cosine_decay_schedule(1e-2, {L_HEAT}, alpha=3e-4), "
+          f"K_test_log=16384, fused_train), {STEPS_HEAT} steps")
+    sched = cosine_decay_schedule(1e-2, L_HEAT, alpha=3e-4)
+    config2 = GeneralSolver(heat, "config2", seed=2, L=L_HEAT, lr=sched,
+                            delta_t=DT_HEAT, N=N_HEAT, K=K_HEAT,
+                            K_boundary=KB_HEAT, K_test_log=16384,
+                            loss_method="diffusion", verbose=False,
+                            rollout_mode="fused_train", device=dev)
+    reset_counts(km.fused_stopped_train_rollout, "launches",
+                 "backward_launches")
+    heat_ms = [timed(config2.step, 1, warm=False) for _ in range(STEPS_HEAT)]
+    heat_launches = (km.fused_stopped_train_rollout.launches,
+                     km.fused_stopped_train_rollout.backward_launches)
+    lr_now = config2.optimizer.param_groups[0]["lr"]
+    print(f"  steps {['%.2f' % t for t in heat_ms]} ms -> "
+          f"{np.mean(config2.K_log) / min(heat_ms) * 1e3:.4e} advancing "
+          f"path-steps/s ({np.mean(config2.K_log):.0f} of K N = "
+          f"{K_HEAT * N_HEAT} per step); loss "
+          f"{['%.4e' % v for v in config2.loss_log]}; test L2 "
+          f"{['%.3e' % v for v in config2.V_test_L2]}; lr {lr_now:.6e}; "
+          f"launches {heat_launches}; card: {smi}")
+    check(heat_launches == (STEPS_HEAT, STEPS_HEAT),
+          "config 2 launched both kernels every step")
+    check(all(math.isfinite(v) for v in config2.loss_log + config2.V_test_L2),
+          "finite losses and test errors")
+    check(lr_now == sched(STEPS_HEAT - 1) and lr_now < 1e-2,
+          f"the last update ran at the schedule's lr ({lr_now})")
+    print(f"  phases 16-19 took {time.perf_counter() - t_phases:.1f} s")
+
+    rows = []
+    for tag, (prob, d, K, N, dt, _, _) in shapes.items():
+        r, b_fwd, b_bwd = times[tag]
+        n_launch = launches if tag == "gen50" else heat_launches
+        row = {"route": "cuda", "source": STOPPED_SOURCE,
+               "shape": f"{type(prob).__name__}, d={d}, K={K}, N={N}"}
+        rows += [
+            dict(row, name=f"fused_stopped_train_rollout.forward."
+                 f"time_stopping.{tag}",
+                 replaces="pspde/rollout/kernels.py:1184",
+                 launches=n_launch[0], max_abs_err=worst[tag]["out"],
+                 ms=r["forward"][0], plain_ms=r["forward"][1], **b_fwd),
+            dict(row, name=f"fused_stopped_train_rollout.backward."
+                 f"time_stopping.{tag}",
+                 replaces="pspde/rollout/kernels.py:1272",
+                 launches=n_launch[1], max_abs_err=worst[tag]["grad"],
+                 ms=r["backward"][0], plain_ms=r["backward"][1], **b_bwd),
+        ]
+    return rows
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the PyTorch port's serve and HJB training kernels at the bench
-shapes on one CUDA card, and print one JSON line.
+"""Time the PyTorch port's serve, HJB training and stopped training
+kernels at the bench shapes on one CUDA card, and print one JSON line.
 
     python3 experiments/torch_kernel_times.py [--root DIR]
 
@@ -19,7 +19,10 @@ noise, u_tab; and one ``HJBSolver.step()`` at that shape.  Where the
 tree's kernels take ``plan=``, the three kernels are timed again with the
 device memory plan forced (the net read from device memory, each path's
 arrays in a [row][K] workspace), against the shared plan they choose at
-d=100.
+d=100.  The stopped forward and replay backward are timed at the elliptic
+cell (ExponentialOnBallNonlinearSin d=50, K=65536, N=20, erfinv noise) for
+DenseNet (30, 30) and the notebook net (70, 50, 50, 50), with one
+``EllipticSolver.step()``.
 """
 
 import argparse
@@ -33,6 +36,8 @@ import torch
 
 D, N_SERVE, DT_SERVE, K_SERVE = 100, 100, 0.01, 2 ** 20
 N_TRAIN, K_TRAIN = 32, 131072
+D_ELL, N_ELL, DT_ELL, K_ELL = 50, 20, 1e-3, 65536
+NETS_ELL = {"30_30": (30, 30), "notebook": (70, 50, 50, 50)}
 
 
 def timed(fn, reps, rounds=2):
@@ -118,7 +123,40 @@ def main():
     if has_plans:
         out.update({f"{k}_device": v for k, v in kernels("device").items()})
     out["step"] = timed(bench.step, 5)
+    out.update(stopped_times(dev, gen))
     print(json.dumps(out))
+
+
+def stopped_times(dev, gen):
+    """ms of the stopped kernels and of one elliptic solver step."""
+    from pspde_torch.ansatz import DenseNet
+    from pspde_torch.problems import ExponentialOnBallNonlinearSin
+    from pspde_torch.rollout import kernels as km
+    from pspde_torch.rollout.sampling import sample_domain
+    from pspde_torch.solvers import EllipticSolver
+
+    sin = ExponentialOnBallNonlinearSin(d=D_ELL, alpha=0.1, device=dev)
+    X0 = sample_domain(gen, sin.geometry, K_ELL, D_ELL)
+    t0 = torch.zeros(K_ELL, device=dev)
+    gY = torch.randn(K_ELL, generator=gen, device=dev) / K_ELL
+    out = {}
+    for tag, arch in NETS_ELL.items():
+        net = DenseNet(1, arch, d_in=D_ELL, device=dev,
+                       generator=torch.Generator(dev).manual_seed(5))
+        call = km._StoppedCall(
+            sin, net, X0, t0, N_ELL, DT_ELL, 17,
+            km._check_stopped_family(sin, net, "erfinv"),
+            dict(adaptive_forward=False, rng="erfinv", host_noise=None), None)
+        out[f"stopped_fwd_{tag}"] = timed(
+            lambda: km._stopped_forward_kernel(call), 10)
+        out[f"stopped_bwd_{tag}"] = timed(
+            lambda: km._stopped_backward_kernel(call, gY), 5)
+    ell = EllipticSolver(sin, "bench", loss_method="diffusion", K=K_ELL,
+                         N=N_ELL, delta_t=DT_ELL, lr=1e-3, L=1,
+                         K_test_log=4096, verbose=False,
+                         rollout_mode="fused_train", device=dev)
+    out["elliptic_step"] = timed(ell.step, 10)
+    return out
 
 
 if __name__ == "__main__":

@@ -6,7 +6,9 @@ under ``csrc/`` are compiled with ``nvcc`` on first use on a CUDA tensor
 (``rollout/_build.py``), so importing the package needs neither a compiler
 nor a GPU.
 
-The serve path is ported so far: problems (``LLGC``, ``LQGC``), the
-``TanhMLP`` control, the fused controlled-rollout kernel, and importance
-sampling with a learned control.  Training waits for a later slice.
+Ported so far: the serve path (importance sampling with a learned
+control), the HJB training step (``HJBSolver``), the stopped-path elliptic
+training step (``EllipticSolver``), the space-time parabolic training step
+(``GeneralSolver``, the ``time_stopping`` branch of the stopped kernels)
+and the measured roofline (``utils/roofline.py``).
 """

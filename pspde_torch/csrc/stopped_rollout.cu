@@ -5,19 +5,36 @@
 // make_fused_stopped_train_rollout, its forward _fwd (pallas_call at
 // kernels.py:1184) and its backward _bwd (pallas_call at kernels.py:1272).
 // Per path k and step n, with a DenseNet value net V (relu^2 concat-skip
-// features, d_out = 1), zero drift, sigma = s I, the unit-ball exit test on
-// the CURRENT state, and c = -sg(Z) when adaptive, else 0:
+// features, d_out = 1), zero drift, sigma = s I, the ball's exit test on
+// the CURRENT state (none on the 'unbounded' geometry), and c = -sg(Z) when
+// adaptive, else 0:
 //
 //   active = !stopped,  sel = |X| < R,  adv = sel & active
-//   V, Z = s grad_x V(X),  h = V (c_y + c_yr2 |X|^2) + phi(exp(k |X|^2) - V^2)
+//   V, Z = s grad_x V(X),  h = V (c_y + c_yr2 |X|^2)
+//                              + phi(exp(k |X|^2 + k_t t) - V^2)
 //   a    = ((-h + Z.c) dt + (Z.xi) sqrt(dt)) adv                  Y += a
 //   X   += (s c dt + s xi sqrt(dt)) adv                (no gradient)
 //   hitting += active,  adv_steps += adv,
 //   v_l2 += (V - exp(a_v |X|^2))^2 dt active
 //   stopped |= !sel
 //
-// The forward writes X (K, d) and the (5, K) rows Y, stopped, hitting,
-// v_l2, adv_steps.  The masks and the X chain carry no gradient, so Y
+// With time_stopping (the general, space-time solver: the time_stopping
+// branch of step_math, pspde/rollout/kernels.py:1045-1082) each path
+// carries its own clock t, started at t0[k]: the net reads [X, t] (d + 1
+// inputs, t last), Z stays the gradient in the d state rows only, and
+//
+//   sel = |X| < R  &&  t + dt <= T,        t += dt adv
+//
+// in float32 with explicit roundings, as the plain version tests it.  The
+// state has d rows, the net d_in = d or d + 1 input rows; F = d_in + sum of
+// the hidden widths.  The clock is a template parameter of both kernels
+// (kTimed), so the instantiation without it carries none of its code: as a
+// runtime flag it cost the elliptic forward 25% at DenseNet (30, 30) and
+// 37% at the notebook net (d = 50, K = 65536, N = 20, NVIDIA H100 80GB HBM3
+// at 700 W).
+//
+// The forward writes X (K, d) and the (6, K) rows Y, stopped, hitting,
+// v_l2, adv_steps, t.  The masks and the X chain carry no gradient, so Y
 // depends on the net's parameters theta only through each step's V and
 // grad V.  The backward replays the forward on the same noise (the X chain
 // and the masks regenerate bitwise: both kernels run the same device
@@ -41,8 +58,10 @@
 // sweeps, the weight-gradient outer products), FP32 FMA from shared
 // memory; no device-memory traffic but the gradient row.  Paths leave the
 // ball after ~1.4 steps from the uniform start, so the work is a few
-// steps per path, and per-block fixed costs and latency dominate.  The
-// design, simple first:
+// steps per path, and per-block fixed costs and latency dominate.  On the
+// whole space with time_stopping (the heat equation) every path runs until
+// its clock ends, all K N path-steps are work, and at K = 4096 the 64
+// blocks leave half the SMs idle.  The design, simple first:
 //   * one thread per path, one block per `tile` paths, for all N steps; a
 //     stopped path skips the net (its X and accumulators are final); in the
 //     backward it keeps hitting the barriers with zero cotangents, and a
@@ -76,13 +95,19 @@ using namespace pspde;
 
 constexpr int kMaxHidden = 4;   // pspde_torch/rollout/kernels.py _MAX_HIDDEN
 constexpr int kStoppedTile = 64;
+// Shared memory, not registers, bounds the blocks per SM (one thread per
+// path, at most 64 threads a block), so the kernels ask for one block per SM
+// in __launch_bounds__: without it ptxas keeps them at 40-64 registers and
+// spills (91-106 and none with it; the notebook net's backward 163 -> 99 ms
+// at d = 50, K = 65536, N = 20 on an NVIDIA H100 80GB HBM3 at 700 W).
+constexpr int kMinBlocksPerSm = 1;
 
 // Layout of the integer and float argument arrays the wrapper passes
 // (pspde_torch/rollout/kernels.py: _pack_stopped).
 struct StoppedArgs {
   int K, N, d;
   int L;            // hidden layers
-  int F;            // features: d + sum(width)
+  int F;            // features: d_in + sum(width)
   int tile;
   int stage;        // 1: the net is staged in shared memory
   int n_params;     // floats of the packed net
@@ -91,17 +116,31 @@ struct StoppedArgs {
   int phi;          // 0: none, 1: identity, 2: sin
   int have_vref;    // v_ref(x) = exp(a_vref |x|^2)
   int n_grad;       // floats of one block's gradient row
+  int time_stopping;  // the net reads d + 1 inputs, [X, t]
+  int geom;         // 0: sphere of `radius`, 1: unbounded (with
+                    // time_stopping only)
   int width[kMaxHidden], w_off[kMaxHidden], b_off[kMaxHidden],
       g_off[kMaxHidden];
   int wL_off, bL_off, gL_off;
   float dt, sq_dt, sig, radius, c_y, c_yr2, k_exp, a_vref;
+  float T;          // the horizon of time_stopping
+  float k_t;        // h's time coefficient
   uint32_t key0, key1;
 };
-constexpr int kNumIntArgs = 14 + 4 * kMaxHidden + 3;
-constexpr int kNumFloatArgs = 8;
+constexpr int kNumIntArgs = 16 + 4 * kMaxHidden + 3;
+constexpr int kNumFloatArgs = 10;
 static_assert(offsetof(StoppedArgs, dt) == kNumIntArgs * sizeof(int),
               "StoppedArgs must start with kNumIntArgs ints, as the wrapper "
               "packs");
+static_assert(offsetof(StoppedArgs, key0) ==
+                  offsetof(StoppedArgs, dt) + kNumFloatArgs * sizeof(float),
+              "kNumFloatArgs floats follow the ints, as the wrapper packs");
+
+// Net input rows: the d state rows, and the clock's with time_stopping.
+template <bool kTimed>
+__device__ __forceinline__ int net_inputs(const StoppedArgs& a) {
+  return kTimed ? a.d + 1 : a.d;
+}
 
 __device__ __forceinline__ int padded(int w) {
   return (w + kChunk - 1) / kChunk * kChunk;
@@ -136,17 +175,19 @@ __device__ __forceinline__ float step_of(const StoppedArgs& a, float c,
                    __fmul_rn(__fmul_rn(a.sig, x), a.sq_dt));
 }
 
-// V(x) with x in rows 0..d of f: writes the features relu(h)^2 into rows
-// d..F of f and relu(h) into r, and returns V.
+// V of the net inputs in rows 0..d_in of f: writes the features relu(h)^2
+// into rows d_in..F of f and relu(h) into r, and returns V.
+template <bool kTimed>
 __device__ float value_forward(const StoppedArgs& a,
                                const float* __restrict__ W, float* f,
                                float* r, int ts) {
-  int n_in = a.d;
+  const int d_in = net_inputs<kTimed>(a);
+  int n_in = d_in;
   for (int l = 0; l < a.L; ++l) {
     const int w = a.width[l], wp = padded(w);
     const float* Wl = W + a.w_off[l];
     const float* bl = W + a.b_off[l];
-    float* rl = r + (n_in - a.d) * ts;
+    float* rl = r + (n_in - d_in) * ts;
     for (int j0 = 0; j0 < wp; j0 += kChunk) {
       float acc[kChunk];
 #pragma unroll
@@ -170,17 +211,20 @@ __device__ float value_forward(const StoppedArgs& a,
   return v + W[a.bL_off];
 }
 
-// g = dV/d(features) into rows 0..F of g (rows 0..d: grad_x V), from the
-// relu values r of the last value_forward.
+// g = dV/d(features) into rows 0..F of g (rows 0..d: grad_x V; row d with
+// time_stopping: dV/dt, which nothing reads), from the relu values r of the
+// last value_forward.
+template <bool kTimed>
 __device__ void value_grad(const StoppedArgs& a, const float* __restrict__ W,
                            const float* r, float* g, int ts) {
+  const int d_in = net_inputs<kTimed>(a);
   const float* wL = W + a.wL_off;
   for (int i = 0; i < a.F; ++i) g[i * ts] = wL[i];
   int o = a.F;
   for (int l = a.L - 1; l >= 0; --l) {
     const int w = a.width[l], wp = padded(w);
     o -= w;   // layer l's outputs are feature rows o..o + w, its inputs 0..o
-    const float* rl = r + (o - a.d) * ts;
+    const float* rl = r + (o - d_in) * ts;
     for (int j = 0; j < w; ++j)
       g[(o + j) * ts] = 2.0f * rl[j * ts] * g[(o + j) * ts];
     const float* Wl = W + a.w_off[l];
@@ -193,24 +237,45 @@ __device__ void value_grad(const StoppedArgs& a, const float* __restrict__ W,
   }
 }
 
+// The argument of h's exponential at the pre-step state (|x|^2 = r2, clock
+// t).
+template <bool kTimed>
+__device__ __forceinline__ float exp_arg(const StoppedArgs& a, float r2,
+                                         float t) {
+  return kTimed ? a.k_exp * r2 + a.k_t * t : a.k_exp * r2;
+}
+
+// h and dh/dy at the pre-step state with y = V.
+template <bool kTimed>
 __device__ __forceinline__ float h_value(const StoppedArgs& a, float r2,
-                                         float y) {
+                                         float t, float y) {
   float h = y * (a.c_y + a.c_yr2 * r2);
   if (a.phi != 0) {
-    const float u = expf(a.k_exp * r2) - y * y;
+    const float u = expf(exp_arg<kTimed>(a, r2, t)) - y * y;
     h += a.phi == 1 ? u : sinf(u);
   }
   return h;
 }
 
+template <bool kTimed>
 __device__ __forceinline__ float h_dy(const StoppedArgs& a, float r2,
-                                      float y) {
+                                      float t, float y) {
   float g = a.c_y + a.c_yr2 * r2;
   if (a.phi != 0) {
-    const float u = expf(a.k_exp * r2) - y * y;
+    const float u = expf(exp_arg<kTimed>(a, r2, t)) - y * y;
     g -= 2.0f * y * (a.phi == 1 ? 1.0f : cosf(u));
   }
   return g;
+}
+
+// The step's selection mask: inside the domain (the current state, as the
+// plain version's inside_fn tests the sphere) and, with time_stopping, a
+// clock that can still advance: fl(t + dt) <= T, the plain version's test.
+template <bool kTimed>
+__device__ __forceinline__ bool selected(const StoppedArgs& a, float r2,
+                                         float t) {
+  if (!kTimed) return sqrtf(r2) < a.radius;
+  return (a.geom == 1 || sqrtf(r2) < a.radius) && __fadd_rn(t, a.dt) <= a.T;
 }
 
 // Stage the packed net in shared memory when the wrapper asked for it;
@@ -224,10 +289,12 @@ __device__ __forceinline__ const float* stage_net(const StoppedArgs& a,
   return S;
 }
 
-__global__ void __launch_bounds__(kStoppedTile)
+template <bool kTimed>
+__global__ void __launch_bounds__(kStoppedTile, kMinBlocksPerSm)
 stopped_fwd_kernel(const StoppedArgs a, const float* __restrict__ P,
                    const float* __restrict__ noise,
-                   const float* __restrict__ X0, float* __restrict__ X_out,
+                   const float* __restrict__ X0,
+                   const float* __restrict__ t0, float* __restrict__ X_out,
                    float* __restrict__ acc_out) {
   extern __shared__ float4 smem4[];
   float* S = reinterpret_cast<float*>(smem4);
@@ -238,17 +305,19 @@ stopped_fwd_kernel(const StoppedArgs a, const float* __restrict__ P,
   __syncthreads();
   if (k >= a.K) return;   // no barrier below
 
-  float* f = col;                        // features: X, then relu(h)^2
+  float* f = col;                        // features: X, [t,] relu(h)^2
   float* r = f + a.F * ts;               // relu(h) of the hidden layers
-  float* g = r + (a.F - a.d) * ts;       // dV/d(features)
+  float* g = r + (a.F - net_inputs<kTimed>(a)) * ts;   // dV/d(features)
   for (int j = 0; j < a.d; ++j)
     f[j * ts] = X0[static_cast<size_t>(k) * a.d + j];
+  float t = t0[k];
   float Y = 0.0f, hit = 0.0f, vl2 = 0.0f, advs = 0.0f;
   bool stopped = false;
   for (int n = 0; n < a.N && !stopped; ++n) {
     const float r2 = sq_norm(f, a.d, ts);
-    const bool sel = sqrtf(r2) < a.radius;
-    const float V = value_forward(a, W, f, r, ts);
+    const bool sel = selected<kTimed>(a, r2, t);
+    if (kTimed) f[a.d * ts] = t;
+    const float V = value_forward<kTimed>(a, W, f, r, ts);
     hit += 1.0f;
     if (a.have_vref) {
       const float e = V - expf(a.a_vref * r2);
@@ -258,8 +327,8 @@ stopped_fwd_kernel(const StoppedArgs a, const float* __restrict__ P,
       stopped = true;
       break;
     }
-    value_grad(a, W, r, g, ts);
-    const float h = h_value(a, r2, V);
+    value_grad<kTimed>(a, W, r, g, ts);
+    const float h = h_value<kTimed>(a, r2, t, V);
     float s_zc = 0.0f, s_zx = 0.0f;
     for (int gi = 0; 4 * gi < a.d; ++gi) {
       float xi[4];
@@ -277,6 +346,7 @@ stopped_fwd_kernel(const StoppedArgs a, const float* __restrict__ P,
     }
     Y += (-h + s_zc) * a.dt + s_zx * a.sq_dt;
     advs += 1.0f;
+    if (kTimed) t = __fadd_rn(t, a.dt);
   }
   float* dst = X_out + static_cast<size_t>(k) * a.d;
   for (int j = 0; j < a.d; ++j) dst[j] = f[j * ts];
@@ -285,12 +355,15 @@ stopped_fwd_kernel(const StoppedArgs a, const float* __restrict__ P,
   acc_out[2 * a.K + k] = hit;
   acc_out[3 * a.K + k] = vl2;
   acc_out[4 * a.K + k] = advs;
+  acc_out[5 * a.K + k] = t;
 }
 
-__global__ void __launch_bounds__(kStoppedTile)
+template <bool kTimed>
+__global__ void __launch_bounds__(kStoppedTile, kMinBlocksPerSm)
 stopped_bwd_kernel(const StoppedArgs a, const float* __restrict__ P,
                    const float* __restrict__ noise,
                    const float* __restrict__ X0,
+                   const float* __restrict__ t0,
                    const float* __restrict__ gY, float* __restrict__ part) {
   extern __shared__ float4 smem4[];
   float* S = reinterpret_cast<float*>(smem4);
@@ -302,10 +375,13 @@ stopped_bwd_kernel(const StoppedArgs a, const float* __restrict__ P,
   float* G = part + static_cast<size_t>(blockIdx.x) * a.n_grad;
   for (int e = tid; e < a.n_grad; e += tile) G[e] = 0.0f;
 
-  const int H = a.F - a.d;               // hidden feature rows
-  float* f = col;                        // features (rows 0..d: X)
+  const int d_in = net_inputs<kTimed>(a);
+  const int H = a.F - d_in;              // hidden feature rows
+  float* f = col;                        // features (rows 0..d: X, [d: t])
   float* r = f + a.F * ts;               // relu(h)
-  float* fd = r + H * ts;                // tangent of the features (0..d: w)
+  float* fd = r + H * ts;                // tangent of the features (0..d: w;
+                                         // the t slot stays 0: Z is the
+                                         // gradient in x only)
   float* hd = fd + a.F * ts;             // tangent of h
   float* gb = hd + H * ts;               // cotangent of the features; rows
                                          // 0..d hold the step of X
@@ -316,6 +392,7 @@ stopped_bwd_kernel(const StoppedArgs a, const float* __restrict__ P,
     for (int j = 0; j < a.d; ++j)
       f[j * ts] = X0[static_cast<size_t>(k) * a.d + j];
   const float gy = live ? gY[k] : 0.0f;
+  float t = live ? t0[k] : 0.0f;
   bool stopped = !live;
   const float* wL = W + a.wL_off;
 
@@ -325,10 +402,11 @@ stopped_bwd_kernel(const StoppedArgs a, const float* __restrict__ P,
     bool adv = false;
     if (!stopped) {
       const float r2 = sq_norm(f, a.d, ts);
-      if (sqrtf(r2) < a.radius) {
+      if (selected<kTimed>(a, r2, t)) {
         adv = true;
-        const float V = value_forward(a, W, f, r, ts);
-        if (a.adaptive) value_grad(a, W, r, gb, ts);
+        if (kTimed) f[a.d * ts] = t;
+        const float V = value_forward<kTimed>(a, W, f, r, ts);
+        if (a.adaptive) value_grad<kTimed>(a, W, r, gb, ts);
         for (int gi = 0; 4 * gi < a.d; ++gi) {
           float xi[4];
           draw4(a, noise, k, n, gi, xi);
@@ -341,15 +419,19 @@ stopped_bwd_kernel(const StoppedArgs a, const float* __restrict__ P,
             gb[j * ts] = step_of(a, c, xi[q]);
           }
         }
-        *al = -gy * h_dy(a, r2, V) * a.dt;
+        *al = -gy * h_dy<kTimed>(a, r2, t, V) * a.dt;
+        if (kTimed) {
+          fd[a.d * ts] = 0.0f;
+          t = __fadd_rn(t, a.dt);
+        }
 
         // tangent sweep: h' = W_l f', (relu(h)^2)' = 2 relu(h) h'
-        int n_in = a.d;
+        int n_in = d_in;
         for (int l = 0; l < a.L; ++l) {
           const int w = a.width[l], wp = padded(w);
           const float* Wl = W + a.w_off[l];
-          const float* rl = r + (n_in - a.d) * ts;
-          float* hdl = hd + (n_in - a.d) * ts;
+          const float* rl = r + (n_in - d_in) * ts;
+          float* hdl = hd + (n_in - d_in) * ts;
           for (int j0 = 0; j0 < wp; j0 += kChunk) {
             float acc[kChunk];
 #pragma unroll
@@ -368,36 +450,36 @@ stopped_bwd_kernel(const StoppedArgs a, const float* __restrict__ P,
         }
 
         // reverse sweep over the pair (V, V'): S = alpha V + V' with
-        // V' = wL . f'; rows d..F of gb / gdb end as the cotangents of h
-        // and h' of each hidden layer
-        for (int i = a.d; i < a.F; ++i) {
+        // V' = wL . f'; rows d_in..F of gb / gdb end as the cotangents of
+        // h and h' of each hidden layer
+        for (int i = d_in; i < a.F; ++i) {
           gb[i * ts] = *al * wL[i];
-          gdb[(i - a.d) * ts] = wL[i];
+          gdb[(i - d_in) * ts] = wL[i];
         }
         int o = a.F;
         for (int l = a.L - 1; l >= 0; --l) {
           const int w = a.width[l], wp = padded(w);
           o -= w;
-          const float* rl = r + (o - a.d) * ts;
-          const float* hdl = hd + (o - a.d) * ts;
+          const float* rl = r + (o - d_in) * ts;
+          const float* hdl = hd + (o - d_in) * ts;
           for (int j = 0; j < w; ++j) {
             const float rv = rl[j * ts];
             const float ab = gb[(o + j) * ts];
-            const float adb = gdb[(o + j - a.d) * ts];
+            const float adb = gdb[(o + j - d_in) * ts];
             gb[(o + j) * ts] =
                 rv > 0.0f ? 2.0f * rv * ab + 2.0f * hdl[j * ts] * adb : 0.0f;
-            gdb[(o + j - a.d) * ts] = 2.0f * rv * adb;
+            gdb[(o + j - d_in) * ts] = 2.0f * rv * adb;
           }
           const float* Wl = W + a.w_off[l];
-          for (int i = a.d; i < o; ++i) {
+          for (int i = d_in; i < o; ++i) {
             const float* Wi = Wl + i * wp;
             float s = 0.0f, sd = 0.0f;
             for (int j = 0; j < w; ++j) {
               s = fmaf(Wi[j], gb[(o + j) * ts], s);
-              sd = fmaf(Wi[j], gdb[(o + j - a.d) * ts], sd);
+              sd = fmaf(Wi[j], gdb[(o + j - d_in) * ts], sd);
             }
             gb[i * ts] += s;
-            gdb[(i - a.d) * ts] += sd;
+            gdb[(i - d_in) * ts] += sd;
           }
         }
       } else {
@@ -406,9 +488,9 @@ stopped_bwd_kernel(const StoppedArgs a, const float* __restrict__ P,
     }
     if (!adv) {   // this path adds nothing this step
       for (int i = 0; i < a.F; ++i) fd[i * ts] = 0.0f;
-      for (int i = a.d; i < a.F; ++i) {
+      for (int i = d_in; i < a.F; ++i) {
         gb[i * ts] = 0.0f;
-        gdb[(i - a.d) * ts] = 0.0f;
+        gdb[(i - d_in) * ts] = 0.0f;
       }
       *al = 0.0f;
     }
@@ -421,7 +503,7 @@ stopped_bwd_kernel(const StoppedArgs a, const float* __restrict__ P,
       const float* gbb = gb - tid;
       const float* gdbb = gdb - tid;
       const float* alb = al - tid;
-      int n_in = a.d;
+      int n_in = d_in;
       for (int l = 0; l < a.L; ++l) {
         const int w = a.width[l];
         float* Gl = G + a.g_off[l];
@@ -429,7 +511,7 @@ stopped_bwd_kernel(const StoppedArgs a, const float* __restrict__ P,
           const int i = e / w;
           const int j = e - i * w;
           const float* hb = gbb + (n_in + j) * ts;
-          const float* hdb = gdbb + (n_in + j - a.d) * ts;
+          const float* hdb = gdbb + (n_in + j - d_in) * ts;
           float s = 0.0f;
           if (i == n_in) {
             for (int p = 0; p < tile; ++p) s += hb[p];
@@ -468,7 +550,7 @@ stopped_bwd_kernel(const StoppedArgs a, const float* __restrict__ P,
 // arrays of stride tile + 1.  The wrapper's _stopped_smem_bytes computes
 // the same.
 size_t smem_floats(const StoppedArgs& a, bool backward) {
-  const size_t H = a.F - a.d;
+  const size_t H = a.F - (a.time_stopping ? a.d + 1 : a.d);
   const size_t per_path = backward ? 3 * a.F + 3 * H + 1 : 2 * a.F + H;
   return (a.stage ? a.n_params : 0) +
          per_path * static_cast<size_t>(a.tile + 1);
@@ -481,7 +563,8 @@ int unpack(const int* iargs, const float* fargs, unsigned long long seed,
   a->key0 = static_cast<uint32_t>(seed & 0xFFFFFFFFull);
   a->key1 = static_cast<uint32_t>(seed >> 32);
   if (a->tile <= 0 || a->tile > kStoppedTile || a->tile % 32 != 0 ||
-      a->L < 1 || a->L > kMaxHidden || a->K <= 0)
+      a->L < 1 || a->L > kMaxHidden || a->K <= 0 ||
+      (a->geom != 0 && !a->time_stopping))
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaSetDevice(device));
 }
@@ -506,34 +589,42 @@ int launch(Kernel kernel, const StoppedArgs& a, bool backward, void* stream,
 // of the launch (0 = success).  `iargs` and `fargs` are host arrays in the
 // order of StoppedArgs.
 
-// Forward: X0 (K, d) -> X_out (K, d), acc_out (5, K): Y, stopped, hitting,
-// v_l2, adv_steps.
+// Forward: X0 (K, d), t0 (K,) -> X_out (K, d), acc_out (6, K): Y, stopped,
+// hitting, v_l2, adv_steps, t.
 extern "C" int pspde_stopped_rollout_fwd(const float* params,
                                          const float* host_noise,
-                                         const float* X0, float* X_out,
-                                         float* acc_out, const int* iargs,
+                                         const float* X0, const float* t0,
+                                         float* X_out, float* acc_out,
+                                         const int* iargs,
                                          const float* fargs,
                                          unsigned long long seed, int device,
                                          void* stream) {
   StoppedArgs a;
   const int err = unpack(iargs, fargs, seed, device, &a);
   if (err != 0) return err;
-  return launch(stopped_fwd_kernel, a, false, stream, params, host_noise, X0,
-                X_out, acc_out);
+  return a.time_stopping
+             ? launch(stopped_fwd_kernel<true>, a, false, stream, params,
+                      host_noise, X0, t0, X_out, acc_out)
+             : launch(stopped_fwd_kernel<false>, a, false, stream, params,
+                      host_noise, X0, t0, X_out, acc_out);
 }
 
-// Backward: gY (K,) -> grad_out (ceil(K / tile), n_grad), one row of
+// Backward: X0, t0, gY (K,) -> grad_out (ceil(K / tile), n_grad), one row of
 // per-layer [W (n_in, width); b (1, width)] and [wL (F); bL] sums per block.
 extern "C" int pspde_stopped_rollout_bwd(const float* params,
                                          const float* host_noise,
-                                         const float* X0, const float* gY,
-                                         float* grad_out, const int* iargs,
+                                         const float* X0, const float* t0,
+                                         const float* gY, float* grad_out,
+                                         const int* iargs,
                                          const float* fargs,
                                          unsigned long long seed, int device,
                                          void* stream) {
   StoppedArgs a;
   const int err = unpack(iargs, fargs, seed, device, &a);
   if (err != 0) return err;
-  return launch(stopped_bwd_kernel, a, true, stream, params, host_noise, X0,
-                gY, grad_out);
+  return a.time_stopping
+             ? launch(stopped_bwd_kernel<true>, a, true, stream, params,
+                      host_noise, X0, t0, gY, grad_out)
+             : launch(stopped_bwd_kernel<false>, a, true, stream, params,
+                      host_noise, X0, t0, gY, grad_out);
 }

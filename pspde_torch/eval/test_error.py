@@ -17,19 +17,25 @@ def compute_test_error(v_fn, problem, K: int,
                        generator: Optional[torch.Generator] = None,
                        modus: str = "elliptic"):
     """(L2 error, mean absolute error, mean relative error) of the value
-    approximation ``v_fn`` (X (K, d) -> (K,)) against ``problem.v_ref`` on
-    K fresh uniform samples of the domain (utilities.py:440-472), as
-    0-d tensors on the problem's device.  ``modus='parabolic'`` belongs to
-    the GeneralSolver slice and raises."""
-    if modus != "elliptic":
-        raise NotImplementedError(
-            f"compute_test_error(modus={modus!r}) is not ported to "
-            "pspde_torch yet: it comes with the GeneralSolver slice "
-            "(ROADMAP.md, Queue 1 item 9)")
-    X = sample_domain(generator, problem.geometry, K, problem.d,
-                      device=problem.X_0.device)
-    v_true = problem.v_ref(X)
-    diff = v_true - v_fn(X)
+    approximation ``v_fn`` against ``problem.v_ref`` on K fresh uniform
+    samples of the domain (utilities.py:440-472), as 0-d tensors on the
+    problem's device.  ``modus='elliptic'``: ``v_fn`` maps X (K, d) ->
+    (K,).  ``modus='parabolic'``: t ~ U(0, T) is drawn after X, ``v_fn``
+    maps [X, t] (K, d + 1) -> (K,) and the reference is ``v_ref(X, t)``
+    (utilities.py:456-464)."""
+    if modus not in ("elliptic", "parabolic"):
+        raise ValueError(f"modus={modus!r} must be 'elliptic' or "
+                         "'parabolic'")
+    dev = problem.X_0.device
+    X = sample_domain(generator, problem.geometry, K, problem.d, device=dev)
+    if modus == "parabolic":
+        t = torch.rand((K,), generator=generator, device=dev) * problem.T
+        v_true = problem.v_ref(X, t)
+        v_est = v_fn(torch.cat([X, t[:, None]], dim=-1))
+    else:
+        v_true = problem.v_ref(X)
+        v_est = v_fn(X)
+    diff = v_true - v_est
     return (torch.mean(diff ** 2), torch.mean(torch.abs(diff)),
             torch.mean(torch.abs(diff) / v_true))
 

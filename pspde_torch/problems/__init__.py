@@ -2,7 +2,11 @@ from .base import DiffusionMatrix, Geometry, Problem
 from .elliptic import (ExponentialOnBallNonlinear,
                        ExponentialOnBallNonlinearSin, ExponentialOnSphere)
 from .ou import LLGC, LQGC
+from .parabolic import (AllenCahn, ExponentialOnSphereNonlinearParabolic,
+                        ExponentialOnSphereParabolic, HeatEquation)
 
-__all__ = ["DiffusionMatrix", "ExponentialOnBallNonlinear",
+__all__ = ["AllenCahn", "DiffusionMatrix", "ExponentialOnBallNonlinear",
            "ExponentialOnBallNonlinearSin", "ExponentialOnSphere",
-           "Geometry", "LLGC", "LQGC", "Problem"]
+           "ExponentialOnSphereNonlinearParabolic",
+           "ExponentialOnSphereParabolic", "Geometry", "HeatEquation",
+           "LLGC", "LQGC", "Problem"]

@@ -9,9 +9,9 @@ The hand-written rollout kernels cover one family of coefficients, and a
 problem states whether it belongs to it through ``drift_family``,
 ``running_cost_family`` and, for the training kernels, ``h_family``
 (``None`` means outside the family).  The stopped-path problems
-(``problems/elliptic.py``) state their h through ``h_family`` too, in the
-stopped kernels' form, and their closed-form reference through
-``v_ref_family``.
+(``problems/elliptic.py``, ``problems/parabolic.py``) state their h through
+``h_family`` too, in the stopped kernels' form, and the elliptic ones their
+closed-form reference through ``v_ref_family``.
 """
 
 from __future__ import annotations
@@ -170,9 +170,11 @@ class Problem:
         * ('quadratic_z', c_h, f_coef): the Y-free HJB
           h(t, x, y, z) = c_h |z|^2 / 2 + f_coef f(x, t) (the HJB
           training kernels);
-        * ('ball_exp', c_y, c_yr2, k, phi): the z-free elliptic
-          h(x, y, z) = y (c_y + c_yr2 |x|^2) + phi(exp(k |x|^2) - y^2)
-          with phi in ('none', 'identity', 'sin') (the stopped kernels).
+        * ('ball_exp', c_y, c_yr2, k, phi[, k_t]): the z-free
+          h = y (c_y + c_yr2 |x|^2) + phi(exp(k |x|^2 + k_t t) - y^2)
+          with phi in ('none', 'identity', 'sin') (the stopped kernels);
+          the elliptic problems leave k_t out (0), the parabolic ones
+          (``problems/parabolic.py``) state it.
         """
         return None
 

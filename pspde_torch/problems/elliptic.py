@@ -6,7 +6,7 @@ and Neumann ``g``) and ``ExponentialOnBallNonlinearSin``, each with ``g``,
 ``h(x, y, z)``, ``v_ref`` and the stopped kernels' ``h_family`` /
 ``v_ref_family``.  Zero drift, sigma = sqrt(2) I, the unit ball.  The
 dense-sigma ``ExponentialOnBallNonlinearSinHessian`` and ``Committor`` ...
-``SinNorm2`` wait for their slices (ROADMAP.md, Queue 1 item 9).
+``SinNorm2`` wait for their slices (ROADMAP.md, Queue 1 item 7).
 """
 
 from __future__ import annotations

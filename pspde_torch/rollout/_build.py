@@ -55,8 +55,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     for name, n_ptr in (("pspde_controlled_rollout", 4),
                         ("pspde_train_rollout_fwd", 7),
                         ("pspde_train_rollout_bwd", 6),
-                        ("pspde_stopped_rollout_fwd", 5),
-                        ("pspde_stopped_rollout_bwd", 5)):
+                        ("pspde_stopped_rollout_fwd", 6),
+                        ("pspde_stopped_rollout_bwd", 6)):
         fn = getattr(lib, name)
         fn.argtypes = [vp] * n_ptr + tail
         fn.restype = ctypes.c_int

@@ -813,8 +813,8 @@ fused_train_rollout.backward_launches_by_plan = dict.fromkeys(PLANS, 0)
 class FusedStoppedOut(NamedTuple):
     X: torch.Tensor          # (K, d) state at stopping (or final) time
     Y: torch.Tensor          # (K,) accumulated masked value increments
-    t: torch.Tensor          # (K,) per-path elapsed time (t0: no stopping
-                             # in time in this family)
+    t: torch.Tensor          # (K,) per-path clock: t0 plus dt per
+                             # advanced step with time_stopping, else t0
     stopped: torch.Tensor    # (K,) float 0/1
     hitting: torch.Tensor    # (K,) number of active steps
     v_l2: torch.Tensor       # (K,) accumulated V-vs-reference L2 error
@@ -823,14 +823,17 @@ class FusedStoppedOut(NamedTuple):
 
 STOPPED_KERNEL_FAMILY = (
     "zero drift; sigma scalar; geometry 'sphere' (exit tested on the current "
-    "state); h = y (c_y + c_yr2 |x|^2) + phi(exp(k |x|^2) - y^2) with phi "
-    "none, identity or sin (Problem.h_family 'ball_exp'); v_ref "
-    "exp(a |x|^2) or none (Problem.v_ref_family); a DenseNet value net of "
-    "input width d, d_out=1, output_relu=False and 1-4 hidden layers; rng "
-    "'erfinv' or 'binom'; no time_stopping and no lambda leaf")
+    "state) or, with time_stopping, 'unbounded'; h = y (c_y + c_yr2 |x|^2) "
+    "+ phi(exp(k |x|^2 + k_t t) - y^2) with phi none, identity or sin "
+    "(Problem.h_family 'ball_exp'); v_ref exp(a |x|^2) or none "
+    "(Problem.v_ref_family; no in-kernel reference with time_stopping); a "
+    "DenseNet value net with d_out=1, output_relu=False, 1-4 hidden layers "
+    "and input width d, or d + 1 reading [x, t] with time_stopping (a step "
+    "advances while t + dt <= T); rng 'erfinv' or 'binom'; no lambda leaf")
 _MAX_HIDDEN = 4            # csrc/stopped_rollout.cu kMaxHidden
 _STOPPED_TILES = (64, 32)  # csrc kStoppedTile bounds the block
 _PHI = ("none", "identity", "sin")
+_GEOMETRIES = ("sphere", "unbounded")   # csrc StoppedArgs.geom
 
 
 def _stopped_outside(msg: str):
@@ -840,39 +843,47 @@ def _stopped_outside(msg: str):
 
 def _check_stopped_family(problem, v_net, rng, time_stopping=False,
                           lam=None):
-    """(h_family, v_ref_family) of a problem and net inside the stopped
-    kernels' family; raises ValueError naming STOPPED_KERNEL_FAMILY
-    outside it."""
+    """(h_family with its k_t, v_ref_family) of a problem and net inside
+    the stopped kernels' family; raises ValueError naming
+    STOPPED_KERNEL_FAMILY outside it.  With ``time_stopping`` the net reads
+    [x, t] and there is no in-kernel reference (v_ref_family None)."""
     name = type(problem).__name__
-    if time_stopping:
-        raise _stopped_outside("time_stopping belongs to the GeneralSolver "
-                               "slice (ROADMAP.md, Queue 1 item 9)")
     if lam is not None:
         raise _stopped_outside("a lambda leaf belongs to the EigenSolver "
-                               "slice (ROADMAP.md, Queue 1 item 9)")
+                               "slice (ROADMAP.md, Queue 1 item 3 and "
+                               "Queue 2 item 3)")
+    if time_stopping and getattr(problem, "T", None) is None:
+        raise _stopped_outside(f"time_stopping needs a horizon, and {name} "
+                               "has T=None")
     if problem.drift_family() != ("zero", None):
         raise _stopped_outside(f"drift of {name} is not zero")
     if problem.sigma_struct.kind != "scalar":
         raise _stopped_outside(f"sigma of {name} is "
                                f"{problem.sigma_struct.kind}, not scalar")
     geom = problem.geometry
-    if geom is None or geom.kind != "sphere":
+    if geom is None or geom.kind not in _GEOMETRIES:
         raise _stopped_outside(f"geometry of {name} is "
                                f"{getattr(geom, 'kind', None)!r}")
+    if geom.kind == "unbounded" and not time_stopping:
+        raise _stopped_outside(f"geometry of {name} is 'unbounded' and "
+                               "without time_stopping no path would stop")
     hfam = problem.h_family()
     if hfam is None or hfam[0] != "ball_exp" or hfam[4] not in _PHI:
         raise _stopped_outside(f"h of {name} is not in the 'ball_exp' "
                                "family")
-    vfam = problem.v_ref_family()
+    hfam = tuple(hfam) + (0.0,) * (6 - len(hfam))
+    vfam = None if time_stopping else problem.v_ref_family()
     if vfam is not None and vfam[0] != "exp_r2":
         raise _stopped_outside(f"v_ref of {name} is not exp(a |x|^2)")
     if not isinstance(v_net, DenseNet):
         raise _stopped_outside(f"value net {type(v_net).__name__} is not a "
                                "DenseNet")
-    if v_net.d_in != problem.d or v_net.d_out != 1 or v_net.output_relu:
+    d_in = problem.d + int(bool(time_stopping))
+    if v_net.d_in != d_in or v_net.d_out != 1 or v_net.output_relu:
         raise _stopped_outside(
             f"DenseNet d_in={v_net.d_in}, d_out={v_net.d_out}, "
-            f"output_relu={v_net.output_relu} (need {problem.d}, 1, False)")
+            f"output_relu={v_net.output_relu} (need {d_in}, 1, False with "
+            f"time_stopping={bool(time_stopping)})")
     if not 1 <= len(v_net.arch) <= _MAX_HIDDEN:
         raise _stopped_outside(f"DenseNet has {len(v_net.arch)} hidden "
                                "layers")
@@ -887,25 +898,31 @@ def reference_stopped_train_rollout(problem, v_net, X0: torch.Tensor,
                                     adaptive_forward: bool = False,
                                     rng: str = "erfinv",
                                     host_noise: Optional[torch.Tensor] = None,
-                                    with_v_ref: bool = True
+                                    with_v_ref: bool = True,
+                                    time_stopping: bool = False
                                     ) -> FusedStoppedOut:
     """Plain version of the stopped training kernels: ``stopped_rollout``
     with a detached forward from (X0, t0) with Y_0 = 0, on the kernels'
     noise stream (``host_noise`` (N, K, d) or ``train_normals(seed, ...)``
-    through ``rng``), v_l2 against ``problem.v_ref`` when ``with_v_ref``.
-    Differentiable in ``v_net``'s parameters by autograd (second order
-    through Z = sigma^T grad V); any problem and value net are accepted."""
+    through ``rng``), v_l2 against ``problem.v_ref`` when ``with_v_ref``
+    and not ``time_stopping`` (then the net reads [x, t] and each path's
+    clock stops it at the horizon).  Differentiable in ``v_net``'s
+    parameters by autograd (second order through Z = sigma^T grad V); any
+    problem and value net are accepted."""
     K, d = X0.shape
     dev = X0.device
     cfg = StoppedRolloutConfig(N=N, delta_t=delta_t,
                                adaptive_forward=adaptive_forward,
-                               detach_forward=True)
+                               detach_forward=True,
+                               time_stopping=time_stopping)
+    with_v_ref = with_v_ref and problem.has_v_ref and not time_stopping
     out = stopped_rollout(
-        cfg, problem, value_and_z(v_net, problem.sigma_struct),
+        cfg, problem,
+        value_and_z(v_net, problem.sigma_struct, space_time=time_stopping),
         X0.to(torch.float32), torch.zeros((K,), dtype=torch.float32,
                                           device=dev),
         t0, inside_fn(problem.geometry),
-        v_ref=problem.v_ref if with_v_ref and problem.has_v_ref else None,
+        v_ref=problem.v_ref if with_v_ref else None,
         host_noise=host_noise,
         noise_fn=lambda n: train_normals(seed, K, n, d, rng, dev))
     stopped = out.stopped.to(torch.float32)
@@ -946,7 +963,7 @@ class _StoppedLayout(NamedTuple):
     bL_off: int
     gL_off: int
     n_grad: int
-    F: int                 # d + sum(widths)
+    F: int                 # d_in + sum(widths)
 
 
 def _stopped_layout(v_net: DenseNet) -> _StoppedLayout:
@@ -993,19 +1010,23 @@ def _pad_hidden(vals: list) -> list:
 
 
 def _pack_stopped(problem, v_net, hfam, vfam, K, N, delta_t, tile, *,
-                  backward, host_noise, adaptive_forward, rng) -> _Packed:
-    """The stopped kernels' arguments (stopped_rollout.cu: StoppedArgs)."""
+                  backward, host_noise, adaptive_forward, rng,
+                  time_stopping=False) -> _Packed:
+    """The stopped kernels' arguments (stopped_rollout.cu: StoppedArgs).
+    The state has d rows and the net d_in = d (+ 1 with time_stopping)
+    input rows; F and the hidden rows H count from d_in."""
     d = problem.d
     lay = _stopped_layout(v_net)
-    H = lay.F - d
+    H = lay.F - v_net.d_in
     per_path = 3 * lay.F + 3 * H + 1 if backward else 2 * lay.F + H
     n_params = lay.buf.numel()
     tile, stage = _stopped_tile(n_params, per_path, tile)
-    _, c_y, c_yr2, k_exp, phi = hfam
+    _, c_y, c_yr2, k_exp, phi, k_t = hfam
     iargs = [K, N, d, len(lay.widths), lay.F, tile, int(stage), n_params,
              int(host_noise is not None), int(adaptive_forward),
              RNG_MAPS.index(rng), _PHI.index(phi), int(vfam is not None),
-             lay.n_grad]
+             lay.n_grad, int(time_stopping),
+             _GEOMETRIES.index(problem.geometry.kind)]
     iargs += (_pad_hidden(lay.widths) + _pad_hidden(lay.w_off)
               + _pad_hidden(lay.b_off) + _pad_hidden(lay.g_off))
     iargs += [lay.wL_off, lay.bL_off, lay.gL_off]
@@ -1013,7 +1034,8 @@ def _pack_stopped(problem, v_net, hfam, vfam, K, N, delta_t, tile, *,
     fargs = [dt, sq_dt, problem.sigma_struct.scale,
              float(problem.geometry.boundary_distance), float(c_y),
              float(c_yr2), float(k_exp),
-             float(vfam[1]) if vfam is not None else 0.0]
+             float(vfam[1]) if vfam is not None else 0.0,
+             float(problem.T) if time_stopping else 0.0, float(k_t)]
     return _Packed(lay.buf, iargs, fargs)
 
 
@@ -1028,7 +1050,8 @@ class _StoppedCall(NamedTuple):
     delta_t: float
     seed: int
     families: tuple          # (h_family, v_ref_family)
-    opts: dict               # adaptive_forward, rng, host_noise
+    opts: dict               # adaptive_forward, rng, host_noise and,
+                             # where set, time_stopping
     tile: Optional[int]
 
     def plain(self) -> FusedStoppedOut:
@@ -1042,7 +1065,8 @@ class _StoppedCall(NamedTuple):
             self.problem, self.v_net, *self.families, self.X0.shape[0],
             self.N, self.delta_t, self.tile, backward=backward,
             host_noise=o["host_noise"],
-            adaptive_forward=o["adaptive_forward"], rng=o["rng"])
+            adaptive_forward=o["adaptive_forward"], rng=o["rng"],
+            time_stopping=o.get("time_stopping", False))
 
 
 def _stopped_forward_kernel(call: _StoppedCall) -> FusedStoppedOut:
@@ -1050,12 +1074,12 @@ def _stopped_forward_kernel(call: _StoppedCall) -> FusedStoppedOut:
     K, d = X0.shape
     packed = call.pack(backward=False)
     X = torch.empty((K, d), dtype=torch.float32, device=X0.device)
-    acc = torch.empty((5, K), dtype=torch.float32, device=X0.device)
+    acc = torch.empty((6, K), dtype=torch.float32, device=X0.device)
     _launch("pspde_stopped_rollout_fwd", "fused_stopped_train_rollout",
-            packed, [packed.params, call.opts["host_noise"], X0, X, acc],
-            call.seed, X0.device)
+            packed, [packed.params, call.opts["host_noise"], X0, call.t0, X,
+                     acc], call.seed, X0.device)
     fused_stopped_train_rollout.launches += 1
-    return FusedStoppedOut(X, acc[0], call.t0.clone(), *acc[1:])
+    return FusedStoppedOut(X, acc[0], acc[5], *acc[1:5])
 
 
 def _stopped_grads_from_row(v_net: DenseNet, lay: _StoppedLayout,
@@ -1079,7 +1103,7 @@ def _stopped_backward_kernel(call: _StoppedCall, gY) -> list:
     part = torch.empty((-(-X0.shape[0] // tile), n_grad),
                        dtype=torch.float32, device=X0.device)
     _launch("pspde_stopped_rollout_bwd", "fused_stopped_train_rollout",
-            packed, [packed.params, call.opts["host_noise"], X0,
+            packed, [packed.params, call.opts["host_noise"], X0, call.t0,
                      gY.contiguous(), part], call.seed, X0.device)
     fused_stopped_train_rollout.backward_launches += 1
     return _stopped_grads_from_row(call.v_net, _stopped_layout(call.v_net),
@@ -1092,15 +1116,19 @@ def _reference_stopped_backward(call: _StoppedCall, gY) -> list:
     replay the plain forward's X chain and masks, and accumulate per step
     d/dtheta [alpha V(X) + w^T grad V(X)] with alpha = gY adv (-dh/dy) dt
     and w = gY adv s (xi sqrt(dt) + c dt), by one tangent sweep through the
-    DenseNet in direction w and one reverse sweep over the pair."""
+    DenseNet in direction w and one reverse sweep over the pair.  With
+    ``time_stopping`` the primal sweep starts from [X, t] and the tangent
+    has a zero in the t slot (Z is the gradient in x only)."""
     problem, net = call.problem, call.v_net
     X = call.X0.to(torch.float32)
+    t = call.t0.to(torch.float32)
     K, d = X.shape
     sig = problem.sigma_struct
     dt, sq_dt = step_constants(call.delta_t)
-    _, c_y, c_yr2, k_exp, phi = call.families[0]
+    _, c_y, c_yr2, k_exp, phi, k_t = call.families[0]
     o = call.opts
-    vg = value_and_z(net, sig)
+    timed = o.get("time_stopping", False)
+    vg = value_and_z(net, sig, space_time=timed)
     ins = inside_fn(problem.geometry)
     hidden, out = list(net.layers[:-1]), net.layers[-1]
     wL = out.weight[0]
@@ -1111,17 +1139,19 @@ def _reference_stopped_backward(call: _StoppedCall, gY) -> list:
               else train_normals(call.seed, K, n, d, o["rng"], X.device))
         active = ~stopped
         # the X chain and the masks, as the plain forward computes them
-        V, Z = vg(X, call.t0)
+        V, Z = vg(X, t)
         c = -Z if o["adaptive_forward"] else torch.zeros_like(X)
         drift = (problem.b(X) + sig.apply(c)) * dt + sig.apply(xi) * sq_dt
         X_prop = X + drift * active[:, None].to(X.dtype)
         new_sel = ins(X, X_prop)
+        if timed:
+            new_sel = new_sel & ((t + dt) <= problem.T)
         adv = new_sel & active
         # this step's cotangents
         r2 = torch.sum(X * X, dim=-1)
         dh_dy = c_y + c_yr2 * r2
         if phi != "none":
-            u = torch.exp(k_exp * r2) - V * V
+            u = torch.exp(k_exp * r2 + k_t * t) - V * V
             dh_dy = dh_dy - 2.0 * V * (1.0 if phi == "identity"
                                        else torch.cos(u))
         g = gY * adv.to(torch.float32)
@@ -1129,6 +1159,9 @@ def _reference_stopped_backward(call: _StoppedCall, gY) -> list:
         w = g[:, None] * sig.apply(xi * sq_dt + c * dt)
         # primal and tangent sweeps
         f, fd, pre, hds = X, w, [], []
+        if timed:
+            f = torch.cat([X, t[:, None]], dim=-1)
+            fd = torch.cat([w, torch.zeros_like(t)[:, None]], dim=-1)
         for lin in hidden:
             h = lin(f)
             hd = fd @ lin.weight.T
@@ -1158,6 +1191,8 @@ def _reference_stopped_backward(call: _StoppedCall, gY) -> list:
             fdb = fdb[:, :o_l] + hdb @ lin.weight
             o_end = o_l
         X = torch.where(adv[:, None], X_prop, X)
+        if timed:
+            t = t + dt * adv.to(torch.float32)
         stopped = stopped | ~new_sel
     return grads
 
@@ -1215,8 +1250,11 @@ def fused_stopped_train_rollout(problem, v_net, X0: torch.Tensor,
     ``csrc/stopped_rollout.cu``, counted by
     ``fused_stopped_train_rollout.launches`` and ``.backward_launches``.
     Noise is ``host_noise`` or the Philox stream of ``seed`` through
-    ``rng`` ('erfinv', the default, or 'binom').  Raises ValueError
-    outside ``STOPPED_KERNEL_FAMILY``, on the CPU and on CUDA alike."""
+    ``rng`` ('erfinv', the default, or 'binom').  ``time_stopping`` (the
+    general, space-time solver): the net reads [x, t], each path's clock
+    starts at its t0, a step advances only while t + dt <= problem.T, and
+    ``t`` returns the clock.  Raises ValueError outside
+    ``STOPPED_KERNEL_FAMILY``, on the CPU and on CUDA alike."""
     families = _check_stopped_family(problem, v_net, rng, time_stopping,
                                      lam)
     dev = problem.X_0.device
@@ -1235,7 +1273,8 @@ def fused_stopped_train_rollout(problem, v_net, X0: torch.Tensor,
     call = _StoppedCall(problem, v_net, X0, t0, N, float(delta_t),
                         int(seed), families,
                         dict(adaptive_forward=adaptive_forward, rng=rng,
-                             host_noise=host_noise), tile)
+                             host_noise=host_noise,
+                             time_stopping=bool(time_stopping)), tile)
     return FusedStoppedOut(*_FusedStoppedFn.apply(call, *v_net.parameters()))
 
 

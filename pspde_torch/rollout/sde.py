@@ -193,16 +193,25 @@ class StoppedRolloutConfig:
     alpha0: float = 1.0
 
 
-def value_and_z(net, sigma) -> Callable:
+def value_and_z(net, sigma, space_time: bool = False,
+                z_free: bool = False) -> Callable:
     """(X, t) -> (V, Z) with V = net(X)[:, 0] and Z = sigma^T grad_x V.
-    With grad mode on, Z keeps its graph (``create_graph``), so a loss of
-    Z is differentiable in the net's parameters."""
+    ``space_time``: the net reads [X, t] (t last) and Z is the gradient in
+    the first d inputs only.  ``z_free``: Z = 0 and no gradient is taken
+    (``solve_linear_L2_projection``).  With grad mode on, Z keeps its graph
+    (``create_graph``), so a loss of Z is differentiable in the net's
+    parameters."""
+
+    def inputs(X, t):
+        return torch.cat([X, t[:, None]], dim=-1) if space_time else X
 
     def fn(X, t):
+        if z_free:
+            return net(inputs(X, t))[:, 0], torch.zeros_like(X)
         graph = torch.is_grad_enabled()
         with torch.enable_grad():
             Xg = X if X.requires_grad else X.detach().requires_grad_(True)
-            V = net(Xg)[:, 0]
+            V = net(inputs(Xg, t))[:, 0]
             (gX,) = torch.autograd.grad(V.sum(), Xg, create_graph=graph)
         return (V if graph else V.detach()), sigma.apply_T(gX)
 

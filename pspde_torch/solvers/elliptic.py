@@ -18,7 +18,12 @@ failed 'fused_train' gate raises a ValueError naming the gate; on the CPU
 the kernels do not exist and 'fused_train' resolves to 'scan' with a
 warning, as JAX does off the TPU.  PINN, ``layout='dk'``, ``rng_impl``,
 ``mesh``, ``steps_per_call`` other than one step per call, and save/load
-raise NotImplementedError naming their ROADMAP.md item.
+raise NotImplementedError naming their ROADMAP.md item.  ``lr`` is a
+number or a callable step -> lr (``utils/schedule.py``).
+
+``GeneralSolver`` (``solvers/general.py``) is this class with a clock: the
+gates, the engine resolution, ``_rollout``, ``_record`` and ``train`` are
+defined here once and switch on ``_time_stopping``.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ from ..rollout.sampling import inside_fn, sample_boundary, sample_domain
 from ..rollout.sde import (StoppedRolloutConfig, StoppedRolloutOut,
                            stopped_rollout, value_and_z)
 from ..utils.device import solver_device
+from ..utils.schedule import apply_lr, lr_at
 
 
 def _unbiased_var(x):
@@ -49,8 +55,8 @@ def masked_mean(x, mask):
     return torch.sum(x * m) / torch.clamp(torch.sum(m), min=1.0)
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"EllipticSolver: {what} is not ported to "
+def _not_ported(who: str, what: str, item: str):
+    return NotImplementedError(f"{who}: {what} is not ported to "
                                f"pspde_torch yet (ROADMAP.md, {item})")
 
 
@@ -68,6 +74,11 @@ class EllipticSolver:
     test samples from a device generator seeded with seed + 3.
     ``fused_unroll`` is a TPU lever, accepted and ignored.
     """
+
+    # GeneralSolver: the value net reads [x, t], every path carries a clock
+    # and stops at the horizon
+    _time_stopping = False
+    solve_linear_L2_projection = False
 
     def __init__(self, problem, name, seed=42, delta_t=0.01, N=50, lr=0.001,
                  L=100000, K=200, K_boundary=50, alpha=(1.0, 1.0),
@@ -90,23 +101,25 @@ class EllipticSolver:
                 "branch is dead code (its training loop only uses V, "
                 "solver.py:723-729); use approx_method='Y'"
                 % (approx_method,))
+        who = type(self).__name__
         if loss_method == "PINN":
-            raise _not_ported("loss_method='PINN' (losses/pinn.py)",
-                              "Queue 1 item 9")
+            raise _not_ported(who, "loss_method='PINN' (losses/pinn.py)",
+                              "Queue 1 item 7")
         if layout == "dk":
-            raise _not_ported("layout='dk', a TPU lane-layout lever,",
+            raise _not_ported(who, "layout='dk', a TPU lane-layout lever,",
                               "'Do not port'")
         if rng_impl != "threefry":
-            raise _not_ported(f"rng_impl={rng_impl!r}, a TPU lever,",
+            raise _not_ported(who, f"rng_impl={rng_impl!r}, a TPU lever,",
                               "'Do not port'")
         if mesh is not None:
-            raise _not_ported("mesh=", "Queue 1 item 11")
+            raise _not_ported(who, "mesh=", "Queue 1 item 5")
         if steps_per_call not in ("auto", 1):
-            raise _not_ported(f"steps_per_call={steps_per_call!r} (CUDA-graph "
-                              "capture of several steps)", "Queue 1 item 6")
+            raise _not_ported(who, f"steps_per_call={steps_per_call!r} "
+                              "(CUDA-graph capture of several steps)",
+                              "Queue 1 item 6")
         if rollout_mode not in ("scan", "fused_train"):
-            raise _not_ported(f"rollout_mode={rollout_mode!r}",
-                              "Queue 1 item 9")
+            raise _not_ported(who, f"rollout_mode={rollout_mode!r}",
+                              "'Do not port'")
         if fused_rng is not None and fused_rng not in RNG_MAPS:
             raise ValueError(f"fused_rng={fused_rng!r} must be one of "
                              f"{RNG_MAPS}")
@@ -145,11 +158,13 @@ class EllipticSolver:
         self.device = solver_device(problem, device)
 
         if value_net is None:
-            value_net = DenseNet(d_out=1, d_in=self.d,
+            value_net = DenseNet(d_out=1,
+                                 d_in=self.d + int(self._time_stopping),
                                  generator=torch.Generator().manual_seed(
                                      int(seed)), device=self.device)
         self.V_net = value_net.to(self.device)
-        self.optimizer = torch.optim.Adam(self.V_net.parameters(), lr=lr)
+        self.iteration = 0
+        self._make_optimizer()
         self._gen = torch.Generator(device=self.device).manual_seed(
             int(seed) + 1)
         self._seed_gen = torch.Generator().manual_seed(int(seed) + 2)
@@ -168,35 +183,46 @@ class EllipticSolver:
         self.K_log = []
         self.times = []
         self.not_all_stopped_count = 0
-        self.iteration = 0
         self.resolved_rollout_mode = self._resolve_engine()
 
     # -- model ---------------------------------------------------------------
     def V(self, X):
         return self.V_net(X)[:, 0]
 
+    def _make_optimizer(self):
+        """A fresh Adam at the lr of the current iteration."""
+        self.optimizer = torch.optim.Adam(
+            self.V_net.parameters(), lr=lr_at(self.lr, self.iteration))
+
+    def _optimizer_step(self):
+        apply_lr(self.optimizer, [self.lr], self.iteration)
+        self.optimizer.step()
+
     def load_jax_params(self, tree):
-        """Load a JAX ``EllipticSolver.params`` tree (a Flax DenseNet tree,
+        """Load the JAX solver's ``params`` tree (a Flax DenseNet tree,
         nested dicts of arrays) into the value net and start a fresh
         optimizer."""
         from ..utils.convert import dense_net_from_flax
         out_relu = getattr(self.V_net, "output_relu", False)
         self.V_net = dense_net_from_flax(tree, output_relu=out_relu,
                                          device=self.device)
-        self.optimizer = torch.optim.Adam(self.V_net.parameters(), lr=self.lr)
+        self._make_optimizer()
         self.resolved_rollout_mode = self._resolve_engine()
 
+    def _no_checkpoint(self, what):
+        return _not_ported(type(self).__name__, what, "Queue 1 item 10")
+
     def save_networks(self, out_dir="output"):
-        raise _not_ported("save_networks", "Queue 1 item 12")
+        raise self._no_checkpoint("save_networks")
 
     def load_networks(self, path):
-        raise _not_ported("load_networks", "Queue 1 item 12")
+        raise self._no_checkpoint("load_networks")
 
     def save_training_state(self, out_dir="output"):
-        raise _not_ported("save_training_state", "Queue 1 item 12")
+        raise self._no_checkpoint("save_training_state")
 
     def load_training_state(self, path):
-        raise _not_ported("load_training_state", "Queue 1 item 12")
+        raise self._no_checkpoint("load_training_state")
 
     # -- engine --------------------------------------------------------------
     def _fused_train_gates(self):
@@ -208,9 +234,12 @@ class EllipticSolver:
                           f"{self.loss_method!r})")
         if not self.detach_forward:
             failed.append("detach_forward=True")
+        if self.solve_linear_L2_projection:
+            failed.append("solve_linear_L2_projection=False")
         try:
             _check_stopped_family(self.problem, self.V_net,
-                                  self.fused_rng or "erfinv")
+                                  self.fused_rng or "erfinv",
+                                  time_stopping=self._time_stopping)
         except ValueError as e:
             failed.append(f"the stopped kernels' family ({e})")
         if self.device.type != "cuda":
@@ -239,17 +268,27 @@ class EllipticSolver:
             detach_forward=self.detach_forward,
             recursive_y_in_h=lm in ("BSDE-2", "BSDE-4"),
             step_loss=lm if lm in ("BSDE-2", "BSDE-3") else None,
+            time_stopping=self._time_stopping,
+            no_y_update=self.solve_linear_L2_projection,
             remat=self.remat, alpha0=self.alpha[0])
 
-    def _rollout(self, X0, Y0, host_noise) -> StoppedRolloutOut:
+    def _rollout(self, X0, Y0, host_noise, t0=None) -> StoppedRolloutOut:
+        """The stopped rollout from (X0, t0) on the resolved engine; t0 is
+        zeros without ``_time_stopping``.  The space-time scan carries no
+        reference (as pspde: V_L2 reads 0 there)."""
         problem, K = self.problem, X0.shape[0]
-        t0 = torch.zeros((K,), dtype=torch.float32, device=self.device)
+        timed = self._time_stopping
+        if t0 is None:
+            t0 = torch.zeros((K,), dtype=torch.float32, device=self.device)
         if self.resolved_rollout_mode != "fused_train":
+            with_ref = problem.has_v_ref and not timed
             return stopped_rollout(
                 self._rollout_cfg(), problem,
-                value_and_z(self.V_net, problem.sigma_struct), X0, Y0, t0,
-                inside_fn(problem.geometry), generator=self._gen,
-                v_ref=problem.v_ref if problem.has_v_ref else None,
+                value_and_z(self.V_net, problem.sigma_struct,
+                            space_time=timed,
+                            z_free=self.solve_linear_L2_projection),
+                X0, Y0, t0, inside_fn(problem.geometry), generator=self._gen,
+                v_ref=problem.v_ref if with_ref else None,
                 host_noise=host_noise)
         seed = int(torch.randint(0, 2 ** 31 - 1, (1,),
                                  generator=self._seed_gen))
@@ -257,11 +296,12 @@ class EllipticSolver:
             problem, self.V_net, X0, t0, self.N, self.delta_t, seed,
             adaptive_forward=self.adaptive_forward_process,
             rng=self.fused_rng or "erfinv", host_noise=host_noise,
-            tile=self.fused_tile)
+            tile=self.fused_tile, time_stopping=timed)
         v_l2 = fo.v_l2
-        if problem.v_ref_family() is None and problem.has_v_ref:
-            # the kernel has no in-kernel reference for this problem: NaN,
-            # not a 0.0 that would read as a perfect fit (as pspde)
+        if problem.has_v_ref and (timed or problem.v_ref_family() is None):
+            # the kernel has no in-kernel reference for this problem (none
+            # at all with time_stopping): NaN, not a 0.0 that would read as
+            # a perfect fit (as pspde)
             v_l2 = torch.full_like(v_l2, float("nan"))
         return StoppedRolloutOut(
             X=fo.X, Y=Y0 + fo.Y, t=fo.t, stopped=fo.stopped > 0.5,
@@ -327,7 +367,7 @@ class EllipticSolver:
             loss = loss + masked_mean((problem.g(out.X) - out.Y) ** 2,
                                       out.stopped)
         loss.backward()
-        self.optimizer.step()
+        self._optimizer_step()
         aux = {"loss": loss.detach(), "boundary": bound_l.detach(),
                "domain": (loss - a1 * bound_l).detach(),
                "V_L2": torch.mean(out.v_l2.detach()),

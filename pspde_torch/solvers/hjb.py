@@ -4,7 +4,9 @@
 Ported: ``approx_method='control'`` with the 'inner' time approximation
 (the TanhMLP control net on [t, X] and the learnable Y_0), training with
 the whole loss zoo that the ported rollout supports, Adam with a separate
-``lr_y0`` group, the u_L2 diagnostic, early stopping, and two engines:
+``lr_y0`` group (``lr`` and ``lr_y0`` numbers or callables step -> lr,
+``utils/schedule.py``), the u_L2 diagnostic, early stopping, and two
+engines:
 
   * 'scan': the plain autograd rollout (``rollout/sde.py:hjb_rollout``);
   * 'fused_train': the training kernels (``rollout/kernels.py:
@@ -35,6 +37,7 @@ from ..rollout.sde import HJBRolloutConfig, HJBRolloutOut, hjb_rollout
 from ..utils.convert import (load_control_npz, scalar_param_from_flax,
                              tanh_mlp_from_flax)
 from ..utils.device import solver_device
+from ..utils.schedule import apply_lr, lr_at, lr_text
 
 # options of the JAX solver that the port does not have yet: a value other
 # than the default raises (ROADMAP.md, Queue 1 items 6, 10 and 11)
@@ -176,11 +179,15 @@ class HJBSolver:
     # -- model ---------------------------------------------------------------
     def _make_optimizer(self):
         """Adam over the control net, with Y_0 in its own lr_y0 group."""
-        groups = [{"params": list(self.z_net.parameters()), "lr": self.lr}]
+        step = getattr(self, "iteration", 0)
+        groups = [{"params": list(self.z_net.parameters()),
+                   "lr": lr_at(self.lr, step)}]
+        self._group_lrs = [self.lr]
         if self.learn_Y_0:
             groups.append({"params": list(self.y0_net.parameters()),
-                           "lr": self.lr_y0})
-        self.optimizer = torch.optim.Adam(groups, lr=self.lr)
+                           "lr": lr_at(self.lr_y0, step)})
+            self._group_lrs.append(self.lr_y0)
+        self.optimizer = torch.optim.Adam(groups, lr=lr_at(self.lr, step))
 
     def _control_fn(self):
         """(X, n, t) -> (Z, None): the 'inner' control Z = net([t, X])."""
@@ -351,6 +358,7 @@ class HJBSolver:
                             phase=phase)
             loss = loss + torch.mean(out.add_loss)
             loss.backward()
+        apply_lr(self.optimizer, self._group_lrs, self.iteration)
         self.optimizer.step()
         metrics = {"loss": float(loss.detach()),
                    "u_l2": float(out.u_l2.mean())}
@@ -373,9 +381,9 @@ class HJBSolver:
 
     def train(self):
         if self.verbose:
-            print("d = %d, L = %d, K = %d, delta_t = %.2e, lr = %.2e, %s, "
+            print("d = %d, L = %d, K = %d, delta_t = %.2e, lr = %s, %s, "
                   "%s, %s, %s, engine %s"
-                  % (self.d, self.L, self.K, self.delta_t, self.lr,
+                  % (self.d, self.L, self.K, self.delta_t, lr_text(self.lr),
                      self.approx_method, self.time_approx, self.loss_method,
                      "adaptive" if self.adaptive_forward_process else "",
                      self.resolved_rollout_mode))

@@ -1,10 +1,12 @@
 from .device import resolve_device, solver_device
+from .schedule import cosine_decay_schedule
 
 _CONVERT = ("dense_net_from_flax", "dense_net_to_flax", "load_control_npz",
             "scalar_param_from_flax", "tanh_mlp_from_flax",
             "tanh_mlp_state_dict", "tanh_mlp_to_flax", "unflatten_tree")
 
-__all__ = sorted(_CONVERT + ("resolve_device", "solver_device"))
+__all__ = sorted(_CONVERT + ("cosine_decay_schedule", "resolve_device",
+                             "solver_device"))
 
 
 def __getattr__(name):

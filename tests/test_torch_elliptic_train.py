@@ -151,5 +151,5 @@ def test_train_logs_and_test_error():
     torch.testing.assert_close(L2, torch.mean(diff ** 2))
     torch.testing.assert_close(mae, torch.mean(diff.abs()))
     torch.testing.assert_close(mre, torch.mean(diff.abs() / pt.v_ref(X)))
-    with pytest.raises(NotImplementedError, match="GeneralSolver"):
-        compute_test_error(s.V, pt, 8, gen, modus="parabolic")
+    with pytest.raises(ValueError, match="modus"):
+        compute_test_error(s.V, pt, 8, gen, modus="hyperbolic")

@@ -435,7 +435,9 @@ def test_stopped_family_errors():
         (dict(v_net=DenseNet(1, (4,) * 5, d_in=D, device="cpu")),
          "5 hidden"),
         (dict(rng="boxmuller"), "rng"),
-        (dict(time_stopping=True), "GeneralSolver"),
+        (dict(problem=tp.ExponentialOnSphereNonlinearParabolic(
+            d=D, device="cpu"), time_stopping=True),
+         f"need {D + 1}, 1, False"),
         (dict(lam=torch.zeros(())), "EigenSolver"),
         (dict(problem=tp.LLGC(d=D, device="cpu")), "drift"),
     ]
@@ -476,7 +478,8 @@ def test_pack_stopped_layout(arch, backward, tile, stage):
                               backward=backward, host_noise=None,
                               adaptive_forward=False, rng="erfinv")
     ia = packed.iargs
-    assert len(ia) == 14 + 4 * tk._MAX_HIDDEN + 3 and len(packed.fargs) == 8
+    assert len(ia) == 16 + 4 * tk._MAX_HIDDEN + 3 and len(packed.fargs) == 10
+    assert ia[14:16] == [0, 0]    # no clock, the sphere
     assert (ia[5], ia[6]) == (tile, int(stage))
     lay = tk._stopped_layout(net)
     assert lay.F == d + sum(arch) and ia[4] == lay.F
