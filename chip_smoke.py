@@ -6,7 +6,8 @@ PDE solution off a trained model, and ``HJBSolver.train()`` is how the
 control is learned.  This script
 
   1. builds the kernels from pspde_torch/csrc (nvcc, sm_90a, one process
-     per source);
+     per source) and counts the TF32 HMMA instructions of the HJB
+     backward's two instantiations in the library's SASS (none fails);
   2. compares the serve kernel with its plain PyTorch version on host
      noise, on LLGC d=100 with the exported control and on LQGC d=100
      (dense A and sigma, f != 0), at K=8192 and N=100;
@@ -21,8 +22,9 @@ control is learned.  This script
      CUDA events, both drawing the same Philox stream;
   6. compares the training kernels (forward and replay backward) with
      their plain version on host noise at K=8192, N=32: forward outputs
-     and per-leaf gradients of a log-variance (+ KL) loss, on LLGC d=100
-     with the exported control and u_tab, and on dense LQGC d=100;
+     and per-leaf gradients of a log-variance (+ KL) loss (within 1e-5 of
+     each leaf's largest entry), on LLGC d=100 with the exported control
+     and u_tab, and on dense LQGC d=100;
   7. does the same on the Philox stream, for the binom and erfinv maps and
      noise signs +1 and -1;
   8. trains HJBSolver(rollout_mode='fused_train') from the port's own init
@@ -107,14 +109,25 @@ LOG_E_EXACT = 21.759305
 # near 1e-6 relative, 100x under the bound.
 REL_TOL = 1e-4
 # Training kernels vs plain version, per gradient leaf: max |kernel - plain|
-# <= GRAD_TOL * max |plain|.  The kernel sums each leaf over the 64 (or 32)
-# paths of a block, the N steps and then the blocks; the plain version's
-# autograd sums in cuBLAS GEMM order.  The log-variance gradient is a sum
-# of 2.6e5 path-step terms of both signs, so float32 reordering moves it by
-# ~1e-6..1e-5 of its largest entry (1.1e-6 in a CPU emulation of the
-# kernel); 1e-3 leaves two decades of room and still catches any wrong
-# term, which moves a leaf by O(1) of its size.
+# <= GRAD_TOL * max |plain|.  The stopped backward sums each leaf over the
+# 64 (or 32) paths of a block with FP32 FMAs, the N steps and then the
+# blocks; the plain version's autograd sums in cuBLAS GEMM order.  The
+# gradient is a sum of 2.6e5 path-step terms of both signs, so float32
+# reordering moves it by ~1e-6..1e-5 of its largest entry; 1e-3 leaves two
+# decades of room and still catches any wrong term, which moves a leaf by
+# O(1) of its size.  The HJB loss gradients through both training kernels
+# are held to it too.
 GRAD_TOL = 1e-3
+# The HJB backward (csrc/train_rollout.cu) sums each step's weight-gradient
+# products over a block's paths on the tensor cores, as 3xTF32 mma: each
+# operand split into two TF32 parts, three products per pair, float32
+# accumulators.  Given the plain backward's own cotangents, it reads <= 5.4e-7
+# of each leaf's largest entry on an H100 at d=100 (the plain backward
+# against itself on permuted paths: <= 3.4e-7), where the plain backward
+# with TF32 cuBLAS products reads 6.5e-5 to 4.6e-4 on the largest leaf of
+# each case (experiments/torch_backward_error.py): BWD_REL_TOL sits 18x
+# above the one and 6.5x below the other.
+BWD_REL_TOL = 1e-5
 SERVE_SOURCE = "pspde_torch/csrc/controlled_rollout.cu"
 TRAIN_SOURCE = "pspde_torch/csrc/train_rollout.cu"
 STOPPED_SOURCE = "pspde_torch/csrc/stopped_rollout.cu"
@@ -166,19 +179,34 @@ PASS_RATIO = (1.8, 2.2)
 # table of NVIDIA's CUDA C++ documentation), 132 SMs at the 1.98 GHz boost
 # clock of the H100 SXM data sheet
 INT_MUL_RATE = 64 * 132 * 1.98e9
-# The least time of a kernel's work: the larger of its FP32 operations over
-# the H100 SXM's 67 TFLOP/s and its bytes (each input read once, each output
+# The least time of a kernel's work: the larger of its operations over the
+# peak rate of their type and its bytes (each input read once, each output
 # written once) over 3.35 TB/s: NVIDIA's data sheet for the H100 SXM at
-# 700 W.  Operations count the FP32 arithmetic of the net and the step,
-# not the noise generation.
-PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
+# 700 W, dense rates: 67 TFLOP/s in FP32 outside the tensor cores, 495
+# TFLOP/s in TF32 on them.  Operations count the arithmetic of the net and
+# the step, not the noise generation.
+PEAK_FLOPS, PEAK_TF32, PEAK_BYTES = 67e12, 495e12, 3.35e12
 
 
-def roofline(flops, nbytes):
-    t_op, t_b = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+def roofline(flops, nbytes, tf32_flops=0.0):
+    """The bound of ``flops`` FP32 operations, ``tf32_flops`` TF32
+    tensor-core operations (the two times added) and ``nbytes`` bytes."""
+    t_op = flops / PEAK_FLOPS + tf32_flops / PEAK_TF32
+    t_b = nbytes / PEAK_BYTES
     return {"bound_ms": 1e3 * max(t_op, t_b),
             "bound_by": "operations" if t_op >= t_b else "bytes",
             "library_ms": None}
+
+
+def train_bwd_roofline(steps, bwd_flops, n_par, nbytes):
+    """The HJB backward's bound: its weight-gradient products (2 operations
+    per weight and bias and path-step) run on the tensor cores as three
+    TF32 products each (3xTF32), the rest in FP32; ``bound_ms_fp32``
+    charges them all at the FP32 rate, the bound of an FP32 loop over the
+    same products."""
+    products = steps * 2 * n_par
+    return dict(roofline(steps * bwd_flops - products, nbytes, 3 * products),
+                bound_ms_fp32=roofline(steps * bwd_flops, nbytes)["bound_ms"])
 
 
 def mlp_flops(widths):
@@ -203,6 +231,26 @@ def train_flops(widths, n_par):
 def check(ok, what):
     if not ok:
         raise RuntimeError(f"chip_smoke: check failed: {what}")
+
+
+def tf32_mma_counts(lib_path):
+    """{kernel: count of TF32 HMMA instructions} of the HJB backward's
+    instantiations (one per memory plan), read from ``cuobjdump -sass`` of
+    the built library."""
+    from pspde_torch.rollout import _build
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            if "train_backward_kernel" in fn:
+                counts[fn] = 0
+        elif fn in counts and "HMMA" in line and "TF32" in line:
+            counts[fn] += 1
+    return {("device" if "ILb1E" in k else "shared"): v
+            for k, v in counts.items()}
 
 
 def compare_serve(tag, kern, plain):
@@ -276,19 +324,69 @@ def train_loss(prob, out, kw):
     return loss
 
 
+def train_call(prob, net, K, N, dt, kw):
+    """The call that ``fused_train_rollout(prob, net, K, N, dt, **kw)``
+    makes: what the backward kernel replays."""
+    from pspde_torch.rollout import kernels as km
+    o = dict(adaptive_forward=True, accumulate_kl=False, kl_ito_term=False,
+             u_tab=None, rng="binom", noise_sign=1.0, host_noise=None)
+    o.update({k: v for k, v in kw.items() if k not in ("seed", "plan")})
+    families = km._check_train_family(prob, net, N, o["noise_sign"],
+                                      o["u_tab"], o["rng"])
+    return km._TrainCall(prob, net, K, N, dt, kw.get("seed", 0), families,
+                         o, None, kw.get("plan"))
+
+
+def rel_per_leaf(tag, what, names, got, want, tol, worst=None):
+    """max |got - want| / max |want| per leaf, each within ``tol``; updates
+    ``worst`` ("grad", "grad_rel") where given."""
+    rels = []
+    for name, a, b in zip(names, got, want):
+        err = float((a - b).abs().max())
+        scale = float(b.abs().max())
+        rels.append(err / scale)
+        check(scale > 0 and err <= tol * scale,
+              f"{tag} {what} {name} max_abs {err:.3e} > {tol} * {scale:.3e}")
+        if worst is not None:
+            worst["grad"] = max(worst["grad"], err)
+    if worst is not None:
+        worst["grad_rel"] = max(worst.get("grad_rel", 0.0), *rels)
+    return f"{what} {['%.1e' % r for r in rels]} (<= {tol:g})"
+
+
 def compare_train(tag, prob, net, K, N, dt, kw, worst):
-    """Training kernels (forward outputs, and per-leaf gradients of
-    ``train_loss`` through the backward kernel) against their plain
-    version, within REL_TOL and GRAD_TOL; updates ``worst`` ("out",
-    "grad": largest absolute differences) and returns the kernel's
-    outputs and gradients."""
+    """Training kernels against their plain version: the forward's outputs
+    within REL_TOL; the backward kernel and the plain backward on the same
+    cotangents (those of ``train_loss`` at the plain outputs), per leaf
+    within BWD_REL_TOL; and the loss gradients through both kernels against
+    those through the plain version, per leaf within GRAD_TOL: they carry
+    the forward's output differences (~3e-7 of Y) through the loss, whose
+    weights Y - g(X) - mean a trained control makes small, and read up to
+    ~1e-5.  Updates ``worst`` ("out", "grad": the largest
+    absolute differences of the outputs and of the backward, "grad_rel": the
+    backward's largest max|kern - plain| / max|plain| over the leaves) and
+    returns the kernel's outputs and loss gradients."""
     from pspde_torch.rollout import kernels as km
     params = list(net.parameters())
+    names = [n for n, _ in net.named_parameters()]
     kern = km.fused_train_rollout(prob, net, K, N, dt, **kw)
     g_kern = torch.autograd.grad(train_loss(prob, kern, kw), params)
     plain = km.reference_train_rollout(
         prob, net, K, N, dt, **{k: v for k, v in kw.items() if k != "plan"})
-    g_plain = torch.autograd.grad(train_loss(prob, plain, kw), params)
+    Y = plain.Y.detach().requires_grad_()
+    Zs = plain.Z_sum.detach().requires_grad_()
+    gY, gKL = torch.autograd.grad(
+        train_loss(prob, plain._replace(Y=Y, Z_sum=Zs), kw), [Y, Zs],
+        allow_unused=True)
+    gKL = torch.zeros_like(gY) if gKL is None else gKL
+    # the loss gradients through the plain version are the plain
+    # backward's on (gY, gKL): the autograd replay of the same forward
+    outs = [(o, g) for o, g in ((plain.Y, gY), (plain.Z_sum, gKL))
+            if o.requires_grad]
+    g_plain = torch.autograd.grad([o for o, _ in outs], params,
+                                  [g for _, g in outs])
+    g_bwd = km._train_backward_kernel(train_call(prob, net, K, N, dt, kw),
+                                      gY, gKL)
     torch.cuda.synchronize()
     for name in ("X", "Y", "Z_sum", "u_l2"):
         a, b = getattr(kern, name).detach(), getattr(plain, name).detach()
@@ -298,17 +396,12 @@ def compare_train(tag, prob, net, K, N, dt, kw, worst):
         rel = err / (1.0 + float(b.abs().max()))
         worst["out"] = max(worst["out"], err)
         check(rel <= REL_TOL, f"{tag} {name} rel {rel:.3e} > {REL_TOL}")
-    rels = []
-    for (pname, _), a, b in zip(net.named_parameters(), g_kern, g_plain):
-        err = float((a - b).abs().max())
-        scale = float(b.abs().max())
-        worst["grad"] = max(worst["grad"], err)
-        rels.append(err / scale)
-        check(scale > 0 and err <= GRAD_TOL * scale,
-              f"{tag} grad {pname} max_abs {err:.3e} > {GRAD_TOL} * "
-              f"{scale:.3e}")
-    print(f"  {tag}: outputs ok; grad max|kern-plain|/max|plain| per "
-          f"leaf {['%.1e' % r for r in rels]}")
+    bwd = rel_per_leaf(tag, "backward", names, g_bwd, g_plain, BWD_REL_TOL,
+                       worst)
+    loss = rel_per_leaf(tag, "loss gradients", names, g_kern, g_plain,
+                        GRAD_TOL)
+    print(f"  {tag}: outputs ok; max|kern-plain|/max|plain| per leaf: "
+          f"{bwd}; {loss}")
     return kern, g_kern
 
 
@@ -349,6 +442,10 @@ def main():
     for line in info["log"].splitlines():
         if "entry function" in line or "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
+    hmma = tf32_mma_counts(info["path"])
+    print(f"  TF32 HMMA instructions in the HJB backward's SASS: {hmma}")
+    check(len(hmma) == 2 and all(hmma.values()),
+          "both plans of the HJB backward run TF32 mma")
 
     llgc = LLGC(d=D, T=T_END, device=dev)
     solver = HJBSolver("llgc_d100", llgc, K=1024, delta_t=1 / 32,
@@ -501,7 +598,9 @@ def train_phases(dev, smi, llgc, solver, lqgc, gen, timed):
 
     # -- phase 6: training kernels vs plain on host noise --------------------
     print(f"phase 6: training kernels vs plain on host noise, K={Kc}, N={N}, "
-          f"outputs rel {REL_TOL:g}, gradients {GRAD_TOL:g} x max|plain|")
+          f"outputs rel {REL_TOL:g}; per gradient leaf, the backward on the "
+          f"same cotangents {BWD_REL_TOL:g} x max|plain|, the loss gradients "
+          f"{GRAD_TOL:g} x max|plain|")
     for tag, prob, net, kw in cases:
         noise = torch.randn((N, Kc, D), generator=gen, device=dev)
         compare(f"[{tag}]", prob, net, dict(kw, host_noise=noise))
@@ -570,12 +669,7 @@ def train_phases(dev, smi, llgc, solver, lqgc, gen, timed):
     for rng in ("binom", "erfinv"):
         bench.fused_rng = rng
         kw = dict(u_tab=u_tab, rng=rng)
-        call = km._TrainCall(
-            llgc, net, Kb, N, dt, 17,
-            km._check_train_family(llgc, net, N, 1.0, u_tab, rng),
-            dict(adaptive_forward=True, accumulate_kl=False,
-                 kl_ito_term=False, u_tab=u_tab, rng=rng, noise_sign=1.0,
-                 host_noise=None), None)
+        call = train_call(llgc, net, Kb, N, dt, dict(kw, seed=17))
 
         def fwd():
             with torch.no_grad():
@@ -635,13 +729,17 @@ def train_phases(dev, smi, llgc, solver, lqgc, gen, timed):
                         4 * (n_par + N * D + Kb * (D + 3)))),
         dict(row, name="fused_train_rollout.backward",
              replaces="pspde/rollout/kernels.py:788", launches=bwd_launches,
-             max_abs_err=worst["grad"], ms=times["binom"]["backward"][0],
+             max_abs_err=worst["grad"], max_rel_err=worst["grad_rel"],
+             ms=times["binom"]["backward"][0],
              plain_ms=times["binom"]["backward"][1],
-             **roofline(steps * bwd_flops,
-                        4 * (2 * n_par + N * D + 2 * Kb))),
+             **train_bwd_roofline(steps, bwd_flops, n_par,
+                                  4 * (2 * n_par + N * D + 2 * Kb))),
     ]
     for r in rows:
-        print(f"  {r['name']} bound {r['bound_ms']:.3f} ms ({r['bound_by']})")
+        fp32 = (f"; all in FP32 {r['bound_ms_fp32']:.3f} ms"
+                if "bound_ms_fp32" in r else "")
+        print(f"  {r['name']} bound {r['bound_ms']:.3f} ms "
+              f"({r['bound_by']}{fp32})")
     return rows
 
 
@@ -963,7 +1061,8 @@ def wide_phases(dev, smi, llgc, solver):
     # -- phase 13: the device plan against plain and against shared ---------
     print(f"phase 13: device plan, LLGC d={d}, T={T5}, N={N}, TanhMLP "
           f"[{d + 1},30,30,{d}], K={Kc}: kernels vs plain, outputs rel "
-          f"{REL_TOL:g}, gradients {GRAD_TOL:g} x max|plain|")
+          f"{REL_TOL:g}; gradients: the backward on the same cotangents "
+          f"{BWD_REL_TOL:g}, the loss gradients {GRAD_TOL:g} x max|plain|")
     reset_counts(km.fused_controlled_rollout, "launches_by_plan")
     noise = torch.randn((N, Kc, d), generator=gen, device=dev)
     for tag, kw in (("host noise", dict(host_noise=noise)),
@@ -985,7 +1084,9 @@ def wide_phases(dev, smi, llgc, solver):
                       dict(kw, u_tab=u5), worst)
     by_plan = (km.fused_train_rollout.launches_by_plan,
                km.fused_train_rollout.backward_launches_by_plan)
-    check(by_plan == ({"shared": 0, "device": 3},) * 2,
+    # three forward launches; six backward, three of them on the plain
+    # version's cotangents
+    check(by_plan == ({"shared": 0, "device": 3}, {"shared": 0, "device": 6}),
           f"training d=1000 ran the device plan: {by_plan}")
     del noise
 
@@ -1017,12 +1118,7 @@ def wide_phases(dev, smi, llgc, solver):
     # the training kernels' plain times: at the check shape (the plain
     # backward at K5 would need 79 GB)
     kw = dict(u_tab=u5, rng="binom")
-    call = km._TrainCall(llgc5, net5, Kc, N, dt, 17,
-                         km._check_train_family(llgc5, net5, N, 1.0, u5,
-                                                "binom"),
-                         dict(adaptive_forward=True, accumulate_kl=False,
-                              kl_ito_term=False, u_tab=u5, rng="binom",
-                              noise_sign=1.0, host_noise=None), None)
+    call = train_call(llgc5, net5, Kc, N, dt, dict(kw, seed=17))
     gY = torch.randn(Kc, generator=gen, device=dev)
     gKL = torch.zeros(Kc, device=dev)
 
@@ -1087,12 +1183,8 @@ def wide_phases(dev, smi, llgc, solver):
     fwd_ms = [timed(no_grad(lambda: km.fused_train_rollout(
         llgc5, trainer.z_net, K5, N, dt, 3, u_tab=u_tab5)), 1)
         for _ in range(2)]
-    call5 = km._TrainCall(llgc5, trainer.z_net, K5, N, dt, 3,
-                          km._check_train_family(llgc5, trainer.z_net, N,
-                                                 1.0, u_tab5, "binom"),
-                          dict(adaptive_forward=True, accumulate_kl=False,
-                               kl_ito_term=False, u_tab=u_tab5, rng="binom",
-                               noise_sign=1.0, host_noise=None), None)
+    call5 = train_call(llgc5, trainer.z_net, K5, N, dt,
+                       dict(seed=3, u_tab=u_tab5, rng="binom"))
     gY5 = torch.randn(K5, generator=gen, device=dev) / K5
     bwd_ms = timed(lambda: km._train_backward_kernel(
         call5, gY5, torch.zeros_like(gY5)), 1, warm=False)
@@ -1165,9 +1257,11 @@ def wide_phases(dev, smi, llgc, solver):
         dict(row, name="fused_train_rollout.backward.device_plan_d1000",
              replaces="pspde/rollout/kernels.py:788",
              launches=launches["backward"]["device"],
-             max_abs_err=worst["grad"], ms=bwd_ms,
+             max_abs_err=worst["grad"], max_rel_err=worst["grad_rel"],
+             ms=bwd_ms,
              plain_ms=times["backward"][1],
-             **roofline(steps * bwd_f, 4 * (2 * n_par + N * d + 2 * K5))),
+             **train_bwd_roofline(steps, bwd_f, n_par,
+                                  4 * (2 * n_par + N * d + 2 * K5))),
     ]
 
 

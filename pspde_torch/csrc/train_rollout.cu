@@ -29,27 +29,38 @@
 // [101 -> 30 -> 30 -> 100], N = 32) a forward path-step is ~13.9 kFLOP of
 // net plus d normals, and no device-memory traffic; the backward adds
 // ~7.8 kFLOP of input-gradient products and ~14.2 kFLOP of weight-gradient
-// outer products.  Both are FP32 FMA and shared-memory bound, as the serve
-// kernel.  The design:
+// products.  The design:
 //   * one thread per path, one block per `tile` paths, for all N steps;
 //   * the net and X_0 staged once per block in shared memory; the dense
 //     coefficients (A^T, sigma^T, P^T) and the u_tab table are read from
 //     device memory (they are the same for every thread, so L1 serves
 //     them), which keeps the dense family inside one block's shared memory;
 //   * each path's X, X', Z, hidden activations and (backward) their
-//     cotangents live in shared memory as [row][tile + 1] arrays: a warp
-//     reads 32 consecutive words when each thread walks its own path, and
-//     32 different banks when 32 threads walk 32 rows of one path column
-//     (the outer products);
-//   * the backward has two barriers per step: after them every thread owns
-//     the gradient entries e = tid + m tile of the block's buffer and adds
-//     sum_p in_i[p] delta_j[p] over the tile's paths;
+//     cotangents live in shared memory as [row][stride] arrays
+//     (train_step.cuh:train_stride): a warp reads 32 consecutive words when
+//     each thread walks its own path;
+//   * the replay, the noise and the input gradients are per-path FP32 FMA
+//     chains from shared memory, as in the forward; the weight gradients are
+//     a product over the block's paths, G_l += [in_l; 1]^T Delta_l, which
+//     each step runs on the tensor cores between two barriers
+//     (train_step.cuh:train_weight_grads): mma.sync m16n8k8 TF32 with each
+//     operand split in two TF32 parts (3xTF32: float32 accuracy), the
+//     block's warps dealt (16 x 32) output tiles, the fragments read from
+//     the per-path arrays, whose stride tile + 4 keeps those loads free of
+//     bank conflicts;
+//   * the shared plan's block (182 KB at d = 100) leaves one block of two
+//     warps per SM: the FP32 chains and the products run on two of the
+//     SM's four sub-partitions, and one warp each hides no latency.  The
+//     backward's own entry has __launch_bounds__(kMaxTile, 1), so ptxas
+//     keeps its registers;
 //   * past d ~ 250 (TanhMLP (30, 30), N = 200) no tile's block fits the
 //     227 KB of shared memory: the device plan (train_step.cuh) reads the
 //     net from device memory, keeps each path's arrays in a [row][K]
 //     workspace and the block's gradient row in grad_out, with the same
-//     step code.  At d = 1000 a forward path-step is ~137 kFLOP and moves
-//     ~20 KB of per-path state through L2 and device memory.
+//     step code and the same products, whose fragment rows come through
+//     L1 and L2 once per warp tile.  At d = 1000 a forward path-step is
+//     ~137 kFLOP and moves ~20 KB of per-path state through L2 and device
+//     memory.
 //
 // Noise: host noise (N, K, d), or Philox4x32-10 keyed by (seed, k, n, j / 4)
 // through the erfinv map (counter word 3 = 0) or the binom map (b1 from
@@ -68,15 +79,15 @@ namespace {
 
 using namespace pspde;
 
+// The body of both kernels; the forward (kBwd false) and the backward have
+// their own entries below, with their own launch bounds.
 template <bool kBwd, bool kDevice>
-__global__ void __launch_bounds__(kMaxTile)
-train_rollout_kernel(const TrainArgs a, const float* __restrict__ P,
-                     const float* __restrict__ noise,
-                     const float* __restrict__ gY,
-                     const float* __restrict__ gKL,
-                     float* __restrict__ X_out, float* __restrict__ Y_out,
-                     float* __restrict__ Zs_out, float* __restrict__ U_out,
-                     float* __restrict__ grad_out, float* ws) {
+__device__ __forceinline__ void train_rollout(
+    const TrainArgs& a, const float* __restrict__ P,
+    const float* __restrict__ noise, const float* __restrict__ gY,
+    const float* __restrict__ gKL, float* __restrict__ X_out,
+    float* __restrict__ Y_out, float* __restrict__ Zs_out,
+    float* __restrict__ U_out, float* __restrict__ grad_out, float* ws) {
   extern __shared__ float4 smem4[];
   float* S = reinterpret_cast<float*>(smem4);
   const int tile = a.tile;
@@ -114,49 +125,40 @@ train_rollout_kernel(const TrainArgs a, const float* __restrict__ P,
     if (!kBwd) {
       train_accumulate(a, P, st, sums, accY, accK, accU);
     } else {
-      // delta_{l-1} = (W_l delta_l) (1 - H_{l-1}^2), W_l (rows, cols)
+      // delta_{l-1} = (W_l delta_l) (1 - H_{l-1}^2), W_l (rows, cols), for
+      // kChunk rows at once (rows = the padded width before layer l): each
+      // row's FMA chain sums in column order, the chunk's chains overlap
       for (int l = L - 1; l > 0; --l) {
         const float* Wl = W + a.w_off[l];
         const int cols = a.cols[l];
         const float* Dl = st.D[l];
-        for (int i = 0; i < a.rows[l]; ++i) {
-          float s = 0.0f;
+        for (int i0 = 0; i0 < a.rows[l]; i0 += kChunk) {
+          float s[kChunk] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
           for (int j0 = 0; j0 < cols; j0 += 4) {
-            const float4 w =
-                *reinterpret_cast<const float4*>(Wl + i * cols + j0);
-            s = fmaf(w.x, Dl[j0 * ts], s);
-            s = fmaf(w.y, Dl[(j0 + 1) * ts], s);
-            s = fmaf(w.z, Dl[(j0 + 2) * ts], s);
-            s = fmaf(w.w, Dl[(j0 + 3) * ts], s);
+            const float d0 = Dl[j0 * ts], d1 = Dl[(j0 + 1) * ts],
+                        d2 = Dl[(j0 + 2) * ts], d3 = Dl[(j0 + 3) * ts];
+#pragma unroll
+            for (int c = 0; c < kChunk; ++c) {
+              const float4 w = *reinterpret_cast<const float4*>(
+                  Wl + (i0 + c) * cols + j0);
+              s[c] = fmaf(w.x, d0, s[c]);
+              s[c] = fmaf(w.y, d1, s[c]);
+              s[c] = fmaf(w.z, d2, s[c]);
+              s[c] = fmaf(w.w, d3, s[c]);
+            }
           }
-          const float hv = st.H[l - 1][i * ts];
-          st.D[l - 1][i * ts] = s * (1.0f - hv * hv);
+#pragma unroll
+          for (int c = 0; c < kChunk; ++c) {
+            const float hv = st.H[l - 1][(i0 + c) * ts];
+            st.D[l - 1][(i0 + c) * ts] = s[c] * (1.0f - hv * hv);
+          }
         }
       }
       __syncthreads();
 
-      // G_l[i][j] += sum_p in_i[p] delta_j[p] over the tile's paths; row
-      // `rows` of G_l is the bias, and row 0 of layer 0 multiplies t
-      for (int l = 0; l < L; ++l) {
-        const float* inb = (l == 0 ? st.X : st.H[l - 1]) - tid;
-        const float* db = st.D[l] - tid;
-        const int rows = a.rows[l], cols = a.cols[l];
-        float* Gl = G + a.g_off[l];
-        for (int e = tid; e < (rows + 1) * cols; e += tile) {
-          const int i = e / cols;
-          const int j = e - i * cols;
-          const float* dj = db + j * ts;
-          float s = 0.0f;
-          if (i == rows || (l == 0 && i == 0)) {
-            for (int p = 0; p < tile; ++p) s += dj[p];
-            if (i != rows) s *= t;
-          } else {
-            const float* ai = inb + (l == 0 ? i - 1 : i) * ts;
-            for (int p = 0; p < tile; ++p) s = fmaf(ai[p], dj[p], s);
-          }
-          Gl[e] += s;
-        }
-      }
+      // G_l += [in_l; 1]^T Delta_l over the tile's paths, on the tensor
+      // cores; row 0 of layer 0 multiplies t
+      train_weight_grads<kDevice>(a, st, G, t);
       __syncthreads();
     }
 
@@ -179,20 +181,55 @@ train_rollout_kernel(const TrainArgs a, const float* __restrict__ P,
   }
 }
 
+template <bool kDevice>
+__global__ void __launch_bounds__(kMaxTile)
+train_forward_kernel(const TrainArgs a, const float* __restrict__ P,
+                     const float* __restrict__ noise,
+                     float* __restrict__ X_out, float* __restrict__ Y_out,
+                     float* __restrict__ Zs_out, float* __restrict__ U_out,
+                     float* ws) {
+  train_rollout<false, kDevice>(a, P, noise, nullptr, nullptr, X_out, Y_out,
+                                Zs_out, U_out, nullptr, ws);
+}
+
+// At least one block per SM: ptxas may take up to 255 registers a thread.
+// In the shared plan one block per SM is all its shared memory allows;
+// in the device plan the registers bound the blocks per SM.
+template <bool kDevice>
+__global__ void __launch_bounds__(kMaxTile, 1)
+train_backward_kernel(const TrainArgs a, const float* __restrict__ P,
+                      const float* __restrict__ noise,
+                      const float* __restrict__ gY,
+                      const float* __restrict__ gKL,
+                      float* __restrict__ grad_out, float* ws) {
+  train_rollout<true, kDevice>(a, P, noise, gY, gKL, nullptr, nullptr,
+                               nullptr, nullptr, grad_out, ws);
+}
+
 template <bool kBwd, bool kDevice>
 int launch_plan(const TrainArgs& a, const float* params, const float* noise,
                 const float* gY, const float* gKL, float* X_out,
                 float* Y_out, float* Zs_out, float* U_out, float* grad_out,
                 float* ws, void* stream) {
   const size_t smem = sizeof(float) * train_smem_floats(a, kBwd);
-  cudaError_t e = cudaFuncSetAttribute(
-      train_rollout_kernel<kBwd, kDevice>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned grid = static_cast<unsigned>((a.K + a.tile - 1) / a.tile);
-  train_rollout_kernel<kBwd, kDevice><<<grid, a.tile, smem,
-                                        static_cast<cudaStream_t>(stream)>>>(
-      a, params, noise, gY, gKL, X_out, Y_out, Zs_out, U_out, grad_out, ws);
+  cudaError_t e;
+  if (kBwd) {
+    e = cudaFuncSetAttribute(train_backward_kernel<kDevice>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    train_backward_kernel<kDevice><<<grid, a.tile, smem, s>>>(
+        a, params, noise, gY, gKL, grad_out, ws);
+  } else {
+    e = cudaFuncSetAttribute(train_forward_kernel<kDevice>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    train_forward_kernel<kDevice><<<grid, a.tile, smem, s>>>(
+        a, params, noise, X_out, Y_out, Zs_out, U_out, ws);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

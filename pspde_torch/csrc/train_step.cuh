@@ -7,8 +7,8 @@
 // _choose_plan) and recorded in TrainArgs::plan:
 //   * shared (0): the net and X_0 (the staged prefix of the packed buffer)
 //     are copied to shared memory once per block; each path's arrays are
-//     [row][tile + 1] in shared memory after them (and after the block's
-//     gradient buffer in the backward);
+//     [row][stride] in shared memory after them (and after the block's
+//     gradient buffer in the backward), stride = train_stride;
 //   * device (1): for widths whose block fits no tile (d ~ 250 and up) the
 //     net and X_0 are read from device memory (the same for every thread:
 //     L1 and the 50 MB L2 serve them), each path's arrays live in a
@@ -81,13 +81,26 @@ __host__ __device__ inline size_t train_per_path(const TrainArgs& a,
                   : a.dp * (dense_update ? 3 : 2) + hidden;
 }
 
+// The row stride of the shared plan's per-path arrays.  A thread walking
+// its own path reads one word of each row, so any stride serves the
+// forward; tile + 1 is its.  The backward's weight-gradient products
+// (train_weight_grads) also read mma fragments, element (g, c) of an 8 x 4
+// block of rows and paths, at bank (g stride + c) mod 32: tile + 4 puts
+// them on 32 different banks, where tile + 1 gives a 2-way conflict.
+__host__ __device__ inline int train_stride(const TrainArgs& a,
+                                            bool backward) {
+  return a.tile + (backward ? 4 : 1);
+}
+
 // Dynamic shared memory of one block, in floats: the staged prefix, the
-// gradient buffer (backward) and the per-path arrays of stride tile + 1 in
-// the shared plan; none in the device plan.
+// gradient buffer (backward) and the per-path arrays at train_stride in
+// the shared plan; none in the device plan.  The wrapper's
+// _train_smem_bytes computes the same.
 inline size_t train_smem_floats(const TrainArgs& a, bool backward) {
   if (a.plan == 1) return 0;
   return a.n_stage + (backward ? a.n_grad : 0) +
-         train_per_path(a, backward) * static_cast<size_t>(a.tile + 1);
+         train_per_path(a, backward) *
+             static_cast<size_t>(train_stride(a, backward));
 }
 
 // The block's prologue for either plan: stage the prefix (shared plan),
@@ -107,7 +120,7 @@ __device__ __forceinline__ const float* train_setup(
     W = S;
     *G = S + a.n_stage;
     col = *G + (kBwd ? a.n_grad : 0) + tid;
-    st.ts = a.tile + 1;
+    st.ts = train_stride(a, kBwd);
   } else {
     W = P;
     *G = grad_out + static_cast<size_t>(blockIdx.x) * a.n_grad;
@@ -298,6 +311,177 @@ __device__ __forceinline__ void train_accumulate(const TrainArgs& a,
   if (a.accumulate_kl)
     accK += (0.5f * s.zz + f) * a.dt - (a.kl_ito ? s.zx * a.sq_dt : 0.0f);
   accU += s.ul * a.dt;
+}
+
+// -- the backward's weight-gradient products, on the tensor cores ----------
+
+// x rounded to TF32, as cvt.rna.tf32.f32 rounds a finite x: to nearest,
+// ties away from zero, on the 13 dropped mantissa bits (add half their
+// range to the magnitude, then clear them; a carry moves into the
+// exponent).  Written out, it is two integer instructions; the PTX
+// instruction lowers to four, with a guard for inf and NaN.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// x = big + small + O(2^-22 |x|), big = rna(x) and small = rna(x - big)
+// both TF32 (x - big is exact).  Three TF32 products (big big, big small,
+// small big) then keep a float32 sum's accuracy, where one would keep
+// TF32's 2^-11 (the "3xTF32" split).
+__device__ __forceinline__ void tf32_split(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(x - __uint_as_float(big));
+}
+
+// d += a b on one warp's m16n8k8 TF32 tile: A (16 x 8) row-major, B (8 x 8)
+// column-major, D float32.  Lane l holds, with g = l / 4 and c = l % 4 (the
+// PTX ISA's fragment layout): a = A[g][c], A[g + 8][c], A[g][c + 4],
+// A[g + 8][c + 4]; b = B[c][g], B[c + 4][g]; d = D[g][2c], D[g][2c + 1],
+// D[g + 8][2c], D[g + 8][2c + 1].
+__device__ __forceinline__ void mma_tf32(float (&d)[4],
+                                         const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// A row of the block's per-path arrays, read at path k.  The arrays'
+// pointers come out of TrainState, where the compiler loses their address
+// space and would read shared memory with generic loads: in the shared
+// plan (kShared) the row is kept as a shared-window address and read with
+// ld.shared.
+template <bool kShared>
+struct PathRow {
+  const float* p;
+  __device__ __forceinline__ explicit PathRow(const float* row) : p(row) {}
+  __device__ __forceinline__ float operator[](int k) const { return p[k]; }
+};
+
+template <>
+struct PathRow<true> {
+  uint32_t s;
+  __device__ __forceinline__ explicit PathRow(const float* row)
+      : s(static_cast<uint32_t>(__cvta_generic_to_shared(row))) {}
+  __device__ __forceinline__ float operator[](int k) const {
+    float v;
+    asm volatile("ld.shared.f32 %0, [%1];" : "=f"(v) : "r"(s + 4 * k)
+                 : "memory");
+    return v;
+  }
+};
+
+constexpr int kGradN = 4;   // n tiles (8 output columns each) of a unit
+
+// One warp's unit of one layer's sums, G[r][j] += sum_{p < tile} A_r[p]
+// D[j][p], for the 16 rows m0.. and the kGradN x 8 columns n0.. (fewer at
+// the layer's last columns).  Row r of the left operand is row r - r0 of
+// `in` for r0 <= r < rows, the constant t for r < r0 (layer 0's t row), 1
+// for r = rows (the bias) and 0 past it, where G ends: nothing is stored
+// there (a constant row still reads row 0 of `in`, so that no load is
+// conditional).  `in` and `D` point at path 0 of [row][ts] arrays, each
+// read as mma fragments (M: the gradient row, N: the output column, K: the
+// paths); G (rows + 1, cols) is row-major.  The old G is loaded before the
+// products so that its latency (device memory in the device plan) overlaps
+// them, and the step's sum is added to it once.
+template <bool kShared>
+__device__ __forceinline__ void grad_tile_product(
+    const float* in, int r0, int rows, float t, const float* D, int cols,
+    int ts, int tile, float* G, int m0, int n0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, c = lane & 3;
+  const int nq = min(kGradN, (cols - n0) >> 3);
+  // the lane's rows m0 + g and m0 + g + 8 of A, and its kGradN rows of D
+  const int ra = m0 + g, rb = ra + 8;
+  const bool fa = ra >= r0 && ra < rows, fb = rb >= r0 && rb < rows;
+  const PathRow<kShared> A0(in + (fa ? ra - r0 : 0) * ts + c);
+  const PathRow<kShared> A1(in + (fb ? rb - r0 : 0) * ts + c);
+  const float ca = ra < r0 ? t : (ra == rows ? 1.0f : 0.0f);
+  const float cb = rb < r0 ? t : (rb == rows ? 1.0f : 0.0f);
+  const PathRow<kShared> B(D + (n0 + g) * ts + c);
+  float old[kGradN][4];
+#pragma unroll
+  for (int q = 0; q < kGradN; ++q) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = ra + 8 * h;
+      const float* gp = G + r * cols + n0 + 8 * q + 2 * c;
+      const bool in_g = q < nq && r <= rows;
+      old[q][2 * h] = in_g ? gp[0] : 0.0f;
+      old[q][2 * h + 1] = in_g ? gp[1] : 0.0f;
+    }
+  }
+  // three accumulators per n tile (big big, big small, small big): three
+  // independent mma chains
+  float bb_[kGradN][4] = {}, bs_[kGradN][4] = {}, sb_[kGradN][4] = {};
+#pragma unroll 2
+  for (int k0 = 0; k0 < tile; k0 += 8) {
+    const float a0 = A0[k0], a1 = A1[k0], a2 = A0[k0 + 4], a3 = A1[k0 + 4];
+    uint32_t ab[4], as[4];
+    tf32_split(fa ? a0 : ca, ab[0], as[0]);
+    tf32_split(fb ? a1 : cb, ab[1], as[1]);
+    tf32_split(fa ? a2 : ca, ab[2], as[2]);
+    tf32_split(fb ? a3 : cb, ab[3], as[3]);
+#pragma unroll
+    for (int q = 0; q < kGradN; ++q) {
+      if (q < nq) {
+        uint32_t bb[2], bs[2];
+        tf32_split(B[8 * q * ts + k0], bb[0], bs[0]);
+        tf32_split(B[8 * q * ts + k0 + 4], bb[1], bs[1]);
+        mma_tf32(bb_[q], ab, bb);
+        mma_tf32(bs_[q], ab, bs);
+        mma_tf32(sb_[q], as, bb);
+      }
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < kGradN; ++q) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = ra + 8 * h;
+      if (q < nq && r <= rows) {
+        float* gp = G + r * cols + n0 + 8 * q + 2 * c;
+#pragma unroll
+        for (int e = 2 * h; e < 2 * h + 2; ++e)
+          gp[e - 2 * h] =
+              old[q][e] + ((sb_[q][e] + bs_[q][e]) + bb_[q][e]);
+      }
+    }
+  }
+}
+
+// Every layer's weight-gradient sums of one step over the block's paths,
+// G_l[0:rows+1, 0:cols] += [in_l; 1]^T Delta_l, in_l = [t, X] for l = 0
+// and H_{l-1} after it, Delta_l = st.D[l]: each layer's units (16 rows by
+// kGradN x 8 columns) are dealt to the block's warps in turn, and each runs
+// grad_tile_product over the tile's paths.  The caller synchronises before
+// (the D rows are other threads') and after.  Both memory plans run this
+// code on their own pointers and strides, in the same order, so their sums
+// are bitwise alike.
+template <bool kDevice>
+__device__ __forceinline__ void train_weight_grads(const TrainArgs& a,
+                                                   const TrainState& st,
+                                                   float* G, float t) {
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, n_warps = a.tile >> 5;
+  int u0 = 0;   // the units of the layers before this one
+  for (int l = 0; l < a.n_layers; ++l) {
+    const int rows = a.rows[l], cols = a.cols[l];
+    const int n_groups = (cols + 8 * kGradN - 1) / (8 * kGradN);
+    const int units = (rows + 16) / 16 * n_groups;
+    const float* in = (l == 0 ? st.X : st.H[l - 1]) - tid;
+    for (int u = ((warp - u0) % n_warps + n_warps) % n_warps; u < units;
+         u += n_warps) {
+      const int mt = u / n_groups;
+      grad_tile_product<!kDevice>(in, l == 0 ? 1 : 0, rows, t,
+                                  st.D[l] - tid, cols, st.ts, a.tile,
+                                  G + a.g_off[l], 16 * mt,
+                                  8 * kGradN * (u - mt * n_groups));
+    }
+    u0 += units;
+  }
 }
 
 // TrainArgs from the wrapper's arrays and the seed; checks what the

@@ -583,12 +583,15 @@ def _check_train_family(problem, z_net, N, noise_sign, u_tab, rng):
     return drift, cost, hfam
 
 
-def _train_smem_bytes(fixed: int, per_path: int, tile: int) -> int:
+def _train_smem_bytes(fixed: int, per_path: int, tile: int,
+                      backward: bool) -> int:
     """Shared memory of one training block in the shared plan: ``fixed``
     floats (the staged net and X_0, plus the gradient buffer in the
-    backward) and ``per_path`` floats per path at stride tile + 1 - the
-    formula of train_step.cuh:train_smem_floats."""
-    return 4 * (fixed + per_path * (tile + 1))
+    backward) and ``per_path`` floats per path at the row stride tile + 1
+    (forward) or tile + 4 (backward: its mma fragment loads are then free
+    of bank conflicts) - the formula of train_step.cuh:train_smem_floats
+    and train_stride."""
+    return 4 * (fixed + per_path * (tile + (4 if backward else 1)))
 
 
 def _pack_train(problem, z_net, drift, cost, hfam, K, N, delta_t, tile, *,
@@ -618,8 +621,8 @@ def _pack_train(problem, z_net, drift, cost, hfam, K, N, delta_t, tile, *,
     else:
         fixed, per_path = n_stage, dp * (3 if dense else 2) + hidden
     tile, plan, stride = _choose_plan(
-        lambda t: _train_smem_bytes(fixed, per_path, t), per_path, K, tile,
-        plan, _train_outside)
+        lambda t: _train_smem_bytes(fixed, per_path, t, backward), per_path,
+        K, tile, plan, _train_outside)
     iargs = [K, N, d, dp, lay.n_layers, tile, lay.drift_kind, lay.a_off,
              lay.sig_kind, lay.sig_off, int(need_f), lay.p_off, lay.x0_off,
              n_stage, lay.u_off, int(u_tab is not None),

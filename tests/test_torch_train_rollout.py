@@ -298,7 +298,9 @@ def test_outside_train_kernel_family_raises():
 def test_train_kernel_layout_at_bench_shapes(case, tile):
     """The training kernels' arguments at d=100: the net is not negated,
     the staged prefix ends after X_0, and both kernels' shared memory at
-    the chosen tile fits one block."""
+    the chosen tile fits one block: the per-path arrays at the row stride
+    tile + 1 in the forward and tile + 4 in the backward, whose mma
+    fragment loads are then free of bank conflicts."""
     if case == "llgc_d100":
         pt = tp.LLGC(d=100, T=1.0, device="cpu")
         u_tab = pt.u_ref_table(np.arange(32) / 32)
@@ -317,6 +319,14 @@ def test_train_kernel_layout_at_bench_shapes(case, tile):
         assert len(ia) == 24 + 5 * tk._MAX_LAYERS
         assert ia[5] == tile and ia[13] == ia[12] + 104   # n_stage
         assert ia[21] == 102 * 32 + 33 * 32 + 33 * 104   # n_grad
+        dense = case == "lqgc_d100_dense"
+        per_path = (104 * ((4 if backward else 3) if dense
+                           else (3 if backward else 2))
+                    + (2 if backward else 1) * 64)
+        fixed = ia[13] + (ia[21] if backward else 0)
+        stride = tile + (4 if backward else 1)
+        smem = tk._train_smem_bytes(fixed, per_path, tile, backward)
+        assert smem == 4 * (fixed + per_path * stride) <= tk._SMEM_LIMIT
         w2 = ia[22 + 2 * tk._MAX_LAYERS + 2]
         W2 = packed.params[w2:w2 + 32 * 104].reshape(32, 104)
         torch.testing.assert_close(W2[:30, :100],

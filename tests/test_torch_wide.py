@@ -56,7 +56,7 @@ def _pack_serve(pt, net, K, plan=None):
 
 def test_packers_choose_the_device_plan_at_d1000():
     """At d=1000 no tile's block fits: the forward would need 540,928
-    bytes at tile 32, the backward 945,856, the serve kernel 532,672.
+    bytes at tile 32, the backward 983,392, the serve kernel 532,672.
     Each packer chooses the device plan, tile 64, and a workspace of its
     per-path floats times K rounded up to the tile."""
     pt, net, u_tab = _setup(1000)
@@ -76,16 +76,19 @@ def test_packers_choose_the_device_plan_at_d1000():
 
 def test_packers_keep_the_shared_plan_at_d100():
     """At d=100 both plans are on the card; the packers keep the shared
-    plan with tile 64 and 7,856 staged floats, and the bytes of before."""
+    plan with tile 64 and 7,856 staged floats.  The forward's block keeps
+    its bytes (rows at stride 65); the backward's rows are at stride 68
+    for its mma fragment loads: 182,112 bytes, still one block."""
     pt, net, u_tab = _setup(100, N=32)
-    for backward, per_path in ((False, 2 * 104 + 64),
-                               (True, 3 * 104 + 2 * 64)):
+    for backward, per_path, nbytes in ((False, 2 * 104 + 64, 102144),
+                                       (True, 3 * 104 + 2 * 64, 182112)):
         p = _pack_train(pt, net, u_tab, 131072, backward, N=32)
         assert tk._plan_of(p) == "shared" and p.ws_floats == 0
         assert p.iargs[5] == 64 and p.iargs[13] == 7856
         assert p.iargs[-2:] == [0, 0]
         fixed = 7856 + (p.iargs[21] if backward else 0)
-        assert tk._train_smem_bytes(fixed, per_path, 64) <= tk._SMEM_LIMIT
+        smem = tk._train_smem_bytes(fixed, per_path, 64, backward)
+        assert smem == nbytes <= tk._SMEM_LIMIT
     p = _pack_serve(pt, net, 1000)
     assert tk._plan_of(p) == "shared" and p.iargs[6] == 64
     # the device plan can be forced, at the same tile
