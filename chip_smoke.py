@@ -81,6 +81,27 @@ control is learned.  This script
  19. takes a few steps of BASELINE config 2 at full width under its cosine
      schedule cosine_decay_schedule(1e-2, 3000, alpha=3e-4) and times the
      step and both kernels there.
+ 20. compares the torus family of the stopped kernels (the eigen solver's
+     domain leg: the square's exit test on the proposal, the drift
+     -cos(s) c sin(x), h = y (...) + lambda y, v_ref exp(-sin(s)), the
+     lambda leaf, the relu output clamp) with its plain version on
+     FokkerPlanckEigen(d=5), N=20, dt=1e-3, K=8192, lambda = 0.3, for the
+     solver's default DenseNet (10, 10, 10, 10) (bias 0.8, clamp) and the
+     notebook's (no clamp), host noise and both Philox maps, plain and
+     adaptive_forward: outputs on the paths whose exit step agrees (at most
+     1e-3 K differ), the diffusion-loss gradients of every leaf, lambda's
+     nonzero, within GRAD_TOL, and the backward kernel on the plain
+     outputs' cotangents within BWD_REL_TOL;
+ 21. drives the main path: EigenSolver(FokkerPlanckEigen(d=5),
+     rollout_mode='fused_train') on the recipe of
+     experiments/eigenvalue_fokker_planck.py for 4000 steps (one forward
+     and one backward launch per step, no plain call): the tail-100 V_L2
+     and the lambda tail mean within their bounds of JAX's own run
+     (experiments/eigen_fp_reference.py); then estimate_lambda on the
+     trained net; SchrodingerEigen on fused_train raises, naming the gate;
+ 22. times both kernels of the family, their plain versions and the solver
+     step (against the scan's) at K=500 and K=65536, and profiles three
+     steps.
 
 Any failure exits nonzero.  The last line is one JSON object naming the
 device.  Run from the repository root:
@@ -155,6 +176,17 @@ STEPS_GEN = 5
 TEST_L2_BOUND_GEN = 0.12
 D_HEAT, T_HEAT, R_HEAT, DT_HEAT, N_HEAT = 50, 0.2, 6.0, 2e-3, 100
 K_HEAT, KB_HEAT, L_HEAT, STEPS_HEAT = 4096, 2048, 3000, 5
+# the eigen slice: FokkerPlanckEigen(d=5) on the recipe of
+# experiments/eigenvalue_fokker_planck.py (K=500, K_boundary=50, 4000 of
+# its 100k steps), checked at K_EIG_CHECK with lambda = LAM_EIG and timed
+# at K_EIG and K_EIG_BENCH
+D_EIG, N_EIG, DT_EIG, LAM_EIG = 5, 20, 1e-3, 0.3
+K_EIG, KB_EIG, L_EIG, K_EIG_CHECK, K_EIG_BENCH = 500, 50, 4000, 8192, 65536
+# the JAX package's run of that recipe and step count (seed 42, the scan,
+# CPU; experiments/eigen_fp_reference.py --L 4000): the mean of the last 100
+# V_L2 and the lambda tail mean (last 10%); the port must reach 3x the
+# first and max(0.05, 3x) the second
+V_L2_TAIL_JAX, LAMBDA_TAIL_JAX = 0.0016942862921860069, -0.010044212591419638
 # BASELINE config 5 (experiments/baseline_configs.py:234-253) at the K of
 # experiments/proto_d1000_roofline.py; the plain step is timed at K5_PLAIN,
 # since at K5 its per-step checkpoints alone would need N K d 4 B = 79 GB
@@ -562,11 +594,13 @@ def main():
     config5, wide_rows = wide_phases(dev, smi, llgc, solver)
     roofline_rows = roofline_phases(dev, smi, llgc, solver, config5)
     general_rows = general_phases(dev, smi)
+    eigen_rows = eigen_phases(dev, smi)
 
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [serve_row] + train_rows + stopped_rows
-                      + roofline_rows + wide_rows + general_rows}))
+                      + roofline_rows + wide_rows + general_rows
+                      + eigen_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -772,7 +806,7 @@ def profile_steps(what, step, n=3):
               f"{key[:90]}")
 
 
-def stopped_flops(v_net, d, adaptive):
+def stopped_flops(v_net, d, adaptive, torus=False):
     """FP32 operations of one advancing path-step of the stopped kernels,
     counted from their code (csrc/stopped_rollout.cu): (V only, forward,
     backward).  The net reads ``v_net.d_in`` inputs (d, or d + 1 with
@@ -781,7 +815,11 @@ def stopped_flops(v_net, d, adaptive):
     grad V: the transposed products and 2 relu(h) g; the step: 9 per
     dimension.  The backward replays V (and grad V when adaptive), the
     tangent sweep, the pair sweep and the weight outer products (4 per
-    weight: two terms)."""
+    weight: two terms).  The torus family (each sin, cos and exp one
+    operation) adds s and q (6 per dimension), the drift (3 per dimension)
+    and the box test (2 per dimension) to both kernels, h with lambda and
+    -cos(s) (7) and v_ref (6) to the forward, dh/dy + lambda and the lambda
+    gradient (6) to the backward."""
     widths, d_in = list(v_net.arch), v_net.d_in
     ins = [d_in + sum(widths[:l]) for l in range(len(widths))]
     F = d_in + sum(widths)
@@ -792,6 +830,9 @@ def stopped_flops(v_net, d, adaptive):
            + sum(2 * n * w + 2 * w for n, w in zip(ins, widths))
            + sum(6 * w + 4 * (n - d_in) * w for n, w in zip(ins, widths))
            + sum(4 * (n + 1) * w for n, w in zip(ins, widths)) + 4 * F + 2)
+    if torus:
+        fwd += 11 * d + 13
+        bwd += 11 * d + 6
     return v, fwd, bwd
 
 
@@ -1679,6 +1720,296 @@ def general_phases(dev, smi):
                  ms=r["backward"][0], plain_ms=r["backward"][1], **b_bwd),
         ]
     return rows
+
+
+def compare_eigen(tag, prob, net, X0, N, dt, kw, worst):
+    """The torus family of the stopped kernels against its plain version
+    from X0 with the lambda leaf at LAM_EIG: outputs on the paths whose exit
+    step agrees (at most MASK_TOL K differ); the diffusion-loss gradients
+    of every leaf through both, within GRAD_TOL of the leaf's largest entry,
+    lambda's nonzero; and the backward kernel against the plain backward on
+    the plain outputs' cotangents (zero on the paths whose exit step
+    differs, where the two replays part), within BWD_REL_TOL of each net
+    leaf's largest entry and, for the scalar lambda = sum -gY adv V dt, of
+    the sum of its terms' sizes sum_k |gY_k S_k|, S = Y(0) - Y(1) (a sum
+    over paths of both signs cancels far below its terms).  Updates
+    ``worst`` ("out", "grad", "bwd": largest absolute differences)."""
+    from pspde_torch.rollout import kernels as km
+    K = X0.shape[0]
+    t0 = torch.zeros(K, device=X0.device)
+    lam = torch.full((1,), LAM_EIG, device=X0.device, requires_grad=True)
+    leaves = list(net.parameters()) + [lam]
+    names = [n for n, _ in net.named_parameters()] + ["lambda"]
+
+    def V(X):
+        return net(X)[:, 0]
+
+    def loss(out):
+        return torch.mean((V(out.X) - V(X0) - out.Y) ** 2)
+
+    kern = km.fused_stopped_train_rollout(prob, net, X0, t0, N, dt, lam=lam,
+                                          **kw)
+    g_kern = torch.autograd.grad(loss(kern), leaves)
+    plain = km.reference_stopped_train_rollout(prob, net, X0, t0, N, dt,
+                                               lam=lam, **kw)
+    g_plain = torch.autograd.grad(loss(plain), leaves)
+    torch.cuda.synchronize()
+    agree = (kern.hitting == plain.hitting) & (kern.stopped == plain.stopped)
+    n_dis = int((~agree).sum())
+    check(n_dis <= MASK_TOL * K, f"{tag}: {n_dis} paths exit at another step")
+    for name in ("X", "Y", "v_l2", "adv_steps"):
+        a = getattr(kern, name).detach()[agree]
+        b = getattr(plain, name).detach()[agree]
+        check(bool(torch.isfinite(a).all()), f"{tag} {name} not finite")
+        err = float((a - b).abs().max())
+        rel = err / (1.0 + float(b.abs().max()))
+        worst["out"] = max(worst["out"], err)
+        check(rel <= REL_TOL, f"{tag} {name} rel {rel:.3e} > {REL_TOL}")
+    check(float(g_plain[-1].abs()) > 0, f"{tag}: the lambda gradient is 0")
+    loss_rels = rel_per_leaf(tag, "loss gradients", names, g_kern, g_plain,
+                             GRAD_TOL)
+    for a, b in zip(g_kern, g_plain):
+        worst["grad"] = max(worst["grad"], float((a - b).abs().max()))
+    # the backward on the plain outputs' cotangents
+    Y = plain.Y.detach().requires_grad_()
+    (gY,) = torch.autograd.grad(loss(plain._replace(Y=Y)), [Y])
+    gY = gY * agree.to(gY.dtype)
+    fam = km._check_stopped_family(prob, net, kw.get("rng", "erfinv"),
+                                   lam=lam)
+    call = km._StoppedCall(
+        prob, net, X0, t0, N, dt, kw.get("seed", 0), fam,
+        dict(adaptive_forward=kw.get("adaptive_forward", False),
+             rng=kw.get("rng", "erfinv"), host_noise=kw.get("host_noise"),
+             time_stopping=False), None, lam)
+    g_bwd = km._stopped_backward_kernel(call, gY)
+    g_ref = km._reference_stopped_backward(call, gY)
+    with torch.no_grad():
+        S = (km.reference_stopped_train_rollout(
+            prob, net, X0, t0, N, dt, lam=0.0 * lam, **kw).Y
+             - km.reference_stopped_train_rollout(
+                 prob, net, X0, t0, N, dt, lam=1.0 + 0.0 * lam, **kw).Y)
+    torch.cuda.synchronize()
+    bwd = rel_per_leaf(tag, "backward", names[:-1], g_bwd[:-1], g_ref[:-1],
+                       BWD_REL_TOL)
+    lam_err = float((g_bwd[-1] - g_ref[-1]).abs())
+    lam_scale = float(torch.sum((gY * S).abs()))
+    check(lam_err <= BWD_REL_TOL * lam_scale,
+          f"{tag} backward lambda {lam_err:.3e} > {BWD_REL_TOL} * "
+          f"{lam_scale:.3e}")
+    worst["bwd"] = max(worst["bwd"], lam_err, *(
+        float((a - b).abs().max()) for a, b in zip(g_bwd, g_ref)))
+    print(f"  {tag}: exit step differs on {n_dis} of {K} paths; advancing "
+          f"steps {float(plain.adv_steps.sum()):.0f}; outputs ok; "
+          f"{loss_rels}; {bwd}; backward lambda {lam_err:.2e} of "
+          f"sum|gY S| {lam_scale:.2e} (|d/dlambda| "
+          f"{float(g_ref[-1].abs()):.2e})")
+
+
+def eigen_phases(dev, smi):
+    """Phases 20-22: the torus family of the stopped kernels (lambda, the
+    square's proposal test, the torus drift, the output clamp) against its
+    plain version, the EigenSolver main path, and the times.  Returns the
+    kernels' JSON rows."""
+    import numpy as np
+    from pspde_torch.ansatz import DenseNet
+    from pspde_torch.problems import FokkerPlanckEigen, SchrodingerEigen
+    from pspde_torch.rollout import kernels as km
+    from pspde_torch.rollout.sampling import sample_domain
+    from pspde_torch.solvers import EigenSolver
+
+    t_phases = time.perf_counter()
+    d, N, dt = D_EIG, N_EIG, DT_EIG
+    fp = FokkerPlanckEigen(d=d, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(20)
+
+    def net_of(default, seed):
+        # the solver's default (bias 0.8, the relu clamp) or the notebook's
+        kw = dict(bias_init_value=0.8, output_relu=True) if default else {}
+        return DenseNet(1, (10, 10, 10, 10), d_in=d, device=dev,
+                        generator=torch.Generator(dev).manual_seed(seed), **kw)
+
+    # -- phase 20: the torus family vs plain ---------------------------------
+    Kc = K_EIG_CHECK
+    print(f"phase 20: torus kernels vs plain, FokkerPlanckEigen(d={d}), "
+          f"K={Kc}, N={N}, dt={dt}, lambda={LAM_EIG}, DenseNet (10, 10, 10, "
+          f"10) with bias 0.8 and the clamp and without; outputs rel "
+          f"{REL_TOL:g} on agreeing paths, exit-step disagreements <= "
+          f"{MASK_TOL:g} K, loss gradients {GRAD_TOL:g} and the backward on "
+          f"plain cotangents {BWD_REL_TOL:g} x max|plain|")
+    worst = {"out": 0.0, "grad": 0.0, "bwd": 0.0}
+    X0 = sample_domain(gen, fp.geometry, Kc, d)
+    noise = torch.randn((N, Kc, d), generator=gen, device=dev)
+    for default in (True, False):
+        for adaptive in (False, True):
+            net = net_of(default, 1 + adaptive)
+            for what, kw in (("host noise", dict(host_noise=noise)),
+                             ("erfinv", dict(seed=4321, rng="erfinv")),
+                             ("binom", dict(seed=4321, rng="binom"))):
+                compare_eigen(
+                    f"[{'default' if default else 'notebook'}"
+                    f"{', adaptive' if adaptive else ''}, {what}]", fp, net,
+                    X0, N, dt, dict(kw, adaptive_forward=adaptive), worst)
+    del noise
+
+    # -- phase 21: the main path ---------------------------------------------
+    print(f"phase 21: EigenSolver(FokkerPlanckEigen(d={d}), "
+          f"rollout_mode='fused_train'), experiments/eigenvalue_fokker_planck"
+          f".py's recipe: DenseNet (10, 10, 10, 10), lr 1e-3, lr_lambda 0.01, "
+          f"lambda_init 0.5, K={K_EIG}, K_boundary={KB_EIG}, alpha (50, 1), "
+          f"'center', N={N}, dt={dt}, {L_EIG} steps")
+
+    def solver(K, mode, L=L_EIG):
+        return EigenSolver(
+            fp, f"fp-eigen-{mode}", seed=42, delta_t=dt, N=N, lr=1e-3,
+            lr_lambda=0.01, lambda_init=0.5, L=L, K=K, K_boundary=KB_EIG,
+            alpha=(50.0, 1.0), normalization="center",
+            value_net=net_of(False, 42), rollout_mode=mode, verbose=False,
+            device=dev)
+
+    main = solver(K_EIG, "fused_train")
+    check(main.resolved_rollout_mode == "fused_train",
+          f"engine {main.resolved_rollout_mode}")
+    try:
+        EigenSolver(SchrodingerEigen(d=10, device=dev), "schroedinger",
+                    normalization="l2_penalty", rollout_mode="fused_train",
+                    verbose=False, device=dev)
+        raised = ""
+    except ValueError as e:
+        raised = str(e)
+    check("gate failed" in raised and "STOPPED_KERNEL_FAMILY" in raised,
+          "SchrodingerEigen on fused_train raises a ValueError naming the "
+          f"gate (got {raised[:80]!r})")
+    print(f"  SchrodingerEigen(d=10) on fused_train raises: {raised[:120]}")
+    plain_calls = {"n": 0}
+    originals = (km.reference_stopped_train_rollout,
+                 km._reference_stopped_backward)
+
+    def counting(fn):
+        def wrapped(*a, **k):
+            plain_calls["n"] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    km.reference_stopped_train_rollout = counting(originals[0])
+    km._reference_stopped_backward = counting(originals[1])
+    reset_counts(km.fused_stopped_train_rollout, "launches",
+                 "backward_launches")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        main.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        (km.reference_stopped_train_rollout,
+         km._reference_stopped_backward) = originals
+    launches = (km.fused_stopped_train_rollout.launches,
+                km.fused_stopped_train_rollout.backward_launches)
+    v_tail = float(np.mean(main.V_L2_log[-100:]))
+    lam_tail = main.lambda_tail_mean()
+    v_bound = 3.0 * V_L2_TAIL_JAX
+    lam_bound = max(0.05, 3.0 * abs(LAMBDA_TAIL_JAX))
+    print(f"  {len(main.loss_log)} steps in {wall:.2f} s "
+          f"({1e3 * wall / len(main.loss_log):.3f} ms a step); launches "
+          f"forward {launches[0]}, backward {launches[1]}; plain-version "
+          f"calls {plain_calls['n']}; V_L2 every 500: "
+          f"{['%.3e' % v for v in main.V_L2_log[::500]]}; lambda every 500: "
+          f"{['%.3e' % v for v in main.lambda_log[::500]]}")
+    print(f"  tail-100 V_L2 {v_tail:.4e} (bound {v_bound:.4e}, JAX "
+          f"{V_L2_TAIL_JAX:.4e}); lambda tail mean {lam_tail:.4e} (bound "
+          f"|.| <= {lam_bound:g}, JAX {LAMBDA_TAIL_JAX:.4e})")
+    check(launches == (L_EIG, L_EIG) and plain_calls["n"] == 0,
+          "one forward and one backward launch per step, no plain call")
+    check(all(math.isfinite(v) for v in main.loss_log + main.lambda_log),
+          "finite losses and lambdas")
+    check(v_tail <= v_bound, f"tail-100 V_L2 {v_tail:.4e} > {v_bound:.4e}")
+    check(abs(lam_tail) <= lam_bound,
+          f"|lambda tail mean| {abs(lam_tail):.4e} > {lam_bound:g}")
+    reset_counts(km.fused_stopped_train_rollout, "launches")
+    t0 = time.perf_counter()
+    lam_hat, lam_se = main.estimate_lambda(K=4096, n_batches=16)
+    est_wall = time.perf_counter() - t0
+    print(f"  estimate_lambda (K=4096, 16 batches, two forward launches "
+          f"each: {km.fused_stopped_train_rollout.launches}): {lam_hat:.4e} "
+          f"+- {lam_se:.1e} in {est_wall:.2f} s (lambda_true "
+          f"{fp.lambda_true})")
+    check(km.fused_stopped_train_rollout.launches == 32
+          and math.isfinite(lam_hat) and math.isfinite(lam_se),
+          "estimate_lambda ran on the kernel")
+
+    # -- phase 22: times -----------------------------------------------------
+    print(f"phase 22: timing at K={K_EIG} and K={K_EIG_BENCH}, N={N}, d={d}, "
+          "notebook net, lambda leaf, erfinv Philox noise, CUDA events")
+    times = {}
+    for K in (K_EIG, K_EIG_BENCH):
+        net = net_of(False, 5)
+        X0 = sample_domain(gen, fp.geometry, K, d)
+        t0b = torch.zeros(K, device=dev)
+        lam = torch.full((1,), LAM_EIG, device=dev)
+        gY = torch.randn(K, generator=gen, device=dev) / K
+        call = km._StoppedCall(
+            fp, net, X0, t0b, N, dt, 17,
+            km._check_stopped_family(fp, net, "erfinv", lam=lam),
+            dict(adaptive_forward=False, rng="erfinv", host_noise=None,
+                 time_stopping=False), None, lam)
+        probe = km._stopped_forward_kernel(call)
+        hit = float(probe.hitting.sum())
+        adv = float(probe.adv_steps.sum())
+        n_par = sum(p.numel() for p in net.parameters()) + 1
+        _, fwd_f, bwd_f = stopped_flops(net, d, adaptive=False, torus=True)
+        # on the torus a step that stops still forms its proposal
+        b_fwd = roofline(hit * fwd_f, 4 * (n_par + K * (2 * d + 7)))
+        b_bwd = roofline(adv * bwd_f, 4 * (2 * n_par + K * (d + 2)))
+        steppers = {mode: solver(K, mode, L=1)
+                    for mode in ("fused_train", "scan")}
+
+        def plain_fwd():
+            with torch.no_grad():
+                call.plain()
+
+        r = {}
+        for name, kern_fn, plain_fn, reps in (
+                ("forward", lambda: km._stopped_forward_kernel(call),
+                 plain_fwd, 20),
+                ("backward", lambda: km._stopped_backward_kernel(call, gY),
+                 lambda: km._reference_stopped_backward(call, gY), 10),
+                ("step", steppers["fused_train"].step,
+                 steppers["scan"].step, 10)):
+            p1 = timed(plain_fn, 1)
+            k = [timed(kern_fn, reps), timed(kern_fn, reps)]
+            p2 = timed(plain_fn, 1)
+            r[name] = (min(k), min(p1, p2))
+            print(f"  K={K:6d} {name:8s} kernel {k[0]:.3f}, {k[1]:.3f} ms; "
+                  f"plain {p1:.3f}, {p2:.3f} ms")
+        print(f"  K={K}: {hit:.0f} active and {adv:.0f} advancing path-steps "
+              f"of K N = {K * N}; bound forward {b_fwd['bound_ms']:.5f} ms, "
+              f"backward {b_bwd['bound_ms']:.5f} ms ({b_fwd['bound_by']}); "
+              f"step {r['step'][0]:.3f} ms")
+        times[K] = (r, b_fwd, b_bwd, steppers["fused_train"])
+    print(f"  card: {smi}")
+    profile_steps(f"3 EigenSolver steps, K={K_EIG}", main.step)
+    profile_steps(f"3 EigenSolver steps, K={K_EIG_BENCH}",
+                  times[K_EIG_BENCH][3].step)
+    print(f"  phases 20-22 took {time.perf_counter() - t_phases:.1f} s")
+
+    (r, b_fwd, b_bwd, _), (rb, bb_fwd, bb_bwd, _) = (times[K_EIG],
+                                                   times[K_EIG_BENCH])
+    row = {"route": "cuda", "source": STOPPED_SOURCE,
+           "shape": f"FokkerPlanckEigen, d={d}, K={K_EIG}, N={N}, lambda"}
+    return [
+        dict(row, name="fused_stopped_train_rollout.forward.torus",
+             replaces="pspde/rollout/kernels.py:1184", launches=launches[0],
+             max_abs_err=worst["out"], ms=r["forward"][0],
+             plain_ms=r["forward"][1], **b_fwd,
+             ms_K65536=rb["forward"][0], plain_ms_K65536=rb["forward"][1],
+             bound_ms_K65536=bb_fwd["bound_ms"]),
+        dict(row, name="fused_stopped_train_rollout.backward.torus",
+             replaces="pspde/rollout/kernels.py:1272", launches=launches[1],
+             max_abs_err=worst["grad"], ms=r["backward"][0],
+             plain_ms=r["backward"][1], **b_bwd,
+             ms_K65536=rb["backward"][0], plain_ms_K65536=rb["backward"][1],
+             bound_ms_K65536=bb_bwd["bound_ms"]),
+    ]
 
 
 if __name__ == "__main__":

@@ -22,7 +22,10 @@ arrays in a [row][K] workspace), against the shared plan they choose at
 d=100.  The stopped forward and replay backward are timed at the elliptic
 cell (ExponentialOnBallNonlinearSin d=50, K=65536, N=20, erfinv noise) for
 DenseNet (30, 30) and the notebook net (70, 50, 50, 50), with one
-``EllipticSolver.step()``.
+``EllipticSolver.step()``, and with ``time_stopping`` at the gen50 cell
+(ExponentialOnSphereNonlinearParabolic d=50, K=65536, N=20) and at the
+heat cell (HeatEquation d=50, T=0.2, the whole space, K=4096, N=100),
+DenseNet (30, 30) on [x, t].
 """
 
 import argparse
@@ -156,6 +159,42 @@ def stopped_times(dev, gen):
                          K_test_log=4096, verbose=False,
                          rollout_mode="fused_train", device=dev)
     out["elliptic_step"] = timed(ell.step, 10)
+    out.update(time_stopping_times(dev, gen))
+    return out
+
+
+def time_stopping_times(dev, gen):
+    """ms of the stopped kernels' time_stopping instantiation at the gen50
+    and heat cells of chip_smoke.py (phases 16-19)."""
+    from pspde_torch.ansatz import DenseNet
+    from pspde_torch.problems import (ExponentialOnSphereNonlinearParabolic,
+                                      Geometry, HeatEquation)
+    from pspde_torch.rollout import kernels as km
+    from pspde_torch.rollout.sampling import sample_domain
+
+    heat = HeatEquation(d=D_ELL, T=0.2, device=dev)
+    heat.geometry = Geometry(kind="unbounded", boundary_distance=6.0)
+    out = {}
+    for tag, prob, K, N, dt in (
+            ("gen50", ExponentialOnSphereNonlinearParabolic(d=D_ELL,
+                                                            device=dev),
+             K_ELL, N_ELL, DT_ELL),
+            ("heat", heat, 4096, 100, 2e-3)):
+        net = DenseNet(1, (30, 30), d_in=D_ELL + 1, device=dev,
+                       generator=torch.Generator(dev).manual_seed(5))
+        X0 = sample_domain(gen, prob.geometry, K, D_ELL)
+        t0 = torch.rand(K, generator=gen, device=dev) * prob.T
+        gY = torch.randn(K, generator=gen, device=dev) / K
+        call = km._StoppedCall(
+            prob, net, X0, t0, N, dt, 17,
+            km._check_stopped_family(prob, net, "erfinv",
+                                     time_stopping=True),
+            dict(adaptive_forward=False, rng="erfinv", host_noise=None,
+                 time_stopping=True), None)
+        out[f"stopped_fwd_{tag}"] = timed(
+            lambda: km._stopped_forward_kernel(call), 10)
+        out[f"stopped_bwd_{tag}"] = timed(
+            lambda: km._stopped_backward_kernel(call, gY), 5)
     return out
 
 

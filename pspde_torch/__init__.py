@@ -9,6 +9,8 @@ nor a GPU.
 Ported so far: the serve path (importance sampling with a learned
 control), the HJB training step (``HJBSolver``), the stopped-path elliptic
 training step (``EllipticSolver``), the space-time parabolic training step
-(``GeneralSolver``, the ``time_stopping`` branch of the stopped kernels)
-and the measured roofline (``utils/roofline.py``).
+(``GeneralSolver``, the ``time_stopping`` branch of the stopped kernels),
+the eigenvalue training step (``EigenSolver`` on ``FokkerPlanckEigen``, the
+torus family of the stopped kernels with the lambda leaf) and the measured
+roofline (``utils/roofline.py``).
 """

@@ -1,4 +1,5 @@
 from .base import DiffusionMatrix, Geometry, Problem
+from .eigen import FokkerPlanckEigen, SchrodingerEigen
 from .elliptic import (ExponentialOnBallNonlinear,
                        ExponentialOnBallNonlinearSin, ExponentialOnSphere)
 from .ou import LLGC, LQGC
@@ -8,5 +9,5 @@ from .parabolic import (AllenCahn, ExponentialOnSphereNonlinearParabolic,
 __all__ = ["AllenCahn", "DiffusionMatrix", "ExponentialOnBallNonlinear",
            "ExponentialOnBallNonlinearSin", "ExponentialOnSphere",
            "ExponentialOnSphereNonlinearParabolic",
-           "ExponentialOnSphereParabolic", "Geometry", "HeatEquation",
-           "LLGC", "LQGC", "Problem"]
+           "ExponentialOnSphereParabolic", "FokkerPlanckEigen", "Geometry",
+           "HeatEquation", "LLGC", "LQGC", "Problem", "SchrodingerEigen"]

@@ -11,7 +11,9 @@ problem states whether it belongs to it through ``drift_family``,
 (``None`` means outside the family).  The stopped-path problems
 (``problems/elliptic.py``, ``problems/parabolic.py``) state their h through
 ``h_family`` too, in the stopped kernels' form, and the elliptic ones their
-closed-form reference through ``v_ref_family``.
+closed-form reference through ``v_ref_family``; ``FokkerPlanckEigen``
+(``problems/eigen.py``) states its drift, h and reference in the stopped
+kernels' torus family.
 """
 
 from __future__ import annotations
@@ -154,8 +156,10 @@ class Problem:
     # -- rollout-kernel family ---------------------------------------------
     def drift_family(self):
         """('neg_identity', None) for b(x) = -x, ('matrix', A) for
-        b(x) = A x, ('zero', None) for b = 0, or None when the drift is
-        outside every kernel's family."""
+        b(x) = A x, ('zero', None) for b = 0, ('torus_cos', c) for
+        b(x) = -cos(s) c sin(x) with s = c sum_j cos x_j and a uniform
+        scalar c (the stopped kernels' torus family), or None when the
+        drift is outside every kernel's family."""
         return None
 
     def running_cost_family(self):
@@ -174,13 +178,18 @@ class Problem:
           h = y (c_y + c_yr2 |x|^2) + phi(exp(k |x|^2 + k_t t) - y^2)
           with phi in ('none', 'identity', 'sin') (the stopped kernels);
           the elliptic problems leave k_t out (0), the parabolic ones
-          (``problems/parabolic.py``) state it.
+          (``problems/parabolic.py``) state it;
+        * ('torus_fp', c): the z-free, linear in y
+          h = y (-c^2 sum_j sin^2 x_j sin(s) - cos(s) s) with
+          s = c sum_j cos x_j (``FokkerPlanckEigen``; the stopped kernels'
+          torus family).
         """
         return None
 
     def v_ref_family(self):
-        """('exp_r2', a) for the closed form v_ref(x) = exp(a |x|^2), which
-        the stopped kernels evaluate in-kernel, or None."""
+        """('exp_r2', a) for the closed form v_ref(x) = exp(a |x|^2) or
+        ('torus_fp', c) for v_ref(x) = exp(-sin(s)), s = c sum_j cos x_j,
+        which the stopped kernels evaluate in-kernel, or None."""
         return None
 
     def running_cost(self, x: torch.Tensor, t: float) -> torch.Tensor:

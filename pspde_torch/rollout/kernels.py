@@ -40,8 +40,9 @@ import torch
 
 from ..ansatz import DenseNet, TanhMLP
 from .sampling import inside_fn
-from .sde import (HJBRolloutConfig, StoppedRolloutConfig, hjb_rollout,
-                  step_constants, step_time, stopped_rollout, value_and_z)
+from .sde import (HJBRolloutConfig, LambdaShiftedProblem,
+                  StoppedRolloutConfig, hjb_rollout, step_constants,
+                  step_time, stopped_rollout, value_and_z)
 
 
 class ISRolloutOut(NamedTuple):
@@ -825,18 +826,24 @@ class FusedStoppedOut(NamedTuple):
 
 
 STOPPED_KERNEL_FAMILY = (
-    "zero drift; sigma scalar; geometry 'sphere' (exit tested on the current "
-    "state) or, with time_stopping, 'unbounded'; h = y (c_y + c_yr2 |x|^2) "
-    "+ phi(exp(k |x|^2 + k_t t) - y^2) with phi none, identity or sin "
-    "(Problem.h_family 'ball_exp'); v_ref exp(a |x|^2) or none "
-    "(Problem.v_ref_family; no in-kernel reference with time_stopping); a "
-    "DenseNet value net with d_out=1, output_relu=False, 1-4 hidden layers "
-    "and input width d, or d + 1 reading [x, t] with time_stopping (a step "
-    "advances while t + dt <= T); rng 'erfinv' or 'binom'; no lambda leaf")
+    "sigma scalar; either zero drift on the geometry 'sphere' (exit tested "
+    "on the current state) or, with time_stopping, 'unbounded', h = y (c_y "
+    "+ c_yr2 |x|^2) + phi(exp(k |x|^2 + k_t t) - y^2) with phi none, "
+    "identity or sin (Problem.h_family 'ball_exp') and v_ref exp(a |x|^2) or "
+    "none (Problem.v_ref_family; no in-kernel reference with "
+    "time_stopping); or the torus family without time_stopping: the "
+    "two-sided 'square' (exit tested on the proposal), drift -cos(s) c "
+    "sin(x) with s = c sum cos x_j and a uniform c ('torus_cos'), h = y "
+    "(-c^2 sum sin^2 x_j sin(s) - cos(s) s) and v_ref exp(-sin(s)) or none "
+    "('torus_fp'), with an optional lambda leaf (a one-element tensor: h + "
+    "lambda y, the EigenSolver's); a DenseNet value net with d_out=1, "
+    "output_relu or not, 1-4 hidden layers and input width d, or d + 1 "
+    "reading [x, t] with time_stopping (a step advances while t + dt <= "
+    "T); rng 'erfinv' or 'binom'")
 _MAX_HIDDEN = 4            # csrc/stopped_rollout.cu kMaxHidden
 _STOPPED_TILES = (64, 32)  # csrc kStoppedTile bounds the block
 _PHI = ("none", "identity", "sin")
-_GEOMETRIES = ("sphere", "unbounded")   # csrc StoppedArgs.geom
+_GEOMETRIES = ("sphere", "unbounded", "square")   # csrc StoppedArgs.geom
 
 
 def _stopped_outside(msg: str):
@@ -846,47 +853,68 @@ def _stopped_outside(msg: str):
 
 def _check_stopped_family(problem, v_net, rng, time_stopping=False,
                           lam=None):
-    """(h_family with its k_t, v_ref_family) of a problem and net inside
-    the stopped kernels' family; raises ValueError naming
+    """(h_family, v_ref_family) of a problem and net inside the stopped
+    kernels' family: ('ball_exp', c_y, c_yr2, k, phi, k_t) with its
+    reference ('exp_r2', a) or None, or on the torus ('torus_fp', c) with
+    ('torus_fp', c) or None; raises ValueError naming
     STOPPED_KERNEL_FAMILY outside it.  With ``time_stopping`` the net reads
-    [x, t] and there is no in-kernel reference (v_ref_family None)."""
+    [x, t] and there is no in-kernel reference (v_ref_family None).  A
+    lambda leaf ``lam`` belongs to the torus family."""
     name = type(problem).__name__
-    if lam is not None:
-        raise _stopped_outside("a lambda leaf belongs to the EigenSolver "
-                               "slice (ROADMAP.md, Queue 1 item 3 and "
-                               "Queue 2 item 3)")
     if time_stopping and getattr(problem, "T", None) is None:
         raise _stopped_outside(f"time_stopping needs a horizon, and {name} "
                                "has T=None")
-    if problem.drift_family() != ("zero", None):
-        raise _stopped_outside(f"drift of {name} is not zero")
+    drift = problem.drift_family()
+    if drift is None or drift[0] not in ("zero", "torus_cos"):
+        raise _stopped_outside(f"drift of {name} is neither zero nor "
+                               "'torus_cos'")
+    torus = drift[0] == "torus_cos"
     if problem.sigma_struct.kind != "scalar":
         raise _stopped_outside(f"sigma of {name} is "
                                f"{problem.sigma_struct.kind}, not scalar")
     geom = problem.geometry
-    if geom is None or geom.kind not in _GEOMETRIES:
-        raise _stopped_outside(f"geometry of {name} is "
-                               f"{getattr(geom, 'kind', None)!r}")
-    if geom.kind == "unbounded" and not time_stopping:
+    kind = getattr(geom, "kind", None)
+    if kind not in _GEOMETRIES:
+        raise _stopped_outside(f"geometry of {name} is {kind!r}")
+    if (kind == "square") != torus:
+        raise _stopped_outside(
+            f"geometry of {name} is {kind!r} with drift {drift[0]!r}: the "
+            "kernels test the square only with the torus family "
+            "('torus_cos' drift, 'torus_fp' h)")
+    if torus and (geom.one_boundary or time_stopping):
+        raise _stopped_outside(f"geometry of {name} is a one-sided square or "
+                               "runs with time_stopping")
+    if kind == "unbounded" and not time_stopping:
         raise _stopped_outside(f"geometry of {name} is 'unbounded' and "
                                "without time_stopping no path would stop")
+    if lam is not None and not torus:
+        raise _stopped_outside("a lambda leaf (the EigenSolver's h + lambda "
+                               "y) goes with the torus family only")
     hfam = problem.h_family()
-    if hfam is None or hfam[0] != "ball_exp" or hfam[4] not in _PHI:
-        raise _stopped_outside(f"h of {name} is not in the 'ball_exp' "
-                               "family")
-    hfam = tuple(hfam) + (0.0,) * (6 - len(hfam))
     vfam = None if time_stopping else problem.v_ref_family()
-    if vfam is not None and vfam[0] != "exp_r2":
-        raise _stopped_outside(f"v_ref of {name} is not exp(a |x|^2)")
+    if torus:
+        if hfam is None or tuple(hfam) != ("torus_fp", drift[1]):
+            raise _stopped_outside(f"h of {name} is not in the 'torus_fp' "
+                                   "family of its drift's c")
+        hfam = tuple(hfam)
+        if vfam is not None and tuple(vfam) != hfam:
+            raise _stopped_outside(f"v_ref of {name} is not exp(-sin(s))")
+    else:
+        if hfam is None or hfam[0] != "ball_exp" or hfam[4] not in _PHI:
+            raise _stopped_outside(f"h of {name} is not in the 'ball_exp' "
+                                   "family")
+        hfam = tuple(hfam) + (0.0,) * (6 - len(hfam))
+        if vfam is not None and vfam[0] != "exp_r2":
+            raise _stopped_outside(f"v_ref of {name} is not exp(a |x|^2)")
     if not isinstance(v_net, DenseNet):
         raise _stopped_outside(f"value net {type(v_net).__name__} is not a "
                                "DenseNet")
     d_in = problem.d + int(bool(time_stopping))
-    if v_net.d_in != d_in or v_net.d_out != 1 or v_net.output_relu:
+    if v_net.d_in != d_in or v_net.d_out != 1:
         raise _stopped_outside(
             f"DenseNet d_in={v_net.d_in}, d_out={v_net.d_out}, "
-            f"output_relu={v_net.output_relu} (need {d_in}, 1, False with "
-            f"time_stopping={bool(time_stopping)})")
+            f"output_relu={v_net.output_relu} (need {d_in}, 1, "
+            f"{v_net.output_relu} with time_stopping={bool(time_stopping)})")
     if not 1 <= len(v_net.arch) <= _MAX_HIDDEN:
         raise _stopped_outside(f"DenseNet has {len(v_net.arch)} hidden "
                                "layers")
@@ -902,16 +930,18 @@ def reference_stopped_train_rollout(problem, v_net, X0: torch.Tensor,
                                     rng: str = "erfinv",
                                     host_noise: Optional[torch.Tensor] = None,
                                     with_v_ref: bool = True,
-                                    time_stopping: bool = False
+                                    time_stopping: bool = False,
+                                    lam: Optional[torch.Tensor] = None
                                     ) -> FusedStoppedOut:
     """Plain version of the stopped training kernels: ``stopped_rollout``
     with a detached forward from (X0, t0) with Y_0 = 0, on the kernels'
     noise stream (``host_noise`` (N, K, d) or ``train_normals(seed, ...)``
     through ``rng``), v_l2 against ``problem.v_ref`` when ``with_v_ref``
     and not ``time_stopping`` (then the net reads [x, t] and each path's
-    clock stops it at the horizon).  Differentiable in ``v_net``'s
-    parameters by autograd (second order through Z = sigma^T grad V); any
-    problem and value net are accepted."""
+    clock stops it at the horizon).  With ``lam`` it runs the lambda-shifted
+    problem, h + lam y (``sde.LambdaShiftedProblem``).  Differentiable in
+    ``v_net``'s parameters and ``lam`` by autograd (second order through
+    Z = sigma^T grad V); any problem and value net are accepted."""
     K, d = X0.shape
     dev = X0.device
     cfg = StoppedRolloutConfig(N=N, delta_t=delta_t,
@@ -920,7 +950,7 @@ def reference_stopped_train_rollout(problem, v_net, X0: torch.Tensor,
                                time_stopping=time_stopping)
     with_v_ref = with_v_ref and problem.has_v_ref and not time_stopping
     out = stopped_rollout(
-        cfg, problem,
+        cfg, problem if lam is None else LambdaShiftedProblem(problem, lam),
         value_and_z(v_net, problem.sigma_struct, space_time=time_stopping),
         X0.to(torch.float32), torch.zeros((K,), dtype=torch.float32,
                                           device=dev),
@@ -957,7 +987,7 @@ def _stopped_tile(n_params: int, per_path: int, tile: Optional[int]):
 
 
 class _StoppedLayout(NamedTuple):
-    buf: torch.Tensor      # the packed net
+    buf: torch.Tensor      # the packed net [+ lambda]
     widths: list           # hidden widths
     w_off: list            # per hidden layer: offset of W (n_in, padded w)
     b_off: list
@@ -967,14 +997,17 @@ class _StoppedLayout(NamedTuple):
     gL_off: int
     n_grad: int
     F: int                 # d_in + sum(widths)
+    lam_off: int           # lambda's offset in buf, -1 without it
+    g_lam: int             # its gradient entry (the last), -1 without it
 
 
-def _stopped_layout(v_net: DenseNet) -> _StoppedLayout:
+def _stopped_layout(v_net: DenseNet,
+                    lam: Optional[torch.Tensor] = None) -> _StoppedLayout:
     """The DenseNet in one buffer: per hidden layer W (n_in, width padded
-    to _CHUNK) as (in, out) and its bias, then the output row and bias;
-    sections aligned to 4 floats.  And the layout of one block's gradient
-    row: per hidden layer [W (n_in, width); b (1, width)], then [wL (F);
-    bL]."""
+    to _CHUNK) as (in, out) and its bias, then the output row and bias and,
+    with ``lam``, lambda after them; sections aligned to 4 floats.  And the
+    layout of one block's gradient row: per hidden layer [W (n_in, width);
+    b (1, width)], then [wL (F); bL] and, with ``lam``, d/dlambda."""
     dev = v_net.layers[0].weight.device
     parts, off = [], 0
 
@@ -1004,8 +1037,15 @@ def _stopped_layout(v_net: DenseNet) -> _StoppedLayout:
         n_in += w
     out = v_net.layers[-1]
     wL_off, bL_off = add(out.weight[0]), add(out.bias)
+    gL_off = n_grad
+    n_grad += n_in + 1
+    lam_off = g_lam = -1
+    if lam is not None:
+        lam_off, g_lam = add(lam), n_grad
+        n_grad += 1
     return _StoppedLayout(torch.cat(parts), widths, w_off, b_off, g_off,
-                          wL_off, bL_off, n_grad, n_grad + n_in + 1, n_in)
+                          wL_off, bL_off, gL_off, n_grad, n_in, lam_off,
+                          g_lam)
 
 
 def _pad_hidden(vals: list) -> list:
@@ -1014,31 +1054,44 @@ def _pad_hidden(vals: list) -> list:
 
 def _pack_stopped(problem, v_net, hfam, vfam, K, N, delta_t, tile, *,
                   backward, host_noise, adaptive_forward, rng,
-                  time_stopping=False) -> _Packed:
+                  time_stopping=False, lam=None) -> _Packed:
     """The stopped kernels' arguments (stopped_rollout.cu: StoppedArgs).
     The state has d rows and the net d_in = d (+ 1 with time_stopping)
-    input rows; F and the hidden rows H count from d_in."""
+    input rows; F and the hidden rows H count from d_in.  The torus family
+    always carries lambda in the packed net (``lam``, or 0 without it) and
+    its gradient entry."""
     d = problem.d
-    lay = _stopped_layout(v_net)
+    geom = problem.geometry
+    torus = hfam[0] == "torus_fp"
+    if torus and lam is None:
+        lam = torch.zeros(1, dtype=torch.float32, device=problem.X_0.device)
+    lay = _stopped_layout(v_net, lam if torus else None)
     H = lay.F - v_net.d_in
     per_path = 3 * lay.F + 3 * H + 1 if backward else 2 * lay.F + H
     n_params = lay.buf.numel()
     tile, stage = _stopped_tile(n_params, per_path, tile)
-    _, c_y, c_yr2, k_exp, phi, k_t = hfam
+    if torus:
+        c_y = c_yr2 = k_exp = k_t = 0.0
+        phi, c_tor = "none", float(hfam[1])
+    else:
+        _, c_y, c_yr2, k_exp, phi, k_t = hfam
+        c_tor = 0.0
     iargs = [K, N, d, len(lay.widths), lay.F, tile, int(stage), n_params,
              int(host_noise is not None), int(adaptive_forward),
              RNG_MAPS.index(rng), _PHI.index(phi), int(vfam is not None),
-             lay.n_grad, int(time_stopping),
-             _GEOMETRIES.index(problem.geometry.kind)]
+             lay.n_grad, int(time_stopping), _GEOMETRIES.index(geom.kind)]
     iargs += (_pad_hidden(lay.widths) + _pad_hidden(lay.w_off)
               + _pad_hidden(lay.b_off) + _pad_hidden(lay.g_off))
-    iargs += [lay.wL_off, lay.bL_off, lay.gL_off]
+    iargs += [lay.wL_off, lay.bL_off, lay.gL_off, int(v_net.output_relu),
+              lay.lam_off, lay.g_lam]
     dt, sq_dt = step_constants(delta_t)
     fargs = [dt, sq_dt, problem.sigma_struct.scale,
-             float(problem.geometry.boundary_distance), float(c_y),
-             float(c_yr2), float(k_exp),
-             float(vfam[1]) if vfam is not None else 0.0,
-             float(problem.T) if time_stopping else 0.0, float(k_t)]
+             float(geom.boundary_distance), float(c_y), float(c_yr2),
+             float(k_exp),
+             float(vfam[1]) if vfam is not None and not torus else 0.0,
+             float(problem.T) if time_stopping else 0.0, float(k_t),
+             float(geom.X_l) if torus else 0.0,
+             float(geom.X_r) if torus else 0.0, c_tor]
     return _Packed(lay.buf, iargs, fargs)
 
 
@@ -1056,11 +1109,13 @@ class _StoppedCall(NamedTuple):
     opts: dict               # adaptive_forward, rng, host_noise and,
                              # where set, time_stopping
     tile: Optional[int]
+    lam: Optional[torch.Tensor] = None   # the torus family's lambda leaf
 
     def plain(self) -> FusedStoppedOut:
         return reference_stopped_train_rollout(
             self.problem, self.v_net, self.X0, self.t0, self.N, self.delta_t,
-            self.seed, with_v_ref=self.families[1] is not None, **self.opts)
+            self.seed, with_v_ref=self.families[1] is not None,
+            lam=self.lam, **self.opts)
 
     def pack(self, backward: bool) -> _Packed:
         o = self.opts
@@ -1069,7 +1124,7 @@ class _StoppedCall(NamedTuple):
             self.N, self.delta_t, self.tile, backward=backward,
             host_noise=o["host_noise"],
             adaptive_forward=o["adaptive_forward"], rng=o["rng"],
-            time_stopping=o.get("time_stopping", False))
+            time_stopping=o.get("time_stopping", False), lam=self.lam)
 
 
 def _stopped_forward_kernel(call: _StoppedCall) -> FusedStoppedOut:
@@ -1100,6 +1155,7 @@ def _stopped_grads_from_row(v_net: DenseNet, lay: _StoppedLayout,
 
 
 def _stopped_backward_kernel(call: _StoppedCall, gY) -> list:
+    """The parameters' gradients (and lambda's last, with ``call.lam``)."""
     X0 = call.X0
     packed = call.pack(backward=True)
     tile, n_grad = packed.iargs[5], packed.iargs[13]
@@ -1109,8 +1165,12 @@ def _stopped_backward_kernel(call: _StoppedCall, gY) -> list:
             packed, [packed.params, call.opts["host_noise"], X0, call.t0,
                      gY.contiguous(), part], call.seed, X0.device)
     fused_stopped_train_rollout.backward_launches += 1
-    return _stopped_grads_from_row(call.v_net, _stopped_layout(call.v_net),
-                                   part.sum(dim=0))
+    total = part.sum(dim=0)
+    lay = _stopped_layout(call.v_net, call.lam)
+    grads = _stopped_grads_from_row(call.v_net, lay, total)
+    if call.lam is not None:
+        grads.append(total[n_grad - 1:].reshape(call.lam.shape))
+    return grads
 
 
 @torch.no_grad()
@@ -1121,14 +1181,16 @@ def _reference_stopped_backward(call: _StoppedCall, gY) -> list:
     and w = gY adv s (xi sqrt(dt) + c dt), by one tangent sweep through the
     DenseNet in direction w and one reverse sweep over the pair.  With
     ``time_stopping`` the primal sweep starts from [X, t] and the tangent
-    has a zero in the t slot (Z is the gradient in x only)."""
+    has a zero in the t slot (Z is the gradient in x only).  With the
+    output clamp both terms carry the mask 1[V > 0].  With ``call.lam``
+    dh/dy gains lambda, and d/dlambda = sum -gY adv V dt comes last."""
     problem, net = call.problem, call.v_net
     X = call.X0.to(torch.float32)
     t = call.t0.to(torch.float32)
     K, d = X.shape
     sig = problem.sigma_struct
     dt, sq_dt = step_constants(call.delta_t)
-    _, c_y, c_yr2, k_exp, phi, k_t = call.families[0]
+    hfam = call.families[0]
     o = call.opts
     timed = o.get("time_stopping", False)
     vg = value_and_z(net, sig, space_time=timed)
@@ -1136,6 +1198,8 @@ def _reference_stopped_backward(call: _StoppedCall, gY) -> list:
     hidden, out = list(net.layers[:-1]), net.layers[-1]
     wL = out.weight[0]
     grads = [torch.zeros_like(p) for p in net.parameters()]
+    lam = None if call.lam is None else call.lam.detach().reshape(())
+    g_lam = torch.zeros((), dtype=torch.float32, device=X.device)
     stopped = torch.zeros((K,), dtype=torch.bool, device=X.device)
     for n in range(call.N):
         xi = (o["host_noise"][n] if o["host_noise"] is not None
@@ -1151,13 +1215,23 @@ def _reference_stopped_backward(call: _StoppedCall, gY) -> list:
             new_sel = new_sel & ((t + dt) <= problem.T)
         adv = new_sel & active
         # this step's cotangents
-        r2 = torch.sum(X * X, dim=-1)
-        dh_dy = c_y + c_yr2 * r2
-        if phi != "none":
-            u = torch.exp(k_exp * r2 + k_t * t) - V * V
-            dh_dy = dh_dy - 2.0 * V * (1.0 if phi == "identity"
-                                       else torch.cos(u))
+        if hfam[0] == "torus_fp":
+            # h is linear in y: dh/dy = h(x, 1)
+            dh_dy = problem.h(X, torch.ones_like(V), Z)
+        else:
+            _, c_y, c_yr2, k_exp, phi, k_t = hfam
+            r2 = torch.sum(X * X, dim=-1)
+            dh_dy = c_y + c_yr2 * r2
+            if phi != "none":
+                u = torch.exp(k_exp * r2 + k_t * t) - V * V
+                dh_dy = dh_dy - 2.0 * V * (1.0 if phi == "identity"
+                                           else torch.cos(u))
         g = gY * adv.to(torch.float32)
+        if lam is not None:
+            dh_dy = dh_dy + lam
+            g_lam += torch.sum(-g * V) * dt
+        if net.output_relu:
+            g = g * (V > 0).to(torch.float32)
         alpha = -g * dh_dy * dt
         w = g[:, None] * sig.apply(xi * sq_dt + c * dt)
         # primal and tangent sweeps
@@ -1197,13 +1271,16 @@ def _reference_stopped_backward(call: _StoppedCall, gY) -> list:
         if timed:
             t = t + dt * adv.to(torch.float32)
         stopped = stopped | ~new_sel
+    if lam is not None:
+        grads.append(g_lam.reshape(call.lam.shape))
     return grads
 
 
 class _FusedStoppedFn(torch.autograd.Function):
     """Forward and replay backward of one stopped call.  Only Y carries a
     gradient (X chain and masks are parameter-free; X0 and t0 are sampled
-    data); a None cotangent of Y counts as zeros."""
+    data); a None cotangent of Y counts as zeros.  The inputs are the net's
+    parameters and, with ``call.lam``, lambda last."""
 
     @staticmethod
     def forward(ctx, call: _StoppedCall, *params):
@@ -1221,9 +1298,11 @@ class _FusedStoppedFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gX, gY, *rest):
         call = ctx.call
+        leaves = list(call.v_net.parameters())
+        if call.lam is not None:
+            leaves.append(call.lam)
         if gY is None:
-            return (None,) + tuple(torch.zeros_like(p)
-                                   for p in call.v_net.parameters())
+            return (None,) + tuple(torch.zeros_like(p) for p in leaves)
         if call.X0.device.type == "cpu":
             grads = _reference_stopped_backward(call, gY)
         else:
@@ -1239,25 +1318,28 @@ def fused_stopped_train_rollout(problem, v_net, X0: torch.Tensor,
                                 host_noise: Optional[torch.Tensor] = None,
                                 tile: Optional[int] = None,
                                 time_stopping: bool = False,
-                                lam=None) -> FusedStoppedOut:
+                                lam: Optional[torch.Tensor] = None
+                                ) -> FusedStoppedOut:
     """Stopped training rollout of the K paths starting at X0 (K, d), t0
     (K,), over at most N steps with a detached forward: ``FusedStoppedOut``,
-    differentiable in v_net's parameters through Y (a
+    differentiable in v_net's parameters (and ``lam``) through Y (a
     ``torch.autograd.Function`` whose backward replays the forward on the
     same noise).  Y_0 = V(X_0) and the terminal V(X_tau) stay with the
     caller.
 
-    The device is the problem's: the net, X0, t0 and ``host_noise``
-    (N, K, d) must live there.  CPU: the plain version (forward, and
-    ``_reference_stopped_backward``).  CUDA: the kernels of
+    The device is the problem's: the net, X0, t0, ``lam`` and
+    ``host_noise`` (N, K, d) must live there.  CPU: the plain version
+    (forward, and ``_reference_stopped_backward``).  CUDA: the kernels of
     ``csrc/stopped_rollout.cu``, counted by
     ``fused_stopped_train_rollout.launches`` and ``.backward_launches``.
     Noise is ``host_noise`` or the Philox stream of ``seed`` through
     ``rng`` ('erfinv', the default, or 'binom').  ``time_stopping`` (the
     general, space-time solver): the net reads [x, t], each path's clock
     starts at its t0, a step advances only while t + dt <= problem.T, and
-    ``t`` returns the clock.  Raises ValueError outside
-    ``STOPPED_KERNEL_FAMILY``, on the CPU and on CUDA alike."""
+    ``t`` returns the clock.  ``lam`` (the eigen solver, torus family): a
+    one-element float32 tensor, the running cost h + lam y.  Raises
+    ValueError outside ``STOPPED_KERNEL_FAMILY``, on the CPU and on CUDA
+    alike."""
     families = _check_stopped_family(problem, v_net, rng, time_stopping,
                                      lam)
     dev = problem.X_0.device
@@ -1268,6 +1350,10 @@ def fused_stopped_train_rollout(problem, v_net, X0: torch.Tensor,
         _check_tensor(f"v_net.{name}", p, p.shape, dev)
     _check_tensor("X0", X0, (K, d), dev)
     _check_tensor("t0", t0, (K,), dev)
+    if lam is not None:
+        if lam.numel() != 1:
+            raise ValueError(f"lam has {lam.numel()} elements, expected 1")
+        _check_tensor("lam", lam, lam.shape, dev)
     if host_noise is not None:
         _check_tensor("host_noise", host_noise, (N, K, d), dev)
     if dev.type not in ("cpu", "cuda"):
@@ -1277,8 +1363,9 @@ def fused_stopped_train_rollout(problem, v_net, X0: torch.Tensor,
                         int(seed), families,
                         dict(adaptive_forward=adaptive_forward, rng=rng,
                              host_noise=host_noise,
-                             time_stopping=bool(time_stopping)), tile)
-    return FusedStoppedOut(*_FusedStoppedFn.apply(call, *v_net.parameters()))
+                             time_stopping=bool(time_stopping)), tile, lam)
+    leaves = list(v_net.parameters()) + ([lam] if lam is not None else [])
+    return FusedStoppedOut(*_FusedStoppedFn.apply(call, *leaves))
 
 
 fused_stopped_train_rollout.launches = 0

@@ -226,6 +226,27 @@ def _call_h(problem, t, x, y, z):
     return problem.h(t, x, y, z)
 
 
+class LambdaShiftedProblem:
+    """Problem shim adding the eigenvalue term of the eigen solver:
+    h_eff(x, y, z) = h(x, y, z) + lam y, so the rollout's -h_eff is the
+    notebooks' (-h - lambda V) (``pspde/solvers/eigen.py:
+    _LambdaShiftedProblem``).  ``lam`` is a one-element tensor; the shim
+    is differentiable in it."""
+
+    T = None   # the elliptic h signature
+
+    def __init__(self, problem, lam: torch.Tensor):
+        self._p = problem
+        self._lam = lam.reshape(())
+        self.sigma_struct = problem.sigma_struct
+
+    def b(self, x):
+        return self._p.b(x)
+
+    def h(self, x, y, z):
+        return self._p.h(x, y, z) + self._lam * y
+
+
 def stopped_rollout(
     cfg: StoppedRolloutConfig,
     problem,

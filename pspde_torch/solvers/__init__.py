@@ -1,5 +1,6 @@
+from .eigen import EigenSolver
 from .elliptic import EllipticSolver
 from .general import GeneralSolver
 from .hjb import HJBSolver
 
-__all__ = ["EllipticSolver", "GeneralSolver", "HJBSolver"]
+__all__ = ["EigenSolver", "EllipticSolver", "GeneralSolver", "HJBSolver"]

@@ -9,9 +9,11 @@ A Flax ``Dense`` kernel is (in, out); an ``nn.Linear.weight`` is (out, in),
 so kernels are transposed on the way in.  The ``DenseNet`` value net has
 the same tree, with layer i's kernel (d_in + sum(arch[:i]), arch[i]).
 Modules are built on ``device=``, the CUDA card when None
-(``utils/device.py``).  ``load_control_npz`` reads the
-exported control asset (``experiments/export_llgc_control.py``): the flat
-tree under '/'-joined keys plus a JSON metadata string under ``__meta__``.
+(``utils/device.py``).  ``eigen_params_from_flax`` carries the eigen
+solver's {'V': DenseNet tree, 'lam': ScalarParam tree}.
+``load_control_npz`` reads the exported control asset
+(``experiments/export_llgc_control.py``): the flat tree under '/'-joined
+keys plus a JSON metadata string under ``__meta__``.
 """
 
 from __future__ import annotations
@@ -101,6 +103,24 @@ def dense_net_from_flax(tree: dict, output_relu: bool = False,
 
 
 dense_net_to_flax = tanh_mlp_to_flax
+
+
+def eigen_params_from_flax(tree: dict, output_relu: bool = False,
+                           device=None):
+    """The eigen solver's tree {'V': <Flax DenseNet>, 'lam':
+    <ScalarParam>} -> (DenseNet, ScalarParam)."""
+    return (dense_net_from_flax(tree["V"], output_relu=output_relu,
+                                device=device),
+            scalar_param_from_flax(tree["lam"], device=device))
+
+
+def eigen_params_to_flax(v_tensors, lam) -> dict:
+    """The inverse direction, for parameters or their gradients: the
+    DenseNet's tensors (``parameters()`` order) and lambda's -> the eigen
+    solver's tree of numpy arrays."""
+    return {"V": dense_net_to_flax(v_tensors),
+            "lam": {"params": {"Y_0": lam.detach().cpu().numpy().reshape(
+                1)}}}
 
 
 def scalar_param_from_flax(tree: dict, device=None) -> ScalarParam:

@@ -370,7 +370,7 @@ def test_pack_stopped_time_stopping(d, arch, case, backward, smem):
                               adaptive_forward=False, rng="erfinv",
                               time_stopping=True)
     ia, fa = packed.iargs, packed.fargs
-    assert len(ia) == 16 + 4 * tk._MAX_HIDDEN + 3 and len(fa) == 10
+    assert len(ia) == 16 + 4 * tk._MAX_HIDDEN + 6 and len(fa) == 13
     lay = tk._stopped_layout(net)
     F, H = d + 1 + sum(arch), sum(arch)
     assert (ia[2], ia[4], ia[14]) == (d, F, 1)

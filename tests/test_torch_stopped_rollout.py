@@ -430,7 +430,7 @@ def test_stopped_family_errors():
         (dict(problem=_DiagSigma(D)), "not scalar"),
         (dict(problem=_YZ(d=D, device="cpu")), "h of"),
         (dict(v_net=TanhMLP(D, 1, device="cpu")), "not a DenseNet"),
-        (dict(v_net=DenseNet(1, (4,), output_relu=True, d_in=D,
+        (dict(v_net=DenseNet(2, (4,), output_relu=True, d_in=D,
                              device="cpu")), "output_relu"),
         (dict(v_net=DenseNet(1, (4,) * 5, d_in=D, device="cpu")),
          "5 hidden"),
@@ -478,7 +478,7 @@ def test_pack_stopped_layout(arch, backward, tile, stage):
                               backward=backward, host_noise=None,
                               adaptive_forward=False, rng="erfinv")
     ia = packed.iargs
-    assert len(ia) == 16 + 4 * tk._MAX_HIDDEN + 3 and len(packed.fargs) == 10
+    assert len(ia) == 16 + 4 * tk._MAX_HIDDEN + 6 and len(packed.fargs) == 13
     assert ia[14:16] == [0, 0]    # no clock, the sphere
     assert (ia[5], ia[6]) == (tile, int(stage))
     lay = tk._stopped_layout(net)
