@@ -7,7 +7,8 @@ control is learned.  This script
 
   1. builds the kernels from pspde_torch/csrc (nvcc, sm_90a, one process
      per source) and counts the TF32 HMMA instructions of the HJB
-     backward's two instantiations in the library's SASS (none fails);
+     backward's two instantiations and the stopped backward's six in the
+     library's SASS (none fails);
   2. compares the serve kernel with its plain PyTorch version on host
      noise, on LLGC d=100 with the exported control and on LQGC d=100
      (dense A and sigma, f != 0), at K=8192 and N=100;
@@ -40,13 +41,20 @@ control is learned.  This script
      DenseNet (70, 50, 50, 50); host noise and the Philox stream (erfinv,
      binom).  Outputs on the paths whose exit step agrees, the count of
      paths whose exit step differs (at most 1e-3 K: |X|^2 is summed in
-     another order), and per-leaf diffusion-loss gradients;
+     another order), per-leaf diffusion-loss gradients, and the backward
+     kernel on the plain outputs' cotangents against the plain backward
+     (1e-5 of each leaf's largest entry; two launches bitwise equal); and
+     once at K=24613, not a multiple of the tile, on fewer blocks than
+     tiles, where the backward's lanes take new paths as theirs stop;
  11. trains EllipticSolver(rollout_mode='fused_train') on the slice's
      recipe (d=50, N=20, dt=1e-3, lr=1e-3, K=8192, 2000 iterations,
      K_test_log=4096): 2000 launches of each kernel, tail-50 test L2
      <= 1e-3;
  12. times both stopped kernels, one solver step and the plain versions
-     at K=65536, N=20 for both nets, and profiles three solver steps.
+     at K=65536, N=20 for both nets, reads the block-steps and busy
+     lanes that the backward's blocks count against the lane model's
+     (they must agree) and the advancing path-steps, and profiles three
+     solver steps.
  13. runs the HJB-family kernels on their device plan (the net read from
      device memory, each path's arrays in a [row][K] workspace) at LLGC
      d=1000, N=200, K=2048 against their plain versions (serve, training
@@ -71,6 +79,7 @@ control is learned.  This script
      config 2: HeatEquation(d=50, T=0.2) on the whole space, N=100,
      K=4096), where every path runs until its clock ends and no exit step
      may differ.  The clock t must be equal wherever the exit step agrees;
+     the backward is held on the plain cotangents as in phase 10;
  17. drives the main path: GeneralSolver(rollout_mode='fused_train') steps
      at K=65536 (one forward and one backward launch per step and no call
      of a plain version), times the step against the scan engine's and
@@ -91,7 +100,7 @@ control is learned.  This script
      adaptive_forward: outputs on the paths whose exit step agrees (at most
      1e-3 K differ), the diffusion-loss gradients of every leaf, lambda's
      nonzero, within GRAD_TOL, and the backward kernel on the plain
-     outputs' cotangents within BWD_REL_TOL;
+     outputs' cotangents within BWD_REL_TOL (two launches bitwise equal);
  21. drives the main path: EigenSolver(FokkerPlanckEigen(d=5),
      rollout_mode='fused_train') on the recipe of
      experiments/eigenvalue_fokker_planck.py for 4000 steps (one forward
@@ -157,6 +166,12 @@ K_TRAIN_CHECK, K_BENCH = 8192, 131072
 # the stopped slice (experiments/proto_fused_stopped.py:27-42)
 D_ELL, N_ELL, DT_ELL, ALPHA_ELL = 50, 20, 1e-3, 0.1
 K_ELL_CHECK, K_ELL_TRAIN, K_ELL_BENCH, L_ELL = 8192, 8192, 65536, 2000
+# the refill check: K not a multiple of the tile, past the blocks the card
+# holds at once
+K_ELL_REFILL = 3 * 8192 + 37
+# a net whose backward arrays (1,681 floats a path) fit one block only at
+# the stride tile + 1, at tile 32
+WIDE_ELL = (85, 85, 85)
 NETS_ELL = {"DenseNet (30, 30)": (30, 30),
             "notebook DenseNet (70, 50, 50, 50)": (70, 50, 50, 50)}
 # paths whose exit step may differ between kernel and plain: |X|^2 sums in
@@ -265,24 +280,24 @@ def check(ok, what):
         raise RuntimeError(f"chip_smoke: check failed: {what}")
 
 
-def tf32_mma_counts(lib_path):
-    """{kernel: count of TF32 HMMA instructions} of the HJB backward's
-    instantiations (one per memory plan), read from ``cuobjdump -sass`` of
-    the built library."""
+def tf32_mma_counts(lib_path, kernels):
+    """{kernel: {instantiation: count of TF32 HMMA instructions}} of the
+    named kernels' instantiations, read from ``cuobjdump -sass`` of the
+    built library."""
     from pspde_torch.rollout import _build
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
                           text=True, check=True).stdout
-    counts, fn = {}, None
+    counts, fn = {k: {} for k in kernels}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            fn = line.split("Function :")[1].strip()
-            if "train_backward_kernel" in fn:
-                counts[fn] = 0
-        elif fn in counts and "HMMA" in line and "TF32" in line:
-            counts[fn] += 1
-    return {("device" if "ILb1E" in k else "shared"): v
-            for k, v in counts.items()}
+            name = line.split("Function :")[1].strip()
+            fn = next(((k, name) for k in kernels if k in name), None)
+            if fn is not None:
+                counts[fn[0]][fn[1]] = 0
+        elif fn is not None and "HMMA" in line and "TF32" in line:
+            counts[fn[0]][fn[1]] += 1
+    return counts
 
 
 def compare_serve(tag, kern, plain):
@@ -474,10 +489,18 @@ def main():
     for line in info["log"].splitlines():
         if "entry function" in line or "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
-    hmma = tf32_mma_counts(info["path"])
-    print(f"  TF32 HMMA instructions in the HJB backward's SASS: {hmma}")
-    check(len(hmma) == 2 and all(hmma.values()),
+    hmma = tf32_mma_counts(info["path"], ("train_backward_kernel",
+                                          "stopped_bwd_kernel"))
+    train_hmma = {("device" if "ILb1E" in k else "shared"): v
+                  for k, v in hmma["train_backward_kernel"].items()}
+    stopped_hmma = sorted(hmma["stopped_bwd_kernel"].values())
+    print(f"  TF32 HMMA instructions in the HJB backward's SASS: "
+          f"{train_hmma}; in the stopped backward's six instantiations: "
+          f"{stopped_hmma}")
+    check(len(train_hmma) == 2 and all(train_hmma.values()),
           "both plans of the HJB backward run TF32 mma")
+    check(len(stopped_hmma) == 6 and all(stopped_hmma),
+          "every instantiation of the stopped backward runs TF32 mma")
 
     llgc = LLGC(d=D, T=T_END, device=dev)
     solver = HJBSolver("llgc_d100", llgc, K=1024, delta_t=1 / 32,
@@ -836,16 +859,199 @@ def stopped_flops(v_net, d, adaptive, torus=False):
     return v, fwd, bwd
 
 
+def stopped_bwd_roofline(adv, bwd_flops, v_net, nbytes):
+    """The stopped backward's bound over ``adv`` advancing path-steps: its
+    hidden layers' weight-gradient products (4 operations per weight and
+    bias and path-step: the pair's two terms) run on the tensor cores as
+    three TF32 products each (3xTF32), the rest in FP32; ``bound_ms_fp32``
+    charges them all at the FP32 rate."""
+    ins = [v_net.d_in + sum(v_net.arch[:l]) for l in range(len(v_net.arch))]
+    products = adv * sum(4 * (n + 1) * w for n, w in zip(ins, v_net.arch))
+    return dict(roofline(adv * bwd_flops - products, nbytes, 3 * products),
+                bound_ms_fp32=roofline(adv * bwd_flops, nbytes)["bound_ms"])
+
+
+def stopped_lane_schedule(lane_steps, tile, grid):
+    """A model of the backward kernel's lanes (stopped_rollout.cu:
+    stopped_bwd_kernel), the prediction its own counts are held to: each
+    of the ``grid`` blocks of ``tile`` lanes owns its range of whole tiles
+    of paths (``_stopped_ranges``); before each block-step the lanes
+    without a step to take get the next paths of the range in lane order,
+    and a path that takes no step frees its lane in the same refill; every
+    busy lane then takes one step of its path.  ``lane_steps[k]`` is the
+    number of steps path k occupies a lane: its advancing steps on the
+    ball and the whole space (the exit test of a step is made at the end
+    of the step before), its active steps (``hitting``) on the torus,
+    where the step whose proposal leaves is spent.  Returns
+    ``block_steps`` (summed over the blocks), the longest block's
+    ``max_block_steps``, ``lane_steps`` (their sum) and ``runs``: per path
+    (block, lane, first block-step, steps)."""
+    import numpy as np
+    from pspde_torch.rollout import kernels as km
+    lane_steps = np.asarray(lane_steps, dtype=np.int64)
+    K = lane_steps.shape[0]
+    runs = [None] * K
+    total = longest = 0
+    for b, (lo, hi) in enumerate(km._stopped_ranges(K, tile, grid)):
+        left = [0] * tile      # steps the lane's path still takes
+        nxt, step = lo, 0
+        while True:
+            while nxt < hi:
+                free = [i for i in range(tile) if left[i] == 0]
+                if not free:
+                    break
+                for i in free[:hi - nxt]:
+                    runs[nxt] = (b, i, step, int(lane_steps[nxt]))
+                    left[i] = int(lane_steps[nxt])
+                    nxt += 1
+            if not any(left):
+                break
+            left = [max(v - 1, 0) for v in left]
+            step += 1
+        total += step
+        longest = max(longest, step)
+    return {"block_steps": total, "max_block_steps": longest,
+            "lane_steps": int(lane_steps.sum()), "runs": runs}
+
+
+def lane_use(call, out, gY, torus=False):
+    """The stopped backward's lanes in this run: one launch on ``gY``
+    counts, per block, its block-steps and its busy lanes summed over them
+    (``_stopped_backward_rows``); ``out`` is the forward kernel's output
+    on the same call, whose steps the backward replays bitwise.  Lane use
+    = advancing path-steps over block-steps x tile.  Returns (measured,
+    model): the model ``stopped_lane_schedule`` on ``out``'s step counts
+    (a path occupies a lane for its advancing steps, on the torus for its
+    active ones) predicts the kernel's counts, and the run fails where
+    they differ; the kernel before the refill (one block per tile paths
+    until its slowest path stopped: the most ``hitting`` of its paths) is
+    a model only, and stays out of the kernels line."""
+    from pspde_torch.rollout import kernels as km
+    _, counts = km._stopped_backward_rows(call, gY)
+    counts = counts.long().cpu().numpy()
+    tile, K = call.pack(backward=True).iargs[5], call.X0.shape[0]
+    hit = out.hitting.long().cpu().numpy()
+    adv = out.adv_steps.long().cpu().numpy()
+    grid = counts.shape[0]
+    n_adv = int(adv.sum())
+    measured = {"tile": tile, "grid": grid,
+                "block_steps": int(counts[:, 0].sum()),
+                "max_block_steps": int(counts[:, 0].max()),
+                "lane_steps": int(counts[:, 1].sum()),
+                "advancing_path_steps": n_adv}
+    measured["lane_use"] = n_adv / (measured["block_steps"] * tile)
+    new = stopped_lane_schedule(hit if torus else adv, tile, grid)
+    old = sum(int(hit[lo:lo + tile].max()) for lo in range(0, K, tile))
+    model = {"block_steps": new["block_steps"],
+             "max_block_steps": new["max_block_steps"],
+             "lane_steps": new["lane_steps"],
+             "blocks_before": -(-K // tile), "block_steps_before": old,
+             "lane_use_before": n_adv / (old * tile)}
+    check(all(measured[k] == model[k] for k in ("block_steps",
+                                                "max_block_steps",
+                                                "lane_steps")),
+          f"the backward's lane counts {measured} differ from the lane "
+          f"model's {model}")
+    return measured, model
+
+
+def print_lane_use(tag, use):
+    measured, model = use
+    print(f"  {tag} lanes: {measured['advancing_path_steps']} advancing "
+          f"path-steps; counted by the kernel: {measured['grid']} blocks of "
+          f"{measured['tile']} lanes, {measured['block_steps']} block-steps "
+          f"(the longest block {measured['max_block_steps']}), "
+          f"{measured['lane_steps']} busy lane-steps, lane use "
+          f"{100 * measured['lane_use']:.1f}% (the lane model: "
+          f"{model['block_steps']}, {model['max_block_steps']}, "
+          f"{model['lane_steps']}); the model of one block per tile until "
+          f"its slowest path stopped: {model['blocks_before']} blocks, "
+          f"{model['block_steps_before']} block-steps, lane use "
+          f"{100 * model['lane_use_before']:.1f}%")
+
+
+class PlainCalls:
+    """Counts the calls of the stopped kernels' plain versions while
+    entered: the main path may make none."""
+
+    def __init__(self, km):
+        self.km, self.n = km, 0
+
+    def __enter__(self):
+        km = self.km
+        self.originals = (km.reference_stopped_train_rollout,
+                          km._reference_stopped_backward)
+
+        def counting(fn):
+            def wrapped(*a, **k):
+                self.n += 1
+                return fn(*a, **k)
+            return wrapped
+
+        km.reference_stopped_train_rollout = counting(self.originals[0])
+        km._reference_stopped_backward = counting(self.originals[1])
+        return self
+
+    def __exit__(self, *exc):
+        (self.km.reference_stopped_train_rollout,
+         self.km._reference_stopped_backward) = self.originals
+
+
+def check_backward(tag, call, net, gY, agree, worst, zero_leaves=(),
+                   lam_scale=None):
+    """The backward kernel against the plain backward on the plain outputs'
+    cotangents ``gY`` (zero on the paths whose exit step differs, where the
+    two replays part): within BWD_REL_TOL of each net leaf's largest entry
+    (``zero_leaves``, whose gradient vanishes by construction: of 1e-3 of
+    the largest leaf's), and with ``call.lam`` lambda's entry within
+    BWD_REL_TOL of ``lam_scale``.  Two launches must give bitwise-equal
+    gradient rows and the same block counts.  Updates worst["bwd"];
+    returns the per-leaf ratios."""
+    from pspde_torch.rollout import kernels as km
+    gY = gY * agree.to(gY.dtype)
+    rows = km._stopped_backward_rows(call, gY)
+    again = km._stopped_backward_rows(call, gY)
+    g_bwd = km._stopped_backward_kernel(call, gY)
+    g_ref = km._reference_stopped_backward(call, gY)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(rows, again)),
+          f"{tag}: two launches of the backward gave different gradient "
+          "rows or block counts")
+    names = [n for n, _ in net.named_parameters()]
+    n_net = len(names)
+    top = max(float(b.abs().max()) for b in g_ref[:n_net])
+    rels = []
+    for name, a, b in zip(names, g_bwd, g_ref):
+        err = float((a - b).abs().max())
+        scale = 1e-3 * top if name in zero_leaves else float(b.abs().max())
+        worst["bwd"] = max(worst["bwd"], err)
+        rels.append(err / scale)
+        check(scale > 0 and err <= BWD_REL_TOL * scale,
+              f"{tag} backward {name} max_abs {err:.3e} > {BWD_REL_TOL} * "
+              f"{scale:.3e}")
+    lam_err = None
+    if call.lam is not None:
+        lam_err = float((g_bwd[-1] - g_ref[-1]).abs())
+        worst["bwd"] = max(worst["bwd"], lam_err)
+        check(lam_err <= BWD_REL_TOL * lam_scale,
+              f"{tag} backward lambda {lam_err:.3e} > {BWD_REL_TOL} * "
+              f"{lam_scale:.3e}")
+    return rels, lam_err, rows[0].shape[0]
+
+
 def compare_stopped(tag, prob, net, X0, t0, N, dt, kw, worst, mask_tol,
                     time_stopping=False, zero_leaves=()):
     """Stopped kernels against their plain version from (X0, t0): outputs
     (and the clock t, which must be equal) on the paths whose exit step
     agrees, the count of paths whose exit step differs (at most
     ``mask_tol`` K), and per-leaf gradients of the diffusion loss through
-    the backward kernel.  ``zero_leaves`` names the leaves whose gradient
-    vanishes by construction (with h = 0 the loss does not see the output
-    bias): those are held to 1e-3 GRAD_TOL of the largest leaf.  Updates
-    ``worst`` ("out", "grad": largest absolute differences)."""
+    the backward kernel; then the backward kernel on the plain outputs'
+    cotangents against the plain backward, and two of its launches against
+    each other (``check_backward``).  ``zero_leaves`` names the leaves
+    whose gradient vanishes by construction (with h = 0 the loss does not
+    see the output bias): those are held to 1e-3 of the largest leaf.
+    Updates ``worst`` ("out", "grad", "bwd": largest absolute
+    differences)."""
     from pspde_torch.rollout import kernels as km
     params = list(net.parameters())
     kw = dict(kw, time_stopping=time_stopping)
@@ -890,10 +1096,24 @@ def compare_stopped(tag, prob, net, X0, t0, N, dt, kw, worst, mask_tol,
         check(scale > 0 and err <= GRAD_TOL * scale,
               f"{tag} grad {pname} max_abs {err:.3e} > {GRAD_TOL} * "
               f"{scale:.3e}")
+    # the backward on the plain outputs' cotangents
+    Y = plain.Y.detach().requires_grad_()
+    (gY,) = torch.autograd.grad(diffusion_loss(plain._replace(Y=Y)), [Y])
+    call = km._StoppedCall(
+        prob, net, X0, t0, N, dt, kw.get("seed", 0),
+        km._check_stopped_family(prob, net, kw.get("rng", "erfinv"),
+                                 time_stopping),
+        dict(adaptive_forward=kw.get("adaptive_forward", False),
+             rng=kw.get("rng", "erfinv"), host_noise=kw.get("host_noise"),
+             time_stopping=time_stopping), None)
+    bwd, _, grid = check_backward(tag, call, net, gY, agree, worst,
+                                  zero_leaves)
     print(f"  {tag}: exit step differs on {n_dis} of {X0.shape[0]} "
           f"paths; advancing steps {float(plain.adv_steps.sum()):.0f}; "
           f"outputs ok; grad max|kern-plain|/max|plain| per leaf "
-          f"{['%.1e' % r for r in rels]}")
+          f"{['%.1e' % r for r in rels]}; backward on plain cotangents "
+          f"{['%.1e' % r for r in bwd]} ({grid} blocks), two launches "
+          "bitwise equal")
 
 
 def stopped_phases(dev, smi, timed):
@@ -925,7 +1145,7 @@ def stopped_phases(dev, smi, timed):
               net_of((30, 30), 3), False),
              ("Sin, notebook DenseNet (70, 50, 50, 50), adaptive", sin,
               net_of((70, 50, 50, 50), 4), True)]
-    worst = {"out": 0.0, "grad": 0.0}
+    worst = {"out": 0.0, "grad": 0.0, "bwd": 0.0}
 
     def compare(tag, prob, net, adaptive, X0, kw):
         compare_stopped(tag, prob, net, X0,
@@ -946,6 +1166,38 @@ def stopped_phases(dev, smi, timed):
         for rng in ("erfinv", "binom"):
             compare(f"[{tag}, {rng}]", prob, net, adaptive, X0,
                     dict(seed=4321, rng=rng))
+    # K not a multiple of the tile, on a grid smaller than ceil(K / tile):
+    # the lanes take the paths of their block's range as others stop
+    X0 = sample_domain(gen, sin.geometry, K_ELL_REFILL, d)
+    net = net_of((30, 30), 7)
+    call = km._StoppedCall(sin, net, X0, torch.zeros(K_ELL_REFILL,
+                                                     device=dev), N, dt,
+                           4321, km._check_stopped_family(sin, net,
+                                                          "erfinv"),
+                           dict(adaptive_forward=True, rng="erfinv",
+                                host_noise=None), None)
+    packed = call.pack(backward=True)
+    grid, tile = km._stopped_bwd_grid(packed, dev), packed.iargs[5]
+    check(K_ELL_REFILL % tile and grid < -(-K_ELL_REFILL // tile),
+          f"K={K_ELL_REFILL} on {grid} blocks of {tile} exercises the refill")
+    compare(f"[Sin, DenseNet (30, 30), adaptive, K={K_ELL_REFILL} on "
+            f"{grid} blocks, erfinv]", sin, net, True, X0,
+            dict(seed=4321, rng="erfinv"))
+    # a net too wide for the backward's stride tile + 4 even at tile 32:
+    # its arrays at the forward's stride tile + 1
+    X0 = sample_domain(gen, sin.geometry, Kc, d)
+    net = net_of(WIDE_ELL, 8)
+    call = km._StoppedCall(sin, net, X0, torch.zeros(Kc, device=dev), N, dt,
+                           4321, km._check_stopped_family(sin, net,
+                                                          "erfinv"),
+                           dict(adaptive_forward=False, rng="erfinv",
+                                host_noise=None), None)
+    packed = call.pack(backward=True)
+    ts, tile = km._stopped_bwd_ts(packed), packed.iargs[5]
+    check(ts == tile + 1, f"DenseNet {WIDE_ELL}: the backward's stride {ts} "
+          f"at tile {tile}")
+    compare(f"[Sin, DenseNet {WIDE_ELL}, stride {ts}, erfinv]", sin, net,
+            False, X0, dict(seed=4321, rng="erfinv"))
 
     # -- phase 11: the training run -------------------------------------------
     print(f"phase 11: EllipticSolver(rollout_mode='fused_train').train(), "
@@ -958,25 +1210,28 @@ def stopped_phases(dev, smi, timed):
                              rollout_mode="fused_train", device=dev)
     check(trainer.resolved_rollout_mode == "fused_train",
           f"engine {trainer.resolved_rollout_mode}")
-    km.fused_stopped_train_rollout.launches = 0
-    km.fused_stopped_train_rollout.backward_launches = 0
+    reset_counts(km.fused_stopped_train_rollout, "launches",
+                 "backward_launches")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    trainer.train()
+    with PlainCalls(km) as plain_calls:
+        trainer.train()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     fwd_launches = km.fused_stopped_train_rollout.launches
     bwd_launches = km.fused_stopped_train_rollout.backward_launches
     tail = float(np.mean(trainer.V_test_L2[-50:]))
     print(f"  {len(trainer.loss_log)} steps in {wall:.2f} s; kernel "
-          f"launches: forward {fwd_launches}, backward {bwd_launches}")
+          f"launches: forward {fwd_launches}, backward {bwd_launches}; "
+          f"plain-version calls {plain_calls.n}")
     print(f"  test L2 every 250: "
           f"{['%.3e' % v for v in trainer.V_test_L2[::250]]}; loss "
           f"{trainer.loss_log[0]:.4e} -> {trainer.loss_log[-1]:.4e}; "
           f"advancing path-steps per step {np.mean(trainer.K_log):.0f}; "
           f"tail-50 test L2 {tail:.4e} (bound {TEST_L2_BOUND:g})")
-    check(fwd_launches == L_ELL and bwd_launches == L_ELL,
-          "the training path launched both stopped kernels every step")
+    check(fwd_launches == L_ELL and bwd_launches == L_ELL
+          and plain_calls.n == 0, "the training path launched both "
+          "stopped kernels every step and no plain version")
     check(all(math.isfinite(v) for v in trainer.loss_log), "finite losses")
     check(tail <= TEST_L2_BOUND, f"tail-50 test L2 {tail:.4e}")
 
@@ -1001,7 +1256,10 @@ def stopped_phases(dev, smi, timed):
         v_f, fwd_f, bwd_f = stopped_flops(net, d, adaptive=False)
         b_fwd = roofline((hit - adv) * v_f + adv * fwd_f,
                       4 * (n_par + Kb * (2 * d + 5)))
-        b_bwd = roofline(adv * bwd_f, 4 * (2 * n_par + Kb * (d + 1)))
+        b_bwd = stopped_bwd_roofline(adv, bwd_f, net,
+                                     4 * (2 * n_par + Kb * (d + 1)))
+        use = lane_use(call, probe, gY)
+        print_lane_use(tag, use)
         steppers = {}
         for mode in ("fused_train", "scan"):
             steppers[mode] = EllipticSolver(
@@ -1037,10 +1295,12 @@ def stopped_phases(dev, smi, timed):
         print(f"  {tag}: {hit:.0f} active and {adv:.0f} advancing "
               f"path-steps of K N = {Kb * N}; bound forward "
               f"{b_fwd['bound_ms']:.4f} ms, backward {b_bwd['bound_ms']:.4f}"
-              f" ms ({b_fwd['bound_by']}); step {r['step'][0]:.3f} ms -> "
+              f" ms (all FP32 {b_bwd['bound_ms_fp32']:.4f}; "
+              f"{b_fwd['bound_by']}); step {r['step'][0]:.3f} ms -> "
               f"{Kb * N / r['step'][0] * 1e3:.4e} path-steps/s (K N per "
               f"step time)")
-        times[tag] = (r, b_fwd, b_bwd, steppers["fused_train"])
+        times[tag] = (r, b_fwd, dict(b_bwd, lanes=use[0]),
+                      steppers["fused_train"])
     print(f"  card: {smi}")
 
     first = next(iter(NETS_ELL))
@@ -1048,16 +1308,22 @@ def stopped_phases(dev, smi, timed):
 
     print(f"  phases 10-12 took {time.perf_counter() - t_phases:.1f} s")
     r, b_fwd, b_bwd, _ = times[first]
+    rn, bn_fwd, bn_bwd, _ = times[list(NETS_ELL)[1]]
     row = {"route": "cuda", "source": STOPPED_SOURCE}
     return [
         dict(row, name="fused_stopped_train_rollout.forward",
              replaces="pspde/rollout/kernels.py:1184", launches=fwd_launches,
              max_abs_err=worst["out"], ms=r["forward"][0],
-             plain_ms=r["forward"][1], **b_fwd),
+             plain_ms=r["forward"][1], **b_fwd,
+             ms_notebook=rn["forward"][0], plain_ms_notebook=rn["forward"][1],
+             bound_ms_notebook=bn_fwd["bound_ms"]),
         dict(row, name="fused_stopped_train_rollout.backward",
              replaces="pspde/rollout/kernels.py:1272", launches=bwd_launches,
-             max_abs_err=worst["grad"], ms=r["backward"][0],
-             plain_ms=r["backward"][1], **b_bwd),
+             max_abs_err=max(worst["grad"], worst["bwd"]),
+             ms=r["backward"][0], plain_ms=r["backward"][1], **b_bwd,
+             ms_notebook=rn["backward"][0],
+             plain_ms_notebook=rn["backward"][1],
+             bound_ms_notebook=bn_bwd["bound_ms"]),
     ]
 
 
@@ -1518,7 +1784,7 @@ def general_phases(dev, smi):
           f"{REL_TOL:g} and equal clocks on agreeing paths, exit-step "
           f"disagreements <= {MASK_TOL:g} K (gen50) and none (heat), "
           f"gradients {GRAD_TOL:g} x max|plain|")
-    worst = {tag: {"out": 0.0, "grad": 0.0} for tag in shapes}
+    worst = {tag: {"out": 0.0, "grad": 0.0, "bwd": 0.0} for tag in shapes}
     for tag, (prob, d, K, N, dt, mask_tol, zero) in shapes.items():
         for adaptive in (False, True):
             net = net_of(d, 1 + adaptive)
@@ -1557,33 +1823,18 @@ def general_phases(dev, smi):
     check("STOPPED_KERNEL_FAMILY" in raised, "AllenCahn on fused_train "
           f"raises a ValueError naming the family (got {raised[:80]!r})")
     # count the plain versions' calls during the main path: none may run
-    plain_calls = {"n": 0}
-    originals = (km.reference_stopped_train_rollout,
-                 km._reference_stopped_backward)
-
-    def counting(fn):
-        def wrapped(*a, **k):
-            plain_calls["n"] += 1
-            return fn(*a, **k)
-        return wrapped
-
-    km.reference_stopped_train_rollout = counting(originals[0])
-    km._reference_stopped_backward = counting(originals[1])
     reset_counts(km.fused_stopped_train_rollout, "launches",
                  "backward_launches")
-    try:
+    with PlainCalls(km) as plain_calls:
         step_ms = [timed(main.step, 1, warm=False) for _ in range(STEPS_GEN)]
-    finally:
-        (km.reference_stopped_train_rollout,
-         km._reference_stopped_backward) = originals
     launches = (km.fused_stopped_train_rollout.launches,
                 km.fused_stopped_train_rollout.backward_launches)
     print(f"  steps {['%.2f' % t for t in step_ms]} ms; launches forward "
           f"{launches[0]}, backward {launches[1]}; plain-version calls "
-          f"{plain_calls['n']}; loss {['%.4e' % v for v in main.loss_log]}; "
+          f"{plain_calls.n}; loss {['%.4e' % v for v in main.loss_log]}; "
           f"advancing path-steps per step {np.mean(main.K_log):.0f} of "
           f"K N = {K_GEN * N_GEN}")
-    check(launches == (STEPS_GEN, STEPS_GEN) and plain_calls["n"] == 0,
+    check(launches == (STEPS_GEN, STEPS_GEN) and plain_calls.n == 0,
           "one forward and one backward launch per step, no plain call")
     check(all(math.isfinite(v) for v in main.loss_log), "finite losses")
     check(all(math.isnan(v) for v in main.V_L2_log),
@@ -1608,7 +1859,10 @@ def general_phases(dev, smi):
         v_f, fwd_f, bwd_f = stopped_flops(net, d, adaptive=False)
         b_fwd = roofline((hit - adv) * v_f + adv * fwd_f,
                          4 * (n_par + K * (2 * d + 7)))
-        b_bwd = roofline(adv * bwd_f, 4 * (2 * n_par + K * (d + 2)))
+        b_bwd = stopped_bwd_roofline(adv, bwd_f, net,
+                                     4 * (2 * n_par + K * (d + 2)))
+        use = lane_use(call, probe, gY)
+        print_lane_use(tag, use)
 
         def plain_fwd():
             with torch.no_grad():
@@ -1629,8 +1883,9 @@ def general_phases(dev, smi):
         print(f"  {tag}: {hit:.0f} active and {adv:.0f} advancing "
               f"path-steps of K N = {K * N}; bound forward "
               f"{b_fwd['bound_ms']:.4f} ms, backward "
-              f"{b_bwd['bound_ms']:.4f} ms ({b_fwd['bound_by']})")
-        times[tag] = (r, b_fwd, b_bwd)
+              f"{b_bwd['bound_ms']:.4f} ms (all FP32 "
+              f"{b_bwd['bound_ms_fp32']:.4f}; {b_fwd['bound_by']})")
+        times[tag] = (r, b_fwd, dict(b_bwd, lanes=use[0]))
     p1 = timed(solvers["scan"].step, 1)
     k = [timed(main.step, 5), timed(main.step, 5)]
     p2 = timed(solvers["scan"].step, 1)
@@ -1652,19 +1907,22 @@ def general_phases(dev, smi):
                  "backward_launches")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    trainer.train()
+    with PlainCalls(km) as plain_calls:
+        trainer.train()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     conv_launches = (km.fused_stopped_train_rollout.launches,
                      km.fused_stopped_train_rollout.backward_launches)
     tail = float(np.mean(trainer.V_test_L2[-50:]))
     print(f"  {len(trainer.loss_log)} steps in {wall:.2f} s; kernel launches "
-          f"{conv_launches}; test L2 every 250: "
+          f"{conv_launches}; plain-version calls {plain_calls.n}; test L2 "
+          f"every 250: "
           f"{['%.3e' % v for v in trainer.V_test_L2[::250]]}; loss "
           f"{trainer.loss_log[0]:.4e} -> {trainer.loss_log[-1]:.4e}; "
           f"tail-50 test L2 {tail:.4e} (bound {TEST_L2_BOUND_GEN:g})")
-    check(conv_launches == (L_GEN, L_GEN),
-          "the training path launched both kernels every step")
+    check(conv_launches == (L_GEN, L_GEN) and plain_calls.n == 0,
+          "the training path launched both kernels every step and no plain "
+          "version")
     check(all(math.isfinite(v) for v in trainer.loss_log), "finite losses")
     check(tail <= TEST_L2_BOUND_GEN, f"tail-50 test L2 {tail:.4e}")
 
@@ -1716,7 +1974,8 @@ def general_phases(dev, smi):
             dict(row, name=f"fused_stopped_train_rollout.backward."
                  f"time_stopping.{tag}",
                  replaces="pspde/rollout/kernels.py:1272",
-                 launches=n_launch[1], max_abs_err=worst[tag]["grad"],
+                 launches=n_launch[1],
+                 max_abs_err=max(worst[tag]["grad"], worst[tag]["bwd"]),
                  ms=r["backward"][0], plain_ms=r["backward"][1], **b_bwd),
         ]
     return rows
@@ -1773,7 +2032,6 @@ def compare_eigen(tag, prob, net, X0, N, dt, kw, worst):
     # the backward on the plain outputs' cotangents
     Y = plain.Y.detach().requires_grad_()
     (gY,) = torch.autograd.grad(loss(plain._replace(Y=Y)), [Y])
-    gY = gY * agree.to(gY.dtype)
     fam = km._check_stopped_family(prob, net, kw.get("rng", "erfinv"),
                                    lam=lam)
     call = km._StoppedCall(
@@ -1781,28 +2039,20 @@ def compare_eigen(tag, prob, net, X0, N, dt, kw, worst):
         dict(adaptive_forward=kw.get("adaptive_forward", False),
              rng=kw.get("rng", "erfinv"), host_noise=kw.get("host_noise"),
              time_stopping=False), None, lam)
-    g_bwd = km._stopped_backward_kernel(call, gY)
-    g_ref = km._reference_stopped_backward(call, gY)
     with torch.no_grad():
         S = (km.reference_stopped_train_rollout(
             prob, net, X0, t0, N, dt, lam=0.0 * lam, **kw).Y
              - km.reference_stopped_train_rollout(
                  prob, net, X0, t0, N, dt, lam=1.0 + 0.0 * lam, **kw).Y)
-    torch.cuda.synchronize()
-    bwd = rel_per_leaf(tag, "backward", names[:-1], g_bwd[:-1], g_ref[:-1],
-                       BWD_REL_TOL)
-    lam_err = float((g_bwd[-1] - g_ref[-1]).abs())
-    lam_scale = float(torch.sum((gY * S).abs()))
-    check(lam_err <= BWD_REL_TOL * lam_scale,
-          f"{tag} backward lambda {lam_err:.3e} > {BWD_REL_TOL} * "
-          f"{lam_scale:.3e}")
-    worst["bwd"] = max(worst["bwd"], lam_err, *(
-        float((a - b).abs().max()) for a, b in zip(g_bwd, g_ref)))
+    lam_scale = float(torch.sum((gY * agree.to(gY.dtype) * S).abs()))
+    bwd, lam_err, grid = check_backward(tag, call, net, gY, agree, worst,
+                                        lam_scale=lam_scale)
     print(f"  {tag}: exit step differs on {n_dis} of {K} paths; advancing "
           f"steps {float(plain.adv_steps.sum()):.0f}; outputs ok; "
-          f"{loss_rels}; {bwd}; backward lambda {lam_err:.2e} of "
-          f"sum|gY S| {lam_scale:.2e} (|d/dlambda| "
-          f"{float(g_ref[-1].abs()):.2e})")
+          f"{loss_rels}; backward {['%.1e' % r for r in bwd]} ({grid} "
+          f"blocks, two launches bitwise equal); backward lambda "
+          f"{lam_err:.2e} of sum|gY S| {lam_scale:.2e} (|d/dlambda| "
+          f"{float(g_plain[-1].abs()):.2e})")
 
 
 def eigen_phases(dev, smi):
@@ -1880,29 +2130,14 @@ def eigen_phases(dev, smi):
           "SchrodingerEigen on fused_train raises a ValueError naming the "
           f"gate (got {raised[:80]!r})")
     print(f"  SchrodingerEigen(d=10) on fused_train raises: {raised[:120]}")
-    plain_calls = {"n": 0}
-    originals = (km.reference_stopped_train_rollout,
-                 km._reference_stopped_backward)
-
-    def counting(fn):
-        def wrapped(*a, **k):
-            plain_calls["n"] += 1
-            return fn(*a, **k)
-        return wrapped
-
-    km.reference_stopped_train_rollout = counting(originals[0])
-    km._reference_stopped_backward = counting(originals[1])
     reset_counts(km.fused_stopped_train_rollout, "launches",
                  "backward_launches")
-    try:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with PlainCalls(km) as plain_calls:
         main.train()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    finally:
-        (km.reference_stopped_train_rollout,
-         km._reference_stopped_backward) = originals
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
     launches = (km.fused_stopped_train_rollout.launches,
                 km.fused_stopped_train_rollout.backward_launches)
     v_tail = float(np.mean(main.V_L2_log[-100:]))
@@ -1912,13 +2147,13 @@ def eigen_phases(dev, smi):
     print(f"  {len(main.loss_log)} steps in {wall:.2f} s "
           f"({1e3 * wall / len(main.loss_log):.3f} ms a step); launches "
           f"forward {launches[0]}, backward {launches[1]}; plain-version "
-          f"calls {plain_calls['n']}; V_L2 every 500: "
+          f"calls {plain_calls.n}; V_L2 every 500: "
           f"{['%.3e' % v for v in main.V_L2_log[::500]]}; lambda every 500: "
           f"{['%.3e' % v for v in main.lambda_log[::500]]}")
     print(f"  tail-100 V_L2 {v_tail:.4e} (bound {v_bound:.4e}, JAX "
           f"{V_L2_TAIL_JAX:.4e}); lambda tail mean {lam_tail:.4e} (bound "
           f"|.| <= {lam_bound:g}, JAX {LAMBDA_TAIL_JAX:.4e})")
-    check(launches == (L_EIG, L_EIG) and plain_calls["n"] == 0,
+    check(launches == (L_EIG, L_EIG) and plain_calls.n == 0,
           "one forward and one backward launch per step, no plain call")
     check(all(math.isfinite(v) for v in main.loss_log + main.lambda_log),
           "finite losses and lambdas")
@@ -1959,7 +2194,10 @@ def eigen_phases(dev, smi):
         _, fwd_f, bwd_f = stopped_flops(net, d, adaptive=False, torus=True)
         # on the torus a step that stops still forms its proposal
         b_fwd = roofline(hit * fwd_f, 4 * (n_par + K * (2 * d + 7)))
-        b_bwd = roofline(adv * bwd_f, 4 * (2 * n_par + K * (d + 2)))
+        b_bwd = stopped_bwd_roofline(adv, bwd_f, net,
+                                     4 * (2 * n_par + K * (d + 2)))
+        use = lane_use(call, probe, gY, torus=True)
+        print_lane_use(f"K={K}", use)
         steppers = {mode: solver(K, mode, L=1)
                     for mode in ("fused_train", "scan")}
 
@@ -1983,9 +2221,11 @@ def eigen_phases(dev, smi):
                   f"plain {p1:.3f}, {p2:.3f} ms")
         print(f"  K={K}: {hit:.0f} active and {adv:.0f} advancing path-steps "
               f"of K N = {K * N}; bound forward {b_fwd['bound_ms']:.5f} ms, "
-              f"backward {b_bwd['bound_ms']:.5f} ms ({b_fwd['bound_by']}); "
+              f"backward {b_bwd['bound_ms']:.5f} ms (all FP32 "
+              f"{b_bwd['bound_ms_fp32']:.5f}; {b_fwd['bound_by']}); "
               f"step {r['step'][0]:.3f} ms")
-        times[K] = (r, b_fwd, b_bwd, steppers["fused_train"])
+        times[K] = (r, b_fwd, dict(b_bwd, lanes=use[0]),
+                    steppers["fused_train"])
     print(f"  card: {smi}")
     profile_steps(f"3 EigenSolver steps, K={K_EIG}", main.step)
     profile_steps(f"3 EigenSolver steps, K={K_EIG_BENCH}",
@@ -2005,7 +2245,8 @@ def eigen_phases(dev, smi):
              bound_ms_K65536=bb_fwd["bound_ms"]),
         dict(row, name="fused_stopped_train_rollout.backward.torus",
              replaces="pspde/rollout/kernels.py:1272", launches=launches[1],
-             max_abs_err=worst["grad"], ms=r["backward"][0],
+             max_abs_err=max(worst["grad"], worst["bwd"]),
+             ms=r["backward"][0],
              plain_ms=r["backward"][1], **b_bwd,
              ms_K65536=rb["backward"][0], plain_ms_K65536=rb["backward"][1],
              bound_ms_K65536=bb_bwd["bound_ms"]),

@@ -25,7 +25,11 @@ DenseNet (30, 30) and the notebook net (70, 50, 50, 50), with one
 ``EllipticSolver.step()``, and with ``time_stopping`` at the gen50 cell
 (ExponentialOnSphereNonlinearParabolic d=50, K=65536, N=20) and at the
 heat cell (HeatEquation d=50, T=0.2, the whole space, K=4096, N=100),
-DenseNet (30, 30) on [x, t].
+DenseNet (30, 30) on [x, t], and on the torus (FokkerPlanckEigen d=5,
+N=20, the notebook's DenseNet (10, 10, 10, 10), lambda = 0.3) at K=500 and
+K=65536, where the backward kernel's device time per launch is also read
+from ``torch.profiler`` (``*_device`` keys: at K=500 the events time the
+host's launches as much as the kernel).
 """
 
 import argparse
@@ -59,6 +63,25 @@ def timed(fn, reps, rounds=2):
         torch.cuda.synchronize()
         best = min(best, start.elapsed_time(stop) / reps)
     return best
+
+
+def device_ms(fn, reps, kernel):
+    """Device ms per call of the CUDA kernels whose name holds ``kernel``
+    over ``reps`` calls of ``fn``, from torch.profiler; None where the
+    profiler saw no such kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    def device_us(e):
+        us = getattr(e, "device_time_total", None)
+        return e.cuda_time_total if us is None else us
+
+    us = sum(device_us(e) for e in prof.key_averages() if kernel in e.key)
+    return us / 1e3 / reps if us else None
 
 
 def main():
@@ -160,6 +183,38 @@ def stopped_times(dev, gen):
                          rollout_mode="fused_train", device=dev)
     out["elliptic_step"] = timed(ell.step, 10)
     out.update(time_stopping_times(dev, gen))
+    out.update(torus_times(dev, gen))
+    return out
+
+
+def torus_times(dev, gen):
+    """ms of the stopped kernels' torus instantiation (the eigen solver's
+    domain leg) at K=500 and 65536, the cells of chip_smoke.py phase 22."""
+    from pspde_torch.ansatz import DenseNet
+    from pspde_torch.problems import FokkerPlanckEigen
+    from pspde_torch.rollout import kernels as km
+    from pspde_torch.rollout.sampling import sample_domain
+
+    fp = FokkerPlanckEigen(d=5, device=dev)
+    out = {}
+    for K in (500, 65536):
+        net = DenseNet(1, (10, 10, 10, 10), d_in=5, device=dev,
+                       generator=torch.Generator(dev).manual_seed(5))
+        X0 = sample_domain(gen, fp.geometry, K, 5)
+        lam = torch.full((1,), 0.3, device=dev)
+        gY = torch.randn(K, generator=gen, device=dev) / K
+        call = km._StoppedCall(
+            fp, net, X0, torch.zeros(K, device=dev), 20, 1e-3, 17,
+            km._check_stopped_family(fp, net, "erfinv", lam=lam),
+            dict(adaptive_forward=False, rng="erfinv", host_noise=None,
+                 time_stopping=False), None, lam)
+        out[f"stopped_fwd_torus_{K}"] = timed(
+            lambda: km._stopped_forward_kernel(call), 20)
+        out[f"stopped_bwd_torus_{K}"] = timed(
+            lambda: km._stopped_backward_kernel(call, gY), 10)
+        out[f"stopped_bwd_torus_{K}_device"] = device_ms(
+            lambda: km._stopped_backward_kernel(call, gY), 10,
+            "stopped_bwd_kernel")
     return out
 
 

@@ -1,7 +1,8 @@
 // Device code shared by the rollout kernels (controlled_rollout.cu,
 // train_rollout.cu, stopped_rollout.cu): the counter-based noise stream,
-// the two bits -> normal maps, and the chunked FP32 matrix-vector
-// products of the nets and the dense coefficients.
+// the two bits -> normal maps, the chunked FP32 matrix-vector products of
+// the nets and the dense coefficients, and the TF32 tensor-core pieces of
+// both backward kernels' weight-gradient products.
 //
 // Per-path arrays are [row][stride] in shared memory: thread p of a block
 // reads row i of its own path at in[i * stride], so a warp reads 32
@@ -124,5 +125,66 @@ __device__ __forceinline__ void dense(const float* __restrict__ W,
     }
   }
 }
+
+// -- TF32 tensor-core products (the backward kernels' weight gradients) --
+
+// x rounded to TF32, as cvt.rna.tf32.f32 rounds a finite x: to nearest,
+// ties away from zero, on the 13 dropped mantissa bits (add half their
+// range to the magnitude, then clear them; a carry moves into the
+// exponent).  Written out, it is two integer instructions; the PTX
+// instruction lowers to four, with a guard for inf and NaN.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// x = big + small + O(2^-22 |x|), big = rna(x) and small = rna(x - big)
+// both TF32 (x - big is exact).  Three TF32 products (big big, big small,
+// small big) then keep a float32 sum's accuracy, where one would keep
+// TF32's 2^-11 (the "3xTF32" split).
+__device__ __forceinline__ void tf32_split(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(x - __uint_as_float(big));
+}
+
+// d += a b on one warp's m16n8k8 TF32 tile: A (16 x 8) row-major, B (8 x 8)
+// column-major, D float32.  Lane l holds, with g = l / 4 and c = l % 4 (the
+// PTX ISA's fragment layout): a = A[g][c], A[g + 8][c], A[g][c + 4],
+// A[g + 8][c + 4]; b = B[c][g], B[c + 4][g]; d = D[g][2c], D[g][2c + 1],
+// D[g + 8][2c], D[g + 8][2c + 1].
+__device__ __forceinline__ void mma_tf32(float (&d)[4],
+                                         const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// A row of the block's per-path arrays, read at path k.  Where the arrays'
+// pointers come out of a struct (train_step.cuh: TrainState) or through a
+// helper, the compiler loses their address space and would read shared
+// memory with generic loads: in shared memory (kShared) the row is kept as
+// a shared-window address and read with ld.shared.
+template <bool kShared>
+struct PathRow {
+  const float* p;
+  __device__ __forceinline__ explicit PathRow(const float* row) : p(row) {}
+  __device__ __forceinline__ float operator[](int k) const { return p[k]; }
+};
+
+template <>
+struct PathRow<true> {
+  uint32_t s;
+  __device__ __forceinline__ explicit PathRow(const float* row)
+      : s(static_cast<uint32_t>(__cvta_generic_to_shared(row))) {}
+  __device__ __forceinline__ float operator[](int k) const {
+    float v;
+    asm volatile("ld.shared.f32 %0, [%1];" : "=f"(v) : "r"(s + 4 * k)
+                 : "memory");
+    return v;
+  }
+};
 
 }  // namespace pspde

@@ -71,40 +71,80 @@
 // primal and its tangent in direction w (a' = 2 relu(h) h'), one reverse
 // sweep over the pair (relu^2'' = 2 [h > 0]) accumulates the weight
 // gradients of both terms.  No Hessian, no reverse sweep over time, no
-// stored path.  Each block writes its sums to one row of an
-// (n_blocks, n_grad) array that the wrapper sums: deterministic, no atomics.
+// stored path.  Each block writes its sums to one row of a (grid, n_grad)
+// array that the wrapper sums: deterministic, no atomics.
 //
-// What bounds it on an H100: at d = 50, DenseNet (30, 30) an advancing
+// What bounds them on an H100: at d = 50, DenseNet (30, 30) an advancing
 // forward path-step is ~16.3 kFLOP (V and grad V) and a backward one
 // ~36.5 kFLOP (~44 kFLOP adaptive: the replay, the tangent and pair
-// sweeps, the weight-gradient outer products), FP32 FMA from shared
-// memory; no device-memory traffic but the gradient row.  Paths leave the
-// ball after ~1.4 steps from the uniform start, so the work is a few
-// steps per path, and per-block fixed costs and latency dominate.  On the
-// whole space with time_stopping (the heat equation) every path runs until
-// its clock ends, all K N path-steps are work, and at K = 4096 the 64
-// blocks leave half the SMs idle.  On the torus (d = 5, DenseNet (10, 10,
-// 10, 10): ~1 kFLOP a path-step) most paths run all N steps, and at the
-// recipe's K = 500 the 8 blocks fill 8 of 132 SMs.  The design, simple
-// first:
-//   * one thread per path, one block per `tile` paths, for all N steps; a
-//     stopped path skips the net (its X and accumulators are final); in the
-//     backward it keeps hitting the barriers with zero cotangents, and a
-//     block whose paths are all stopped leaves the loop;
-//   * the net is staged per block in shared memory when it fits beside the
-//     per-path arrays, else read from device memory (broadcast loads that
-//     L1 serves): at the notebook net DenseNet (70, 50, 50, 50) the weights
-//     (131 KB) do not fit beside any tile of the backward;
-//   * each path's features, relu values, tangents and cotangents live in
-//     shared memory as [row][tile + 1] arrays; the torus's proposal takes
-//     the rows 0..d of grad V (forward) and of the step (backward), which
-//     are free by then;
-//   * the block's gradient row lives in device memory, each thread owning
-//     the entries e = tid + m tile (read-modify-write once per step, after
-//     the barrier, of sum_p over the tile's paths): a shared buffer of the
-//     notebook net's 29,491 gradients (118 KB) would not fit either; the
-//     lambda entry is summed in a register per path and over the block
-//     once, at the end.
+// sweeps, the weight-gradient outer products); no device-memory traffic
+// but the gradient rows.  Paths leave the ball after ~1.4 steps from the
+// uniform start, so the work is a few steps per path.  One thread carries
+// one path, and its arrays (3 F + 3 H + 1 floats in the backward, 139 KB
+// of shared memory for 64 paths at (30, 30)) leave one block of two warps
+// on an SM: latency, not the FMA rate, bounds both kernels (the backward's
+// per-thread replay and sweeps are ~80% of its time).  On the whole
+// space with time_stopping (the heat equation) every path runs until its
+// clock ends, all K N path-steps are work, and at K = 4096 the 64 blocks
+// leave half the SMs idle.  On the torus (d = 5, DenseNet (10, 10, 10,
+// 10): ~1 kFLOP a path-step) most paths run all N steps, and at the
+// recipe's K = 500 the 8 blocks fill 8 of 132 SMs.
+//
+// The forward, simple first: one block per `tile` paths, one thread per
+// path for all N steps; a stopped path leaves (no barrier follows the
+// staging of the net).
+//
+// The backward is built for the card:
+//   * Lanes are refilled.  With one block per tile paths for all N steps,
+//     a block ran until its slowest path stopped: at the elliptic cell
+//     (d = 50, K = 65536, N = 20) 1024 blocks ran 6,155 block-steps for
+//     92,479 advancing path-steps, so only 23.5% of the lane-steps carried
+//     a path that advances, and everything done per block-step (the
+//     waiting lanes at the barrier, the whole weight-gradient phase) was
+//     paid ~4x over.  Now the grid fills the card once (at most the blocks
+//     it holds at once), each block owns a contiguous range of whole tiles
+//     of paths, and at each step's barrier the lanes whose path has stopped
+//     or run its N steps take the range's next paths in lane order (a
+//     block-wide ballot and prefix count: no atomics, the same bits on
+//     every launch).  A path starts at its own step n = 0, so its noise
+//     stays keyed by (seed, k, n, j / 4).  On the ball and the whole space
+//     the exit test of the next step is made at the end of a step, so a
+//     lane never spends a step on a path that stops.  At the elliptic cell
+//     132 blocks run 1,949 block-steps (lane use 74.2%, as each block
+//     counts its own; NVIDIA H100 80GB HBM3).  Where paths run their N
+//     steps (the torus at K = 65536) the refill gains nothing, and the
+//     static ranges cost the per-SM balance that 1024 blocks of one tile
+//     get from the block scheduler: 4.1 ms there against 3.6 on 1024
+//     blocks (NVIDIA H100 80GB HBM3, 700 W).
+//   * The replay stays per thread: the X chain and the masks must
+//     regenerate bitwise, and they do only if each path runs the forward's
+//     own device functions (value_forward, value_grad, torus_terms,
+//     torus_step, step_of, selected, draw4) in the forward's order.
+//   * Each step's weight-gradient sums, half of the work before (2 FMAs
+//     against 4 shared loads per path and entry, scalar), run on the
+//     tensor cores: for each hidden layer one product G_l += [f; f']^T
+//     [hbar; hbar'] of depth 2 tile (paths, then tangents; the bias a row
+//     of ones), mma.sync m16n8k8 TF32.  One TF32 product keeps 2^-11 of
+//     each operand, and a gradient summed over 10^5 path-steps of both
+//     signs would then miss float32's accuracy by 100x, so every operand is
+//     split into big = rna(x) and small = rna(x - big) and three products
+//     (big big, big small, small big) keep float32's (3xTF32, as the HJB
+//     backward).  The output row (F + 1 entries) stays scalar.  What
+//     bounds the products is latency (a warp per SM sub-partition, in
+//     order): with the replay's sweeps they are now ~20% of the elliptic
+//     backward, no faster than the scalar loop at the torus's 10 columns.
+//   * The per-path arrays are [row][tile + 4] (conflict-free fragments;
+//     tile + 1 for nets too wide for that),
+//     the net is staged per block when it fits beside them, else read from
+//     device memory (broadcast loads that L1 serves; the notebook net
+//     DenseNet (70, 50, 50, 50), 131 KB of weights, fits beside no tile);
+//     the block's gradient row lives in device memory (the notebook net's
+//     29,491 entries would not fit in shared memory either); the lambda
+//     entry is summed in a register per lane and over the block once, at
+//     the end.  Shared memory still bounds the blocks per SM: moving the
+//     per-path arrays to device memory is the next step for both kernels.
+//   * The torus's proposal takes the rows 0..d of grad V (forward) and of
+//     the step (backward), which are free by then.
 //
 // Noise: host noise (N, K, d), or Philox4x32-10 keyed by (seed, k, n, j / 4)
 // through the erfinv map (default) or the binom map.  The plain version
@@ -469,22 +509,214 @@ stopped_fwd_kernel(const StoppedArgs a, const float* __restrict__ P,
   acc_out[5 * a.K + k] = t;
 }
 
+// -- the replay backward ---------------------------------------------------
+
+// The backward's per-path arrays are [row][ts], ts = tile + 4 where they
+// fit: the weight-gradient products read them as mma fragments, element
+// (g, c) of an 8 x 4 block of rows and paths at bank (4 g + c) mod 32, 32
+// different banks.  Where tile + 4 does not fit (nets wider than ~1,600
+// per-path floats at tile 32) the wrapper passes ts = tile + 1, the
+// forward's stride: (g + c) mod 32, up to 4-way conflicts, the same sums
+// (pspde_torch/rollout/kernels.py: _stopped_bwd_stride).  A thread walking
+// its own path reads one word of each row, and any stride serves that.
+
+// The lane ballots of the refill: two slots of one word per warp, at the
+// start of the backward's shared memory (16 bytes, so the staged net after
+// them keeps the float4 alignment matvec_chunk reads it with).
+constexpr int kWarps = kStoppedTile / 32;
+constexpr int kBallotWords = 2 * kWarps;
+
+// The first path of block b's range: the grid's blocks own contiguous
+// ranges of whole tiles, tiles floor(b T / grid) .. floor((b + 1) T / grid)
+// of the T = ceil(K / tile) (the last cut at K; pspde_torch/rollout/
+// kernels.py: _stopped_ranges computes the same).  Where paths run their N
+// steps (the torus) whole tiles keep each round of the lanes full, as one
+// block per tile did; ranges balanced by paths left every block a last
+// round of 37 of 64 paths at K = 65536.
+__device__ __forceinline__ int range_start(int b, int K, int tile,
+                                           int grid) {
+  const int T = (K + tile - 1) / tile;
+  return min(K, tile * static_cast<int>(static_cast<long long>(b) * T /
+                                        grid));
+}
+
+constexpr int kUnitN = 4;   // n tiles (8 output columns each) of a unit
+
+// One warp's unit of one hidden layer's sums over the block's paths,
+//   G[r][j] += sum_{p < tile} in0_r[p] D0_j[p] + in1_r[p] D1_j[p],
+// for the 16 rows m0.. and the kUnitN x 8 columns n0.. of G (rows + 1,
+// cols), row-major: one product of depth 2 tile, the features f against
+// the cotangents hbar of h and the tangents f' against those hbar' of h'.
+// Row r < rows of the left operands is row r of in0 / in1; row `rows` (the
+// bias) is 1 in the first pair and 0 in the second; rows past it are 0 and
+// nothing is stored there.  A column past `cols` reads the layer's last
+// column and is not stored either, so that every load stays in the layer's
+// rows.  All four point at path 0 of [row][ts] arrays in shared memory,
+// read as mma fragments (M: the gradient row, N: the output column, K: the
+// paths).  Each operand is split into two TF32 parts and each pair of parts
+// multiplied on the tensor cores (3xTF32: big big, big small, small big, in
+// three independent float32 accumulators); the old G is loaded before the
+// products and the step's sum added to it once.
+__device__ __forceinline__ void pair_tile_product(
+    const float* in0, const float* D0, const float* in1, const float* D1,
+    int rows, int cols, int ts, int tile, float* G, int m0, int n0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, c = lane & 3;
+  const int nq = min(kUnitN, (cols - n0 + 7) >> 3);
+  // the lane's rows m0 + g and m0 + g + 8 of A, and its kUnitN rows of D
+  const int ra = m0 + g, rb = ra + 8;
+  const bool fa = ra < rows, fb = rb < rows;
+  const int oa = (fa ? ra : 0) * ts + c, ob = (fb ? rb : 0) * ts + c;
+  const float ca = ra == rows ? 1.0f : 0.0f, cb = rb == rows ? 1.0f : 0.0f;
+  int oq[kUnitN];
+#pragma unroll
+  for (int q = 0; q < kUnitN; ++q)
+    oq[q] = min(n0 + 8 * q + g, cols - 1) * ts + c;
+  float old[kUnitN][4];
+#pragma unroll
+  for (int q = 0; q < kUnitN; ++q) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = ra + 8 * (e >> 1), j = n0 + 8 * q + 2 * c + (e & 1);
+      old[q][e] = q < nq && r <= rows && j < cols ? G[r * cols + j] : 0.0f;
+    }
+  }
+  // One k-step's fragments, read with ld.shared.  The loads are volatile
+  // asm, kept in program order with the mma: each step's loads are issued
+  // a step ahead, so their latency overlaps the step before's products.
+  const PathRow<true> A0(in0), A1(in1), B0(D0), B1(D1);
+  auto load = [&](int kk, float (&fa_)[4], float (&fb_)[kUnitN][2]) {
+    const bool second = kk >= tile;
+    const int k0 = second ? kk - tile : kk;
+    const PathRow<true> A = second ? A1 : A0, B = second ? B1 : B0;
+    fa_[0] = A[oa + k0];
+    fa_[1] = A[ob + k0];
+    fa_[2] = A[oa + k0 + 4];
+    fa_[3] = A[ob + k0 + 4];
+#pragma unroll
+    for (int q = 0; q < kUnitN; ++q) {
+      if (q < nq) {
+        fb_[q][0] = B[oq[q] + k0];
+        fb_[q][1] = B[oq[q] + k0 + 4];
+      }
+    }
+  };
+  float bb_[kUnitN][4] = {}, bs_[kUnitN][4] = {}, sb_[kUnitN][4] = {};
+  float a[4], b[kUnitN][2] = {}, an[4], bn[kUnitN][2] = {};
+  load(0, a, b);
+#pragma unroll 2
+  for (int kk = 0; kk < 2 * tile; kk += 8) {
+    load(min(kk + 8, 2 * tile - 8), an, bn);   // the next step's
+    const bool second = kk >= tile;
+    const float ka = second ? 0.0f : ca, kb = second ? 0.0f : cb;
+    uint32_t ab[4], as[4];
+    tf32_split(fa ? a[0] : ka, ab[0], as[0]);
+    tf32_split(fb ? a[1] : kb, ab[1], as[1]);
+    tf32_split(fa ? a[2] : ka, ab[2], as[2]);
+    tf32_split(fb ? a[3] : kb, ab[3], as[3]);
+#pragma unroll
+    for (int q = 0; q < kUnitN; ++q) {
+      if (q < nq) {
+        uint32_t bb[2], bs[2];
+        tf32_split(b[q][0], bb[0], bs[0]);
+        tf32_split(b[q][1], bb[1], bs[1]);
+        mma_tf32(bb_[q], ab, bb);
+        mma_tf32(bs_[q], ab, bs);
+        mma_tf32(sb_[q], as, bb);
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) a[e] = an[e];
+#pragma unroll
+    for (int q = 0; q < kUnitN; ++q) {
+      b[q][0] = bn[q][0];
+      b[q][1] = bn[q][1];
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < kUnitN; ++q) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = ra + 8 * (e >> 1), j = n0 + 8 * q + 2 * c + (e & 1);
+      if (q < nq && r <= rows && j < cols)
+        G[r * cols + j] = old[q][e] + ((sb_[q][e] + bs_[q][e]) + bb_[q][e]);
+    }
+  }
+}
+
+// One step's weight-gradient sums over the block's paths: for each hidden
+// layer G_l[0:n_in + 1, 0:w] += [f; f']^T [hbar; hbar'] on the tensor cores
+// (units of 16 rows by kUnitN x 8 columns, dealt to the block's warps in
+// turn across the layers), then the output row, scalar: G[wL][i] +=
+// sum_p alpha_p f_i[p] + f'_i[p] and G[bL] += sum_p alpha_p.  The arguments
+// are this thread's columns; a path without a gradient this step has zero
+// f', hbar, hbar' and alpha.  The caller synchronises before (the rows are
+// other threads') and after.
+template <bool kTimed>
+__device__ __forceinline__ void step_weight_grads(
+    const StoppedArgs& a, const float* f, const float* fd, const float* gb,
+    const float* gdb, const float* al, float* G, int ts) {
+  const int tid = threadIdx.x, warp = tid >> 5, n_warps = a.tile >> 5;
+  const int d_in = net_inputs<kTimed>(a);
+  f -= tid;
+  fd -= tid;
+  gb -= tid;
+  gdb -= tid;
+  al -= tid;
+  int u0 = 0;   // the units of the layers before this one
+  int n_in = d_in;
+  for (int l = 0; l < a.L; ++l) {
+    const int w = a.width[l];
+    const int n_groups = (w + 8 * kUnitN - 1) / (8 * kUnitN);
+    const int units = (n_in + 16) / 16 * n_groups;
+    for (int u = ((warp - u0) % n_warps + n_warps) % n_warps; u < units;
+         u += n_warps) {
+      const int mt = u / n_groups;
+      pair_tile_product(f, gb + n_in * ts, fd, gdb + (n_in - d_in) * ts,
+                        n_in, w, ts, a.tile, G + a.g_off[l], 16 * mt,
+                        8 * kUnitN * (u - mt * n_groups));
+    }
+    u0 += units;
+    n_in += w;
+  }
+  // each thread walks the paths from its own offset: entry e reads path
+  // (q + e) mod tile at bank (5 e + q) mod 32, no conflict at tile + 4
+  float* GL = G + a.gL_off;
+  for (int e = tid; e <= a.F; e += a.tile) {
+    float s = 0.0f;
+    if (e == a.F) {
+      for (int p = 0; p < a.tile; ++p) s += al[p];
+    } else {
+      const float* fi = f + e * ts;
+      const float* fdi = fd + e * ts;
+      for (int q = 0; q < a.tile; ++q) {
+        const int p = (q + e) & (a.tile - 1);
+        s = fmaf(al[p], fi[p], s + fdi[p]);
+      }
+    }
+    GL[e] += s;
+  }
+}
+
 template <bool kTimed, bool kTorus, bool kRelu>
 __global__ void __launch_bounds__(kStoppedTile, kMinBlocksPerSm)
 stopped_bwd_kernel(const StoppedArgs a, const float* __restrict__ P,
                    const float* __restrict__ noise,
                    const float* __restrict__ X0,
                    const float* __restrict__ t0,
-                   const float* __restrict__ gY, float* __restrict__ part) {
+                   const float* __restrict__ gY, float* __restrict__ part,
+                   int* __restrict__ counts, const int ts) {
   extern __shared__ float4 smem4[];
-  float* S = reinterpret_cast<float*>(smem4);
-  const int tile = a.tile, ts = tile + 1, tid = threadIdx.x;
-  const int k = blockIdx.x * tile + tid;
-  const bool live = k < a.K;
+  uint32_t* ballots = reinterpret_cast<uint32_t*>(smem4);
+  float* S = reinterpret_cast<float*>(smem4) + kBallotWords;
+  const int tile = a.tile, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5, n_warps = tile >> 5;
   float* col = S + tid;
   const float* W = stage_net(a, P, S, &col);
   float* G = part + static_cast<size_t>(blockIdx.x) * a.n_grad;
   for (int e = tid; e < a.n_grad; e += tile) G[e] = 0.0f;
+  // the block's paths not yet started: next .. hi (the same in every thread)
+  int next = range_start(blockIdx.x, a.K, tile, gridDim.x);
+  const int hi = range_start(blockIdx.x + 1, a.K, tile, gridDim.x);
 
   const int d_in = net_inputs<kTimed>(a);
   const int H = a.F - d_in;              // hidden feature rows
@@ -499,138 +731,172 @@ stopped_bwd_kernel(const StoppedArgs a, const float* __restrict__ P,
   float* gdb = gb + a.F * ts;            // cotangent of the hidden tangents
   float* al = gdb + H * ts;              // alpha
   for (float* p = f; p <= al; p += ts) *p = 0.0f;
-  if (live)
-    for (int j = 0; j < a.d; ++j)
-      f[j * ts] = X0[static_cast<size_t>(k) * a.d + j];
-  const float gy = live ? gY[k] : 0.0f;
-  float t = live ? t0[k] : 0.0f;
-  bool stopped = !live;
   const float* wL = W + a.wL_off;
   const float lam = kTorus ? P[a.lam_off] : 0.0f;   // not W: unstaged yet
-  float g_lam = 0.0f;                    // this path's d/dlambda
+  float g_lam = 0.0f;                    // this lane's d/dlambda
 
-  for (int n = 0; n < a.N; ++n) {
-    // the block leaves once all of its paths have stopped
-    if (!__syncthreads_or(!stopped)) break;
+  // The lane's path k at its step n, its cotangent gy and clock t; `busy`:
+  // it has a step to take, with |X|^2 = r2 (ball and whole space: the exit
+  // test of step n is made at the end of step n - 1, so a lane never spends
+  // a step on a path that stops; on the torus the test needs the step's
+  // proposal, and the step that stops is spent).
+  int k = 0, n = 0, slot = 0;
+  float gy = 0.0f, t = 0.0f, r2 = 0.0f;
+  bool busy = false;
+  // what the block ran (the same in every thread): its block-steps and
+  // the busy lanes summed over them
+  int block_steps = 0, lane_steps = 0;
+  auto takes_step = [&]() {
+    if (n >= a.N) return false;
+    if (kTorus) return true;
+    r2 = sq_norm(f, a.d, ts);
+    return selected<kTimed>(a, r2, t);
+  };
+
+  for (;;) {
+    // Refill: the lanes without a step to take get the next paths of the
+    // range, in lane order (a block-wide ballot and prefix count); a path
+    // that takes no step frees its lane for the next round.  The block
+    // leaves once the range is drained and no lane is busy.
+    int n_free;
+    for (;;) {
+      const uint32_t m = __ballot_sync(0xFFFFFFFFu, !busy);
+      if (lane == 0) ballots[slot * kWarps + warp] = m;
+      __syncthreads();
+      int below = __popc(m & ((1u << lane) - 1u));
+      n_free = 0;
+      for (int w = 0; w < n_warps; ++w) {
+        const int cnt = __popc(ballots[slot * kWarps + w]);
+        n_free += cnt;
+        if (w < warp) below += cnt;
+      }
+      slot ^= 1;   // the next round writes the other slot: no second barrier
+      if (n_free == 0 || next >= hi) break;
+      if (!busy && next + below < hi) {
+        k = next + below;
+        for (float* p = f; p <= al; p += ts) *p = 0.0f;
+        for (int j = 0; j < a.d; ++j)
+          f[j * ts] = X0[static_cast<size_t>(k) * a.d + j];
+        gy = gY[k];
+        t = t0[k];
+        n = 0;
+        busy = takes_step();
+      }
+      next = min(hi, next + n_free);
+    }
+    if (n_free == tile) break;
+    ++block_steps;
+    lane_steps += tile - n_free;
+
     bool adv = false;
     bool opened = false;   // with the clamp: adv and o > 0
-    if (!stopped) {
-      float r2 = 0.0f, s = 0.0f, qs = 0.0f;
-      bool sel = true;
-      if (kTorus) {
-        torus_terms(a, f, ts, &s, &qs);
-      } else {
-        r2 = sq_norm(f, a.d, ts);
-        sel = selected<kTimed>(a, r2, t);
-      }
-      if (sel) {
-        if (kTimed) f[a.d * ts] = t;
-        const float v_out = value_forward<kTimed>(a, W, f, r, ts);
-        const bool on = !kRelu || v_out > 0.0f;   // the output clamp's mask
-        const float V = on ? v_out : 0.0f;
-        if (a.adaptive && on) value_grad<kTimed>(a, W, r, gb, ts);
-        const float m_cs = kTorus ? -cosf(s) : 0.0f;
-        bool inside = true;
-        for (int gi = 0; 4 * gi < a.d; ++gi) {
-          float xi[4];
-          draw4(a, noise, k, n, gi, xi);
+    if (busy) {
+      float s = 0.0f, qs = 0.0f;
+      if (kTorus) torus_terms(a, f, ts, &s, &qs);
+      if (kTimed) f[a.d * ts] = t;
+      const float v_out = value_forward<kTimed>(a, W, f, r, ts);
+      const bool on = !kRelu || v_out > 0.0f;   // the output clamp's mask
+      const float V = on ? v_out : 0.0f;
+      if (a.adaptive && on) value_grad<kTimed>(a, W, r, gb, ts);
+      const float m_cs = kTorus ? -cosf(s) : 0.0f;
+      bool inside = true;
+      for (int gi = 0; 4 * gi < a.d; ++gi) {
+        float xi[4];
+        draw4(a, noise, k, n, gi, xi);
 #pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const int j = 4 * gi + q;
-            if (j >= a.d) break;
-            const float c =
-                a.adaptive && on ? -(a.sig * gb[j * ts]) : 0.0f;
-            fd[j * ts] = gy * (a.sig * (xi[q] * a.sq_dt + c * a.dt));
-            if (kTorus) {
-              const float st = torus_step(a, m_cs, f[j * ts], c, xi[q]);
-              inside = inside && in_box(a, __fadd_rn(f[j * ts], st));
-              gb[j * ts] = st;
-            } else {
-              gb[j * ts] = step_of(a, c, xi[q]);
-            }
-          }
-        }
-        adv = !kTorus || inside;
-        if (adv) {
-          opened = on;
+        for (int q = 0; q < 4; ++q) {
+          const int j = 4 * gi + q;
+          if (j >= a.d) break;
+          const float c = a.adaptive && on ? -(a.sig * gb[j * ts]) : 0.0f;
+          fd[j * ts] = gy * (a.sig * (xi[q] * a.sq_dt + c * a.dt));
           if (kTorus) {
-            *al = -gy * (torus_h_dy(s, qs) + lam) * a.dt;
-            g_lam = fmaf(-gy * V, a.dt, g_lam);
+            const float st = torus_step(a, m_cs, f[j * ts], c, xi[q]);
+            inside = inside && in_box(a, __fadd_rn(f[j * ts], st));
+            gb[j * ts] = st;
           } else {
-            *al = -gy * h_dy<kTimed>(a, r2, t, V) * a.dt;
+            gb[j * ts] = step_of(a, c, xi[q]);
           }
-          if (kTimed) {
-            fd[a.d * ts] = 0.0f;
-            t = __fadd_rn(t, a.dt);
-          }
-          // the path's parameter gradient this step; none where the clamp
-          // is shut (there V = 0 and Z = 0 near theta)
-          if (on) {
-            // tangent sweep: h' = W_l f', (relu(h)^2)' = 2 relu(h) h'
-            int n_in = d_in;
-            for (int l = 0; l < a.L; ++l) {
-              const int w = a.width[l], wp = padded(w);
-              const float* Wl = W + a.w_off[l];
-              const float* rl = r + (n_in - d_in) * ts;
-              float* hdl = hd + (n_in - d_in) * ts;
-              for (int j0 = 0; j0 < wp; j0 += kChunk) {
-                float acc[kChunk];
+        }
+      }
+      adv = !kTorus || inside;
+      if (adv) {
+        opened = on;
+        if (kTorus) {
+          *al = -gy * (torus_h_dy(s, qs) + lam) * a.dt;
+          g_lam = fmaf(-gy * V, a.dt, g_lam);
+        } else {
+          *al = -gy * h_dy<kTimed>(a, r2, t, V) * a.dt;
+        }
+        if (kTimed) {
+          fd[a.d * ts] = 0.0f;
+          t = __fadd_rn(t, a.dt);
+        }
+        // the path's parameter gradient this step; none where the clamp
+        // is shut (there V = 0 and Z = 0 near theta)
+        if (on) {
+          // tangent sweep: h' = W_l f', (relu(h)^2)' = 2 relu(h) h'
+          int n_in = d_in;
+          for (int l = 0; l < a.L; ++l) {
+            const int w = a.width[l], wp = padded(w);
+            const float* Wl = W + a.w_off[l];
+            const float* rl = r + (n_in - d_in) * ts;
+            float* hdl = hd + (n_in - d_in) * ts;
+            for (int j0 = 0; j0 < wp; j0 += kChunk) {
+              float acc[kChunk];
 #pragma unroll
-                for (int c = 0; c < kChunk; ++c) acc[c] = 0.0f;
-                matvec_chunk(Wl, n_in, wp, j0, fd, ts, acc);
+              for (int c = 0; c < kChunk; ++c) acc[c] = 0.0f;
+              matvec_chunk(Wl, n_in, wp, j0, fd, ts, acc);
 #pragma unroll
-                for (int c = 0; c < kChunk; ++c) {
-                  const int j = j0 + c;
-                  if (j < w) {
-                    hdl[j * ts] = acc[c];
-                    fd[(n_in + j) * ts] = 2.0f * rl[j * ts] * acc[c];
-                  }
+              for (int c = 0; c < kChunk; ++c) {
+                const int j = j0 + c;
+                if (j < w) {
+                  hdl[j * ts] = acc[c];
+                  fd[(n_in + j) * ts] = 2.0f * rl[j * ts] * acc[c];
                 }
               }
-              n_in += w;
             }
+            n_in += w;
+          }
 
-            // reverse sweep over the pair (V, V'): S = alpha V + V' with
-            // V' = wL . f'; rows d_in..F of gb / gdb end as the
-            // cotangents of h and h' of each hidden layer
-            for (int i = d_in; i < a.F; ++i) {
-              gb[i * ts] = *al * wL[i];
-              gdb[(i - d_in) * ts] = wL[i];
+          // reverse sweep over the pair (V, V'): S = alpha V + V' with
+          // V' = wL . f'; rows d_in..F of gb / gdb end as the cotangents
+          // of h and h' of each hidden layer
+          for (int i = d_in; i < a.F; ++i) {
+            gb[i * ts] = *al * wL[i];
+            gdb[(i - d_in) * ts] = wL[i];
+          }
+          int o = a.F;
+          for (int l = a.L - 1; l >= 0; --l) {
+            const int w = a.width[l], wp = padded(w);
+            o -= w;
+            const float* rl = r + (o - d_in) * ts;
+            const float* hdl = hd + (o - d_in) * ts;
+            for (int j = 0; j < w; ++j) {
+              const float rv = rl[j * ts];
+              const float ab = gb[(o + j) * ts];
+              const float adb = gdb[(o + j - d_in) * ts];
+              gb[(o + j) * ts] =
+                  rv > 0.0f ? 2.0f * rv * ab + 2.0f * hdl[j * ts] * adb
+                            : 0.0f;
+              gdb[(o + j - d_in) * ts] = 2.0f * rv * adb;
             }
-            int o = a.F;
-            for (int l = a.L - 1; l >= 0; --l) {
-              const int w = a.width[l], wp = padded(w);
-              o -= w;
-              const float* rl = r + (o - d_in) * ts;
-              const float* hdl = hd + (o - d_in) * ts;
+            const float* Wl = W + a.w_off[l];
+            for (int i = d_in; i < o; ++i) {
+              const float* Wi = Wl + i * wp;
+              float s = 0.0f, sd = 0.0f;
               for (int j = 0; j < w; ++j) {
-                const float rv = rl[j * ts];
-                const float ab = gb[(o + j) * ts];
-                const float adb = gdb[(o + j - d_in) * ts];
-                gb[(o + j) * ts] =
-                    rv > 0.0f ? 2.0f * rv * ab + 2.0f * hdl[j * ts] * adb
-                              : 0.0f;
-                gdb[(o + j - d_in) * ts] = 2.0f * rv * adb;
+                s = fmaf(Wi[j], gb[(o + j) * ts], s);
+                sd = fmaf(Wi[j], gdb[(o + j - d_in) * ts], sd);
               }
-              const float* Wl = W + a.w_off[l];
-              for (int i = d_in; i < o; ++i) {
-                const float* Wi = Wl + i * wp;
-                float s = 0.0f, sd = 0.0f;
-                for (int j = 0; j < w; ++j) {
-                  s = fmaf(Wi[j], gb[(o + j) * ts], s);
-                  sd = fmaf(Wi[j], gdb[(o + j - d_in) * ts], sd);
-                }
-                gb[i * ts] += s;
-                gdb[(i - d_in) * ts] += sd;
-              }
+              gb[i * ts] += s;
+              gdb[(i - d_in) * ts] += sd;
             }
           }
         }
       }
-      if (!adv) stopped = true;
     }
     const bool grad = kRelu ? opened : adv;
-    if (!grad) {   // this path adds nothing this step
+    if (!grad) {   // this lane adds nothing this step
       for (int i = 0; i < a.F; ++i) fd[i * ts] = 0.0f;
       for (int i = d_in; i < a.F; ++i) {
         gb[i * ts] = 0.0f;
@@ -640,56 +906,19 @@ stopped_bwd_kernel(const StoppedArgs a, const float* __restrict__ P,
     }
 
     if (__syncthreads_or(grad)) {
-      // G[W_l][i][j] += sum_p f_i hbar_j + f'_i hbar'_j over the tile's
-      // paths (row n_in: the bias), G[wL][i] += sum_p alpha f_i + f'_i
-      const float* fb = f - tid;
-      const float* fdb = fd - tid;
-      const float* gbb = gb - tid;
-      const float* gdbb = gdb - tid;
-      const float* alb = al - tid;
-      int n_in = d_in;
-      for (int l = 0; l < a.L; ++l) {
-        const int w = a.width[l];
-        float* Gl = G + a.g_off[l];
-        for (int e = tid; e < (n_in + 1) * w; e += tile) {
-          const int i = e / w;
-          const int j = e - i * w;
-          const float* hb = gbb + (n_in + j) * ts;
-          const float* hdb = gdbb + (n_in + j - d_in) * ts;
-          float s = 0.0f;
-          if (i == n_in) {
-            for (int p = 0; p < tile; ++p) s += hb[p];
-          } else {
-            const float* fi = fb + i * ts;
-            const float* fdi = fdb + i * ts;
-            for (int p = 0; p < tile; ++p)
-              s = fmaf(fi[p], hb[p], fmaf(fdi[p], hdb[p], s));
-          }
-          Gl[e] += s;
-        }
-        n_in += w;
-      }
-      float* GL = G + a.gL_off;
-      for (int e = tid; e <= a.F; e += tile) {
-        float s = 0.0f;
-        if (e == a.F) {
-          for (int p = 0; p < tile; ++p) s += alb[p];
-        } else {
-          const float* fi = fb + e * ts;
-          const float* fdi = fdb + e * ts;
-          for (int p = 0; p < tile; ++p)
-            s = fmaf(alb[p], fi[p], s + fdi[p]);
-        }
-        GL[e] += s;
-      }
+      step_weight_grads<kTimed>(a, f, fd, gb, gdb, al, G, ts);
       __syncthreads();
     }
-    if (adv)
-      for (int j = 0; j < a.d; ++j)
-        f[j * ts] = __fadd_rn(f[j * ts], gb[j * ts]);
+    if (busy) {
+      if (adv)
+        for (int j = 0; j < a.d; ++j)
+          f[j * ts] = __fadd_rn(f[j * ts], gb[j * ts]);
+      ++n;
+      busy = adv && takes_step();
+    }
   }
   if (kTorus) {
-    // the block's lambda entry: the paths' sums, through the alpha row
+    // the block's lambda entry: the lanes' sums, through the alpha row
     // (every read of it above ended at a barrier)
     *al = g_lam;
     __syncthreads();
@@ -699,16 +928,22 @@ stopped_bwd_kernel(const StoppedArgs a, const float* __restrict__ P,
       G[a.g_lam] = sum;
     }
   }
+  if (tid == 0) {
+    counts[2 * blockIdx.x] = block_steps;
+    counts[2 * blockIdx.x + 1] = lane_steps;
+  }
 }
 
 // Shared memory of one block, in floats: the staged net and the per-path
-// arrays of stride tile + 1.  The wrapper's _stopped_smem_bytes computes
-// the same.
-size_t smem_floats(const StoppedArgs& a, bool backward) {
+// arrays, of stride tile + 1 in the forward (bwd_ts = 0), and in the
+// backward the lane ballots first and the arrays at stride bwd_ts.  The
+// wrapper's _stopped_smem_bytes computes the same.
+size_t smem_floats(const StoppedArgs& a, int bwd_ts) {
+  const bool backward = bwd_ts > 0;
   const size_t H = a.F - (a.time_stopping ? a.d + 1 : a.d);
   const size_t per_path = backward ? 3 * a.F + 3 * H + 1 : 2 * a.F + H;
-  return (a.stage ? a.n_params : 0) +
-         per_path * static_cast<size_t>(a.tile + 1);
+  return (backward ? kBallotWords : 0) + (a.stage ? a.n_params : 0) +
+         per_path * static_cast<size_t>(backward ? bwd_ts : a.tile + 1);
 }
 
 int unpack(const int* iargs, const float* fargs, unsigned long long seed,
@@ -731,17 +966,25 @@ int unpack(const int* iargs, const float* fargs, unsigned long long seed,
   return static_cast<int>(cudaSetDevice(device));
 }
 
+// Lets `kernel` take the dynamic shared memory of one block (bwd_ts: as
+// smem_floats).
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, const StoppedArgs& a, int bwd_ts,
+                       size_t* smem) {
+  *smem = sizeof(float) * smem_floats(a, bwd_ts);
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(*smem));
+}
+
 template <typename Kernel, typename... Args>
-int launch(Kernel kernel, const StoppedArgs& a, bool backward, void* stream,
-           Args... args) {
-  const size_t smem = sizeof(float) * smem_floats(a, backward);
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+int launch(Kernel kernel, const StoppedArgs& a, int bwd_ts, int grid,
+           void* stream, Args... args) {
+  size_t smem = 0;
+  const cudaError_t e = allow_smem(kernel, a, bwd_ts, &smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const unsigned grid = static_cast<unsigned>((a.K + a.tile - 1) / a.tile);
-  kernel<<<grid, a.tile, smem, static_cast<cudaStream_t>(stream)>>>(a,
-                                                                     args...);
+  kernel<<<static_cast<unsigned>(grid), a.tile, smem,
+           static_cast<cudaStream_t>(stream)>>>(a, args...);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -785,27 +1028,75 @@ extern "C" int pspde_stopped_rollout_fwd(const float* params,
   return with_family(a, [&](auto fam) {
     using Fam = decltype(fam);
     return launch(stopped_fwd_kernel<Fam::timed, Fam::torus, Fam::relu>, a,
-                  false, stream, params, host_noise, X0, t0, X_out, acc_out);
+                  0, (a.K + a.tile - 1) / a.tile, stream, params,
+                  host_noise, X0, t0, X_out, acc_out);
   });
 }
 
-// Backward: X0, t0, gY (K,) -> grad_out (ceil(K / tile), n_grad), one row of
+// The backward's stride, the int after StoppedArgs' ints: tile + 4, or
+// tile + 1 where that does not fit (the note on the backward's arrays); 0
+// if it is neither.
+int unpack_bwd_stride(const StoppedArgs& a, const int* iargs) {
+  const int ts = iargs[kNumIntArgs];
+  return ts == a.tile + 4 || ts == a.tile + 1 ? ts : 0;
+}
+
+// Backward: X0, t0, gY (K,) -> grad_out (grid, n_grad), one row of
 // per-layer [W (n_in, width); b (1, width)] and [wL (F); bL] sums per block,
-// and on the torus the lambda entry last.
+// and on the torus the lambda entry last; counts (grid, 2): each block's
+// block-steps and its busy lanes summed over them.  `iargs` carries the
+// stride and the grid after StoppedArgs' ints: 1 <= grid <= ceil(K / tile),
+// at most the blocks the card holds at once (pspde_stopped_bwd_slots);
+// block b replays the paths of its range (range_start).
 extern "C" int pspde_stopped_rollout_bwd(const float* params,
                                          const float* host_noise,
                                          const float* X0, const float* t0,
                                          const float* gY, float* grad_out,
-                                         const int* iargs,
+                                         int* counts, const int* iargs,
                                          const float* fargs,
                                          unsigned long long seed, int device,
                                          void* stream) {
   StoppedArgs a;
   const int err = unpack(iargs, fargs, seed, device, &a);
   if (err != 0) return err;
+  const int ts = unpack_bwd_stride(a, iargs);
+  const int grid = iargs[kNumIntArgs + 1];
+  if (ts == 0 || grid < 1 || grid > (a.K + a.tile - 1) / a.tile)
+    return static_cast<int>(cudaErrorInvalidValue);
   return with_family(a, [&](auto fam) {
     using Fam = decltype(fam);
     return launch(stopped_bwd_kernel<Fam::timed, Fam::torus, Fam::relu>, a,
-                  true, stream, params, host_noise, X0, t0, gY, grad_out);
+                  ts, grid, stream, params, host_noise, X0, t0, gY,
+                  grad_out, counts, ts);
+  });
+}
+
+// The blocks of the backward's instantiation for `iargs` (StoppedArgs' ints
+// and the stride) that device `device` holds at once (its SMs times the
+// blocks per SM that the shared memory, the registers and the threads
+// allow) into *slots: the most blocks worth launching, since each walks its
+// range to the end.
+extern "C" int pspde_stopped_bwd_slots(const int* iargs, const float* fargs,
+                                       int device, int* slots) {
+  StoppedArgs a;
+  const int err = unpack(iargs, fargs, 0ull, device, &a);
+  if (err != 0) return err;
+  const int ts = unpack_bwd_stride(a, iargs);
+  if (ts == 0) return static_cast<int>(cudaErrorInvalidValue);
+  return with_family(a, [&](auto fam) {
+    using Fam = decltype(fam);
+    const auto kernel =
+        stopped_bwd_kernel<Fam::timed, Fam::torus, Fam::relu>;
+    size_t smem = 0;
+    int per_sm = 0, sms = 0;
+    cudaError_t e = allow_smem(kernel, a, ts, &smem);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        a.tile, smem);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+    *slots = per_sm * sms;
+    return static_cast<int>(e);
   });
 }

@@ -963,27 +963,67 @@ def reference_stopped_train_rollout(problem, v_net, X0: torch.Tensor,
                            out.v_l2, out.hitting - stopped)
 
 
-def _stopped_smem_bytes(n_stage: int, per_path: int, tile: int) -> int:
+_STOPPED_BALLOT_WORDS = 4   # csrc kBallotWords: the backward's lane ballots
+
+
+def _stopped_smem_bytes(n_stage: int, per_path: int, tile: int,
+                        backward: bool = False,
+                        stride: Optional[int] = None) -> int:
     """Shared memory of one stopped block: ``n_stage`` floats of staged net
-    and ``per_path`` floats per path at stride tile + 1 - the formula of
+    and ``per_path`` floats per path at stride tile + 1 (forward), or the
+    lane ballots and the arrays at ``stride`` (backward; default tile + 4,
+    the stride of its mma fragments) - the formula of
     stopped_rollout.cu:smem_floats."""
+    if backward:
+        return 4 * (_STOPPED_BALLOT_WORDS + n_stage
+                    + per_path * (stride or tile + 4))
     return 4 * (n_stage + per_path * (tile + 1))
 
 
-def _stopped_tile(n_params: int, per_path: int, tile: Optional[int]):
+def _stopped_bwd_stride(n_stage: int, per_path: int, tile: int) -> int:
+    """The backward's stride: tile + 4 (conflict-free mma fragments) where
+    the block fits, else the forward's tile + 1 (the same sums, with bank
+    conflicts in the products), so that every net the forward takes the
+    backward takes too."""
+    fits = _stopped_smem_bytes(n_stage, per_path, tile, True) <= _SMEM_LIMIT
+    return tile + 4 if fits else tile + 1
+
+
+def _stopped_tile(n_params: int, per_path: int, tile: Optional[int],
+                  backward: bool = False):
     """(tile, stage): the largest tile of ``_STOPPED_TILES`` (or the given
     one) whose per-path arrays fit, with the net staged in shared memory
-    when it fits beside them, else read from device memory."""
+    when it fits beside them, else read from device memory; the backward
+    tries every tile at stride tile + 4 first, then at tile + 1."""
     if tile is not None and tile not in _STOPPED_TILES:
         raise ValueError(f"tile={tile} must be one of {_STOPPED_TILES}")
-    for t in ((tile,) if tile is not None else _STOPPED_TILES):
-        for stage in (True, False):
-            if _stopped_smem_bytes(n_params if stage else 0, per_path,
-                                   t) <= _SMEM_LIMIT:
-                return t, stage
-    raise _stopped_outside(f"{_stopped_smem_bytes(0, per_path, 32)} bytes "
-                           "of per-path shared memory at tile=32 exceed "
-                           f"the {_SMEM_LIMIT}-byte limit of one block")
+    for pad in ((4, 1) if backward else (1,)):
+        for t in ((tile,) if tile is not None else _STOPPED_TILES):
+            for stage in (True, False):
+                if _stopped_smem_bytes(n_params if stage else 0, per_path,
+                                       t, backward, t + pad) <= _SMEM_LIMIT:
+                    return t, stage
+    least = _stopped_smem_bytes(0, per_path, 32, backward, 33)
+    raise _stopped_outside(f"{least} bytes of per-path shared memory at "
+                           f"tile=32 exceed the {_SMEM_LIMIT}-byte limit of "
+                           "one block")
+
+
+def _stopped_grid(K: int, tile: int, slots: int) -> int:
+    """The backward's grid: one block per ``tile`` paths, at most ``slots``
+    blocks (what the card holds at once), at least one."""
+    return max(1, min(-(-K // tile), slots))
+
+
+def _stopped_ranges(K: int, tile: int, grid: int) -> list:
+    """The paths [lo, hi) of each of the backward's ``grid`` blocks:
+    contiguous ranges of whole tiles, tiles floor(b T / grid) .. floor((b +
+    1) T / grid) of the T = ceil(K / tile), the last cut at K - the formula
+    of stopped_rollout.cu:range_start."""
+    T = -(-K // tile)
+    return [(min(K, tile * (b * T // grid)), min(K, tile * ((b + 1) * T
+                                                          // grid)))
+            for b in range(grid)]
 
 
 class _StoppedLayout(NamedTuple):
@@ -1069,7 +1109,7 @@ def _pack_stopped(problem, v_net, hfam, vfam, K, N, delta_t, tile, *,
     H = lay.F - v_net.d_in
     per_path = 3 * lay.F + 3 * H + 1 if backward else 2 * lay.F + H
     n_params = lay.buf.numel()
-    tile, stage = _stopped_tile(n_params, per_path, tile)
+    tile, stage = _stopped_tile(n_params, per_path, tile, backward)
     if torus:
         c_y = c_yr2 = k_exp = k_t = 0.0
         phi, c_tor = "none", float(hfam[1])
@@ -1154,22 +1194,80 @@ def _stopped_grads_from_row(v_net: DenseNet, lay: _StoppedLayout,
     return grads
 
 
-def _stopped_backward_kernel(call: _StoppedCall, gY) -> list:
-    """The parameters' gradients (and lambda's last, with ``call.lam``)."""
+# blocks of the backward the card holds at once, per (device, tile, shared
+# bytes, time_stopping, geometry, output clamp): asked of the library once
+_STOPPED_BWD_SLOTS: dict = {}
+
+
+def _stopped_bwd_ts(packed: _Packed) -> int:
+    """The backward's stride for one packed call (``_stopped_bwd_stride``
+    of its tile, staged net and per-path floats)."""
+    ia = packed.iargs
+    d, F, tile, stage, n_params = ia[2], ia[4], ia[5], ia[6], ia[7]
+    H = F - d - ia[14]
+    return _stopped_bwd_stride(n_params if stage else 0, 3 * F + 3 * H + 1,
+                               tile)
+
+
+def _stopped_bwd_grid(packed: _Packed, dev: torch.device) -> int:
+    """The backward's grid for one packed call on CUDA device ``dev``:
+    ``_stopped_grid`` of the blocks its instantiation keeps resident on the
+    card (stopped_rollout.cu: pspde_stopped_bwd_slots, asked once per
+    device and instantiation, tile and shared memory)."""
+    ia = packed.iargs
+    K, d, F, tile, stage, n_params = ia[0], ia[2], ia[4], ia[5], ia[6], ia[7]
+    H = F - d - ia[14]
+    ts = _stopped_bwd_ts(packed)
+    smem = _stopped_smem_bytes(n_params if stage else 0, 3 * F + 3 * H + 1,
+                               tile, True, ts)
+    index = dev.index if dev.index is not None else \
+        torch.cuda.current_device()
+    key = (index, tile, smem, ia[14], ia[15], ia[16 + 4 * _MAX_HIDDEN + 3])
+    if key not in _STOPPED_BWD_SLOTS:
+        from ._build import library
+        lib = library()
+        slots = ctypes.c_int(0)
+        ia = ia + [ts]
+        err = lib.pspde_stopped_bwd_slots(
+            (ctypes.c_int * len(ia))(*ia),
+            (ctypes.c_float * len(packed.fargs))(*packed.fargs), index,
+            ctypes.byref(slots))
+        if err != 0 or slots.value < 1:
+            raise RuntimeError(
+                "fused_stopped_train_rollout: the backward kernel fits no "
+                "block on the card: "
+                + lib.pspde_cuda_error_string(err).decode())
+        _STOPPED_BWD_SLOTS[key] = slots.value
+    return _stopped_grid(K, tile, _STOPPED_BWD_SLOTS[key])
+
+
+def _stopped_backward_rows(call: _StoppedCall, gY):
+    """The backward kernel's per-block gradient rows (grid, n_grad) and
+    what each block ran, (grid, 2) int32: its block-steps and its busy
+    lanes summed over them.  Each block replays its range of paths
+    (``_stopped_ranges``) and writes the sums of their steps."""
     X0 = call.X0
     packed = call.pack(backward=True)
-    tile, n_grad = packed.iargs[5], packed.iargs[13]
-    part = torch.empty((-(-X0.shape[0] // tile), n_grad),
-                       dtype=torch.float32, device=X0.device)
+    ts = _stopped_bwd_ts(packed)
+    grid = _stopped_bwd_grid(packed, X0.device)
+    part = torch.empty((grid, packed.iargs[13]), dtype=torch.float32,
+                       device=X0.device)
+    counts = torch.empty((grid, 2), dtype=torch.int32, device=X0.device)
     _launch("pspde_stopped_rollout_bwd", "fused_stopped_train_rollout",
-            packed, [packed.params, call.opts["host_noise"], X0, call.t0,
-                     gY.contiguous(), part], call.seed, X0.device)
+            packed._replace(iargs=packed.iargs + [ts, grid]),
+            [packed.params, call.opts["host_noise"], X0, call.t0,
+             gY.contiguous(), part, counts], call.seed, X0.device)
     fused_stopped_train_rollout.backward_launches += 1
-    total = part.sum(dim=0)
+    return part, counts
+
+
+def _stopped_backward_kernel(call: _StoppedCall, gY) -> list:
+    """The parameters' gradients (and lambda's last, with ``call.lam``)."""
+    total = _stopped_backward_rows(call, gY)[0].sum(dim=0)
     lay = _stopped_layout(call.v_net, call.lam)
     grads = _stopped_grads_from_row(call.v_net, lay, total)
     if call.lam is not None:
-        grads.append(total[n_grad - 1:].reshape(call.lam.shape))
+        grads.append(total[lay.n_grad - 1:].reshape(call.lam.shape))
     return grads
 
 

@@ -349,16 +349,16 @@ def test_time_stopping_family_errors():
     (5, (6, 5), "nonlinear", False, None),
     (5, (6, 5), "heat", True, None),
     (50, (30, 30), "nonlinear", False, 4 * (4404 + 282 * 65)),
-    (50, (30, 30), "nonlinear", True, 4 * (4404 + 514 * 65)),
-    (50, (30, 30), "heat", True, 4 * (4404 + 514 * 65)),
+    (50, (30, 30), "nonlinear", True, 4 * (4 + 4404 + 514 * 68)),
+    (50, (30, 30), "heat", True, 4 * (4 + 4404 + 514 * 68)),
 ])
 def test_pack_stopped_time_stopping(d, arch, case, backward, smem):
     """State width d and net input width d + 1 part ways in the packed
     arguments: F and the hidden rows count from d_in, the first layer's
     gradient block has d + 2 rows (d + 1 inputs and the bias), and the
     horizon and h's time coefficient ride the float arguments.  At d=50,
-    DenseNet (30, 30) the backward's 514 floats per path fit tile 64 with
-    the net staged."""
+    DenseNet (30, 30) the backward's 514 floats per path (at stride tile +
+    4, after its 4 ballot words) fit tile 64 with the net staged."""
     cls, kw = PROBLEMS[case]
     pt = getattr(tp, cls)(d=d, device="cpu", **dict(kw, T=1.0))
     net = DenseNet(1, arch, d_in=d + 1, device="cpu",
@@ -384,7 +384,8 @@ def test_pack_stopped_time_stopping(d, arch, case, backward, smem):
     per_path = 3 * F + 3 * H + 1 if backward else 2 * F + H
     assert (ia[5], ia[6]) == (64, 1)
     if smem is not None:
-        assert tk._stopped_smem_bytes(ia[7], per_path, ia[5]) == smem
+        assert tk._stopped_smem_bytes(ia[7], per_path, ia[5],
+                                      backward) == smem
         assert smem <= tk._SMEM_LIMIT
     row = torch.arange(lay.n_grad, dtype=torch.float32)
     grads = tk._stopped_grads_from_row(net, lay, row)

@@ -1,8 +1,10 @@
-"""The arithmetic of the HJB backward's weight-gradient products (CPU).
+"""The arithmetic of the backward kernels' weight-gradient products (CPU).
 
-The replay-backward kernel (pspde_torch/csrc/train_rollout.cu,
+The HJB replay-backward kernel (pspde_torch/csrc/train_rollout.cu,
 train_step.cuh:train_weight_grads) sums each step's weight-gradient
-products [in; 1]^T Delta over a block's paths with TF32 tensor-core mma.
+products [in; 1]^T Delta over a block's paths with TF32 tensor-core mma,
+and the stopped one (stopped_rollout.cu:pair_tile_product) the pair
+[f; f']^T [hbar; hbar'] of depth 2 tile.
 TF32 keeps 10 of float32's 23 mantissa bits, so each operand x is split
 into big = rna(x) and small = rna(x - big), both TF32, where rna is
 cvt.rna: round to nearest, ties away from zero, on the 13 dropped bits.
@@ -52,17 +54,41 @@ def bench_operands(seed: int):
     return A.astype(np.float32), D.astype(np.float32)
 
 
-def summed_errors(seed: int) -> dict:
+def stopped_operands(seed: int):
+    """The stopped backward's pair (pspde_torch/csrc/stopped_rollout.cu:
+    pair_tile_product) at d=50, DenseNet (30, 30): per step and block, A
+    (111, 2 TILE) = [f; f'] (features relu(h)^2 with the bias row of ones
+    over the paths; tangents with a bias row of zeros) and Delta (2 TILE,
+    30) = [hbar; hbar'] (cotangents of h and h' of both signs), float32 from
+    numpy.  Three lanes in four carry no gradient this step: their f',
+    hbar and hbar' columns are zero, their features are not."""
+    rng = np.random.default_rng(seed)
+    shape = (STEPS, BLOCKS, 111, TILE)
+    live = rng.random((STEPS, BLOCKS, 1, TILE)) < 0.25
+    f = rng.random(shape) ** 2
+    f[:, :, -1, :] = 1.0
+    fd = 1e-2 * rng.standard_normal(shape) * live
+    fd[:, :, -1, :] = 0.0
+    lanes = np.swapaxes(live, 2, 3)
+    hb = 1e-3 * rng.standard_normal((STEPS, BLOCKS, TILE, 30)) * lanes
+    hdb = rng.standard_normal((STEPS, BLOCKS, TILE, 30)) * lanes
+    A = np.concatenate([f, fd], axis=3)
+    D = np.concatenate([hb, hdb], axis=2)
+    return A.astype(np.float32), D.astype(np.float32)
+
+
+def summed_errors(seed: int, operands=bench_operands) -> dict:
     """max |G - G_64| / max |G_64| of the 3xTF32, one-TF32 and float32
     sums, G_64 the float64 sum of the same float32 operands."""
-    A, D = bench_operands(seed)
+    A, D = operands(seed)
     ref = np.einsum("sbrp,sbpc->rc", A.astype(np.float64),
                     D.astype(np.float64))
     At, Dt = torch.from_numpy(A), torch.from_numpy(D)
     a_big, a_small = split(At)
     d_big, d_small = split(Dt)
-    rows = {k: torch.zeros((BLOCKS, ROWS, COLS)) for k in ("3x", "1x", "32")}
-    for s in range(STEPS):
+    rows = {k: torch.zeros((A.shape[1], A.shape[2], D.shape[3]))
+            for k in ("3x", "1x", "32")}
+    for s in range(A.shape[0]):
         # the kernel's three accumulators and their sum, then the block row
         bb, bs, sb = (a_big[s] @ d_big[s], a_big[s] @ d_small[s],
                       a_small[s] @ d_big[s])
@@ -81,5 +107,16 @@ def test_3xtf32_keeps_float32_accuracy_where_one_tf32_product_does_not(seed):
     err = summed_errors(seed)
     assert err["3x"] <= TOL, err
     # and sits with the float32 loop it replaces
+    assert err["3x"] <= 2.0 * err["32"] + 1e-7, err
+    assert err["1x"] > 10 * TOL, err
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_3xtf32_at_the_stopped_pair_shape(seed):
+    """The same argument for the stopped backward's products: depth 2 tile
+    (paths, then tangents), 111 gradient rows by 30 columns, most lanes
+    without a gradient (their columns zero)."""
+    err = summed_errors(seed, stopped_operands)
+    assert err["3x"] <= TOL, err
     assert err["3x"] <= 2.0 * err["32"] + 1e-7, err
     assert err["1x"] > 10 * TOL, err
