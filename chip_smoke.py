@@ -6,9 +6,11 @@ PDE solution off a trained model, and ``HJBSolver.train()`` is how the
 control is learned.  This script
 
   1. builds the kernels from pspde_torch/csrc (nvcc, sm_90a, one process
-     per source) and counts the TF32 HMMA instructions of the HJB
-     backward's two instantiations and the stopped backward's six in the
-     library's SASS (none fails);
+     per source), counts the TF32 HMMA instructions of the HJB forward's
+     and backward's two instantiations each, of the ablation ladder's net
+     and full stages on both plans and of the stopped backward's six in
+     the library's SASS (none fails), and prints the HJB forward's
+     registers and spill bytes from ptxas (a spill fails);
   2. compares the serve kernel with its plain PyTorch version on host
      noise, on LLGC d=100 with the exported control and on LQGC d=100
      (dense A and sigma, f != 0), at K=8192 and N=100;
@@ -32,8 +34,9 @@ control is learned.  This script
      (600 steps, lr 1e-2, K=1024, N=32: the recipe that made the exported
      control), checks the final u_L2, and serves IS with the result;
   9. times the training kernels, the training step and the plain step at
-     the bench shape K=131072, N=32, for both noise maps, and profiles a
-     few training steps;
+     the bench shape K=131072, N=32, for both noise maps, reads the
+     forward's blocks and warps per SM and bytes per block from the CUDA
+     occupancy API, and profiles a few training steps;
  10. compares the stopped-path training kernels (forward and replay
      backward) with their plain version at K=8192, N=20, d=50: on
      ExponentialOnBallNonlinearSin(alpha=0.1) with DenseNet (30, 30),
@@ -235,6 +238,11 @@ INT_MUL_RATE = 64 * 132 * 1.98e9
 PEAK_FLOPS, PEAK_TF32, PEAK_BYTES = 67e12, 495e12, 3.35e12
 
 
+def net_products(widths):
+    """Operations of a dense stack's products: 2 per weight."""
+    return 2 * sum(a * b for a, b in zip(widths[:-1], widths[1:]))
+
+
 def roofline(flops, nbytes, tf32_flops=0.0):
     """The bound of ``flops`` FP32 operations, ``tf32_flops`` TF32
     tensor-core operations (the two times added) and ``nbytes`` bytes."""
@@ -245,15 +253,28 @@ def roofline(flops, nbytes, tf32_flops=0.0):
             "library_ms": None}
 
 
-def train_bwd_roofline(steps, bwd_flops, n_par, nbytes):
-    """The HJB backward's bound: its weight-gradient products (2 operations
-    per weight and bias and path-step) run on the tensor cores as three
-    TF32 products each (3xTF32), the rest in FP32; ``bound_ms_fp32``
-    charges them all at the FP32 rate, the bound of an FP32 loop over the
-    same products."""
-    products = steps * 2 * n_par
-    return dict(roofline(steps * bwd_flops - products, nbytes, 3 * products),
-                bound_ms_fp32=roofline(steps * bwd_flops, nbytes)["bound_ms"])
+def tf32_roofline(flops, products, nbytes):
+    """The bound of ``flops`` operations of which ``products`` run on the
+    tensor cores as three TF32 products each (3xTF32), the rest in FP32;
+    ``bound_ms_fp32`` charges them all at the FP32 rate, the bound of an
+    FP32 loop over the same work."""
+    return dict(roofline(flops - products, nbytes, 3 * products),
+                bound_ms_fp32=roofline(flops, nbytes)["bound_ms"])
+
+
+def train_fwd_roofline(steps, fwd_flops, widths, nbytes):
+    """The HJB forward's bound (and the ladder's): the net's products (2
+    operations per weight and path-step) on the tensor cores."""
+    return tf32_roofline(steps * fwd_flops, steps * net_products(widths),
+                         nbytes)
+
+
+def train_bwd_roofline(steps, bwd_flops, n_par, widths, nbytes):
+    """The HJB backward's bound: the replay's net products and the
+    weight-gradient products (2 operations per weight and bias and
+    path-step) on the tensor cores."""
+    return tf32_roofline(steps * bwd_flops,
+                         steps * (2 * n_par + net_products(widths)), nbytes)
 
 
 def mlp_flops(widths):
@@ -278,6 +299,28 @@ def train_flops(widths, n_par):
 def check(ok, what):
     if not ok:
         raise RuntimeError(f"chip_smoke: check failed: {what}")
+
+
+def ptxas_usage(log, kernel):
+    """{mangled instantiation: (registers, spill store bytes, spill load
+    bytes)} of the named kernel's instantiations, read from the -Xptxas -v
+    report in the build log."""
+    import re
+    usage, fn, spill = {}, None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn = m.group(1) if kernel in m.group(1) else None
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and fn:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            usage[fn] = (int(m.group(1)),) + spill
+            fn, spill = None, (0, 0)
+    return usage
 
 
 def tf32_mma_counts(lib_path, kernels):
@@ -490,17 +533,45 @@ def main():
         if "entry function" in line or "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
     hmma = tf32_mma_counts(info["path"], ("train_backward_kernel",
-                                          "stopped_bwd_kernel"))
-    train_hmma = {("device" if "ILb1E" in k else "shared"): v
-                  for k, v in hmma["train_backward_kernel"].items()}
+                                          "train_forward_kernel",
+                                          "stopped_bwd_kernel",
+                                          "ablation_kernel"))
+
+    def by_plan(counts):
+        return {("device" if "ILb1E" in k else "shared"): v
+                for k, v in counts.items()}
+
+    train_hmma = by_plan(hmma["train_backward_kernel"])
+    fwd_hmma = by_plan(hmma["train_forward_kernel"])
     stopped_hmma = sorted(hmma["stopped_bwd_kernel"].values())
-    print(f"  TF32 HMMA instructions in the HJB backward's SASS: "
-          f"{train_hmma}; in the stopped backward's six instantiations: "
-          f"{stopped_hmma}")
+    # the ladder's stages: 0 noise, 1 euler, 2 net, 3-6 full*
+    ladder_hmma = {}
+    for name, n in hmma["ablation_kernel"].items():
+        stage = int(name.split("ablation_kernelILi")[1].split("E")[0])
+        plan = "device" if f"ILi{stage}ELb1E" in name else "shared"
+        ladder_hmma[f"{stage}{plan[0]}"] = n
+    print(f"  TF32 HMMA instructions in the HJB forward's SASS: {fwd_hmma}; "
+          f"the backward's: {train_hmma}; the ladder's stages (stage, "
+          f"s/d plan): {dict(sorted(ladder_hmma.items()))}; the stopped "
+          f"backward's six instantiations: {stopped_hmma}")
     check(len(train_hmma) == 2 and all(train_hmma.values()),
           "both plans of the HJB backward run TF32 mma")
+    check(len(fwd_hmma) == 2 and all(fwd_hmma.values()),
+          "both plans of the HJB forward run TF32 mma")
+    check(len(ladder_hmma) == 14
+          and all(ladder_hmma[f"{st}{p}"] for st in range(2, 7)
+                  for p in "sd"),
+          "the ladder's net and full stages run TF32 mma on both plans")
     check(len(stopped_hmma) == 6 and all(stopped_hmma),
           "every instantiation of the stopped backward runs TF32 mma")
+    fwd_use = {("device" if "ILb1E" in k else "shared"): v
+               for k, v in ptxas_usage(info["log"],
+                                       "train_forward_kernel").items()}
+    print(f"  ptxas, the HJB forward (registers, spill store and load "
+          f"bytes): {fwd_use}")
+    check(len(fwd_use) == 2
+          and all(u[1] == u[2] == 0 for u in fwd_use.values()),
+          "the HJB forward's instantiations spill no registers")
 
     llgc = LLGC(d=D, T=T_END, device=dev)
     solver = HJBSolver("llgc_d100", llgc, K=1024, delta_t=1 / 32,
@@ -771,25 +842,31 @@ def train_phases(dev, smi, llgc, solver, lqgc, gen, timed):
         times[rng] = r
     print(f"  card: {smi}")
 
+    occ = km._train_fwd_occupancy(
+        train_call(llgc, net, Kb, N, dt, dict(u_tab=u_tab)).pack(False), dev)
+    print(f"  forward launch at the bench shape (the occupancy API's "
+          f"theoretical residency from registers and shared memory, not "
+          f"a measurement): {occ}")
     bench.fused_rng = "binom"
     profile_steps("3 binom training steps", bench.step)
 
     n_par = sum(p.numel() for p in net.parameters())
-    fwd_flops, bwd_flops = train_flops([D + 1, 30, 30, D], n_par)
+    widths = [D + 1, 30, 30, D]
+    fwd_flops, bwd_flops = train_flops(widths, n_par)
     row = {"route": "cuda", "source": TRAIN_SOURCE}
     rows = [
         dict(row, name="fused_train_rollout.forward",
              replaces="pspde/rollout/kernels.py:696", launches=fwd_launches,
              max_abs_err=worst["out"], ms=times["binom"]["forward"][0],
              plain_ms=times["binom"]["forward"][1],
-             **roofline(steps * fwd_flops,
-                        4 * (n_par + N * D + Kb * (D + 3)))),
+             **train_fwd_roofline(steps, fwd_flops, widths,
+                                  4 * (n_par + N * D + Kb * (D + 3)))),
         dict(row, name="fused_train_rollout.backward",
              replaces="pspde/rollout/kernels.py:788", launches=bwd_launches,
              max_abs_err=worst["grad"], max_rel_err=worst["grad_rel"],
              ms=times["binom"]["backward"][0],
              plain_ms=times["binom"]["backward"][1],
-             **train_bwd_roofline(steps, bwd_flops, n_par,
+             **train_bwd_roofline(steps, bwd_flops, n_par, widths,
                                   4 * (2 * n_par + N * D + 2 * Kb))),
     ]
     for r in rows:
@@ -1497,6 +1574,10 @@ def wide_phases(dev, smi, llgc, solver):
         call5, gY5, torch.zeros_like(gY5)), 1, warm=False)
     print(f"  K={K5}: forward kernel {['%.1f' % t for t in fwd_ms]} ms, "
           f"backward kernel {bwd_ms:.1f} ms, step {min(step_ms):.1f} ms")
+    occ5 = km._train_fwd_occupancy(call5.pack(False), dev)
+    print(f"  forward launch at config 5 (the occupancy API's theoretical "
+          f"residency from registers and shared memory, not a "
+          f"measurement): {occ5}")
 
     def serve5():
         return km.fused_controlled_rollout(llgc5, trainer.z_net, K5_SERVE, N,
@@ -1522,7 +1603,9 @@ def wide_phases(dev, smi, llgc, solver):
                       learn_Y_0=True, verbose=False,
                       early_stopping_time=None, seed=5, rollout_mode="scan",
                       device=dev)
-    p_ms = timed(plain.step, 1, warm=False)
+    # after one warm-up step each: the plain step's first call takes ~10x
+    # its steady time
+    p_ms = timed(plain.step, 1)
     fused_small = HJBSolver("config5_small", llgc5, lr=1e-2, L=1, K=K5_PLAIN,
                             delta_t=dt, time_approx="inner",
                             loss_method="log-variance", detach_forward=True,
@@ -1560,14 +1643,15 @@ def wide_phases(dev, smi, llgc, solver):
              launches=launches["forward"]["device"],
              max_abs_err=worst["out"], ms=min(fwd_ms),
              plain_ms=times["forward"][1],
-             **roofline(steps * fwd_f, 4 * (n_par + N * d + K5 * (d + 3)))),
+             **train_fwd_roofline(steps, fwd_f, widths,
+                                  4 * (n_par + N * d + K5 * (d + 3)))),
         dict(row, name="fused_train_rollout.backward.device_plan_d1000",
              replaces="pspde/rollout/kernels.py:788",
              launches=launches["backward"]["device"],
              max_abs_err=worst["grad"], max_rel_err=worst["grad_rel"],
              ms=bwd_ms,
              plain_ms=times["backward"][1],
-             **train_bwd_roofline(steps, bwd_f, n_par,
+             **train_bwd_roofline(steps, bwd_f, n_par, widths,
                                   4 * (2 * n_par + N * d + 2 * K5))),
     ]
 
@@ -1734,9 +1818,10 @@ def roofline_phases(dev, smi, llgc, solver, config5):
          "replaces": "pspde/utils/roofline.py:327",
          "launches": launches["ablation"], "max_abs_err": ladder_err,
          "ms": min(t_lad), "plain_ms": p_lad,
-         **roofline(K_BENCH * N_TRAIN * (mlp_flops([D + 1, 30, 30, D])
-                                         + 13 * D),
-                    4 * (n_par + K_BENCH))},
+         **tf32_roofline(
+             K_BENCH * N_TRAIN * (mlp_flops([D + 1, 30, 30, D]) + 13 * D),
+             K_BENCH * N_TRAIN * net_products([D + 1, 30, 30, D]),
+             4 * (n_par + K_BENCH))},
     ]
 
 

@@ -2,7 +2,8 @@
 """Time the PyTorch port's serve, HJB training and stopped training
 kernels at the bench shapes on one CUDA card, and print one JSON line.
 
-    python3 experiments/torch_kernel_times.py [--root DIR]
+    python3 experiments/torch_kernel_times.py [--root DIR] [--hjb-only]
+        [--layouts] [--fwd-bwd]
 
 ``--root`` names the checkout whose ``pspde_torch`` is timed (default:
 the one this script lives in).  Two trees are compared on one card in one
@@ -15,7 +16,10 @@ command: unpack the other with ``git archive`` into a directory that
 Each kernel is timed with CUDA events, best of two rounds: the serve
 kernel at LLGC d=100 with the exported control, K=2^20, N=100, Philox
 noise; the training forward and replay backward at K=131072, N=32, binom
-noise, u_tab; and one ``HJBSolver.step()`` at that shape.  Where the
+and erfinv noise, u_tab, and one ``HJBSolver.step()`` at that shape for
+each map; the ablation ladder's stages there; BASELINE config 5 (LLGC
+d=1000, T=2, N=200, K=98304: forward, backward, one step, the ladder's
+stages) and its step at K=8192 against the plain (scan) step.  Where the
 tree's kernels take ``plan=``, the three kernels are timed again with the
 device memory plan forced (the net read from device memory, each path's
 arrays in a [row][K] workspace), against the shared plan they choose at
@@ -29,7 +33,12 @@ DenseNet (30, 30) on [x, t], and on the torus (FokkerPlanckEigen d=5,
 N=20, the notebook's DenseNet (10, 10, 10, 10), lambda = 0.3) at K=500 and
 K=65536, where the backward kernel's device time per launch is also read
 from ``torch.profiler`` (``*_device`` keys: at K=500 the events time the
-host's launches as much as the kernel).
+host's launches as much as the kernel).  ``--hjb-only`` leaves out the
+serve and stopped kernels.  ``--layouts`` (a tree whose forward has
+threads per path) times the forward at the bench shape and at config 5
+for each tile and threads-per-path layout, with the blocks per SM of
+each.  ``--fwd-bwd`` times only the HJB forward and backward kernels, at
+the bench shape (binom) and at config 5.
 """
 
 import argparse
@@ -89,6 +98,13 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=here,
                     help="checkout whose pspde_torch is timed")
+    ap.add_argument("--hjb-only", action="store_true",
+                    help="time the HJB training kernels only")
+    ap.add_argument("--layouts", action="store_true",
+                    help="time the forward's tile and threads-per-path "
+                         "layouts")
+    ap.add_argument("--fwd-bwd", action="store_true",
+                    help="time the HJB forward and backward kernels only")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("torch_kernel_times: this script needs one CUDA card")
@@ -145,12 +161,174 @@ def main():
                                                                    gKL), 5)}
 
     out = {"root": os.path.relpath(root, here), "card": card}
-    out.update({f"{k}_default": v for k, v in kernels(None).items()})
-    if has_plans:
-        out.update({f"{k}_device": v for k, v in kernels("device").items()})
+    if args.layouts or args.fwd_bwd:
+        out.update(layout_times(llgc, net, u_tab, dev) if args.layouts
+                   else fwd_bwd_times(llgc, net, u_tab, dev, gen))
+        print(json.dumps(out))
+        return
+    if not args.hjb_only:
+        out.update({f"{k}_default": v for k, v in kernels(None).items()})
+        if has_plans:
+            out.update({f"{k}_device": v
+                        for k, v in kernels("device").items()})
     out["step"] = timed(bench.step, 5)
-    out.update(stopped_times(dev, gen))
+    out.update(hjb_times(llgc, bench, net, u_tab, dev, gen))
+    if not args.hjb_only:
+        out.update(stopped_times(dev, gen))
     print(json.dumps(out))
+
+
+def _ablation_stages(problem, net, K, N, dt, reps):
+    """ms per launch of each ladder stage (the tree's own stages)."""
+    from pspde_torch.utils import roofline as rf
+    return {stage: timed(lambda: rf.ablation(stage, problem, net, K, N, dt,
+                                             seed=3), reps)
+            for stage in rf.ABLATION_STAGES}
+
+
+def hjb_times(llgc, bench, net, u_tab, dev, gen):
+    """The HJB training kernels beyond the binom bench row: the forward,
+    the backward and the step on the erfinv map at the bench shape; the
+    ladder's stages there; config 5's kernels, step and ladder; and config
+    5's step at K=8192 against the plain (scan) step."""
+    from pspde_torch.problems import LLGC
+    from pspde_torch.rollout import kernels as km
+    from pspde_torch.solvers import HJBSolver
+    from pspde_torch.utils import cosine_decay_schedule
+
+    out = {}
+    dt = 1.0 / N_TRAIN
+    gY = torch.randn(K_TRAIN, generator=gen, device=dev)
+    gKL = torch.zeros(K_TRAIN, device=dev)
+    for rng in ("binom", "erfinv"):
+        call = km._TrainCall(
+            llgc, net, K_TRAIN, N_TRAIN, dt, 17,
+            km._check_train_family(llgc, net, N_TRAIN, 1.0, u_tab, rng),
+            dict(adaptive_forward=True, accumulate_kl=False,
+                 kl_ito_term=False, u_tab=u_tab, rng=rng, noise_sign=1.0,
+                 host_noise=None), None)
+        with torch.no_grad():
+            out[f"fwd_{rng}"] = timed(lambda: km.fused_train_rollout(
+                llgc, net, K_TRAIN, N_TRAIN, dt, 17, u_tab=u_tab, rng=rng),
+                10)
+        out[f"bwd_{rng}"] = timed(
+            lambda: km._train_backward_kernel(call, gY, gKL), 5)
+        bench.fused_rng = rng
+        out[f"step_{rng}"] = timed(bench.step, 5)
+    bench.fused_rng = "binom"
+    out.update({f"ladder_{k}": v for k, v in _ablation_stages(
+        llgc, net, K_TRAIN, N_TRAIN, dt, 5).items()})
+
+    d5, N5, dt5, K5 = 1000, 200, 0.01, 98304
+    llgc5 = LLGC(d=d5, T=2.0, device=dev)
+
+    def solver5(K, mode):
+        return HJBSolver("config5", llgc5,
+                         lr=cosine_decay_schedule(1e-2, 20000, alpha=1e-2),
+                         L=20000, K=K, delta_t=dt5, time_approx="inner",
+                         loss_method="log-variance", detach_forward=True,
+                         learn_Y_0=True, verbose=False,
+                         early_stopping_time=None, seed=5,
+                         rollout_mode=mode, fused_rng="binom", device=dev)
+
+    s5 = solver5(K5, "fused_train")
+    u5 = s5._u_tab
+    call5 = km._TrainCall(
+        llgc5, s5.z_net, K5, N5, dt5, 3,
+        km._check_train_family(llgc5, s5.z_net, N5, 1.0, u5, "binom"),
+        dict(adaptive_forward=True, accumulate_kl=False, kl_ito_term=False,
+             u_tab=u5, rng="binom", noise_sign=1.0, host_noise=None), None)
+    gY5 = torch.randn(K5, generator=gen, device=dev) / K5
+    with torch.no_grad():
+        out["c5_fwd"] = timed(lambda: km.fused_train_rollout(
+            llgc5, s5.z_net, K5, N5, dt5, 3, u_tab=u5), 1)
+    out["c5_bwd"] = timed(lambda: km._train_backward_kernel(
+        call5, gY5, torch.zeros_like(gY5)), 1)
+    out["c5_step"] = timed(s5.step, 1)
+    out.update({f"c5_ladder_{k}": v for k, v in _ablation_stages(
+        llgc5, s5.z_net, K5, N5, dt5, 1).items()})
+    del s5, call5
+    torch.cuda.empty_cache()
+    out["c5_k8192_fused_step"] = timed(solver5(8192, "fused_train").step, 2)
+    out["c5_k8192_plain_step"] = timed(solver5(8192, "scan").step, 2)
+    return out
+
+
+def fwd_bwd_times(llgc, net, u_tab, dev, gen):
+    """ms of the HJB forward (binom) and backward kernels at the bench
+    shape and at config 5 (the kernels of hjb_times, alone)."""
+    from pspde_torch.ansatz import TanhMLP
+    from pspde_torch.problems import LLGC
+    from pspde_torch.rollout import kernels as km
+
+    llgc5 = LLGC(d=1000, T=2.0, device=dev)
+    net5 = TanhMLP(1001, 1000, init_scale=0.1, device=dev,
+                   generator=torch.Generator(dev).manual_seed(5))
+    u5 = llgc5.u_ref_table(np.arange(200) * 0.01)
+    out = {}
+    for tag, (prob, z, K, N, dt, u, reps) in {
+            "": (llgc, net, K_TRAIN, N_TRAIN, 1.0 / N_TRAIN, u_tab, 10),
+            "c5_": (llgc5, net5, 98304, 200, 0.01, u5, 1)}.items():
+        call = km._TrainCall(
+            prob, z, K, N, dt, 17,
+            km._check_train_family(prob, z, N, 1.0, u, "binom"),
+            dict(adaptive_forward=True, accumulate_kl=False,
+                 kl_ito_term=False, u_tab=u, rng="binom", noise_sign=1.0,
+                 host_noise=None), None)
+        gY = torch.randn(K, generator=gen, device=dev) / K
+        with torch.no_grad():
+            out[f"{tag}fwd"] = timed(lambda: km.fused_train_rollout(
+                prob, z, K, N, dt, 17, u_tab=u), reps)
+        out[f"{tag}bwd"] = timed(lambda: km._train_backward_kernel(
+            call, gY, torch.zeros_like(gY)), max(1, reps // 2))
+    return out
+
+
+def layout_times(llgc, net, u_tab, dev):
+    """ms of the forward at the bench shape (binom) and at config 5 for each
+    (tile, threads per path) layout, and its blocks per SM."""
+    from pspde_torch.problems import LLGC
+    from pspde_torch.rollout import kernels as km
+    from pspde_torch.ansatz import TanhMLP
+
+    if not hasattr(km, "_FWD_TPP"):
+        return {}
+    llgc5 = LLGC(d=1000, T=2.0, device=dev)
+    net5 = TanhMLP(1001, 1000, init_scale=0.1, device=dev,
+                   generator=torch.Generator(dev).manual_seed(5))
+    u5 = llgc5.u_ref_table(np.arange(200) * 0.01)
+    cases = {"bench": (llgc, net, K_TRAIN, N_TRAIN, 1.0 / N_TRAIN, u_tab, 10),
+             "c5": (llgc5, net5, 98304, 200, 0.01, u5, 1)}
+    layouts = [(tag, tile, tpp) for tag in cases for tile in (32, 64, 128)
+               for tpp in (1, 2, 4) if tile * tpp <= km._FWD_THREADS]
+    out, default = {}, dict(km._FWD_TPP)
+    try:
+        for tag, tile, tpp in layouts:
+            prob, z, K, N, dt, u, reps = cases[tag]
+            # the wrapper reads its threads per path from this private table
+            # at each launch: patched here, for this experiment only, and
+            # restored at the end
+            km._FWD_TPP = dict.fromkeys(default, tpp)
+            try:
+                call = km._TrainCall(
+                    prob, z, K, N, dt, 17,
+                    km._check_train_family(prob, z, N, 1.0, u, "binom"),
+                    dict(adaptive_forward=True, accumulate_kl=False,
+                         kl_ito_term=False, u_tab=u, rng="binom",
+                         noise_sign=1.0, host_noise=None), tile)
+                occ = km._train_fwd_occupancy(call.pack(False), dev)
+            except ValueError:
+                continue   # no block of this tile fits
+            with torch.no_grad():
+                ms = timed(lambda: km.fused_train_rollout(
+                    prob, z, K, N, dt, 17, u_tab=u, tile=tile), reps)
+            out[f"{tag}_t{tile}_p{tpp}"] = {
+                "ms": ms, "plan": occ["plan"],
+                "warps_per_sm": occ["warps_per_sm"],
+                "smem_bytes": occ["smem_bytes"]}
+    finally:
+        km._FWD_TPP = default
+    return out
 
 
 def stopped_times(dev, gen):

@@ -27,10 +27,12 @@
 // ablation: the training forward's step, stage by stage (the JAX ladder:
 //   noise, euler, net, full, full_nonoise, full_rawbits, full_binom), from
 //   X_0 = 0.1 with one output acc + sum_j X_j per path.  The stages run the
-//   per-step code of train_step.cuh (`full` is the forward's own step on
-//   the erfinv stream, without u_L2 or KL) and launch with the forward's
-//   block size, memory plan and dynamic shared memory, so that they differ
-//   in work only and the deltas between stages attribute its time.
+//   per-step code of train_step.cuh (train_forward_step: the net's
+//   tensor-core products, the noise and update split over a path's
+//   threads; `full` is the forward's own step on the erfinv stream, without
+//   u_L2 or KL) and launch with the forward's block (tile x threads per
+//   path), memory plan and dynamic shared memory, so that they differ in
+//   work only and the deltas between stages attribute its time.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -159,81 +161,92 @@ struct ConstDraw {
   }
 };
 
-// One path of a stage: acc + sum_j X_j after N steps from X_0 = 0.1.
-template <int kStage, class Draw>
-__device__ __forceinline__ float ablation_path(const TrainArgs& a,
-                                               const float* __restrict__ P,
-                                               const float* W,
-                                               TrainState& st,
-                                               const Draw& draw) {
-  const int ts = st.ts;
-  for (int j = 0; j < a.dp; ++j) {
+// One stage for this thread's classes of its path (thread q of tpp):
+// acc + sum_j X_j after N steps from X_0 = 0.1, per class of dimension
+// groups (train_step.cuh: kSumClasses), in acc.y; train_path_sums adds the
+// classes.  Every stage but `noise` runs the forward's step
+// (train_forward_step) and its barriers.
+template <int kStage, bool kShared, class Draw>
+__device__ __forceinline__ void ablation_path(const TrainArgs& a,
+                                              const float* __restrict__ P,
+                                              const float* W, TrainState& st,
+                                              const Draw& draw, int q,
+                                              FwdAcc& acc) {
+  const int ts = st.ts, slots = kSumClasses / a.tpp;
+  for (int j = q; j < a.dp; j += a.tpp) {
     const float x0 = j < a.d ? 0.1f : 0.0f;
     st.X[j * ts] = x0;
     st.Xn[j * ts] = x0;
   }
-  const bool dense_update = a.drift_kind == 1 || a.sig_kind == 2;
-  float acc = 0.0f, acc_k = 0.0f, acc_u = 0.0f;
+  __syncthreads();
   for (int n = 0; n < a.N; ++n) {
     if (kStage == kNoise) {
-      for (int g = 0; 4 * g < a.d; ++g) {
-        float xi[4];
-        draw(n, g, xi);
+#pragma unroll 1
+      for (int i = 0; i < slots; ++i) {
+        for (int g = q + i * a.tpp; 4 * g < a.d; g += kSumClasses) {
+          float xi[4];
+          draw(n, g, xi);
 #pragma unroll
-        for (int q = 0; q < 4; ++q)
-          if (4 * g + q < a.d) acc += xi[q];
+          for (int r = 0; r < 4; ++r)
+            if (4 * g + r < a.d) acc.y[i] += xi[r];
+        }
       }
       continue;
     }
     // euler: the wrapper packs adaptive = 0, so c = 0 whatever Z holds
-    const float t = static_cast<float>(n) * a.dt;
-    if (kStage != kEuler) train_net(a, W, st, t);
-    const StepSums s = train_noise_pass<false>(a, P, st, n, draw, 0.0f, 0.0f);
-    if (dense_update) train_dense_update(a, P, st);
-    if (kStage == kNet) acc += s.zx;
-    if (kStage >= kFull) train_accumulate(a, P, st, s, acc, acc_k, acc_u);
-    float* tmp = st.X;
-    st.X = st.Xn;
-    st.Xn = tmp;
+    train_forward_step<kShared, kShared, kStage != kEuler,
+                       kStage == kNet   ? kSumZx
+                       : kStage >= kFull ? kSumAll
+                                         : kSumNone>(a, P, W, st, n, draw, q,
+                                                     acc);
   }
-  for (int j = 0; j < a.d; ++j) acc += st.X[j * ts];
-  return acc;
+  for (int i = 0; i < slots; ++i) {
+    for (int g = q + i * a.tpp; 4 * g < a.d; g += kSumClasses) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        if (4 * g + r < a.d) acc.y[i] += st.X[(4 * g + r) * ts];
+    }
+  }
 }
 
 template <int kStage, bool kDevice>
-__global__ void __launch_bounds__(kMaxTile)
+__global__ void __launch_bounds__(kFwdThreads, 2)
 ablation_kernel(const TrainArgs a, const float* __restrict__ P,
                 float* __restrict__ out, float* ws) {
   extern __shared__ float4 smem4[];
   float* S = reinterpret_cast<float*>(smem4);
-  const int k = blockIdx.x * a.tile + threadIdx.x;
+  const int q = threadIdx.x / a.tile;
   TrainState st;
-  float* G;
-  const float* W = train_setup<false, kDevice>(a, P, S, ws, nullptr, st, &G);
-  __syncthreads();
-  if (k >= a.K) return;
-  float r;
+  float *G, *R;
+  const float* W = train_setup<false, kDevice>(a, P, S, ws, nullptr, st, &G,
+                                              &R);
+  const int k = blockIdx.x * a.tile + st.p;
+  FwdAcc acc = {};
   if (kStage == kFullNoNoise) {
-    r = ablation_path<kStage>(a, P, W, st, ConstDraw{});
+    ablation_path<kStage, !kDevice>(a, P, W, st, ConstDraw{}, q, acc);
   } else if (kStage == kFullRawBits) {
-    r = ablation_path<kStage>(a, P, W, st, RawBitsDraw{a.key0, a.key1, k});
+    ablation_path<kStage, !kDevice>(a, P, W, st,
+                                    RawBitsDraw{a.key0, a.key1, k}, q, acc);
   } else {
     const int rng = kStage == kFullBinom ? 1 : 0;
-    r = ablation_path<kStage>(a, P, W, st, MapDraw{a.key0, a.key1, k, rng});
+    ablation_path<kStage, !kDevice>(a, P, W, st,
+                                    MapDraw{a.key0, a.key1, k, rng}, q, acc);
   }
-  out[k] = r;
+  float r, unused_k, unused_u;
+  train_path_sums(a, R, q, st.p, acc, r, unused_k, unused_u);
+  if (q == 0 && k < a.K) out[k] = r;
 }
 
 template <int kStage, bool kDevice>
 int launch_ablation_plan(const TrainArgs& a, const float* params, float* out,
                          float* ws, void* stream) {
-  const size_t smem = sizeof(float) * train_smem_floats(a, false);
+  const size_t smem = sizeof(float) * train_smem_floats(a);
   cudaError_t e = cudaFuncSetAttribute(
       ablation_kernel<kStage, kDevice>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
   const unsigned grid = static_cast<unsigned>((a.K + a.tile - 1) / a.tile);
-  ablation_kernel<kStage, kDevice><<<grid, a.tile, smem,
+  ablation_kernel<kStage, kDevice><<<grid, a.tile * a.tpp, smem,
                                      static_cast<cudaStream_t>(stream)>>>(
       a, params, out, ws);
   return static_cast<int>(cudaGetLastError());
@@ -312,6 +325,7 @@ extern "C" int pspde_ablation(const float* params, float* out, float* ws,
   TrainArgs a;
   const int err = train_unpack(iargs, fargs, seed, device, &a);
   if (err != 0) return err;
+  if (a.backward) return static_cast<int>(cudaErrorInvalidValue);
   switch (stage) {
     case kNoise: return launch_ablation<kNoise>(a, params, out, ws, stream);
     case kEuler: return launch_ablation<kEuler>(a, params, out, ws, stream);

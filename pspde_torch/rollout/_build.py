@@ -28,7 +28,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # filled by library(): path, sources, seconds (0.0 when loaded from an
-# existing build), log (nvcc's output, -Xptxas -v register report included)
+# existing build), log (nvcc's output, -Xptxas -v register report included;
+# kept beside the library as <library>.log and read back with it)
 build_info: dict = {}
 _lib = None
 _lock = threading.Lock()
@@ -67,11 +68,12 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                                     ctypes.POINTER(ctypes.c_float), c_int, vp]
     lib.pspde_normals_sum.argtypes = [vp, c_int, c_int, c_int, c_int,
                                       ctypes.c_ulonglong, c_int, vp]
-    lib.pspde_stopped_bwd_slots.argtypes = [
-        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_float), c_int,
-        ctypes.POINTER(ctypes.c_int)]
+    for name in ("pspde_stopped_bwd_slots", "pspde_train_fwd_occupancy"):
+        getattr(lib, name).argtypes = [
+            ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_float),
+            c_int, ctypes.POINTER(ctypes.c_int)]
     for name in ("pspde_ablation", "pspde_fma_chain", "pspde_normals_sum",
-                 "pspde_stopped_bwd_slots"):
+                 "pspde_stopped_bwd_slots", "pspde_train_fwd_occupancy"):
         getattr(lib, name).restype = ctypes.c_int
     lib.pspde_cuda_error_string.argtypes = [ctypes.c_int]
     lib.pspde_cuda_error_string.restype = ctypes.c_char_p
@@ -106,6 +108,9 @@ def _compile_and_link(sources, out: str) -> str:
         log = "".join(_run(c, p) for c, p in zip(cmds, procs))
         tmp = f"{out}.{tag}"
         log += _run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", tmp, *objs])
+        with open(f"{tmp}.log", "w") as f:
+            f.write(log)
+        os.replace(f"{tmp}.log", f"{out}.log")
         os.replace(tmp, out)
     finally:
         for p in procs:
@@ -137,6 +142,9 @@ def library() -> ctypes.CDLL:
             t0 = time.perf_counter()
             log = _compile_and_link(sources, out)
             seconds = time.perf_counter() - t0
+        elif os.path.isfile(f"{out}.log"):
+            with open(f"{out}.log") as f:
+                log = f.read()
         build_info.update(path=out, sources=sources, seconds=seconds, log=log)
         _lib = bind(ctypes.CDLL(out))
         return _lib

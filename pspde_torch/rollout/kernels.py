@@ -206,6 +206,12 @@ KERNEL_FAMILY = ("drift -x or A x; sigma scalar, diag or full (constant); "
 _CHUNK = 8                 # output widths are padded to this (csrc kChunk)
 _MAX_LAYERS = 8            # csrc kMaxLayers
 _MAX_TILE = 128            # csrc __launch_bounds__
+_FWD_THREADS = 256         # csrc kFwdThreads: the training forward's block
+# threads per path of the training forward, per memory plan: the fastest
+# on an H100 at the bench shape (shared) and at config 5 (device), by
+# experiments/torch_kernel_times.py --layouts
+_FWD_TPP = {"shared": 4, "device": 2}
+_SUM_CLASSES = 4           # csrc kSumClasses: the forward's classes of sums
 _SMEM_LIMIT = 232_448      # bytes of shared memory one block may use (sm_90)
 _SIG_KIND = {"scalar": 0, "diag": 1, "full": 2}
 # where a block keeps the net and its paths' arrays (csrc/train_step.cuh)
@@ -584,15 +590,27 @@ def _check_train_family(problem, z_net, N, noise_sign, u_tab, rng):
     return drift, cost, hfam
 
 
-def _train_smem_bytes(fixed: int, per_path: int, tile: int,
-                      backward: bool) -> int:
+def _train_smem_bytes(fixed: int, per_path: int, tile: int) -> int:
     """Shared memory of one training block in the shared plan: ``fixed``
-    floats (the staged net and X_0, plus the gradient buffer in the
-    backward) and ``per_path`` floats per path at the row stride tile + 1
-    (forward) or tile + 4 (backward: its mma fragment loads are then free
-    of bank conflicts) - the formula of train_step.cuh:train_smem_floats
-    and train_stride."""
-    return 4 * (fixed + per_path * (tile + (4 if backward else 1)))
+    floats (the staged net, plus the gradient buffer in the backward or
+    the exchange of the sums' classes in the forward) and ``per_path``
+    floats per path at the row stride tile + 4, where the mma fragment
+    loads of both kernels' products are free of bank conflicts - the
+    formula of train_step.cuh:train_smem_floats and train_stride."""
+    return 4 * (fixed + per_path * (tile + 4))
+
+
+def _train_fwd_tpp(tile: int, plan: str) -> int:
+    """Threads per path of the forward's block at ``tile`` paths."""
+    return max(1, min(_FWD_TPP[plan], _FWD_THREADS // tile))
+
+
+def _train_fwd_net_floats(lay: _Layout, dp: int) -> int:
+    """The forward's staged net (train_step.cuh:train_stage_net): layer
+    0's t row, each layer's bias, each layer's weights as mma fragments
+    (layer 0's k rows are X's dp)."""
+    k_rows = [dp] + lay.rows[1:]
+    return lay.cols[0] + sum(c + k * c for k, c in zip(k_rows, lay.cols))
 
 
 def _pack_train(problem, z_net, drift, cost, hfam, K, N, delta_t, tile, *,
@@ -602,8 +620,9 @@ def _pack_train(problem, z_net, drift, cost, hfam, K, N, delta_t, tile, *,
     """The training kernels' arguments (train_step.cuh: TrainArgs): the
     buffer of ``_layout`` with the net as it is (the kernel's net returns
     Z) and the u_tab table, the per-layer offsets of one block's gradient
-    buffer, [W (rows, cols); b (1, cols)] per layer, and the memory plan
-    (``_choose_plan``)."""
+    buffer, [W (rows, cols); b (1, cols)] per layer, the direction, the
+    forward's threads per path (``_train_fwd_tpp``; 1 in the backward)
+    and the memory plan (``_choose_plan``)."""
     d = problem.d
     dp = _ceil_to(d, _CHUNK)
     lay = _layout(problem, z_net, drift, cost, negate_last=False,
@@ -618,12 +637,18 @@ def _pack_train(problem, z_net, drift, cost, hfam, K, N, delta_t, tile, *,
         n_grad += (rows + 1) * cols
     n_stage = lay.x0_off + dp
     if backward:
-        fixed, per_path = n_stage + n_grad, dp * (4 if dense else 3) + 2 * hidden
+        per_path = dp * (4 if dense else 3) + 2 * hidden
     else:
-        fixed, per_path = n_stage, dp * (3 if dense else 2) + hidden
-    tile, plan, stride = _choose_plan(
-        lambda t: _train_smem_bytes(fixed, per_path, t, backward), per_path,
-        K, tile, plan, _train_outside)
+        per_path = dp * (3 if dense else 2) + hidden
+    net = _train_fwd_net_floats(lay, dp)
+
+    def smem_bytes(t):
+        fixed = n_stage + n_grad if backward else net + 3 * _SUM_CLASSES * t
+        return _train_smem_bytes(fixed, per_path, t)
+
+    tile, plan, stride = _choose_plan(smem_bytes, per_path, K, tile, plan,
+                                      _train_outside)
+    tpp = 1 if backward else _train_fwd_tpp(tile, plan)
     iargs = [K, N, d, dp, lay.n_layers, tile, lay.drift_kind, lay.a_off,
              lay.sig_kind, lay.sig_off, int(need_f), lay.p_off, lay.x0_off,
              n_stage, lay.u_off, int(u_tab is not None),
@@ -631,7 +656,7 @@ def _pack_train(problem, z_net, drift, cost, hfam, K, N, delta_t, tile, *,
              int(accumulate_kl), int(kl_ito_term), RNG_MAPS.index(rng),
              n_grad]
     iargs += _per_layer_args(lay) + g_off + [0] * (_MAX_LAYERS - lay.n_layers)
-    iargs += [PLANS.index(plan), stride]
+    iargs += [int(backward), tpp, PLANS.index(plan), stride]
     dt, sq_dt = step_constants(delta_t)
     fargs = [dt, sq_dt, float(noise_sign), lay.sig_scale, float(c_h),
              float(f_coef)]
@@ -681,6 +706,31 @@ def _train_forward_kernel(call: _TrainCall) -> FusedTrainOut:
     fused_train_rollout.launches += 1
     fused_train_rollout.launches_by_plan[_plan_of(packed)] += 1
     return FusedTrainOut(X, *acc)
+
+
+def _train_fwd_occupancy(packed: _Packed, dev: torch.device) -> dict:
+    """The forward's launch on CUDA device ``dev`` for one packed call:
+    its blocks resident on one SM (train_rollout.cu:
+    pspde_train_fwd_occupancy), threads and warps a block and an SM, and
+    its bytes of dynamic shared memory.  The runtime's theoretical
+    residency, for the reports (chip_smoke.py, experiments/
+    torch_kernel_times.py --layouts); no solver path calls it."""
+    from ._build import library
+    lib = library()
+    out = (ctypes.c_int * 3)()
+    index = dev.index if dev.index is not None else \
+        torch.cuda.current_device()
+    err = lib.pspde_train_fwd_occupancy(
+        (ctypes.c_int * len(packed.iargs))(*packed.iargs),
+        (ctypes.c_float * len(packed.fargs))(*packed.fargs), index, out)
+    if err != 0:
+        raise RuntimeError("fused_train_rollout: occupancy query failed: "
+                           + lib.pspde_cuda_error_string(err).decode())
+    blocks, threads, smem = list(out)
+    return {"blocks_per_sm": blocks, "threads": threads,
+            "warps_per_sm": blocks * threads // 32, "smem_bytes": smem,
+            "tile": packed.iargs[5], "threads_per_path": packed.iargs[-3],
+            "plan": _plan_of(packed)}
 
 
 def _train_backward_kernel(call: _TrainCall, gY, gKL) -> list:

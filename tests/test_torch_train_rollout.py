@@ -297,10 +297,13 @@ def test_outside_train_kernel_family_raises():
                                        ("lqgc_d100_dense", 64)])
 def test_train_kernel_layout_at_bench_shapes(case, tile):
     """The training kernels' arguments at d=100: the net is not negated,
-    the staged prefix ends after X_0, and both kernels' shared memory at
-    the chosen tile fits one block: the per-path arrays at the row stride
-    tile + 1 in the forward and tile + 4 in the backward, whose mma
-    fragment loads are then free of bank conflicts."""
+    the staged prefix ends after X_0, both kernels' per-path arrays sit at
+    the row stride tile + 4 (their mma fragment loads are then free of bank
+    conflicts), and each block fits: the forward's (tile 64, 4 threads a
+    path) stages the net in fragment order beside its arrays and the
+    exchange of its per-path sums (three in each of 4 classes), the
+    backward's (one thread a path) the
+    prefix and its gradient buffer."""
     if case == "llgc_d100":
         pt = tp.LLGC(d=100, T=1.0, device="cpu")
         u_tab = pt.u_ref_table(np.arange(32) / 32)
@@ -310,23 +313,27 @@ def test_train_kernel_layout_at_bench_shapes(case, tile):
     net = tk.TanhMLP(101, 100, generator=torch.Generator().manual_seed(0),
                      device="cpu")
     fam = tk._check_train_family(pt, net, 32, 1.0, u_tab, "binom")
+    dense = case == "lqgc_d100_dense"
     for backward in (False, True):
         packed = tk._pack_train(
             pt, net, *fam, 131072, 32, 1 / 32, None, backward=backward,
             host_noise=None, noise_sign=1.0, adaptive_forward=True,
             accumulate_kl=False, kl_ito_term=False, u_tab=u_tab, rng="binom")
         ia = packed.iargs
-        assert len(ia) == 24 + 5 * tk._MAX_LAYERS
-        assert ia[5] == tile and ia[13] == ia[12] + 104   # n_stage
+        assert len(ia) == 26 + 5 * tk._MAX_LAYERS
+        t = tile
+        assert ia[5] == t and ia[13] == ia[12] + 104   # n_stage
         assert ia[21] == 102 * 32 + 33 * 32 + 33 * 104   # n_grad
-        dense = case == "lqgc_d100_dense"
+        tpp = 1 if backward else 4
+        assert ia[-4:] == [int(backward), tpp, 0, 0]
         per_path = (104 * ((4 if backward else 3) if dense
                            else (3 if backward else 2))
                     + (2 if backward else 1) * 64)
-        fixed = ia[13] + (ia[21] if backward else 0)
-        stride = tile + (4 if backward else 1)
-        smem = tk._train_smem_bytes(fixed, per_path, tile, backward)
-        assert smem == 4 * (fixed + per_path * stride) <= tk._SMEM_LIMIT
+        # the forward's staged net: t row, biases, fragments
+        net_floats = 32 + (32 + 32 + 104) + (104 * 32 + 32 * 32 + 32 * 104)
+        fixed = ia[13] + ia[21] if backward else net_floats + 3 * 4 * t
+        smem = tk._train_smem_bytes(fixed, per_path, t)
+        assert smem == 4 * (fixed + per_path * (t + 4)) <= tk._SMEM_LIMIT
         w2 = ia[22 + 2 * tk._MAX_LAYERS + 2]
         W2 = packed.params[w2:w2 + 32 * 104].reshape(32, 104)
         torch.testing.assert_close(W2[:30, :100],

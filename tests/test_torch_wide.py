@@ -55,7 +55,7 @@ def _pack_serve(pt, net, K, plan=None):
 
 
 def test_packers_choose_the_device_plan_at_d1000():
-    """At d=1000 no tile's block fits: the forward would need 540,928
+    """At d=1000 no tile's block fits: the forward would need 563,232
     bytes at tile 32, the backward 983,392, the serve kernel 532,672.
     Each packer chooses the device plan, tile 64, and a workspace of its
     per-path floats times K rounded up to the tile."""
@@ -76,18 +76,21 @@ def test_packers_choose_the_device_plan_at_d1000():
 
 def test_packers_keep_the_shared_plan_at_d100():
     """At d=100 both plans are on the card; the packers keep the shared
-    plan with tile 64 and 7,856 staged floats.  The forward's block keeps
-    its bytes (rows at stride 65); the backward's rows are at stride 68
-    for its mma fragment loads: 182,112 bytes, still one block."""
+    plan with tile 64 and 7,856 staged floats in the packed prefix.  Both
+    kernels' rows are at stride 68 for their mma fragment loads: the
+    forward's block (the net staged in fragment order, 7,880 floats, and
+    the exchange of its sums, three in each of 4 classes a path) takes
+    108,576 bytes, two blocks an SM; the backward's 182,112 bytes, one
+    block."""
     pt, net, u_tab = _setup(100, N=32)
-    for backward, per_path, nbytes in ((False, 2 * 104 + 64, 102144),
+    for backward, per_path, nbytes in ((False, 2 * 104 + 64, 108576),
                                        (True, 3 * 104 + 2 * 64, 182112)):
         p = _pack_train(pt, net, u_tab, 131072, backward, N=32)
         assert tk._plan_of(p) == "shared" and p.ws_floats == 0
         assert p.iargs[5] == 64 and p.iargs[13] == 7856
         assert p.iargs[-2:] == [0, 0]
-        fixed = 7856 + (p.iargs[21] if backward else 0)
-        smem = tk._train_smem_bytes(fixed, per_path, 64, backward)
+        fixed = 7856 + p.iargs[21] if backward else 7880 + 3 * 4 * 64
+        smem = tk._train_smem_bytes(fixed, per_path, 64)
         assert smem == nbytes <= tk._SMEM_LIMIT
     p = _pack_serve(pt, net, 1000)
     assert tk._plan_of(p) == "shared" and p.iargs[6] == 64
