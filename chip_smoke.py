@@ -9,8 +9,9 @@ control is learned.  This script
      per source), counts the TF32 HMMA instructions of the HJB forward's
      and backward's two instantiations each, of the ablation ladder's net
      and full stages on both plans and of the stopped backward's six in
-     the library's SASS (none fails), and prints the HJB forward's
-     registers and spill bytes from ptxas (a spill fails);
+     the library's SASS (none fails), and prints the registers and spill
+     bytes of the HJB forward's and the stopped forward's instantiations
+     from ptxas (a spill fails);
   2. compares the serve kernel with its plain PyTorch version on host
      noise, on LLGC d=100 with the exported control and on LQGC d=100
      (dense A and sigma, f != 0), at K=8192 and N=100;
@@ -48,7 +49,11 @@ control is learned.  This script
      kernel on the plain outputs' cotangents against the plain backward
      (1e-5 of each leaf's largest entry; two launches bitwise equal); and
      once at K=24613, not a multiple of the tile, on fewer blocks than
-     tiles, where the backward's lanes take new paths as theirs stop;
+     tiles, where the backward's lanes take new paths as theirs stop.  The
+     forward's outputs must be bitwise equal at its chosen layout, at that
+     layout's other grid and at one thread a path on one tile a block, and
+     its lanes' trips must sum to the paths' active steps (here and in
+     phases 16 and 20);
  11. trains EllipticSolver(rollout_mode='fused_train') on the slice's
      recipe (d=50, N=20, dt=1e-3, lr=1e-3, K=8192, 2000 iterations,
      K_test_log=4096): 2000 launches of each kernel, tail-50 test L2
@@ -56,8 +61,10 @@ control is learned.  This script
  12. times both stopped kernels, one solver step and the plain versions
      at K=65536, N=20 for both nets, reads the block-steps and busy
      lanes that the backward's blocks count against the lane model's
-     (they must agree) and the advancing path-steps, and profiles three
-     solver steps.
+     (they must agree) and the advancing path-steps, prints the forward's
+     layout, its warps per SM and bytes a block (the occupancy API's) and
+     the lane use its lanes count (also in phases 17 and 22), and profiles
+     three solver steps.
  13. runs the HJB-family kernels on their device plan (the net read from
      device memory, each path's arrays in a [row][K] workspace) at LLGC
      d=1000, N=200, K=2048 against their plain versions (serve, training
@@ -572,6 +579,12 @@ def main():
     check(len(fwd_use) == 2
           and all(u[1] == u[2] == 0 for u in fwd_use.values()),
           "the HJB forward's instantiations spill no registers")
+    stopped_use = ptxas_usage(info["log"], "stopped_fwd_kernel")
+    print(f"  ptxas, the stopped forward's six instantiations (registers, "
+          f"spill store and load bytes): {sorted(stopped_use.values())}")
+    check(len(stopped_use) == 6
+          and all(u[1] == u[2] == 0 for u in stopped_use.values()),
+          "the stopped forward's instantiations spill no registers")
 
     llgc = LLGC(d=D, T=T_END, device=dev)
     solver = HJBSolver("llgc_d100", llgc, K=1024, delta_t=1 / 32,
@@ -991,6 +1004,91 @@ def stopped_lane_schedule(lane_steps, tile, grid):
             "lane_steps": int(lane_steps.sum()), "runs": runs}
 
 
+def stopped_fwd_lane_schedule(steps, tile, grid, tpp=1):
+    """A model of the forward kernel's lanes (stopped_rollout.cu:
+    stopped_fwd_kernel): ``grid`` blocks of ``tile`` lanes; lane i (lane i
+    mod tile of block i div tile) first takes path i, then, each time its
+    path ends, the next path of one queue (lanes that free at the same
+    trip take paths in lane order; on the card their order is the atomics'
+    and varies).  ``steps[k]``: the trips path k takes (``hitting``: the
+    step that stops is taken too).  Returns per lane its ``trips`` (grid,
+    tile) and ``runs``: per path (lane, first trip, trips); and ``busy``,
+    the lane-trips that the lanes' warps (32 / tpp lanes each) run: each
+    warp runs its busiest lane's trips."""
+    import heapq
+    import numpy as np
+    steps = np.asarray(steps, dtype=np.int64)
+    K, lanes = steps.shape[0], grid * tile
+    trips = np.zeros(lanes, dtype=np.int64)
+    runs = [None] * K
+    free = []
+    for i in range(min(lanes, K)):
+        runs[i] = (i, 0, int(steps[i]))
+        trips[i] = steps[i]
+        heapq.heappush(free, (int(steps[i]), i))
+    for k in range(lanes, K):
+        at, i = heapq.heappop(free)
+        runs[k] = (i, at, int(steps[k]))
+        trips[i] += steps[k]
+        heapq.heappush(free, (at + int(steps[k]), i))
+    trips = trips.reshape(grid, tile)
+    return {"trips": trips, "runs": runs,
+            "busy": fwd_warp_lane_trips(trips, tpp)}
+
+
+def fwd_warp_lane_trips(trips, tpp):
+    """Lane-trips of the forward's warps: each warp (32 / tpp consecutive
+    lanes of a block of ``trips`` (grid, tile)) runs as many trips as its
+    busiest lane."""
+    per_warp = 32 // tpp
+    t = trips.reshape(trips.shape[0], -1, per_warp)
+    return int(t.max(axis=2).sum()) * per_warp
+
+
+def fwd_lane_use(call, dev):
+    """The forward's lanes in this run: one launch counts each lane's trips
+    (``_stopped_forward_launch``); their sum must be the paths' active steps
+    (each path runs once, on one lane).  Lane use = advancing path-steps
+    over the lane-trips of the warps (each runs its busiest lane's trips);
+    the model (``stopped_fwd_lane_schedule``) gives the same for the queue
+    in lane order, and for the one-thread-a-path, one-tile-a-block schedule
+    of the parent.  Returns a dict for the reports."""
+    from pspde_torch.rollout import kernels as km
+    packed = call.pack(backward=False)
+    occ = km._stopped_fwd_occupancy(packed, dev)
+    out, trips = km._stopped_forward_launch(call)
+    trips = trips.long().cpu().numpy()
+    hit = out.hitting.long().cpu().numpy()
+    n_adv = int(out.adv_steps.sum())
+    check(int(trips.sum()) == int(hit.sum()),
+          f"the forward's lanes ran {int(trips.sum())} trips for "
+          f"{int(hit.sum())} active path-steps")
+    lay = km._FwdLayout(*packed.layout)
+    busy = fwd_warp_lane_trips(trips, lay.tpp)
+    model = stopped_fwd_lane_schedule(hit, lay.tile, trips.shape[0],
+                                      lay.tpp)
+    K, T = hit.shape[0], 64
+    old = stopped_fwd_lane_schedule(hit, T, -(-K // T))
+    return {"layout": f"{lay.tile} lanes x {lay.tpp} threads, "
+                      f"{'refilled' if lay.refill else 'one block a tile'}",
+            "grid": trips.shape[0], "warps_per_sm": occ["warps_per_sm"],
+            "block_bytes": occ["smem_bytes"], "active": int(hit.sum()),
+            "advancing": n_adv, "lane_use": n_adv / busy,
+            "lane_use_model": n_adv / model["busy"],
+            "lane_use_parent_schedule": n_adv / old["busy"]}
+
+
+def print_fwd_lane_use(tag, use):
+    print(f"  {tag} forward: {use['layout']}, {use['grid']} blocks; the "
+          f"occupancy API's {use['warps_per_sm']} warps per SM and "
+          f"{use['block_bytes']} bytes a block (theoretical); lanes: "
+          f"{use['active']} active and {use['advancing']} advancing "
+          f"path-steps, lane use {100 * use['lane_use']:.1f}% counted by "
+          f"the kernel (the model's {100 * use['lane_use_model']:.1f}%; one "
+          f"thread a path at one tile of 64 a block: "
+          f"{100 * use['lane_use_parent_schedule']:.1f}%)")
+
+
 def lane_use(call, out, gY, torus=False):
     """The stopped backward's lanes in this run: one launch on ``gY``
     counts, per block, its block-steps and its busy lanes summed over them
@@ -1116,6 +1214,46 @@ def check_backward(tag, call, net, gY, agree, worst, zero_leaves=(),
     return rels, lam_err, rows[0].shape[0]
 
 
+def one_thread_layout(call):
+    """The forward's one-thread-a-path, one-tile-a-block schedule (the
+    kernel before its lanes were refilled and split): tile 64, or 32 where
+    64 paths' arrays fit no block."""
+    for tile in (64, 32):
+        try:
+            call._replace(fwd_layout=(tile, 1, False)).pack(backward=False)
+            return (tile, 1, False)
+        except ValueError:
+            continue
+    raise RuntimeError("no one-thread layout fits")
+
+
+def check_fwd_layouts(tag, call, kern):
+    """The forward's outputs bitwise equal across layouts: ``kern`` (the
+    main path's, at the chosen layout), the chosen layout launched again,
+    its other grid (refilled lanes or one block a tile) and one thread a
+    path at one tile a block; each launch's lanes ran as many trips as the
+    paths' active steps (each path once).  Returns the layouts' names."""
+    from pspde_torch.rollout import kernels as km
+    lay = km._FwdLayout(*call.pack(backward=False).layout)
+    names = []
+    for forced in (None, (lay.tile, lay.tpp, not lay.refill),
+                   one_thread_layout(call)):
+        out, trips = km._stopped_forward_launch(
+            call if forced is None else call._replace(fwd_layout=forced))
+        torch.cuda.synchronize()
+        f = km._FwdLayout(*(forced or lay))
+        name = f"{f.tile}x{f.tpp}{' refilled' if f.refill else ''}"
+        names.append(name)
+        check(all(torch.equal(a.detach(), b.detach())
+                  for a, b in zip(out, kern)),
+              f"{tag}: the forward at layout {name} differs from the main "
+              "path's bitwise")
+        check(int(trips.sum()) == int(out.hitting.sum()),
+              f"{tag}: layout {name} ran {int(trips.sum())} trips for "
+              f"{int(out.hitting.sum())} active path-steps")
+    return names
+
+
 def compare_stopped(tag, prob, net, X0, t0, N, dt, kw, worst, mask_tol,
                     time_stopping=False, zero_leaves=()):
     """Stopped kernels against their plain version from (X0, t0): outputs
@@ -1141,8 +1279,16 @@ def compare_stopped(tag, prob, net, X0, t0, N, dt, kw, worst, mask_tol,
     def diffusion_loss(out):
         return torch.mean((V(out.X, out.t) - V(X0, t0) - out.Y) ** 2)
 
+    call = km._StoppedCall(
+        prob, net, X0, t0, N, dt, kw.get("seed", 0),
+        km._check_stopped_family(prob, net, kw.get("rng", "erfinv"),
+                                 time_stopping),
+        dict(adaptive_forward=kw.get("adaptive_forward", False),
+             rng=kw.get("rng", "erfinv"), host_noise=kw.get("host_noise"),
+             time_stopping=time_stopping), None)
     kern = km.fused_stopped_train_rollout(prob, net, X0, t0, N, dt, **kw)
     g_kern = torch.autograd.grad(diffusion_loss(kern), params)
+    layouts = check_fwd_layouts(tag, call, kern)
     plain = km.reference_stopped_train_rollout(prob, net, X0, t0, N, dt,
                                                **kw)
     g_plain = torch.autograd.grad(diffusion_loss(plain), params)
@@ -1176,18 +1322,12 @@ def compare_stopped(tag, prob, net, X0, t0, N, dt, kw, worst, mask_tol,
     # the backward on the plain outputs' cotangents
     Y = plain.Y.detach().requires_grad_()
     (gY,) = torch.autograd.grad(diffusion_loss(plain._replace(Y=Y)), [Y])
-    call = km._StoppedCall(
-        prob, net, X0, t0, N, dt, kw.get("seed", 0),
-        km._check_stopped_family(prob, net, kw.get("rng", "erfinv"),
-                                 time_stopping),
-        dict(adaptive_forward=kw.get("adaptive_forward", False),
-             rng=kw.get("rng", "erfinv"), host_noise=kw.get("host_noise"),
-             time_stopping=time_stopping), None)
     bwd, _, grid = check_backward(tag, call, net, gY, agree, worst,
                                   zero_leaves)
-    print(f"  {tag}: exit step differs on {n_dis} of {X0.shape[0]} "
-          f"paths; advancing steps {float(plain.adv_steps.sum()):.0f}; "
-          f"outputs ok; grad max|kern-plain|/max|plain| per leaf "
+    print(f"  {tag}: forward layouts {layouts} bitwise equal; exit step "
+          f"differs on {n_dis} of {X0.shape[0]} paths; advancing steps "
+          f"{float(plain.adv_steps.sum()):.0f}; outputs ok; grad "
+          f"max|kern-plain|/max|plain| per leaf "
           f"{['%.1e' % r for r in rels]}; backward on plain cotangents "
           f"{['%.1e' % r for r in bwd]} ({grid} blocks), two launches "
           "bitwise equal")
@@ -1337,6 +1477,8 @@ def stopped_phases(dev, smi, timed):
                                      4 * (2 * n_par + Kb * (d + 1)))
         use = lane_use(call, probe, gY)
         print_lane_use(tag, use)
+        fwd_use = fwd_lane_use(call, dev)
+        print_fwd_lane_use(tag, fwd_use)
         steppers = {}
         for mode in ("fused_train", "scan"):
             steppers[mode] = EllipticSolver(
@@ -1376,8 +1518,8 @@ def stopped_phases(dev, smi, timed):
               f"{b_fwd['bound_by']}); step {r['step'][0]:.3f} ms -> "
               f"{Kb * N / r['step'][0] * 1e3:.4e} path-steps/s (K N per "
               f"step time)")
-        times[tag] = (r, b_fwd, dict(b_bwd, lanes=use[0]),
-                      steppers["fused_train"])
+        times[tag] = (r, dict(b_fwd, layout=fwd_use["layout"]),
+                      dict(b_bwd, lanes=use[0]), steppers["fused_train"])
     print(f"  card: {smi}")
 
     first = next(iter(NETS_ELL))
@@ -1393,7 +1535,8 @@ def stopped_phases(dev, smi, timed):
              max_abs_err=worst["out"], ms=r["forward"][0],
              plain_ms=r["forward"][1], **b_fwd,
              ms_notebook=rn["forward"][0], plain_ms_notebook=rn["forward"][1],
-             bound_ms_notebook=bn_fwd["bound_ms"]),
+             bound_ms_notebook=bn_fwd["bound_ms"],
+             layout_notebook=bn_fwd["layout"]),
         dict(row, name="fused_stopped_train_rollout.backward",
              replaces="pspde/rollout/kernels.py:1272", launches=bwd_launches,
              max_abs_err=max(worst["grad"], worst["bwd"]),
@@ -1948,6 +2091,8 @@ def general_phases(dev, smi):
                                      4 * (2 * n_par + K * (d + 2)))
         use = lane_use(call, probe, gY)
         print_lane_use(tag, use)
+        fwd_use = fwd_lane_use(call, dev)
+        print_fwd_lane_use(tag, fwd_use)
 
         def plain_fwd():
             with torch.no_grad():
@@ -1970,7 +2115,8 @@ def general_phases(dev, smi):
               f"{b_fwd['bound_ms']:.4f} ms, backward "
               f"{b_bwd['bound_ms']:.4f} ms (all FP32 "
               f"{b_bwd['bound_ms_fp32']:.4f}; {b_fwd['bound_by']})")
-        times[tag] = (r, b_fwd, dict(b_bwd, lanes=use[0]))
+        times[tag] = (r, dict(b_fwd, layout=fwd_use["layout"]),
+                      dict(b_bwd, lanes=use[0]))
     p1 = timed(solvers["scan"].step, 1)
     k = [timed(main.step, 5), timed(main.step, 5)]
     p2 = timed(solvers["scan"].step, 1)
@@ -2091,9 +2237,17 @@ def compare_eigen(tag, prob, net, X0, N, dt, kw, worst):
     def loss(out):
         return torch.mean((V(out.X) - V(X0) - out.Y) ** 2)
 
+    fam = km._check_stopped_family(prob, net, kw.get("rng", "erfinv"),
+                                   lam=lam)
+    call = km._StoppedCall(
+        prob, net, X0, t0, N, dt, kw.get("seed", 0), fam,
+        dict(adaptive_forward=kw.get("adaptive_forward", False),
+             rng=kw.get("rng", "erfinv"), host_noise=kw.get("host_noise"),
+             time_stopping=False), None, lam)
     kern = km.fused_stopped_train_rollout(prob, net, X0, t0, N, dt, lam=lam,
                                           **kw)
     g_kern = torch.autograd.grad(loss(kern), leaves)
+    layouts = check_fwd_layouts(tag, call, kern)
     plain = km.reference_stopped_train_rollout(prob, net, X0, t0, N, dt,
                                                lam=lam, **kw)
     g_plain = torch.autograd.grad(loss(plain), leaves)
@@ -2117,13 +2271,6 @@ def compare_eigen(tag, prob, net, X0, N, dt, kw, worst):
     # the backward on the plain outputs' cotangents
     Y = plain.Y.detach().requires_grad_()
     (gY,) = torch.autograd.grad(loss(plain._replace(Y=Y)), [Y])
-    fam = km._check_stopped_family(prob, net, kw.get("rng", "erfinv"),
-                                   lam=lam)
-    call = km._StoppedCall(
-        prob, net, X0, t0, N, dt, kw.get("seed", 0), fam,
-        dict(adaptive_forward=kw.get("adaptive_forward", False),
-             rng=kw.get("rng", "erfinv"), host_noise=kw.get("host_noise"),
-             time_stopping=False), None, lam)
     with torch.no_grad():
         S = (km.reference_stopped_train_rollout(
             prob, net, X0, t0, N, dt, lam=0.0 * lam, **kw).Y
@@ -2132,7 +2279,8 @@ def compare_eigen(tag, prob, net, X0, N, dt, kw, worst):
     lam_scale = float(torch.sum((gY * agree.to(gY.dtype) * S).abs()))
     bwd, lam_err, grid = check_backward(tag, call, net, gY, agree, worst,
                                         lam_scale=lam_scale)
-    print(f"  {tag}: exit step differs on {n_dis} of {K} paths; advancing "
+    print(f"  {tag}: forward layouts {layouts} bitwise equal; exit step "
+          f"differs on {n_dis} of {K} paths; advancing "
           f"steps {float(plain.adv_steps.sum()):.0f}; outputs ok; "
           f"{loss_rels}; backward {['%.1e' % r for r in bwd]} ({grid} "
           f"blocks, two launches bitwise equal); backward lambda "
@@ -2283,6 +2431,8 @@ def eigen_phases(dev, smi):
                                      4 * (2 * n_par + K * (d + 2)))
         use = lane_use(call, probe, gY, torus=True)
         print_lane_use(f"K={K}", use)
+        fwd_use = fwd_lane_use(call, dev)
+        print_fwd_lane_use(f"K={K}", fwd_use)
         steppers = {mode: solver(K, mode, L=1)
                     for mode in ("fused_train", "scan")}
 
@@ -2309,8 +2459,8 @@ def eigen_phases(dev, smi):
               f"backward {b_bwd['bound_ms']:.5f} ms (all FP32 "
               f"{b_bwd['bound_ms_fp32']:.5f}; {b_fwd['bound_by']}); "
               f"step {r['step'][0]:.3f} ms")
-        times[K] = (r, b_fwd, dict(b_bwd, lanes=use[0]),
-                    steppers["fused_train"])
+        times[K] = (r, dict(b_fwd, layout=fwd_use["layout"]),
+                    dict(b_bwd, lanes=use[0]), steppers["fused_train"])
     print(f"  card: {smi}")
     profile_steps(f"3 EigenSolver steps, K={K_EIG}", main.step)
     profile_steps(f"3 EigenSolver steps, K={K_EIG_BENCH}",
@@ -2327,7 +2477,8 @@ def eigen_phases(dev, smi):
              max_abs_err=worst["out"], ms=r["forward"][0],
              plain_ms=r["forward"][1], **b_fwd,
              ms_K65536=rb["forward"][0], plain_ms_K65536=rb["forward"][1],
-             bound_ms_K65536=bb_fwd["bound_ms"]),
+             bound_ms_K65536=bb_fwd["bound_ms"],
+             layout_K65536=bb_fwd["layout"]),
         dict(row, name="fused_stopped_train_rollout.backward.torus",
              replaces="pspde/rollout/kernels.py:1272", launches=launches[1],
              max_abs_err=max(worst["grad"], worst["bwd"]),

@@ -3,7 +3,7 @@
 kernels at the bench shapes on one CUDA card, and print one JSON line.
 
     python3 experiments/torch_kernel_times.py [--root DIR] [--hjb-only]
-        [--layouts] [--fwd-bwd]
+        [--stopped-only] [--layouts [hjb|stopped]] [--fwd-bwd]
 
 ``--root`` names the checkout whose ``pspde_torch`` is timed (default:
 the one this script lives in).  Two trees are compared on one card in one
@@ -31,14 +31,26 @@ DenseNet (30, 30) and the notebook net (70, 50, 50, 50), with one
 heat cell (HeatEquation d=50, T=0.2, the whole space, K=4096, N=100),
 DenseNet (30, 30) on [x, t], and on the torus (FokkerPlanckEigen d=5,
 N=20, the notebook's DenseNet (10, 10, 10, 10), lambda = 0.3) at K=500 and
-K=65536, where the backward kernel's device time per launch is also read
-from ``torch.profiler`` (``*_device`` keys: at K=500 the events time the
-host's launches as much as the kernel).  ``--hjb-only`` leaves out the
-serve and stopped kernels.  ``--layouts`` (a tree whose forward has
-threads per path) times the forward at the bench shape and at config 5
-for each tile and threads-per-path layout, with the blocks per SM of
-each.  ``--fwd-bwd`` times only the HJB forward and backward kernels, at
-the bench shape (binom) and at config 5.
+K=65536; the forward's device time per launch is also read from
+``torch.profiler`` at every cell, the backward's on the torus (``*_device``
+keys: at K=500 the events time the host's launches as much as the
+kernel).  ``--hjb-only`` leaves out the
+serve and stopped kernels; ``--stopped-only`` times only the stopped
+kernels and their solvers' steps: the elliptic step for both nets, the
+gen50 and config-2 ``GeneralSolver`` steps and the ``EigenSolver`` step of
+the notebook recipe at K=500 and 65536.  ``--layouts`` (a tree whose
+forward has threads per path) times the HJB forward at the bench shape
+and at config 5 for each tile and threads-per-path layout, with the
+blocks per SM of each, and the stopped forward (a tree with forced
+layouts) at the elliptic cell for both nets, gen50, heat and the torus at
+K=500 and 65536 for each tile, threads per lane and grid (refilled lanes
+or one block per tile), with the warps per SM and bytes a block of each,
+whether its outputs are bitwise those of one thread a path at one tile a
+block, and its device time from ``torch.profiler`` beside the events'
+(which time the host's launches too where a launch is short);
+``--layouts hjb`` or ``--layouts stopped`` times one of the two.
+``--fwd-bwd`` times only the HJB forward and backward kernels, at the
+bench shape (binom) and at config 5.
 """
 
 import argparse
@@ -100,9 +112,12 @@ def main():
                     help="checkout whose pspde_torch is timed")
     ap.add_argument("--hjb-only", action="store_true",
                     help="time the HJB training kernels only")
-    ap.add_argument("--layouts", action="store_true",
-                    help="time the forward's tile and threads-per-path "
-                         "layouts")
+    ap.add_argument("--layouts", nargs="?", const="all",
+                    choices=("all", "hjb", "stopped"),
+                    help="time the forwards' layouts (tile, threads per "
+                         "path; the stopped forward's grid)")
+    ap.add_argument("--stopped-only", action="store_true",
+                    help="time the stopped kernels and steps only")
     ap.add_argument("--fwd-bwd", action="store_true",
                     help="time the HJB forward and backward kernels only")
     args = ap.parse_args()
@@ -161,9 +176,18 @@ def main():
                                                                    gKL), 5)}
 
     out = {"root": os.path.relpath(root, here), "card": card}
+    if args.stopped_only:
+        out.update(stopped_times(dev, gen))
+        out.update(stopped_steps(dev))
+        print(json.dumps(out))
+        return
     if args.layouts or args.fwd_bwd:
-        out.update(layout_times(llgc, net, u_tab, dev) if args.layouts
-                   else fwd_bwd_times(llgc, net, u_tab, dev, gen))
+        if args.fwd_bwd:
+            out.update(fwd_bwd_times(llgc, net, u_tab, dev, gen))
+        if args.layouts in ("all", "hjb"):
+            out.update(layout_times(llgc, net, u_tab, dev))
+        if args.layouts in ("all", "stopped"):
+            out.update(stopped_layout_times(dev, gen))
         print(json.dumps(out))
         return
     if not args.hjb_only:
@@ -331,104 +355,191 @@ def layout_times(llgc, net, u_tab, dev):
     return out
 
 
-def stopped_times(dev, gen):
-    """ms of the stopped kernels and of one elliptic solver step."""
+def stopped_cells(dev, gen):
+    """{cell: (problem, net, X0, t0, N, dt, lam, time_stopping)}: the stopped
+    kernels' cells of chip_smoke.py (phases 12, 17, 19, 22)."""
     from pspde_torch.ansatz import DenseNet
-    from pspde_torch.problems import ExponentialOnBallNonlinearSin
-    from pspde_torch.rollout import kernels as km
+    from pspde_torch.problems import (ExponentialOnBallNonlinearSin,
+                                      ExponentialOnSphereNonlinearParabolic,
+                                      FokkerPlanckEigen, Geometry,
+                                      HeatEquation)
     from pspde_torch.rollout.sampling import sample_domain
-    from pspde_torch.solvers import EllipticSolver
+
+    def net(arch, d_in):
+        return DenseNet(1, arch, d_in=d_in, device=dev,
+                        generator=torch.Generator(dev).manual_seed(5))
 
     sin = ExponentialOnBallNonlinearSin(d=D_ELL, alpha=0.1, device=dev)
     X0 = sample_domain(gen, sin.geometry, K_ELL, D_ELL)
-    t0 = torch.zeros(K_ELL, device=dev)
-    gY = torch.randn(K_ELL, generator=gen, device=dev) / K_ELL
-    out = {}
-    for tag, arch in NETS_ELL.items():
-        net = DenseNet(1, arch, d_in=D_ELL, device=dev,
-                       generator=torch.Generator(dev).manual_seed(5))
-        call = km._StoppedCall(
-            sin, net, X0, t0, N_ELL, DT_ELL, 17,
-            km._check_stopped_family(sin, net, "erfinv"),
-            dict(adaptive_forward=False, rng="erfinv", host_noise=None), None)
-        out[f"stopped_fwd_{tag}"] = timed(
-            lambda: km._stopped_forward_kernel(call), 10)
-        out[f"stopped_bwd_{tag}"] = timed(
-            lambda: km._stopped_backward_kernel(call, gY), 5)
-    ell = EllipticSolver(sin, "bench", loss_method="diffusion", K=K_ELL,
-                         N=N_ELL, delta_t=DT_ELL, lr=1e-3, L=1,
-                         K_test_log=4096, verbose=False,
-                         rollout_mode="fused_train", device=dev)
-    out["elliptic_step"] = timed(ell.step, 10)
-    out.update(time_stopping_times(dev, gen))
-    out.update(torus_times(dev, gen))
-    return out
-
-
-def torus_times(dev, gen):
-    """ms of the stopped kernels' torus instantiation (the eigen solver's
-    domain leg) at K=500 and 65536, the cells of chip_smoke.py phase 22."""
-    from pspde_torch.ansatz import DenseNet
-    from pspde_torch.problems import FokkerPlanckEigen
-    from pspde_torch.rollout import kernels as km
-    from pspde_torch.rollout.sampling import sample_domain
-
-    fp = FokkerPlanckEigen(d=5, device=dev)
-    out = {}
-    for K in (500, 65536):
-        net = DenseNet(1, (10, 10, 10, 10), d_in=5, device=dev,
-                       generator=torch.Generator(dev).manual_seed(5))
-        X0 = sample_domain(gen, fp.geometry, K, 5)
-        lam = torch.full((1,), 0.3, device=dev)
-        gY = torch.randn(K, generator=gen, device=dev) / K
-        call = km._StoppedCall(
-            fp, net, X0, torch.zeros(K, device=dev), 20, 1e-3, 17,
-            km._check_stopped_family(fp, net, "erfinv", lam=lam),
-            dict(adaptive_forward=False, rng="erfinv", host_noise=None,
-                 time_stopping=False), None, lam)
-        out[f"stopped_fwd_torus_{K}"] = timed(
-            lambda: km._stopped_forward_kernel(call), 20)
-        out[f"stopped_bwd_torus_{K}"] = timed(
-            lambda: km._stopped_backward_kernel(call, gY), 10)
-        out[f"stopped_bwd_torus_{K}_device"] = device_ms(
-            lambda: km._stopped_backward_kernel(call, gY), 10,
-            "stopped_bwd_kernel")
-    return out
-
-
-def time_stopping_times(dev, gen):
-    """ms of the stopped kernels' time_stopping instantiation at the gen50
-    and heat cells of chip_smoke.py (phases 16-19)."""
-    from pspde_torch.ansatz import DenseNet
-    from pspde_torch.problems import (ExponentialOnSphereNonlinearParabolic,
-                                      Geometry, HeatEquation)
-    from pspde_torch.rollout import kernels as km
-    from pspde_torch.rollout.sampling import sample_domain
-
+    zeros = torch.zeros(K_ELL, device=dev)
+    cells = {f"ell_{tag}": (sin, net(arch, D_ELL), X0, zeros, N_ELL, DT_ELL,
+                            None, False)
+             for tag, arch in NETS_ELL.items()}
     heat = HeatEquation(d=D_ELL, T=0.2, device=dev)
     heat.geometry = Geometry(kind="unbounded", boundary_distance=6.0)
-    out = {}
     for tag, prob, K, N, dt in (
             ("gen50", ExponentialOnSphereNonlinearParabolic(d=D_ELL,
                                                             device=dev),
              K_ELL, N_ELL, DT_ELL),
             ("heat", heat, 4096, 100, 2e-3)):
-        net = DenseNet(1, (30, 30), d_in=D_ELL + 1, device=dev,
-                       generator=torch.Generator(dev).manual_seed(5))
-        X0 = sample_domain(gen, prob.geometry, K, D_ELL)
-        t0 = torch.rand(K, generator=gen, device=dev) * prob.T
-        gY = torch.randn(K, generator=gen, device=dev) / K
-        call = km._StoppedCall(
-            prob, net, X0, t0, N, dt, 17,
-            km._check_stopped_family(prob, net, "erfinv",
-                                     time_stopping=True),
-            dict(adaptive_forward=False, rng="erfinv", host_noise=None,
-                 time_stopping=True), None)
-        out[f"stopped_fwd_{tag}"] = timed(
-            lambda: km._stopped_forward_kernel(call), 10)
-        out[f"stopped_bwd_{tag}"] = timed(
-            lambda: km._stopped_backward_kernel(call, gY), 5)
+        cells[tag] = (prob, net((30, 30), D_ELL + 1),
+                      sample_domain(gen, prob.geometry, K, D_ELL),
+                      torch.rand(K, generator=gen, device=dev) * prob.T, N,
+                      dt, None, True)
+    fp = FokkerPlanckEigen(d=5, device=dev)
+    for K in (500, 65536):
+        cells[f"torus_{K}"] = (fp, net((10, 10, 10, 10), 5),
+                               sample_domain(gen, fp.geometry, K, 5),
+                               torch.zeros(K, device=dev), 20, 1e-3,
+                               torch.full((1,), 0.3, device=dev), False)
+    return cells
+
+
+def stopped_call(km, cell, **kw):
+    """The kernels' call at one cell of ``stopped_cells``: seed 17, erfinv
+    noise, not adaptive; ``kw`` more fields (a forced ``fwd_layout``)."""
+    prob, net, X0, t0, N, dt, lam, timed = cell
+    return km._StoppedCall(
+        prob, net, X0, t0, N, dt, 17,
+        km._check_stopped_family(prob, net, "erfinv", timed, lam),
+        dict(adaptive_forward=False, rng="erfinv", host_noise=None,
+             time_stopping=timed), None, lam, **kw)
+
+
+def stopped_layout_times(dev, gen):
+    """ms of the stopped forward at each cell of ``stopped_cells`` for each
+    layout (tile, threads per lane, refilled lanes or one block per tile)
+    whose block fits, with its warps per SM and bytes a block (the
+    occupancy API's) and whether its outputs are bitwise those of one thread
+    a path at one tile a block (64, or 32 where 64 does not fit)."""
+    from pspde_torch.rollout import kernels as km
+
+    if not hasattr(km, "_FwdLayout"):
+        return {}
+    out = {}
+    for tag, cell in stopped_cells(dev, gen).items():
+        call = stopped_call(km, cell)
+        K = cell[2].shape[0]
+        reps = 20 if K <= 4096 else 10
+        chosen = km._FwdLayout(*call.pack(False).layout)
+        out[f"stopped_{tag}_chosen"] = "%dx%d%s" % (
+            chosen.tile, chosen.tpp, "r" if chosen.refill else "")
+        ref = None
+        for tile in (64, 32):
+            try:
+                ref = km._stopped_forward_kernel(
+                    call._replace(fwd_layout=(tile, 1, False)))
+                break
+            except ValueError:
+                continue
+        for tile in km._STOPPED_FWD_TILES:
+            for tpp in km._STOPPED_FWD_TPP:
+                for refill in (True, False):
+                    c = call._replace(fwd_layout=(tile, tpp, refill))
+                    try:
+                        packed = c.pack(False)
+                    except ValueError:
+                        continue   # not a layout, or no block fits
+                    occ = km._stopped_fwd_occupancy(packed, dev)
+                    got = km._stopped_forward_kernel(c)
+                    same = all(torch.equal(a, b) for a, b in zip(got, ref))
+                    # the events time the host's launches too where a
+                    # launch is short: the choice reads the device time
+                    row = {"ms": timed(lambda: km._stopped_forward_kernel(c),
+                                       reps),
+                           "device_ms": device_ms(
+                               lambda: km._stopped_forward_kernel(c), reps,
+                               "stopped_fwd_kernel"),
+                           "grid": km._stopped_fwd_grid(packed, dev),
+                           "warps_per_sm": occ["warps_per_sm"],
+                           "smem_bytes": occ["smem_bytes"], "bitwise": same}
+                    out[f"stopped_{tag}_t{tile}_p{tpp}"
+                        f"{'_r' if refill else ''}"] = row
     return out
+
+
+def stopped_times(dev, gen):
+    """ms of the stopped kernels at each cell of ``stopped_cells`` (the
+    forward's device time too, from ``torch.profiler``; on the torus the
+    backward's as well), and of one elliptic solver step."""
+    from pspde_torch.problems import ExponentialOnBallNonlinearSin
+    from pspde_torch.rollout import kernels as km
+    from pspde_torch.solvers import EllipticSolver
+
+    out = {}
+    for tag, cell in stopped_cells(dev, gen).items():
+        call = stopped_call(km, cell)
+        K = cell[2].shape[0]
+        gY = torch.randn(K, generator=gen, device=dev) / K
+        reps = 20 if K <= 4096 else 10
+        name = tag.replace("ell_", "")
+
+        def fwd():
+            km._stopped_forward_kernel(call)
+
+        def bwd():
+            km._stopped_backward_kernel(call, gY)
+
+        out[f"stopped_fwd_{name}"] = timed(fwd, reps)
+        out[f"stopped_fwd_{name}_device"] = device_ms(fwd, reps,
+                                                      "stopped_fwd_kernel")
+        out[f"stopped_bwd_{name}"] = timed(bwd, reps // 2)
+        if name.startswith("torus"):
+            out[f"stopped_bwd_{name}_device"] = device_ms(
+                bwd, reps // 2, "stopped_bwd_kernel")
+    sin = ExponentialOnBallNonlinearSin(d=D_ELL, alpha=0.1, device=dev)
+    ell = EllipticSolver(sin, "bench", loss_method="diffusion", K=K_ELL,
+                         N=N_ELL, delta_t=DT_ELL, lr=1e-3, L=1,
+                         K_test_log=4096, verbose=False,
+                         rollout_mode="fused_train", device=dev)
+    out["elliptic_step"] = timed(ell.step, 10)
+    return out
+
+
+def stopped_steps(dev):
+    """ms of one solver step on the stopped kernels at the cells of
+    chip_smoke.py: EllipticSolver (d=50, K=65536) with the notebook net
+    (DenseNet (30, 30) is ``elliptic_step``), GeneralSolver at gen50 and at
+    config 2 (its cosine schedule), EigenSolver on the notebook recipe at
+    K=500 and 65536."""
+    from pspde_torch.ansatz import DenseNet
+    from pspde_torch.problems import (ExponentialOnBallNonlinearSin,
+                                      ExponentialOnSphereNonlinearParabolic,
+                                      FokkerPlanckEigen, Geometry,
+                                      HeatEquation)
+    from pspde_torch.solvers import EigenSolver, EllipticSolver, GeneralSolver
+    from pspde_torch.utils import cosine_decay_schedule
+
+    sin = ExponentialOnBallNonlinearSin(d=D_ELL, alpha=0.1, device=dev)
+    heat = HeatEquation(d=D_ELL, T=0.2, device=dev)
+    heat.geometry = Geometry(kind="unbounded", boundary_distance=6.0)
+    fp = FokkerPlanckEigen(d=5, device=dev)
+    steppers = {
+        "elliptic_step_notebook": EllipticSolver(
+            sin, "bench", loss_method="diffusion", K=K_ELL, N=N_ELL,
+            delta_t=DT_ELL, lr=1e-3, L=1, K_test_log=4096, verbose=False,
+            rollout_mode="fused_train", device=dev,
+            value_net=DenseNet(1, NETS_ELL["notebook"], d_in=D_ELL,
+                               device=dev)),
+        "gen50_step": GeneralSolver(
+            ExponentialOnSphereNonlinearParabolic(d=D_ELL, device=dev),
+            "gen50", loss_method="diffusion", K=K_ELL, N=N_ELL,
+            delta_t=DT_ELL, lr=1e-3, L=5, verbose=False,
+            rollout_mode="fused_train", device=dev),
+        "config2_step": GeneralSolver(
+            heat, "config2", seed=2, L=3000,
+            lr=cosine_decay_schedule(1e-2, 3000, alpha=3e-4),
+            delta_t=2e-3, N=100, K=4096, K_boundary=2048, K_test_log=16384,
+            loss_method="diffusion", verbose=False,
+            rollout_mode="fused_train", device=dev)}
+    for K in (500, 65536):
+        steppers[f"eigen_step_{K}"] = EigenSolver(
+            fp, "fp-eigen", seed=42, delta_t=1e-3, N=20, lr=1e-3,
+            lr_lambda=0.01, lambda_init=0.5, L=1, K=K, K_boundary=50,
+            alpha=(50.0, 1.0), normalization="center",
+            value_net=DenseNet(1, (10, 10, 10, 10), d_in=5, device=dev),
+            rollout_mode="fused_train", verbose=False, device=dev)
+    return {tag: timed(s.step, 5) for tag, s in steppers.items()}
 
 
 if __name__ == "__main__":

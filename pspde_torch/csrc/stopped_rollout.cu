@@ -79,21 +79,45 @@
 // ~36.5 kFLOP (~44 kFLOP adaptive: the replay, the tangent and pair
 // sweeps, the weight-gradient outer products); no device-memory traffic
 // but the gradient rows.  Paths leave the ball after ~1.4 steps from the
-// uniform start, so the work is a few steps per path.  One thread carries
-// one path, and its arrays (3 F + 3 H + 1 floats in the backward, 139 KB
-// of shared memory for 64 paths at (30, 30)) leave one block of two warps
-// on an SM: latency, not the FMA rate, bounds both kernels (the backward's
-// per-thread replay and sweeps are ~80% of its time).  On the whole
-// space with time_stopping (the heat equation) every path runs until its
-// clock ends, all K N path-steps are work, and at K = 4096 the 64 blocks
-// leave half the SMs idle.  On the torus (d = 5, DenseNet (10, 10, 10,
-// 10): ~1 kFLOP a path-step) most paths run all N steps, and at the
-// recipe's K = 500 the 8 blocks fill 8 of 132 SMs.
+// uniform start, so the work is a few steps per path.  The per-path arrays
+// live in shared memory (3 F + 3 H + 1 floats in the backward, 139 KB for
+// 64 paths at (30, 30); 2 F + H + d in the forward), which bounds the
+// paths an SM holds.  On the whole space with time_stopping (the heat
+// equation) every path runs until its clock ends and all K N path-steps
+// are work; on the torus (d = 5, DenseNet (10, 10, 10, 10): ~1 kFLOP a
+// path-step) most paths run all N steps, and at the recipe's K = 500 there
+// are fewer paths than the card has lanes.
 //
-// The forward, simple first: one block per `tile` paths, one thread per
-// path for all N steps; a stopped path leaves (no barrier follows the
-// staging of the net).
-//
+// The forward is built for the card.  It ran one thread a path in blocks
+// of 64 until each block's slowest path stopped: two warps an SM, each a
+// serial, latency-bound chain of shared loads and FMAs.  Now:
+//   * A lane (tpp threads of one warp) carries one path at a time, and
+//     lanes are refilled: lane i of block b starts with path b tile + i and
+//     then takes the next path of one queue (a device-memory counter the
+//     wrapper zeroes) each time its path ends, on a grid that fills the
+//     card once.  The loop takes one step of the lane's path a trip, so a
+//     lane whose path ends starts the next while the warp's other lanes go
+//     on.  Outputs are per path, so the order in which the lanes take the
+//     paths changes no bit.  Where paths run their N steps (the torus, the
+//     whole space) the wrapper launches one block per tile paths instead,
+//     and the block scheduler balances the SMs.
+//   * Each path's net is split over its lane's threads (lane_value_forward,
+//     lane_value_grad): thread q computes the output chunks q, q + p, ... of
+//     each hidden layer (matvec_chunk, as before) and the rows q, q + p, ...
+//     of grad V's sums (two rows a pass, as two chains); each sum stays one
+//     thread's, in the order of value_forward and value_grad, which the
+//     backward's replay runs.  The Philox draws are split by dimension
+//     group, and |X|^2, the torus terms and the increment's sums over j run
+//     in every thread of the lane alike.  So the outputs of every layout
+//     (tile, tpp, grid) are bitwise the old kernel's, and the backward,
+//     which must regenerate the X chain and the masks bitwise, needs no
+//     change.
+//   * More warps an SM: blocks of up to 256 threads (tile x tpp), 16 warps
+//     an SM at the elliptic cell where there were 2.  Shared memory is then
+//     the limit: its loads of grad V's weights, whose rows the threads of a
+//     lane read at once, fell in one bank where a row held a multiple of 32
+//     floats; the staged copy pads each row by kRowPad floats (FwdNet).
+//   * The step that stops computes V only where v_l2 reads it.
 // The backward is built for the card:
 //   * Lanes are refilled.  With one block per tile paths for all N steps,
 //     a block ran until its slowest path stopped: at the elliptic cell
@@ -118,8 +142,9 @@
 //     blocks (NVIDIA H100 80GB HBM3, 700 W).
 //   * The replay stays per thread: the X chain and the masks must
 //     regenerate bitwise, and they do only if each path runs the forward's
-//     own device functions (value_forward, value_grad, torus_terms,
-//     torus_step, step_of, selected, draw4) in the forward's order.
+//     arithmetic (value_forward and value_grad, whose sums the forward's
+//     lanes split without reordering one; torus_terms, torus_step, step_of,
+//     selected, draw4) in the forward's order.
 //   * Each step's weight-gradient sums, half of the work before (2 FMAs
 //     against 4 shared loads per path and entry, scalar), run on the
 //     tensor cores: for each hidden layer one product G_l += [f; f']^T
@@ -164,11 +189,12 @@ using namespace pspde;
 
 constexpr int kMaxHidden = 4;   // pspde_torch/rollout/kernels.py _MAX_HIDDEN
 constexpr int kStoppedTile = 64;
-// Shared memory, not registers, bounds the blocks per SM (one thread per
-// path, at most 64 threads a block), so the kernels ask for one block per SM
-// in __launch_bounds__: without it ptxas keeps them at 40-64 registers and
-// spills (91-106 and none with it; the notebook net's backward 163 -> 99 ms
-// at d = 50, K = 65536, N = 20 on an NVIDIA H100 80GB HBM3 at 700 W).
+// The backward's bound: shared memory, not registers, bounds its blocks per
+// SM (one thread per path, at most 64 threads a block), so it asks for one
+// block per SM in __launch_bounds__: without it ptxas keeps it at 40-64
+// registers and spills (91-106 and none with it; the notebook net's
+// backward 163 -> 99 ms at d = 50, K = 65536, N = 20 on an NVIDIA H100 80GB
+// HBM3 at 700 W).  The forward has its own (kFwdThreads, kFwdMinBlocks).
 constexpr int kMinBlocksPerSm = 1;
 
 // Layout of the integer and float argument arrays the wrapper passes
@@ -412,34 +438,222 @@ __device__ __forceinline__ const float* stage_net(const StoppedArgs& a,
   return S;
 }
 
+// -- the forward -------------------------------------------------------------
+
+// The forward's block: `tile` lanes of `tpp` threads (tile x tpp a multiple
+// of 32, at most kFwdThreads); a lane carries one path at a time.  The
+// bound caps registers at 65,536 / (kFwdThreads x kFwdMinBlocks) = 128 a
+// thread, two blocks of the largest layout an SM: every instantiation
+// takes all 128 without a spill, and the layouts the wrapper chooses run
+// 16 warps an SM (the notebook net's 8: one block of 195 KB with the net
+// staged).  Caps of 80 (3 blocks) and 64 (4, with spills) read
+// within a few per cent of it at the timed cells and 8% slower on the torus
+// at K = 500 (experiments/torch_kernel_times.py --layouts stopped on copies
+// with the cap changed; NVIDIA H100 80GB HBM3 at 700 W).
+constexpr int kFwdThreads = 256;
+constexpr int kFwdMinBlocks = 2;
+constexpr int kFwdMaxTile = 64;
+// The forward's staged net pads each W row by kRowPad floats (FwdNet).
+constexpr int kRowPad = 4;
+
+// The tpp threads of one lane: consecutive threads of one warp (tpp a power
+// of two, at most 32), thread q of them, and their warp mask.  Every thread
+// of a lane holds the path's scalars and takes every branch alike; they
+// meet at sync() where one reads what another wrote.
+struct Lane {
+  int q, p;
+  unsigned mask;
+  __device__ __forceinline__ Lane(int tid, int tpp)
+      : q(tid & (tpp - 1)), p(tpp),
+        mask((tpp == 32 ? 0xFFFFFFFFu : (1u << tpp) - 1u)
+             << ((tid & 31) - (tid & (tpp - 1)))) {}
+  __device__ __forceinline__ void sync() const { __syncwarp(mask); }
+  // the lane's thread 0, as a lane of the warp
+  __device__ __forceinline__ int leader() const {
+    return (threadIdx.x & 31) - q;
+  }
+};
+
+// The net as the forward reads it: where it is staged, the packed buffer
+// with each W's rows at stride padded(w) + kRowPad and every later section
+// shifted by the pads before it, so that the rows the threads of a lane
+// read at once in lane_value_grad (i, i + 1, ...) lie in other banks (rows
+// of a multiple of 32 floats would put them all in one); else the packed
+// buffer in device memory (pad 0).
+struct FwdNet {
+  const float* W;
+  int pad;
+  int shift[kMaxHidden + 1];   // floats of pads before W_l's section (l),
+                               // before b_l's (l + 1), before wL's (L)
+  __device__ __forceinline__ const float* w(const StoppedArgs& a,
+                                            int l) const {
+    return W + a.w_off[l] + shift[l];
+  }
+  __device__ __forceinline__ int stride(const StoppedArgs& a, int l) const {
+    return padded(a.width[l]) + pad;
+  }
+  __device__ __forceinline__ const float* b(const StoppedArgs& a,
+                                            int l) const {
+    return W + a.b_off[l] + shift[l + 1];
+  }
+  __device__ __forceinline__ const float* wL(const StoppedArgs& a) const {
+    return W + a.wL_off + shift[a.L];
+  }
+  __device__ __forceinline__ float bL(const StoppedArgs& a) const {
+    return W[a.bL_off + shift[a.L]];
+  }
+};
+
+// The forward's net: staged in S by the block's threads (FwdNet's layout)
+// where the wrapper asked for it, advancing *col past it, else P.
+__device__ __forceinline__ FwdNet stage_fwd_net(const StoppedArgs& a,
+                                                const float* __restrict__ P,
+                                                float* S, float** col) {
+  FwdNet net{P, 0, {0, 0, 0, 0, 0}};
+  if (!a.stage) return net;
+  int n_in = a.F;
+  for (int l = 0; l < a.L; ++l) n_in -= a.width[l];
+  for (int l = 0; l < a.L; ++l) {
+    net.shift[l + 1] = net.shift[l] + kRowPad * n_in;
+    n_in += a.width[l];
+  }
+  for (int x = threadIdx.x; x < a.n_params; x += blockDim.x) {
+    int l = a.L - 1;
+    while (l > 0 && x < a.w_off[l]) --l;
+    const int wp = padded(a.width[l]);
+    const int i = (x - a.w_off[l]) / wp;
+    const int rows = (a.b_off[l] - a.w_off[l]) / wp;   // W_l's
+    S[i < rows ? x + net.shift[l] + kRowPad * i : x + net.shift[l + 1]] =
+        P[x];
+  }
+  net.W = S;
+  net.pad = kRowPad;
+  *col += a.n_params + net.shift[a.L];
+  return net;
+}
+
+// value_forward split over a lane's threads, the net read through FwdNet:
+// thread q computes the output chunks q, q + p, ... of each hidden layer
+// with matvec_chunk, each output's sum over the input rows in
+// value_forward's order; the threads meet after each layer, and each forms
+// the output row's sum, the same sum in every thread.
+template <bool kTimed>
+__device__ float lane_value_forward(const StoppedArgs& a, const FwdNet& net,
+                                    float* f, float* r, int ts,
+                                    const Lane& ln) {
+  const int d_in = net_inputs<kTimed>(a);
+  int n_in = d_in;
+  for (int l = 0; l < a.L; ++l) {
+    const int w = a.width[l], wp = padded(w), ws = net.stride(a, l);
+    const float* Wl = net.w(a, l);
+    const float* bl = net.b(a, l);
+    float* rl = r + (n_in - d_in) * ts;
+    for (int j0 = ln.q * kChunk; j0 < wp; j0 += ln.p * kChunk) {
+      float acc[kChunk];
+#pragma unroll
+      for (int c = 0; c < kChunk; ++c) acc[c] = 0.0f;
+      matvec_chunk(Wl, n_in, ws, j0, f, ts, acc);
+#pragma unroll
+      for (int c = 0; c < kChunk; ++c) {
+        const int j = j0 + c;
+        if (j < w) {
+          const float rv = fmaxf(acc[c] + bl[j], 0.0f);
+          rl[j * ts] = rv;
+          f[(n_in + j) * ts] = rv * rv;
+        }
+      }
+    }
+    n_in += w;
+    ln.sync();
+  }
+  const float* wL = net.wL(a);
+  float v = 0.0f;
+  for (int i = 0; i < a.F; ++i) v = fmaf(f[i * ts], wL[i], v);
+  return v + net.bL(a);
+}
+
+// value_grad split over a lane's threads: row i belongs to thread i mod p,
+// which forms its sums over each layer's outputs in value_grad's order, two
+// rows a pass (i and i + p, two chains sharing the loads of the outputs'
+// rows).  The threads meet before each layer's sums, which read other
+// threads' rows; the caller makes them meet after the last.
+template <bool kTimed>
+__device__ void lane_value_grad(const StoppedArgs& a, const FwdNet& net,
+                                const float* r, float* g, int ts,
+                                const Lane& ln) {
+  const int d_in = net_inputs<kTimed>(a);
+  const float* wL = net.wL(a);
+  for (int i = ln.q; i < a.F; i += ln.p) g[i * ts] = wL[i];
+  int o = a.F;
+  for (int l = a.L - 1; l >= 0; --l) {
+    const int w = a.width[l], ws = net.stride(a, l);
+    o -= w;   // layer l's outputs are feature rows o..o + w, its inputs 0..o
+    const float* rl = r + (o - d_in) * ts;
+    for (int j = (ln.q - o) & (ln.p - 1); j < w; j += ln.p)
+      g[(o + j) * ts] = 2.0f * rl[j * ts] * g[(o + j) * ts];
+    ln.sync();
+    const float* Wl = net.w(a, l);
+    for (int i = ln.q; i < o; i += 2 * ln.p) {
+      const int i2 = i + ln.p;
+      const float* Wi = Wl + i * ws;
+      const float* Wi2 = Wl + min(i2, o - 1) * ws;
+      float s = 0.0f, s2 = 0.0f;
+      for (int j = 0; j < w; ++j) {
+        const float gj = g[(o + j) * ts];
+        s = fmaf(Wi[j], gj, s);
+        s2 = fmaf(Wi2[j], gj, s2);
+      }
+      g[i * ts] += s;
+      if (i2 < o) g[i2 * ts] += s2;
+    }
+  }
+}
+
 template <bool kTimed, bool kTorus, bool kRelu>
-__global__ void __launch_bounds__(kStoppedTile, kMinBlocksPerSm)
+__global__ void __launch_bounds__(kFwdThreads, kFwdMinBlocks)
 stopped_fwd_kernel(const StoppedArgs a, const float* __restrict__ P,
                    const float* __restrict__ noise,
                    const float* __restrict__ X0,
                    const float* __restrict__ t0, float* __restrict__ X_out,
-                   float* __restrict__ acc_out) {
+                   float* __restrict__ acc_out, int* __restrict__ queue,
+                   const int tpp) {
   extern __shared__ float4 smem4[];
   float* S = reinterpret_cast<float*>(smem4);
   const int ts = a.tile + 1;
-  const int k = blockIdx.x * a.tile + threadIdx.x;
-  float* col = S + threadIdx.x;
-  const float* W = stage_net(a, P, S, &col);
-  __syncthreads();
-  if (k >= a.K) return;   // no barrier below
+  const Lane ln(threadIdx.x, tpp);
+  const int slot = threadIdx.x / tpp;    // the lane's column of the arrays
+  float* col = S + slot;
+  const FwdNet net = stage_fwd_net(a, P, S, &col);
+  __syncthreads();   // no barrier below
 
+  const int d_in = net_inputs<kTimed>(a);
   float* f = col;                        // features: X, [t,] relu(h)^2
   float* r = f + a.F * ts;               // relu(h) of the hidden layers
-  float* g = r + (a.F - net_inputs<kTimed>(a)) * ts;   // dV/d(features);
-                                         // on the torus rows 0..d then
-                                         // hold the proposal
-  for (int j = 0; j < a.d; ++j)
-    f[j * ts] = X0[static_cast<size_t>(k) * a.d + j];
+  float* g = r + (a.F - d_in) * ts;      // dV/d(features); on the torus
+                                         // rows 0..d then hold the proposal
+  float* xs = g + a.F * ts;              // the step's normals
   const float lam = kTorus ? P[a.lam_off] : 0.0f;   // not W: unstaged yet
-  float t = t0[k];
-  float Y = 0.0f, hit = 0.0f, vl2 = 0.0f, advs = 0.0f;
+  // Paths: lane i of block b first takes path b tile + i, then the next
+  // path of the queue (one counter for the grid) each time its path ends.
+  const int first = gridDim.x * a.tile;
+  int k = blockIdx.x * a.tile + slot;
+  int n = 0, trips = 0;
+  float t = 0.0f, Y = 0.0f, hit = 0.0f, vl2 = 0.0f, advs = 0.0f;
   bool stopped = false;
-  for (int n = 0; n < a.N && !stopped; ++n) {
+
+  auto start = [&]() {
+    for (int j = ln.q; j < a.d; j += ln.p)
+      f[j * ts] = X0[static_cast<size_t>(k) * a.d + j];
+    t = t0[k];
+    Y = hit = vl2 = advs = 0.0f;
+    stopped = false;
+    n = 0;
+    ln.sync();
+  };
+
+  // Step n of path k, the old one-thread loop's body with the net split
+  // over the lane's threads; false where the path stops at this step.
+  auto step = [&]() -> bool {
     float r2 = 0.0f, s = 0.0f, qs = 0.0f;
     bool sel = true;
     if (kTorus) {
@@ -448,65 +662,116 @@ stopped_fwd_kernel(const StoppedArgs a, const float* __restrict__ P,
       r2 = sq_norm(f, a.d, ts);
       sel = selected<kTimed>(a, r2, t);
     }
-    if (kTimed) f[a.d * ts] = t;
-    const float o = value_forward<kTimed>(a, W, f, r, ts);
+    hit += 1.0f;
+    if (!sel && !a.have_vref) {   // V would not be read: the net is not run
+      stopped = true;
+      return false;
+    }
+    if (kTimed) {
+      if (ln.q == 0) f[a.d * ts] = t;
+      ln.sync();
+    }
+    const float o = lane_value_forward<kTimed>(a, net, f, r, ts, ln);
     const bool on = !kRelu || o > 0.0f;   // the output clamp's mask
     const float V = on ? o : 0.0f;
-    hit += 1.0f;
     if (a.have_vref) {
       const float e = V - (kTorus ? expf(-sinf(s)) : expf(a.a_vref * r2));
       vl2 += e * e * a.dt;
     }
     if (!sel) {
       stopped = true;
-      break;
+      return false;
     }
-    if (on) value_grad<kTimed>(a, W, r, g, ts);
+    if (on) lane_value_grad<kTimed>(a, net, r, g, ts, ln);
+    ln.sync();   // grad V complete, and every read of X by the net done
     const float h = kTorus ? fmaf(lam, V, V * torus_h_dy(s, qs))
                            : h_value<kTimed>(a, r2, t, V);
     const float m_cs = kTorus ? -cosf(s) : 0.0f;
-    bool inside = true;
-    float s_zc = 0.0f, s_zx = 0.0f;
-    for (int gi = 0; 4 * gi < a.d; ++gi) {
+    // thread q draws the normals of dimension groups q, q + p, ... into
+    // xs and, off the torus, moves those coordinates
+    for (int gi = ln.q; 4 * gi < a.d; gi += ln.p) {
       float xi[4];
       draw4(a, noise, k, n, gi, xi);
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
         const int j = 4 * gi + q;
         if (j >= a.d) break;
-        const float z = on ? a.sig * g[j * ts] : 0.0f;
-        const float c = a.adaptive ? -z : 0.0f;
-        s_zc = fmaf(z, c, s_zc);
-        s_zx = fmaf(z, xi[q], s_zx);
-        if (kTorus) {
-          const float p = __fadd_rn(f[j * ts],
-                                    torus_step(a, m_cs, f[j * ts], c, xi[q]));
-          inside = inside && in_box(a, p);
-          g[j * ts] = p;
-        } else {
+        xs[j * ts] = xi[q];
+        if (!kTorus) {
+          const float z = on ? a.sig * g[j * ts] : 0.0f;
+          const float c = a.adaptive ? -z : 0.0f;
           f[j * ts] = __fadd_rn(f[j * ts], step_of(a, c, xi[q]));
         }
       }
     }
+    ln.sync();
+    // the increment's sums over j, in order, in every thread of the lane
+    float s_zc = 0.0f, s_zx = 0.0f;
+    for (int j = 0; j < a.d; ++j) {
+      const float z = on ? a.sig * g[j * ts] : 0.0f;
+      const float c = a.adaptive ? -z : 0.0f;
+      s_zc = fmaf(z, c, s_zc);
+      s_zx = fmaf(z, xs[j * ts], s_zx);
+    }
     if (kTorus) {
-      if (!inside) {   // the proposal left: no move, no increment
-        stopped = true;
-        break;
+      ln.sync();   // every read of grad V done: its rows 0..d take P
+      bool inside = true;
+      for (int gi = ln.q; 4 * gi < a.d; gi += ln.p) {
+        for (int j = 4 * gi; j < min(4 * gi + 4, a.d); ++j) {
+          const float z = on ? a.sig * g[j * ts] : 0.0f;
+          const float c = a.adaptive ? -z : 0.0f;
+          const float p = __fadd_rn(
+              f[j * ts], torus_step(a, m_cs, f[j * ts], c, xs[j * ts]));
+          inside = inside && in_box(a, p);
+          g[j * ts] = p;
+        }
       }
-      for (int j = 0; j < a.d; ++j) f[j * ts] = g[j * ts];
+      if (!__all_sync(ln.mask, inside)) {   // the proposal left: no move,
+        stopped = true;                     // no increment
+        return false;
+      }
+      for (int gi = ln.q; 4 * gi < a.d; gi += ln.p)
+        for (int j = 4 * gi; j < min(4 * gi + 4, a.d); ++j)
+          f[j * ts] = g[j * ts];
     }
     Y += (-h + s_zc) * a.dt + s_zx * a.sq_dt;
     advs += 1.0f;
     if (kTimed) t = __fadd_rn(t, a.dt);
+    return true;
+  };
+
+  bool live = k < a.K;
+  if (live) start();
+  while (live) {
+    // one step of the lane's path a trip, so that a lane whose path ends
+    // takes the next one while the warp's other lanes go on with theirs
+    bool more = false;
+    if (n < a.N) {
+      more = step();
+      ++n;
+      ++trips;
+      ln.sync();   // the step's reads of the path's rows done
+    }
+    if (!more || n == a.N) {
+      float* dst = X_out + static_cast<size_t>(k) * a.d;
+      for (int j = ln.q; j < a.d; j += ln.p) dst[j] = f[j * ts];
+      if (ln.q == 0) {
+        acc_out[k] = Y;
+        acc_out[a.K + k] = stopped ? 1.0f : 0.0f;
+        acc_out[2 * a.K + k] = hit;
+        acc_out[3 * a.K + k] = vl2;
+        acc_out[4 * a.K + k] = advs;
+        acc_out[5 * a.K + k] = t;
+      }
+      int next = 0;
+      if (first < a.K && ln.q == 0) next = atomicAdd(queue, 1);
+      k = first < a.K ? first + __shfl_sync(ln.mask, next, ln.leader())
+                      : a.K;
+      live = k < a.K;
+      if (live) start();
+    }
   }
-  float* dst = X_out + static_cast<size_t>(k) * a.d;
-  for (int j = 0; j < a.d; ++j) dst[j] = f[j * ts];
-  acc_out[k] = Y;
-  acc_out[a.K + k] = stopped ? 1.0f : 0.0f;
-  acc_out[2 * a.K + k] = hit;
-  acc_out[3 * a.K + k] = vl2;
-  acc_out[4 * a.K + k] = advs;
-  acc_out[5 * a.K + k] = t;
+  if (ln.q == 0) queue[1 + blockIdx.x * a.tile + slot] = trips;
 }
 
 // -- the replay backward ---------------------------------------------------
@@ -935,17 +1200,28 @@ stopped_bwd_kernel(const StoppedArgs a, const float* __restrict__ P,
 }
 
 // Shared memory of one block, in floats: the staged net and the per-path
-// arrays, of stride tile + 1 in the forward (bwd_ts = 0), and in the
-// backward the lane ballots first and the arrays at stride bwd_ts.  The
-// wrapper's _stopped_smem_bytes computes the same.
+// arrays, of stride tile + 1 in the forward (bwd_ts = 0; the normals' d
+// rows too), and in the backward the lane ballots first and the arrays at
+// stride bwd_ts.  The wrapper's _stopped_smem_bytes computes the same.
 size_t smem_floats(const StoppedArgs& a, int bwd_ts) {
   const bool backward = bwd_ts > 0;
   const size_t H = a.F - (a.time_stopping ? a.d + 1 : a.d);
-  const size_t per_path = backward ? 3 * a.F + 3 * H + 1 : 2 * a.F + H;
-  return (backward ? kBallotWords : 0) + (a.stage ? a.n_params : 0) +
+  const size_t per_path =
+      backward ? 3 * a.F + 3 * H + 1 : 2 * a.F + H + a.d;
+  size_t net = a.stage ? a.n_params : 0;
+  if (!backward && a.stage) {   // the forward's row pads (FwdNet)
+    size_t n_in = a.F - H;
+    for (int l = 0; l < a.L; ++l) {
+      net += kRowPad * n_in;
+      n_in += a.width[l];
+    }
+  }
+  return (backward ? kBallotWords : 0) + net +
          per_path * static_cast<size_t>(backward ? bwd_ts : a.tile + 1);
 }
 
+// StoppedArgs from the wrapper's arrays, checked but for the tile, which
+// each kernel checks itself (bwd_layout, fwd_layout).
 int unpack(const int* iargs, const float* fargs, unsigned long long seed,
            int device, StoppedArgs* a) {
   memcpy(a, iargs, (kNumIntArgs - kNumTailArgs) * sizeof(int));
@@ -957,13 +1233,36 @@ int unpack(const int* iargs, const float* fargs, unsigned long long seed,
   a->key0 = static_cast<uint32_t>(seed & 0xFFFFFFFFull);
   a->key1 = static_cast<uint32_t>(seed >> 32);
   const bool torus = a->geom == 2;
-  if (a->tile <= 0 || a->tile > kStoppedTile || a->tile % 32 != 0 ||
-      a->L < 1 || a->L > kMaxHidden || a->K <= 0 || a->geom < 0 ||
+  if (a->L < 1 || a->L > kMaxHidden || a->K <= 0 || a->geom < 0 ||
       a->geom > 2 || (a->geom == 1 && !a->time_stopping) ||
       (torus && (a->time_stopping || a->lam_off < 0 ||
                  a->lam_off >= a->n_params || a->g_lam != a->n_grad - 1)))
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaSetDevice(device));
+}
+
+// The backward's block: tile 32 or 64, one thread a path.
+bool bwd_tile_ok(const StoppedArgs& a) {
+  return a.tile > 0 && a.tile <= kStoppedTile && a.tile % 32 == 0;
+}
+
+// The forward's layout, the ints after StoppedArgs': tpp threads a lane
+// (a power of two up to 32) and the grid (1 .. ceil(K / tile) blocks);
+// tile x tpp threads a block, a multiple of 32 up to kFwdThreads.  Writes
+// tpp and grid (grid may be null), or returns false.
+bool fwd_layout(const StoppedArgs& a, const int* iargs, int* tpp,
+                int* grid) {
+  const int p = iargs[kNumIntArgs];
+  const int threads = a.tile * p;
+  if (a.tile < 1 || a.tile > kFwdMaxTile || p < 1 || p > 32 ||
+      (p & (p - 1)) != 0 || threads % 32 != 0 || threads > kFwdThreads)
+    return false;
+  *tpp = p;
+  if (grid != nullptr) {
+    *grid = iargs[kNumIntArgs + 1];
+    if (*grid < 1 || *grid > (a.K + a.tile - 1) / a.tile) return false;
+  }
+  return true;
 }
 
 // Lets `kernel` take the dynamic shared memory of one block (bwd_ts: as
@@ -979,13 +1278,28 @@ cudaError_t allow_smem(Kernel kernel, const StoppedArgs& a, int bwd_ts,
 
 template <typename Kernel, typename... Args>
 int launch(Kernel kernel, const StoppedArgs& a, int bwd_ts, int grid,
-           void* stream, Args... args) {
+           int threads, void* stream, Args... args) {
   size_t smem = 0;
   const cudaError_t e = allow_smem(kernel, a, bwd_ts, &smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  kernel<<<static_cast<unsigned>(grid), a.tile, smem,
+  kernel<<<static_cast<unsigned>(grid), threads, smem,
            static_cast<cudaStream_t>(stream)>>>(a, args...);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The blocks of `kernel` at `threads` a block that device `device` holds
+// on one SM (the shared memory, the registers and the threads allow) into
+// *per_sm, its SMs into *sms, the block's shared bytes into *smem.
+template <typename Kernel>
+int occupancy(Kernel kernel, const StoppedArgs& a, int bwd_ts, int threads,
+              int device, int* per_sm, int* sms, size_t* smem) {
+  cudaError_t e = allow_smem(kernel, a, bwd_ts, smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel,
+                                                      threads, *smem);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
+  return static_cast<int>(e);
 }
 
 // A launch's instantiation: the clock, the torus family, the output clamp.
@@ -1013,23 +1327,54 @@ int with_family(const StoppedArgs& a, Fn fn) {
 // order of StoppedArgs.
 
 // Forward: X0 (K, d), t0 (K,) -> X_out (K, d), acc_out (6, K): Y, stopped,
-// hitting, v_l2, adv_steps, t.
+// hitting, v_l2, adv_steps, t.  `iargs` carries the layout after
+// StoppedArgs' ints (fwd_layout): tpp threads a lane, the grid.  `queue`
+// (1 + grid tile ints, the first 0): the grid's path counter, then each
+// lane's trips (the steps it ran, over all its paths).
 extern "C" int pspde_stopped_rollout_fwd(const float* params,
                                          const float* host_noise,
                                          const float* X0, const float* t0,
                                          float* X_out, float* acc_out,
-                                         const int* iargs,
+                                         int* queue, const int* iargs,
                                          const float* fargs,
                                          unsigned long long seed, int device,
                                          void* stream) {
   StoppedArgs a;
   const int err = unpack(iargs, fargs, seed, device, &a);
   if (err != 0) return err;
+  int tpp = 0, grid = 0;
+  if (!fwd_layout(a, iargs, &tpp, &grid))
+    return static_cast<int>(cudaErrorInvalidValue);
   return with_family(a, [&](auto fam) {
     using Fam = decltype(fam);
     return launch(stopped_fwd_kernel<Fam::timed, Fam::torus, Fam::relu>, a,
-                  0, (a.K + a.tile - 1) / a.tile, stream, params,
-                  host_noise, X0, t0, X_out, acc_out);
+                  0, grid, a.tile * tpp, stream, params, host_noise, X0, t0,
+                  X_out, acc_out, queue, tpp);
+  });
+}
+
+// The forward's launch for `iargs` (StoppedArgs' ints and tpp) on device
+// `device`: out[0] its blocks resident on one SM, out[1] threads a block,
+// out[2] shared bytes a block, out[3] the SMs.  The grid that fills the card
+// once is out[0] out[3] blocks.
+extern "C" int pspde_stopped_fwd_occupancy(const int* iargs,
+                                           const float* fargs, int device,
+                                           int* out) {
+  StoppedArgs a;
+  const int err = unpack(iargs, fargs, 0ull, device, &a);
+  if (err != 0) return err;
+  int tpp = 0;
+  if (!fwd_layout(a, iargs, &tpp, nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return with_family(a, [&](auto fam) {
+    using Fam = decltype(fam);
+    size_t smem = 0;
+    out[1] = a.tile * tpp;
+    const int e = occupancy(
+        stopped_fwd_kernel<Fam::timed, Fam::torus, Fam::relu>, a, 0, out[1],
+        device, &out[0], &out[3], &smem);
+    out[2] = static_cast<int>(smem);
+    return e;
   });
 }
 
@@ -1061,12 +1406,13 @@ extern "C" int pspde_stopped_rollout_bwd(const float* params,
   if (err != 0) return err;
   const int ts = unpack_bwd_stride(a, iargs);
   const int grid = iargs[kNumIntArgs + 1];
-  if (ts == 0 || grid < 1 || grid > (a.K + a.tile - 1) / a.tile)
+  if (!bwd_tile_ok(a) || ts == 0 || grid < 1 ||
+      grid > (a.K + a.tile - 1) / a.tile)
     return static_cast<int>(cudaErrorInvalidValue);
   return with_family(a, [&](auto fam) {
     using Fam = decltype(fam);
     return launch(stopped_bwd_kernel<Fam::timed, Fam::torus, Fam::relu>, a,
-                  ts, grid, stream, params, host_noise, X0, t0, gY,
+                  ts, grid, a.tile, stream, params, host_noise, X0, t0, gY,
                   grad_out, counts, ts);
   });
 }
@@ -1082,21 +1428,16 @@ extern "C" int pspde_stopped_bwd_slots(const int* iargs, const float* fargs,
   const int err = unpack(iargs, fargs, 0ull, device, &a);
   if (err != 0) return err;
   const int ts = unpack_bwd_stride(a, iargs);
-  if (ts == 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (!bwd_tile_ok(a) || ts == 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   return with_family(a, [&](auto fam) {
     using Fam = decltype(fam);
-    const auto kernel =
-        stopped_bwd_kernel<Fam::timed, Fam::torus, Fam::relu>;
     size_t smem = 0;
     int per_sm = 0, sms = 0;
-    cudaError_t e = allow_smem(kernel, a, ts, &smem);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        a.tile, smem);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                 device);
+    const int e = occupancy(
+        stopped_bwd_kernel<Fam::timed, Fam::torus, Fam::relu>, a, ts, a.tile,
+        device, &per_sm, &sms, &smem);
     *slots = per_sm * sms;
-    return static_cast<int>(e);
+    return e;
   });
 }

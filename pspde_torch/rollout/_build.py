@@ -56,7 +56,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     for name, n_ptr in (("pspde_controlled_rollout", 4),
                         ("pspde_train_rollout_fwd", 7),
                         ("pspde_train_rollout_bwd", 6),
-                        ("pspde_stopped_rollout_fwd", 6),
+                        ("pspde_stopped_rollout_fwd", 7),
                         ("pspde_stopped_rollout_bwd", 7)):
         fn = getattr(lib, name)
         fn.argtypes = [vp] * n_ptr + tail
@@ -68,12 +68,14 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                                     ctypes.POINTER(ctypes.c_float), c_int, vp]
     lib.pspde_normals_sum.argtypes = [vp, c_int, c_int, c_int, c_int,
                                       ctypes.c_ulonglong, c_int, vp]
-    for name in ("pspde_stopped_bwd_slots", "pspde_train_fwd_occupancy"):
+    for name in ("pspde_stopped_bwd_slots", "pspde_train_fwd_occupancy",
+                 "pspde_stopped_fwd_occupancy"):
         getattr(lib, name).argtypes = [
             ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_float),
             c_int, ctypes.POINTER(ctypes.c_int)]
     for name in ("pspde_ablation", "pspde_fma_chain", "pspde_normals_sum",
-                 "pspde_stopped_bwd_slots", "pspde_train_fwd_occupancy"):
+                 "pspde_stopped_bwd_slots", "pspde_train_fwd_occupancy",
+                 "pspde_stopped_fwd_occupancy"):
         getattr(lib, name).restype = ctypes.c_int
     lib.pspde_cuda_error_string.argtypes = [ctypes.c_int]
     lib.pspde_cuda_error_string.restype = ctypes.c_char_p

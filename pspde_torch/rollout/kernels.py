@@ -254,6 +254,7 @@ class _Packed(NamedTuple):
     iargs: list
     fargs: list
     ws_floats: int = 0     # the device plan's workspace; 0: shared plan
+    layout: tuple = ()     # the stopped forward's _FwdLayout
 
 
 class _Layout(NamedTuple):
@@ -891,7 +892,18 @@ STOPPED_KERNEL_FAMILY = (
     "reading [x, t] with time_stopping (a step advances while t + dt <= "
     "T); rng 'erfinv' or 'binom'")
 _MAX_HIDDEN = 4            # csrc/stopped_rollout.cu kMaxHidden
-_STOPPED_TILES = (64, 32)  # csrc kStoppedTile bounds the block
+_STOPPED_TILES = (64, 32)  # csrc kStoppedTile bounds the backward's block
+# The forward's block: `tile` lanes of `tpp` threads, tile x tpp a multiple
+# of 32 up to _STOPPED_FWD_THREADS (csrc kFwdMaxTile, kFwdThreads)
+_STOPPED_FWD_TILES = (64, 32, 16, 8, 4)
+_STOPPED_FWD_TPP = (1, 2, 4, 8, 16)
+_STOPPED_FWD_THREADS = 256
+_STOPPED_ROW_PAD = 4       # csrc kRowPad: the forward's staged W rows
+# the SMs of an H100: a small K is spread over them (the forward's tile
+# halved while K leaves fewer blocks), with at least _STOPPED_FWD_SM_THREADS
+# threads of its lanes on each (more threads a lane)
+_STOPPED_FWD_SPREAD = 132
+_STOPPED_FWD_SM_THREADS = 256
 _PHI = ("none", "identity", "sin")
 _GEOMETRIES = ("sphere", "unbounded", "square")   # csrc StoppedArgs.geom
 
@@ -1020,10 +1032,10 @@ def _stopped_smem_bytes(n_stage: int, per_path: int, tile: int,
                         backward: bool = False,
                         stride: Optional[int] = None) -> int:
     """Shared memory of one stopped block: ``n_stage`` floats of staged net
-    and ``per_path`` floats per path at stride tile + 1 (forward), or the
-    lane ballots and the arrays at ``stride`` (backward; default tile + 4,
-    the stride of its mma fragments) - the formula of
-    stopped_rollout.cu:smem_floats."""
+    and ``per_path`` floats per path (``_stopped_per_path``) at stride tile
+    + 1 (forward), or the lane ballots and the arrays at ``stride``
+    (backward; default tile + 4, the stride of its mma fragments) - the
+    formula of stopped_rollout.cu:smem_floats."""
     if backward:
         return 4 * (_STOPPED_BALLOT_WORDS + n_stage
                     + per_path * (stride or tile + 4))
@@ -1039,24 +1051,101 @@ def _stopped_bwd_stride(n_stage: int, per_path: int, tile: int) -> int:
     return tile + 4 if fits else tile + 1
 
 
+def _stopped_fwd_net_floats(n_params: int, widths, d_in: int) -> int:
+    """The forward's staged net (stopped_rollout.cu: FwdNet): the packed
+    buffer and _STOPPED_ROW_PAD floats after each row of each W."""
+    n_in = [d_in + sum(widths[:l]) for l in range(len(widths))]
+    return n_params + _STOPPED_ROW_PAD * sum(n_in)
+
+
+def _stopped_per_path(F: int, H: int, d: int, backward: bool) -> int:
+    """Floats of one path's shared arrays: the backward's 3 F + 3 H + 1,
+    the forward's features, relu values and gradient (2 F + H) and the
+    step's d normals."""
+    return 3 * F + 3 * H + 1 if backward else 2 * F + H + d
+
+
 def _stopped_tile(n_params: int, per_path: int, tile: Optional[int],
-                  backward: bool = False):
-    """(tile, stage): the largest tile of ``_STOPPED_TILES`` (or the given
-    one) whose per-path arrays fit, with the net staged in shared memory
-    when it fits beside them, else read from device memory; the backward
-    tries every tile at stride tile + 4 first, then at tile + 1."""
-    if tile is not None and tile not in _STOPPED_TILES:
-        raise ValueError(f"tile={tile} must be one of {_STOPPED_TILES}")
+                  backward: bool = False, tiles: tuple = _STOPPED_TILES):
+    """(tile, stage): the largest tile of ``tiles`` (or the given one)
+    whose per-path arrays fit, with the net staged in shared memory when it
+    fits beside them, else read from device memory; the backward tries
+    every tile at stride tile + 4 first, then at tile + 1."""
+    if tile is not None and tile not in tiles:
+        raise ValueError(f"tile={tile} must be one of {tiles}")
     for pad in ((4, 1) if backward else (1,)):
-        for t in ((tile,) if tile is not None else _STOPPED_TILES):
+        for t in ((tile,) if tile is not None else tiles):
             for stage in (True, False):
                 if _stopped_smem_bytes(n_params if stage else 0, per_path,
                                        t, backward, t + pad) <= _SMEM_LIMIT:
                     return t, stage
-    least = _stopped_smem_bytes(0, per_path, 32, backward, 33)
+    t = min(tiles)
+    least = _stopped_smem_bytes(0, per_path, t, backward, t + 1)
     raise _stopped_outside(f"{least} bytes of per-path shared memory at "
-                           f"tile=32 exceed the {_SMEM_LIMIT}-byte limit of "
+                           f"tile={t} exceed the {_SMEM_LIMIT}-byte limit of "
                            "one block")
+
+
+class _FwdLayout(NamedTuple):
+    """The stopped forward's launch: blocks of ``tile`` lanes of ``tpp``
+    threads (a lane carries one path at a time, its threads split the
+    net), and with ``refill`` a grid of at most the blocks the card holds at
+    once whose lanes take the next path of one queue as theirs end, else
+    one block per ``tile`` paths."""
+    tile: int
+    tpp: int
+    refill: bool
+
+
+def _stopped_fwd_tpp(widths, K: int) -> int:
+    """Threads a lane: the widest hidden layer's output chunks rounded up to
+    a power of two (2 at width 10, 4 at 30, 16 at 70: a thread a chunk), or
+    more where K paths leave the card idle, up to the power of two that puts
+    _STOPPED_FWD_SM_THREADS of their threads on each SM; at most 16."""
+    chunks = max(-(-w // _CHUNK) for w in widths)
+    fill = _STOPPED_FWD_SPREAD * _STOPPED_FWD_SM_THREADS // K
+    return min(16, max(1 << (chunks - 1).bit_length(),
+                       1 << max(fill.bit_length() - 1, 0)))
+
+
+def _stopped_fwd_layout(widths, geom: str, K: int, n_stage: int,
+                        per_path: int, tile: Optional[int] = None,
+                        layout: Optional[_FwdLayout] = None):
+    """(layout, stage) of the forward: ``layout`` where given (a forced
+    layout, e.g. the one-thread-a-path, one-tile-a-block schedule), else
+    ``_stopped_fwd_tpp`` threads a lane, the largest tile (``tile`` where
+    given: a caller's block of the pair) that keeps the block within
+    _STOPPED_FWD_THREADS and halved while K leaves fewer than
+    _STOPPED_FWD_SPREAD blocks, refilled lanes on the sphere and one block
+    per tile on the whole space and the torus, whose paths run all N steps
+    (the fastest layouts by device time at the cells of
+    experiments/torch_kernel_times.py --layouts stopped).
+    The tile shrinks further where its arrays (``per_path`` floats a path,
+    beside the ``n_stage`` floats of the staged net where they fit) do not
+    fit one block (``_stopped_tile``); past the smallest, raises."""
+    if layout is not None:
+        layout = _FwdLayout(*layout)
+        tiles, tpp = (layout.tile,), layout.tpp
+        if (layout.tile not in _STOPPED_FWD_TILES
+                or tpp not in _STOPPED_FWD_TPP or layout.tile * tpp % 32
+                or layout.tile * tpp > _STOPPED_FWD_THREADS):
+            raise ValueError(
+                f"forward layout {layout}: tile in {_STOPPED_FWD_TILES}, "
+                f"tpp in {_STOPPED_FWD_TPP}, tile x tpp a multiple of 32 "
+                f"up to {_STOPPED_FWD_THREADS}")
+        refill = layout.refill
+    else:
+        tpp = _stopped_fwd_tpp(widths, K)
+        if tile is not None:
+            tpp = min(tpp, _STOPPED_FWD_THREADS // tile)
+        tiles = tuple(t for t in _STOPPED_FWD_TILES
+                      if t * tpp % 32 == 0 and t * tpp <= _STOPPED_FWD_THREADS
+                      and (tile is None or t <= tile))
+        while len(tiles) > 1 and -(-K // tiles[0]) < _STOPPED_FWD_SPREAD:
+            tiles = tiles[1:]
+        refill = geom == "sphere"
+    t, stage = _stopped_tile(n_stage, per_path, None, tiles=tiles)
+    return _FwdLayout(t, tpp, refill), stage
 
 
 def _stopped_grid(K: int, tile: int, slots: int) -> int:
@@ -1144,12 +1233,13 @@ def _pad_hidden(vals: list) -> list:
 
 def _pack_stopped(problem, v_net, hfam, vfam, K, N, delta_t, tile, *,
                   backward, host_noise, adaptive_forward, rng,
-                  time_stopping=False, lam=None) -> _Packed:
+                  time_stopping=False, lam=None, fwd_layout=None) -> _Packed:
     """The stopped kernels' arguments (stopped_rollout.cu: StoppedArgs).
     The state has d rows and the net d_in = d (+ 1 with time_stopping)
     input rows; F and the hidden rows H count from d_in.  The torus family
     always carries lambda in the packed net (``lam``, or 0 without it) and
-    its gradient entry."""
+    its gradient entry.  The forward's ``layout`` is ``_stopped_fwd_layout``
+    (``fwd_layout`` where given)."""
     d = problem.d
     geom = problem.geometry
     torus = hfam[0] == "torus_fp"
@@ -1157,9 +1247,17 @@ def _pack_stopped(problem, v_net, hfam, vfam, K, N, delta_t, tile, *,
         lam = torch.zeros(1, dtype=torch.float32, device=problem.X_0.device)
     lay = _stopped_layout(v_net, lam if torus else None)
     H = lay.F - v_net.d_in
-    per_path = 3 * lay.F + 3 * H + 1 if backward else 2 * lay.F + H
+    per_path = _stopped_per_path(lay.F, H, d, backward)
     n_params = lay.buf.numel()
-    tile, stage = _stopped_tile(n_params, per_path, tile, backward)
+    fwd = ()
+    if backward:
+        tile, stage = _stopped_tile(n_params, per_path, tile, backward)
+    else:
+        fwd, stage = _stopped_fwd_layout(
+            lay.widths, geom.kind, K,
+            _stopped_fwd_net_floats(n_params, lay.widths, v_net.d_in),
+            per_path, tile, fwd_layout)
+        tile = fwd.tile
     if torus:
         c_y = c_yr2 = k_exp = k_t = 0.0
         phi, c_tor = "none", float(hfam[1])
@@ -1182,7 +1280,7 @@ def _pack_stopped(problem, v_net, hfam, vfam, K, N, delta_t, tile, *,
              float(problem.T) if time_stopping else 0.0, float(k_t),
              float(geom.X_l) if torus else 0.0,
              float(geom.X_r) if torus else 0.0, c_tor]
-    return _Packed(lay.buf, iargs, fargs)
+    return _Packed(lay.buf, iargs, fargs, layout=fwd)
 
 
 class _StoppedCall(NamedTuple):
@@ -1200,6 +1298,7 @@ class _StoppedCall(NamedTuple):
                              # where set, time_stopping
     tile: Optional[int]
     lam: Optional[torch.Tensor] = None   # the torus family's lambda leaf
+    fwd_layout: Optional[tuple] = None   # a forced _FwdLayout of the forward
 
     def plain(self) -> FusedStoppedOut:
         return reference_stopped_train_rollout(
@@ -1214,20 +1313,93 @@ class _StoppedCall(NamedTuple):
             self.N, self.delta_t, self.tile, backward=backward,
             host_noise=o["host_noise"],
             adaptive_forward=o["adaptive_forward"], rng=o["rng"],
-            time_stopping=o.get("time_stopping", False), lam=self.lam)
+            time_stopping=o.get("time_stopping", False), lam=self.lam,
+            fwd_layout=self.fwd_layout)
 
 
-def _stopped_forward_kernel(call: _StoppedCall) -> FusedStoppedOut:
+# the forward's occupancy per (device, tile, tpp, shared bytes,
+# time_stopping, geometry, output clamp): asked of the library once
+_STOPPED_FWD_OCC: dict = {}
+
+
+def _stopped_fwd_smem_bytes(packed: _Packed) -> int:
+    """Shared memory of one forward block of a packed call (the formula of
+    stopped_rollout.cu:smem_floats)."""
+    ia = packed.iargs
+    d, L, F, tile, stage, n_params = ia[2], ia[3], ia[4], ia[5], ia[6], ia[7]
+    d_in = d + ia[14]
+    n_stage = _stopped_fwd_net_floats(n_params, ia[16:16 + L], d_in)
+    return _stopped_smem_bytes(n_stage if stage else 0,
+                               _stopped_per_path(F, F - d_in, d, False), tile)
+
+
+def _stopped_fwd_occupancy(packed: _Packed, dev: torch.device) -> dict:
+    """The forward's launch for one packed call on CUDA device ``dev``: its
+    blocks resident on one SM (stopped_rollout.cu:
+    pspde_stopped_fwd_occupancy, the runtime's theoretical residency),
+    threads a block, warps an SM, bytes of shared memory a block, the SMs,
+    and the layout."""
+    ia = packed.iargs
+    lay = _FwdLayout(*packed.layout)
+    index = dev.index if dev.index is not None else \
+        torch.cuda.current_device()
+    key = (index, lay.tile, lay.tpp, _stopped_fwd_smem_bytes(packed), ia[14],
+           ia[15], ia[16 + 4 * _MAX_HIDDEN + 3])
+    if key not in _STOPPED_FWD_OCC:
+        from ._build import library
+        lib = library()
+        out = (ctypes.c_int * 4)()
+        iargs = ia + [lay.tpp]
+        err = lib.pspde_stopped_fwd_occupancy(
+            (ctypes.c_int * len(iargs))(*iargs),
+            (ctypes.c_float * len(packed.fargs))(*packed.fargs), index, out)
+        if err != 0 or out[0] < 1:
+            raise RuntimeError(
+                "fused_stopped_train_rollout: the forward kernel fits no "
+                f"block of layout {lay} on the card: "
+                + lib.pspde_cuda_error_string(err).decode())
+        _STOPPED_FWD_OCC[key] = list(out)
+    blocks, threads, smem, sms = _STOPPED_FWD_OCC[key]
+    return {"blocks_per_sm": blocks, "threads": threads,
+            "warps_per_sm": blocks * threads // 32, "smem_bytes": smem,
+            "sms": sms, **lay._asdict()}
+
+
+def _stopped_fwd_grid(packed: _Packed, dev: torch.device) -> int:
+    """The forward's grid: with refilled lanes ``_stopped_grid`` of the
+    blocks the card holds at once, else one block per tile paths."""
+    lay = _FwdLayout(*packed.layout)
+    K = packed.iargs[0]
+    if not lay.refill:
+        return -(-K // lay.tile)
+    occ = _stopped_fwd_occupancy(packed, dev)
+    return _stopped_grid(K, lay.tile, occ["blocks_per_sm"] * occ["sms"])
+
+
+def _stopped_forward_launch(call: _StoppedCall):
+    """The forward kernel's outputs and what its lanes ran: (grid, tile)
+    int32, each lane's trips (the steps of all the paths it carried)."""
     X0 = call.X0
     K, d = X0.shape
     packed = call.pack(backward=False)
+    lay = _FwdLayout(*packed.layout)
+    grid = _stopped_fwd_grid(packed, X0.device)
     X = torch.empty((K, d), dtype=torch.float32, device=X0.device)
     acc = torch.empty((6, K), dtype=torch.float32, device=X0.device)
+    # the queue's path counter (0), then each lane's trips
+    queue = torch.zeros(1 + grid * lay.tile, dtype=torch.int32,
+                        device=X0.device)
     _launch("pspde_stopped_rollout_fwd", "fused_stopped_train_rollout",
-            packed, [packed.params, call.opts["host_noise"], X0, call.t0, X,
-                     acc], call.seed, X0.device)
+            packed._replace(iargs=packed.iargs + [lay.tpp, grid]),
+            [packed.params, call.opts["host_noise"], X0, call.t0, X, acc,
+             queue], call.seed, X0.device)
     fused_stopped_train_rollout.launches += 1
-    return FusedStoppedOut(X, acc[0], acc[5], *acc[1:5])
+    return (FusedStoppedOut(X, acc[0], acc[5], *acc[1:5]),
+            queue[1:].view(grid, lay.tile))
+
+
+def _stopped_forward_kernel(call: _StoppedCall) -> FusedStoppedOut:
+    return _stopped_forward_launch(call)[0]
 
 
 def _stopped_grads_from_row(v_net: DenseNet, lay: _StoppedLayout,
@@ -1260,12 +1432,17 @@ def _stopped_bwd_ts(packed: _Packed) -> int:
 
 
 def _stopped_bwd_grid(packed: _Packed, dev: torch.device) -> int:
-    """The backward's grid for one packed call on CUDA device ``dev``:
-    ``_stopped_grid`` of the blocks its instantiation keeps resident on the
-    card (stopped_rollout.cu: pspde_stopped_bwd_slots, asked once per
-    device and instantiation, tile and shared memory)."""
+    """The backward's grid for one packed call on CUDA device ``dev``: on
+    the sphere ``_stopped_grid`` of the blocks its instantiation keeps
+    resident on the card (stopped_rollout.cu: pspde_stopped_bwd_slots,
+    asked once per device and instantiation, tile and shared memory), whose
+    lanes are refilled as paths exit; on the whole space and the torus,
+    where paths run their N steps and a refill gains nothing, one block per
+    tile paths (the block scheduler balances the SMs)."""
     ia = packed.iargs
     K, d, F, tile, stage, n_params = ia[0], ia[2], ia[4], ia[5], ia[6], ia[7]
+    if _GEOMETRIES[ia[15]] != "sphere":
+        return -(-K // tile)
     H = F - d - ia[14]
     ts = _stopped_bwd_ts(packed)
     smem = _stopped_smem_bytes(n_params if stage else 0, 3 * F + 3 * H + 1,

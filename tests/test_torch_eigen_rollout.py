@@ -322,7 +322,8 @@ def test_pack_stopped_torus(backward, with_lam):
     (not into the float arguments: no host sync per step), zero without a
     lambda leaf; the gradient row ends with d/dlambda; the square, c and the
     clamp reach the kernel's arguments; at d=5 with the notebook net the
-    block is 64 paths with the net staged in shared memory."""
+    net is staged in shared memory, the backward's block 64 paths, the
+    forward's at K=500 4 lanes of 16 threads."""
     d = 5
     pt, net, _ = _torch_torus(d, (10, 10, 10, 10), True, 0.8)
     lam = torch.tensor([0.25]) if with_lam else None
@@ -333,7 +334,7 @@ def test_pack_stopped_torus(backward, with_lam):
                               adaptive_forward=False, rng="erfinv", lam=lam)
     ia, fa = packed.iargs, packed.fargs
     assert len(ia) == 16 + 4 * tk._MAX_HIDDEN + 6 and len(fa) == 13
-    assert (ia[5], ia[6]) == (64, 1)
+    assert (ia[5], ia[6]) == ((64, 1) if backward else (4, 1))
     assert (ia[11], ia[12], ia[14], ia[15]) == (0, 1, 0, 2)
     relu, lam_off, g_lam = ia[-3:]
     lay = tk._stopped_layout(net, torch.zeros(1))

@@ -348,7 +348,7 @@ def test_time_stopping_family_errors():
 @pytest.mark.parametrize("d,arch,case,backward,smem", [
     (5, (6, 5), "nonlinear", False, None),
     (5, (6, 5), "heat", True, None),
-    (50, (30, 30), "nonlinear", False, 4 * (4404 + 282 * 65)),
+    (50, (30, 30), "nonlinear", False, 4 * (4404 + 4 * 132 + 332 * 17)),
     (50, (30, 30), "nonlinear", True, 4 * (4 + 4404 + 514 * 68)),
     (50, (30, 30), "heat", True, 4 * (4 + 4404 + 514 * 68)),
 ])
@@ -358,7 +358,9 @@ def test_pack_stopped_time_stopping(d, arch, case, backward, smem):
     gradient block has d + 2 rows (d + 1 inputs and the bias), and the
     horizon and h's time coefficient ride the float arguments.  At d=50,
     DenseNet (30, 30) the backward's 514 floats per path (at stride tile +
-    4, after its 4 ballot words) fit tile 64 with the net staged."""
+    4, after its 4 ballot words) fit tile 64 with the net staged; at
+    K=4096 the forward spreads its paths over blocks of 16 lanes, its net
+    staged with 4 pad floats a W row and 2 F + H + d floats a path."""
     cls, kw = PROBLEMS[case]
     pt = getattr(tp, cls)(d=d, device="cpu", **dict(kw, T=1.0))
     net = DenseNet(1, arch, d_in=d + 1, device="cpu",
@@ -381,10 +383,12 @@ def test_pack_stopped_time_stopping(d, arch, case, backward, smem):
     n_params = sum(p.numel() for p in net.parameters())
     assert lay.n_grad == n_params == ia[13]
     assert lay.g_off[1] == (d + 2) * arch[0]
-    per_path = 3 * F + 3 * H + 1 if backward else 2 * F + H
-    assert (ia[5], ia[6]) == (64, 1)
+    per_path = 3 * F + 3 * H + 1 if backward else 2 * F + H + d
+    assert (ia[5], ia[6]) == ((64, 1) if backward else (16, 1))
     if smem is not None:
-        assert tk._stopped_smem_bytes(ia[7], per_path, ia[5],
+        staged = ia[7] if backward else tk._stopped_fwd_net_floats(
+            ia[7], list(arch), d + 1)
+        assert tk._stopped_smem_bytes(staged, per_path, ia[5],
                                       backward) == smem
         assert smem <= tk._SMEM_LIMIT
     row = torch.arange(lay.n_grad, dtype=torch.float32)

@@ -237,7 +237,9 @@ def test_backward_stride(arch, tile, stride):
     n_stage = bwd.iargs[7] if bwd.iargs[6] else 0
     assert tk._stopped_smem_bytes(n_stage, 3 * F + 3 * H + 1, tile, True,
                                   stride) <= tk._SMEM_LIMIT
-    assert fwd.iargs[5] >= tile
+    # the forward's own block (its tile lanes of tpp threads) fits too
+    assert fwd.iargs[5] in tk._STOPPED_FWD_TILES
+    assert tk._stopped_fwd_smem_bytes(fwd) <= tk._SMEM_LIMIT
 
 
 def test_backward_too_wide_raises():
@@ -247,3 +249,60 @@ def test_backward_too_wide_raises():
     call.pack(backward=False)
     with pytest.raises(ValueError, match="STOPPED_KERNEL_FAMILY"):
         call.pack(backward=True)
+
+
+def _grid_call(kind, K):
+    """A call of the family ``kind`` (sphere, whole space, torus) at K."""
+    g = torch.Generator().manual_seed(3)
+    lam, timed = None, False
+    if kind == "sphere":
+        prob = tp.ExponentialOnBallNonlinearSin(d=6, alpha=0.1, device="cpu")
+        d_in = 6
+    elif kind == "unbounded":
+        prob = tp.HeatEquation(d=6, T=0.2, device="cpu")
+        prob.geometry = tp.Geometry(kind="unbounded", boundary_distance=2.0)
+        d_in, timed = 7, True
+    else:
+        prob = tp.FokkerPlanckEigen(d=5, device="cpu")
+        d_in, lam = 5, torch.full((1,), 0.3)
+    net = DenseNet(1, (6, 5), d_in=d_in, device="cpu", generator=g)
+    X0 = sample_domain(g, prob.geometry, K, prob.d)
+    return tk._StoppedCall(
+        prob, net, X0, torch.zeros(K), 20, 1e-3, 4321,
+        tk._check_stopped_family(prob, net, "erfinv", timed, lam),
+        dict(adaptive_forward=False, rng="erfinv", host_noise=None,
+             time_stopping=timed), None, lam)
+
+
+@pytest.mark.parametrize("kind", ["sphere", "unbounded", "square"])
+@pytest.mark.parametrize("K,slots", [(500, 3), (8192 + 37, 132),
+                                     (65536, 396)])
+def test_backward_grid_per_family(monkeypatch, kind, K, slots):
+    """The backward's grid: on the sphere, where paths exit after a few
+    steps, at most the blocks the card holds (the slots, asked of the
+    library once) with lanes refilled from each block's range; on the whole
+    space and the torus, where paths run their N steps and a refill gains
+    nothing, one block per tile paths, the library not asked.  Either grid
+    partitions the paths into ranges of whole tiles."""
+    asked = []
+
+    class FakeLib:
+        def pspde_stopped_bwd_slots(self, iargs, fargs, index, out):
+            asked.append(index)
+            out._obj.value = slots
+            return 0
+
+    monkeypatch.setattr(_build, "library", lambda: FakeLib())
+    monkeypatch.setattr(tk, "_STOPPED_BWD_SLOTS", {})
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    packed = _grid_call(kind, K).pack(backward=True)
+    tile = packed.iargs[5]
+    grids = [tk._stopped_bwd_grid(packed, torch.device("cpu"))
+             for _ in range(2)]
+    T = -(-K // tile)
+    if kind == "sphere":
+        assert grids == [min(T, slots)] * 2 and asked == [0]
+    else:
+        assert grids == [T] * 2 and asked == []
+        assert tk._stopped_ranges(K, tile, T) == [
+            (lo, min(K, lo + tile)) for lo in range(0, K, tile)]

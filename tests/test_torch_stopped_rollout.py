@@ -461,14 +461,15 @@ def test_stopped_family_errors():
 @pytest.mark.parametrize("arch,backward,tile,stage", [
     ((30, 30), False, 64, True),
     ((30, 30), True, 64, True),
-    ((70, 50, 50, 50), False, 64, False),
+    ((70, 50, 50, 50), False, 16, True),
     ((70, 50, 50, 50), True, 32, False),
 ])
 def test_pack_stopped_layout(arch, backward, tile, stage):
     """At d=50 the (30, 30) net is staged in shared memory; the notebook
-    net DenseNet(70, 50, 50, 50) (131 KB of weights) is read from device
-    memory, and its backward drops to 32 paths per block.  The gradient
-    row maps back onto the parameters."""
+    net DenseNet(70, 50, 50, 50) (131 KB of weights) is staged by the
+    forward's blocks of 16 lanes (of 16 threads) and read from device
+    memory by the backward, which drops to 32 paths per block.  The
+    gradient row maps back onto the parameters."""
     d = 50
     pt = tp.ExponentialOnBallNonlinearSin(d=d, alpha=0.1, device="cpu")
     net = DenseNet(1, arch, d_in=d, generator=torch.Generator().manual_seed(
