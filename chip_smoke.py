@@ -6,24 +6,28 @@ PDE solution off a trained model, and ``HJBSolver.train()`` is how the
 control is learned.  This script
 
   1. builds the kernels from pspde_torch/csrc (nvcc, sm_90a, one process
-     per source), counts the TF32 HMMA instructions of the HJB forward's
-     and backward's two instantiations each, of the ablation ladder's net
-     and full stages on both plans and of the stopped backward's six in
-     the library's SASS (none fails), and prints the registers and spill
-     bytes of the HJB forward's and the stopped forward's instantiations
-     from ptxas (a spill fails);
+     per source), counts the TF32 HMMA instructions of the serve kernel's,
+     the HJB forward's and backward's two instantiations each, of the
+     ablation ladder's net and full stages on both plans and of the
+     stopped backward's six in the library's SASS (none fails), and prints
+     the registers and spill bytes of the serve kernel's, the HJB
+     forward's and the stopped forward's instantiations from ptxas (a
+     spill fails);
   2. compares the serve kernel with its plain PyTorch version on host
      noise, on LLGC d=100 with the exported control and on LQGC d=100
      (dense A and sigma, f != 0), at K=8192 and N=100;
   3. does the same on the kernel's own Philox stream, which the plain
-     version draws too, elementwise;
+     version draws too, elementwise, and holds the serve kernel's outputs
+     bitwise equal across 1, 2 and 4 threads a path on both memory plans;
   4. serves IS through pspde_torch.eval.importance_sampling_fused at
      K=2^20 (plain and antithetic) and holds the estimate against the
      exact value log E = 1/2 d dt sum_{j<N} (1 - dt)^{2j} = 21.759305 of
      the Euler-Maruyama chain (discrete Girsanov is exact for additive
      noise, so only Monte-Carlo error remains);
   5. times the serve kernel and the plain version at K=2^20, N=100 with
-     CUDA events, both drawing the same Philox stream;
+     CUDA events, both drawing the same Philox stream, and prints the
+     kernel's launch (the occupancy API's warps per SM and bytes a block)
+     and its bound;
   6. compares the training kernels (forward and replay backward) with
      their plain version on host noise at K=8192, N=32: forward outputs
      and per-leaf gradients of a log-variance (+ KL) loss (within 1e-5 of
@@ -69,7 +73,8 @@ control is learned.  This script
      device memory, each path's arrays in a [row][K] workspace) at LLGC
      d=1000, N=200, K=2048 against their plain versions (serve, training
      outputs and gradients; host noise, binom, erfinv), and forces the
-     device plan at d=100, K=8192 against the shared plan;
+     device plan at d=100, K=8192 against the shared plan (the serve's
+     outputs bitwise equal);
  14. trains BASELINE config 5 (LLGC d=1000, T=2, dt=0.01, K=98304,
      log-variance, fused_train, binom) for a few steps on the device plan,
      serves it, times its kernels and steps at those shapes (the plain
@@ -369,6 +374,45 @@ def compare_serve(tag, kern, plain):
     return worst
 
 
+def serve_layouts(tag, prob, net, kern):
+    """The serve kernel at tile 32 and 1, 2 and 4 threads a path on both
+    memory plans, on the Philox stream of ``kern`` (seed 1234, sign +1, the
+    wrapper's layout): every output bitwise equal to ``kern``'s (the sums'
+    classes make every layout sum in one order)."""
+    from pspde_torch.rollout import kernels as km
+    drift, cost = km._check_family(prob, net, True, 1.0)
+    same = {}
+    for tpp in (1, 2, 4):
+        for plan in km.PLANS:
+            packed = km._pack(prob, net, drift, cost, K_CHECK, N_STEPS, DT_IS,
+                              32, None, 1.0, plan, tpp)
+            out = km._serve_kernel(packed, None, 1234, prob.X_0.device)
+            same[f"32x{tpp} {plan}"] = all(torch.equal(a, b)
+                                           for a, b in zip(out, kern))
+    print(f"  {tag} layouts bitwise equal to the wrapper's: {same}")
+    check(all(same.values()), f"{tag} serve layouts bitwise: {same}")
+
+
+def serve_occupancy(prob, net, K, dev):
+    """The serve kernel's launch at K paths as the wrapper chooses it."""
+    from pspde_torch.rollout import kernels as km
+    drift, cost = km._check_family(prob, net, True, 1.0)
+    packed = km._pack(prob, net, drift, cost, K, N_STEPS, DT_IS, None, None,
+                      1.0)
+    return km._train_fwd_occupancy(packed, dev, "pspde_serve_occupancy")
+
+
+def serve_roofline(steps, widths, n_par, K):
+    """The serve kernel's bound: per path-step the TanhMLP's products on
+    the tensor cores as 3xTF32 and its activations and 10 operations per
+    dimension (the Euler step, the Ito and Riemann sums) in FP32; the net
+    read once and (K, d + 3) written."""
+    d = widths[-1]
+    return tf32_roofline(steps * (mlp_flops(widths) + 10 * d),
+                         steps * net_products(widths),
+                         4 * (n_par + K * (d + 3)))
+
+
 def timed(fn, reps, warm=True):
     """ms per call of ``fn`` over ``reps`` calls, CUDA events, after one
     warm-up call unless ``warm`` is False."""
@@ -541,6 +585,7 @@ def main():
             print(f"  ptxas: {line.strip()}")
     hmma = tf32_mma_counts(info["path"], ("train_backward_kernel",
                                           "train_forward_kernel",
+                                          "controlled_rollout_kernel",
                                           "stopped_bwd_kernel",
                                           "ablation_kernel"))
 
@@ -550,6 +595,7 @@ def main():
 
     train_hmma = by_plan(hmma["train_backward_kernel"])
     fwd_hmma = by_plan(hmma["train_forward_kernel"])
+    serve_hmma = by_plan(hmma["controlled_rollout_kernel"])
     stopped_hmma = sorted(hmma["stopped_bwd_kernel"].values())
     # the ladder's stages: 0 noise, 1 euler, 2 net, 3-6 full*
     ladder_hmma = {}
@@ -557,7 +603,8 @@ def main():
         stage = int(name.split("ablation_kernelILi")[1].split("E")[0])
         plan = "device" if f"ILi{stage}ELb1E" in name else "shared"
         ladder_hmma[f"{stage}{plan[0]}"] = n
-    print(f"  TF32 HMMA instructions in the HJB forward's SASS: {fwd_hmma}; "
+    print(f"  TF32 HMMA instructions in the serve kernel's SASS: "
+          f"{serve_hmma}; the HJB forward's: {fwd_hmma}; "
           f"the backward's: {train_hmma}; the ladder's stages (stage, "
           f"s/d plan): {dict(sorted(ladder_hmma.items()))}; the stopped "
           f"backward's six instantiations: {stopped_hmma}")
@@ -565,20 +612,21 @@ def main():
           "both plans of the HJB backward run TF32 mma")
     check(len(fwd_hmma) == 2 and all(fwd_hmma.values()),
           "both plans of the HJB forward run TF32 mma")
+    check(len(serve_hmma) == 2 and all(serve_hmma.values()),
+          "both plans of the serve kernel run TF32 mma")
     check(len(ladder_hmma) == 14
           and all(ladder_hmma[f"{st}{p}"] for st in range(2, 7)
                   for p in "sd"),
           "the ladder's net and full stages run TF32 mma on both plans")
     check(len(stopped_hmma) == 6 and all(stopped_hmma),
           "every instantiation of the stopped backward runs TF32 mma")
-    fwd_use = {("device" if "ILb1E" in k else "shared"): v
-               for k, v in ptxas_usage(info["log"],
-                                       "train_forward_kernel").items()}
-    print(f"  ptxas, the HJB forward (registers, spill store and load "
-          f"bytes): {fwd_use}")
-    check(len(fwd_use) == 2
-          and all(u[1] == u[2] == 0 for u in fwd_use.values()),
-          "the HJB forward's instantiations spill no registers")
+    for kernel, what in (("controlled_rollout_kernel", "the serve kernel"),
+                         ("train_forward_kernel", "the HJB forward")):
+        use = by_plan(ptxas_usage(info["log"], kernel))
+        print(f"  ptxas, {what} (registers, spill store and load bytes): "
+              f"{use}")
+        check(len(use) == 2 and all(u[1] == u[2] == 0 for u in use.values()),
+              f"{what}'s instantiations spill no registers")
     stopped_use = ptxas_usage(info["log"], "stopped_fwd_kernel")
     print(f"  ptxas, the stopped forward's six instantiations (registers, "
           f"spill store and load bytes): {sorted(stopped_use.values())}")
@@ -629,6 +677,8 @@ def main():
                                                     seed=1234,
                                                     noise_sign=sign)
             compare(f"[{tag}, sign {sign:+.0f}]", kern, plain)
+            if sign == 1.0:
+                serve_layouts(f"[{tag}]", prob, net, kern)
 
     # -- phase 4: the serve run ----------------------------------------------
     print(f"phase 4: importance_sampling_fused, LLGC d=100, K={K_SERVE}, "
@@ -656,7 +706,8 @@ def main():
         bound = 5.0 * rel / math.sqrt(units)
         print(f"  antithetic={antithetic}: mean {mean:.6e} var {var:.4e} "
               f"RE {rel:.4f} |log mean - exact| {err:.3e} (5 SE "
-              f"{bound:.3e}), {wall:.3f} s wall")
+              f"{bound:.3e}), {wall:.4f} s wall, "
+              f"{K_SERVE * N_STEPS / wall:.4e} path-steps/s")
         check(math.isfinite(mean) and mean > 0, f"IS mean {mean}")
         check(err <= bound, f"|log mean - exact| {err:.3e} > {bound:.3e}")
     print(f"  control_test_error {cte:.4f} (K=16384)")
@@ -683,19 +734,19 @@ def main():
     print(f"  plain  {plain_ms} ms -> {steps / p_ms * 1e3:.4e} path-steps/s")
     print(f"  card: {smi}")
 
-    # per path-step: the TanhMLP [101, 30, 30, 100] and 10 operations per
-    # dimension (the Euler step, the Ito and Riemann sums)
+    occ = serve_occupancy(llgc, solver.z_net, K_SERVE, dev)
+    print(f"  kernel launch (the occupancy API's theoretical residency, not "
+          f"a measurement): {occ}")
     n_par = sum(p.numel() for p in solver.z_net.parameters())
     serve_row = {"name": "fused_controlled_rollout", "route": "cuda",
                  "source": SERVE_SOURCE,
                  "replaces": "pspde/rollout/kernels.py:339",
                  "launches": launches, "max_abs_err": worst_abs, "ms": ms,
                  "plain_ms": p_ms,
-                 **roofline(steps * (mlp_flops([D + 1, 30, 30, D])
-                                     + 10 * D),
-                            4 * (n_par + K_SERVE * (D + 3)))}
+                 **serve_roofline(steps, [D + 1, 30, 30, D], n_par, K_SERVE)}
     print(f"  bound {serve_row['bound_ms']:.3f} ms "
-          f"({serve_row['bound_by']})")
+          f"({serve_row['bound_by']}; all in FP32 "
+          f"{serve_row['bound_ms_fp32']:.3f} ms)")
     train_rows = train_phases(dev, smi, llgc, solver, lqgc, gen, timed)
     stopped_rows = stopped_phases(dev, smi, timed)
     config5, wide_rows = wide_phases(dev, smi, llgc, solver)
@@ -1641,6 +1692,7 @@ def wide_phases(dev, smi, llgc, solver):
               f"{bitwise})")
         check(diff <= (GRAD_TOL if i == 2 else REL_TOL) * (1.0 + scale),
               f"device vs shared plan, {what}: {diff:.3e}")
+        check(bitwise or i > 0, f"device vs shared plan, {what} bitwise")
 
     # the training kernels' plain times: at the check shape (the plain
     # backward at K5 would need 79 GB)
@@ -1736,7 +1788,8 @@ def wide_phases(dev, smi, llgc, solver):
         p2 = timed(plain_serve5, 1)
     serve_ms = (min(k), min(p1, p2))
     print(f"  serve K={K5_SERVE}: kernel {k[0]:.3f}, {k[1]:.3f} ms; plain "
-          f"{p1:.3f}, {p2:.3f} ms")
+          f"{p1:.3f}, {p2:.3f} ms; launch (the occupancy API's): "
+          f"{serve_occupancy(llgc5, trainer.z_net, K5_SERVE, dev)}")
     profile_steps(f"1 config-5 step, K={K5}", trainer.step, n=1)
     del call5
     torch.cuda.empty_cache()
@@ -1779,8 +1832,7 @@ def wide_phases(dev, smi, llgc, solver):
              launches=launches["serve"]["device"],
              max_abs_err=worst["serve"], ms=serve_ms[0],
              plain_ms=serve_ms[1],
-             **roofline(K5_SERVE * N * (mlp_flops(widths) + 10 * d),
-                        4 * (n_par + K5_SERVE * (d + 3)))),
+             **serve_roofline(K5_SERVE * N, widths, n_par, K5_SERVE)),
         dict(row, name="fused_train_rollout.forward.device_plan_d1000",
              replaces="pspde/rollout/kernels.py:696",
              launches=launches["forward"]["device"],

@@ -3,7 +3,8 @@
 kernels at the bench shapes on one CUDA card, and print one JSON line.
 
     python3 experiments/torch_kernel_times.py [--root DIR] [--hjb-only]
-        [--stopped-only] [--layouts [hjb|stopped]] [--fwd-bwd]
+        [--stopped-only] [--serve-only] [--layouts [hjb|stopped|serve]]
+        [--fwd-bwd]
 
 ``--root`` names the checkout whose ``pspde_torch`` is timed (default:
 the one this script lives in).  Two trees are compared on one card in one
@@ -15,7 +16,9 @@ command: unpack the other with ``git archive`` into a directory that
 
 Each kernel is timed with CUDA events, best of two rounds: the serve
 kernel at LLGC d=100 with the exported control, K=2^20, N=100, Philox
-noise; the training forward and replay backward at K=131072, N=32, binom
+noise, and at LLGC d=1000, T=2, N=200, K=8192 (BASELINE config 5's width,
+TanhMLP [1001, 30, 30, 1000] from a seed; ``--serve-only`` times these two
+alone); the training forward and replay backward at K=131072, N=32, binom
 and erfinv noise, u_tab, and one ``HJBSolver.step()`` at that shape for
 each map; the ablation ladder's stages there; BASELINE config 5 (LLGC
 d=1000, T=2, N=200, K=98304: forward, backward, one step, the ladder's
@@ -48,7 +51,13 @@ or one block per tile), with the warps per SM and bytes a block of each,
 whether its outputs are bitwise those of one thread a path at one tile a
 block, and its device time from ``torch.profiler`` beside the events'
 (which time the host's launches too where a launch is short);
-``--layouts hjb`` or ``--layouts stopped`` times one of the two.
+``--layouts serve`` times the serve kernel at each tile, threads per path
+and memory plan whose block fits, at K=2^20 and K=8192 (d=100) and at
+d=1000, K=8192, with the warps per SM and bytes a block of each and
+whether its outputs are bitwise those of the layout the wrapper chooses
+(how the serve's layout rule was settled); ``--layouts hjb`` or
+``--layouts stopped`` times one of the forwards, ``--layouts`` all
+three.
 ``--fwd-bwd`` times only the HJB forward and backward kernels, at the
 bench shape (binom) and at config 5.
 """
@@ -113,11 +122,13 @@ def main():
     ap.add_argument("--hjb-only", action="store_true",
                     help="time the HJB training kernels only")
     ap.add_argument("--layouts", nargs="?", const="all",
-                    choices=("all", "hjb", "stopped"),
+                    choices=("all", "hjb", "stopped", "serve"),
                     help="time the forwards' layouts (tile, threads per "
                          "path; the stopped forward's grid)")
     ap.add_argument("--stopped-only", action="store_true",
                     help="time the stopped kernels and steps only")
+    ap.add_argument("--serve-only", action="store_true",
+                    help="time the serve kernel only, at both of its shapes")
     ap.add_argument("--fwd-bwd", action="store_true",
                     help="time the HJB forward and backward kernels only")
     args = ap.parse_args()
@@ -171,11 +182,17 @@ def main():
                                    u_tab=u_tab, rng="binom", **kw)
 
         with torch.no_grad():
-            return {"serve": timed(serve, 5), "fwd": timed(fwd, 10),
-                    "bwd": timed(lambda: km._train_backward_kernel(c, gY,
-                                                                   gKL), 5)}
+            # the serve's own layout at K=2^20 is serve_d100 (serve_times)
+            times = {} if plan is None else {"serve": timed(serve, 5)}
+            return dict(times, fwd=timed(fwd, 10),
+                        bwd=timed(lambda: km._train_backward_kernel(c, gY,
+                                                                    gKL), 5))
 
     out = {"root": os.path.relpath(root, here), "card": card}
+    if args.serve_only:
+        out.update(serve_times(llgc, solver.z_net, dev))
+        print(json.dumps(out))
+        return
     if args.stopped_only:
         out.update(stopped_times(dev, gen))
         out.update(stopped_steps(dev))
@@ -188,9 +205,12 @@ def main():
             out.update(layout_times(llgc, net, u_tab, dev))
         if args.layouts in ("all", "stopped"):
             out.update(stopped_layout_times(dev, gen))
+        if args.layouts in ("all", "serve"):
+            out.update(serve_layout_times(llgc, solver.z_net, dev))
         print(json.dumps(out))
         return
     if not args.hjb_only:
+        out.update(serve_times(llgc, solver.z_net, dev))
         out.update({f"{k}_default": v for k, v in kernels(None).items()})
         if has_plans:
             out.update({f"{k}_device": v
@@ -200,6 +220,79 @@ def main():
     if not args.hjb_only:
         out.update(stopped_times(dev, gen))
     print(json.dumps(out))
+
+
+def serve_cells(llgc, z_net, dev):
+    """{cell: (problem, net, K, N, dt, reps)}: the serve kernel's shapes,
+    LLGC d=100 with the exported control at K=2^20 (and at K=8192, the
+    size of chip_smoke.py's checks) and LLGC d=1000 at K=8192, N=200 with a
+    TanhMLP [1001, 30, 30, 1000] from a seed (and at K=65536, where the
+    device plan's blocks fill the card)."""
+    from pspde_torch.ansatz import TanhMLP
+    from pspde_torch.problems import LLGC
+
+    llgc5 = LLGC(d=1000, T=2.0, device=dev)
+    net5 = TanhMLP(1001, 1000, init_scale=0.1, device=dev,
+                   generator=torch.Generator(dev).manual_seed(5))
+    return {"d100": (llgc, z_net, K_SERVE, N_SERVE, DT_SERVE, 3),
+            "d100_k8192": (llgc, z_net, 8192, N_SERVE, DT_SERVE, 20),
+            "d1000": (llgc5, net5, 8192, 200, 0.01, 2),
+            "d1000_k65536": (llgc5, net5, 65536, 200, 0.01, 1)}
+
+
+def serve_times(llgc, z_net, dev):
+    """ms of the serve kernel at K=2^20, d=100 and at d=1000, K=8192, as
+    the wrapper chooses its layout (the tree's own)."""
+    from pspde_torch.rollout import kernels as km
+
+    out = {}
+    for tag, (prob, net, K, N, dt, reps) in serve_cells(llgc, z_net,
+                                                        dev).items():
+        if tag in ("d100", "d1000"):
+            out[f"serve_{tag}"] = timed(lambda: km.fused_controlled_rollout(
+                prob, net, K, N, dt, seed=5), reps)
+    return out
+
+
+def serve_layout_times(llgc, z_net, dev):
+    """ms of the serve kernel at each cell of ``serve_cells`` for each
+    (tile, threads per path, plan) layout whose block fits, with the
+    occupancy API's warps per SM and bytes a block and whether its outputs
+    are bitwise those of the wrapper's chosen layout."""
+    from pspde_torch.rollout import kernels as km
+
+    if not hasattr(km, "_serve_kernel"):
+        return {}
+    out = {}
+    for tag, (prob, net, K, N, dt, reps) in serve_cells(llgc, z_net,
+                                                        dev).items():
+        drift, cost = km._check_family(prob, net, True, 1.0)
+        chosen = km._pack(prob, net, drift, cost, K, N, dt, None, None, 1.0)
+        out[f"serve_{tag}_chosen"] = "%dx%d %s" % (
+            chosen.iargs[5], chosen.iargs[-3], km._plan_of(chosen))
+        with torch.no_grad():
+            ref = km._serve_kernel(chosen, None, 5, dev)
+            for tile in (32, 64, 96, 128):
+                for tpp in (1, 2, 4):
+                    for plan in km.PLANS:
+                        try:
+                            packed = km._pack(prob, net, drift, cost, K, N,
+                                              dt, tile, None, 1.0, plan, tpp)
+                        except ValueError:
+                            continue   # no block of this layout fits
+                        occ = km._train_fwd_occupancy(
+                            packed, dev, "pspde_serve_occupancy")
+                        got = km._serve_kernel(packed, None, 5, dev)
+                        same = all(torch.equal(a, b)
+                                   for a, b in zip(got, ref))
+                        out[f"serve_{tag}_t{tile}_p{tpp}_{plan}"] = {
+                            "ms": timed(lambda: km._serve_kernel(
+                                packed, None, 5, dev), reps),
+                            "warps_per_sm": occ["warps_per_sm"],
+                            "smem_bytes": occ["smem_bytes"],
+                            "bitwise": same}
+                        del got
+    return out
 
 
 def _ablation_stages(problem, net, K, N, dt, reps):

@@ -1,8 +1,8 @@
-// Device code shared by the rollout kernels (controlled_rollout.cu,
-// train_rollout.cu, stopped_rollout.cu): the counter-based noise stream,
-// the two bits -> normal maps, the chunked FP32 matrix-vector products of
-// the nets and the dense coefficients, and the TF32 tensor-core pieces of
-// both backward kernels' weight-gradient products.
+// Device code shared by the rollout kernels (train_step.cuh, and through
+// it controlled_rollout.cu and train_rollout.cu; stopped_rollout.cu): the
+// counter-based noise stream, the two bits -> normal maps, the chunked FP32
+// matrix-vector products of the stopped nets and the dense coefficients,
+// and the TF32 tensor-core pieces of the net and weight-gradient products.
 //
 // Per-path arrays are [row][stride] in shared memory: thread p of a block
 // reads row i of its own path at in[i * stride], so a warp reads 32
@@ -99,30 +99,6 @@ __device__ __forceinline__ void matvec_chunk(const float* __restrict__ MT,
     acc[5] = fmaf(a, w1.y, acc[5]);
     acc[6] = fmaf(a, w1.z, acc[6]);
     acc[7] = fmaf(a, w1.w, acc[7]);
-  }
-}
-
-// out = act(in @ W + b), W (rows, cols) row-major.  For the first layer
-// (t_row) row 0 of W multiplies the scalar t and `in` holds rows 1.. .
-__device__ __forceinline__ void dense(const float* __restrict__ W,
-                                      const float* __restrict__ b, int rows,
-                                      int cols, const float* in, int stride,
-                                      float* out, bool tanh_act, bool t_row,
-                                      float t) {
-  for (int j0 = 0; j0 < cols; j0 += kChunk) {
-    float acc[kChunk];
-#pragma unroll
-    for (int c = 0; c < kChunk; ++c) acc[c] = t_row ? t * W[j0 + c] : 0.0f;
-    if (t_row) {
-      matvec_chunk(W + cols, rows - 1, cols, j0, in, stride, acc);
-    } else {
-      matvec_chunk(W, rows, cols, j0, in, stride, acc);
-    }
-#pragma unroll
-    for (int c = 0; c < kChunk; ++c) {
-      const float v = acc[c] + b[j0 + c];
-      out[(j0 + c) * stride] = tanh_act ? tanhf(v) : v;
-    }
   }
 }
 

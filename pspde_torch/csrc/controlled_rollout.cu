@@ -5,257 +5,171 @@
 // fused_controlled_rollout (pallas_call at kernels.py:339).  Same outputs:
 // the final state X (K, d) and the per-path integrals ito = int u.dW,
 // riem = int |u|^2 dt and f_int = int f dt, laid out as one (K, d + 3)
-// row-major array.
+// row-major array.  Per path and step, with u = -Z:
 //
-// What bounds it on an H100: at the serve shapes (d = 100, TanhMLP
-// [101 -> 30 -> 30 -> 100], N = 100) every path-step costs about 13.9 kFLOP
-// of control net plus d normals (Philox4x32-10 and erfinvf), and no device
-// memory traffic at all: FP32 FMA and RNG work bound it.  The design keeps
-// all state on chip:
-//   * one block owns `tile` paths (one thread per path) for all N steps;
-//   * the net's weights, X_0 and the dense constants (A^T, sigma^T, P^T)
-//     are staged once per block in shared memory (dynamic, above 48 KB);
-//   * each path's state X, the control u and the hidden activations live
-//     in shared memory as [row][tile] arrays, so a warp reads 32
-//     consecutive words (no bank conflicts) while the weights of a row
-//     chunk are read as float4 broadcasts;
-//   * products are plain FP32 FMA loops over chunks of kChunk outputs held
-//     in registers (widths are zero-padded to kChunk on the host).
-// The only device-memory traffic is the host noise (test mode) and the
-// final write.  Occupancy is bounded by the ~1.1 KB of per-path state in
-// shared memory; that is the first thing to change when making it fast.
-// At wide d the staged buffer and the per-path state fit no tile's block
-// (d = 1000, TanhMLP (30, 30): 532 KB at tile 32).  The device plan then
-// reads the buffer from device memory (the same words for every thread:
-// L1 and L2 serve them) and keeps each path's arrays in a workspace of
-// device memory laid out [row][ws_stride], ws_stride the grid's paths, so
-// that a warp still reads 32 consecutive words; the step code is the same.
+//   Z   = net([t_n, X])
+//   X'  = X + (b(X) + sigma u) dt + sigma xi sqrt(dt)
+//   ito += (u.xi) sqrt(dt),  riem += |u|^2 dt,  f_int += f(X', t_n) dt
+//
+// It is the HJB training forward's step with the adaptive update (c = -Z =
+// u): the serve kernel runs train_step.cuh's own code, and only the sums
+// differ (train_forward_step<..., kSumIS>: -Z.xi sqrt(dt), |Z|^2 dt and f dt
+// into the three classed sums).
+//
+// What bounds it on an H100: at the serve shapes (d = 100, TanhMLP [101 ->
+// 30 -> 30 -> 100], N = 100, K = 2^20) a path-step is ~13.9 kFLOP of the
+// net's products, ~1 kFLOP of update and sums and d normals (Philox4x32-10
+// and erfinvf), with no device-memory traffic but the final write: the
+// net's products as three TF32 tensor-core products each (3xTF32) and the
+// noise bound it.  The design (the forward's, train_rollout.cu):
+//   * a block of tile x tpp threads, thread q * tile + p on path p: the
+//     net's layers are products over the block's paths on the tensor cores
+//     (train_net: mma.sync m16n8k8, each operand split into two TF32 parts,
+//     float32 accuracy), the noise and update of a path split over its tpp
+//     threads by dimension groups;
+//   * __launch_bounds__(kFwdThreads, 2): 16 warps per SM at 64 x 4 in the
+//     shared plan, where one thread a path gave 4;
+//   * each path's sums kept in kSumClasses classes of dimension groups and
+//     added in class order after the last step (train_path_sums), so that
+//     every tpp and both memory plans give the same bits;
+//   * the shared plan stages the net in mma fragment order beside the
+//     paths' [row][tile + 4] arrays; the device plan (d ~ 250 and up,
+//     where no block fits 227 KB) reads the net from device memory and
+//     keeps the arrays in a [row][K] workspace, with the same step code;
+//   * the block writes its rows of X and the sums with consecutive stores.
 //
 // Family (the wrapper raises a ValueError outside it): drift -x or A x;
-// sigma scalar, diag or full; f zero or x^T P x evaluated at (X_new, t);
-// a TanhMLP control with input [t, X]; noise_sign +-1; host noise (N, K, d)
-// or in-kernel Philox4x32-10 noise keyed by (seed, k, n, j / 4).
+// sigma scalar, diag or full; f zero or x^T P x evaluated at (X', t); a
+// TanhMLP control with input [t, X]; noise_sign +-1; host noise (N, K, d)
+// or in-kernel Philox4x32-10 noise keyed by (seed, k, n, j / 4) through
+// the erfinv map.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
-#include <string.h>
 
-#include "common.cuh"
+#include "train_step.cuh"
 
 namespace {
 
 using namespace pspde;
 
-// Layout of the integer and float argument arrays the wrapper passes
-// (pspde_torch/rollout/kernels.py: _pack).
-struct Args {
-  int K, N, d, dp, n_layers, hmax, tile;
-  int drift_kind;   // 0: b(x) = -x, 1: b(x) = A x (A^T at a_off)
-  int a_off;
-  int sig_kind;     // 0: scalar (sig_scale), 1: diag (at sig_off), 2: full
-  int sig_off;
-  int f_kind;       // 0: f = 0, 1: f = x^T P x (P^T at p_off)
-  int p_off, x0_off, n_params, host_noise;
-  int rows[kMaxLayers], cols[kMaxLayers], w_off[kMaxLayers],
-      b_off[kMaxLayers];
-  int plan;         // 0: shared (all staged), 1: device (workspace)
-  int ws_stride;    // device plan: the row stride of the workspace
-  float dt, sq_dt, noise_sign, sig_scale;
-  uint32_t key0, key1;
-};
-constexpr int kNumIntArgs = 18 + 4 * kMaxLayers;   // the ints before `dt`
-static_assert(offsetof(Args, dt) == kNumIntArgs * sizeof(int),
-              "Args must start with kNumIntArgs ints, as the wrapper packs");
-
-// kDevice: the plan, a template parameter so that the shared plan's arrays
-// are known to be in shared memory (shared-memory loads)
+// Thread q * tile + p of the block works on path p (q < tpp).  Every thread
+// stays to the end, paths past K too (the products' barriers need the whole
+// block): they carry X_0 on their own noise and write nothing.
 template <bool kDevice>
-__global__ void __launch_bounds__(kMaxTile)
-controlled_rollout_kernel(const Args a, const float* __restrict__ params,
+__global__ void __launch_bounds__(kFwdThreads, 2)
+controlled_rollout_kernel(const TrainArgs a, const float* __restrict__ P,
                           const float* __restrict__ noise,
                           float* __restrict__ out, float* ws) {
   extern __shared__ float4 smem4[];
   float* S = reinterpret_cast<float*>(smem4);
   const int tile = a.tile;
-  const int tid = threadIdx.x;
-  const int k = blockIdx.x * tile + tid;
-  // where the buffer is read, this thread's first array and the row stride
-  const float* W;
-  float* col;
-  int ts;
-  if (!kDevice) {
-    for (int i = tid; i < a.n_params; i += tile) S[i] = params[i];
-    W = S;
-    col = S + a.n_params + tid;
-    ts = tile;
-  } else {
-    W = params;
-    col = ws + k;
-    ts = a.ws_stride;
+  const int q = threadIdx.x / tile;
+  TrainState st;
+  float *G, *R;
+  const float* W = train_setup<false, kDevice>(a, P, S, ws, nullptr, st, &G,
+                                              &R);
+  const int p = st.p, ts = st.ts;
+  const int k = blockIdx.x * tile + p;
+  for (int j = q; j < a.dp; j += a.tpp) st.X[j * ts] = P[a.x0_off + j];
+  __syncthreads();
+
+  const TrainDraw draw{a, noise, k < a.K, k};
+  FwdAcc acc = {};
+  for (int n = 0; n < a.N; ++n)
+    train_forward_step<!kDevice, !kDevice, true, kSumIS>(a, P, W, st, n,
+                                                         draw, q, acc);
+
+  float ito, riem, fint;
+  train_path_sums(a, R, q, p, acc, ito, riem, fint);
+  __syncthreads();   // every thread has read the classes
+  if (q == 0) {
+    R[p] = ito;
+    R[tile + p] = riem;
+    R[2 * tile + p] = fint;
   }
   __syncthreads();
-  if (k >= a.K) return;   // no barrier below: each thread owns its column
-
-  const bool dense_update = a.drift_kind == 1 || a.sig_kind == 2;
-  float* X = col;
-  col += a.dp * ts;
-  float* Xn = X;
-  if (dense_update) {
-    Xn = col;
-    col += a.dp * ts;
+  // out (K, d + 3): the block's rows are tile * (d + 3) consecutive floats
+  const int w = a.d + 3;
+  const int k0 = blockIdx.x * tile;
+  const int n_out = min(tile, a.K - k0) * w;
+  const float* X = st.X - p;
+  float* dst = out + static_cast<size_t>(k0) * w;
+  for (int e = threadIdx.x; e < n_out; e += blockDim.x) {
+    const int pe = e / w, j = e - pe * w;
+    dst[e] = j < a.d ? X[j * ts + pe] : R[(j - a.d) * tile + pe];
   }
-  float* U = col;
-  col += a.dp * ts;
-  float* H[2] = {col, col + a.hmax * ts};
+}
 
-  for (int j = 0; j < a.dp; ++j) X[j * ts] = W[a.x0_off + j];
-  float ito = 0.0f, riem = 0.0f, fint = 0.0f;
-
-  for (int n = 0; n < a.N; ++n) {
-    const float t = static_cast<float>(n) * a.dt;
-
-    // control u = -net([t, X]); the host negated the last layer
-    const float* in = X;
-    for (int l = 0; l < a.n_layers; ++l) {
-      const bool last = l == a.n_layers - 1;
-      float* o = last ? U : H[l & 1];
-      dense(W + a.w_off[l], W + a.b_off[l], a.rows[l], a.cols[l], in, ts,
-            o, !last, l == 0, t);
-      in = o;
-    }
-
-    // noise, Girsanov sums, and either the elementwise update in place or
-    // v = u dt + xi sqrt(dt) for the dense update below
-    float s_ux = 0.0f, s_uu = 0.0f;
-    for (int g = 0; 4 * g < a.d; ++g) {
-      float xi[4];
-      if (a.host_noise) {
-        const float* src = noise + (static_cast<size_t>(n) * a.K + k) * a.d;
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-          xi[q] = 4 * g + q < a.d ? src[4 * g + q] : 0.0f;
-      } else {
-        const uint4 r = philox4x32_10(
-            make_uint4(static_cast<uint32_t>(k), static_cast<uint32_t>(n),
-                       static_cast<uint32_t>(g), 0u),
-            a.key0, a.key1);
-        xi[0] = normal_from_bits(r.x);
-        xi[1] = normal_from_bits(r.y);
-        xi[2] = normal_from_bits(r.z);
-        xi[3] = normal_from_bits(r.w);
-      }
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int j = 4 * g + q;
-        if (j >= a.d) break;
-        const float x = a.noise_sign * xi[q];
-        const float u = U[j * ts];
-        s_ux = fmaf(u, x, s_ux);
-        s_uu = fmaf(u, u, s_uu);
-        if (dense_update) {
-          U[j * ts] = u * a.dt + x * a.sq_dt;
-        } else {
-          const float s = a.sig_kind == 0 ? a.sig_scale : W[a.sig_off + j];
-          const float xo = X[j * ts];
-          X[j * ts] = (xo + (s * u - xo) * a.dt) + s * x * a.sq_dt;
-        }
-      }
-    }
-    ito += s_ux * a.sq_dt;
-    riem += s_uu * a.dt;
-
-    if (dense_update) {
-      // X_new = X + b(X) dt + sigma v, rows d..dp stay 0
-      for (int j0 = 0; j0 < a.dp; j0 += kChunk) {
-        float bx[kChunk], sv[kChunk];
-#pragma unroll
-        for (int c = 0; c < kChunk; ++c) {
-          bx[c] = a.drift_kind == 1 ? 0.0f : -X[(j0 + c) * ts];
-          sv[c] = 0.0f;
-        }
-        if (a.drift_kind == 1)
-          matvec_chunk(W + a.a_off, a.d, a.dp, j0, X, ts, bx);
-        if (a.sig_kind == 2) {
-          matvec_chunk(W + a.sig_off, a.d, a.dp, j0, U, ts, sv);
-        } else {
-#pragma unroll
-          for (int c = 0; c < kChunk; ++c) {
-            const float s =
-                a.sig_kind == 0 ? a.sig_scale : W[a.sig_off + j0 + c];
-            sv[c] = s * U[(j0 + c) * ts];
-          }
-        }
-#pragma unroll
-        for (int c = 0; c < kChunk; ++c)
-          Xn[(j0 + c) * ts] = X[(j0 + c) * ts] + bx[c] * a.dt + sv[c];
-      }
-      float* tmp = X;
-      X = Xn;
-      Xn = tmp;
-    }
-
-    if (a.f_kind == 1) {   // f(X_new, t) = X_new^T P X_new
-      float f = 0.0f;
-      for (int j0 = 0; j0 < a.dp; j0 += kChunk) {
-        float px[kChunk] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-        matvec_chunk(W + a.p_off, a.d, a.dp, j0, X, ts, px);
-#pragma unroll
-        for (int c = 0; c < kChunk; ++c) f = fmaf(X[(j0 + c) * ts], px[c], f);
-      }
-      fint += f * a.dt;
-    }
-  }
-
-  float* dst = out + static_cast<size_t>(k) * (a.d + 3);
-  for (int j = 0; j < a.d; ++j) dst[j] = X[j * ts];
-  dst[a.d] = ito;
-  dst[a.d + 1] = riem;
-  dst[a.d + 2] = fint;
+template <bool kDevice>
+cudaError_t set_smem(size_t smem) {
+  return cudaFuncSetAttribute(controlled_rollout_kernel<kDevice>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
 }
 
 }  // namespace
 
 // Launch on `stream` of CUDA device `device`; returns the cudaError_t of
 // the launch (0 = success).  `iargs` and `fargs` are host arrays in the
-// order of Args; `ws` is the device plan's workspace (null in the shared
-// plan).
+// order of TrainArgs (pspde_torch/rollout/kernels.py: _pack); `ws` is the
+// device plan's workspace (null in the shared plan).
 extern "C" int pspde_controlled_rollout(const float* params,
                                         const float* host_noise, float* out,
                                         float* ws, const int* iargs,
                                         const float* fargs,
                                         unsigned long long seed, int device,
                                         void* stream) {
-  Args a;
-  memcpy(&a, iargs, kNumIntArgs * sizeof(int));
-  a.dt = fargs[0];
-  a.sq_dt = fargs[1];
-  a.noise_sign = fargs[2];
-  a.sig_scale = fargs[3];
-  a.key0 = static_cast<uint32_t>(seed & 0xFFFFFFFFull);
-  a.key1 = static_cast<uint32_t>(seed >> 32);
-  if (a.tile <= 0 || a.tile > kMaxTile || a.n_layers < 1 ||
-      a.n_layers > kMaxLayers || a.K <= 0 || a.plan < 0 || a.plan > 1 ||
-      (a.plan == 1 && a.ws_stride < (a.K + a.tile - 1) / a.tile * a.tile))
-    return static_cast<int>(cudaErrorInvalidValue);
-
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const bool dense_update = a.drift_kind == 1 || a.sig_kind == 2;
-  const size_t per_path = static_cast<size_t>(a.dp) * (dense_update ? 3 : 2)
-                          + 2 * static_cast<size_t>(a.hmax);
-  const size_t smem =
-      a.plan == 1 ? 0 : sizeof(float) * (a.n_params + per_path * a.tile);
-  auto kernel = a.plan == 1 ? controlled_rollout_kernel<true>
-                            : controlled_rollout_kernel<false>;
-  e = cudaFuncSetAttribute(kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
+  TrainArgs a;
+  const int err = train_unpack(iargs, fargs, seed, device, &a);
+  if (err != 0) return err;
+  if (a.backward) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = sizeof(float) * train_smem_floats(a);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned grid = static_cast<unsigned>((a.K + a.tile - 1) / a.tile);
-  kernel<<<grid, a.tile, smem, static_cast<cudaStream_t>(stream)>>>(
-      a, params, host_noise, out, ws);
+  cudaError_t e;
+  if (a.plan == 1) {
+    e = set_smem<true>(smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    controlled_rollout_kernel<true><<<grid, a.tile * a.tpp, smem, s>>>(
+        a, params, host_noise, out, ws);
+  } else {
+    e = set_smem<false>(smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    controlled_rollout_kernel<false><<<grid, a.tile * a.tpp, smem, s>>>(
+        a, params, host_noise, out, ws);
+  }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The launch for `iargs`, as pspde_train_fwd_occupancy reports the
+// forward's: out[0] blocks one SM holds at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), out[1] threads a block,
+// out[2] bytes of dynamic shared memory a block.
+extern "C" int pspde_serve_occupancy(const int* iargs, const float* fargs,
+                                     int device, int* out) {
+  TrainArgs a;
+  const int err = train_unpack(iargs, fargs, 0ull, device, &a);
+  if (err != 0) return err;
+  if (a.backward) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = sizeof(float) * train_smem_floats(a);
+  const int threads = a.tile * a.tpp;
+  cudaError_t e;
+  if (a.plan == 1) {
+    e = set_smem<true>(smem);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &out[0], controlled_rollout_kernel<true>, threads, smem);
+  } else {
+    e = set_smem<false>(smem);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &out[0], controlled_rollout_kernel<false>, threads, smem);
+  }
+  out[1] = threads;
+  out[2] = static_cast<int>(smem);
+  return static_cast<int>(e);
 }
 
 extern "C" const char* pspde_cuda_error_string(int err) {

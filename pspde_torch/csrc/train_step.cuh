@@ -1,7 +1,8 @@
 // The per-step device code of the HJB training forward, shared by the
-// training kernels (train_rollout.cu) and the roofline's ablation ladder
-// (roofline.cu), so that the ladder's stages execute the forward's own
-// instructions.
+// training kernels (train_rollout.cu), the serve kernel
+// (controlled_rollout.cu: the same step with the importance-sampling sums)
+// and the roofline's ablation ladder (roofline.cu), so that the ladder's
+// stages execute the forward's own instructions.
 //
 // Two memory plans, chosen by the wrapper (pspde_torch/rollout/kernels.py:
 // _choose_plan) and recorded in TrainArgs::plan:
@@ -566,20 +567,19 @@ __device__ __forceinline__ void train_dense_update(const TrainArgs& a,
 }
 
 // A thread's share of the forward's accumulators, by class slot (slot i
-// holds class q + i tpp): Y, Z_sum and u_L2 are sums over steps of terms
-// linear in the step's sums, so each class sums its own terms over the
-// steps, and train_path_sums adds the classes once at the end.
+// holds class q + i tpp): Y, Z_sum and u_L2 (the serve's ito, riem and
+// f_int) are sums over steps of terms linear in the step's sums, so each
+// class sums its own terms over the steps, and train_path_sums adds the
+// classes once at the end.
 struct FwdAcc {
   float y[kSumClasses], k[kSumClasses], u[kSumClasses];
 };
 
-// f(X', t) = X'^T P X' over the row chunks of class r, h, and the class's
-// Y, KL and u_L2 increments of one step, into slot i.
-__device__ __forceinline__ void train_accumulate(const TrainArgs& a,
-                                                 const float* __restrict__ P,
-                                                 const TrainState& st,
-                                                 const StepSums& s, int r,
-                                                 FwdAcc& acc, int i) {
+// f(X', t) = X'^T P X' over the row chunks of class r (0 where f is not
+// needed).
+__device__ __forceinline__ float train_f_class(const TrainArgs& a,
+                                               const float* __restrict__ P,
+                                               const TrainState& st, int r) {
   const int ts = st.ts;
   float f = 0.0f;
   if (a.f_kind == 1) {
@@ -591,6 +591,17 @@ __device__ __forceinline__ void train_accumulate(const TrainArgs& a,
         f = fmaf(st.Xn[(j0 + c) * ts], px[c], f);
     }
   }
+  return f;
+}
+
+// f of class r, h, and the class's Y, KL and u_L2 increments of one step,
+// into slot i.
+__device__ __forceinline__ void train_accumulate(const TrainArgs& a,
+                                                 const float* __restrict__ P,
+                                                 const TrainState& st,
+                                                 const StepSums& s, int r,
+                                                 FwdAcc& acc, int i) {
+  const float f = train_f_class(a, P, st, r);
   const float h = a.c_h * 0.5f * s.zz + a.f_coef * f;
   acc.y[i] += (-h + s.zc) * a.dt + s.zx * a.sq_dt;
   if (a.accumulate_kl)
@@ -598,14 +609,29 @@ __device__ __forceinline__ void train_accumulate(const TrainArgs& a,
   acc.u[i] += s.ul * a.dt;
 }
 
-enum StepSum { kSumNone = 0, kSumZx, kSumAll };
+// The serve's importance-sampling sums of class r (controlled_rollout.cu;
+// with adaptive on, the update's control is u = -Z): ito = sum u.xi
+// sqrt(dt) = -sum Z.xi sqrt(dt), riem = sum |Z|^2 dt and f_int = sum f(X',
+// t) dt, unscaled, into slot i of the accumulators' three classed sums.
+__device__ __forceinline__ void serve_accumulate(const TrainArgs& a,
+                                                 const float* __restrict__ P,
+                                                 const TrainState& st,
+                                                 const StepSums& s, int r,
+                                                 FwdAcc& acc, int i) {
+  acc.y[i] += -s.zx * a.sq_dt;
+  acc.k[i] += s.zz * a.dt;
+  acc.u[i] += train_f_class(a, P, st, r) * a.dt;
+}
+
+enum StepSum { kSumNone = 0, kSumZx, kSumAll, kSumIS };
 
 // One step of the forward for thread q of its path (net, noise, update
-// and the sums into acc: all of them, kSumAll, as the forward; Z.xi alone,
-// kSumZx, as the ladder's net stage; none), as the forward kernel and the
-// ladder's stages run it.  kNet false (the ladder's euler stage) leaves Z
-// as it is.  The caller has synchronised since X was last written; the
-// step ends with a barrier, X' in st.X.
+// and the sums into acc: all of them, kSumAll, as the forward; the serve's
+// ito, riem and f_int, kSumIS; Z.xi alone, kSumZx, as the ladder's net
+// stage; none), as the forward kernel, the serve kernel and the ladder's
+// stages run it.  kNet false (the ladder's euler stage) leaves Z as it is.
+// The caller has synchronised since X was last written; the step ends with
+// a barrier, X' in st.X.
 template <bool kShared, bool kFrag, bool kNet, int kSum, class Draw>
 __device__ __forceinline__ void train_forward_step(
     const TrainArgs& a, const float* __restrict__ P, const float* W,
@@ -622,11 +648,15 @@ __device__ __forceinline__ void train_forward_step(
     __syncthreads();   // V's rows are the path's other threads'
     train_dense_update(a, P, st, q, a.tpp);
   }
-  if (kSum == kSumAll) {
+  if (kSum == kSumAll || kSum == kSumIS) {
     if (a.f_kind == 1) __syncthreads();   // X' likewise
 #pragma unroll 1
-    for (int i = 0; i < slots; ++i)
-      train_accumulate(a, P, st, s[i], q + i * a.tpp, acc, i);
+    for (int i = 0; i < slots; ++i) {
+      if (kSum == kSumAll)
+        train_accumulate(a, P, st, s[i], q + i * a.tpp, acc, i);
+      else
+        serve_accumulate(a, P, st, s[i], q + i * a.tpp, acc, i);
+    }
   } else if (kSum == kSumZx) {
 #pragma unroll 1
     for (int i = 0; i < slots; ++i) acc.y[i] += s[i].zx;

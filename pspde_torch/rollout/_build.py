@@ -69,13 +69,13 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.pspde_normals_sum.argtypes = [vp, c_int, c_int, c_int, c_int,
                                       ctypes.c_ulonglong, c_int, vp]
     for name in ("pspde_stopped_bwd_slots", "pspde_train_fwd_occupancy",
-                 "pspde_stopped_fwd_occupancy"):
+                 "pspde_stopped_fwd_occupancy", "pspde_serve_occupancy"):
         getattr(lib, name).argtypes = [
             ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_float),
             c_int, ctypes.POINTER(ctypes.c_int)]
     for name in ("pspde_ablation", "pspde_fma_chain", "pspde_normals_sum",
                  "pspde_stopped_bwd_slots", "pspde_train_fwd_occupancy",
-                 "pspde_stopped_fwd_occupancy"):
+                 "pspde_stopped_fwd_occupancy", "pspde_serve_occupancy"):
         getattr(lib, name).restype = ctypes.c_int
     lib.pspde_cuda_error_string.argtypes = [ctypes.c_int]
     lib.pspde_cuda_error_string.restype = ctypes.c_char_p

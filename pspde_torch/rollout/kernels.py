@@ -205,13 +205,19 @@ KERNEL_FAMILY = ("drift -x or A x; sigma scalar, diag or full (constant); "
 
 _CHUNK = 8                 # output widths are padded to this (csrc kChunk)
 _MAX_LAYERS = 8            # csrc kMaxLayers
-_MAX_TILE = 128            # csrc __launch_bounds__
+_MAX_TILE = 128            # csrc kMaxTile
 _FWD_THREADS = 256         # csrc kFwdThreads: the training forward's block
 # threads per path of the training forward, per memory plan: the fastest
 # on an H100 at the bench shape (shared) and at config 5 (device), by
 # experiments/torch_kernel_times.py --layouts
 _FWD_TPP = {"shared": 4, "device": 2}
 _SUM_CLASSES = 4           # csrc kSumClasses: the forward's classes of sums
+# the blocks below which the serve kernel takes 4 threads a path in both
+# plans, where the card would otherwise idle: 4 blocks of 64 x 2 threads
+# (the register cap of 128 a thread) on each of an H100's 132 SMs.  By
+# experiments/torch_kernel_times.py --layouts serve (d=1000: K=8192 64 x 4
+# 65.9 ms against 64 x 2 111.0; K=65536 64 x 2 278.5 against 64 x 4 304.8)
+_SERVE_SPREAD = 4 * 132
 _SMEM_LIMIT = 232_448      # bytes of shared memory one block may use (sm_90)
 _SIG_KIND = {"scalar": 0, "diag": 1, "full": 2}
 # where a block keeps the net and its paths' arrays (csrc/train_step.cuh)
@@ -264,7 +270,6 @@ class _Layout(NamedTuple):
     cols: list             # per layer: output width padded to _CHUNK
     w_off: list            # per layer: offset of W (rows, cols)
     b_off: list            # per layer: offset of b (cols,)
-    hmax: int              # widest hidden layer
     x0_off: int            # X_0 padded to dp; the staged prefix ends here
     drift_kind: int
     a_off: int
@@ -276,7 +281,7 @@ class _Layout(NamedTuple):
     u_off: int             # (N, dp) reference-control table, or 0
 
 
-def _layout(problem, z_net, drift, cost, negate_last: bool,
+def _layout(problem, z_net, drift, cost,
             u_tab: Optional[torch.Tensor] = None) -> _Layout:
     """Lay the net, X_0, the constant matrices and the u_tab table out in
     one buffer, every width padded to _CHUNK and every section aligned to
@@ -311,15 +316,12 @@ def _layout(problem, z_net, drift, cost, negate_last: bool,
     for l, lin in enumerate(z_net.layers):
         W = lin.weight.detach().to(torch.float32).T      # (in, out)
         b = lin.bias.detach().to(torch.float32)
-        if negate_last and l == n_layers - 1:
-            W, b = -W, -b
         c = _ceil_to(W.shape[1], _CHUNK)
         w_off.append(add(padded(W, rows_in, c)))
         b_off.append(add(padded(b[None, :], 1, c)))
         rows.append(rows_in)
         cols.append(c)
         rows_in = c
-    hmax = max(cols[:-1], default=0)
     x0_off = add(padded(problem.X_0.to(torch.float32)[None, :], 1, dp))
 
     def add_T(m):
@@ -338,31 +340,25 @@ def _layout(problem, z_net, drift, cost, negate_last: bool,
     f_kind, p_off = (0, 0) if cost[0] == "zero" else (1, add_T(cost[1]))
     u_off = 0 if u_tab is None else add(padded(u_tab, u_tab.shape[0], dp))
     return _Layout(torch.cat(parts), n_layers, rows, cols, w_off, b_off,
-                   hmax, x0_off, drift_kind, a_off, sig_kind, sig_off,
+                   x0_off, drift_kind, a_off, sig_kind, sig_off,
                    sig_scale, f_kind, p_off, u_off)
 
 
 def _pack(problem, z_net, drift, cost, K, N, delta_t, tile, host_noise,
-          noise_sign, plan=None) -> _Packed:
-    """The serve kernel's arguments: the buffer of ``_layout`` with the
-    last layer negated, so the kernel's net returns u = -Z, all of it
-    staged in shared memory (shared plan) or read from device memory
-    (device plan): ``_choose_plan``."""
-    d = problem.d
-    dp = _ceil_to(d, _CHUNK)
-    lay = _layout(problem, z_net, drift, cost, negate_last=True)
-    off = lay.buf.numel()
-    dense = lay.drift_kind == 1 or lay.sig_kind == 2
-    per_path = dp * (3 if dense else 2) + 2 * lay.hmax
-    tile, plan, stride = _choose_plan(
-        lambda t: _smem_bytes(off, per_path, t), per_path, K, tile, plan)
-    iargs = [K, N, d, dp, lay.n_layers, lay.hmax, tile, lay.drift_kind,
-             lay.a_off, lay.sig_kind, lay.sig_off, lay.f_kind, lay.p_off,
-             lay.x0_off, off, int(host_noise is not None)]
-    iargs += _per_layer_args(lay) + [PLANS.index(plan), stride]
-    dt, sq_dt = step_constants(delta_t)
-    fargs = [dt, sq_dt, float(noise_sign), lay.sig_scale]
-    return _Packed(lay.buf, iargs, fargs, per_path * stride)
+          noise_sign, plan=None, tpp=None) -> _Packed:
+    """The serve kernel's arguments (train_step.cuh: TrainArgs): the serve
+    kernel runs the HJB training forward's step, so these are the
+    forward's (``_pack_train``) with the serve's flags: the adaptive update
+    (its control c = -Z is the serve's u), the erfinv map, no u_tab, f
+    where the cost has one (c_h 0 and f_coef 1: the serve reads f unscaled
+    and no h), and the serve's threads per path (``_serve_tpp``; ``tpp``
+    forces them)."""
+    return _pack_train(problem, z_net, drift, cost, ("quadratic_z", 0.0, 1.0),
+                       K, N, delta_t, tile, backward=False,
+                       host_noise=host_noise, noise_sign=noise_sign,
+                       adaptive_forward=True, accumulate_kl=False,
+                       kl_ito_term=False, u_tab=None, rng="erfinv",
+                       plan=plan, serve=True, tpp=tpp)
 
 
 def _per_layer_args(lay: _Layout) -> list:
@@ -370,14 +366,6 @@ def _per_layer_args(lay: _Layout) -> list:
     for per_layer in (lay.rows, lay.cols, lay.w_off, lay.b_off):
         out += per_layer + [0] * (_MAX_LAYERS - lay.n_layers)
     return out
-
-
-def _smem_bytes(n_params: int, per_path: int, tile: int) -> int:
-    """Shared memory of one block: the packed buffer plus, per path, the
-    state X (and X_new when the update is dense), u and two hidden
-    activation buffers, each [row][tile] - the formula of the .cu
-    launcher."""
-    return 4 * (n_params + per_path * tile)
 
 
 def _choose_plan(smem_bytes, per_path: int, K: int, tile: Optional[int],
@@ -474,9 +462,10 @@ def fused_controlled_rollout(problem, z_net, K: int, N: int, delta_t: float,
 
     The device is the problem's (``problem.X_0.device``): the net and
     ``host_noise`` must live there too.  CPU: the plain version.  CUDA:
-    the kernel, one block per ``tile`` paths (auto: 64, or 32 when the
-    shared memory demands it), in the shared plan where a block fits and
-    else the device plan (``plan`` forces one: ``_choose_plan``);
+    the kernel, one block of ``tile`` x threads-per-path threads per
+    ``tile`` paths (auto: 64, or 32 when the shared memory demands it;
+    threads per path ``_serve_tpp``), in the shared plan where a block
+    fits and else the device plan (``plan`` forces one: ``_choose_plan``);
     ``fused_controlled_rollout.launches`` counts its launches and
     ``.launches_by_plan`` them per plan.  Raises ValueError outside
     ``KERNEL_FAMILY``."""
@@ -496,8 +485,17 @@ def fused_controlled_rollout(problem, z_net, K: int, N: int, delta_t: float,
         raise ValueError(f"fused_controlled_rollout: no kernel for device "
                          f"{dev}")
 
-    packed = _pack(problem, z_net, drift, cost, K, N, delta_t, tile,
-                   host_noise, noise_sign, plan)
+    return _serve_kernel(
+        _pack(problem, z_net, drift, cost, K, N, delta_t, tile, host_noise,
+              noise_sign, plan), host_noise, seed, dev)
+
+
+def _serve_kernel(packed: _Packed, host_noise, seed: int,
+                  dev: torch.device) -> ISRolloutOut:
+    """One launch of the serve kernel for a packed call (``_pack``; a
+    forced ``tpp`` there gives the same bits), counted by
+    ``fused_controlled_rollout``."""
+    K, d = packed.iargs[0], packed.iargs[2]
     out = torch.empty((K, d + 3), dtype=torch.float32, device=dev)
     _launch("pspde_controlled_rollout", "fused_controlled_rollout", packed,
             [packed.params, host_noise, out, _workspace(packed, dev)], seed,
@@ -606,6 +604,16 @@ def _train_fwd_tpp(tile: int, plan: str) -> int:
     return max(1, min(_FWD_TPP[plan], _FWD_THREADS // tile))
 
 
+def _serve_tpp(tile: int, plan: str, K: int) -> int:
+    """Threads per path of the serve's block at ``tile`` paths: the
+    training forward's (_FWD_TPP of the plan) where K gives _SERVE_SPREAD
+    blocks or more, else as many as the classes of sums allow (4: more
+    warps where the card is idle); tile x tpp at most _FWD_THREADS."""
+    full = -(-K // tile) >= _SERVE_SPREAD
+    want = _FWD_TPP[plan] if full else _SUM_CLASSES
+    return max(1, min(want, _FWD_THREADS // tile))
+
+
 def _train_fwd_net_floats(lay: _Layout, dp: int) -> int:
     """The forward's staged net (train_step.cuh:train_stage_net): layer
     0's t row, each layer's bias, each layer's weights as mma fragments
@@ -617,17 +625,20 @@ def _train_fwd_net_floats(lay: _Layout, dp: int) -> int:
 def _pack_train(problem, z_net, drift, cost, hfam, K, N, delta_t, tile, *,
                 backward, host_noise, noise_sign, adaptive_forward,
                 accumulate_kl, kl_ito_term, u_tab, rng,
-                plan=None) -> _Packed:
+                plan=None, serve=False, tpp=None) -> _Packed:
     """The training kernels' arguments (train_step.cuh: TrainArgs): the
     buffer of ``_layout`` with the net as it is (the kernel's net returns
     Z) and the u_tab table, the per-layer offsets of one block's gradient
     buffer, [W (rows, cols); b (1, cols)] per layer, the direction, the
     forward's threads per path (``_train_fwd_tpp``; 1 in the backward)
-    and the memory plan (``_choose_plan``)."""
+    and the memory plan (``_choose_plan``).  ``serve``: the serve kernel's
+    forward (``_pack``), with its threads per path (``_serve_tpp``) and its
+    errors.  ``tpp`` forces the forward's threads per path: a divisor of
+    _SUM_CLASSES with tile x tpp <= _FWD_THREADS (every tpp gives the same
+    bits)."""
     d = problem.d
     dp = _ceil_to(d, _CHUNK)
-    lay = _layout(problem, z_net, drift, cost, negate_last=False,
-                  u_tab=u_tab)
+    lay = _layout(problem, z_net, drift, cost, u_tab=u_tab)
     _, c_h, f_coef = hfam
     need_f = lay.f_kind == 1 and (f_coef != 0.0 or accumulate_kl)
     dense = lay.drift_kind == 1 or lay.sig_kind == 2
@@ -648,8 +659,16 @@ def _pack_train(problem, z_net, drift, cost, hfam, K, N, delta_t, tile, *,
         return _train_smem_bytes(fixed, per_path, t)
 
     tile, plan, stride = _choose_plan(smem_bytes, per_path, K, tile, plan,
-                                      _train_outside)
-    tpp = 1 if backward else _train_fwd_tpp(tile, plan)
+                                      _outside if serve else _train_outside)
+    if backward:
+        tpp = 1
+    elif tpp is not None:
+        if _SUM_CLASSES % tpp or tile * tpp > _FWD_THREADS:
+            raise ValueError(f"tpp={tpp} must divide {_SUM_CLASSES} with "
+                             f"tile x tpp <= {_FWD_THREADS} (tile {tile})")
+    else:
+        tpp = _serve_tpp(tile, plan, K) if serve else _train_fwd_tpp(tile,
+                                                                     plan)
     iargs = [K, N, d, dp, lay.n_layers, tile, lay.drift_kind, lay.a_off,
              lay.sig_kind, lay.sig_off, int(need_f), lay.p_off, lay.x0_off,
              n_stage, lay.u_off, int(u_tab is not None),
@@ -709,23 +728,26 @@ def _train_forward_kernel(call: _TrainCall) -> FusedTrainOut:
     return FusedTrainOut(X, *acc)
 
 
-def _train_fwd_occupancy(packed: _Packed, dev: torch.device) -> dict:
+def _train_fwd_occupancy(packed: _Packed, dev: torch.device,
+                        entry: str = "pspde_train_fwd_occupancy") -> dict:
     """The forward's launch on CUDA device ``dev`` for one packed call:
     its blocks resident on one SM (train_rollout.cu:
-    pspde_train_fwd_occupancy), threads and warps a block and an SM, and
-    its bytes of dynamic shared memory.  The runtime's theoretical
-    residency, for the reports (chip_smoke.py, experiments/
-    torch_kernel_times.py --layouts); no solver path calls it."""
+    pspde_train_fwd_occupancy; the serve kernel's with ``entry``
+    'pspde_serve_occupancy', controlled_rollout.cu), threads and warps a
+    block and an SM, and its bytes of dynamic shared memory.  The
+    runtime's theoretical residency, for the reports (chip_smoke.py,
+    experiments/torch_kernel_times.py --layouts); no solver path calls
+    it."""
     from ._build import library
     lib = library()
     out = (ctypes.c_int * 3)()
     index = dev.index if dev.index is not None else \
         torch.cuda.current_device()
-    err = lib.pspde_train_fwd_occupancy(
+    err = getattr(lib, entry)(
         (ctypes.c_int * len(packed.iargs))(*packed.iargs),
         (ctypes.c_float * len(packed.fargs))(*packed.fargs), index, out)
     if err != 0:
-        raise RuntimeError("fused_train_rollout: occupancy query failed: "
+        raise RuntimeError(f"{entry}: occupancy query failed: "
                            + lib.pspde_cuda_error_string(err).decode())
     blocks, threads, smem = list(out)
     return {"blocks_per_sm": blocks, "threads": threads,

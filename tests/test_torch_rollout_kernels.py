@@ -206,33 +206,52 @@ def test_outside_kernel_family_raises():
 @pytest.mark.parametrize("case,tile", [("llgc_d100", 64),
                                        ("lqgc_d100_dense", 32)])
 def test_kernel_layout_at_serve_shapes(case, tile):
-    """The packed buffer the kernel stages in shared memory: float4-aligned
-    sections, widths padded to the chunk, the last layer negated, and a
-    tile that fits the 227 KB a block may use."""
+    """The serve kernel's arguments are the HJB training forward's
+    (TrainArgs) with the serve's flags: the net as it is (the kernel's
+    step computes Z, and u = -Z is the adaptive update's control), the
+    adaptive update, the erfinv map, no u_tab, f where the cost has one
+    (c_h 0, f_coef 1), float4-aligned sections, widths padded to the
+    chunk; LLGC at K=2^20 as the wrapper lays it out, tile 64 x 4 threads
+    a path, the dense LQGC at K=8192 at tile 32 (the tile chip_smoke.py's
+    phase 3 forces beside the wrapper's 64), 4 threads a path; each block
+    within the 227 KB a block may use."""
     if case == "llgc_d100":
         pt = tp.LLGC(d=100, T=1.0, device="cpu")
+        K = 2 ** 20
     else:
         pt = tp.LQGC(d=100, T=1.0, off_diag=0.05, device="cpu")
+        K = 8192
     net = tk.TanhMLP(101, 100, generator=torch.Generator().manual_seed(0),
                      device="cpu")
     drift, cost = tk._check_family(pt, net, True, 1.0)
-    packed = tk._pack(pt, net, drift, cost, K=1000, N=100, delta_t=0.01,
-                      tile=None, host_noise=None, noise_sign=1.0)
-    ia = packed.iargs
-    K, N, d, dp, n_layers, hmax = ia[:6]
-    assert (K, N, d, dp, n_layers, hmax) == (1000, 100, 100, 104, 3, 32)
-    w_off = ia[16 + 2 * tk._MAX_LAYERS:16 + 3 * tk._MAX_LAYERS][:n_layers]
-    b_off = ia[16 + 3 * tk._MAX_LAYERS:16 + 4 * tk._MAX_LAYERS][:n_layers]
-    assert all(o % 4 == 0 for o in w_off + b_off + ia[8:14:2])
-    assert ia[14] == packed.params.numel() and ia[14] % 4 == 0
+    packed = tk._pack(pt, net, drift, cost, K=K, N=100, delta_t=0.01,
+                      tile=None if tile == 64 else tile, host_noise=None,
+                      noise_sign=1.0)
+    ia, M = packed.iargs, tk._MAX_LAYERS
+    assert ia[:6] == [K, 100, 100, 104, 3, tile]
+    n_layers = ia[4]
+    cols = ia[22 + M:22 + M + n_layers]
+    w_off = ia[22 + 2 * M:22 + 3 * M][:n_layers]
+    b_off = ia[22 + 3 * M:22 + 4 * M][:n_layers]
+    assert cols == [32, 32, 104]
+    assert all(o % 4 == 0 for o in w_off + b_off + ia[7:13:2])
     last = net.layers[-1]
     W2 = packed.params[w_off[2]:w_off[2] + 32 * 104].reshape(32, 104)
-    torch.testing.assert_close(W2[:30, :100], -last.weight.detach().T)
+    torch.testing.assert_close(W2[:30, :100], last.weight.detach().T)
     assert float(W2[30:].abs().sum() + W2[:, 100:].abs().sum()) == 0.0
     dense = case != "llgc_d100"
-    assert (ia[7], ia[9], ia[11]) == ((1, 2, 1) if dense else (0, 0, 0))
-    per_path = dp * (3 if dense else 2) + 2 * hmax
-    assert ia[6] == tile
-    assert tk._smem_bytes(ia[14], per_path, tile) <= tk._SMEM_LIMIT
-    assert tk._smem_bytes(ia[14], per_path, 2 * tile) > tk._SMEM_LIMIT \
-        or tile == 64
+    # drift_kind, sig_kind, f_kind
+    assert (ia[6], ia[8], ia[10]) == ((1, 2, 1) if dense else (0, 0, 0))
+    # have_u, host_noise, adaptive, accumulate_kl, kl_ito, rng (erfinv)
+    assert ia[15:21] == [0, 0, 1, 0, 0, 0]
+    # backward, tpp, plan (shared), ws_stride
+    assert ia[-4:] == [0, 4, 0, 0] and tk._plan_of(packed) == "shared"
+    dt, sq_dt = float(np.float32(0.01)), float(np.float32(0.1))
+    assert packed.fargs == [dt, sq_dt, 1.0, 0.0 if dense else 1.0, 0.0, 1.0]
+    per_path = 104 * (3 if dense else 2) + 64
+    net_floats = tk._train_fwd_net_floats(
+        tk._layout(pt, net, drift, cost), 104)
+    smem = tk._train_smem_bytes(net_floats + 3 * tk._SUM_CLASSES * tile,
+                                per_path, tile)
+    assert smem <= tk._SMEM_LIMIT
+    assert tile * ia[-3] <= tk._FWD_THREADS

@@ -55,10 +55,11 @@ def _pack_serve(pt, net, K, plan=None):
 
 
 def test_packers_choose_the_device_plan_at_d1000():
-    """At d=1000 no tile's block fits: the forward would need 563,232
-    bytes at tile 32, the backward 983,392, the serve kernel 532,672.
-    Each packer chooses the device plan, tile 64, and a workspace of its
-    per-path floats times K rounded up to the tile."""
+    """At d=1000 no tile's block fits: the forward (and the serve kernel,
+    which runs the forward's block) would need 563,232 bytes at tile 32,
+    the backward 983,392.  Each packer chooses the device plan and a
+    workspace of its per-path floats times K rounded up to tile 64; the
+    serve at K=1000, which leaves the card idle, with 4 threads a path."""
     pt, net, u_tab = _setup(1000)
     K = 98304
     for backward, per_path in ((False, 2 * 1000 + 64),
@@ -70,8 +71,8 @@ def test_packers_choose_the_device_plan_at_d1000():
         assert p.iargs[13] == 67120   # the net and X_0, read from P
     p = _pack_serve(pt, net, 1000)
     assert tk._plan_of(p) == "device"
-    assert p.iargs[6] == 64 and p.iargs[-2:] == [1, 1024]
-    assert p.ws_floats == (2 * 1000 + 2 * 32) * 1024
+    assert p.iargs[5] == 64 and p.iargs[-3:] == [4, 1, 1024]
+    assert p.ws_floats == (2 * 1000 + 64) * 1024
 
 
 def test_packers_keep_the_shared_plan_at_d100():
@@ -92,8 +93,9 @@ def test_packers_keep_the_shared_plan_at_d100():
         fixed = 7856 + p.iargs[21] if backward else 7880 + 3 * 4 * 64
         smem = tk._train_smem_bytes(fixed, per_path, 64)
         assert smem == nbytes <= tk._SMEM_LIMIT
-    p = _pack_serve(pt, net, 1000)
-    assert tk._plan_of(p) == "shared" and p.iargs[6] == 64
+    p = _pack_serve(pt, net, 2 ** 20)   # the forward's block, 64 x 4
+    assert tk._plan_of(p) == "shared" and p.iargs[5] == 64
+    assert p.iargs[-3] == 4
     # the device plan can be forced, at the same tile
     p = _pack_train(pt, net, u_tab, 1000, False, plan="device", N=32)
     assert tk._plan_of(p) == "device" and p.iargs[5] == 64
