@@ -6,7 +6,8 @@ PDE solution off a trained model, and ``HJBSolver.train()`` is how the
 control is learned.  This script
 
   1. builds the kernels from pspde_torch/csrc (nvcc, sm_90a, one process
-     per source), counts the TF32 HMMA instructions of the serve kernel's,
+     per source), counts the TF32 HMMA instructions of the serve kernel's
+     four (both plans, with and without the double well's drift),
      the HJB forward's and backward's two instantiations each, of the
      ablation ladder's net and full stages on both plans and of the
      stopped backward's six in the library's SASS (none fails), and prints
@@ -85,7 +86,10 @@ control is learned.  This script
      shared plan at d=100 and on the device plan at d=1000, and `full` at
      the bench shape), then measures the FP32 FMA rate, the normals rates
      of both maps, the roofline model at d=100 and d=1000, and the
-     ablation ladders at the bench shape and at config 5.
+     ablation ladders at the bench shape and at config 5; normals_sum's
+     bound is the larger of its integer multiplies and its own arithmetic
+     instructions (4 warp-instructions a clock per SM), counted in its SASS
+     loop without the loop's control.
  16. compares the time_stopping branch of the stopped kernels (each path's
      clock, the net on [X, t]) with its plain version at the main path's
      shape: ExponentialOnSphereNonlinearParabolic(d=50), DenseNet (30, 30)
@@ -126,6 +130,29 @@ control is learned.  This script
  22. times both kernels of the family, their plain versions and the solver
      step (against the scan's) at K=500 and K=65536, and profiles three
      steps.
+ 23. compares the serve kernel's double-well drift (b = -4 kappa x (x^2 -
+     1), the kDW instantiations) with its plain version at d=1
+     (DoubleWell, eta=3, kappa=5) and d=10 (DoubleWell_multidim, d_1=3,
+     d_2=7), K=8192, N=200, dt 0.005, on host noise and the Philox stream
+     (signs +1 and -1), every layout bitwise equal; the training kernels
+     refuse the drift;
+ 24. trains HJBSolver on DoubleWell(d=1) on the scan: tests/
+     test_double_well_is.py's recipe (eta=1, kappa=1, 400 steps; u_L2 must
+     end below 0.3 x its first value; IS through the kernel at K=2^20 must
+     read an RE below naive MC's and a log-mean within 0.025 of -v_ref(X_0,
+     0) from the FD table), then the notebook's (eta=3, kappa=5, K=10^4,
+     200 of its 1000 steps, timed, with the metastable fraction); on the
+     card 'fused_train' on the double well raises, naming the gate;
+ 25. trains DoubleWell_multidim(d=10) (K=500, 200 of its 20000 steps);
+ 26. trains LQGC(d=10, T=0.5) with LinearLQ under 'outer' (400 steps); in
+     24-26 u_L2 must fall (the mean of the last 20 below the first 5's),
+     and each scan step is profiled; then serves the learned d=1 and d=10
+     controls through importance_sampling_fused at K=2^20, N=200, times the
+     kernel and its plain version there and holds one output of each
+     against the other and both against the float64 chain
+     (serve_against_f64: the trained d=1 control's chain parts float32
+     orders by up to ~2e-3 of X on a few dozen of 2^20 paths), and runs
+     IS with the FD table's control (control='true') at K=10^5.
 
 Any failure exits nonzero.  The last line is one JSON object naming the
 device.  Run from the repository root:
@@ -225,6 +252,26 @@ K5, K5_CHECK, K5_PLAIN, K5_SERVE, STEPS5 = 98304, 2048, 8192, 8192, 3
 L5 = 20000   # the decay steps of config 5's cosine schedule
 LOG_E5_EXACT = 246.746092
 ROOFLINE_SOURCE = "pspde_torch/csrc/roofline.cu"
+# the double-well slice: the serve kernel's double-well drift at d=1 and
+# d=10 on the notebooks' grid (T=1, dt 0.005: N=200), checked at K_CHECK
+# and served at K_SERVE; the training cells of
+# experiments/double_well_1d_high_metastability.py (eta=3, kappa=5, K=10^4,
+# lr 0.05; 200 of its 1000 steps), double_well_multidim_mixed.py (d=10,
+# d_1=3, d_2=7, K=500, lr 5e-3; 200 of its 20000 steps) and
+# ou_quadratic_costs_linear_ansatz.py (LQGC d=10, T=0.5, dt 0.05, K=512,
+# lr 1e-2, LinearLQ, 'outer'; its 400 steps of tests/test_hjb_solver.py),
+# and the recipe of tests/test_double_well_is.py (eta=1, kappa=1, dt 0.01,
+# K=1024, lr 5e-3, 400 steps)
+DT_DW, N_DW, L_DW = 0.005, 200, 200
+L_DW_TEST, L_LQ, K_DW_TRUE = 400, 400, 100_000
+# |log IS mean + v_ref(X_0, 0)| of the eta=1, kappa=1 recipe at dt 0.01:
+# the JAX package reads 0.0116-0.0119 at K=2^18 over three keys, and the
+# FD table's own control 0.0119, the Euler chain's bias against the FD
+# solution (experiments/double_well_is_reference.py, CPU); twice that
+DW_LOG_MEAN_TOL = 0.025
+# instruction slots: 4 warp-instructions a clock per SM (compute capability 9.0),
+# 32 threads a warp, at INT_MUL_RATE's SMs and clock
+INSTR_RATE = 4 * 32 * 132 * 1.98e9
 # the roofline kernels' main-path shapes: the (d, tile) carry of
 # pspde/utils/roofline.py, with more passes than its P=512 so that one
 # call lasts a millisecond or more (roofline.FMA_P, roofline.NORMALS_P)
@@ -335,16 +382,20 @@ def ptxas_usage(log, kernel):
     return usage
 
 
+def sass_text(lib_path):
+    """``cuobjdump -sass`` of the built library."""
+    from pspde_torch.rollout import _build
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    return subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, check=True).stdout
+
+
 def tf32_mma_counts(lib_path, kernels):
     """{kernel: {instantiation: count of TF32 HMMA instructions}} of the
     named kernels' instantiations, read from ``cuobjdump -sass`` of the
     built library."""
-    from pspde_torch.rollout import _build
-    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
-    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
-                          text=True, check=True).stdout
     counts, fn = {k: {} for k in kernels}, None
-    for line in sass.splitlines():
+    for line in sass_text(lib_path).splitlines():
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
             fn = next(((k, name) for k in kernels if k in name), None)
@@ -353,6 +404,71 @@ def tf32_mma_counts(lib_path, kernels):
         elif fn is not None and "HMMA" in line and "TF32" in line:
             counts[fn[0]][fn[1]] += 1
     return counts
+
+
+def sass_of(lib_path, kernel):
+    """[(address, instruction)] of the named kernel in ``cuobjdump -sass``
+    of the built library, branch targets as addresses."""
+    import re
+    insts, inside = [], False
+    for line in sass_text(lib_path).splitlines():
+        if "Function :" in line:
+            inside = kernel in line
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if inside and m:
+            insts.append((int(m.group(1), 16), m.group(2).strip()))
+    return insts
+
+
+# the opcodes of normals_sum's own arithmetic: Philox's multiplies, xors
+# and adds (the key schedule's on the uniform datapath too), the map's
+# bit shifts, FP32 arithmetic and MUFU, and the sum's FADD; the rest of its
+# loop (branches, convergence barriers, compares, moves, constant loads) is
+# control the function does not need
+NORMALS_WORK = ("IMAD", "IMAD.WIDE", "IMAD.WIDE.U32", "IMAD.HI.U32",
+                "IADD3", "UIADD3", "LOP3.LUT", "SHF.L.U32", "SHF.R.U32.HI",
+                "LEA", "LEA.HI", "FFMA", "FADD", "FMUL", "FMNMX", "MUFU.LG2",
+                "MUFU.RSQ", "MUFU.SQRT", "I2F", "I2FP.F32.U32", "F2I")
+
+
+def normals_instructions(lib_path):
+    """Instructions a normal that normals_sum_kernel runs on its loop's
+    common path: from the head of its (longest) loop to the backward
+    branch, following every unconditional branch and falling through every
+    predicated one, which in its SASS is the erfinv map (the binom map
+    behind the rng branch) and erfinvf's central polynomial (its tail,
+    |z| > ~2.8, behind a branch); over the path's MUFU.LG2, one a normal.
+    Returns (the function's own arithmetic a normal, the opcodes of
+    NORMALS_WORK; every instruction of the path a normal; the path's
+    opcode counts)."""
+    import re
+    insts = sass_of(lib_path, "normals_sum_kernel")
+    at = {a: i for i, (a, _) in enumerate(insts)}
+    loops = []
+    for a, t in insts:
+        m = re.search(r"\bBRA\b\s+(0x[0-9a-f]+)", t)
+        if m and int(m.group(1), 16) < a:
+            loops.append((int(m.group(1), 16), a))
+    head, tail = max(loops, key=lambda lp: lp[1] - lp[0])
+    i, path = at[head], []
+    while True:
+        a, t = insts[i]
+        path.append(t)
+        if a == tail:
+            break
+        m = re.search(r"\bBRA\b\s+(0x[0-9a-f]+)", t)
+        i = at[int(m.group(1), 16)] if m and not t.startswith("@") else i + 1
+    ops = {}
+    for t in path:
+        op = t.split()[1] if t.startswith("@") else t.split()[0]
+        ops[op] = ops.get(op, 0) + 1
+    check(ops.get("MUFU.LG2", 0) > 0 and "POPC" not in ops
+          and "CALL.REL.NOINC" not in ops,
+          f"normals_sum's common path is the erfinv map's: {ops}")
+    work = sum(n for op, n in ops.items() if op in NORMALS_WORK)
+    return (work / ops["MUFU.LG2"], len(path) / ops["MUFU.LG2"],
+            dict(sorted(ops.items())))
 
 
 def compare_serve(tag, kern, plain):
@@ -374,17 +490,99 @@ def compare_serve(tag, kern, plain):
     return worst
 
 
-def serve_layouts(tag, prob, net, kern):
+def double_well_chain_f64(prob, net, K, N, dt, seed):
+    """The serve's Euler chain of a double-well problem in float64 (the
+    net's weights, the drift and the sums) on the kernel's Philox stream
+    (``seed``, sign +1) with the kernel's float32 dt and sqrt(dt): (X, ito,
+    riemann, grow), ``grow`` each path's sum over its steps of dt times
+    the largest slope of the drift, max_j max(0, -4 kappa_j (3 x_j^2 -
+    1)): the exponent by which the chain magnifies a perturbation of X."""
+    import copy
+    from pspde_torch.rollout.kernels import philox_normals
+    from pspde_torch.rollout.sde import step_constants, step_time
+    f64 = torch.float64
+    net64 = copy.deepcopy(net).to(f64)
+    kappa = prob.drift_family()[1].to(f64)
+    sig = prob.sigma_struct
+    dt, sq_dt = step_constants(dt)
+    X = prob.X_0.to(f64).expand(K, prob.d)
+    ito = torch.zeros(K, dtype=f64, device=X.device)
+    riem, grow = torch.zeros_like(ito), torch.zeros_like(ito)
+    with torch.no_grad():
+        for n in range(N):
+            t = step_time(n, dt)
+            xi = philox_normals(seed, K, n, prob.d, device=X.device).to(f64)
+            u = -net64(torch.cat([torch.full((K, 1), t, dtype=f64,
+                                             device=X.device), X], dim=1))
+            slope = -4.0 * kappa * (3.0 * X * X - 1.0)
+            grow += slope.clamp(min=0.0).amax(dim=-1) * dt
+            X = X + (-4.0 * kappa * X * (X * X - 1.0) + sig.apply(u)) * dt \
+                + sig.apply(xi) * sq_dt
+            ito += torch.sum(u * xi, dim=-1) * sq_dt
+            riem += torch.sum(u * u, dim=-1) * dt
+    return X, ito, riem, grow
+
+
+def serve_against_f64(tag, kern, plain, ref):
+    """The serve kernel against its plain version where the chain itself
+    magnifies float32 rounding (a trained double-well control at K=2^20):
+    each against the float64 chain ``ref`` (double_well_chain_f64 on the
+    same noise), output by output, differences over 1 + max|ref|.  Kernel
+    and plain must agree within REL_TOL on all but 1e-3 K paths (the
+    stopped kernels' allowance for paths on which the two float32 orders
+    part), and the kernel may stand no farther from the float64 chain
+    than twice the plain version does (or REL_TOL).  Prints the paths of
+    the largest kernel-plain differences with their growth exponents;
+    returns the largest absolute kernel-plain difference."""
+    torch.cuda.synchronize()
+    grow = ref[3]
+    out, worst = {}, 0.0
+    for name, r in zip(("X", "ito", "riemann"), ref[:3]):
+        a = getattr(kern, name).to(torch.float64)
+        b = getattr(plain, name).to(torch.float64)
+        scale = 1.0 + float(r.abs().max())
+
+        def by_path(v):
+            return v.abs().amax(dim=-1) if v.dim() == 2 else v.abs()
+        kp, kr, pr = by_path(a - b), by_path(a - r), by_path(b - r)
+        over = int((kp > REL_TOL * scale).sum())
+        out[name] = (float(kp.max()) / scale, float(kr.max()) / scale,
+                     float(pr.max()) / scale, over)
+        top = torch.topk(kp, 3).indices
+        print(f"  {tag} {name:8s} over 1 + max|f64| = {scale:.3e}: "
+              f"kernel-plain {out[name][0]:.3e}, kernel-f64 "
+              f"{out[name][1]:.3e}, plain-f64 {out[name][2]:.3e}; paths "
+              f"with kernel-plain > {REL_TOL:g}: {over} of {kp.numel()}; "
+              f"the largest three (kernel-plain, kernel-f64, plain-f64, "
+              f"growth exponent): "
+              + ", ".join(f"({float(kp[i]):.2e}, {float(kr[i]):.2e}, "
+                          f"{float(pr[i]):.2e}, {float(grow[i]):.2f})"
+                          for i in top.tolist()))
+        worst = max(worst, float(kp.max()))
+        check(bool(torch.isfinite(a).all()) and over <= 1e-3 * kp.numel(),
+              f"{tag} {name}: {over} paths with kernel-plain > {REL_TOL:g}")
+        check(out[name][1] <= max(REL_TOL, 2.0 * out[name][2]),
+              f"{tag} {name}: kernel-f64 {out[name][1]:.3e} against "
+              f"plain-f64 {out[name][2]:.3e}")
+    q = torch.quantile(grow[:65536].float(),
+                       torch.tensor([0.5, 0.999], device=grow.device))
+    print(f"  {tag} growth exponent: median {float(q[0]):.2f}, 99.9% "
+          f"{float(q[1]):.2f}, max {float(grow.max()):.2f}")
+    return worst
+
+
+def serve_layouts(tag, prob, net, kern, K=K_CHECK, N=N_STEPS, dt=DT_IS):
     """The serve kernel at tile 32 and 1, 2 and 4 threads a path on both
     memory plans, on the Philox stream of ``kern`` (seed 1234, sign +1, the
-    wrapper's layout): every output bitwise equal to ``kern``'s (the sums'
-    classes make every layout sum in one order)."""
+    wrapper's layout, K paths, N steps of dt): every output bitwise equal
+    to ``kern``'s (the sums' classes make every layout sum in one
+    order)."""
     from pspde_torch.rollout import kernels as km
     drift, cost = km._check_family(prob, net, True, 1.0)
     same = {}
     for tpp in (1, 2, 4):
         for plan in km.PLANS:
-            packed = km._pack(prob, net, drift, cost, K_CHECK, N_STEPS, DT_IS,
+            packed = km._pack(prob, net, drift, cost, K, N, dt,
                               32, None, 1.0, plan, tpp)
             out = km._serve_kernel(packed, None, 1234, prob.X_0.device)
             same[f"32x{tpp} {plan}"] = all(torch.equal(a, b)
@@ -393,22 +591,22 @@ def serve_layouts(tag, prob, net, kern):
     check(all(same.values()), f"{tag} serve layouts bitwise: {same}")
 
 
-def serve_occupancy(prob, net, K, dev):
+def serve_occupancy(prob, net, K, dev, N=N_STEPS, dt=DT_IS):
     """The serve kernel's launch at K paths as the wrapper chooses it."""
     from pspde_torch.rollout import kernels as km
     drift, cost = km._check_family(prob, net, True, 1.0)
-    packed = km._pack(prob, net, drift, cost, K, N_STEPS, DT_IS, None, None,
-                      1.0)
+    packed = km._pack(prob, net, drift, cost, K, N, dt, None, None, 1.0)
     return km._train_fwd_occupancy(packed, dev, "pspde_serve_occupancy")
 
 
-def serve_roofline(steps, widths, n_par, K):
+def serve_roofline(steps, widths, n_par, K, per_dim=10):
     """The serve kernel's bound: per path-step the TanhMLP's products on
-    the tensor cores as 3xTF32 and its activations and 10 operations per
-    dimension (the Euler step, the Ito and Riemann sums) in FP32; the net
-    read once and (K, d + 3) written."""
+    the tensor cores as 3xTF32 and its activations and ``per_dim``
+    operations per dimension (the Euler step, the Ito and Riemann sums: 10;
+    15 with the double well's drift) in FP32; the net read once and
+    (K, d + 3) written."""
     d = widths[-1]
-    return tf32_roofline(steps * (mlp_flops(widths) + 10 * d),
+    return tf32_roofline(steps * (mlp_flops(widths) + per_dim * d),
                          steps * net_products(widths),
                          4 * (n_par + K * (d + 3)))
 
@@ -593,9 +791,16 @@ def main():
         return {("device" if "ILb1E" in k else "shared"): v
                 for k, v in counts.items()}
 
+    def serve_keys(counts):
+        # controlled_rollout_kernel<kDevice, kDW>: the plan, then "dw" for
+        # the double well's instantiations
+        return {("device" if "ILb1E" in k else "shared")
+                + (" dw" if "ELb1EE" in k else ""): v
+                for k, v in counts.items()}
+
     train_hmma = by_plan(hmma["train_backward_kernel"])
     fwd_hmma = by_plan(hmma["train_forward_kernel"])
-    serve_hmma = by_plan(hmma["controlled_rollout_kernel"])
+    serve_hmma = serve_keys(hmma["controlled_rollout_kernel"])
     stopped_hmma = sorted(hmma["stopped_bwd_kernel"].values())
     # the ladder's stages: 0 noise, 1 euler, 2 net, 3-6 full*
     ladder_hmma = {}
@@ -612,20 +817,22 @@ def main():
           "both plans of the HJB backward run TF32 mma")
     check(len(fwd_hmma) == 2 and all(fwd_hmma.values()),
           "both plans of the HJB forward run TF32 mma")
-    check(len(serve_hmma) == 2 and all(serve_hmma.values()),
-          "both plans of the serve kernel run TF32 mma")
+    check(len(serve_hmma) == 4 and all(serve_hmma.values()),
+          "both plans of the serve kernel run TF32 mma, the double well's "
+          "instantiations too")
     check(len(ladder_hmma) == 14
           and all(ladder_hmma[f"{st}{p}"] for st in range(2, 7)
                   for p in "sd"),
           "the ladder's net and full stages run TF32 mma on both plans")
     check(len(stopped_hmma) == 6 and all(stopped_hmma),
           "every instantiation of the stopped backward runs TF32 mma")
-    for kernel, what in (("controlled_rollout_kernel", "the serve kernel"),
-                         ("train_forward_kernel", "the HJB forward")):
-        use = by_plan(ptxas_usage(info["log"], kernel))
+    for kernel, what, keys, n in (
+            ("controlled_rollout_kernel", "the serve kernel", serve_keys, 4),
+            ("train_forward_kernel", "the HJB forward", by_plan, 2)):
+        use = keys(ptxas_usage(info["log"], kernel))
         print(f"  ptxas, {what} (registers, spill store and load bytes): "
               f"{use}")
-        check(len(use) == 2 and all(u[1] == u[2] == 0 for u in use.values()),
+        check(len(use) == n and all(u[1] == u[2] == 0 for u in use.values()),
               f"{what}'s instantiations spill no registers")
     stopped_use = ptxas_usage(info["log"], "stopped_fwd_kernel")
     print(f"  ptxas, the stopped forward's six instantiations (registers, "
@@ -753,12 +960,13 @@ def main():
     roofline_rows = roofline_phases(dev, smi, llgc, solver, config5)
     general_rows = general_phases(dev, smi)
     eigen_rows = eigen_phases(dev, smi)
+    dw_rows = double_well_phases(dev, smi)
 
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [serve_row] + train_rows + stopped_rows
                       + roofline_rows + wide_rows + general_rows
-                      + eigen_rows}))
+                      + eigen_rows + dw_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -1993,9 +2201,24 @@ def roofline_phases(dev, smi, llgc, solver, config5):
     n_fma = D * FMA_TILE
     n_normals = D * FMA_TILE * rf.NORMALS_P
     # Philox4x32-10: 10 rounds of 2 mul.lo and 2 mul.hi per 4 words, one
-    # block per 4 erfinv draws: 10 integer multiplies per normal, the
-    # least of its work (the map's FP32 and SFU work comes on top)
+    # block per 4 erfinv draws: 10 integer multiplies per normal.  Every
+    # instruction takes an issue slot too (4 warp-instructions a clock per
+    # SM): the bound is the larger of the two, with the instructions a
+    # normal of the function's own arithmetic in the kernel's SASS
+    # (NORMALS_WORK); the whole loop's, control included, is printed beside
+    from pspde_torch.rollout import _build
+    per_normal, issued, path = normals_instructions(
+        _build.build_info["path"])
     t_int = 10 * n_normals / INT_MUL_RATE
+    t_instr = per_normal * n_normals / INSTR_RATE
+    t_issued = issued * n_normals / INSTR_RATE
+    print(f"  normals_sum bound: integer multiplies {1e3 * t_int:.4f} ms, "
+          f"the function's arithmetic {1e3 * t_instr:.4f} ms ({per_normal:.2f} "
+          f"instructions a normal), the whole loop {1e3 * t_issued:.4f} ms "
+          f"({issued:.2f} a normal, control included); the loop's common "
+          f"path in its SASS: {path}; kernel {min(t_nrm['erfinv']):.4f} ms")
+    check(10 <= per_normal <= issued <= 400, f"normals_sum's loop: "
+          f"{per_normal} of {issued} instructions a normal")
     n_par = sum(p.numel() for p in solver.z_net.parameters())
     return [
         {"name": "fma_chain", "route": "cuda", "source": ROOFLINE_SOURCE,
@@ -2007,8 +2230,13 @@ def roofline_phases(dev, smi, llgc, solver, config5):
          "replaces": "pspde/utils/roofline.py:138",
          "launches": launches["normals_sum"], "max_abs_err": normals_err,
          "ms": min(t_nrm["erfinv"]), "plain_ms": p_nrm["erfinv"],
-         "bound_ms": 1e3 * max(t_int, 4 * FMA_TILE / PEAK_BYTES),
-         "bound_by": "operations", "library_ms": None},
+         "bound_ms": 1e3 * max(t_int, t_instr, 4 * FMA_TILE / PEAK_BYTES),
+         "bound_by": "operations", "library_ms": None,
+         "bound_ms_int_mul": 1e3 * t_int,
+         "bound_ms_instructions": 1e3 * t_instr,
+         "instructions_per_normal": per_normal,
+         "issue_ms_whole_loop": 1e3 * t_issued,
+         "issued_per_normal": issued},
         {"name": "ablation", "route": "cuda", "source": ROOFLINE_SOURCE,
          "replaces": "pspde/utils/roofline.py:327",
          "launches": launches["ablation"], "max_abs_err": ladder_err,
@@ -2539,6 +2767,236 @@ def eigen_phases(dev, smi):
              ms_K65536=rb["backward"][0], plain_ms_K65536=rb["backward"][1],
              bound_ms_K65536=bb_bwd["bound_ms"]),
     ]
+
+
+def double_well_phases(dev, smi):
+    """Phases 23-26: the serve kernel's double-well drift against its
+    plain version at d=1 and d=10; the double-well and LQ training cells on
+    the scan with their u_L2 checks, IS of the learned controls through
+    the kernel; the times.  Returns the kernels' JSON rows."""
+    import numpy as np
+    from pspde_torch.ansatz import LinearLQ, TanhMLP
+    from pspde_torch.eval import (do_importance_sampling,
+                                  importance_sampling,
+                                  importance_sampling_fused)
+    from pspde_torch.problems import LQGC, DoubleWell, DoubleWell_multidim
+    from pspde_torch.rollout import kernels as km
+    from pspde_torch.solvers import HJBSolver
+
+    t_phases = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(23)
+    dw1 = DoubleWell(d=1, T=1.0, eta=3.0, kappa=5.0, device=dev)
+    dw10 = DoubleWell_multidim(d=10, d_1=3, d_2=7, T=1.0, eta=3.0,
+                               kappa=5.0, device=dev)
+    cells = {1: ("DoubleWell(d=1, eta=3, kappa=5)", dw1),
+             10: ("DoubleWell_multidim(d=10, d_1=3, d_2=7, eta=3, kappa=5)",
+                  dw10)}
+
+    # -- phase 23: the double-well drift vs plain ---------------------------
+    print(f"phase 23: the serve kernel's double-well drift vs plain, K="
+          f"{K_CHECK}, N={N_DW}, dt={DT_DW}, TanhMLP (30, 30) with "
+          f"N(0, 0.25) weights; host noise and the Philox stream, signs +-1; "
+          f"every layout bitwise; tolerance rel {REL_TOL:g}")
+    worst = {1: 0.0, 10: 0.0}
+    for d, (tag, prob) in cells.items():
+        net = TanhMLP(d + 1, d, init_scale=0.5, generator=gen, device=dev)
+        noise = torch.randn((N_DW, K_CHECK, d), generator=gen, device=dev)
+        kern = km.fused_controlled_rollout(prob, net, K_CHECK, N_DW, DT_DW,
+                                           host_noise=noise)
+        plain = km.reference_controlled_rollout(prob, net, K_CHECK, N_DW,
+                                                DT_DW, host_noise=noise)
+        worst[d] = max(worst[d], compare_serve(f"[{tag}, host noise]", kern,
+                                               plain))
+        del noise
+        for sign in (1.0, -1.0):
+            kern = km.fused_controlled_rollout(prob, net, K_CHECK, N_DW,
+                                               DT_DW, seed=1234,
+                                               noise_sign=sign)
+            plain = km.reference_controlled_rollout(
+                prob, net, K_CHECK, N_DW, DT_DW, seed=1234, noise_sign=sign)
+            worst[d] = max(worst[d], compare_serve(
+                f"[{tag}, sign {sign:+.0f}]", kern, plain))
+            if sign == 1.0:
+                serve_layouts(f"[{tag}]", prob, net, kern, N=N_DW, dt=DT_DW)
+    try:
+        km.fused_train_rollout(dw1, TanhMLP(2, 1, device=dev), 64, 4, DT_DW)
+        raised = ""
+    except ValueError as e:
+        raised = str(e)
+    print(f"  fused_train_rollout on the double well raises: {raised[:120]}")
+    check("serve kernel only" in raised,
+          "the training kernels refuse the double well's drift")
+
+    def train(s):
+        """Train ``s`` and return the wall seconds a step."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s.train()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / len(s.loss_log)
+
+    def falls(s, what):
+        u = s.u_L2_loss
+        head, tail = float(np.mean(u[:5])), float(np.mean(u[-20:]))
+        print(f"  {what}: u_L2 {u[0]:.4f} -> {u[-1]:.4f} (mean of the first "
+              f"5 {head:.4f}, of the last 20 {tail:.4f})")
+        check(all(np.isfinite(s.loss_log)) and tail < head,
+              f"{what}: u_L2 falls ({head:.4f} -> {tail:.4f})")
+
+    # -- phase 24: the 1-d cells ---------------------------------------------
+    print(f"phase 24: HJBSolver on DoubleWell(d=1): tests/"
+          f"test_double_well_is.py's recipe (eta=1, kappa=1, dt 0.01, "
+          f"K=1024, lr 5e-3, {L_DW_TEST} steps) and the notebook's (eta=3, "
+          f"kappa=5, dt {DT_DW}, K=10^4, lr 0.05, {L_DW} steps); IS through "
+          f"the kernel at K={K_SERVE}")
+    meta = (torch.ones(1), 0.5)
+    dwt = DoubleWell(d=1, T=1.0, eta=1.0, kappa=1.0, device=dev)
+    dwt.compute_reference_solution(delta_t=0.01, nx=500)
+    st = HJBSolver("dw-test", dwt, lr=5e-3, L=L_DW_TEST, K=1024,
+                   delta_t=0.01, time_approx="inner",
+                   loss_method="log-variance", detach_forward=True,
+                   metastability_logs=meta, early_stopping_time=None,
+                   verbose=False, device=dev)
+    ms_test = 1e3 * train(st)
+    u = st.u_L2_loss
+    frac = st.particles_close_to_target[-1]
+    print(f"  eta=1, kappa=1: u_L2 {u[0]:.4f} -> {u[-1]:.4f} (bound 0.3 x "
+          f"the first), metastable fraction {frac:.4f}, {ms_test:.2f} ms a "
+          "step")
+    check(u[-1] < 0.3 * u[0], f"u_L2 {u[0]:.4f} -> {u[-1]:.4f}")
+    check(len(st.particles_close_to_target) == len(st.loss_log),
+          "the metastable fraction is logged every step")
+    km.fused_controlled_rollout.launches = 0
+    mean, var, rel = importance_sampling_fused(dwt, st, K_SERVE,
+                                               delta_t=0.01, seed=24)
+    check(km.fused_controlled_rollout.launches == 1,
+          "IS of the eta=1 model ran the kernel")
+    _, _, rel_naive, *_ = do_importance_sampling(
+        dwt, st, K_SERVE, delta_t=0.01, verbose=False,
+        generator=torch.Generator(dev).manual_seed(24))
+    v0 = float(dwt.v_ref_fn(np.zeros(1))(dwt.X_0[None, :], 0)[0])
+    err = abs(math.log(mean) + v0)
+    print(f"  IS through the kernel: mean {mean:.6e} RE {rel:.4f} (naive "
+          f"RE {rel_naive:.4f}); log mean {math.log(mean):.6f} against "
+          f"-v_ref(X_0, 0) {-v0:.6f}: {err:.4e} (bound {DW_LOG_MEAN_TOL})")
+    check(rel < rel_naive, f"IS RE {rel:.4f} < naive RE {rel_naive:.4f}")
+    check(err <= DW_LOG_MEAN_TOL, f"|log mean + v_ref| {err:.4e}")
+
+    dw1.compute_reference_solution()
+    try:
+        HJBSolver("dw-fused", dw1, delta_t=DT_DW, time_approx="inner",
+                  detach_forward=True, rollout_mode="fused_train",
+                  verbose=False, device=dev)
+        raised = ""
+    except ValueError as e:
+        raised = str(e)
+    print(f"  HJBSolver(rollout_mode='fused_train') on the double well "
+          f"raises: {raised[:160]}")
+    check("gate failed" in raised and "u_ref_table" in raised,
+          "fused_train on the double well raises, naming the gate")
+    s1 = HJBSolver("dw-notebook", dw1, lr=0.05, L=L_DW, K=10_000,
+                   delta_t=DT_DW, time_approx="inner",
+                   loss_method="log-variance", detach_forward=True,
+                   metastability_logs=meta, early_stopping_time=None,
+                   verbose=False, device=dev)
+    ms_1 = 1e3 * train(s1)
+    falls(s1, f"eta=3, kappa=5, {L_DW} steps, {ms_1:.2f} ms a step")
+    print(f"  metastable fraction {s1.particles_close_to_target[0]:.4f} -> "
+          f"{s1.particles_close_to_target[-1]:.4f}; card: {smi}")
+    profile_steps("the eta=3, kappa=5 scan step", s1.step)
+
+    # -- phase 25: the d=10 cell ---------------------------------------------
+    print(f"phase 25: HJBSolver on DoubleWell_multidim(d=10, d_1=3, d_2=7, "
+          f"eta=3, kappa=5), dt {DT_DW}, K=500, lr 5e-3, {L_DW} steps")
+    dw10.compute_reference_solution()
+    s10 = HJBSolver("dw-multidim", dw10, lr=5e-3, L=L_DW, K=500,
+                    delta_t=DT_DW, time_approx="inner",
+                    loss_method="log-variance", detach_forward=True,
+                    early_stopping_time=None, verbose=False, device=dev)
+    ms_10 = 1e3 * train(s10)
+    falls(s10, f"d=10, {L_DW} steps, {ms_10:.2f} ms a step")
+    profile_steps("the d=10 scan step", s10.step)
+
+    # -- phase 26: LQGC with the linear ansatz, 'outer' ----------------------
+    print(f"phase 26: HJBSolver on LQGC(d=10, T=0.5, delta_t=0.05), "
+          f"LinearLQ, 'outer', K=512, lr 1e-2, {L_LQ} steps")
+    lq = LQGC(d=10, T=0.5, delta_t=0.05, device=dev)
+    sq = HJBSolver("lq-linear", lq, lr=1e-2, L=L_LQ, K=512, delta_t=0.05,
+                   time_approx="outer", loss_method="log-variance",
+                   detach_forward=True, learn_Y_0=False,
+                   control_net=LinearLQ(lq.B, lq.Q, device=dev,
+                                        generator=torch.Generator()
+                                        .manual_seed(26)),
+                   early_stopping_time=None, verbose=False, device=dev)
+    ms_lq = 1e3 * train(sq)
+    falls(sq, f"LQGC d=10 LinearLQ 'outer', {L_LQ} steps, {ms_lq:.2f} ms a "
+              "step")
+    profile_steps("the LQGC 'outer' scan step", sq.step)
+
+    # -- the serve of the learned double-well controls ------------------------
+    print(f"  the main path: importance_sampling_fused of the learned "
+          f"controls at K={K_SERVE}, N={N_DW}; card: {smi}")
+    rows = []
+    for d, s in ((1, s1), (10, s10)):
+        tag, prob = cells[d]
+        km.fused_controlled_rollout.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mean, var, rel = importance_sampling_fused(prob, s, K_SERVE,
+                                                   delta_t=DT_DW, seed=25)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = km.fused_controlled_rollout.launches
+        print(f"  [{tag}] mean {mean:.6e} var {var:.4e} RE {rel:.4f}, "
+              f"{wall:.4f} s wall, {launches} launch(es)")
+        check(launches >= 1 and math.isfinite(mean) and mean > 0,
+              f"{tag}: the serve launched the kernel, mean {mean}")
+
+        def kern():
+            return km.fused_controlled_rollout(prob, s.z_net, K_SERVE, N_DW,
+                                               DT_DW, seed=5)
+
+        def plain():
+            return km.reference_controlled_rollout(prob, s.z_net, K_SERVE,
+                                                   N_DW, DT_DW, seed=5)
+
+        p_ms = [timed(plain, 1)]
+        k_ms = [timed(kern, 5), timed(kern, 5)]
+        ms, out_p = timed_out(plain)
+        p_ms.append(ms)
+        # the main path's own shapes and trained net against the plain
+        # version on the same Philox stream, both against the float64 chain
+        out_k = kern()
+        ref = double_well_chain_f64(prob, s.z_net, K_SERVE, N_DW, DT_DW, 5)
+        err_check = worst[d]
+        worst[d] = max(worst[d], serve_against_f64(
+            f"[{tag}, the learned control, K={K_SERVE}]", out_k, out_p, ref))
+        del out_p, out_k, ref
+        occ = serve_occupancy(prob, s.z_net, K_SERVE, dev, N=N_DW, dt=DT_DW)
+        n_par = sum(p.numel() for p in s.z_net.parameters())
+        row = {"name": f"fused_controlled_rollout.double_well_d{d}",
+               "route": "cuda", "source": SERVE_SOURCE,
+               "replaces": "pspde/rollout/kernels.py:339",
+               "shape": f"{tag}, K={K_SERVE}, N={N_DW}",
+               "launches": launches, "max_abs_err": worst[d],
+               "max_abs_err_phase23": err_check,
+               "ms": min(k_ms), "plain_ms": min(p_ms),
+               **serve_roofline(K_SERVE * N_DW, [d + 1, 30, 30, d], n_par,
+                                K_SERVE, per_dim=15)}
+        print(f"  [{tag}] kernel {k_ms} ms, plain {p_ms} ms; bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}; all in FP32 "
+              f"{row['bound_ms_fp32']:.4f} ms); no library call computes "
+              f"it; launch (the occupancy API's): {occ}")
+        rows.append(row)
+    m_true, _, rel_true = importance_sampling(
+        dw1, s1, K_DW_TRUE, control="true", delta_t=DT_DW,
+        generator=torch.Generator(dev).manual_seed(26))
+    print(f"  IS with the FD control (control='true'), eta=3, kappa=5, "
+          f"K={K_DW_TRUE}: mean {m_true:.6e} RE {rel_true:.4f}")
+    check(math.isfinite(m_true) and m_true > 0 and rel_true < 10.0,
+          f"IS with the FD control: mean {m_true}, RE {rel_true}")
+    print(f"  phases 23-26 took {time.perf_counter() - t_phases:.1f} s")
+    return rows
 
 
 if __name__ == "__main__":

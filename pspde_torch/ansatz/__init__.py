@@ -1,3 +1,3 @@
-from .nets import DenseNet, ScalarParam, TanhMLP
+from .nets import DenseNet, LinearLQ, LinearLQTime, ScalarParam, TanhMLP
 
-__all__ = ["DenseNet", "ScalarParam", "TanhMLP"]
+__all__ = ["DenseNet", "LinearLQ", "LinearLQTime", "ScalarParam", "TanhMLP"]

@@ -1,9 +1,11 @@
 """Function-space (ansatz) modules (counterpart of ``pspde/ansatz/nets.py``).
 
 Ported so far: ``TanhMLP`` (the default 'inner' control net),
-``ScalarParam`` (Y_0) and ``DenseNet`` (the relu^2 concat-skip value net
-of the elliptic solver).  The other nets wait for their slices.  Modules
-are created on ``device=``, the CUDA card when None (``utils/device.py``).
+``ScalarParam`` (Y_0), ``DenseNet`` (the relu^2 concat-skip value net of
+the elliptic solver and the default 'outer' control and value net of the
+HJB solver), and the LQ-structured linear controls ``LinearLQ`` and
+``LinearLQTime``.  The other nets wait for their slices.  Modules are
+created on ``device=``, the CUDA card when None (``utils/device.py``).
 
 Layouts follow PyTorch: ``nn.Linear.weight`` is (out, in), where a Flax
 ``Dense`` kernel is (in, out); ``pspde_torch.utils.convert`` maps one to
@@ -20,7 +22,21 @@ from torch import nn
 from ..utils.device import resolve_device
 
 
-class TanhMLP(nn.Module):
+class _Redraw:
+    """``redraw(generator)``: a module of this one's configuration with a
+    fresh initialisation (pspde's ``module.init`` under a new key, as
+    ``init_stacked`` draws one set a step); ``_config`` holds the
+    constructor's arguments but the generator and the device."""
+
+    _random_init = True
+
+    def redraw(self, generator: Optional[torch.Generator] = None):
+        device = next(self.parameters()).device
+        kw = {"generator": generator} if self._random_init else {}
+        return type(self)(**self._config, device=device, **kw)
+
+
+class TanhMLP(_Redraw, nn.Module):
     """[d_in, *hidden, d_out] tanh MLP with N(0, init_scale^2) weight AND
     bias init (``pspde.ansatz.TanhMLP``); the output layer is linear."""
 
@@ -29,6 +45,8 @@ class TanhMLP(nn.Module):
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
         device = resolve_device(device)
+        self._config = dict(d_in=d_in, d_out=d_out, hidden=hidden,
+                            init_scale=init_scale)
         self.d_in, self.d_out = int(d_in), int(d_out)
         self.hidden = tuple(int(w) for w in hidden)
         widths = (self.d_in,) + self.hidden + (self.d_out,)
@@ -65,7 +83,7 @@ class ScalarParam(nn.Module):
         return self.Y_0.expand(x.shape[0])
 
 
-class DenseNet(nn.Module):
+class DenseNet(_Redraw, nn.Module):
     """Concat-skip DenseNet with relu^2 hidden features
     (``pspde.ansatz.DenseNet``, function_space.py:116-140).
 
@@ -84,6 +102,9 @@ class DenseNet(nn.Module):
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
         device = resolve_device(device)
+        self._config = dict(d_out=d_out, arch=arch, weight_scale=weight_scale,
+                            bias_init_value=bias_init_value,
+                            output_relu=output_relu, d_in=d_in)
         self.d_in, self.d_out = int(d_in), int(d_out)
         self.arch = tuple(int(w) for w in arch)
         self.output_relu = bool(output_relu)
@@ -107,3 +128,63 @@ class DenseNet(nn.Module):
             feats = torch.cat([feats, torch.relu(lin(feats)) ** 2], dim=-1)
         out = self.layers[-1](feats)
         return torch.relu(out) if self.output_relu else out
+
+
+def _lq_gain(B, Q, device) -> torch.Tensor:
+    """Q^{-1} B^T in float32, as pspde's nets form it."""
+    B = torch.as_tensor(B, dtype=torch.float32).to(device)
+    Q = torch.as_tensor(Q, dtype=torch.float32).to(device)
+    return torch.linalg.inv(Q) @ B.T
+
+
+class LinearLQ(_Redraw, nn.Module):
+    """LQ-structured linear control u = Q^{-1} B^T F x with a learnable
+    (d, d) F, N(0, init_scale^2) at init (``pspde.ansatz.LinearLQ``).
+    ``B`` and ``Q`` are fixed (d, d) matrices (a problem's ``B`` and
+    ``Q``)."""
+
+    def __init__(self, B, Q, init_scale: float = 1.0,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        device = resolve_device(device)
+        self._config = dict(B=B, Q=Q, init_scale=init_scale)
+        self.register_buffer("gain", _lq_gain(B, Q, device))
+        d = self.gain.shape[0]
+        self.F = nn.Parameter(init_scale * torch.randn(
+            (d, d), generator=generator).to(device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x @ (self.gain @ self.F).T
+
+
+class LinearLQTime(_Redraw, nn.Module):
+    """Time-conditioned LQ-structured linear control on [t, x]
+    (``pspde.ansatz.LinearLQTime``):
+
+        u(t, x) = Q^{-1} B^T F_hat(t) x,
+        F_hat(t) = sum_j T_j(2 t / T - 1) F_j
+
+    with a Chebyshev basis over ``degree + 1`` learnable (d, d) matrices,
+    zero at init."""
+
+    _random_init = False
+
+    def __init__(self, B, Q, T: float, degree: int = 8, device=None):
+        super().__init__()
+        device = resolve_device(device)
+        self._config = dict(B=B, Q=Q, T=T, degree=degree)
+        self.register_buffer("gain", _lq_gain(B, Q, device))
+        self.T, self.degree = float(T), int(degree)
+        d = self.gain.shape[0]
+        self.F = nn.Parameter(torch.zeros((self.degree + 1, d, d),
+                                          device=device))
+
+    def forward(self, tx: torch.Tensor) -> torch.Tensor:
+        t, x = tx[:, :1], tx[:, 1:]
+        s = 2.0 * t / self.T - 1.0
+        feats = [torch.ones_like(s), s]
+        for _ in range(self.degree - 1):
+            feats.append(2.0 * s * feats[-1] - feats[-2])
+        phi = torch.cat(feats[: self.degree + 1], dim=1)        # (K, J)
+        xF = torch.einsum("ke,jde->kjd", x, self.F)
+        return torch.einsum("kj,kjd->kd", phi, xF) @ self.gain.T

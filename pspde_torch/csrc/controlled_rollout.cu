@@ -39,10 +39,13 @@
 //   * the block writes its rows of X and the sums with consecutive stores.
 //
 // Family (the wrapper raises a ValueError outside it): drift -x or A x;
-// sigma scalar, diag or full; f zero or x^T P x evaluated at (X', t); a
-// TanhMLP control with input [t, X]; noise_sign +-1; host noise (N, K, d)
-// or in-kernel Philox4x32-10 noise keyed by (seed, k, n, j / 4) through
-// the erfinv map.
+// sigma scalar, diag or full; f zero or x^T P x evaluated at (X', t); or
+// the double well's drift b_j = -4 kappa_j x_j (x_j^2 - 1) (drift_kind 2,
+// 4 kappa at a_off) with sigma scalar and f zero, in the kDW
+// instantiations, which only this kernel has (the training kernels and the
+// ladder keep their code); a TanhMLP control with input [t, X];
+// noise_sign +-1; host noise (N, K, d) or in-kernel Philox4x32-10 noise
+// keyed by (seed, k, n, j / 4) through the erfinv map.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -57,7 +60,7 @@ using namespace pspde;
 // Thread q * tile + p of the block works on path p (q < tpp).  Every thread
 // stays to the end, paths past K too (the products' barriers need the whole
 // block): they carry X_0 on their own noise and write nothing.
-template <bool kDevice>
+template <bool kDevice, bool kDW>
 __global__ void __launch_bounds__(kFwdThreads, 2)
 controlled_rollout_kernel(const TrainArgs a, const float* __restrict__ P,
                           const float* __restrict__ noise,
@@ -78,8 +81,8 @@ controlled_rollout_kernel(const TrainArgs a, const float* __restrict__ P,
   const TrainDraw draw{a, noise, k < a.K, k};
   FwdAcc acc = {};
   for (int n = 0; n < a.N; ++n)
-    train_forward_step<!kDevice, !kDevice, true, kSumIS>(a, P, W, st, n,
-                                                         draw, q, acc);
+    train_forward_step<!kDevice, !kDevice, true, kSumIS, kDW>(a, P, W, st, n,
+                                                              draw, q, acc);
 
   float ito, riem, fint;
   train_path_sums(a, R, q, p, acc, ito, riem, fint);
@@ -102,11 +105,31 @@ controlled_rollout_kernel(const TrainArgs a, const float* __restrict__ P,
   }
 }
 
-template <bool kDevice>
+template <bool kDevice, bool kDW>
 cudaError_t set_smem(size_t smem) {
-  return cudaFuncSetAttribute(controlled_rollout_kernel<kDevice>,
+  return cudaFuncSetAttribute(controlled_rollout_kernel<kDevice, kDW>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
+}
+
+template <bool kDevice, bool kDW>
+cudaError_t launch(const TrainArgs& a, const float* params,
+                   const float* host_noise, float* out, float* ws,
+                   size_t smem, cudaStream_t s) {
+  const cudaError_t e = set_smem<kDevice, kDW>(smem);
+  if (e != cudaSuccess) return e;
+  const unsigned grid = static_cast<unsigned>((a.K + a.tile - 1) / a.tile);
+  controlled_rollout_kernel<kDevice, kDW><<<grid, a.tile * a.tpp, smem, s>>>(
+      a, params, host_noise, out, ws);
+  return cudaGetLastError();
+}
+
+template <bool kDevice, bool kDW>
+cudaError_t occupancy(const TrainArgs& a, size_t smem, int* blocks) {
+  const cudaError_t e = set_smem<kDevice, kDW>(smem);
+  if (e != cudaSuccess) return e;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, controlled_rollout_kernel<kDevice, kDW>, a.tile * a.tpp, smem);
 }
 
 }  // namespace
@@ -127,20 +150,15 @@ extern "C" int pspde_controlled_rollout(const float* params,
   if (a.backward) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = sizeof(float) * train_smem_floats(a);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned grid = static_cast<unsigned>((a.K + a.tile - 1) / a.tile);
+  const bool dw = a.drift_kind == 2;
   cudaError_t e;
-  if (a.plan == 1) {
-    e = set_smem<true>(smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    controlled_rollout_kernel<true><<<grid, a.tile * a.tpp, smem, s>>>(
-        a, params, host_noise, out, ws);
-  } else {
-    e = set_smem<false>(smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    controlled_rollout_kernel<false><<<grid, a.tile * a.tpp, smem, s>>>(
-        a, params, host_noise, out, ws);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (a.plan == 1)
+    e = dw ? launch<true, true>(a, params, host_noise, out, ws, smem, s)
+           : launch<true, false>(a, params, host_noise, out, ws, smem, s);
+  else
+    e = dw ? launch<false, true>(a, params, host_noise, out, ws, smem, s)
+           : launch<false, false>(a, params, host_noise, out, ws, smem, s);
+  return static_cast<int>(e);
 }
 
 // The launch for `iargs`, as pspde_train_fwd_occupancy reports the
@@ -154,20 +172,15 @@ extern "C" int pspde_serve_occupancy(const int* iargs, const float* fargs,
   if (err != 0) return err;
   if (a.backward) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = sizeof(float) * train_smem_floats(a);
-  const int threads = a.tile * a.tpp;
+  const bool dw = a.drift_kind == 2;
   cudaError_t e;
-  if (a.plan == 1) {
-    e = set_smem<true>(smem);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &out[0], controlled_rollout_kernel<true>, threads, smem);
-  } else {
-    e = set_smem<false>(smem);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &out[0], controlled_rollout_kernel<false>, threads, smem);
-  }
-  out[1] = threads;
+  if (a.plan == 1)
+    e = dw ? occupancy<true, true>(a, smem, &out[0])
+           : occupancy<true, false>(a, smem, &out[0]);
+  else
+    e = dw ? occupancy<false, true>(a, smem, &out[0])
+           : occupancy<false, false>(a, smem, &out[0]);
+  out[1] = a.tile * a.tpp;
   out[2] = static_cast<int>(smem);
   return static_cast<int>(e);
 }

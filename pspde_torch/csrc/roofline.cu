@@ -325,7 +325,9 @@ extern "C" int pspde_ablation(const float* params, float* out, float* ws,
   TrainArgs a;
   const int err = train_unpack(iargs, fargs, seed, device, &a);
   if (err != 0) return err;
-  if (a.backward) return static_cast<int>(cudaErrorInvalidValue);
+  // the double well's drift (drift_kind 2) runs in the serve kernel only
+  if (a.backward || a.drift_kind == 2)
+    return static_cast<int>(cudaErrorInvalidValue);
   switch (stage) {
     case kNoise: return launch_ablation<kNoise>(a, params, out, ws, stream);
     case kEuler: return launch_ablation<kEuler>(a, params, out, ws, stream);

@@ -292,7 +292,9 @@ extern "C" int pspde_train_rollout_fwd(const float* params,
   TrainArgs a;
   const int err = train_unpack(iargs, fargs, seed, device, &a);
   if (err != 0) return err;
-  if (a.backward) return static_cast<int>(cudaErrorInvalidValue);
+  // the double well's drift (drift_kind 2) runs in the serve kernel only
+  if (a.backward || a.drift_kind == 2)
+    return static_cast<int>(cudaErrorInvalidValue);
   return launch<false>(a, params, host_noise, nullptr, nullptr, X_out, Y_out,
                        Zs_out, U_out, nullptr, ws, stream);
 }
@@ -309,7 +311,8 @@ extern "C" int pspde_train_rollout_bwd(const float* params,
   TrainArgs a;
   const int err = train_unpack(iargs, fargs, seed, device, &a);
   if (err != 0) return err;
-  if (!a.backward) return static_cast<int>(cudaErrorInvalidValue);
+  if (!a.backward || a.drift_kind == 2)
+    return static_cast<int>(cudaErrorInvalidValue);
   return launch<true>(a, params, host_noise, gY, gKL, nullptr, nullptr,
                       nullptr, nullptr, grad_out, ws, stream);
 }
@@ -324,7 +327,9 @@ extern "C" int pspde_train_fwd_occupancy(const int* iargs,
   TrainArgs a;
   const int err = train_unpack(iargs, fargs, 0ull, device, &a);
   if (err != 0) return err;
-  if (a.backward) return static_cast<int>(cudaErrorInvalidValue);
+  // the double well's drift (drift_kind 2) runs in the serve kernel only
+  if (a.backward || a.drift_kind == 2)
+    return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = sizeof(float) * train_smem_floats(a);
   const int threads = a.tile * a.tpp;
   cudaError_t e;

@@ -52,7 +52,10 @@ constexpr int kSumClasses = 4;
 // (pspde_torch/rollout/kernels.py: _pack_train).
 struct TrainArgs {
   int K, N, d, dp, n_layers, tile;
-  int drift_kind;   // 0: b(x) = -x, 1: b(x) = A x (A^T at a_off)
+  int drift_kind;   // 0: b(x) = -x, 1: b(x) = A x (A^T at a_off), 2: the
+                    // double well's b_j = -4 kappa_j x_j (x_j^2 - 1) (4
+                    // kappa at a_off; the serve kernel's kDW instantiations
+                    // only)
   int a_off;
   int sig_kind;     // 0: scalar (sig_scale), 1: diag (at sig_off), 2: full
   int sig_off;
@@ -462,6 +465,19 @@ __device__ __forceinline__ float euler_elementwise(float xo, float s, float c,
       __fmul_rn(__fmul_rn(s, x), sq_dt));
 }
 
+// X' of the elementwise update under the double well's drift, rounded as
+// the plain version computes X + (b(X) + s c) dt + (s x) sqrt(dt) with
+// b(X) = -(4 kappa X)(X^2 - 1); c4 = 4 kappa_j.
+__device__ __forceinline__ float euler_double_well(float xo, float c4,
+                                                   float s, float c, float x,
+                                                   float dt, float sq_dt) {
+  const float b =
+      -__fmul_rn(__fmul_rn(c4, xo), __fadd_rn(__fmul_rn(xo, xo), -1.0f));
+  return __fadd_rn(
+      __fadd_rn(xo, __fmul_rn(__fadd_rn(b, __fmul_rn(s, c)), dt)),
+      __fmul_rn(__fmul_rn(s, x), sq_dt));
+}
+
 struct StepSums {
   float zc, zx, zz, ul;
 };
@@ -488,9 +504,10 @@ struct TrainDraw {
 };
 
 // Noise, the step's sums (forward), dZ into st.Zb (backward), and X'
-// (elementwise update) or V = c dt + xi sqrt(dt) (dense update), for the
-// dimension groups g0, g0 + g_step, ... of this thread's path.
-template <bool kBwd, class Draw>
+// (elementwise update: b(x) = -x, or the double well's with kDW) or V = c dt
+// + xi sqrt(dt) (dense update), for the dimension groups g0, g0 + g_step,
+// ... of this thread's path.
+template <bool kBwd, bool kDW = false, class Draw>
 __device__ __forceinline__ StepSums train_noise_pass(
     const TrainArgs& a, const float* __restrict__ P, const TrainState& st,
     int n, const Draw& draw, float gy, float gk, int g0, int g_step) {
@@ -524,8 +541,12 @@ __device__ __forceinline__ StepSums train_noise_pass(
         st.V[j * ts] = __fadd_rn(__fmul_rn(c, a.dt), __fmul_rn(x, a.sq_dt));
       } else {
         const float sg = a.sig_kind == 0 ? a.sig_scale : P[a.sig_off + j];
-        st.Xn[j * ts] =
-            euler_elementwise(st.X[j * ts], sg, c, x, a.dt, a.sq_dt);
+        if (kDW)
+          st.Xn[j * ts] = euler_double_well(st.X[j * ts], P[a.a_off + j], sg,
+                                            c, x, a.dt, a.sq_dt);
+        else
+          st.Xn[j * ts] =
+              euler_elementwise(st.X[j * ts], sg, c, x, a.dt, a.sq_dt);
       }
     }
   }
@@ -629,10 +650,12 @@ enum StepSum { kSumNone = 0, kSumZx, kSumAll, kSumIS };
 // and the sums into acc: all of them, kSumAll, as the forward; the serve's
 // ito, riem and f_int, kSumIS; Z.xi alone, kSumZx, as the ladder's net
 // stage; none), as the forward kernel, the serve kernel and the ladder's
-// stages run it.  kNet false (the ladder's euler stage) leaves Z as it is.
-// The caller has synchronised since X was last written; the step ends with
-// a barrier, X' in st.X.
-template <bool kShared, bool kFrag, bool kNet, int kSum, class Draw>
+// stages run it.  kNet false (the ladder's euler stage) leaves Z as it is;
+// kDW takes the double well's drift (drift_kind 2, the serve's kDW
+// instantiations).  The caller has synchronised since X was last written;
+// the step ends with a barrier, X' in st.X.
+template <bool kShared, bool kFrag, bool kNet, int kSum, bool kDW = false,
+          class Draw>
 __device__ __forceinline__ void train_forward_step(
     const TrainArgs& a, const float* __restrict__ P, const float* W,
     TrainState& st, int n, const Draw& draw, int q, FwdAcc& acc) {
@@ -642,8 +665,8 @@ __device__ __forceinline__ void train_forward_step(
   StepSums s[kSumClasses];
 #pragma unroll 1
   for (int i = 0; i < slots; ++i)
-    s[i] = train_noise_pass<false>(a, P, st, n, draw, 0.0f, 0.0f,
-                                   q + i * a.tpp, kSumClasses);
+    s[i] = train_noise_pass<false, kDW>(a, P, st, n, draw, 0.0f, 0.0f,
+                                        q + i * a.tpp, kSumClasses);
   if (dense_update) {
     __syncthreads();   // V's rows are the path's other threads'
     train_dense_update(a, P, st, q, a.tpp);
@@ -815,6 +838,7 @@ inline int train_unpack(const int* iargs, const float* fargs,
   a->key1 = static_cast<uint32_t>(seed >> 32);
   if (a->tile <= 0 || a->tile > kMaxTile || a->tile % 32 != 0 ||
       a->n_layers < 1 || a->n_layers > kMaxLayers || a->K <= 0 ||
+      a->drift_kind < 0 || a->drift_kind > 2 ||
       a->plan < 0 || a->plan > 1 || a->backward < 0 || a->backward > 1 ||
       a->tpp < 1 || kSumClasses % a->tpp != 0 ||
       (a->backward && a->tpp != 1) ||

@@ -1,5 +1,9 @@
-from .importance_sampling import importance_sampling, importance_sampling_fused
+from .importance_sampling import (do_importance_sampling,
+                                  do_importance_sampling_Wei,
+                                  importance_sampling,
+                                  importance_sampling_fused)
 from .test_error import compute_test_error, control_test_error
 
-__all__ = ["compute_test_error", "control_test_error", "importance_sampling",
-           "importance_sampling_fused"]
+__all__ = ["compute_test_error", "control_test_error",
+           "do_importance_sampling", "do_importance_sampling_Wei",
+           "importance_sampling", "importance_sampling_fused"]

@@ -8,10 +8,14 @@ variance and relative error of E[exp(-int f - g(X_T))].  The statistics
 are computed from the log-weights shifted by their maximum, so the
 exponentials cannot overflow.
 
-``importance_sampling`` is the plain tensor version (any control);
-``importance_sampling_fused`` runs the whole simulation in the rollout
-kernel (``rollout/kernels.py``) on a CUDA problem, and its plain version
-on a CPU one.  QMC noise and multi-device meshes are not ported yet.
+``importance_sampling`` is the plain tensor version (any control, or
+the problem's reference control with ``control='true'``, e.g. the FD
+table of the double-well problems); ``importance_sampling_fused`` runs the
+whole simulation in the rollout kernel (``rollout/kernels.py``) on a CUDA
+problem, and its plain version on a CPU one; ``do_importance_sampling``
+and ``do_importance_sampling_Wei`` are the reference's names for the
+naive-and-IS comparison.  QMC noise and multi-device meshes are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -166,7 +170,9 @@ def importance_sampling_fused(problem, model, K: int, delta_t: float = 0.01,
     (``rollout.kernels.fused_controlled_rollout``) - the kernel on a CUDA
     problem, its plain version on a CPU one.  Returns (mean, var, RE).
 
-    The model must use the 'inner' TanhMLP control.  ``antithetic`` runs
+    The model must use the 'inner' TanhMLP control, and the problem a
+    drift of the kernel's family (-x, A x, or the double well's).
+    ``antithetic`` runs
     two rollouts of K/2 paths with the same seed and noise signs +1/-1
     (elementwise mirrored pairs) and reports the pair-averaged estimator
     at total path count K.  ``host_noise`` (N, K_run, d) replaces the
@@ -196,3 +202,28 @@ def importance_sampling_fused(problem, model, K: int, delta_t: float = 0.01,
         print("IS mean: %.4e, IS variance: %.4e, IS RE %.4e"
               % (mean_IS, var_IS, rel_IS))
     return mean_IS, var_IS, rel_IS
+
+
+
+def do_importance_sampling(problem, model, K, control="approx", verbose=True,
+                           delta_t=0.01, generator=None):
+    """The full 6-tuple (naive mean, var, RE, then IS mean, var, RE): the
+    naive chain is always simulated beside the controlled one."""
+    return importance_sampling(problem, model, K, control=control,
+                               simulate_naive=True, delta_t=delta_t,
+                               generator=generator, verbose=verbose)
+
+
+def do_importance_sampling_Wei(problem, model, K, control="approx",
+                               verbose=True, delta_t=0.01, generator=None):
+    """(variance_naive, variance_IS) of the estimator."""
+    out = importance_sampling(problem, model, K, control=control,
+                              simulate_naive=True, delta_t=delta_t,
+                              generator=generator)
+    mean_naive, var_naive, _, mean_IS, var_IS, _ = out
+    if verbose:
+        print("\n(mean, variance) of naive estimator: (%.4e, %.4e)"
+              % (mean_naive, var_naive))
+        print("(mean, variance) of importance sampling estimator: "
+              "(%.4e, %.4e)" % (mean_IS, var_IS))
+    return var_naive, var_IS

@@ -1,4 +1,5 @@
 from .base import DiffusionMatrix, Geometry, Problem
+from .double_well import DoubleWell, DoubleWell_multidim
 from .eigen import FokkerPlanckEigen, SchrodingerEigen
 from .elliptic import (ExponentialOnBallNonlinear,
                        ExponentialOnBallNonlinearSin, ExponentialOnSphere)
@@ -6,7 +7,8 @@ from .ou import LLGC, LQGC
 from .parabolic import (AllenCahn, ExponentialOnSphereNonlinearParabolic,
                         ExponentialOnSphereParabolic, HeatEquation)
 
-__all__ = ["AllenCahn", "DiffusionMatrix", "ExponentialOnBallNonlinear",
+__all__ = ["AllenCahn", "DiffusionMatrix", "DoubleWell",
+           "DoubleWell_multidim", "ExponentialOnBallNonlinear",
            "ExponentialOnBallNonlinearSin", "ExponentialOnSphere",
            "ExponentialOnSphereNonlinearParabolic",
            "ExponentialOnSphereParabolic", "FokkerPlanckEigen", "Geometry",

@@ -158,8 +158,9 @@ class Problem:
         """('neg_identity', None) for b(x) = -x, ('matrix', A) for
         b(x) = A x, ('zero', None) for b = 0, ('torus_cos', c) for
         b(x) = -cos(s) c sin(x) with s = c sum_j cos x_j and a uniform
-        scalar c (the stopped kernels' torus family), or None when the
-        drift is outside every kernel's family."""
+        scalar c (the stopped kernels' torus family), ('double_well',
+        kappa) for b_j(x) = -4 kappa_j x_j (x_j^2 - 1) (the serve kernel
+        only), or None when the drift is outside every kernel's family."""
         return None
 
     def running_cost_family(self):

@@ -1,0 +1,75 @@
+"""Host-side finite-difference reference of the double-well problems (the
+port's own copy of ``pspde/problems/fd_oracles.py:
+parabolic_log_transform_reference``).
+
+The 1-d backward PDE for psi = e^{-v} is solved once per problem on the
+host in float64 with NumPy and SciPy (implicit Euler on a symmetrised
+banded generator, ``scipy.linalg.solve_banded`` each step); the problems
+move the resulting tables to their device, so that the training loop's
+reference lookups are gathers.  The JAX package can also run the sweep in
+its native C++ library; the port keeps the SciPy sweep only.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Tuple
+
+import numpy as np
+from scipy.linalg import solve_banded
+
+
+def parabolic_log_transform_reference(
+    V: Callable[[np.ndarray], np.ndarray],
+    g: Callable[[np.ndarray], np.ndarray],
+    T: float,
+    delta_t: float = 0.005,
+    xb: float = 2.5,
+    nx: int = 1000,
+    beta: float = 2.0,
+    B00: float = 1.0,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, float]:
+    """Solve the linear backward PDE for psi(t, x) on [-xb, xb].
+
+    The generator is discretised in the symmetrised form A = D^{-1} L D
+    with Neumann boundary conditions; the hopping rates use the potential
+    at the cell centres c_i = -xb + (i + 1/2) dx and edges e_i = -xb + i dx.
+    Backward implicit-Euler steps psi_n = D (I - dt A)^{-1} D^{-1}
+    psi_{n+1} from psi_N = exp(-g) on the linspace grid.
+
+    Returns (xvec, psi (N+1, nx), u (N+1, nx-1), dx) with the control table
+    u = -(2/beta) B00 (log psi_i - log psi_{i+1}) / dx.
+    """
+    dx = 2.0 * xb / nx
+    xvec = np.linspace(-xb, xb, nx, endpoint=True)
+    centers = -xb + (np.arange(nx) + 0.5) * dx
+    edges = -xb + np.arange(nx + 1) * dx
+
+    Vc = V(centers)
+    Ve = V(edges)
+
+    # the symmetric tridiagonal hopping matrix, rows scaled by 1/dx^2
+    off = -np.exp(beta * 0.5 * (Vc[:-1] + Vc[1:] - 2.0 * Ve[1:-1])) / dx ** 2
+    diag = np.zeros(nx)
+    diag[1:] += np.exp(beta * (Vc[1:] - Ve[1:-1])) / dx ** 2
+    diag[:-1] += np.exp(beta * (Vc[:-1] - Ve[1:-1])) / dx ** 2
+    # A = -A_hops / beta
+    off = -off / beta
+    diag = -diag / beta
+
+    N = int(T / delta_t)
+    Dv = np.exp(beta * V(xvec) / 2.0)
+    Dv_inv = np.exp(-beta * V(xvec) / 2.0)
+
+    # banded form of (I - dt A): ab[0] upper, ab[1] main, ab[2] lower
+    ab = np.zeros((3, nx))
+    ab[0, 1:] = -delta_t * off
+    ab[1, :] = 1.0 - delta_t * diag
+    ab[2, :-1] = -delta_t * off
+    psi = np.zeros((N + 1, nx))
+    psi[N] = np.exp(-g(xvec))
+    for n in range(N - 1, -1, -1):
+        psi[n] = Dv * solve_banded((1, 1), ab, Dv_inv * psi[n + 1])
+
+    logpsi = np.log(np.maximum(psi, 1e-300))
+    u = -(2.0 / beta) * B00 * (logpsi[:, :-1] - logpsi[:, 1:]) / dx
+    return xvec, psi, u, dx

@@ -10,7 +10,9 @@ the serve path (``fused_controlled_rollout``), the HJB training rollout
     X <- X + (b(X) + sigma u) dt + sigma xi sqrt(dt),
     ito += (u . xi) sqrt(dt),  riem += |u|^2 dt,  f_int += f(X_new, t) dt
 
-for N steps and returns the final state and the three integrals.  On a
+for N steps and returns the final state and the three integrals, for a
+drift b(X) = -X, A X or the double well's -4 kappa X (X^2 - 1)
+(``KERNEL_FAMILY``; the training kernels take the first two).  On a
 CUDA tensor it launches the hand-written kernel in
 ``pspde_torch/csrc/controlled_rollout.cu`` (built on first use by
 ``_build.py``); on a CPU tensor it runs ``reference_controlled_rollout``.
@@ -198,10 +200,12 @@ def reference_controlled_rollout(problem, z_net, K: int, N: int,
 
 # -- the CUDA kernel's front end -------------------------------------------
 
-KERNEL_FAMILY = ("drift -x or A x; sigma scalar, diag or full (constant); "
-                 "f zero or x^T P x; a TanhMLP control of input width d+1 "
-                 "and output width d with at most 8 layers; noise_sign +1 "
-                 "or -1")
+_FAMILY_NET = ("a TanhMLP control of input width d+1 and output width d "
+               "with at most 8 layers; noise_sign +1 or -1")
+KERNEL_FAMILY = ("drift -x or A x with sigma scalar, diag or full (constant) "
+                 "and f zero or x^T P x, or the double well's drift "
+                 "-4 kappa x (x^2 - 1) with sigma scalar and f zero; "
+                 + _FAMILY_NET)
 
 _CHUNK = 8                 # output widths are padded to this (csrc kChunk)
 _MAX_LAYERS = 8            # csrc kMaxLayers
@@ -233,7 +237,11 @@ def _outside(msg: str):
                       f"{KERNEL_FAMILY}")
 
 
-def _check_family(problem, z_net, with_f, noise_sign, outside=_outside):
+def _check_family(problem, z_net, with_f, noise_sign, outside=_outside,
+                  double_well=True):
+    """(drift, cost) of a problem and net inside the serve kernel's family,
+    or ``outside``'s ValueError; ``double_well`` False (the training
+    kernels) refuses the double well's drift."""
     d = problem.d
     if not isinstance(z_net, TanhMLP):
         raise outside(f"control net {type(z_net).__name__} is not a TanhMLP")
@@ -243,12 +251,21 @@ def _check_family(problem, z_net, with_f, noise_sign, outside=_outside):
     if len(z_net.layers) > _MAX_LAYERS:
         raise outside(f"TanhMLP has {len(z_net.layers)} layers")
     drift = problem.drift_family()
-    if drift is None or drift[0] not in ("neg_identity", "matrix"):
-        raise outside(f"drift of {type(problem).__name__} is not -x or A x")
+    name = type(problem).__name__
+    kinds = ("neg_identity", "matrix") + (("double_well",) if double_well
+                                          else ())
+    if drift is None or drift[0] not in kinds:
+        raise outside(f"drift of {name} is not -x or A x"
+                      + (" or the double well's" if double_well else
+                         " (the double well's drift runs in the serve "
+                         "kernel only)"))
     cost = problem.running_cost_family() if with_f else ("zero", None)
     if cost is None:
-        raise outside(f"running cost f of {type(problem).__name__} is not "
-                      "zero or quadratic")
+        raise outside(f"running cost f of {name} is not zero or quadratic")
+    if drift[0] == "double_well":
+        if problem.sigma_struct.kind != "scalar" or cost[0] != "zero":
+            raise outside(f"the double well's drift of {name} needs sigma "
+                          "scalar and f zero")
     if float(noise_sign) not in (1.0, -1.0):
         raise outside(f"noise_sign={noise_sign}")
     return drift, cost
@@ -327,8 +344,14 @@ def _layout(problem, z_net, drift, cost,
     def add_T(m):
         return add(padded(m.to(torch.float32).T, d, dp))
 
-    drift_kind, a_off = (0, 0) if drift[0] == "neg_identity" else (
-        1, add_T(drift[1]))
+    if drift[0] == "neg_identity":
+        drift_kind, a_off = 0, 0
+    elif drift[0] == "double_well":
+        # 4 kappa, exact in float32 as the plain version's 4.0 * kappa
+        drift_kind = 2
+        a_off = add(padded(4.0 * drift[1].to(torch.float32)[None, :], 1, dp))
+    else:
+        drift_kind, a_off = 1, add_T(drift[1])
     sig = problem.sigma_struct
     sig_kind, sig_off, sig_scale = _SIG_KIND[sig.kind], 0, 0.0
     if sig.kind == "scalar":
@@ -518,7 +541,9 @@ class FusedTrainOut(NamedTuple):
     u_l2: torch.Tensor    # (K,) control-error accumulator, no gradient
 
 
-TRAIN_KERNEL_FAMILY = (KERNEL_FAMILY + "; h = c_h |z|^2/2 + f_coef f "
+TRAIN_KERNEL_FAMILY = ("drift -x or A x; sigma scalar, diag or full "
+                       "(constant); f zero or x^T P x; " + _FAMILY_NET
+                       + "; h = c_h |z|^2/2 + f_coef f "
                        "(Problem.h_family); u_tab only for a problem with a "
                        "state-independent reference control (u_ref_table); "
                        "rng 'erfinv' or 'binom'")
@@ -571,7 +596,7 @@ def reference_train_rollout(problem, z_net, K: int, N: int, delta_t: float,
 
 def _check_train_family(problem, z_net, N, noise_sign, u_tab, rng):
     drift, cost = _check_family(problem, z_net, True, noise_sign,
-                                outside=_train_outside)
+                                outside=_train_outside, double_well=False)
     hfam = problem.h_family()
     if hfam is None or hfam[0] != "quadratic_z":
         raise _train_outside(f"h of {type(problem).__name__} is not "

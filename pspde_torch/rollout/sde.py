@@ -14,11 +14,12 @@ X' with time t_n):
     Y  += (-h(t_n, X', Y, Z) + <Z, c>) dt + <Z, xi> sqrt(dt)
     Z_sum, u_L2 accumulate at X'
 
-Ported: control mode with adaptive or fixed forward process,
+Ported: control mode with adaptive or fixed forward process, value mode
+(the consistency penalty (V(X_n, t_n) - Y_n)^2 for n > 0 in ``add_loss``),
 ``detach_forward``, the KL accumulator (with or without its Ito term),
 the u_L2 diagnostic, antithetic pairs and per-step recomputation
-(``remat``, ``torch.utils.checkpoint``).  Value mode, the repa phases,
-the reparametrization accumulator and the Burgers drift raise.
+(``remat``, ``torch.utils.checkpoint``).  The repa phases, the
+reparametrization accumulator and the Burgers drift raise.
 
 ``stopped_rollout`` (``sde.py:536``) is the scan engine of
 ``EllipticSolver`` and the plain version of the stopped training kernels
@@ -45,7 +46,7 @@ class HJBRolloutOut(NamedTuple):
     Y: torch.Tensor         # (K,) accumulated value process
     Z_sum: torch.Tensor     # (K,) KL / Ito accumulator
     u_l2: torch.Tensor      # (K,) control L2 error accumulator
-    add_loss: torch.Tensor  # (K,) value-mode consistency penalty (zeros)
+    add_loss: torch.Tensor  # (K,) value-mode consistency penalty
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,14 +77,13 @@ def step_time(n: int, dt: float) -> float:
 
 
 def _not_ported(cfg: HJBRolloutConfig):
-    for flag, name in ((cfg.value_mode, "value_mode"),
-                       (cfg.repa_phase is not None, "repa_phase"),
+    for flag, name in ((cfg.repa_phase is not None, "repa_phase"),
                        (cfg.reparametrization, "reparametrization"),
                        (cfg.burgers_drift, "burgers_drift")):
         if flag:
             raise NotImplementedError(
                 f"hjb_rollout: {name} is not ported to pspde_torch yet "
-                "(ROADMAP.md, Queue 1 item 4)")
+                "(ROADMAP.md, Queue 1 item 6)")
 
 
 def hjb_rollout(
@@ -103,7 +103,9 @@ def hjb_rollout(
     The noise of step n is ``host_noise[n]``, else ``noise_fn(n)``, else
     ``torch.randn`` from ``generator`` on X0's device; it has K_draw = K
     rows, or K/2 with ``cfg.antithetic``, whose rows i and i + K/2 are
-    then (xi, -xi).  Y, Z_sum and u_l2 accumulate in float32."""
+    then (xi, -xi).  Y, Z_sum, u_l2 and add_loss accumulate in float32;
+    with ``cfg.value_mode`` the second output of ``control_fn`` is
+    V(X_n, t_n), and add_loss sums (V - Y_n)^2 over the steps n > 0."""
     _not_ported(cfg)
     K, d = X0.shape
     K_draw = K // 2 if cfg.antithetic else K
@@ -130,8 +132,10 @@ def hjb_rollout(
             xi = torch.cat([xi, -xi], dim=0)
         return xi
 
-    def step(n, t, X, Y, Z_sum, u_l2, xi):
-        Z, _ = control_fn(X, n, t)
+    def step(n, t, X, Y, Z_sum, u_l2, add_loss, xi):
+        Z, V_here = control_fn(X, n, t)
+        if cfg.value_mode and n > 0:
+            add_loss = add_loss + (V_here.to(f32) - Y) ** 2
         c = -Z if cfg.adaptive_forward else torch.zeros_like(X)
         if cfg.detach_forward:
             c = c.detach()
@@ -150,20 +154,19 @@ def hjb_rollout(
         if track_u:
             err = -Z32.detach() - u_ref(X_new, n).to(f32)
             u_l2 = u_l2 + torch.sum(err * err, dim=-1) * dt
-        return X_new, Y, Z_sum, u_l2
+        return X_new, Y, Z_sum, u_l2, add_loss
 
     zeros = torch.zeros((K,), dtype=f32, device=X0.device)
-    X, Y, Z_sum, u_l2 = X0, Y0.to(f32), zeros, zeros
+    carry = (X0, Y0.to(f32), zeros, zeros, zeros)
     for n in range(cfg.N):
         t = step_time(n, dt)
         xi = draw(n)
         if cfg.remat and torch.is_grad_enabled():
             # the noise is drawn outside, so recomputation sees the same xi
-            X, Y, Z_sum, u_l2 = checkpoint(step, n, t, X, Y, Z_sum, u_l2,
-                                           xi, use_reentrant=False)
+            carry = checkpoint(step, n, t, *carry, xi, use_reentrant=False)
         else:
-            X, Y, Z_sum, u_l2 = step(n, t, X, Y, Z_sum, u_l2, xi)
-    return HJBRolloutOut(X, Y, Z_sum, u_l2, torch.zeros_like(Y))
+            carry = step(n, t, *carry, xi)
+    return HJBRolloutOut(*carry)
 
 
 # -- stopped-path (first-exit) rollout ---------------------------------------

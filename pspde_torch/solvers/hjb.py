@@ -1,17 +1,25 @@
 """HJB / parabolic path-space solver (counterpart of
 ``pspde/solvers/hjb.py:HJBSolver``).
 
-Ported: ``approx_method='control'`` with the 'inner' time approximation
-(the TanhMLP control net on [t, X] and the learnable Y_0), training with
-the whole loss zoo that the ported rollout supports, Adam with a separate
-``lr_y0`` group (``lr`` and ``lr_y0`` numbers or callables step -> lr,
-``utils/schedule.py``), the u_L2 diagnostic, early stopping, and two
-engines:
+Ported: both approximations of the JAX solver, ``approx_method='control'``
+(a control net, Z = net) and ``'value_function'`` (a value net V, Z =
+sigma^T grad_x V by autograd with ``create_graph``, Y_0 = V(X_0, 0) and
+the consistency penalty of ``rollout/sde.py``), each with the 'inner' time
+approximation (one net on [t, X]: TanhMLP for the control, DenseNet for
+the value) or the 'outer' one (one parameter set per step, stacked:
+``StackedNet``; DenseNet on X by default: N copies of the control, N + 1
+of the value); the learnable Y_0, ``random_X_0`` (X_0 ~ N(0, I)),
+``metastability_logs`` (the fraction of X_T within eps of a target),
+training with the whole loss zoo that the ported rollout supports, Adam
+with a separate ``lr_y0`` group (``lr`` and ``lr_y0`` numbers or callables
+step -> lr, ``utils/schedule.py``), the u_L2 diagnostic, early stopping,
+and two engines:
 
   * 'scan': the plain autograd rollout (``rollout/sde.py:hjb_rollout``);
   * 'fused_train': the training kernels (``rollout/kernels.py:
     fused_train_rollout``): one forward and one replay-backward launch
-    per step.
+    per step; 'inner' control mode with a TanhMLP and a fixed X_0 only,
+    as in JAX.
 
 Deviation from the JAX package, deliberate: where a 'fused_train' gate
 fails on a CUDA problem, the solver raises a ValueError naming the gate
@@ -23,62 +31,123 @@ one Python iteration (CUDA-graph capture is later work).
 
 from __future__ import annotations
 
+import copy
 import time
 import warnings
+from typing import Sequence
 
 import numpy as np
 import torch
+from torch import nn
 
-from ..ansatz import ScalarParam, TanhMLP
+from ..ansatz import DenseNet, ScalarParam, TanhMLP
 from ..losses.pathspace import hjb_loss, log_variance_y0_losses
 from ..rollout.kernels import (FusedTrainOut, RNG_MAPS, _check_train_family,
                                fused_train_rollout)
 from ..rollout.sde import HJBRolloutConfig, HJBRolloutOut, hjb_rollout
-from ..utils.convert import (load_control_npz, scalar_param_from_flax,
-                             tanh_mlp_from_flax)
+from ..utils.convert import (flax_state_dict, load_control_npz,
+                             scalar_param_from_flax, tanh_mlp_from_flax)
 from ..utils.device import solver_device
 from ..utils.schedule import apply_lr, lr_at, lr_text
 
 # options of the JAX solver that the port does not have yet: a value other
-# than the default raises (ROADMAP.md, Queue 1 items 6, 10 and 11)
-_NOT_PORTED = ("random_X_0", "compute_gradient_variance", "IS_variance_K",
-               "metastability_logs", "save_results", "log_gradient",
-               "plot_trajectories", "mesh", "value_net")
+# than the default raises (ROADMAP.md, Queue 1 items 6, 9, 10 and 11)
+_NOT_PORTED = ("compute_gradient_variance", "IS_variance_K", "save_results",
+               "log_gradient", "plot_trajectories", "mesh")
 # TPU-only levers of the JAX solver, accepted and ignored
 _TPU_ONLY = ("rng_impl", "layout", "fused_unroll", "IS_variance_iter")
 
 
+class StackedNet(nn.Module):
+    """One parameter set per time step of a net, stacked on a leading axis
+    (pspde's ``init_stacked``): ``forward(x, n)`` runs the template module
+    with set clip(n, 0, n_copies - 1) (``select_step``) through
+    ``torch.func.functional_call``.  ``copies`` are modules of one kind and
+    shape; their parameters are stacked, the first one is the template
+    (its own parameters are not used; its buffers are)."""
+
+    def __init__(self, copies: Sequence[nn.Module]):
+        super().__init__()
+        self.n_copies = len(copies)
+        self._names = [n for n, _ in copies[0].named_parameters()]
+        self.stacked = nn.ParameterList(
+            nn.Parameter(torch.stack([dict(c.named_parameters())[n].detach()
+                                      for c in copies]))
+            for n in self._names)
+        # the template is not registered: its parameters are not trained
+        object.__setattr__(self, "template", copies[0])
+
+    def params_at(self, n: int) -> dict:
+        n = min(max(int(n), 0), self.n_copies - 1)
+        return {name: p[n] for name, p in zip(self._names, self.stacked)}
+
+    def forward(self, x: torch.Tensor, n: int) -> torch.Tensor:
+        return torch.func.functional_call(self.template, self.params_at(n),
+                                          (x,))
+
+    @torch.no_grad()
+    def load_flax(self, tree: dict):
+        """Load a Flax tree stacked on a leading axis of n_copies."""
+        state = flax_state_dict(self.template, tree)
+        for name, p in zip(self._names, self.stacked):
+            val = state[name]
+            if tuple(val.shape) != tuple(p.shape):
+                raise ValueError(f"stacked leaf {name} has shape "
+                                 f"{tuple(val.shape)}, expected "
+                                 f"{tuple(p.shape)}")
+            p.copy_(val)
+
+
+def _per_step(net: nn.Module, n_copies: int,
+              gen: torch.Generator) -> StackedNet:
+    """n_copies parameter sets: ``net`` and n_copies - 1 fresh draws of its
+    configuration from ``gen`` (its ``redraw``, as pspde's init_stacked
+    draws one set a step), or copies of ``net``'s parameters for a module
+    without ``redraw``."""
+    if hasattr(net, "redraw"):
+        return StackedNet([net] + [net.redraw(gen)
+                                   for _ in range(n_copies - 1)])
+    return StackedNet([net] + [copy.deepcopy(net)
+                               for _ in range(n_copies - 1)])
+
+
 class HJBSolver:
-    """Trains (and holds) the control model of a parabolic/HJB problem.
+    """Trains (and holds) the control or value model of a parabolic/HJB
+    problem.
 
     Constructor arguments mirror ``pspde.solvers.HJBSolver``; the port
     adds ``device=``, the CUDA card when None, which must be the problem's
-    device.  Parameters are initialised from a
-    ``torch.Generator`` seeded with ``seed`` (N(0, 0.01) weights and
-    biases, Y_0 = 0), not from the JAX initialisation: load JAX
-    parameters with ``load_jax_params``.  The scan engine's noise comes
-    from a generator on the problem's device seeded with seed + 1; the
-    kernels' per-step seeds from a CPU generator seeded with seed + 2.
+    device.  Parameters are initialised from a ``torch.Generator`` seeded
+    with ``seed`` (TanhMLP: N(0, 0.01) weights and biases; DenseNet: its
+    N(0, 0.01) weights and zero biases; each 'outer' step its own draw;
+    Y_0 = 0), not from the JAX initialisation: load JAX parameters with
+    ``load_jax_params``.  A ``control_net`` or ``value_net`` given for the
+    'outer' approximation keeps its parameters at step 0, and every other
+    step is a fresh draw of its configuration from that generator (its
+    ``redraw``; a module without one starts every step from its
+    parameters).  The scan
+    engine's noise (and ``random_X_0``'s X_0) comes from a generator on the
+    problem's device seeded with seed + 1; the kernels' per-step seeds
+    from a CPU generator seeded with seed + 2.
     """
 
     def __init__(self, name, problem, lr=0.001, L=10000, K=50, delta_t=0.05,
                  approx_method="control", loss_method="log-variance",
                  time_approx="outer", learn_Y_0=False,
                  adaptive_forward_process=True, detach_forward=False,
-                 early_stopping_time=10000, print_every=100, seed=42,
+                 early_stopping_time=10000, random_X_0=False,
+                 metastability_logs=None, print_every=100, seed=42,
                  u_l2_error_flag=True, burgers_drift=False, verbose=True,
-                 control_net=None, lr_y0=None, remat=None,
+                 control_net=None, value_net=None, lr_y0=None, remat=None,
                  dtype=torch.float32, rollout_mode="scan",
                  steps_per_call="auto", antithetic=False, fused_tile=None,
                  fused_rng=None, device=None, **kwargs):
-        if approx_method != "control":
-            raise NotImplementedError(
-                f"approx_method={approx_method!r} is not ported to "
-                "pspde_torch yet (ROADMAP.md, Queue 1 item 6)")
-        if time_approx != "inner":
-            raise NotImplementedError(
-                f"time_approx={time_approx!r} is not ported to pspde_torch "
-                "yet (ROADMAP.md, Queue 1 item 6); use 'inner'")
+        if approx_method not in ("control", "value_function"):
+            raise ValueError(f"approx_method={approx_method!r} must be "
+                             "'control' or 'value_function'")
+        if time_approx not in ("outer", "inner"):
+            raise ValueError(f"time_approx={time_approx!r} must be 'outer' "
+                             "or 'inner'")
         for key, val in kwargs.items():
             if key in _NOT_PORTED:
                 if val:
@@ -109,6 +178,8 @@ class HJBSolver:
         self.lr_y0 = lr if lr_y0 is None else lr_y0
         self.L = L
         self.K = K
+        self.random_X_0 = random_X_0
+        self.metastability_logs = metastability_logs
         self.loss_method = loss_method
         self.approx_method = approx_method
         self.time_approx = time_approx
@@ -155,12 +226,32 @@ class HJBSolver:
                 self._u_ref = lambda x, n: problem.u_ref(x)
             if hasattr(problem, "u_ref_table"):
                 self._u_tab = problem.u_ref_table(ts)
+        self._meta = None
+        if metastability_logs is not None:
+            target = torch.as_tensor(np.asarray(
+                torch.as_tensor(metastability_logs[0]).cpu(),
+                dtype=np.float32), device=self.device)
+            self._meta = (target, float(metastability_logs[1]))
 
         gen = torch.Generator().manual_seed(int(seed))
-        if control_net is None:
-            control_net = TanhMLP(self.d + 1, self.d, generator=gen,
-                                  device=self.device)
-        self.z_net = control_net.to(self.device)
+        d, dev, outer = self.d, self.device, time_approx == "outer"
+        d_in = d if outer else d + 1
+        if approx_method == "control":
+            if control_net is None:
+                control_net = (DenseNet(d_out=d, d_in=d, generator=gen,
+                                        device=dev) if outer
+                               else TanhMLP(d_in, d, generator=gen,
+                                            device=dev))
+            control_net = control_net.to(dev)
+            self.z_net = (_per_step(control_net, self.N, gen) if outer
+                          else control_net)
+        else:
+            if value_net is None:
+                value_net = DenseNet(d_out=1, d_in=d_in, generator=gen,
+                                     device=dev)
+            value_net = value_net.to(dev)
+            self.y_net = (_per_step(value_net, self.N + 1, gen) if outer
+                          else value_net)
         self.y0_net = ScalarParam(initial=0.0, device=self.device)
         self._noise_gen = torch.Generator(device=self.device).manual_seed(
             int(seed) + 1)
@@ -172,32 +263,76 @@ class HJBSolver:
         self.loss_log = []
         self.u_L2_loss = []
         self.times = []
+        self.particles_close_to_target = []
         self.iteration = 0
         self.resolved_rollout_mode = self._resolve_engine()
         self.resolved_steps_per_call = 1
 
     # -- model ---------------------------------------------------------------
+    @property
+    def _y0_learned(self) -> bool:
+        """Y_0 is a parameter of its own in control mode only (value mode
+        reads Y_0 = V(X_0, 0))."""
+        return self.learn_Y_0 and self.approx_method == "control"
+
+    @property
+    def _net(self) -> nn.Module:
+        return self.z_net if self.approx_method == "control" else self.y_net
+
     def _make_optimizer(self):
-        """Adam over the control net, with Y_0 in its own lr_y0 group."""
+        """Adam over the control (or value) net, with Y_0 in its own lr_y0
+        group."""
         step = getattr(self, "iteration", 0)
-        groups = [{"params": list(self.z_net.parameters()),
+        groups = [{"params": list(self._net.parameters()),
                    "lr": lr_at(self.lr, step)}]
         self._group_lrs = [self.lr]
-        if self.learn_Y_0:
+        if self._y0_learned:
             groups.append({"params": list(self.y0_net.parameters()),
                            "lr": lr_at(self.lr_y0, step)})
             self._group_lrs.append(self.lr_y0)
         self.optimizer = torch.optim.Adam(groups, lr=lr_at(self.lr, step))
 
-    def _control_fn(self):
-        """(X, n, t) -> (Z, None): the 'inner' control Z = net([t, X])."""
-        net = self.z_net
+    def _value_fn(self):
+        """(X, n, t) -> V(X, t_n) of the value net (value mode)."""
+        net, outer = self.y_net, self.time_approx == "outer"
 
         def fn(X, n, t):
+            if outer:
+                return net(X, n)[:, 0]
             tX = torch.cat([torch.full((X.shape[0], 1), float(t),
                                        dtype=X.dtype, device=X.device), X],
                            dim=1)
-            return net(tX), None
+            return net(tX)[:, 0]
+
+        return fn
+
+    def _control_fn(self):
+        """(X, n, t) -> (Z, V or None): control mode Z = net([t, X])
+        ('inner') or net_n(X) ('outer'); value mode Z = sigma^T grad_x V
+        with V = V(X, t_n), differentiable in the parameters (through
+        ``create_graph``) while grad mode is on."""
+        if self.approx_method == "control":
+            net, outer = self.z_net, self.time_approx == "outer"
+
+            def fn(X, n, t):
+                if outer:
+                    return net(X, n), None
+                tX = torch.cat([torch.full((X.shape[0], 1), float(t),
+                                           dtype=X.dtype, device=X.device),
+                                X], dim=1)
+                return net(tX), None
+
+            return fn
+
+        value, sig = self._value_fn(), self.problem.sigma_struct
+
+        def fn(X, n, t):
+            graph = torch.is_grad_enabled()
+            with torch.enable_grad():
+                Xg = X if X.requires_grad else X.detach().requires_grad_(True)
+                V = value(Xg, n, t)
+                (gX,) = torch.autograd.grad(V.sum(), Xg, create_graph=graph)
+            return sig.apply_T(gX), (V if graph else V.detach())
 
         return fn
 
@@ -212,16 +347,31 @@ class HJBSolver:
     def u(self, X, t: float):
         return -self.Z_n(X, t)
 
+    @torch.no_grad()
+    def Y_n(self, X, t: float):
+        """Value-function evaluation at time t (value mode only), at step
+        min(ceil(t / dt), N)."""
+        assert self.approx_method == "value_function"
+        n = int(np.ceil(t / self.delta_t))
+        return self._value_fn()(X, min(n, self.N), float(np.float32(t)))
+
     def load_jax_params(self, tree_or_npz):
-        """Load a JAX ``HJBSolver.params`` tree ({'z': ..., 'y0': ...},
-        nested dicts of arrays) or the path of an exported ``.npz``, and
-        start a fresh optimizer.  Returns the asset's metadata (empty for a
-        tree)."""
+        """Load a JAX ``HJBSolver.params`` tree ({'z': ..., 'y0': ...} or
+        {'y': ...}, nested dicts of arrays, stacked on a leading axis under
+        'outer') or the path of an exported ``.npz``, and start a fresh
+        optimizer.  Returns the asset's metadata (empty for a tree)."""
         meta = {}
         tree = tree_or_npz
         if isinstance(tree_or_npz, str):
             tree, meta = load_control_npz(tree_or_npz)
-        self.z_net = tanh_mlp_from_flax(tree["z"], device=self.device)
+        key = "z" if self.approx_method == "control" else "y"
+        net = self._net
+        if isinstance(net, StackedNet):
+            net.load_flax(tree[key])
+        elif isinstance(net, TanhMLP):
+            self.z_net = tanh_mlp_from_flax(tree[key], device=self.device)
+        else:
+            net.load_state_dict(flax_state_dict(net, tree[key]))
         if "y0" in tree:
             self.y0_net = scalar_param_from_flax(tree["y0"],
                                                  device=self.device)
@@ -241,6 +391,7 @@ class HJBSolver:
             reparametrization=(lm == "reparametrization"),
             repa_phase=(phase if lm == "log-variance-repa" else None),
             burgers_drift=self.burgers_drift,
+            value_mode=(self.approx_method == "value_function"),
             track_u_l2=self.u_l2_error_flag,
             remat=self.remat,
             antithetic=self.antithetic,
@@ -260,10 +411,16 @@ class HJBSolver:
                           f"reparametrization sum (got {lm!r})")
         if self.burgers_drift:
             failed.append("burgers_drift=False")
+        if self.approx_method != "control":
+            failed.append("approx_method='control'")
+        if self.time_approx != "inner":
+            failed.append("time_approx='inner'")
+        if self.random_X_0:
+            failed.append("random_X_0=False")
         if self.u_l2_error_flag and not hasattr(problem, "u_ref_table"):
             failed.append("u_l2_error_flag=False or a problem with a "
                           "u_ref_table (state-independent reference control)")
-        else:
+        elif self.approx_method == "control":
             try:
                 _check_train_family(problem, self.z_net, self.N, 1.0,
                                     self._u_tab,
@@ -288,16 +445,33 @@ class HJBSolver:
                       stacklevel=3)
         return "scan"
 
-    def _rollout_outputs(self, cfg: HJBRolloutConfig, host_noise=None
-                         ) -> HJBRolloutOut:
+    def _initial_state(self, X0=None):
+        """(X_0, Y_0) of a rollout: X_0 the problem's, or N(0, I) draws
+        with ``random_X_0`` (``X0`` (K, d) replaces them); Y_0 = V(X_0, 0)
+        in value mode, the learned Y_0 or 0 in control mode."""
+        K, d = self.K, self.d
+        if X0 is None:
+            if self.random_X_0:
+                X0 = torch.randn((K, d), generator=self._noise_gen,
+                                 dtype=torch.float32, device=self.device)
+            else:
+                X0 = self.problem.X_0.to(torch.float32).expand(K, d)
+        if self.approx_method == "value_function":
+            Y0 = self._value_fn()(X0, 0, 0.0)
+        elif self.learn_Y_0:
+            Y0 = self.y0_net(X0[:, :1])
+        else:
+            Y0 = torch.zeros((K,), dtype=torch.float32, device=self.device)
+        return X0, Y0
+
+    def _rollout_outputs(self, cfg: HJBRolloutConfig, host_noise=None,
+                         X0=None) -> HJBRolloutOut:
         """One rollout of K paths from X_0 with Y = Y_0 + sum of the
         increments.  ``host_noise`` (N, K, d), or (N, K/2, d) with
-        antithetic pairs, replaces the engine's own noise."""
-        K, d = self.K, self.d
-        X0 = self.problem.X_0.to(torch.float32).expand(K, d)
-        Y0 = (self.y0_net(X0[:, :1]) if self.learn_Y_0
-              else torch.zeros((K,), dtype=torch.float32,
-                               device=self.device))
+        antithetic pairs, replaces the engine's own noise; ``X0`` (K, d)
+        the draws of ``random_X_0``."""
+        K = self.K
+        X0, Y0 = self._initial_state(X0)
         if self.resolved_rollout_mode != "fused_train":
             return hjb_rollout(cfg, self.problem, self._control_fn(), X0, Y0,
                                generator=self._noise_gen, u_ref=self._u_ref,
@@ -331,22 +505,24 @@ class HJBSolver:
             return 0 if l < 1000 else 1
         return 0
 
-    def step(self, host_noise=None) -> dict:
+    def step(self, host_noise=None, X0=None) -> dict:
         """One training step (pspde's ``_build_step``): rollout, loss,
-        backward, Adam.  Appends to the logs and returns the metrics."""
+        backward, Adam.  Appends to the logs and returns the metrics.
+        ``host_noise`` and ``X0`` replace the rollout's draws
+        (``_rollout_outputs``)."""
         phase = self._phase(self.iteration)
         cfg = self._rollout_cfg(phase)
-        out = self._rollout_outputs(cfg, host_noise)
+        out = self._rollout_outputs(cfg, host_noise, X0)
         gX = self.problem.g(out.X)
         self.optimizer.zero_grad(set_to_none=True)
         if self.loss_method == "log-variance-y_0":
             # the variance part updates the control net, the squared-mean
             # part updates y_0: one forward, two pullbacks
             var_part, meansq_part = log_variance_y0_losses(out.Y, gX)
-            z_params = list(self.z_net.parameters())
+            z_params = list(self._net.parameters())
             grads = torch.autograd.grad(var_part, z_params,
-                                        retain_graph=self.learn_Y_0)
-            if self.learn_Y_0:
+                                        retain_graph=self._y0_learned)
+            if self._y0_learned:
                 (self.y0_net.Y_0.grad,) = torch.autograd.grad(
                     meansq_part, [self.y0_net.Y_0])
             for p, g in zip(z_params, grads):
@@ -362,12 +538,21 @@ class HJBSolver:
         self.optimizer.step()
         metrics = {"loss": float(loss.detach()),
                    "u_l2": float(out.u_l2.mean())}
-        if self.learn_Y_0:
+        if self._y0_learned:
             metrics["Y_0"] = float(self.y0_net.Y_0.detach()[0])
+        if self._meta is not None:
+            # the fraction of final states within eps of the target
+            target, eps = self._meta
+            dist = torch.sqrt(torch.sum((out.X.detach() - target) ** 2,
+                                        dim=-1))
+            metrics["meta_frac"] = float(torch.mean(
+                (dist < eps).to(torch.float32)))
         self.loss_log.append(metrics["loss"])
         self.u_L2_loss.append(metrics["u_l2"])
         if "Y_0" in metrics:
             self.Y_0_log.append(metrics["Y_0"])
+        if "meta_frac" in metrics:
+            self.particles_close_to_target.append(metrics["meta_frac"])
         self.iteration += 1
         return metrics
 

@@ -10,7 +10,11 @@ so kernels are transposed on the way in.  The ``DenseNet`` value net has
 the same tree, with layer i's kernel (d_in + sum(arch[:i]), arch[i]).
 Modules are built on ``device=``, the CUDA card when None
 (``utils/device.py``).  ``eigen_params_from_flax`` carries the eigen
-solver's {'V': DenseNet tree, 'lam': ScalarParam tree}.
+solver's {'V': DenseNet tree, 'lam': ScalarParam tree}.  The LQ controls
+``LinearLQ`` and ``LinearLQTime`` have one leaf, {'params': {'F': ...}}.
+``flax_state_dict`` maps a tree to the ``state_dict()`` of a given module
+of any of these kinds, also for trees stacked on a leading axis (the HJB
+solver's 'outer' time approximation, one parameter set per step).
 ``load_control_npz`` reads the exported control asset
 (``experiments/export_llgc_control.py``): the flat tree under '/'-joined
 keys plus a JSON metadata string under ``__meta__``.
@@ -23,7 +27,7 @@ import json
 import numpy as np
 import torch
 
-from ..ansatz import DenseNet, ScalarParam, TanhMLP
+from ..ansatz import DenseNet, LinearLQ, LinearLQTime, ScalarParam, TanhMLP
 
 
 def unflatten_tree(flat: dict) -> dict:
@@ -52,11 +56,11 @@ def _dense_layers(tree: dict):
 
 def tanh_mlp_state_dict(tree: dict) -> dict:
     """Flax TanhMLP (or DenseNet) tree -> the module's ``state_dict()``
-    (kernels transposed)."""
+    (kernels transposed; a leading stack axis is kept)."""
     state = {}
     for i, (kernel, bias) in enumerate(_dense_layers(tree)):
         state[f"layers.{i}.weight"] = torch.tensor(
-            np.ascontiguousarray(kernel.T))
+            np.ascontiguousarray(np.swapaxes(kernel, -1, -2)))
         state[f"layers.{i}.bias"] = torch.tensor(bias)
     return state
 
@@ -121,6 +125,45 @@ def eigen_params_to_flax(v_tensors, lam) -> dict:
     return {"V": dense_net_to_flax(v_tensors),
             "lam": {"params": {"Y_0": lam.detach().cpu().numpy().reshape(
                 1)}}}
+
+
+def _lq_F(tree: dict) -> np.ndarray:
+    params = tree["params"] if "params" in tree else tree
+    if sorted(params) != ["F"]:
+        raise ValueError(f"expected an LQ control tree {{'F': ...}}, got "
+                         f"keys {sorted(params)}")
+    return np.asarray(params["F"], dtype=np.float32)
+
+
+def linear_lq_from_flax(tree: dict, B, Q, device=None) -> LinearLQ:
+    """Build a ``LinearLQ`` for the matrices ``B``, ``Q`` and load F."""
+    net = LinearLQ(B, Q, init_scale=0.0, device=device)
+    net.load_state_dict(flax_state_dict(net, tree))
+    return net
+
+
+def linear_lq_time_from_flax(tree: dict, B, Q, T, device=None
+                             ) -> LinearLQTime:
+    """Build a ``LinearLQTime`` whose degree is read off F's shape and
+    load F."""
+    net = LinearLQTime(B, Q, T, degree=_lq_F(tree).shape[0] - 1,
+                       device=device)
+    net.load_state_dict(flax_state_dict(net, tree))
+    return net
+
+
+def flax_state_dict(module, tree: dict) -> dict:
+    """A Flax tree of the kind of ``module`` (TanhMLP, DenseNet, LinearLQ,
+    LinearLQTime) -> ``module.state_dict()``'s parameters
+    (its buffers are not in the tree and are kept); leaves stacked on a
+    leading axis stay stacked."""
+    if isinstance(module, (TanhMLP, DenseNet)):
+        return tanh_mlp_state_dict(tree)
+    if isinstance(module, (LinearLQ, LinearLQTime)):
+        state = {k: v for k, v in module.state_dict().items() if k != "F"}
+        state["F"] = torch.tensor(_lq_F(tree))
+        return state
+    raise ValueError(f"no Flax converter for {type(module).__name__}")
 
 
 def scalar_param_from_flax(tree: dict, device=None) -> ScalarParam:

@@ -99,10 +99,12 @@ def test_importance_sampling_generator_and_guards():
         importance_sampling_fused(pt, ts, 512, mesh=object())
     with pytest.raises(NotImplementedError, match="make_is_runner"):
         make_is_runner(pt, ts, 512)
-    with pytest.raises(NotImplementedError, match="approx_method"):
+    with pytest.raises(ValueError, match="approx_method"):
         HJBSolver("v", pt, approx_method="value", device="cpu")
-    with pytest.raises(NotImplementedError, match="time_approx"):
-        HJBSolver("o", pt, time_approx="outer", device="cpu")
+    # 'outer' (the constructor's default) is ported; fused IS needs 'inner'
+    outer = HJBSolver("o", pt, time_approx="outer", device="cpu")
+    with pytest.raises(ValueError, match="'inner' control"):
+        importance_sampling_fused(pt, outer, 512)
 
 
 @pytest.fixture(scope="module")

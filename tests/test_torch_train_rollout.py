@@ -283,9 +283,9 @@ def test_outside_train_kernel_family_raises():
         tk.fused_train_rollout(llgc, net, K, N, DT, rng="boxmuller")
     with pytest.raises(ValueError, match="u_tab has shape"):
         tk.fused_train_rollout(llgc, net, K, N, DT, u_tab=u_tab[:3])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         tsde.hjb_rollout(tsde.HJBRolloutConfig(N=2, delta_t=0.1,
-                                               value_mode=True),
+                                               repa_phase=0),
                          llgc, None, llgc.X_0.expand(4, D), torch.zeros(4))
     # the plain version takes any control
     tk.reference_train_rollout(llgc, relu, 8, 2, 0.1)
