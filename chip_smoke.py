@@ -10,10 +10,10 @@ control is learned.  This script
      four (both plans, with and without the double well's drift),
      the HJB forward's and backward's two instantiations each, of the
      ablation ladder's net and full stages on both plans and of the
-     stopped backward's six in the library's SASS (none fails), and prints
+     stopped backward's ten in the library's SASS (none fails), and prints
      the registers and spill bytes of the serve kernel's, the HJB
-     forward's and the stopped forward's instantiations from ptxas (a
-     spill fails);
+     forward's and the stopped forward's (ten) instantiations from ptxas
+     (a spill fails);
   2. compares the serve kernel with its plain PyTorch version on host
      noise, on LLGC d=100 with the exported control and on LQGC d=100
      (dense A and sigma, f != 0), at K=8192 and N=100;
@@ -141,9 +141,9 @@ control is learned.  This script
      end below 0.3 x its first value; IS through the kernel at K=2^20 must
      read an RE below naive MC's and a log-mean within 0.025 of -v_ref(X_0,
      0) from the FD table), then the notebook's (eta=3, kappa=5, K=10^4,
-     200 of its 1000 steps, timed, with the metastable fraction); on the
+     40 of its 1000 steps, timed, with the metastable fraction); on the
      card 'fused_train' on the double well raises, naming the gate;
- 25. trains DoubleWell_multidim(d=10) (K=500, 200 of its 20000 steps);
+ 25. trains DoubleWell_multidim(d=10) (K=500, 40 of its 20000 steps);
  26. trains LQGC(d=10, T=0.5) with LinearLQ under 'outer' (400 steps); in
      24-26 u_L2 must fall (the mean of the last 20 below the first 5's),
      and each scan step is profiled; then serves the learned d=1 and d=10
@@ -153,6 +153,26 @@ control is learned.  This script
      (serve_against_f64: the trained d=1 control's chain parts float32
      orders by up to ~2e-3 of X on a few dozen of 2^20 paths), and runs
      IS with the FD table's control (control='true') at K=10^5.
+ 27. compares the stopped kernels' breadth families with their plain
+     version at K=8192, DenseNet (30, 30): Committor(d=10), N=50 (the two
+     spheres, h = 0, the committor's reference) and
+     ExponentialOnBallNonlinearSinHessian(d=20), N=20 (sigma = sqrt(2/d)
+     ones(d, d) in the kernels' dense-sigma instantiations, h's (sum x)^2),
+     dt 1e-3, adaptive or not, with and without the output clamp, on the
+     erfinv stream and (plain, no clamp) host noise: as phase 10, the
+     forward bitwise across its layouts;
+ 28. times both kernels and their plain versions at K=65536 (CUDA events
+     and the profiler's device time a launch, over the launches it
+     recorded): the committor at JAX's "com10" cell (N=25) and the
+     Hessian (N=20), with the bound and the lane use;
+ 29. trains the notebooks' legs from JAX's initial nets
+     (pspde_torch/assets, experiments/stopped_breadth_reference.py):
+     the diffusion legs through EllipticSolver(rollout_mode='fused_train')
+     for 1000 steps (one launch of each kernel a step, no plain call) and
+     the PINN legs for 500 (PINN on 'fused_train' raises, naming the
+     gate); each tail-50 test L2 within 3x JAX's at the same recipe and
+     step count, and below the leg's first test L2 by at least half of
+     JAX's own fall; each step profiled.
 
 Any failure exits nonzero.  The last line is one JSON object naming the
 device.  Run from the repository root:
@@ -256,14 +276,34 @@ ROOFLINE_SOURCE = "pspde_torch/csrc/roofline.cu"
 # d=10 on the notebooks' grid (T=1, dt 0.005: N=200), checked at K_CHECK
 # and served at K_SERVE; the training cells of
 # experiments/double_well_1d_high_metastability.py (eta=3, kappa=5, K=10^4,
-# lr 0.05; 200 of its 1000 steps), double_well_multidim_mixed.py (d=10,
-# d_1=3, d_2=7, K=500, lr 5e-3; 200 of its 20000 steps) and
+# lr 0.05; 40 of its 1000 steps), double_well_multidim_mixed.py (d=10,
+# d_1=3, d_2=7, K=500, lr 5e-3; 40 of its 20000 steps) and
 # ou_quadratic_costs_linear_ansatz.py (LQGC d=10, T=0.5, dt 0.05, K=512,
 # lr 1e-2, LinearLQ, 'outer'; its 400 steps of tests/test_hjb_solver.py),
 # and the recipe of tests/test_double_well_is.py (eta=1, kappa=1, dt 0.01,
 # K=1024, lr 5e-3, 400 steps)
-DT_DW, N_DW, L_DW = 0.005, 200, 200
+DT_DW, N_DW, L_DW = 0.005, 200, 40
 L_DW_TEST, L_LQ, K_DW_TRUE = 400, 400, 100_000
+# the breadth slice: Committor(d=10) (experiments/committor.py: N=50,
+# dt 1e-3; timed at JAX's "com10" cell, N=25, RESULTS.md:83) and
+# ExponentialOnBallNonlinearSinHessian(d=20) (experiments/
+# elliptic_full_hessian.py: N=20, dt 1e-3), checked at K_BR_CHECK and timed
+# at K_BR_BENCH; the notebooks' legs cut to L_BR_DIFF and L_BR_PINN steps
+D_COM, N_COM, N_COM_BENCH, D_HES, N_HES, DT_BR = 10, 50, 25, 20, 20, 1e-3
+K_BR_CHECK, K_BR_BENCH, L_BR_DIFF, L_BR_PINN = 8192, 65536, 1000, 500
+# the JAX package's runs of those legs at those step counts from the same
+# initial nets (seed 42, CPU; experiments/stopped_breadth_reference.py):
+# the mean of the last 50 test L2 (K_test_log=10000) and the first one; the
+# port's tail must reach 3x JAX's, and the port must fall from its own first
+# test L2 by at least half of JAX's fall (an untrained net stays put)
+BR_TAIL_JAX = {"committor_diffusion": 0.07768342569470406,
+               "hessian_diffusion": 0.013159936517477036,
+               "committor_pinn": 0.08584888771176338,
+               "hessian_pinn": 5.826070232391357}
+BR_FIRST_JAX = {"committor_diffusion": 0.9987972378730774,
+                "hessian_diffusion": 6.223019599914551,
+                "committor_pinn": 0.9987964630126953,
+                "hessian_pinn": 6.236863136291504}
 # |log IS mean + v_ref(X_0, 0)| of the eta=1, kappa=1 recipe at dt 0.01:
 # the JAX package reads 0.0116-0.0119 at K=2^18 over three keys, and the
 # FD table's own control 0.0119, the Euler chain's bias against the FD
@@ -812,7 +852,7 @@ def main():
           f"{serve_hmma}; the HJB forward's: {fwd_hmma}; "
           f"the backward's: {train_hmma}; the ladder's stages (stage, "
           f"s/d plan): {dict(sorted(ladder_hmma.items()))}; the stopped "
-          f"backward's six instantiations: {stopped_hmma}")
+          f"backward's ten instantiations: {stopped_hmma}")
     check(len(train_hmma) == 2 and all(train_hmma.values()),
           "both plans of the HJB backward run TF32 mma")
     check(len(fwd_hmma) == 2 and all(fwd_hmma.values()),
@@ -824,7 +864,7 @@ def main():
           and all(ladder_hmma[f"{st}{p}"] for st in range(2, 7)
                   for p in "sd"),
           "the ladder's net and full stages run TF32 mma on both plans")
-    check(len(stopped_hmma) == 6 and all(stopped_hmma),
+    check(len(stopped_hmma) == 10 and all(stopped_hmma),
           "every instantiation of the stopped backward runs TF32 mma")
     for kernel, what, keys, n in (
             ("controlled_rollout_kernel", "the serve kernel", serve_keys, 4),
@@ -835,9 +875,9 @@ def main():
         check(len(use) == n and all(u[1] == u[2] == 0 for u in use.values()),
               f"{what}'s instantiations spill no registers")
     stopped_use = ptxas_usage(info["log"], "stopped_fwd_kernel")
-    print(f"  ptxas, the stopped forward's six instantiations (registers, "
+    print(f"  ptxas, the stopped forward's ten instantiations (registers, "
           f"spill store and load bytes): {sorted(stopped_use.values())}")
-    check(len(stopped_use) == 6
+    check(len(stopped_use) == 10
           and all(u[1] == u[2] == 0 for u in stopped_use.values()),
           "the stopped forward's instantiations spill no registers")
 
@@ -961,12 +1001,13 @@ def main():
     general_rows = general_phases(dev, smi)
     eigen_rows = eigen_phases(dev, smi)
     dw_rows = double_well_phases(dev, smi)
+    breadth_rows = breadth_phases(dev, smi)
 
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [serve_row] + train_rows + stopped_rows
                       + roofline_rows + wide_rows + general_rows
-                      + eigen_rows + dw_rows}))
+                      + eigen_rows + dw_rows + breadth_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -1178,7 +1219,7 @@ def profile_steps(what, step, n=3):
               f"{key[:90]}")
 
 
-def stopped_flops(v_net, d, adaptive, torus=False):
+def stopped_flops(v_net, d, adaptive, torus=False, full=False):
     """FP32 operations of one advancing path-step of the stopped kernels,
     counted from their code (csrc/stopped_rollout.cu): (V only, forward,
     backward).  The net reads ``v_net.d_in`` inputs (d, or d + 1 with
@@ -1191,7 +1232,9 @@ def stopped_flops(v_net, d, adaptive, torus=False):
     operation) adds s and q (6 per dimension), the drift (3 per dimension)
     and the box test (2 per dimension) to both kernels, h with lambda and
     -cos(s) (7) and v_ref (6) to the forward, dh/dy + lambda and the lambda
-    gradient (6) to the backward."""
+    gradient (6) to the backward.  A dense sigma (``full``) adds its d x d
+    products, 2 d^2 each: Z and sigma xi to both kernels, sigma c to both
+    when adaptive (and Z's to the backward), and w to the backward."""
     widths, d_in = list(v_net.arch), v_net.d_in
     ins = [d_in + sum(widths[:l]) for l in range(len(widths))]
     F = d_in + sum(widths)
@@ -1205,6 +1248,9 @@ def stopped_flops(v_net, d, adaptive, torus=False):
     if torus:
         fwd += 11 * d + 13
         bwd += 11 * d + 6
+    if full:
+        fwd += 2 * d * d * (3 if adaptive else 2)
+        bwd += 2 * d * d * (4 if adaptive else 2)
     return v, fwd, bwd
 
 
@@ -1514,7 +1560,7 @@ def check_fwd_layouts(tag, call, kern):
 
 
 def compare_stopped(tag, prob, net, X0, t0, N, dt, kw, worst, mask_tol,
-                    time_stopping=False, zero_leaves=()):
+                    time_stopping=False, zero_leaves=(), bwd_zero_leaves=None):
     """Stopped kernels against their plain version from (X0, t0): outputs
     (and the clock t, which must be equal) on the paths whose exit step
     agrees, the count of paths whose exit step differs (at most
@@ -1523,7 +1569,10 @@ def compare_stopped(tag, prob, net, X0, t0, N, dt, kw, worst, mask_tol,
     cotangents against the plain backward, and two of its launches against
     each other (``check_backward``).  ``zero_leaves`` names the leaves
     whose gradient vanishes by construction (with h = 0 the loss does not
-    see the output bias): those are held to 1e-3 of the largest leaf.
+    see the output bias): those are held to 1e-3 of the largest leaf;
+    ``bwd_zero_leaves`` (``zero_leaves`` where None) those of Y's
+    gradient alone, which the backward sums (with h = 0 the output bias's,
+    output clamp or not).
     Updates ``worst`` ("out", "grad", "bwd": largest absolute
     differences)."""
     from pspde_torch.rollout import kernels as km
@@ -1581,8 +1630,9 @@ def compare_stopped(tag, prob, net, X0, t0, N, dt, kw, worst, mask_tol,
     # the backward on the plain outputs' cotangents
     Y = plain.Y.detach().requires_grad_()
     (gY,) = torch.autograd.grad(diffusion_loss(plain._replace(Y=Y)), [Y])
-    bwd, _, grid = check_backward(tag, call, net, gY, agree, worst,
-                                  zero_leaves)
+    bwd, _, grid = check_backward(
+        tag, call, net, gY, agree, worst,
+        zero_leaves if bwd_zero_leaves is None else bwd_zero_leaves)
     print(f"  {tag}: forward layouts {layouts} bitwise equal; exit step "
           f"differs on {n_dis} of {X0.shape[0]} paths; advancing steps "
           f"{float(plain.adv_steps.sum()):.0f}; outputs ok; grad "
@@ -2996,6 +3046,248 @@ def double_well_phases(dev, smi):
     check(math.isfinite(m_true) and m_true > 0 and rel_true < 10.0,
           f"IS with the FD control: mean {m_true}, RE {rel_true}")
     print(f"  phases 23-26 took {time.perf_counter() - t_phases:.1f} s")
+    return rows
+
+
+def breadth_phases(dev, smi):
+    """Phases 27-29: the breadth families of the stopped kernels (the two
+    spheres, the committor's reference, h's (sum x)^2 term, a dense sigma)
+    against their plain version, their times at K=65536, and the
+    notebooks' diffusion legs through 'fused_train' and PINN legs, from
+    JAX's initial nets.  Returns the kernels' JSON rows."""
+    import numpy as np
+    from pspde_torch.ansatz import DenseNet
+    from pspde_torch.problems import (Committor,
+                                      ExponentialOnBallNonlinearSinHessian)
+    from pspde_torch.rollout import kernels as km
+    from pspde_torch.rollout.sampling import sample_domain
+    from pspde_torch.solvers import EllipticSolver
+    from pspde_torch.utils.convert import load_control_npz
+
+    t_phases = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(root, "experiments"))
+    from torch_kernel_times import device_ms
+    gen = torch.Generator(device=dev).manual_seed(27)
+    com = Committor(d=D_COM, device=dev)
+    hes = ExponentialOnBallNonlinearSinHessian(d=D_HES, alpha=1.0,
+                                               device=dev)
+    # family: (problem, d, N at the check and the legs, N at the times,
+    # the loss's vanishing leaves, asset)
+    fams = {"committor": (com, D_COM, N_COM, N_COM_BENCH,
+                          ("layers.2.bias",), "committor_d10_densenet.npz"),
+            "hessian": (hes, D_HES, N_HES, N_HES, (),
+                        "hessian_d20_densenet.npz")}
+
+    def net_of(d, seed, relu=False):
+        return DenseNet(1, (30, 30), d_in=d, output_relu=relu, device=dev,
+                        generator=torch.Generator(dev).manual_seed(seed))
+
+    # -- phase 27: the families vs plain -------------------------------------
+    Kc = K_BR_CHECK
+    print(f"phase 27: the breadth families vs plain, K={Kc}, DenseNet (30, "
+          f"30): Committor(d={D_COM}) between the spheres 1 and 2 (h = 0, "
+          f"the committor's reference), N={N_COM}, and "
+          f"ExponentialOnBallNonlinearSinHessian(d={D_HES}) (sigma = "
+          f"sqrt(2/d) ones(d, d), h's (sum x)^2), N={N_HES}; dt {DT_BR}, "
+          f"adaptive or not, with and without the output clamp; outputs rel "
+          f"{REL_TOL:g} on agreeing paths, exit-step disagreements <= "
+          f"{MASK_TOL:g} K, gradients {GRAD_TOL:g} and the backward on plain "
+          f"cotangents {BWD_REL_TOL:g} x max|plain|; the forward bitwise "
+          "across its layouts")
+    worst = {tag: {"out": 0.0, "grad": 0.0, "bwd": 0.0} for tag in fams}
+    for tag, (prob, d, N, _, zero, _) in fams.items():
+        X0 = sample_domain(gen, prob.geometry, Kc, d)
+        t0 = torch.zeros(Kc, device=dev)
+        noise = torch.randn((N, Kc, d), generator=gen, device=dev)
+        for relu in (False, True):
+            for adaptive in (False, True):
+                net = net_of(d, 1 + 2 * relu + adaptive, relu)
+                cases = [("erfinv", dict(seed=4321, rng="erfinv"))]
+                if not relu and not adaptive:
+                    cases.append(("host noise", dict(host_noise=noise)))
+                for what, kw in cases:
+                    compare_stopped(
+                        f"[{tag}{', adaptive' if adaptive else ''}"
+                        f"{', clamp' if relu else ''}, {what}]", prob, net,
+                        X0, t0, N, DT_BR,
+                        dict(kw, adaptive_forward=adaptive), worst[tag],
+                        MASK_TOL, zero_leaves=() if relu else zero,
+                        bwd_zero_leaves=zero)
+        del noise
+
+    # -- phase 28: times ------------------------------------------------------
+    Kb = K_BR_BENCH
+    print(f"phase 28: timing at K={Kb}: the committor at JAX's 'com10' cell "
+          f"(d={D_COM}, N={N_COM_BENCH}, dt {DT_BR}) and the Hessian (d="
+          f"{D_HES}, N={N_HES}); erfinv Philox noise; CUDA events and the "
+          "profiler's device time")
+    times = {}
+    for tag, (prob, d, _, N, _, _) in fams.items():
+        net = net_of(d, 5)
+        X0 = sample_domain(gen, prob.geometry, Kb, d)
+        gY = torch.randn(Kb, generator=gen, device=dev) / Kb
+        call = km._StoppedCall(
+            prob, net, X0, torch.zeros(Kb, device=dev), N, DT_BR, 17,
+            km._check_stopped_family(prob, net, "erfinv"),
+            dict(adaptive_forward=False, rng="erfinv", host_noise=None),
+            None)
+        probe = km._stopped_forward_kernel(call)
+        hit = float(probe.hitting.sum())
+        adv = float(probe.adv_steps.sum())
+        full = prob.sigma_struct.kind != "scalar"
+        n_par = sum(p.numel() for p in net.parameters())
+        n_sig = d * d if full else 0
+        v_f, fwd_f, bwd_f = stopped_flops(net, d, adaptive=False, full=full)
+        b_fwd = roofline((hit - adv) * v_f + adv * fwd_f,
+                         4 * (n_par + n_sig + Kb * (2 * d + 5)))
+        b_bwd = stopped_bwd_roofline(adv, bwd_f, net,
+                                     4 * (2 * n_par + n_sig + Kb * (d + 1)))
+        use = lane_use(call, probe, gY)
+        print_lane_use(tag, use)
+        fwd_use = fwd_lane_use(call, dev)
+        print_fwd_lane_use(tag, fwd_use)
+
+        def fwd():
+            km._stopped_forward_kernel(call)
+
+        def plain_fwd():
+            with torch.no_grad():
+                call.plain()
+
+        def bwd():
+            km._stopped_backward_kernel(call, gY)
+
+        def plain_bwd():
+            km._reference_stopped_backward(call, gY)
+
+        r = {}
+        for name, kern_fn, plain_fn, reps, key in (
+                ("forward", fwd, plain_fwd, 10, "stopped_fwd_kernel"),
+                ("backward", bwd, plain_bwd, 5, "stopped_bwd_kernel")):
+            p1 = timed(plain_fn, 1)
+            k = [timed(kern_fn, reps), timed(kern_fn, reps)]
+            p2 = timed(plain_fn, 1)
+            dms, seen = device_ms(kern_fn, reps, key)
+            r[name] = (min(k), min(p1, p2), dms)
+            print(f"  {tag:9s} {name:8s} kernel {k[0]:.3f}, {k[1]:.3f} ms "
+                  f"(device {'none' if dms is None else f'{dms:.3f}'} ms a"
+                  f" launch over the {seen} of {reps} launches the profiler "
+                  f"recorded); plain {p1:.3f}, "
+                  f"{p2:.3f} ms")
+        print(f"  {tag}: {hit:.0f} active and {adv:.0f} advancing "
+              f"path-steps of K N = {Kb * N}; bound forward "
+              f"{b_fwd['bound_ms']:.4f} ms, backward {b_bwd['bound_ms']:.4f}"
+              f" ms (all FP32 {b_bwd['bound_ms_fp32']:.4f}; "
+              f"{b_fwd['bound_by']})")
+        times[tag] = (r, dict(b_fwd, layout=fwd_use["layout"],
+                              lane_use=fwd_use["lane_use"]),
+                      dict(b_bwd, lanes=use[0]))
+    print(f"  card: {smi}")
+
+    # -- phase 29: the notebooks' legs ----------------------------------------
+    print(f"phase 29: the notebooks' legs from JAX's initial DenseNet (30, "
+          f"30) (experiments/stopped_breadth_reference.py), K=200, "
+          f"K_boundary=50, lr 1e-3, dt {DT_BR}, K_test_log=10000: the "
+          f"diffusion legs on 'fused_train' ({L_BR_DIFF} steps; the "
+          f"committor N={N_COM}, alpha (10, 1), loss_with_stopped=False; "
+          f"the Hessian N={N_HES}) and the PINN legs ({L_BR_PINN} steps; the "
+          "committor alpha (1e-3, 1), the Hessian full_hessian=True); the "
+          "tail-50 test L2 within 3x JAX's, falling from the first by at "
+          "least half of JAX's fall")
+    legs = {
+        "committor_diffusion": ("committor", L_BR_DIFF, dict(
+            alpha=(10.0, 1.0), loss_method="diffusion",
+            loss_with_stopped=False, rollout_mode="fused_train")),
+        "hessian_diffusion": ("hessian", L_BR_DIFF, dict(
+            loss_method="diffusion", rollout_mode="fused_train")),
+        "committor_pinn": ("committor", L_BR_PINN, dict(
+            alpha=(1e-3, 1.0), loss_method="PINN",
+            loss_with_stopped=False)),
+        "hessian_pinn": ("hessian", L_BR_PINN, dict(
+            loss_method="PINN", full_hessian=True)),
+    }
+    try:
+        EllipticSolver(hes, "pinn-fused", loss_method="PINN",
+                       rollout_mode="fused_train", verbose=False,
+                       device=dev)
+        raised = ""
+    except ValueError as e:
+        raised = str(e)
+    print(f"  PINN on fused_train raises: {raised[:120]}")
+    check("gate failed" in raised and "loss_method" in raised,
+          "PINN on fused_train raises, naming the gate")
+    launches = {}
+    for leg, (tag, L, kw) in legs.items():
+        prob, d, N = fams[tag][:3]
+        s = EllipticSolver(prob, leg, seed=42, delta_t=DT_BR, N=N, lr=1e-3,
+                           L=L, K=200, K_boundary=50, K_test_log=10000,
+                           verbose=False, device=dev, **kw)
+        tree, _ = load_control_npz(os.path.join(root, "pspde_torch",
+                                                "assets", fams[tag][5]))
+        s.load_jax_params(tree)
+        fused = kw.get("rollout_mode") == "fused_train"
+        check(s.resolved_rollout_mode == ("fused_train" if fused else "scan"),
+              f"{leg}: engine {s.resolved_rollout_mode}")
+        reset_counts(km.fused_stopped_train_rollout, "launches",
+                     "backward_launches")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with PlainCalls(km) as plain_calls:
+            s.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = (km.fused_stopped_train_rollout.launches,
+             km.fused_stopped_train_rollout.backward_launches)
+        tail = float(np.mean(s.V_test_L2[-50:]))
+        bound = 3.0 * BR_TAIL_JAX[leg]
+        fall = s.V_test_L2[0] - tail
+        fall_jax = BR_FIRST_JAX[leg] - BR_TAIL_JAX[leg]
+        print(f"  [{leg}] {len(s.loss_log)} steps in {wall:.2f} s "
+              f"({1e3 * wall / len(s.loss_log):.3f} ms a step); launches "
+              f"forward {n[0]}, backward {n[1]}; plain-version calls "
+              f"{plain_calls.n}; test L2 every 100: "
+              f"{['%.3e' % v for v in s.V_test_L2[::100]]}; tail-50 "
+              f"{tail:.4e} (bound {bound:.4e}, JAX {BR_TAIL_JAX[leg]:.4e}); "
+              f"fall from the first {fall:.4e} (JAX {BR_FIRST_JAX[leg]:.4e}"
+              f" -> {BR_TAIL_JAX[leg]:.4e}, {fall_jax:.4e}; at least half)")
+        check(all(math.isfinite(v) for v in s.loss_log), f"{leg}: finite "
+              "losses")
+        check(n == ((L, L) if fused else (0, 0)) and plain_calls.n == 0,
+              f"{leg}: one forward and one backward launch a step on "
+              "'fused_train' and none on PINN, no plain call")
+        check(tail <= bound, f"{leg}: tail-50 test L2 {tail:.4e} > "
+              f"{bound:.4e}")
+        check(fall >= 0.5 * fall_jax, f"{leg}: the test L2 fell by "
+              f"{fall:.4e}, less than half of JAX's {fall_jax:.4e}")
+        if fused:
+            launches[tag] = n
+        profile_steps(f"3 steps of {leg}", s.step)
+    print(f"  card: {smi}")
+    print(f"  phases 27-29 took {time.perf_counter() - t_phases:.1f} s")
+
+    rows = []
+    for tag in fams:
+        r, b_fwd, b_bwd = times[tag]
+        prob, d, _, N = fams[tag][:4]
+        # "shape" is phase 28's timed call; the launches are phase 29's
+        # diffusion leg, at K=200 and the leg's N
+        row = {"route": "cuda", "source": STOPPED_SOURCE,
+               "shape": f"{type(prob).__name__}, d={d}, K={Kb}, N={N}",
+               "launches_shape": f"phase 29's {tag}_diffusion leg, d={d}, "
+                                 f"K=200, N={fams[tag][2]}"}
+        rows += [
+            dict(row, name=f"fused_stopped_train_rollout.forward.{tag}",
+                 replaces="pspde/rollout/kernels.py:1184",
+                 launches=launches[tag][0], max_abs_err=worst[tag]["out"],
+                 ms=r["forward"][0], device_ms=r["forward"][2],
+                 plain_ms=r["forward"][1], **b_fwd),
+            dict(row, name=f"fused_stopped_train_rollout.backward.{tag}",
+                 replaces="pspde/rollout/kernels.py:1272",
+                 launches=launches[tag][1],
+                 max_abs_err=max(worst[tag]["grad"], worst[tag]["bwd"]),
+                 ms=r["backward"][0], device_ms=r["backward"][2],
+                 plain_ms=r["backward"][1], **b_bwd)]
     return rows
 
 

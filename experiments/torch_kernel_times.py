@@ -96,9 +96,11 @@ def timed(fn, reps, rounds=2):
 
 
 def device_ms(fn, reps, kernel):
-    """Device ms per call of the CUDA kernels whose name holds ``kernel``
-    over ``reps`` calls of ``fn``, from torch.profiler; None where the
-    profiler saw no such kernel."""
+    """(device ms a launch, launches seen) of the CUDA kernels whose name
+    holds ``kernel`` over ``reps`` calls of ``fn``, from torch.profiler;
+    (None, 0) where the profiler saw no such kernel.  The time is averaged
+    over the launches the profiler recorded, which can be fewer than
+    ``reps``."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -110,8 +112,10 @@ def device_ms(fn, reps, kernel):
         us = getattr(e, "device_time_total", None)
         return e.cuda_time_total if us is None else us
 
-    us = sum(device_us(e) for e in prof.key_averages() if kernel in e.key)
-    return us / 1e3 / reps if us else None
+    rows = [e for e in prof.key_averages() if kernel in e.key]
+    us = sum(device_us(e) for e in rows)
+    seen = sum(e.count for e in rows)
+    return (us / 1e3 / seen if us else None), seen
 
 
 def main():
@@ -542,7 +546,7 @@ def stopped_layout_times(dev, gen):
                                        reps),
                            "device_ms": device_ms(
                                lambda: km._stopped_forward_kernel(c), reps,
-                               "stopped_fwd_kernel"),
+                               "stopped_fwd_kernel")[0],
                            "grid": km._stopped_fwd_grid(packed, dev),
                            "warps_per_sm": occ["warps_per_sm"],
                            "smem_bytes": occ["smem_bytes"], "bitwise": same}
@@ -574,12 +578,12 @@ def stopped_times(dev, gen):
             km._stopped_backward_kernel(call, gY)
 
         out[f"stopped_fwd_{name}"] = timed(fwd, reps)
-        out[f"stopped_fwd_{name}_device"] = device_ms(fwd, reps,
-                                                      "stopped_fwd_kernel")
+        out[f"stopped_fwd_{name}_device"] = device_ms(
+            fwd, reps, "stopped_fwd_kernel")[0]
         out[f"stopped_bwd_{name}"] = timed(bwd, reps // 2)
         if name.startswith("torus"):
             out[f"stopped_bwd_{name}_device"] = device_ms(
-                bwd, reps // 2, "stopped_bwd_kernel")
+                bwd, reps // 2, "stopped_bwd_kernel")[0]
     sin = ExponentialOnBallNonlinearSin(d=D_ELL, alpha=0.1, device=dev)
     ell = EllipticSolver(sin, "bench", loss_method="diffusion", K=K_ELL,
                          N=N_ELL, delta_t=DT_ELL, lr=1e-3, L=1,

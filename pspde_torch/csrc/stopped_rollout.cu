@@ -45,6 +45,30 @@
 // move, adds nothing and stops.  The backward's gradient row carries one
 // more entry, d/dlambda = sum -gY V dt over the advancing steps.
 //
+// The breadth families (the committor and the full-Hessian elliptic
+// problem: zero drift, no clock) widen the ball family by four things, read
+// from StoppedExt, the kernels' last argument:
+//
+//   sel = a < |X| < c                      (geometry 3, the two spheres;
+//                                           the current state, as the ball)
+//   h  += c_ys1 V (sum_j X_j)^2            (the sum beside |X|^2, in order)
+//   v_l2 against the committor's (a^2 - r^(2-d) a^d) / (a^2 - c^(2-d) a^d)
+//   a dense sigma (diag or full, d x d row-major after the packed net):
+//     X_j += (sum_i sigma_ji c_i) dt + (sum_i sigma_ji xi_i) sqrt(dt),
+//     Z_j  = sum_i sigma_ij (grad V)_i,    w = gY adv sigma (xi sqrt(dt)
+//                                                           + c dt)
+//
+// each sum over i ascending in one device function that both kernels call
+// (full_z, full_step), so that the forward's lanes and the backward's
+// replay form the X chain bitwise alike.  The forward's lane splits the
+// rows, so Z and the normals go through per-path rows (d each) that the
+// lane meets on before the step of X reads them all; the backward keeps
+// the normals and Z in 2 d rows of its own.  sigma is staged with the net
+// where the net is.  kBreadth and kFull (dense sigma) are template
+// parameters like the others, instantiated only for these families, and
+// StoppedExt is an argument of its own after the old ones, so that every
+// older instantiation keeps its constant-bank offsets and its SASS.
+//
 // With the output clamp (DenseNet output_relu) V = relu(o) of the output
 // o: Z, the step's increment and both sweeps of the backward carry the
 // mask 1[o > 0] (the gradient at o = 0 is 0, as in JAX and torch).
@@ -248,6 +272,26 @@ static_assert(offsetof(StoppedArgs, X_l) ==
                   offsetof(StoppedArgs, out_relu) + kNumTailArgs * sizeof(int),
               "the last three ints, then the last three floats");
 
+// The breadth families' fields (the header): the kernels' last argument.
+// The wrapper packs them after StoppedArgs' ints and floats.
+struct StoppedExt {
+  int sig_off;      // a dense sigma's offset in the packed net, -1: scalar
+  int vref;         // with have_vref: 0 exp(a_vref |x|^2), 1 the committor's
+  float r_in;       // geometry 3: the inner radius (`radius` the outer)
+  float c_ys1;      // h's coefficient on V (sum_j x_j)^2
+  float vr_a2, vr_ad, vr_den;   // the committor's a^2, a^d and
+                                // a^2 - c^(2-d) a^d
+};
+constexpr int kNumExtInts = 2;
+constexpr int kNumExtFloats = 5;
+static_assert(offsetof(StoppedExt, r_in) == kNumExtInts * sizeof(int) &&
+                  sizeof(StoppedExt) ==
+                      kNumExtInts * sizeof(int) +
+                          kNumExtFloats * sizeof(float),
+              "the wrapper's ext ints, then its ext floats");
+// The launch's own ints (the layout) follow all the wrapper's ints.
+constexpr int kNumPackedInts = kNumIntArgs + kNumExtInts;
+
 // Net input rows: the d state rows, and the clock's with time_stopping.
 template <bool kTimed>
 __device__ __forceinline__ int net_inputs(const StoppedArgs& a) {
@@ -277,6 +321,39 @@ __device__ __forceinline__ float sq_norm(const float* f, int d, int ts) {
   float r2 = 0.0f;
   for (int j = 0; j < d; ++j) r2 = fmaf(f[j * ts], f[j * ts], r2);
   return r2;
+}
+
+// sum_j x_j over rows 0..d of this path's column, in a fixed order (h's
+// c_ys1 term).
+__device__ __forceinline__ float coord_sum(const float* f, int d, int ts) {
+  float s1 = 0.0f;
+  for (int j = 0; j < d; ++j) s1 += f[j * ts];
+  return s1;
+}
+
+// Z_j = (sigma^T grad V)_j = sum_i sigma_ij g_i, i ascending: sigma is
+// d x d row-major at sg, g this path's rows of grad V.
+__device__ __forceinline__ float full_z(const float* sg, const float* g,
+                                        int d, int j, int ts) {
+  float z = 0.0f;
+  for (int i = 0; i < d; ++i) z = fmaf(sg[i * d + j], g[i * ts], z);
+  return z;
+}
+
+// The increment (sigma c)_j dt + (sigma xi)_j sqrt(dt) of coordinate j
+// under a dense sigma, with c = -Z when adaptive (z: the rows of Z) and
+// the normals' rows xs, each sum over i ascending; rounded as the plain
+// version rounds (b(X) + sigma c) dt + sigma xi sqrt(dt) with b = 0.
+__device__ __forceinline__ float full_step(const StoppedArgs& a,
+                                           const float* sg, const float* z,
+                                           const float* xs, int j, int ts) {
+  const float* row = sg + j * a.d;
+  float sc = 0.0f, sx = 0.0f;
+  for (int i = 0; i < a.d; ++i) {
+    if (a.adaptive) sc = fmaf(row[i], -z[i * ts], sc);
+    sx = fmaf(row[i], xs[i * ts], sx);
+  }
+  return __fadd_rn(__fmul_rn(sc, a.dt), __fmul_rn(sx, a.sq_dt));
 }
 
 // The increment s c dt + s xi sqrt(dt) of one coordinate, rounded as the
@@ -425,6 +502,42 @@ __device__ __forceinline__ bool selected(const StoppedArgs& a, float r2,
                                          float t) {
   if (!kTimed) return sqrtf(r2) < a.radius;
   return (a.geom == 1 || sqrtf(r2) < a.radius) && __fadd_rn(t, a.dt) <= a.T;
+}
+
+// The breadth families (no clock; the header): the step's selection mask
+// on the sphere or the two spheres (the current state), h and dh/dy (the
+// ball family's and c_ys1 y (sum_j x_j)^2, with s1 = sum_j x_j), and the
+// in-kernel reference, exp(a_vref |x|^2) or the committor's closed form.
+// The kernels call them only in their kBreadth instantiations, each
+// behind `if constexpr`, so that the others keep their code.
+__device__ __forceinline__ bool breadth_selected(const StoppedArgs& a,
+                                                 const StoppedExt& ext,
+                                                 float r2) {
+  const float r = sqrtf(r2);
+  return a.geom == 3 ? r > ext.r_in && r < a.radius : r < a.radius;
+}
+
+__device__ __forceinline__ float breadth_h_value(const StoppedArgs& a,
+                                                 const StoppedExt& ext,
+                                                 float r2, float s1,
+                                                 float y) {
+  return h_value<false>(a, r2, 0.0f, y) + y * (ext.c_ys1 * (s1 * s1));
+}
+
+__device__ __forceinline__ float breadth_h_dy(const StoppedArgs& a,
+                                              const StoppedExt& ext,
+                                              float r2, float s1, float y) {
+  return h_dy<false>(a, r2, 0.0f, y) + ext.c_ys1 * (s1 * s1);
+}
+
+__device__ __forceinline__ float breadth_vref(const StoppedArgs& a,
+                                              const StoppedExt& ext,
+                                              float r2) {
+  if (ext.vref == 1)
+    return (ext.vr_a2 - powf(sqrtf(r2), static_cast<float>(2 - a.d)) *
+                            ext.vr_ad) /
+           ext.vr_den;
+  return expf(a.a_vref * r2);
 }
 
 // Stage the packed net in shared memory when the wrapper asked for it;
@@ -609,14 +722,14 @@ __device__ void lane_value_grad(const StoppedArgs& a, const FwdNet& net,
   }
 }
 
-template <bool kTimed, bool kTorus, bool kRelu>
+template <bool kTimed, bool kTorus, bool kRelu, bool kFull, bool kBreadth>
 __global__ void __launch_bounds__(kFwdThreads, kFwdMinBlocks)
 stopped_fwd_kernel(const StoppedArgs a, const float* __restrict__ P,
                    const float* __restrict__ noise,
                    const float* __restrict__ X0,
                    const float* __restrict__ t0, float* __restrict__ X_out,
                    float* __restrict__ acc_out, int* __restrict__ queue,
-                   const int tpp) {
+                   const int tpp, const StoppedExt ext) {
   extern __shared__ float4 smem4[];
   float* S = reinterpret_cast<float*>(smem4);
   const int ts = a.tile + 1;
@@ -631,7 +744,8 @@ stopped_fwd_kernel(const StoppedArgs a, const float* __restrict__ P,
   float* r = f + a.F * ts;               // relu(h) of the hidden layers
   float* g = r + (a.F - d_in) * ts;      // dV/d(features); on the torus
                                          // rows 0..d then hold the proposal
-  float* xs = g + a.F * ts;              // the step's normals
+  float* xs = g + a.F * ts;              // the step's normals; kFull: Z
+                                         // in the d rows after them
   const float lam = kTorus ? P[a.lam_off] : 0.0f;   // not W: unstaged yet
   // Paths: lane i of block b first takes path b tile + i, then the next
   // path of the queue (one counter for the grid) each time its path ends.
@@ -656,11 +770,17 @@ stopped_fwd_kernel(const StoppedArgs a, const float* __restrict__ P,
   auto step = [&]() -> bool {
     float r2 = 0.0f, s = 0.0f, qs = 0.0f;
     bool sel = true;
+    float s1 = 0.0f;   // kBreadth: sum_j X_j, read before X moves
     if (kTorus) {
       torus_terms(a, f, ts, &s, &qs);
     } else {
       r2 = sq_norm(f, a.d, ts);
-      sel = selected<kTimed>(a, r2, t);
+      if constexpr (kBreadth) {
+        s1 = coord_sum(f, a.d, ts);
+        sel = breadth_selected(a, ext, r2);
+      } else {
+        sel = selected<kTimed>(a, r2, t);
+      }
     }
     hit += 1.0f;
     if (!sel && !a.have_vref) {   // V would not be read: the net is not run
@@ -675,8 +795,13 @@ stopped_fwd_kernel(const StoppedArgs a, const float* __restrict__ P,
     const bool on = !kRelu || o > 0.0f;   // the output clamp's mask
     const float V = on ? o : 0.0f;
     if (a.have_vref) {
-      const float e = V - (kTorus ? expf(-sinf(s)) : expf(a.a_vref * r2));
-      vl2 += e * e * a.dt;
+      if constexpr (kBreadth) {
+        const float e = V - breadth_vref(a, ext, r2);
+        vl2 += e * e * a.dt;
+      } else {
+        const float e = V - (kTorus ? expf(-sinf(s)) : expf(a.a_vref * r2));
+        vl2 += e * e * a.dt;
+      }
     }
     if (!sel) {
       stopped = true;
@@ -684,34 +809,73 @@ stopped_fwd_kernel(const StoppedArgs a, const float* __restrict__ P,
     }
     if (on) lane_value_grad<kTimed>(a, net, r, g, ts, ln);
     ln.sync();   // grad V complete, and every read of X by the net done
-    const float h = kTorus ? fmaf(lam, V, V * torus_h_dy(s, qs))
-                           : h_value<kTimed>(a, r2, t, V);
+    float h;
+    if constexpr (kBreadth) {
+      h = breadth_h_value(a, ext, r2, s1, V);
+    } else {
+      h = kTorus ? fmaf(lam, V, V * torus_h_dy(s, qs))
+                 : h_value<kTimed>(a, r2, t, V);
+    }
     const float m_cs = kTorus ? -cosf(s) : 0.0f;
-    // thread q draws the normals of dimension groups q, q + p, ... into
-    // xs and, off the torus, moves those coordinates
-    for (int gi = ln.q; 4 * gi < a.d; gi += ln.p) {
-      float xi[4];
-      draw4(a, noise, k, n, gi, xi);
+    if constexpr (kFull) {
+      // thread q draws the normals of dimension groups q, q + p, ... into
+      // xs and forms Z of the same rows into zr; the lane meets, then each
+      // thread moves its coordinates by full_step, which reads every row
+      // of both and of sigma (after the net, and staged with it)
+      float* zr = xs + a.d * ts;
+      const float* sg = net.W + ext.sig_off + net.shift[a.L];
+      for (int gi = ln.q; 4 * gi < a.d; gi += ln.p) {
+        float xi[4];
+        draw4(a, noise, k, n, gi, xi);
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int j = 4 * gi + q;
-        if (j >= a.d) break;
-        xs[j * ts] = xi[q];
-        if (!kTorus) {
-          const float z = on ? a.sig * g[j * ts] : 0.0f;
-          const float c = a.adaptive ? -z : 0.0f;
-          f[j * ts] = __fadd_rn(f[j * ts], step_of(a, c, xi[q]));
+        for (int q = 0; q < 4; ++q) {
+          const int j = 4 * gi + q;
+          if (j >= a.d) break;
+          xs[j * ts] = xi[q];
+          zr[j * ts] = on ? full_z(sg, g, a.d, j, ts) : 0.0f;
+        }
+      }
+      ln.sync();
+      for (int gi = ln.q; 4 * gi < a.d; gi += ln.p)
+        for (int j = 4 * gi; j < min(4 * gi + 4, a.d); ++j)
+          f[j * ts] = __fadd_rn(f[j * ts], full_step(a, sg, zr, xs, j, ts));
+    } else {
+      // thread q draws the normals of dimension groups q, q + p, ... into
+      // xs and, off the torus, moves those coordinates
+      for (int gi = ln.q; 4 * gi < a.d; gi += ln.p) {
+        float xi[4];
+        draw4(a, noise, k, n, gi, xi);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int j = 4 * gi + q;
+          if (j >= a.d) break;
+          xs[j * ts] = xi[q];
+          if (!kTorus) {
+            const float z = on ? a.sig * g[j * ts] : 0.0f;
+            const float c = a.adaptive ? -z : 0.0f;
+            f[j * ts] = __fadd_rn(f[j * ts], step_of(a, c, xi[q]));
+          }
         }
       }
     }
     ln.sync();
     // the increment's sums over j, in order, in every thread of the lane
     float s_zc = 0.0f, s_zx = 0.0f;
-    for (int j = 0; j < a.d; ++j) {
-      const float z = on ? a.sig * g[j * ts] : 0.0f;
-      const float c = a.adaptive ? -z : 0.0f;
-      s_zc = fmaf(z, c, s_zc);
-      s_zx = fmaf(z, xs[j * ts], s_zx);
+    if constexpr (kFull) {
+      const float* zr = xs + a.d * ts;
+      for (int j = 0; j < a.d; ++j) {
+        const float z = zr[j * ts];
+        const float c = a.adaptive ? -z : 0.0f;
+        s_zc = fmaf(z, c, s_zc);
+        s_zx = fmaf(z, xs[j * ts], s_zx);
+      }
+    } else {
+      for (int j = 0; j < a.d; ++j) {
+        const float z = on ? a.sig * g[j * ts] : 0.0f;
+        const float c = a.adaptive ? -z : 0.0f;
+        s_zc = fmaf(z, c, s_zc);
+        s_zx = fmaf(z, xs[j * ts], s_zx);
+      }
     }
     if (kTorus) {
       ln.sync();   // every read of grad V done: its rows 0..d take P
@@ -962,14 +1126,15 @@ __device__ __forceinline__ void step_weight_grads(
   }
 }
 
-template <bool kTimed, bool kTorus, bool kRelu>
+template <bool kTimed, bool kTorus, bool kRelu, bool kFull, bool kBreadth>
 __global__ void __launch_bounds__(kStoppedTile, kMinBlocksPerSm)
 stopped_bwd_kernel(const StoppedArgs a, const float* __restrict__ P,
                    const float* __restrict__ noise,
                    const float* __restrict__ X0,
                    const float* __restrict__ t0,
                    const float* __restrict__ gY, float* __restrict__ part,
-                   int* __restrict__ counts, const int ts) {
+                   int* __restrict__ counts, const int ts,
+                   const StoppedExt ext) {
   extern __shared__ float4 smem4[];
   uint32_t* ballots = reinterpret_cast<uint32_t*>(smem4);
   float* S = reinterpret_cast<float*>(smem4) + kBallotWords;
@@ -994,7 +1159,9 @@ stopped_bwd_kernel(const StoppedArgs a, const float* __restrict__ P,
   float* gb = hd + H * ts;               // cotangent of the features; rows
                                          // 0..d hold the step of X
   float* gdb = gb + a.F * ts;            // cotangent of the hidden tangents
-  float* al = gdb + H * ts;              // alpha
+  float* al = gdb + H * ts;              // alpha; kFull: the step's
+                                         // normals and Z in the 2 d rows
+                                         // after it
   for (float* p = f; p <= al; p += ts) *p = 0.0f;
   const float* wL = W + a.wL_off;
   const float lam = kTorus ? P[a.lam_off] : 0.0f;   // not W: unstaged yet
@@ -1015,7 +1182,11 @@ stopped_bwd_kernel(const StoppedArgs a, const float* __restrict__ P,
     if (n >= a.N) return false;
     if (kTorus) return true;
     r2 = sq_norm(f, a.d, ts);
-    return selected<kTimed>(a, r2, t);
+    if constexpr (kBreadth) {
+      return breadth_selected(a, ext, r2);
+    } else {
+      return selected<kTimed>(a, r2, t);
+    }
   };
 
   for (;;) {
@@ -1065,21 +1236,52 @@ stopped_bwd_kernel(const StoppedArgs a, const float* __restrict__ P,
       if (a.adaptive && on) value_grad<kTimed>(a, W, r, gb, ts);
       const float m_cs = kTorus ? -cosf(s) : 0.0f;
       bool inside = true;
-      for (int gi = 0; 4 * gi < a.d; ++gi) {
-        float xi[4];
-        draw4(a, noise, k, n, gi, xi);
+      if constexpr (kFull) {
+        // the normals and Z of every row first (Z reads every row of
+        // grad V, which the steps then replace), then w and the steps
+        float* xr = al + ts;
+        float* zr = xr + a.d * ts;
+        const float* sg = W + ext.sig_off;   // sigma, after the net
+        for (int gi = 0; 4 * gi < a.d; ++gi) {
+          float xi[4];
+          draw4(a, noise, k, n, gi, xi);
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int j = 4 * gi + q;
-          if (j >= a.d) break;
-          const float c = a.adaptive && on ? -(a.sig * gb[j * ts]) : 0.0f;
-          fd[j * ts] = gy * (a.sig * (xi[q] * a.sq_dt + c * a.dt));
-          if (kTorus) {
-            const float st = torus_step(a, m_cs, f[j * ts], c, xi[q]);
-            inside = inside && in_box(a, __fadd_rn(f[j * ts], st));
-            gb[j * ts] = st;
-          } else {
-            gb[j * ts] = step_of(a, c, xi[q]);
+          for (int q = 0; q < 4; ++q) {
+            const int j = 4 * gi + q;
+            if (j >= a.d) break;
+            xr[j * ts] = xi[q];
+            zr[j * ts] =
+                a.adaptive && on ? full_z(sg, gb, a.d, j, ts) : 0.0f;
+          }
+        }
+        for (int j = 0; j < a.d; ++j) {
+          const float* row = sg + j * a.d;
+          float sw = 0.0f;
+          for (int i = 0; i < a.d; ++i) {
+            const float c = a.adaptive ? -zr[i * ts] : 0.0f;
+            sw = fmaf(row[i], xr[i * ts] * a.sq_dt + c * a.dt, sw);
+          }
+          fd[j * ts] = gy * sw;
+        }
+        for (int j = 0; j < a.d; ++j)
+          gb[j * ts] = full_step(a, sg, zr, xr, j, ts);
+      } else {
+        for (int gi = 0; 4 * gi < a.d; ++gi) {
+          float xi[4];
+          draw4(a, noise, k, n, gi, xi);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int j = 4 * gi + q;
+            if (j >= a.d) break;
+            const float c = a.adaptive && on ? -(a.sig * gb[j * ts]) : 0.0f;
+            fd[j * ts] = gy * (a.sig * (xi[q] * a.sq_dt + c * a.dt));
+            if (kTorus) {
+              const float st = torus_step(a, m_cs, f[j * ts], c, xi[q]);
+              inside = inside && in_box(a, __fadd_rn(f[j * ts], st));
+              gb[j * ts] = st;
+            } else {
+              gb[j * ts] = step_of(a, c, xi[q]);
+            }
           }
         }
       }
@@ -1090,7 +1292,12 @@ stopped_bwd_kernel(const StoppedArgs a, const float* __restrict__ P,
           *al = -gy * (torus_h_dy(s, qs) + lam) * a.dt;
           g_lam = fmaf(-gy * V, a.dt, g_lam);
         } else {
-          *al = -gy * h_dy<kTimed>(a, r2, t, V) * a.dt;
+          if constexpr (kBreadth) {
+            *al = -gy * breadth_h_dy(a, ext, r2, coord_sum(f, a.d, ts), V) *
+                  a.dt;
+          } else {
+            *al = -gy * h_dy<kTimed>(a, r2, t, V) * a.dt;
+          }
         }
         if (kTimed) {
           fd[a.d * ts] = 0.0f;
@@ -1201,13 +1408,16 @@ stopped_bwd_kernel(const StoppedArgs a, const float* __restrict__ P,
 
 // Shared memory of one block, in floats: the staged net and the per-path
 // arrays, of stride tile + 1 in the forward (bwd_ts = 0; the normals' d
-// rows too), and in the backward the lane ballots first and the arrays at
-// stride bwd_ts.  The wrapper's _stopped_smem_bytes computes the same.
-size_t smem_floats(const StoppedArgs& a, int bwd_ts) {
+// rows too, and Z's with a dense sigma), and in the backward the lane
+// ballots first and the arrays at stride bwd_ts (with a dense sigma 2 d
+// more rows).  The wrapper's _stopped_smem_bytes and _stopped_per_path
+// compute the same.
+size_t smem_floats(const StoppedArgs& a, const StoppedExt& ext, int bwd_ts) {
   const bool backward = bwd_ts > 0;
   const size_t H = a.F - (a.time_stopping ? a.d + 1 : a.d);
+  const size_t full_rows = ext.sig_off >= 0 ? (backward ? 2 : 1) * a.d : 0;
   const size_t per_path =
-      backward ? 3 * a.F + 3 * H + 1 : 2 * a.F + H + a.d;
+      (backward ? 3 * a.F + 3 * H + 1 : 2 * a.F + H + a.d) + full_rows;
   size_t net = a.stage ? a.n_params : 0;
   if (!backward && a.stage) {   // the forward's row pads (FwdNet)
     size_t n_in = a.F - H;
@@ -1222,21 +1432,32 @@ size_t smem_floats(const StoppedArgs& a, int bwd_ts) {
 
 // StoppedArgs from the wrapper's arrays, checked but for the tile, which
 // each kernel checks itself (bwd_layout, fwd_layout).
+// Whether a call belongs to the breadth families (their instantiations).
+bool breadth(const StoppedArgs& a, const StoppedExt& ext) {
+  return a.geom == 3 || ext.sig_off >= 0 || ext.vref != 0 ||
+         ext.c_ys1 != 0.0f;
+}
+
 int unpack(const int* iargs, const float* fargs, unsigned long long seed,
-           int device, StoppedArgs* a) {
+           int device, StoppedArgs* a, StoppedExt* ext) {
   memcpy(a, iargs, (kNumIntArgs - kNumTailArgs) * sizeof(int));
   memcpy(&a->dt, fargs, (kNumFloatArgs - kNumTailArgs) * sizeof(float));
   memcpy(&a->out_relu, iargs + kNumIntArgs - kNumTailArgs,
          kNumTailArgs * sizeof(int));
   memcpy(&a->X_l, fargs + kNumFloatArgs - kNumTailArgs,
          kNumTailArgs * sizeof(float));
+  memcpy(ext, iargs + kNumIntArgs, kNumExtInts * sizeof(int));
+  memcpy(&ext->r_in, fargs + kNumFloatArgs, kNumExtFloats * sizeof(float));
   a->key0 = static_cast<uint32_t>(seed & 0xFFFFFFFFull);
   a->key1 = static_cast<uint32_t>(seed >> 32);
   const bool torus = a->geom == 2;
   if (a->L < 1 || a->L > kMaxHidden || a->K <= 0 || a->geom < 0 ||
-      a->geom > 2 || (a->geom == 1 && !a->time_stopping) ||
+      a->geom > 3 || (a->geom == 1 && !a->time_stopping) ||
       (torus && (a->time_stopping || a->lam_off < 0 ||
-                 a->lam_off >= a->n_params || a->g_lam != a->n_grad - 1)))
+                 a->lam_off >= a->n_params || a->g_lam != a->n_grad - 1)) ||
+      ext->vref < 0 || ext->vref > 1 ||
+      (ext->sig_off >= 0 && ext->sig_off + a->d * a->d > a->n_params) ||
+      (breadth(*a, *ext) && (torus || a->time_stopping)))
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaSetDevice(device));
 }
@@ -1252,14 +1473,14 @@ bool bwd_tile_ok(const StoppedArgs& a) {
 // tpp and grid (grid may be null), or returns false.
 bool fwd_layout(const StoppedArgs& a, const int* iargs, int* tpp,
                 int* grid) {
-  const int p = iargs[kNumIntArgs];
+  const int p = iargs[kNumPackedInts];
   const int threads = a.tile * p;
   if (a.tile < 1 || a.tile > kFwdMaxTile || p < 1 || p > 32 ||
       (p & (p - 1)) != 0 || threads % 32 != 0 || threads > kFwdThreads)
     return false;
   *tpp = p;
   if (grid != nullptr) {
-    *grid = iargs[kNumIntArgs + 1];
+    *grid = iargs[kNumPackedInts + 1];
     if (*grid < 1 || *grid > (a.K + a.tile - 1) / a.tile) return false;
   }
   return true;
@@ -1268,22 +1489,22 @@ bool fwd_layout(const StoppedArgs& a, const int* iargs, int* tpp,
 // Lets `kernel` take the dynamic shared memory of one block (bwd_ts: as
 // smem_floats).
 template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, const StoppedArgs& a, int bwd_ts,
-                       size_t* smem) {
-  *smem = sizeof(float) * smem_floats(a, bwd_ts);
+cudaError_t allow_smem(Kernel kernel, const StoppedArgs& a,
+                       const StoppedExt& ext, int bwd_ts, size_t* smem) {
+  *smem = sizeof(float) * smem_floats(a, ext, bwd_ts);
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(*smem));
 }
 
 template <typename Kernel, typename... Args>
-int launch(Kernel kernel, const StoppedArgs& a, int bwd_ts, int grid,
-           int threads, void* stream, Args... args) {
+int launch(Kernel kernel, const StoppedArgs& a, const StoppedExt& ext,
+           int bwd_ts, int grid, int threads, void* stream, Args... args) {
   size_t smem = 0;
-  const cudaError_t e = allow_smem(kernel, a, bwd_ts, &smem);
+  const cudaError_t e = allow_smem(kernel, a, ext, bwd_ts, &smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   kernel<<<static_cast<unsigned>(grid), threads, smem,
-           static_cast<cudaStream_t>(stream)>>>(a, args...);
+           static_cast<cudaStream_t>(stream)>>>(a, args..., ext);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1291,9 +1512,10 @@ int launch(Kernel kernel, const StoppedArgs& a, int bwd_ts, int grid,
 // on one SM (the shared memory, the registers and the threads allow) into
 // *per_sm, its SMs into *sms, the block's shared bytes into *smem.
 template <typename Kernel>
-int occupancy(Kernel kernel, const StoppedArgs& a, int bwd_ts, int threads,
-              int device, int* per_sm, int* sms, size_t* smem) {
-  cudaError_t e = allow_smem(kernel, a, bwd_ts, smem);
+int occupancy(Kernel kernel, const StoppedArgs& a, const StoppedExt& ext,
+              int bwd_ts, int threads, int device, int* per_sm, int* sms,
+              size_t* smem) {
+  cudaError_t e = allow_smem(kernel, a, ext, bwd_ts, smem);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel,
                                                       threads, *smem);
@@ -1302,35 +1524,44 @@ int occupancy(Kernel kernel, const StoppedArgs& a, int bwd_ts, int threads,
   return static_cast<int>(e);
 }
 
-// A launch's instantiation: the clock, the torus family, the output clamp.
-template <bool kTimed, bool kTorus, bool kRelu>
+// A launch's instantiation: the clock, the torus family, the output clamp,
+// a dense sigma and the breadth families (the header).
+template <bool kTimed, bool kTorus, bool kRelu, bool kFull, bool kBreadth>
 struct Family {
-  static constexpr bool timed = kTimed, torus = kTorus, relu = kRelu;
+  static constexpr bool timed = kTimed, torus = kTorus, relu = kRelu,
+                        full = kFull, breadth = kBreadth;
 };
 
 template <typename Fn>
-int with_family(const StoppedArgs& a, Fn fn) {
+int with_family(const StoppedArgs& a, const StoppedExt& ext, Fn fn) {
+  if (breadth(a, ext)) {
+    if (ext.sig_off >= 0)
+      return a.out_relu ? fn(Family<false, false, true, true, true>())
+                        : fn(Family<false, false, false, true, true>());
+    return a.out_relu ? fn(Family<false, false, true, false, true>())
+                      : fn(Family<false, false, false, false, true>());
+  }
   if (a.geom == 2)
-    return a.out_relu ? fn(Family<false, true, true>())
-                      : fn(Family<false, true, false>());
+    return a.out_relu ? fn(Family<false, true, true, false, false>())
+                      : fn(Family<false, true, false, false, false>());
   if (a.time_stopping)
-    return a.out_relu ? fn(Family<true, false, true>())
-                      : fn(Family<true, false, false>());
-  return a.out_relu ? fn(Family<false, false, true>())
-                    : fn(Family<false, false, false>());
+    return a.out_relu ? fn(Family<true, false, true, false, false>())
+                      : fn(Family<true, false, false, false, false>());
+  return a.out_relu ? fn(Family<false, false, true, false, false>())
+                    : fn(Family<false, false, false, false, false>());
 }
 
 }  // namespace
 
 // Launch on `stream` of CUDA device `device`; each returns the cudaError_t
 // of the launch (0 = success).  `iargs` and `fargs` are host arrays in the
-// order of StoppedArgs.
+// order of StoppedArgs, then StoppedExt.
 
 // Forward: X0 (K, d), t0 (K,) -> X_out (K, d), acc_out (6, K): Y, stopped,
 // hitting, v_l2, adv_steps, t.  `iargs` carries the layout after
-// StoppedArgs' ints (fwd_layout): tpp threads a lane, the grid.  `queue`
-// (1 + grid tile ints, the first 0): the grid's path counter, then each
-// lane's trips (the steps it ran, over all its paths).
+// StoppedArgs' and StoppedExt's ints (fwd_layout): tpp threads a lane, the
+// grid.  `queue` (1 + grid tile ints, the first 0): the grid's path
+// counter, then each lane's trips (the steps it ran, over all its paths).
 extern "C" int pspde_stopped_rollout_fwd(const float* params,
                                          const float* host_noise,
                                          const float* X0, const float* t0,
@@ -1340,49 +1571,53 @@ extern "C" int pspde_stopped_rollout_fwd(const float* params,
                                          unsigned long long seed, int device,
                                          void* stream) {
   StoppedArgs a;
-  const int err = unpack(iargs, fargs, seed, device, &a);
+  StoppedExt ext;
+  const int err = unpack(iargs, fargs, seed, device, &a, &ext);
   if (err != 0) return err;
   int tpp = 0, grid = 0;
   if (!fwd_layout(a, iargs, &tpp, &grid))
     return static_cast<int>(cudaErrorInvalidValue);
-  return with_family(a, [&](auto fam) {
+  return with_family(a, ext, [&](auto fam) {
     using Fam = decltype(fam);
-    return launch(stopped_fwd_kernel<Fam::timed, Fam::torus, Fam::relu>, a,
-                  0, grid, a.tile * tpp, stream, params, host_noise, X0, t0,
-                  X_out, acc_out, queue, tpp);
+    return launch(stopped_fwd_kernel<Fam::timed, Fam::torus, Fam::relu,
+                                     Fam::full, Fam::breadth>,
+                  a, ext, 0, grid, a.tile * tpp, stream, params, host_noise,
+                  X0, t0, X_out, acc_out, queue, tpp);
   });
 }
 
-// The forward's launch for `iargs` (StoppedArgs' ints and tpp) on device
-// `device`: out[0] its blocks resident on one SM, out[1] threads a block,
-// out[2] shared bytes a block, out[3] the SMs.  The grid that fills the card
-// once is out[0] out[3] blocks.
+// The forward's launch for `iargs` (StoppedArgs' and StoppedExt's ints and
+// tpp) on device `device`: out[0] its blocks resident on one SM, out[1]
+// threads a block, out[2] shared bytes a block, out[3] the SMs.  The grid
+// that fills the card once is out[0] out[3] blocks.
 extern "C" int pspde_stopped_fwd_occupancy(const int* iargs,
                                            const float* fargs, int device,
                                            int* out) {
   StoppedArgs a;
-  const int err = unpack(iargs, fargs, 0ull, device, &a);
+  StoppedExt ext;
+  const int err = unpack(iargs, fargs, 0ull, device, &a, &ext);
   if (err != 0) return err;
   int tpp = 0;
   if (!fwd_layout(a, iargs, &tpp, nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  return with_family(a, [&](auto fam) {
+  return with_family(a, ext, [&](auto fam) {
     using Fam = decltype(fam);
     size_t smem = 0;
     out[1] = a.tile * tpp;
     const int e = occupancy(
-        stopped_fwd_kernel<Fam::timed, Fam::torus, Fam::relu>, a, 0, out[1],
-        device, &out[0], &out[3], &smem);
+        stopped_fwd_kernel<Fam::timed, Fam::torus, Fam::relu, Fam::full,
+                           Fam::breadth>,
+        a, ext, 0, out[1], device, &out[0], &out[3], &smem);
     out[2] = static_cast<int>(smem);
     return e;
   });
 }
 
-// The backward's stride, the int after StoppedArgs' ints: tile + 4, or
-// tile + 1 where that does not fit (the note on the backward's arrays); 0
-// if it is neither.
+// The backward's stride, the int after StoppedArgs' and StoppedExt's ints:
+// tile + 4, or tile + 1 where that does not fit (the note on the backward's
+// arrays); 0 if it is neither.
 int unpack_bwd_stride(const StoppedArgs& a, const int* iargs) {
-  const int ts = iargs[kNumIntArgs];
+  const int ts = iargs[kNumPackedInts];
   return ts == a.tile + 4 || ts == a.tile + 1 ? ts : 0;
 }
 
@@ -1390,9 +1625,10 @@ int unpack_bwd_stride(const StoppedArgs& a, const int* iargs) {
 // per-layer [W (n_in, width); b (1, width)] and [wL (F); bL] sums per block,
 // and on the torus the lambda entry last; counts (grid, 2): each block's
 // block-steps and its busy lanes summed over them.  `iargs` carries the
-// stride and the grid after StoppedArgs' ints: 1 <= grid <= ceil(K / tile),
-// at most the blocks the card holds at once (pspde_stopped_bwd_slots);
-// block b replays the paths of its range (range_start).
+// stride and the grid after StoppedArgs' and StoppedExt's ints: 1 <= grid
+// <= ceil(K / tile), at most the blocks the card holds at once
+// (pspde_stopped_bwd_slots); block b replays the paths of its range
+// (range_start).
 extern "C" int pspde_stopped_rollout_bwd(const float* params,
                                          const float* host_noise,
                                          const float* X0, const float* t0,
@@ -1402,41 +1638,45 @@ extern "C" int pspde_stopped_rollout_bwd(const float* params,
                                          unsigned long long seed, int device,
                                          void* stream) {
   StoppedArgs a;
-  const int err = unpack(iargs, fargs, seed, device, &a);
+  StoppedExt ext;
+  const int err = unpack(iargs, fargs, seed, device, &a, &ext);
   if (err != 0) return err;
   const int ts = unpack_bwd_stride(a, iargs);
-  const int grid = iargs[kNumIntArgs + 1];
+  const int grid = iargs[kNumPackedInts + 1];
   if (!bwd_tile_ok(a) || ts == 0 || grid < 1 ||
       grid > (a.K + a.tile - 1) / a.tile)
     return static_cast<int>(cudaErrorInvalidValue);
-  return with_family(a, [&](auto fam) {
+  return with_family(a, ext, [&](auto fam) {
     using Fam = decltype(fam);
-    return launch(stopped_bwd_kernel<Fam::timed, Fam::torus, Fam::relu>, a,
-                  ts, grid, a.tile, stream, params, host_noise, X0, t0, gY,
-                  grad_out, counts, ts);
+    return launch(stopped_bwd_kernel<Fam::timed, Fam::torus, Fam::relu,
+                                     Fam::full, Fam::breadth>,
+                  a, ext, ts, grid, a.tile, stream, params, host_noise, X0,
+                  t0, gY, grad_out, counts, ts);
   });
 }
 
-// The blocks of the backward's instantiation for `iargs` (StoppedArgs' ints
-// and the stride) that device `device` holds at once (its SMs times the
-// blocks per SM that the shared memory, the registers and the threads
-// allow) into *slots: the most blocks worth launching, since each walks its
-// range to the end.
+// The blocks of the backward's instantiation for `iargs` (StoppedArgs' and
+// StoppedExt's ints and the stride) that device `device` holds at once (its
+// SMs times the blocks per SM that the shared memory, the registers and the
+// threads allow) into *slots: the most blocks worth launching, since each
+// walks its range to the end.
 extern "C" int pspde_stopped_bwd_slots(const int* iargs, const float* fargs,
                                        int device, int* slots) {
   StoppedArgs a;
-  const int err = unpack(iargs, fargs, 0ull, device, &a);
+  StoppedExt ext;
+  const int err = unpack(iargs, fargs, 0ull, device, &a, &ext);
   if (err != 0) return err;
   const int ts = unpack_bwd_stride(a, iargs);
   if (!bwd_tile_ok(a) || ts == 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  return with_family(a, [&](auto fam) {
+  return with_family(a, ext, [&](auto fam) {
     using Fam = decltype(fam);
     size_t smem = 0;
     int per_sm = 0, sms = 0;
     const int e = occupancy(
-        stopped_bwd_kernel<Fam::timed, Fam::torus, Fam::relu>, a, ts, a.tile,
-        device, &per_sm, &sms, &smem);
+        stopped_bwd_kernel<Fam::timed, Fam::torus, Fam::relu, Fam::full,
+                           Fam::breadth>,
+        a, ext, ts, a.tile, device, &per_sm, &sms, &smem);
     *slots = per_sm * sms;
     return e;
   });

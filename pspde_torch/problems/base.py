@@ -175,11 +175,13 @@ class Problem:
         * ('quadratic_z', c_h, f_coef): the Y-free HJB
           h(t, x, y, z) = c_h |z|^2 / 2 + f_coef f(x, t) (the HJB
           training kernels);
-        * ('ball_exp', c_y, c_yr2, k, phi[, k_t]): the z-free
-          h = y (c_y + c_yr2 |x|^2) + phi(exp(k |x|^2 + k_t t) - y^2)
-          with phi in ('none', 'identity', 'sin') (the stopped kernels);
-          the elliptic problems leave k_t out (0), the parabolic ones
-          (``problems/parabolic.py``) state it;
+        * ('ball_exp', c_y, c_yr2, k, phi[, k_t[, c_ys1]]): the z-free
+          h = y (c_y + c_yr2 |x|^2 + c_ys1 (sum_j x_j)^2)
+          + phi(exp(k |x|^2 + k_t t) - y^2) with phi in ('none',
+          'identity', 'sin') (the stopped kernels); k_t and c_ys1 are 0
+          where left out: the parabolic problems (``problems/
+          parabolic.py``) state k_t, the full-Hessian elliptic problem
+          c_ys1;
         * ('torus_fp', c): the z-free, linear in y
           h = y (-c^2 sum_j sin^2 x_j sin(s) - cos(s) s) with
           s = c sum_j cos x_j (``FokkerPlanckEigen``; the stopped kernels'
@@ -188,9 +190,11 @@ class Problem:
         return None
 
     def v_ref_family(self):
-        """('exp_r2', a) for the closed form v_ref(x) = exp(a |x|^2) or
-        ('torus_fp', c) for v_ref(x) = exp(-sin(s)), s = c sum_j cos x_j,
-        which the stopped kernels evaluate in-kernel, or None."""
+        """('exp_r2', a) for the closed form v_ref(x) = exp(a |x|^2),
+        ('committor', a, c, d) for (a^2 - r^(2-d) a^d) / (a^2 - c^(2-d) a^d)
+        with r = |x|, or ('torus_fp', c) for v_ref(x) = exp(-sin(s)), s =
+        c sum_j cos x_j, which the stopped kernels evaluate in-kernel, or
+        None."""
         return None
 
     def running_cost(self, x: torch.Tensor, t: float) -> torch.Tensor:

@@ -924,14 +924,19 @@ class FusedStoppedOut(NamedTuple):
 
 
 STOPPED_KERNEL_FAMILY = (
-    "sigma scalar; either zero drift on the geometry 'sphere' (exit tested "
-    "on the current state) or, with time_stopping, 'unbounded', h = y (c_y "
-    "+ c_yr2 |x|^2) + phi(exp(k |x|^2 + k_t t) - y^2) with phi none, "
+    "zero drift with sigma scalar on the geometry 'sphere' (exit tested on "
+    "the current state) or, with time_stopping, 'unbounded', h = y (c_y + "
+    "c_yr2 |x|^2) + phi(exp(k |x|^2 + k_t t) - y^2) with phi none, "
     "identity or sin (Problem.h_family 'ball_exp') and v_ref exp(a |x|^2) or "
     "none (Problem.v_ref_family; no in-kernel reference with "
-    "time_stopping); or the torus family without time_stopping: the "
+    "time_stopping); without time_stopping also sigma 'diag' or 'full' (a "
+    "d x d matrix), the geometry 'two_spheres' (a < |x| < c, tested on the "
+    "current state), h gaining c_ys1 y (sum_j x_j)^2 and the committor's "
+    "reference (a^2 - r^(2-d) a^d) / (a^2 - c^(2-d) a^d) ('committor'); "
+    "or the torus family without time_stopping: the "
     "two-sided 'square' (exit tested on the proposal), drift -cos(s) c "
-    "sin(x) with s = c sum cos x_j and a uniform c ('torus_cos'), h = y "
+    "sin(x) with s = c sum cos x_j and a uniform c ('torus_cos'), sigma "
+    "scalar, h = y "
     "(-c^2 sum sin^2 x_j sin(s) - cos(s) s) and v_ref exp(-sin(s)) or none "
     "('torus_fp'), with an optional lambda leaf (a one-element tensor: h + "
     "lambda y, the EigenSolver's); a DenseNet value net with d_out=1, "
@@ -952,7 +957,10 @@ _STOPPED_ROW_PAD = 4       # csrc kRowPad: the forward's staged W rows
 _STOPPED_FWD_SPREAD = 132
 _STOPPED_FWD_SM_THREADS = 256
 _PHI = ("none", "identity", "sin")
-_GEOMETRIES = ("sphere", "unbounded", "square")   # csrc StoppedArgs.geom
+# csrc StoppedArgs.geom
+_GEOMETRIES = ("sphere", "unbounded", "square", "two_spheres")
+_EXITS = ("sphere", "two_spheres")    # paths leave after a few steps
+_VREFS = ("exp_r2", "committor")                   # csrc StoppedExt.vref
 
 
 def _stopped_outside(msg: str):
@@ -963,12 +971,12 @@ def _stopped_outside(msg: str):
 def _check_stopped_family(problem, v_net, rng, time_stopping=False,
                           lam=None):
     """(h_family, v_ref_family) of a problem and net inside the stopped
-    kernels' family: ('ball_exp', c_y, c_yr2, k, phi, k_t) with its
-    reference ('exp_r2', a) or None, or on the torus ('torus_fp', c) with
-    ('torus_fp', c) or None; raises ValueError naming
-    STOPPED_KERNEL_FAMILY outside it.  With ``time_stopping`` the net reads
-    [x, t] and there is no in-kernel reference (v_ref_family None).  A
-    lambda leaf ``lam`` belongs to the torus family."""
+    kernels' family: ('ball_exp', c_y, c_yr2, k, phi, k_t, c_ys1) with its
+    reference ('exp_r2', a), ('committor', a, c, d) or None, or on the
+    torus ('torus_fp', c) with ('torus_fp', c) or None; raises ValueError
+    naming STOPPED_KERNEL_FAMILY outside it.  With ``time_stopping`` the
+    net reads [x, t] and there is no in-kernel reference (v_ref_family
+    None).  A lambda leaf ``lam`` belongs to the torus family."""
     name = type(problem).__name__
     if time_stopping and getattr(problem, "T", None) is None:
         raise _stopped_outside(f"time_stopping needs a horizon, and {name} "
@@ -978,11 +986,15 @@ def _check_stopped_family(problem, v_net, rng, time_stopping=False,
         raise _stopped_outside(f"drift of {name} is neither zero nor "
                                "'torus_cos'")
     torus = drift[0] == "torus_cos"
-    if problem.sigma_struct.kind != "scalar":
-        raise _stopped_outside(f"sigma of {name} is "
-                               f"{problem.sigma_struct.kind}, not scalar")
     geom = problem.geometry
     kind = getattr(geom, "kind", None)
+    sig_kind = problem.sigma_struct.kind
+    if sig_kind != "scalar" and (torus or time_stopping or kind not in (
+            "sphere", "two_spheres")):
+        raise _stopped_outside(
+            f"sigma of {name} is {sig_kind}, not scalar: a diag or full "
+            "sigma goes with zero drift on 'sphere' or 'two_spheres' "
+            "without time_stopping")
     if kind not in _GEOMETRIES:
         raise _stopped_outside(f"geometry of {name} is {kind!r}")
     if (kind == "square") != torus:
@@ -996,6 +1008,9 @@ def _check_stopped_family(problem, v_net, rng, time_stopping=False,
     if kind == "unbounded" and not time_stopping:
         raise _stopped_outside(f"geometry of {name} is 'unbounded' and "
                                "without time_stopping no path would stop")
+    if kind == "two_spheres" and time_stopping:
+        raise _stopped_outside(f"geometry of {name} is 'two_spheres', which "
+                               "the kernels take without time_stopping")
     if lam is not None and not torus:
         raise _stopped_outside("a lambda leaf (the EigenSolver's h + lambda "
                                "y) goes with the torus family only")
@@ -1012,9 +1027,15 @@ def _check_stopped_family(problem, v_net, rng, time_stopping=False,
         if hfam is None or hfam[0] != "ball_exp" or hfam[4] not in _PHI:
             raise _stopped_outside(f"h of {name} is not in the 'ball_exp' "
                                    "family")
-        hfam = tuple(hfam) + (0.0,) * (6 - len(hfam))
-        if vfam is not None and vfam[0] != "exp_r2":
-            raise _stopped_outside(f"v_ref of {name} is not exp(a |x|^2)")
+        hfam = tuple(hfam) + (0.0,) * (7 - len(hfam))
+        if hfam[6] != 0.0 and time_stopping:
+            raise _stopped_outside(f"h of {name} has a (sum_j x_j)^2 term, "
+                                   "which the kernels take without "
+                                   "time_stopping")
+        if vfam is not None and (vfam[0] not in _VREFS or (
+                vfam[0] == "committor" and tuple(vfam[3:]) != (problem.d,))):
+            raise _stopped_outside(f"v_ref of {name} is neither exp(a "
+                                   "|x|^2) nor the committor's")
     if not isinstance(v_net, DenseNet):
         raise _stopped_outside(f"value net {type(v_net).__name__} is not a "
                                "DenseNet")
@@ -1105,11 +1126,16 @@ def _stopped_fwd_net_floats(n_params: int, widths, d_in: int) -> int:
     return n_params + _STOPPED_ROW_PAD * sum(n_in)
 
 
-def _stopped_per_path(F: int, H: int, d: int, backward: bool) -> int:
+def _stopped_per_path(F: int, H: int, d: int, backward: bool,
+                      full: bool = False) -> int:
     """Floats of one path's shared arrays: the backward's 3 F + 3 H + 1,
     the forward's features, relu values and gradient (2 F + H) and the
-    step's d normals."""
-    return 3 * F + 3 * H + 1 if backward else 2 * F + H + d
+    step's d normals; with a dense sigma (``full``) the rows of its
+    products: Z in the forward (d), the normals and Z in the backward
+    (2 d)."""
+    if backward:
+        return 3 * F + 3 * H + 1 + (2 * d if full else 0)
+    return 2 * F + H + d + (d if full else 0)
 
 
 def _stopped_tile(n_params: int, per_path: int, tile: Optional[int],
@@ -1166,7 +1192,8 @@ def _stopped_fwd_layout(widths, geom: str, K: int, n_stage: int,
     _STOPPED_FWD_SPREAD blocks, refilled lanes on the sphere and one block
     per tile on the whole space and the torus, whose paths run all N steps
     (the fastest layouts by device time at the cells of
-    experiments/torch_kernel_times.py --layouts stopped).
+    experiments/torch_kernel_times.py --layouts stopped; the two spheres
+    refill as the sphere does).
     The tile shrinks further where its arrays (``per_path`` floats a path,
     beside the ``n_stage`` floats of the staged net where they fit) do not
     fit one block (``_stopped_tile``); past the smallest, raises."""
@@ -1190,7 +1217,7 @@ def _stopped_fwd_layout(widths, geom: str, K: int, n_stage: int,
                       and (tile is None or t <= tile))
         while len(tiles) > 1 and -(-K // tiles[0]) < _STOPPED_FWD_SPREAD:
             tiles = tiles[1:]
-        refill = geom == "sphere"
+        refill = geom in _EXITS
     t, stage = _stopped_tile(n_stage, per_path, None, tiles=tiles)
     return _FwdLayout(t, tpp, refill), stage
 
@@ -1225,15 +1252,17 @@ class _StoppedLayout(NamedTuple):
     F: int                 # d_in + sum(widths)
     lam_off: int           # lambda's offset in buf, -1 without it
     g_lam: int             # its gradient entry (the last), -1 without it
+    sig_off: int = -1      # a dense sigma's offset in buf, -1 without it
 
 
-def _stopped_layout(v_net: DenseNet,
-                    lam: Optional[torch.Tensor] = None) -> _StoppedLayout:
+def _stopped_layout(v_net: DenseNet, lam: Optional[torch.Tensor] = None,
+                    sigma: Optional[torch.Tensor] = None) -> _StoppedLayout:
     """The DenseNet in one buffer: per hidden layer W (n_in, width padded
     to _CHUNK) as (in, out) and its bias, then the output row and bias and,
-    with ``lam``, lambda after them; sections aligned to 4 floats.  And the
-    layout of one block's gradient row: per hidden layer [W (n_in, width);
-    b (1, width)], then [wL (F); bL] and, with ``lam``, d/dlambda."""
+    with ``lam``, lambda after them, and with ``sigma`` the (d, d) matrix
+    row-major (no gradient); sections aligned to 4 floats.  And the layout
+    of one block's gradient row: per hidden layer [W (n_in, width); b (1,
+    width)], then [wL (F); bL] and, with ``lam``, d/dlambda."""
     dev = v_net.layers[0].weight.device
     parts, off = [], 0
 
@@ -1269,32 +1298,59 @@ def _stopped_layout(v_net: DenseNet,
     if lam is not None:
         lam_off, g_lam = add(lam), n_grad
         n_grad += 1
+    sig_off = -1 if sigma is None else add(sigma)
     return _StoppedLayout(torch.cat(parts), widths, w_off, b_off, g_off,
                           wL_off, bL_off, gL_off, n_grad, n_in, lam_off,
-                          g_lam)
+                          g_lam, sig_off)
 
 
 def _pad_hidden(vals: list) -> list:
     return vals + [0] * (_MAX_HIDDEN - len(vals))
 
 
+# StoppedArgs' ints; then StoppedExt's (sig_off, vref) at
+# _STOPPED_N_INTS, _STOPPED_N_INTS + 1, and the launch's ints after them
+_STOPPED_N_INTS = 16 + 4 * _MAX_HIDDEN + 6
+_STOPPED_N_FLOATS = 13
+
+
+def _stopped_full(packed: _Packed) -> bool:
+    """A dense sigma in the packed net (StoppedExt.sig_off >= 0)."""
+    return packed.iargs[_STOPPED_N_INTS] >= 0
+
+
+def _stopped_instance(packed: _Packed) -> tuple:
+    """What picks the kernels' instantiation of a packed call (csrc
+    with_family): the clock, the geometry, the output clamp, and the
+    breadth terms (StoppedExt: the dense sigma, the reference, c_ys1)."""
+    ia, fa = packed.iargs, packed.fargs
+    return (ia[14], ia[15], ia[16 + 4 * _MAX_HIDDEN + 3],
+            *ia[_STOPPED_N_INTS:_STOPPED_N_INTS + 2],
+            fa[_STOPPED_N_FLOATS + 1] != 0.0)
+
+
 def _pack_stopped(problem, v_net, hfam, vfam, K, N, delta_t, tile, *,
                   backward, host_noise, adaptive_forward, rng,
                   time_stopping=False, lam=None, fwd_layout=None) -> _Packed:
-    """The stopped kernels' arguments (stopped_rollout.cu: StoppedArgs).
-    The state has d rows and the net d_in = d (+ 1 with time_stopping)
-    input rows; F and the hidden rows H count from d_in.  The torus family
-    always carries lambda in the packed net (``lam``, or 0 without it) and
-    its gradient entry.  The forward's ``layout`` is ``_stopped_fwd_layout``
-    (``fwd_layout`` where given)."""
+    """The stopped kernels' arguments (stopped_rollout.cu: StoppedArgs,
+    then StoppedExt: ints [sig_off, vref], floats [r_in, c_ys1, and the
+    committor's a^2, a^d, a^2 - c^(2-d) a^d]).  The state has d rows and
+    the net d_in = d (+ 1 with time_stopping) input rows; F and the hidden
+    rows H count from d_in.  The torus family always carries lambda in the
+    packed net (``lam``, or 0 without it) and its gradient entry; a diag or
+    full sigma is packed after the net as a (d, d) matrix.  The forward's
+    ``layout`` is ``_stopped_fwd_layout`` (``fwd_layout`` where given)."""
     d = problem.d
     geom = problem.geometry
     torus = hfam[0] == "torus_fp"
     if torus and lam is None:
         lam = torch.zeros(1, dtype=torch.float32, device=problem.X_0.device)
-    lay = _stopped_layout(v_net, lam if torus else None)
+    sig = problem.sigma_struct
+    full = sig.kind != "scalar"
+    lay = _stopped_layout(v_net, lam if torus else None,
+                          sig.mat if full else None)
     H = lay.F - v_net.d_in
-    per_path = _stopped_per_path(lay.F, H, d, backward)
+    per_path = _stopped_per_path(lay.F, H, d, backward, full)
     n_params = lay.buf.numel()
     fwd = ()
     if backward:
@@ -1305,12 +1361,14 @@ def _pack_stopped(problem, v_net, hfam, vfam, K, N, delta_t, tile, *,
             _stopped_fwd_net_floats(n_params, lay.widths, v_net.d_in),
             per_path, tile, fwd_layout)
         tile = fwd.tile
+    c_ys1 = 0.0
     if torus:
         c_y = c_yr2 = k_exp = k_t = 0.0
         phi, c_tor = "none", float(hfam[1])
     else:
-        _, c_y, c_yr2, k_exp, phi, k_t = hfam
+        _, c_y, c_yr2, k_exp, phi, k_t, c_ys1 = hfam
         c_tor = 0.0
+    two = geom.kind == "two_spheres"
     iargs = [K, N, d, len(lay.widths), lay.F, tile, int(stage), n_params,
              int(host_noise is not None), int(adaptive_forward),
              RNG_MAPS.index(rng), _PHI.index(phi), int(vfam is not None),
@@ -1319,14 +1377,26 @@ def _pack_stopped(problem, v_net, hfam, vfam, K, N, delta_t, tile, *,
               + _pad_hidden(lay.b_off) + _pad_hidden(lay.g_off))
     iargs += [lay.wL_off, lay.bL_off, lay.gL_off, int(v_net.output_relu),
               lay.lam_off, lay.g_lam]
+    # the ball's reference exp(a_vref |x|^2), or the committor's constants
+    vref, a_vref, vr = "exp_r2", 0.0, [0.0, 0.0, 0.0]
+    if vfam is not None and not torus:
+        vref = vfam[0]
+        if vref == "exp_r2":
+            a_vref = float(vfam[1])
+        else:
+            a, c, dv = (float(v) for v in vfam[1:])
+            vr = [a ** 2, a ** dv, a ** 2 - c ** (2 - dv) * a ** dv]
+    iargs += [lay.sig_off, _VREFS.index(vref)]
     dt, sq_dt = step_constants(delta_t)
-    fargs = [dt, sq_dt, problem.sigma_struct.scale,
-             float(geom.boundary_distance), float(c_y), float(c_yr2),
-             float(k_exp),
-             float(vfam[1]) if vfam is not None and not torus else 0.0,
+    fargs = [dt, sq_dt, 0.0 if full else sig.scale,
+             float(geom.boundary_distance_2 if two
+                   else geom.boundary_distance), float(c_y), float(c_yr2),
+             float(k_exp), a_vref,
              float(problem.T) if time_stopping else 0.0, float(k_t),
              float(geom.X_l) if torus else 0.0,
              float(geom.X_r) if torus else 0.0, c_tor]
+    fargs += [float(geom.boundary_distance_1) if two else 0.0,
+              float(c_ys1)] + vr
     return _Packed(lay.buf, iargs, fargs, layout=fwd)
 
 
@@ -1365,7 +1435,7 @@ class _StoppedCall(NamedTuple):
 
 
 # the forward's occupancy per (device, tile, tpp, shared bytes,
-# time_stopping, geometry, output clamp): asked of the library once
+# instantiation): asked of the library once
 _STOPPED_FWD_OCC: dict = {}
 
 
@@ -1376,8 +1446,10 @@ def _stopped_fwd_smem_bytes(packed: _Packed) -> int:
     d, L, F, tile, stage, n_params = ia[2], ia[3], ia[4], ia[5], ia[6], ia[7]
     d_in = d + ia[14]
     n_stage = _stopped_fwd_net_floats(n_params, ia[16:16 + L], d_in)
-    return _stopped_smem_bytes(n_stage if stage else 0,
-                               _stopped_per_path(F, F - d_in, d, False), tile)
+    return _stopped_smem_bytes(
+        n_stage if stage else 0,
+        _stopped_per_path(F, F - d_in, d, False, _stopped_full(packed)),
+        tile)
 
 
 def _stopped_fwd_occupancy(packed: _Packed, dev: torch.device) -> dict:
@@ -1390,8 +1462,8 @@ def _stopped_fwd_occupancy(packed: _Packed, dev: torch.device) -> dict:
     lay = _FwdLayout(*packed.layout)
     index = dev.index if dev.index is not None else \
         torch.cuda.current_device()
-    key = (index, lay.tile, lay.tpp, _stopped_fwd_smem_bytes(packed), ia[14],
-           ia[15], ia[16 + 4 * _MAX_HIDDEN + 3])
+    key = (index, lay.tile, lay.tpp, _stopped_fwd_smem_bytes(packed),
+           _stopped_instance(packed))
     if key not in _STOPPED_FWD_OCC:
         from ._build import library
         lib = library()
@@ -1464,39 +1536,46 @@ def _stopped_grads_from_row(v_net: DenseNet, lay: _StoppedLayout,
 
 
 # blocks of the backward the card holds at once, per (device, tile, shared
-# bytes, time_stopping, geometry, output clamp): asked of the library once
+# bytes, instantiation): asked of the library once
 _STOPPED_BWD_SLOTS: dict = {}
+
+
+def _stopped_bwd_per_path(packed: _Packed) -> int:
+    """The backward's per-path floats of one packed call."""
+    ia = packed.iargs
+    d, F = ia[2], ia[4]
+    return _stopped_per_path(F, F - d - ia[14], d, True,
+                             _stopped_full(packed))
 
 
 def _stopped_bwd_ts(packed: _Packed) -> int:
     """The backward's stride for one packed call (``_stopped_bwd_stride``
     of its tile, staged net and per-path floats)."""
     ia = packed.iargs
-    d, F, tile, stage, n_params = ia[2], ia[4], ia[5], ia[6], ia[7]
-    H = F - d - ia[14]
-    return _stopped_bwd_stride(n_params if stage else 0, 3 * F + 3 * H + 1,
-                               tile)
+    tile, stage, n_params = ia[5], ia[6], ia[7]
+    return _stopped_bwd_stride(n_params if stage else 0,
+                               _stopped_bwd_per_path(packed), tile)
 
 
 def _stopped_bwd_grid(packed: _Packed, dev: torch.device) -> int:
     """The backward's grid for one packed call on CUDA device ``dev``: on
-    the sphere ``_stopped_grid`` of the blocks its instantiation keeps
-    resident on the card (stopped_rollout.cu: pspde_stopped_bwd_slots,
-    asked once per device and instantiation, tile and shared memory), whose
-    lanes are refilled as paths exit; on the whole space and the torus,
-    where paths run their N steps and a refill gains nothing, one block per
-    tile paths (the block scheduler balances the SMs)."""
+    the sphere and the two spheres ``_stopped_grid`` of the blocks its
+    instantiation keeps resident on the card (stopped_rollout.cu:
+    pspde_stopped_bwd_slots, asked once per device and instantiation, tile
+    and shared memory), whose lanes are refilled as paths exit; on the
+    whole space and the torus, where paths run their N steps and a refill
+    gains nothing, one block per tile paths (the block scheduler balances
+    the SMs)."""
     ia = packed.iargs
-    K, d, F, tile, stage, n_params = ia[0], ia[2], ia[4], ia[5], ia[6], ia[7]
-    if _GEOMETRIES[ia[15]] != "sphere":
+    K, tile, stage, n_params = ia[0], ia[5], ia[6], ia[7]
+    if _GEOMETRIES[ia[15]] not in _EXITS:
         return -(-K // tile)
-    H = F - d - ia[14]
     ts = _stopped_bwd_ts(packed)
-    smem = _stopped_smem_bytes(n_params if stage else 0, 3 * F + 3 * H + 1,
-                               tile, True, ts)
+    smem = _stopped_smem_bytes(n_params if stage else 0,
+                               _stopped_bwd_per_path(packed), tile, True, ts)
     index = dev.index if dev.index is not None else \
         torch.cuda.current_device()
-    key = (index, tile, smem, ia[14], ia[15], ia[16 + 4 * _MAX_HIDDEN + 3])
+    key = (index, tile, smem, _stopped_instance(packed))
     if key not in _STOPPED_BWD_SLOTS:
         from ._build import library
         lib = library()
@@ -1591,9 +1670,11 @@ def _reference_stopped_backward(call: _StoppedCall, gY) -> list:
             # h is linear in y: dh/dy = h(x, 1)
             dh_dy = problem.h(X, torch.ones_like(V), Z)
         else:
-            _, c_y, c_yr2, k_exp, phi, k_t = hfam
+            _, c_y, c_yr2, k_exp, phi, k_t, c_ys1 = hfam
             r2 = torch.sum(X * X, dim=-1)
             dh_dy = c_y + c_yr2 * r2
+            if c_ys1 != 0.0:
+                dh_dy = dh_dy + c_ys1 * torch.sum(X, dim=-1) ** 2
             if phi != "none":
                 u = torch.exp(k_exp * r2 + k_t * t) - V * V
                 dh_dy = dh_dy - 2.0 * V * (1.0 if phi == "identity"

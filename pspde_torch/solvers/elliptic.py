@@ -5,7 +5,12 @@ One step per iteration: boundary and domain sampling, the stopped
 Euler-Maruyama rollout with Z = sigma^T grad V per step, the loss of the
 method (diffusion with or without ``variance_moment_split``, BSDE,
 BSDE-2/3/4, ``loss_with_stopped``, the Dirichlet or Neumann boundary
-loss), one Adam update, and the ``K_test_log`` test errors.  Two engines:
+loss), one Adam update, and the ``K_test_log`` test errors.  PINN
+(``losses/pinn.py``, pspde's ``_build_pinn_step``) takes no rollout: the
+squared (or, with ``PINN_log_variance``, the variance of the) generator's
+residual on the domain samples, with the Hessian contracted by B B^T
+under ``full_hessian``, and the Dirichlet boundary term.  The rollout's
+two engines:
 
   * 'scan': the plain autograd rollout (``rollout/sde.py:stopped_rollout``;
     second-order autograd through Z);
@@ -14,11 +19,12 @@ loss), one Adam update, and the ``K_test_log`` test errors.  Two engines:
     launch per step, for 'diffusion' and 'BSDE' with ``detach_forward``.
 
 Deviation from the JAX package, as in ``HJBSolver``: on a CUDA problem a
-failed 'fused_train' gate raises a ValueError naming the gate; on the CPU
-the kernels do not exist and 'fused_train' resolves to 'scan' with a
-warning, as JAX does off the TPU.  PINN, ``layout='dk'``, ``rng_impl``,
-``mesh``, ``steps_per_call`` other than one step per call, and save/load
-raise NotImplementedError naming their ROADMAP.md item.  ``lr`` is a
+failed 'fused_train' gate raises a ValueError naming the gate (PINN
+with 'fused_train' among them); on the CPU the kernels do not exist and
+'fused_train' resolves to 'scan' with a warning, as JAX does off the TPU.
+``layout='dk'``, ``rng_impl``, ``mesh``, ``steps_per_call`` other than
+one step per call, and save/load raise NotImplementedError naming their
+ROADMAP.md item.  ``lr`` is a
 number or a callable step -> lr (``utils/schedule.py``).
 
 ``GeneralSolver`` (``solvers/general.py``) is this class with a clock: the
@@ -36,6 +42,7 @@ import torch
 
 from ..ansatz import DenseNet
 from ..eval.test_error import compute_test_error
+from ..losses.pinn import elliptic_pinn_residual
 from ..rollout.kernels import (RNG_MAPS, _check_stopped_family,
                                fused_stopped_train_rollout)
 from ..rollout.sampling import inside_fn, sample_boundary, sample_domain
@@ -102,9 +109,6 @@ class EllipticSolver:
                 "solver.py:723-729); use approx_method='Y'"
                 % (approx_method,))
         who = type(self).__name__
-        if loss_method == "PINN":
-            raise _not_ported(who, "loss_method='PINN' (losses/pinn.py)",
-                              "Queue 1 item 7")
         if layout == "dk":
             raise _not_ported(who, "layout='dk', a TPU lane-layout lever,",
                               "'Do not port'")
@@ -323,11 +327,68 @@ class EllipticSolver:
         rhs = torch.sum(g * Xb, dim=-1)
         return torch.mean((lhs - rhs) ** 2)
 
+    def _domain_loss(self, resid):
+        """The PINN domain term: the residual's mean square, or its
+        unbiased variance with ``PINN_log_variance``."""
+        if self.PINN_log_variance:
+            return _unbiased_var(resid)
+        return torch.mean(resid ** 2)
+
+    def _finish_step(self, loss, aux) -> dict:
+        """Backward, Adam, the test errors and the logs of one step."""
+        loss.backward()
+        self._optimizer_step()
+        aux["loss"] = loss.detach()
+        if self.K_test_log is not None:
+            aux["test_L2"], aux["test_abs"], aux["test_rel_abs"] = \
+                self._test_errors()
+        self._record(aux)
+        self.iteration += 1
+        return aux
+
+    def _test_errors(self):
+        return compute_test_error(self.V, self.problem, self.K_test_log,
+                                  self._test_gen)
+
+    def _pinn_step(self, X=None, Xb=None) -> dict:
+        """One PINN step (pspde's ``_build_pinn_step``): the residual on K
+        domain samples ``X`` and the Dirichlet boundary term on
+        ``K_boundary`` boundary samples ``Xb`` (each drawn when None)."""
+        problem, geom = self.problem, self.problem.geometry
+        K, Kb, d = self.K, self.K_boundary, self.d
+        a0, a1 = self.alpha
+        dev = self.device
+        self.optimizer.zero_grad(set_to_none=True)
+        if X is None:
+            X = sample_domain(self._gen, geom, K, d,
+                              uniform_square=self.uniform_square)
+        dom = self._domain_loss(elliptic_pinn_residual(
+            problem, self.V, X, self.full_hessian))
+        loss = a0 * dom
+        bound_l = torch.zeros((), device=dev)
+        if self.boundary_loss and geom.bounded:
+            if Xb is None:
+                Xb = sample_boundary(self._gen, geom, Kb, d)
+            bound_l = torch.mean((self.V(Xb) - problem.g(Xb)) ** 2)
+            loss = loss + a1 * bound_l
+        with torch.no_grad():
+            # the diagnostic only where the problem carries an oracle
+            v_l2 = (torch.mean((self.V(X) - problem.v_ref(X)) ** 2)
+                    * self.delta_t if problem.has_v_ref
+                    else torch.full((), float("nan"), device=dev))
+        aux = {"boundary": bound_l.detach(), "domain": dom.detach(),
+               "V_L2": v_l2, "K_count": torch.full((), float(K), device=dev),
+               "all_stopped": torch.ones((), dtype=torch.bool, device=dev)}
+        return self._finish_step(loss, aux)
+
     def step(self, X0=None, Xb=None, host_noise=None) -> dict:
         """One training step (pspde's ``_build_step``): sampling, rollout,
-        loss, backward, Adam, test errors.  ``X0`` (K, d), ``Xb``
-        (K_boundary, d) and ``host_noise`` (N, K, d) replace the solver's
-        own draws.  Appends to the logs and returns the metrics."""
+        loss, backward, Adam, test errors; with PINN ``_pinn_step`` on the
+        domain samples ``X0``.  ``X0`` (K, d), ``Xb`` (K_boundary, d) and
+        ``host_noise`` (N, K, d) replace the solver's own draws.  Appends
+        to the logs and returns the metrics."""
+        if self.loss_method == "PINN":
+            return self._pinn_step(X0, Xb)
         problem, geom, lm = self.problem, self.problem.geometry, \
             self.loss_method
         K, Kb, d = self.K, self.K_boundary, self.d
@@ -366,20 +427,12 @@ class EllipticSolver:
         if self.loss_with_stopped:
             loss = loss + masked_mean((problem.g(out.X) - out.Y) ** 2,
                                       out.stopped)
-        loss.backward()
-        self._optimizer_step()
-        aux = {"loss": loss.detach(), "boundary": bound_l.detach(),
+        aux = {"boundary": bound_l.detach(),
                "domain": (loss - a1 * bound_l).detach(),
                "V_L2": torch.mean(out.v_l2.detach()),
                "K_count": out.active_count.detach(),
                "all_stopped": torch.all(out.stopped)}
-        if self.K_test_log is not None:
-            aux["test_L2"], aux["test_abs"], aux["test_rel_abs"] = \
-                compute_test_error(self.V, problem, self.K_test_log,
-                                   self._test_gen)
-        self._record(aux)
-        self.iteration += 1
-        return aux
+        return self._finish_step(loss, aux)
 
     def _record(self, aux):
         """Append one iteration's metrics to the reference-name logs (one

@@ -6,9 +6,13 @@ points are uniform in space and t0 ~ U(0, T), a path stops on leaving the
 domain or when its clock cannot advance (t + dt > T), and the loss adds the
 terminal condition (V(x, T) - f(x))^2 on the first ``K_boundary`` domain
 points beside the spatial boundary loss (Dirichlet or Neumann) on bounded
-geometries.  The two engines are ``EllipticSolver``'s, with
-``time_stopping``: the 'scan' (``rollout/sde.py:stopped_rollout``, every
-``loss_method`` but PINN, and ``solve_linear_L2_projection``) and
+geometries.  PINN (pspde's ``_build_pinn_step``) takes the parabolic
+residual (``losses/pinn.py``) on the domain samples at t ~ U(0, T), the
+terminal term on the first ``K_boundary`` of them and the spatial
+boundary term; V_L2 reads 0 there, as in pspde.  The rollout's two
+engines are ``EllipticSolver``'s, with ``time_stopping``: the 'scan'
+(``rollout/sde.py:stopped_rollout``, and ``solve_linear_L2_projection``)
+and
 'fused_train' (the ``time_stopping`` branch of the stopped kernels, for
 'diffusion' and 'BSDE' with ``detach_forward``).  The gates, the engine
 resolution, the rollout call, the logs and ``train`` are
@@ -23,6 +27,7 @@ import numpy as np
 import torch
 
 from ..eval.test_error import compute_test_error
+from ..losses.pinn import parabolic_pinn_residual
 from ..rollout.sampling import sample_boundary, sample_domain
 from .elliptic import EllipticSolver, masked_mean
 
@@ -119,21 +124,68 @@ class GeneralSolver(EllipticSolver):
         rhs = torch.sum(g * Xb, dim=-1)
         return torch.mean((lhs - rhs) ** 2)
 
+    def _test_errors(self):
+        return compute_test_error(lambda XT: self.V_net(XT)[:, 0],
+                                  self.problem, self.K_test_log,
+                                  self._test_gen, modus="parabolic")
+
+    def _uniform_t(self, n):
+        return torch.rand((n,), generator=self._gen,
+                          device=self.device) * self.T
+
+    def _pinn_step(self, X=None, t=None, Xb=None, tb=None) -> dict:
+        """One PINN step (pspde's ``_build_pinn_step``): the residual at K
+        domain samples ``X`` and times ``t``, the terminal term on
+        ``X[:K_boundary]`` and, on bounded geometries, the spatial boundary
+        term at ``Xb``, ``tb`` (each drawn when None)."""
+        problem, geom = self.problem, self.problem.geometry
+        K, Kb, d, T = self.K, self.K_boundary, self.d, self.T
+        a0, a1, a2 = self.alpha
+        dev = self.device
+        self.optimizer.zero_grad(set_to_none=True)
+        if X is None:
+            X = sample_domain(self._gen, geom, K, d,
+                              uniform_square=self.uniform_square)
+        if t is None:
+            t = self._uniform_t(K)
+        dom = self._domain_loss(parabolic_pinn_residual(
+            problem, lambda XT: self.V_net(XT)[:, 0], X, t,
+            self.full_hessian))
+        loss = a0 * dom
+        bound_l = torch.zeros((), device=dev)
+        if self.boundary_loss:
+            tT = torch.full((Kb,), T, device=dev)
+            loss = loss + a1 * torch.mean(
+                (self.V(X[:Kb], tT) - problem.f_terminal(X[:Kb])) ** 2)
+            if geom.bounded:
+                if Xb is None:
+                    Xb = sample_boundary(self._gen, geom, Kb, d)
+                if tb is None:
+                    tb = self._uniform_t(Kb)
+                bound_l = self._spatial_boundary_loss(Xb, tb)
+                loss = loss + a2 * bound_l
+        aux = {"boundary": bound_l.detach(), "domain": dom.detach(),
+               "V_L2": torch.zeros((), device=dev),
+               "K_count": torch.full((), float(K), device=dev),
+               "all_stopped": torch.ones((), dtype=torch.bool, device=dev)}
+        return self._finish_step(loss, aux)
+
     def step(self, X0=None, t0=None, Xb=None, tb=None,
              host_noise=None) -> dict:
         """One training step (pspde's ``_build_step``): sampling, rollout,
-        loss, backward, Adam, test errors.  ``X0`` (K, d), ``t0`` (K,),
-        ``Xb`` (K_boundary, d), ``tb`` (K_boundary,) and ``host_noise``
-        (N, K, d) replace the solver's own draws.  Appends to the logs and
-        returns the metrics."""
+        loss, backward, Adam, test errors; with PINN ``_pinn_step`` at
+        ``X0``, ``t0``.  ``X0`` (K, d), ``t0`` (K,), ``Xb`` (K_boundary,
+        d), ``tb`` (K_boundary,) and ``host_noise`` (N, K, d) replace the
+        solver's own draws.  Appends to the logs and returns the
+        metrics."""
+        if self.loss_method == "PINN":
+            return self._pinn_step(X0, t0, Xb, tb)
         problem, geom, lm = self.problem, self.problem.geometry, \
             self.loss_method
         K, Kb, d, T = self.K, self.K_boundary, self.d, self.T
         a0, a1, a2 = self.alpha
         dev = self.device
-
-        def uniform_t(n):
-            return torch.rand((n,), generator=self._gen, device=dev) * T
+        uniform_t = self._uniform_t
 
         self.optimizer.zero_grad(set_to_none=True)
         loss = torch.zeros((), device=dev)
@@ -187,18 +239,9 @@ class GeneralSolver(EllipticSolver):
         if self.loss_with_stopped:
             loss = loss + masked_mean(
                 (out.Y - problem.f_terminal(out.X)) ** 2, out.stopped)
-        loss.backward()
-        self._optimizer_step()
-        aux = {"loss": loss.detach(), "boundary": bound_l.detach(),
+        aux = {"boundary": bound_l.detach(),
                "domain": (loss - a2 * bound_l).detach(),
                "V_L2": torch.mean(out.v_l2.detach()),
                "K_count": out.active_count.detach(),
                "all_stopped": torch.all(out.stopped)}
-        if self.K_test_log is not None:
-            aux["test_L2"], aux["test_abs"], aux["test_rel_abs"] = \
-                compute_test_error(lambda XT: self.V_net(XT)[:, 0], problem,
-                                   self.K_test_log, self._test_gen,
-                                   modus="parabolic")
-        self._record(aux)
-        self.iteration += 1
-        return aux
+        return self._finish_step(loss, aux)

@@ -333,17 +333,18 @@ def test_pack_stopped_torus(backward, with_lam):
                               backward=backward, host_noise=None,
                               adaptive_forward=False, rng="erfinv", lam=lam)
     ia, fa = packed.iargs, packed.fargs
-    assert len(ia) == 16 + 4 * tk._MAX_HIDDEN + 6 and len(fa) == 13
+    # StoppedArgs' ints and floats, then StoppedExt's 2 and 5
+    assert len(ia) == 16 + 4 * tk._MAX_HIDDEN + 6 + 2 and len(fa) == 13 + 5
     assert (ia[5], ia[6]) == ((64, 1) if backward else (4, 1))
     assert (ia[11], ia[12], ia[14], ia[15]) == (0, 1, 0, 2)
-    relu, lam_off, g_lam = ia[-3:]
+    relu, lam_off, g_lam = ia[-5:-2]
     lay = tk._stopped_layout(net, torch.zeros(1))
     n_net = sum(p.numel() for p in net.parameters())
     assert relu == 1 and (lam_off, g_lam) == (lay.lam_off, lay.g_lam)
     assert lam_off == lay.bL_off + 4 and ia[13] == n_net + 1 == g_lam + 1
     assert float(packed.params[lam_off]) == (0.25 if with_lam else 0.0)
     assert packed.params.numel() == lam_off + 4
-    assert fa[10:] == [0.0, float(2.0 * np.pi), float(np.float32(0.1))]
+    assert fa[10:13] == [0.0, float(2.0 * np.pi), float(np.float32(0.1))]
     # the gradient row: the net's leaves, then lambda's entry
     row = torch.arange(ia[13], dtype=torch.float32)
     grads = tk._stopped_grads_from_row(net, lay, row)

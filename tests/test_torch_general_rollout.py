@@ -366,13 +366,14 @@ def test_pack_stopped_time_stopping(d, arch, case, backward, smem):
     net = DenseNet(1, arch, d_in=d + 1, device="cpu",
                    generator=torch.Generator().manual_seed(0))
     fam = tk._check_stopped_family(pt, net, "erfinv", time_stopping=True)
-    assert len(fam[0]) == 6 and fam[1] is None
+    assert len(fam[0]) == 7 and fam[1] is None
     packed = tk._pack_stopped(pt, net, *fam, 4096, 20, 1e-3, None,
                               backward=backward, host_noise=None,
                               adaptive_forward=False, rng="erfinv",
                               time_stopping=True)
     ia, fa = packed.iargs, packed.fargs
-    assert len(ia) == 16 + 4 * tk._MAX_HIDDEN + 6 and len(fa) == 13
+    # StoppedArgs' ints and floats, then StoppedExt's 2 and 5
+    assert len(ia) == 16 + 4 * tk._MAX_HIDDEN + 6 + 2 and len(fa) == 13 + 5
     lay = tk._stopped_layout(net)
     F, H = d + 1 + sum(arch), sum(arch)
     assert (ia[2], ia[4], ia[14]) == (d, F, 1)

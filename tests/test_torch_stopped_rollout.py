@@ -409,8 +409,12 @@ class _SquareSin(tp.ExponentialOnBallNonlinearSin):
 
 
 class _DiagSigma(tp.ExponentialOnSphere):
+    """A diag sigma with a horizon: the kernels take a dense sigma only
+    without time_stopping."""
+
     def __init__(self, d):
         super().__init__(d=d, device="cpu")
+        self.T = 1.0
         self._sigma = tp.DiffusionMatrix(np.diag(np.arange(1.0, d + 1)),
                                          device="cpu")
 
@@ -427,7 +431,7 @@ def test_stopped_family_errors():
     t0 = torch.zeros(K)
     cases = [
         (dict(problem=_SquareSin(D)), "geometry"),
-        (dict(problem=_DiagSigma(D)), "not scalar"),
+        (dict(problem=_DiagSigma(D), time_stopping=True), "not scalar"),
         (dict(problem=_YZ(d=D, device="cpu")), "h of"),
         (dict(v_net=TanhMLP(D, 1, device="cpu")), "not a DenseNet"),
         (dict(v_net=DenseNet(2, (4,), output_relu=True, d_in=D,
@@ -479,8 +483,11 @@ def test_pack_stopped_layout(arch, backward, tile, stage):
                               backward=backward, host_noise=None,
                               adaptive_forward=False, rng="erfinv")
     ia = packed.iargs
-    assert len(ia) == 16 + 4 * tk._MAX_HIDDEN + 6 and len(packed.fargs) == 13
+    # StoppedArgs' 38 ints and 13 floats, then StoppedExt's 2 and 5
+    assert len(ia) == 16 + 4 * tk._MAX_HIDDEN + 6 + 2
+    assert len(packed.fargs) == 13 + 5
     assert ia[14:16] == [0, 0]    # no clock, the sphere
+    assert ia[-2:] == [-1, 0]     # no dense sigma, the exp reference
     assert (ia[5], ia[6]) == (tile, int(stage))
     lay = tk._stopped_layout(net)
     assert lay.F == d + sum(arch) and ia[4] == lay.F
