@@ -10,9 +10,11 @@ control is learned.  This script
      four (both plans, with and without the double well's drift),
      the HJB forward's and backward's two instantiations each, of the
      ablation ladder's net and full stages on both plans and of the
-     stopped backward's ten in the library's SASS (none fails), and prints
+     stopped backward's twenty (twelve families on the shared plan, eight
+     on the device plan) in the library's SASS (none fails), and prints
      the registers and spill bytes of the serve kernel's, the HJB
-     forward's and the stopped forward's (ten) instantiations from ptxas
+     forward's and the stopped forward's (twelve) instantiations from
+     ptxas
      (a spill fails);
   2. compares the serve kernel with its plain PyTorch version on host
      noise, on LLGC d=100 with the exported control and on LQGC d=100
@@ -103,7 +105,8 @@ control is learned.  This script
      at K=65536 (one forward and one backward launch per step and no call
      of a plain version), times the step against the scan engine's and
      both kernels against their plain versions, and profiles three steps;
-     on the card a problem outside the kernels' family (AllenCahn) raises;
+     on the card a value net outside the kernels' family (a TanhMLP)
+     raises;
  18. trains that recipe at K=8192, lr 1e-3, K_test_log=4096 for 2000 steps:
      tail-50 test L2 <= 0.12;
  19. takes a few steps of BASELINE config 2 at full width under its cosine
@@ -173,6 +176,28 @@ control is learned.  This script
      gate); each tail-50 test L2 within 3x JAX's at the same recipe and
      step count, and below the leg's first test L2 by at least half of
      JAX's own fall; each step profiled.
+ 30. compares the cubic family of the stopped kernels (h = y - y^3 with the
+     clock: AllenCahn(d=100, T=0.3) on the notebook's sampling ball of
+     radius 7, DenseNet (110, 110, 50) on [x, t], the <kTimed, kBreadth>
+     instantiations) with its plain version at K=8192, N=25, dt 1e-3, the
+     backward on its device plan (the notebook net's 1,924 floats a path
+     fit no block): adaptive or not, erfinv, binom and host noise, with
+     and without the output clamp; as phase 16 with no path at another
+     exit step, and prints the forward's layout and stage and the
+     backward's plan and workspace bytes;
+ 31. forces the backward's device plan on the older families where both
+     plans fit (elliptic d=50, gen50, heat, the torus; adaptive or not) and
+     holds its gradient rows and block counts bitwise equal to the shared
+     plan's on the same grid; the committor's device plan raises;
+ 32. times the Allen-Cahn pair at K=65536 and the device plan forced at the
+     elliptic cell beside the shared plan (CUDA events, the profiler's
+     device time), trains the notebook's diffusion leg (alpha0 = 10, K=200,
+     K_boundary=50, lr 1e-3, uniform_square, loss_with_stopped=False) for
+     2000 steps through 'fused_train' from JAX's initial net (every
+     backward on the device plan, no plain call): v(0, 0) within JAX's band
+     (experiments/allen_cahn_reference.py, three sampling seeds), the
+     tail-50 loss within 3x JAX's and v(0, 0) moved at least half as far as
+     JAX's; profiles three steps and times 20 steps of the BSDE leg (N=300).
 
 Any failure exits nonzero.  The last line is one JSON object naming the
 device.  Run from the repository root:
@@ -304,6 +329,25 @@ BR_FIRST_JAX = {"committor_diffusion": 0.9987972378730774,
                 "hessian_diffusion": 6.223019599914551,
                 "committor_pinn": 0.9987964630126953,
                 "hessian_pinn": 6.236863136291504}
+# the Allen-Cahn slice: the notebook's diffusion leg (experiments/
+# allen_cahn.py: AllenCahn(d=100, T=0.3) sampled on the ball of radius 7
+# with uniform_square, DenseNet (110, 110, 50) on [x, t], N=25, dt 1e-3,
+# K=200, K_boundary=50, lr 1e-3, alpha (10, 1, 1), loss_with_stopped=False),
+# checked at K_AC_CHECK, timed at K_AC_BENCH, the leg cut to L_AC of its 60k
+# steps; the BSDE leg (N=300, alpha (1, 1, 1)) timed for L_AC_BSDE steps
+D_AC, T_AC, R_AC, N_AC, DT_AC = 100, 0.3, 7.0, 25, 1e-3
+NET_AC = (110, 110, 50)
+K_AC_CHECK, K_AC_BENCH, K_AC, KB_AC, L_AC = 8192, 65536, 200, 50, 2000
+N_AC_BSDE, L_AC_BSDE = 300, 20
+# the JAX package's runs of that leg from the same initial net (seed 42;
+# sampling seeds 42, 43, 44; CPU; experiments/allen_cahn_reference.py):
+# v(0, 0) after L_AC steps, its initial value and the mean of the last 50
+# losses over the three runs; the literature's v(0, 0), which the notebook
+# nears only after ~60k steps, is printed beside the result
+AC_V00_JAX = (0.14785002171993256, 0.18548327684402466, 0.1701224446296692)
+AC_V00_INIT_JAX = 0.0
+AC_TAIL_JAX = 0.03553759202361107
+AC_V00_LITERATURE = 0.052802
 # |log IS mean + v_ref(X_0, 0)| of the eta=1, kappa=1 recipe at dt 0.01:
 # the JAX package reads 0.0116-0.0119 at K=2^18 over three keys, and the
 # FD table's own control 0.0119, the Euler chain's bias against the FD
@@ -852,7 +896,7 @@ def main():
           f"{serve_hmma}; the HJB forward's: {fwd_hmma}; "
           f"the backward's: {train_hmma}; the ladder's stages (stage, "
           f"s/d plan): {dict(sorted(ladder_hmma.items()))}; the stopped "
-          f"backward's ten instantiations: {stopped_hmma}")
+          f"backward's twenty instantiations: {stopped_hmma}")
     check(len(train_hmma) == 2 and all(train_hmma.values()),
           "both plans of the HJB backward run TF32 mma")
     check(len(fwd_hmma) == 2 and all(fwd_hmma.values()),
@@ -864,7 +908,7 @@ def main():
           and all(ladder_hmma[f"{st}{p}"] for st in range(2, 7)
                   for p in "sd"),
           "the ladder's net and full stages run TF32 mma on both plans")
-    check(len(stopped_hmma) == 10 and all(stopped_hmma),
+    check(len(stopped_hmma) == 20 and all(stopped_hmma),
           "every instantiation of the stopped backward runs TF32 mma")
     for kernel, what, keys, n in (
             ("controlled_rollout_kernel", "the serve kernel", serve_keys, 4),
@@ -875,9 +919,11 @@ def main():
         check(len(use) == n and all(u[1] == u[2] == 0 for u in use.values()),
               f"{what}'s instantiations spill no registers")
     stopped_use = ptxas_usage(info["log"], "stopped_fwd_kernel")
-    print(f"  ptxas, the stopped forward's ten instantiations (registers, "
-          f"spill store and load bytes): {sorted(stopped_use.values())}")
-    check(len(stopped_use) == 10
+    print(f"  ptxas, the stopped forward's twelve instantiations "
+          f"(registers, spill store and load bytes): "
+          f"{sorted(stopped_use.values())}; the backward's twenty: "
+          f"{sorted(ptxas_usage(info['log'], 'stopped_bwd_kernel').values())}")
+    check(len(stopped_use) == 12
           and all(u[1] == u[2] == 0 for u in stopped_use.values()),
           "the stopped forward's instantiations spill no registers")
 
@@ -1002,12 +1048,13 @@ def main():
     eigen_rows = eigen_phases(dev, smi)
     dw_rows = double_well_phases(dev, smi)
     breadth_rows = breadth_phases(dev, smi)
+    ac_rows = allen_cahn_phases(dev, smi)
 
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [serve_row] + train_rows + stopped_rows
                       + roofline_rows + wide_rows + general_rows
-                      + eigen_rows + dw_rows + breadth_rows}))
+                      + eigen_rows + dw_rows + breadth_rows + ac_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -1219,7 +1266,8 @@ def profile_steps(what, step, n=3):
               f"{key[:90]}")
 
 
-def stopped_flops(v_net, d, adaptive, torus=False, full=False):
+def stopped_flops(v_net, d, adaptive, torus=False, full=False,
+                  cubic=False):
     """FP32 operations of one advancing path-step of the stopped kernels,
     counted from their code (csrc/stopped_rollout.cu): (V only, forward,
     backward).  The net reads ``v_net.d_in`` inputs (d, or d + 1 with
@@ -1234,7 +1282,10 @@ def stopped_flops(v_net, d, adaptive, torus=False, full=False):
     -cos(s) (7) and v_ref (6) to the forward, dh/dy + lambda and the lambda
     gradient (6) to the backward.  A dense sigma (``full``) adds its d x d
     products, 2 d^2 each: Z and sigma xi to both kernels, sigma c to both
-    when adaptive (and Z's to the backward), and w to the backward."""
+    when adaptive (and Z's to the backward), and w to the backward.  The
+    cubic (``cubic``: h's c_y3 y^3) adds 4 to the forward (y y y, the
+    coefficient and the sum) and 4 to the backward's dh/dy (3 c_y3 y y and
+    the sum)."""
     widths, d_in = list(v_net.arch), v_net.d_in
     ins = [d_in + sum(widths[:l]) for l in range(len(widths))]
     F = d_in + sum(widths)
@@ -1251,6 +1302,9 @@ def stopped_flops(v_net, d, adaptive, torus=False, full=False):
     if full:
         fwd += 2 * d * d * (3 if adaptive else 2)
         bwd += 2 * d * d * (4 if adaptive else 2)
+    if cubic:
+        fwd += 4
+        bwd += 4
     return v, fwd, bwd
 
 
@@ -2305,8 +2359,8 @@ def general_phases(dev, smi):
     config 2.  Returns the kernels' JSON rows."""
     import numpy as np
     from pspde_torch.ansatz import DenseNet
-    from pspde_torch.problems import (AllenCahn,
-                                      ExponentialOnSphereNonlinearParabolic,
+    from pspde_torch.ansatz import TanhMLP
+    from pspde_torch.problems import (ExponentialOnSphereNonlinearParabolic,
                                       Geometry, HeatEquation)
     from pspde_torch.rollout import kernels as km
     from pspde_torch.rollout.sampling import sample_domain
@@ -2373,13 +2427,15 @@ def general_phases(dev, smi):
           f"engine {main.resolved_rollout_mode}, net {main.V_net.d_in} -> "
           f"{main.V_net.arch}")
     try:
-        GeneralSolver(AllenCahn(d=D_GEN, device=dev), "ac", K=64,
-                      rollout_mode="fused_train", verbose=False, device=dev)
+        GeneralSolver(ball, "tanh", K=64, rollout_mode="fused_train",
+                      value_net=TanhMLP(D_GEN + 1, 1, device=dev),
+                      verbose=False, device=dev)
         raised = ""
     except ValueError as e:
         raised = str(e)
-    check("STOPPED_KERNEL_FAMILY" in raised, "AllenCahn on fused_train "
-          f"raises a ValueError naming the family (got {raised[:80]!r})")
+    check("STOPPED_KERNEL_FAMILY" in raised, "a TanhMLP value net on "
+          "fused_train raises a ValueError naming the family (got "
+          f"{raised[:80]!r})")
     # count the plain versions' calls during the main path: none may run
     reset_counts(km.fused_stopped_train_rollout, "launches",
                  "backward_launches")
@@ -3289,6 +3345,497 @@ def breadth_phases(dev, smi):
                  ms=r["backward"][0], device_ms=r["backward"][2],
                  plain_ms=r["backward"][1], **b_bwd)]
     return rows
+
+
+def allen_cahn_phases(dev, smi):
+    """Phases 30-32: the cubic family of the stopped kernels (h = y - y^3
+    with the clock, AllenCahn's) and the backward's device plan against
+    their plain versions at the notebook's width, the device plan forced
+    against the shared plan on the older families (bitwise), the times at
+    K=65536, and the notebook's diffusion leg through 'fused_train' from
+    JAX's initial net against JAX's runs; 20 steps of the BSDE leg.
+    Returns the kernels' JSON rows."""
+    import numpy as np
+    from pspde_torch.ansatz import DenseNet
+    from pspde_torch.problems import (AllenCahn, ExponentialOnBallNonlinearSin,
+                                      ExponentialOnSphereNonlinearParabolic,
+                                      FokkerPlanckEigen, Geometry,
+                                      HeatEquation)
+    from pspde_torch.rollout import kernels as km
+    from pspde_torch.rollout.sampling import sample_domain
+    from pspde_torch.solvers import GeneralSolver
+    from pspde_torch.utils.convert import (dense_net_from_flax,
+                                           load_control_npz)
+
+    t_phases = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(root, "experiments"))
+    from torch_kernel_times import device_ms
+    gen = torch.Generator(device=dev).manual_seed(30)
+    ac = AllenCahn(d=D_AC, T=T_AC, device=dev)
+    # the notebook's sampling ball (experiments/allen_cahn.py)
+    ac.geometry = Geometry(kind="unbounded", boundary_distance=R_AC)
+
+    def ac_net(seed, relu=False):
+        # weight scale 0.05 keeps V within O(1) on the radius-7 ball, as the
+        # notebook's V is; at the default 0.1 V reaches O(5) there, and V^3
+        # in h with the adaptive drift carries Y and X past float32's range
+        # in the plain version and the kernels alike
+        return DenseNet(1, NET_AC, d_in=D_AC + 1, output_relu=relu,
+                        weight_scale=0.05, device=dev,
+                        generator=torch.Generator(dev).manual_seed(seed))
+
+    def starts(prob, K, d, square=False):
+        X0 = sample_domain(gen, prob.geometry, K, d, uniform_square=square)
+        T = prob.T if prob.T is not None else 0.0
+        return X0, torch.rand(K, generator=gen, device=dev) * T
+
+    def ac_call(net, K, N):
+        X0, t0 = starts(ac, K, D_AC, True)
+        return km._StoppedCall(
+            ac, net, X0, t0, N, DT_AC, 17,
+            km._check_stopped_family(ac, net, "erfinv", time_stopping=True),
+            dict(adaptive_forward=False, rng="erfinv", host_noise=None,
+                 time_stopping=True), None)
+
+    # -- phase 30: the cubic family and the device plan vs plain ------------
+    t30 = time.perf_counter()
+    Kc = K_AC_CHECK
+    print(f"phase 30: the cubic family (h = y - y^3, the clock) vs plain, "
+          f"AllenCahn(d={D_AC}, T={T_AC}) on the ball of radius {R_AC}, "
+          f"DenseNet {NET_AC} on [x, t], K={Kc}, N={N_AC}, dt {DT_AC}: the "
+          f"backward on its device plan; outputs rel {REL_TOL:g} and equal "
+          f"clocks and exit steps on all paths, gradients {GRAD_TOL:g} and "
+          f"the backward on plain cotangents {BWD_REL_TOL:g} x max|plain|, "
+          "two launches bitwise equal, the forward bitwise across its "
+          "layouts")
+    probe = ac_call(ac_net(1), Kc, N_AC)
+    fwd_packed, bwd_packed = probe.pack(False), probe.pack(True)
+    bwd_grid = km._stopped_bwd_grid(bwd_packed, dev)
+    ts = km._stopped_bwd_ts(bwd_packed, bwd_grid)
+    per_path = km._stopped_bwd_per_path(bwd_packed)
+    lay = km._FwdLayout(*fwd_packed.layout)
+    print(f"  forward: {lay.tile} lanes x {lay.tpp} threads, "
+          f"{'refilled' if lay.refill else 'one block a tile'}, net "
+          f"{'staged' if fwd_packed.iargs[6] else 'read from device memory'}"
+          f" (stage {fwd_packed.iargs[6]}); backward: plan "
+          f"{bwd_packed.layout[0]}, tile {bwd_packed.iargs[5]}, {bwd_grid} "
+          f"blocks, {per_path} floats a path at stride {ts}: a workspace of "
+          f"{4 * per_path * ts} bytes, net "
+          f"{'staged' if bwd_packed.iargs[6] else 'from device memory'}, "
+          f"{km._stopped_bwd_smem(bwd_packed, ts)} shared bytes a block")
+    check(bwd_packed.layout[0] == "device",
+          "the notebook net's backward takes the device plan")
+    worst = {"out": 0.0, "grad": 0.0, "bwd": 0.0}
+    X0, t0 = starts(ac, Kc, D_AC, True)
+    noise = torch.randn((N_AC, Kc, D_AC), generator=gen, device=dev)
+    for relu, adaptive, cases in (
+            (False, False, ("erfinv", "binom", "host noise")),
+            (False, True, ("erfinv",)),
+            (True, False, ("erfinv",)),
+            (True, True, ("binom",))):
+        net = ac_net(1 + 2 * relu + adaptive, relu)
+        for what in cases:
+            kw = (dict(host_noise=noise) if what == "host noise"
+                  else dict(seed=4321, rng=what))
+            compare_stopped(
+                f"[allen_cahn{', adaptive' if adaptive else ''}"
+                f"{', clamp' if relu else ''}, {what}]", ac, net, X0, t0,
+                N_AC, DT_AC, dict(kw, adaptive_forward=adaptive), worst,
+                0.0, time_stopping=True)
+    del noise
+    # the net the main path trains from, JAX's seed-42 initial net, on the
+    # main path's drift; with the adaptive drift its V carries the plain
+    # version itself past float32 on a few paths (printed, not checked)
+    tree, _ = load_control_npz(os.path.join(root, "pspde_torch", "assets",
+                                            "allen_cahn_d100_densenet.npz"))
+    jax_net = dense_net_from_flax(tree, device=dev)
+    compare_stopped("[allen_cahn, JAX's initial net, erfinv]", ac, jax_net,
+                    X0, t0, N_AC, DT_AC, dict(seed=4321, rng="erfinv"),
+                    worst, 0.0, time_stopping=True)
+    wild = km.reference_stopped_train_rollout(
+        ac, jax_net, X0, t0, N_AC, DT_AC, seed=4321, adaptive_forward=True,
+        time_stopping=True)
+    Y = wild.Y.detach()
+    with torch.no_grad():
+        v0 = jax_net(torch.cat([X0, t0[:, None]], dim=-1))[:, 0]
+    print(f"  JAX's initial net with the adaptive drift, the plain version: "
+          f"V(X0, t0) in [{float(v0.min()):.2f}, {float(v0.max()):.2f}], Y "
+          f"non-finite on {int((~torch.isfinite(Y)).sum())} of {Kc} paths, "
+          f"|Y| up to {float(Y[torch.isfinite(Y)].abs().max()):.3e} on the "
+          "others (not compared)")
+    del wild, Y
+    print(f"  phase 30 took {time.perf_counter() - t30:.1f} s")
+
+    # -- phase 31: the device plan against the shared plan -------------------
+    t31 = time.perf_counter()
+    print("phase 31: the backward's device plan, forced, against the shared "
+          "plan on the older families at widths where both fit (the same "
+          "grid): bitwise equal gradient rows and block counts")
+    ball = ExponentialOnBallNonlinearSin(d=D_ELL, alpha=ALPHA_ELL,
+                                         device=dev)
+    gen50 = ExponentialOnSphereNonlinearParabolic(d=D_GEN, device=dev)
+    heat = HeatEquation(d=D_HEAT, T=T_HEAT, device=dev)
+    heat.geometry = Geometry(kind="unbounded", boundary_distance=R_HEAT)
+    torus = FokkerPlanckEigen(d=D_EIG, device=dev)
+    fams = {  # problem, d_in, K, N, dt, time_stopping, lambda, clamp
+        "elliptic": (ball, D_ELL, K_ELL_CHECK, N_ELL, DT_ELL, False, None,
+                     False),
+        "gen50": (gen50, D_GEN + 1, K_ELL_CHECK, N_GEN, DT_GEN, True, None,
+                  False),
+        "heat": (heat, D_HEAT + 1, K_HEAT, N_HEAT, DT_HEAT, True, None,
+                 True),
+        "torus": (torus, D_EIG, K_EIG_CHECK, N_EIG, DT_EIG, False,
+                  torch.full((1,), LAM_EIG, device=dev), True),
+    }
+    plan_err = 0.0
+    for tag, (prob, d_in, K, N, dt, clock, lam, relu) in fams.items():
+        for adaptive in (False, True):
+            net = DenseNet(1, (30, 30), d_in=d_in, output_relu=relu,
+                           device=dev, generator=torch.Generator(
+                               dev).manual_seed(31 + adaptive))
+            X0, t0 = starts(prob, K, prob.d)
+            if not clock:
+                t0 = torch.zeros_like(t0)
+            call = km._StoppedCall(
+                prob, net, X0, t0, N, dt, 4321,
+                km._check_stopped_family(prob, net, "erfinv", clock, lam),
+                dict(adaptive_forward=adaptive, rng="erfinv",
+                     host_noise=None, time_stopping=clock), None, lam)
+            gY = torch.randn(K, generator=gen, device=dev) / K
+            shared = call.pack(backward=True)
+            check(shared.layout[0] == "shared", f"{tag}: the shared plan")
+            grid = km._stopped_bwd_grid(shared, dev)
+            rows_s = km._stopped_backward_rows(call, gY, grid)
+            forced = call._replace(plan="device")
+            rows_d = km._stopped_backward_rows(forced, gY, grid)
+            again = km._stopped_backward_rows(forced, gY, grid)
+            torch.cuda.synchronize()
+            err = float((rows_s[0] - rows_d[0]).abs().max())
+            plan_err = max(plan_err, err)
+            print(f"  [{tag}{', adaptive' if adaptive else ''}] K={K}, "
+                  f"N={N}, {grid} blocks: device - shared max |row| "
+                  f"{err:.3e}; block counts equal "
+                  f"{torch.equal(rows_s[1], rows_d[1])}")
+            check(torch.equal(rows_s[0], rows_d[0])
+                  and torch.equal(rows_s[1], rows_d[1]),
+                  f"{tag}: the device plan's gradient rows and block counts "
+                  "equal the shared plan's bitwise")
+            check(all(torch.equal(a, b) for a, b in zip(rows_d, again)),
+                  f"{tag}: two launches of the device plan differ")
+    from pspde_torch.problems import Committor
+    com = Committor(d=D_COM, device=dev)
+    cnet = DenseNet(1, (30, 30), d_in=D_COM, device=dev)
+    try:
+        km._StoppedCall(
+            com, cnet, torch.zeros((64, D_COM), device=dev),
+            torch.zeros(64, device=dev), N_COM, DT_BR, 0,
+            km._check_stopped_family(com, cnet, "erfinv"),
+            dict(adaptive_forward=False, rng="erfinv", host_noise=None),
+            None, plan="device").pack(backward=True)
+        raised = ""
+    except ValueError as e:
+        raised = str(e)
+    print(f"  the committor on the device plan raises: {raised[:100]}")
+    check("ROADMAP.md" in raised, "the device plan of a breadth family "
+          "without it raises, naming ROADMAP.md")
+    print(f"  phase 31 took {time.perf_counter() - t31:.1f} s")
+
+    # -- phase 32: times, the notebook's leg and the BSDE leg ---------------
+    t32 = time.perf_counter()
+    Kb = K_AC_BENCH
+    print(f"phase 32: timing at K={Kb}, N={N_AC}, d={D_AC} (the Allen-Cahn "
+          f"pair, the backward on its device plan) and the device plan "
+          f"forced at the elliptic cell (d={D_ELL}, K={K_ELL_BENCH}, "
+          f"N={N_ELL}, DenseNet (30, 30)); erfinv Philox noise; CUDA events "
+          "and the profiler's device time")
+    net = ac_net(5)
+    call = ac_call(net, Kb, N_AC)
+    gY = torch.randn(Kb, generator=gen, device=dev) / Kb
+    out = km._stopped_forward_kernel(call)
+    hit, adv = float(out.hitting.sum()), float(out.adv_steps.sum())
+    n_par = sum(p.numel() for p in net.parameters())
+    v_f, fwd_f, bwd_f = stopped_flops(net, D_AC, adaptive=False, cubic=True)
+    packed = call.pack(backward=True)
+    ws_bytes = 4 * km._stopped_bwd_per_path(packed) * km._stopped_bwd_ts(
+        packed, km._stopped_bwd_grid(packed, dev))
+    b_fwd = roofline((hit - adv) * v_f + adv * fwd_f,
+                     4 * (n_par + Kb * (2 * D_AC + 7)))
+    b_bwd = stopped_bwd_roofline(adv, bwd_f, net,
+                                 4 * (2 * n_par + Kb * (D_AC + 2))
+                                 + ws_bytes)
+    use = lane_use(call, out, gY)
+    print_lane_use("allen_cahn", use)
+    fwd_use = fwd_lane_use(call, dev)
+    print_fwd_lane_use("allen_cahn", fwd_use)
+
+    def kern_times(tag, call, gY, reps=(10, 5), plain=True):
+        r = {}
+        for name, kern_fn, plain_fn, n, key in (
+                ("forward", lambda: km._stopped_forward_kernel(call),
+                 lambda: call.plain(), reps[0], "stopped_fwd_kernel"),
+                ("backward", lambda: km._stopped_backward_kernel(call, gY),
+                 lambda: km._reference_stopped_backward(call, gY), reps[1],
+                 "stopped_bwd_kernel")):
+            p1 = timed(plain_fn, 1) if plain else None
+            k = [timed(kern_fn, n), timed(kern_fn, n)]
+            p2 = timed(plain_fn, 1) if plain else None
+            dms, seen = device_ms(kern_fn, n, key)
+            r[name] = (min(k), min(p1, p2) if plain else None, dms)
+            print(f"  {tag:22s} {name:8s} kernel {k[0]:.3f}, {k[1]:.3f} ms "
+                  f"(device {'none' if dms is None else f'{dms:.3f}'} ms a "
+                  f"launch over the {seen} of {n} launches the profiler "
+                  "recorded)" + (f"; plain {p1:.3f}, {p2:.3f} ms"
+                                 if plain else ""))
+        return r
+
+    times = kern_times("allen_cahn", call, gY)
+    print(f"  allen_cahn: {hit:.0f} active and {adv:.0f} advancing "
+          f"path-steps of K N = {Kb * N_AC}; the device plan's workspace "
+          f"{ws_bytes} bytes; bound forward {b_fwd['bound_ms']:.4f} ms "
+          f"({b_fwd['bound_by']}), backward {b_bwd['bound_ms']:.4f} ms "
+          f"({b_bwd['bound_by']}; all FP32 {b_bwd['bound_ms_fp32']:.4f})")
+    # the device plan forced at the elliptic cell, beside the shared plan
+    enet = DenseNet(1, (30, 30), d_in=D_ELL, device=dev,
+                    generator=torch.Generator(dev).manual_seed(5))
+    X0e = sample_domain(gen, ball.geometry, K_ELL_BENCH, D_ELL)
+    ecall = km._StoppedCall(
+        ball, enet, X0e, torch.zeros(K_ELL_BENCH, device=dev), N_ELL,
+        DT_ELL, 17, km._check_stopped_family(ball, enet, "erfinv"),
+        dict(adaptive_forward=False, rng="erfinv", host_noise=None), None)
+    egY = torch.randn(K_ELL_BENCH, generator=gen, device=dev) / K_ELL_BENCH
+    eout = km._stopped_forward_kernel(ecall)
+    e_adv = float(eout.adv_steps.sum())
+    dcall = ecall._replace(plan="device")
+    dpacked = dcall.pack(backward=True)
+    d_grid = km._stopped_bwd_grid(dpacked, dev)
+    d_ws = 4 * km._stopped_bwd_per_path(dpacked) * km._stopped_bwd_ts(
+        dpacked, d_grid)
+    shared_t = kern_times("elliptic, shared plan", ecall, egY, plain=False)
+    device_t = kern_times("elliptic, device plan", dcall, egY)
+    # the device plan forced through the entry point, counted from 0: the
+    # launches of the row below
+    reset_counts(km.fused_stopped_train_rollout, "launches",
+                 "backward_launches", "backward_launches_by_plan")
+    pub = km.fused_stopped_train_rollout(
+        ball, enet, X0e, torch.zeros(K_ELL_BENCH, device=dev), N_ELL, DT_ELL,
+        17, plan="device")
+    g_pub = torch.autograd.grad((pub.Y * egY).sum(), list(enet.parameters()))
+    torch.cuda.synchronize()
+    fst = km.fused_stopped_train_rollout
+    d_launches = (fst.launches, dict(fst.backward_launches_by_plan))
+    g_direct = km._stopped_backward_kernel(dcall, egY)
+    print(f"  fused_stopped_train_rollout(plan='device') at the elliptic "
+          f"cell: launches forward {d_launches[0]}, backward by plan "
+          f"{d_launches[1]}; its gradients equal the forced call's bitwise "
+          f"{all(torch.equal(a, b) for a, b in zip(g_pub, g_direct))}")
+    check(d_launches == (1, {"shared": 0, "device": 1})
+          and all(torch.equal(a, b) for a, b in zip(g_pub, g_direct)),
+          "plan='device' through fused_stopped_train_rollout: one launch of "
+          "each kernel, the backward on the device plan, its gradients the "
+          "forced call's bitwise")
+    del pub, g_pub, g_direct
+    e_par = sum(p.numel() for p in enet.parameters())
+    _, _, e_bwd_f = stopped_flops(enet, D_ELL, adaptive=False)
+    b_dev = stopped_bwd_roofline(e_adv, e_bwd_f, enet,
+                                 4 * (2 * e_par + K_ELL_BENCH * (D_ELL + 1))
+                                 + d_ws)
+    print(f"  elliptic: {e_adv:.0f} advancing path-steps; the device plan "
+          f"on {d_grid} blocks, workspace {d_ws} bytes; backward shared "
+          f"{shared_t['backward'][0]:.3f} ms, device "
+          f"{device_t['backward'][0]:.3f} ms; device-plan bound "
+          f"{b_dev['bound_ms']:.4f} ms ({b_dev['bound_by']})")
+    print(f"  card: {smi}")
+
+    # the notebook's diffusion leg from JAX's initial net
+    lo, hi = min(AC_V00_JAX), max(AC_V00_JAX)
+    mean = float(np.mean(AC_V00_JAX))
+    w = max(hi - lo, 0.1 * abs(mean))
+    print(f"  the notebook's diffusion leg: GeneralSolver(AllenCahn(d={D_AC}"
+          f"), loss_method='diffusion', N={N_AC}, delta_t={DT_AC}, K={K_AC}, "
+          f"K_boundary={KB_AC}, lr 1e-3, alpha (10, 1, 1), uniform_square, "
+          f"loss_with_stopped=False, DenseNet {NET_AC}, radius {R_AC}, "
+          f"rollout_mode='fused_train'), {L_AC} steps from JAX's initial net "
+          "(experiments/allen_cahn_reference.py)")
+    common = dict(seed=42, delta_t=DT_AC, lr=1e-3, K=K_AC, K_boundary=KB_AC,
+                  uniform_square=True, loss_with_stopped=False,
+                  rollout_mode="fused_train", verbose=False, device=dev)
+
+    def leg(name, L, **kw):
+        s = GeneralSolver(ac, name, L=L, value_net=ac_net(0), **common,
+                          **kw)
+        s.load_jax_params(tree)
+        check(s.resolved_rollout_mode == "fused_train",
+              f"{name}: engine {s.resolved_rollout_mode}")
+        return s
+
+    def v00(s):
+        with torch.no_grad():
+            return float(s.V(torch.zeros((1, D_AC), device=dev),
+                             torch.zeros((1,), device=dev))[0])
+
+    s = leg("allen_cahn_diffusion", L_AC, loss_method="diffusion", N=N_AC,
+            alpha=(10.0, 1.0, 1.0))
+    v_init = v00(s)
+    reset_counts(km.fused_stopped_train_rollout, "launches",
+                 "backward_launches", "backward_launches_by_plan")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with PlainCalls(km) as plain_calls:
+        s.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = (km.fused_stopped_train_rollout.launches,
+         km.fused_stopped_train_rollout.backward_launches)
+    by_plan = dict(km.fused_stopped_train_rollout.backward_launches_by_plan)
+    v_end = v00(s)
+    tail = float(np.mean(s.loss_log[-50:]))
+    move = abs(v_end - v_init)
+    move_jax = abs(mean - AC_V00_INIT_JAX)
+    print(f"  [diffusion] {len(s.loss_log)} steps in {wall:.2f} s "
+          f"({1e3 * wall / len(s.loss_log):.3f} ms a step); launches forward "
+          f"{n[0]}, backward {n[1]} (by plan {by_plan}); plain-version calls "
+          f"{plain_calls.n}; loss every 200: "
+          f"{['%.3e' % v for v in s.loss_log[::200]]}; tail-50 loss "
+          f"{tail:.4e} (bound 3x JAX's {AC_TAIL_JAX:.4e}); v(0, 0) "
+          f"{v_init:.6f} -> {v_end:.6f} (JAX {AC_V00_INIT_JAX:.6f} -> "
+          f"{['%.6f' % v for v in AC_V00_JAX]}, band [{lo - w:.6f}, "
+          f"{hi + w:.6f}]; moved {move:.6f}, at least half of JAX's "
+          f"{move_jax:.6f}); the literature's {AC_V00_LITERATURE} after "
+          "~60k steps (not checked)")
+    check(all(math.isfinite(v) for v in s.loss_log), "diffusion leg: finite "
+          "losses")
+    check(n == (L_AC, L_AC) and by_plan["device"] == L_AC
+          and plain_calls.n == 0,
+          "diffusion leg: one forward and one backward launch a step, every "
+          "backward on the device plan, no plain call")
+    check(lo - w <= v_end <= hi + w, f"diffusion leg: v(0, 0) {v_end:.6f} "
+          f"outside [{lo - w:.6f}, {hi + w:.6f}]")
+    check(tail <= 3.0 * AC_TAIL_JAX, f"diffusion leg: tail-50 loss "
+          f"{tail:.4e} > 3 x {AC_TAIL_JAX:.4e}")
+    check(move >= 0.5 * move_jax, f"diffusion leg: v(0, 0) moved {move:.6f},"
+          f" less than half of JAX's {move_jax:.6f}")
+    leg_launches = n
+    profile_steps(f"3 steps of the Allen-Cahn diffusion leg (K={K_AC})",
+                  s.step)
+
+    # the device plan's tile at the notebook's K: 64 lanes a block (the
+    # default, 4 blocks) against 32 (7 blocks), 64, 32, 32, 64
+    scall = ac_call(s.V_net, K_AC, N_AC)
+    sgY = torch.randn(K_AC, generator=gen, device=dev) / K_AC
+    tile_ms, tile_g, tile_grid = {64: [], 32: []}, {}, {}
+    for t in (64, 32, 32, 64):
+        c = scall._replace(tile=t)
+        tile_grid[t] = km._stopped_bwd_grid(c.pack(backward=True), dev)
+
+        def bwd(c=c):
+            return km._stopped_backward_kernel(c, sgY)
+        dms, _ = device_ms(bwd, 5, "stopped_bwd_kernel")
+        tile_ms[t].append((timed(bwd, 5), dms))
+        tile_g[t] = bwd()
+    torch.cuda.synchronize()
+    tile_rel = max(float((a - b).abs().max()) / float(b.abs().max())
+                   for a, b in zip(tile_g[32], tile_g[64]))
+    print(f"  the device-plan backward at K={K_AC}, N={N_AC} (the trained "
+          "net): " + "; ".join(
+              f"tile {t} ({tile_grid[t]} blocks) " + ", ".join(
+                  f"{ms:.3f} ms (device {dms:.3f})" for ms, dms in v)
+              for t, v in tile_ms.items())
+          + f"; tile 32 against 64: max |diff| / max |64| {tile_rel:.3e}")
+    check(tile_rel <= BWD_REL_TOL, f"the device plan at tile 32 against 64: "
+          f"{tile_rel:.3e} > {BWD_REL_TOL:g}")
+
+    # the same recipe on the scan engine, beside 'fused_train', from JAX's
+    # initial net: step times at the notebook's K and at K_AC_CHECK
+    def recipe(K, mode):
+        r = GeneralSolver(ac, f"allen_cahn_{mode}", L=L_AC,
+                          value_net=ac_net(0),
+                          **dict(common, K=K, rollout_mode=mode),
+                          loss_method="diffusion", N=N_AC,
+                          alpha=(10.0, 1.0, 1.0))
+        r.load_jax_params(tree)
+        check(r.resolved_rollout_mode == mode, f"{mode} at K={K}: engine "
+              f"{r.resolved_rollout_mode}")
+        return r
+
+    engines = {}
+    for K, reps in ((K_AC, 10), (K_AC_CHECK, 3)):
+        solvers = {m: recipe(K, m) for m in ("fused_train", "scan")}
+        per = {m: [] for m in solvers}
+        for m in solvers:
+            solvers[m].step()
+        for m in ("fused_train", "scan", "scan", "fused_train"):
+            per[m] += [timed(solvers[m].step, 1, warm=False)
+                       for _ in range(reps)]
+        med = engines[K] = {m: float(np.median(v)) for m, v in per.items()}
+        print(f"  engines at K={K}, N={N_AC}, {2 * reps} steps each "
+              f"(fused, scan, scan, fused): " + "; ".join(
+                  f"{m} median {med[m]:.2f} ms (min {min(v):.2f}, max "
+                  f"{max(v):.2f})" for m, v in per.items())
+              + f"; scan / fused {med['scan'] / med['fused_train']:.3f}")
+        check(all(math.isfinite(v) for sv in solvers.values()
+                  for v in sv.loss_log), f"engines at K={K}: finite losses")
+        if K == K_AC:
+            profile_steps(f"3 steps of the scan engine (K={K})",
+                          solvers["scan"].step)
+        del solvers
+
+    b = leg("allen_cahn_bsde", L_AC_BSDE, loss_method="BSDE", N=N_AC_BSDE,
+            alpha=(1.0, 1.0, 1.0))
+    reset_counts(km.fused_stopped_train_rollout, "launches",
+                 "backward_launches")
+    step_ms = [timed(b.step, 1, warm=False) for _ in range(L_AC_BSDE)]
+    n_b = (km.fused_stopped_train_rollout.launches,
+           km.fused_stopped_train_rollout.backward_launches)
+    print(f"  [BSDE] N={N_AC_BSDE}: {L_AC_BSDE} steps, median "
+          f"{float(np.median(step_ms)):.2f} ms (min {min(step_ms):.2f}, max "
+          f"{max(step_ms):.2f}); launches forward {n_b[0]}, backward "
+          f"{n_b[1]}; loss {['%.3e' % v for v in b.loss_log[::5]]}; "
+          f"advancing path-steps a step {np.mean(b.K_log):.0f} of K N = "
+          f"{K_AC * N_AC_BSDE}")
+    check(n_b == (L_AC_BSDE, L_AC_BSDE)
+          and all(math.isfinite(v) for v in b.loss_log),
+          "BSDE leg: one launch of each kernel a step, finite losses")
+    print(f"  card: {smi}")
+    print(f"  phase 32 took {time.perf_counter() - t32:.1f} s; phases 30-32 "
+          f"{time.perf_counter() - t_phases:.1f} s")
+
+    row = {"route": "cuda", "source": STOPPED_SOURCE,
+           "shape": f"AllenCahn, d={D_AC}, DenseNet {NET_AC} on [x, t], "
+                    f"K={Kb}, N={N_AC}",
+           "launches_shape": f"phase 32's diffusion leg, K={K_AC}, "
+                             f"N={N_AC}"}
+    return [
+        dict(row, name="fused_stopped_train_rollout.forward.allen_cahn",
+             replaces="pspde/rollout/kernels.py:1184",
+             launches=leg_launches[0], max_abs_err=worst["out"],
+             ms=times["forward"][0], device_ms=times["forward"][2],
+             plain_ms=times["forward"][1],
+             **dict(b_fwd, layout=fwd_use["layout"],
+                    lane_use=fwd_use["lane_use"],
+                    step_ms={f"K={K}": med for K, med in engines.items()})),
+        dict(row, name="fused_stopped_train_rollout.backward.allen_cahn",
+             replaces="pspde/rollout/kernels.py:1272", plan="device",
+             launches=leg_launches[1],
+             max_abs_err=max(worst["grad"], worst["bwd"]),
+             ms=times["backward"][0], device_ms=times["backward"][2],
+             plain_ms=times["backward"][1], workspace_bytes=ws_bytes,
+             **dict(b_bwd, lanes=use[0],
+                    tile_ms_at_K200={t: min(ms for ms, _ in v)
+                                     for t, v in tile_ms.items()})),
+        dict(row, name="fused_stopped_train_rollout.backward.device_plan",
+             replaces="pspde/rollout/kernels.py:1272", plan="device",
+             shape=f"ExponentialOnBallNonlinearSin, d={D_ELL}, DenseNet "
+                   f"(30, 30), K={K_ELL_BENCH}, N={N_ELL}, the device plan "
+                   "forced",
+             launches_shape=f"phase 32's fused_stopped_train_rollout("
+                            f"plan='device') at the elliptic cell, "
+                            f"K={K_ELL_BENCH}, N={N_ELL}",
+             launches=d_launches[1]["device"], max_abs_err=plan_err,
+             ms=device_t["backward"][0], device_ms=device_t["backward"][2],
+             plain_ms=device_t["backward"][1],
+             shared_plan_ms=shared_t["backward"][0],
+             workspace_bytes=d_ws, **b_dev)]
 
 
 if __name__ == "__main__":

@@ -4,7 +4,7 @@ kernels at the bench shapes on one CUDA card, and print one JSON line.
 
     python3 experiments/torch_kernel_times.py [--root DIR] [--hjb-only]
         [--stopped-only] [--serve-only] [--layouts [hjb|stopped|serve]]
-        [--fwd-bwd]
+        [--fwd-bwd] [--allen-cahn]
 
 ``--root`` names the checkout whose ``pspde_torch`` is timed (default:
 the one this script lives in).  Two trees are compared on one card in one
@@ -59,7 +59,14 @@ whether its outputs are bitwise those of the layout the wrapper chooses
 ``--layouts stopped`` times one of the forwards, ``--layouts`` all
 three.
 ``--fwd-bwd`` times only the HJB forward and backward kernels, at the
-bench shape (binom) and at config 5.
+bench shape (binom) and at config 5.  ``--allen-cahn`` times the stopped
+kernels at their cells (as ``--stopped-only``, without the steps) and,
+where the tree has them, the Allen-Cahn pair (AllenCahn d=100, T=0.3, the
+notebook's DenseNet (110, 110, 50) on [x, t] and sampling ball of radius
+7, K=65536, N=25; its backward on the device plan) and the stopped
+backward's device plan forced at the elliptic (DenseNet (30, 30)) and
+heat cells beside the shared plan, with the profiler's device time; a
+tree without them reads None there.
 """
 
 import argparse
@@ -135,6 +142,9 @@ def main():
                     help="time the serve kernel only, at both of its shapes")
     ap.add_argument("--fwd-bwd", action="store_true",
                     help="time the HJB forward and backward kernels only")
+    ap.add_argument("--allen-cahn", action="store_true",
+                    help="time the stopped kernels, the Allen-Cahn pair and "
+                         "the stopped backward's forced device plan only")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("torch_kernel_times: this script needs one CUDA card")
@@ -195,6 +205,11 @@ def main():
     out = {"root": os.path.relpath(root, here), "card": card}
     if args.serve_only:
         out.update(serve_times(llgc, solver.z_net, dev))
+        print(json.dumps(out))
+        return
+    if args.allen_cahn:
+        out.update(stopped_times(dev, gen, step=False))
+        out.update(allen_cahn_times(dev, gen))
         print(json.dumps(out))
         return
     if args.stopped_only:
@@ -555,10 +570,10 @@ def stopped_layout_times(dev, gen):
     return out
 
 
-def stopped_times(dev, gen):
+def stopped_times(dev, gen, step=True):
     """ms of the stopped kernels at each cell of ``stopped_cells`` (the
     forward's device time too, from ``torch.profiler``; on the torus the
-    backward's as well), and of one elliptic solver step."""
+    backward's as well), and with ``step`` of one elliptic solver step."""
     from pspde_torch.problems import ExponentialOnBallNonlinearSin
     from pspde_torch.rollout import kernels as km
     from pspde_torch.solvers import EllipticSolver
@@ -584,12 +599,67 @@ def stopped_times(dev, gen):
         if name.startswith("torus"):
             out[f"stopped_bwd_{name}_device"] = device_ms(
                 bwd, reps // 2, "stopped_bwd_kernel")[0]
+    if not step:
+        return out
     sin = ExponentialOnBallNonlinearSin(d=D_ELL, alpha=0.1, device=dev)
     ell = EllipticSolver(sin, "bench", loss_method="diffusion", K=K_ELL,
                          N=N_ELL, delta_t=DT_ELL, lr=1e-3, L=1,
                          K_test_log=4096, verbose=False,
                          rollout_mode="fused_train", device=dev)
     out["elliptic_step"] = timed(ell.step, 10)
+    return out
+
+
+def allen_cahn_times(dev, gen):
+    """ms (CUDA events) and device ms a launch (``torch.profiler``) of the
+    Allen-Cahn pair at the notebook's width, K=65536, N=25, and of the
+    stopped backward with its plan forced, shared and device, at the
+    elliptic (DenseNet (30, 30)) and heat cells of ``stopped_cells``; None
+    where the tree has no backward plans (its family refuses the cubic)."""
+    from pspde_torch.ansatz import DenseNet
+    from pspde_torch.problems import AllenCahn, Geometry
+    from pspde_torch.rollout import kernels as km
+    from pspde_torch.rollout.sampling import sample_domain
+
+    if "plan" not in km._StoppedCall._fields:
+        return {"allen_cahn": None, "device_plan": None}
+    out = {}
+    cells = stopped_cells(dev, gen)
+    for tag in ("ell_30_30", "heat"):
+        call = stopped_call(km, cells[tag])
+        K = cells[tag][2].shape[0]
+        gY = torch.randn(K, generator=gen, device=dev) / K
+        for plan in ("shared", "device"):
+            c = call._replace(plan=plan)
+
+            def bwd():
+                km._stopped_backward_kernel(c, gY)
+
+            name = f"stopped_bwd_{tag.replace('ell_', '')}_{plan}_plan"
+            out[name] = timed(bwd, 5)
+            out[f"{name}_device"] = device_ms(bwd, 5,
+                                              "stopped_bwd_kernel")[0]
+    ac = AllenCahn(d=100, T=0.3, device=dev)
+    ac.geometry = Geometry(kind="unbounded", boundary_distance=7.0)
+    K = 65536
+    net = DenseNet(1, (110, 110, 50), d_in=101, device=dev,
+                   generator=torch.Generator(dev).manual_seed(5))
+    X0 = sample_domain(gen, ac.geometry, K, 100, uniform_square=True)
+    call = stopped_call(km, (ac, net, X0, torch.rand(
+        K, generator=gen, device=dev) * ac.T, 25, 1e-3, None, True))
+    gY = torch.randn(K, generator=gen, device=dev) / K
+
+    def fwd():
+        km._stopped_forward_kernel(call)
+
+    def bwd():
+        km._stopped_backward_kernel(call, gY)
+
+    out["allen_cahn_fwd"] = timed(fwd, 5)
+    out["allen_cahn_fwd_device"] = device_ms(fwd, 5, "stopped_fwd_kernel")[0]
+    out["allen_cahn_bwd"] = timed(bwd, 3)
+    out["allen_cahn_bwd_device"] = device_ms(bwd, 3, "stopped_bwd_kernel")[0]
+    out["allen_cahn_bwd_plan"] = call.pack(backward=True).layout[0]
     return out
 
 

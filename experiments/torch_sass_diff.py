@@ -10,7 +10,10 @@ and pairs every kernel of the old tree with the new kernel of the same name
 whose template arguments extend the old ones by ``false`` (a template
 parameter added after the old ones, at its value for the old family: e.g.
 ``stopped_fwd_kernel<false>`` and ``stopped_fwd_kernel<false, false,
-false>``).  For each pair it prints the instruction counts and the count of
+false>``; the stopped backward's memory plan, ``kDevice``, appended last
+with ``false`` for the shared plan, renames each of the old backward's
+instantiations so).  It prints that name map first, old -> new (or "no
+counterpart"), then for each pair the instruction counts and the count of
 instructions that differ (addresses and encodings stripped; a line that
 differs only in a branch target's address still counts), and one JSON line
 last.  Needs the CUDA toolkit (nvcc, cuobjdump, cu++filt).
@@ -84,15 +87,22 @@ def main():
     for name in new:
         base, targs = split_template(name)
         new_by_key[(base, tuple(targs))] = name
-    pairs = []
-    for name, code in old.items():
+    name_map = {}
+    for name in old:
         base, targs = split_template(name)
-        match = None
+        name_map[name] = None
         for (nb, nt), nname in new_by_key.items():
             if (nb == base and len(nt) >= len(targs)
                     and list(nt[:len(targs)]) == targs
                     and all(a == "false" for a in nt[len(targs):])):
-                match = nname
+                name_map[name] = nname
+    print("name map, old -> new:")
+    for name, match in name_map.items():
+        print(f"  {split_template(name)} -> "
+              f"{split_template(match) if match else 'no counterpart'}")
+    pairs = []
+    for name, code in old.items():
+        match = name_map[name]
         if match is None:
             print(f"{name}: no counterpart in the new tree")
             pairs.append({"old": name, "new": None})
@@ -111,7 +121,7 @@ def main():
                       "n_new": len(new[match]), "changed": n_diff,
                       "identical": code == new[match]})
     print(json.dumps({"source": args.source, "pairs": pairs,
-                      "new_kernels": sorted(new)}))
+                      "name_map": name_map, "new_kernels": sorted(new)}))
 
 
 if __name__ == "__main__":

@@ -69,6 +69,15 @@
 // StoppedExt is an argument of its own after the old ones, so that every
 // older instantiation keeps its constant-bank offsets and its SASS.
 //
+// The cubic family (AllenCahn, h = y - y^3: the clock, the whole space or
+// the sphere) is the ball family with one more term from StoppedExt,
+//
+//   h += c_y3 V^3,     dh/dy += 3 c_y3 V^2,
+//
+// in the instantiations <kTimed = true, kBreadth = true> (cubic_h_value,
+// cubic_h_dy), which test the exit and the clock as the other kTimed ones
+// do; the breadth families' other terms stay without the clock.
+//
 // With the output clamp (DenseNet output_relu) V = relu(o) of the output
 // o: Z, the step's increment and both sweeps of the backward carry the
 // mask 1[o > 0] (the gradient at o = 0 is 0, as in JAX and torch).
@@ -183,7 +192,15 @@
 //     order): with the replay's sweeps they are now ~20% of the elliptic
 //     backward, no faster than the scalar loop at the torus's 10 columns.
 //   * The per-path arrays are [row][tile + 4] (conflict-free fragments;
-//     tile + 1 for nets too wide for that),
+//     tile + 1 for nets too wide for that) in shared memory, or, in the
+//     device plan (kDevice), [row][grid x tile] in a workspace of device
+//     memory, one column a lane: the notebook's Allen-Cahn net (d = 100,
+//     [x, t], DenseNet (110, 110, 50): 1,924 floats a path) fits no block
+//     even at tile 32 and stride 33.  The same step code runs on both,
+//     through a pointer and a stride, so the two plans' sums are bitwise
+//     alike (the mma fragments read the same values in the same order from
+//     either memory); only the ballots, and the net where it leaves room
+//     for two blocks an SM, stay in shared memory.
 //     the net is staged per block when it fits beside them, else read from
 //     device memory (broadcast loads that L1 serves; the notebook net
 //     DenseNet (70, 50, 50, 50), 131 KB of weights, fits beside no tile);
@@ -204,6 +221,8 @@
 #include <stddef.h>
 #include <stdint.h>
 #include <string.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -272,8 +291,8 @@ static_assert(offsetof(StoppedArgs, X_l) ==
                   offsetof(StoppedArgs, out_relu) + kNumTailArgs * sizeof(int),
               "the last three ints, then the last three floats");
 
-// The breadth families' fields (the header): the kernels' last argument.
-// The wrapper packs them after StoppedArgs' ints and floats.
+// The breadth families' fields (the header): the kernels' argument after
+// the old ones.  The wrapper packs them after StoppedArgs' ints and floats.
 struct StoppedExt {
   int sig_off;      // a dense sigma's offset in the packed net, -1: scalar
   int vref;         // with have_vref: 0 exp(a_vref |x|^2), 1 the committor's
@@ -281,9 +300,10 @@ struct StoppedExt {
   float c_ys1;      // h's coefficient on V (sum_j x_j)^2
   float vr_a2, vr_ad, vr_den;   // the committor's a^2, a^d and
                                 // a^2 - c^(2-d) a^d
+  float c_y3;       // h's coefficient on V^3 (with the clock)
 };
 constexpr int kNumExtInts = 2;
-constexpr int kNumExtFloats = 5;
+constexpr int kNumExtFloats = 6;
 static_assert(offsetof(StoppedExt, r_in) == kNumExtInts * sizeof(int) &&
                   sizeof(StoppedExt) ==
                       kNumExtInts * sizeof(int) +
@@ -540,6 +560,21 @@ __device__ __forceinline__ float breadth_vref(const StoppedArgs& a,
   return expf(a.a_vref * r2);
 }
 
+// The cubic family (the clock; the header): h and dh/dy of the ball family
+// with the clock, and c_y3 y^3.  Called only in the <kTimed, kBreadth>
+// instantiations, behind `if constexpr`.
+__device__ __forceinline__ float cubic_h_value(const StoppedArgs& a,
+                                               const StoppedExt& ext,
+                                               float r2, float t, float y) {
+  return h_value<true>(a, r2, t, y) + ext.c_y3 * (y * y * y);
+}
+
+__device__ __forceinline__ float cubic_h_dy(const StoppedArgs& a,
+                                            const StoppedExt& ext, float r2,
+                                            float t, float y) {
+  return h_dy<true>(a, r2, t, y) + 3.0f * ext.c_y3 * (y * y);
+}
+
 // Stage the packed net in shared memory when the wrapper asked for it;
 // returns where the kernels read it, and advances *col past it.
 __device__ __forceinline__ const float* stage_net(const StoppedArgs& a,
@@ -775,7 +810,7 @@ stopped_fwd_kernel(const StoppedArgs a, const float* __restrict__ P,
       torus_terms(a, f, ts, &s, &qs);
     } else {
       r2 = sq_norm(f, a.d, ts);
-      if constexpr (kBreadth) {
+      if constexpr (kBreadth && !kTimed) {
         s1 = coord_sum(f, a.d, ts);
         sel = breadth_selected(a, ext, r2);
       } else {
@@ -795,7 +830,7 @@ stopped_fwd_kernel(const StoppedArgs a, const float* __restrict__ P,
     const bool on = !kRelu || o > 0.0f;   // the output clamp's mask
     const float V = on ? o : 0.0f;
     if (a.have_vref) {
-      if constexpr (kBreadth) {
+      if constexpr (kBreadth && !kTimed) {
         const float e = V - breadth_vref(a, ext, r2);
         vl2 += e * e * a.dt;
       } else {
@@ -810,7 +845,9 @@ stopped_fwd_kernel(const StoppedArgs a, const float* __restrict__ P,
     if (on) lane_value_grad<kTimed>(a, net, r, g, ts, ln);
     ln.sync();   // grad V complete, and every read of X by the net done
     float h;
-    if constexpr (kBreadth) {
+    if constexpr (kBreadth && kTimed) {
+      h = cubic_h_value(a, ext, r2, t, V);
+    } else if constexpr (kBreadth) {
       h = breadth_h_value(a, ext, r2, s1, V);
     } else {
       h = kTorus ? fmaf(lam, V, V * torus_h_dy(s, qs))
@@ -948,6 +985,11 @@ stopped_fwd_kernel(const StoppedArgs a, const float* __restrict__ P,
 // forward's stride: (g + c) mod 32, up to 4-way conflicts, the same sums
 // (pspde_torch/rollout/kernels.py: _stopped_bwd_stride).  A thread walking
 // its own path reads one word of each row, and any stride serves that.
+// Past that (about 1,760 floats a path) the device plan (kDevice) puts them
+// in a workspace of device memory, ts = grid x tile, block b's lanes at
+// columns b tile .. b tile + tile - 1: the fragments then read 4 rows of 8
+// consecutive words (4 sectors) where shared memory read 32 banks, the
+// same values in the same order (_stopped_bwd_ws).
 
 // The lane ballots of the refill: two slots of one word per warp, at the
 // start of the backward's shared memory (16 bytes, so the staged net after
@@ -980,12 +1022,14 @@ constexpr int kUnitN = 4;   // n tiles (8 output columns each) of a unit
 // bias) is 1 in the first pair and 0 in the second; rows past it are 0 and
 // nothing is stored there.  A column past `cols` reads the layer's last
 // column and is not stored either, so that every load stays in the layer's
-// rows.  All four point at path 0 of [row][ts] arrays in shared memory,
-// read as mma fragments (M: the gradient row, N: the output column, K: the
-// paths).  Each operand is split into two TF32 parts and each pair of parts
-// multiplied on the tensor cores (3xTF32: big big, big small, small big, in
+// rows.  All four point at path 0 of [row][ts] arrays, in shared memory
+// (kShared) or in the device plan's workspace, read as mma fragments (M:
+// the gradient row, N: the output column, K: the paths).  Each operand is
+// split into two TF32 parts and each pair of parts multiplied on the
+// tensor cores (3xTF32: big big, big small, small big, in
 // three independent float32 accumulators); the old G is loaded before the
 // products and the step's sum added to it once.
+template <bool kShared>
 __device__ __forceinline__ void pair_tile_product(
     const float* in0, const float* D0, const float* in1, const float* D1,
     int rows, int cols, int ts, int tile, float* G, int m0, int n0) {
@@ -1009,14 +1053,15 @@ __device__ __forceinline__ void pair_tile_product(
       old[q][e] = q < nq && r <= rows && j < cols ? G[r * cols + j] : 0.0f;
     }
   }
-  // One k-step's fragments, read with ld.shared.  The loads are volatile
-  // asm, kept in program order with the mma: each step's loads are issued
-  // a step ahead, so their latency overlaps the step before's products.
-  const PathRow<true> A0(in0), A1(in1), B0(D0), B1(D1);
+  // One k-step's fragments, read with ld.shared in shared memory.  The
+  // loads are volatile asm, kept in program order with the mma: each
+  // step's loads are issued a step ahead, so their latency overlaps the
+  // step before's products.
+  const PathRow<kShared> A0(in0), A1(in1), B0(D0), B1(D1);
   auto load = [&](int kk, float (&fa_)[4], float (&fb_)[kUnitN][2]) {
     const bool second = kk >= tile;
     const int k0 = second ? kk - tile : kk;
-    const PathRow<true> A = second ? A1 : A0, B = second ? B1 : B0;
+    const PathRow<kShared> A = second ? A1 : A0, B = second ? B1 : B0;
     fa_[0] = A[oa + k0];
     fa_[1] = A[ob + k0];
     fa_[2] = A[oa + k0 + 4];
@@ -1079,8 +1124,8 @@ __device__ __forceinline__ void pair_tile_product(
 // sum_p alpha_p f_i[p] + f'_i[p] and G[bL] += sum_p alpha_p.  The arguments
 // are this thread's columns; a path without a gradient this step has zero
 // f', hbar, hbar' and alpha.  The caller synchronises before (the rows are
-// other threads') and after.
-template <bool kTimed>
+// other threads') and after.  kShared: the rows are in shared memory.
+template <bool kTimed, bool kShared>
 __device__ __forceinline__ void step_weight_grads(
     const StoppedArgs& a, const float* f, const float* fd, const float* gb,
     const float* gdb, const float* al, float* G, int ts) {
@@ -1100,9 +1145,10 @@ __device__ __forceinline__ void step_weight_grads(
     for (int u = ((warp - u0) % n_warps + n_warps) % n_warps; u < units;
          u += n_warps) {
       const int mt = u / n_groups;
-      pair_tile_product(f, gb + n_in * ts, fd, gdb + (n_in - d_in) * ts,
-                        n_in, w, ts, a.tile, G + a.g_off[l], 16 * mt,
-                        8 * kUnitN * (u - mt * n_groups));
+      pair_tile_product<kShared>(f, gb + n_in * ts, fd,
+                                 gdb + (n_in - d_in) * ts, n_in, w, ts,
+                                 a.tile, G + a.g_off[l], 16 * mt,
+                                 8 * kUnitN * (u - mt * n_groups));
     }
     u0 += units;
     n_in += w;
@@ -1126,7 +1172,14 @@ __device__ __forceinline__ void step_weight_grads(
   }
 }
 
-template <bool kTimed, bool kTorus, bool kRelu, bool kFull, bool kBreadth>
+// kDevice: the device plan, the per-path arrays at stride ts in the
+// workspace that follows the grid's gradient rows in `part` (not an
+// argument of its own: one more kernel parameter moved ptxas's register
+// allocation of the shared plan's dense-sigma instantiations, where the
+// kernel's parameters as they were keep every shared-plan instantiation's
+// SASS as it was before the plan; experiments/torch_sass_diff.py).
+template <bool kTimed, bool kTorus, bool kRelu, bool kFull, bool kBreadth,
+          bool kDevice>
 __global__ void __launch_bounds__(kStoppedTile, kMinBlocksPerSm)
 stopped_bwd_kernel(const StoppedArgs a, const float* __restrict__ P,
                    const float* __restrict__ noise,
@@ -1142,6 +1195,9 @@ stopped_bwd_kernel(const StoppedArgs a, const float* __restrict__ P,
   const int lane = tid & 31, warp = tid >> 5, n_warps = tile >> 5;
   float* col = S + tid;
   const float* W = stage_net(a, P, S, &col);
+  if constexpr (kDevice)
+    col = part + static_cast<size_t>(gridDim.x) * a.n_grad +
+          blockIdx.x * tile + tid;
   float* G = part + static_cast<size_t>(blockIdx.x) * a.n_grad;
   for (int e = tid; e < a.n_grad; e += tile) G[e] = 0.0f;
   // the block's paths not yet started: next .. hi (the same in every thread)
@@ -1182,7 +1238,7 @@ stopped_bwd_kernel(const StoppedArgs a, const float* __restrict__ P,
     if (n >= a.N) return false;
     if (kTorus) return true;
     r2 = sq_norm(f, a.d, ts);
-    if constexpr (kBreadth) {
+    if constexpr (kBreadth && !kTimed) {
       return breadth_selected(a, ext, r2);
     } else {
       return selected<kTimed>(a, r2, t);
@@ -1292,7 +1348,9 @@ stopped_bwd_kernel(const StoppedArgs a, const float* __restrict__ P,
           *al = -gy * (torus_h_dy(s, qs) + lam) * a.dt;
           g_lam = fmaf(-gy * V, a.dt, g_lam);
         } else {
-          if constexpr (kBreadth) {
+          if constexpr (kBreadth && kTimed) {
+            *al = -gy * cubic_h_dy(a, ext, r2, t, V) * a.dt;
+          } else if constexpr (kBreadth) {
             *al = -gy * breadth_h_dy(a, ext, r2, coord_sum(f, a.d, ts), V) *
                   a.dt;
           } else {
@@ -1378,7 +1436,7 @@ stopped_bwd_kernel(const StoppedArgs a, const float* __restrict__ P,
     }
 
     if (__syncthreads_or(grad)) {
-      step_weight_grads<kTimed>(a, f, fd, gb, gdb, al, G, ts);
+      step_weight_grads<kTimed, !kDevice>(a, f, fd, gb, gdb, al, G, ts);
       __syncthreads();
     }
     if (busy) {
@@ -1410,9 +1468,11 @@ stopped_bwd_kernel(const StoppedArgs a, const float* __restrict__ P,
 // arrays, of stride tile + 1 in the forward (bwd_ts = 0; the normals' d
 // rows too, and Z's with a dense sigma), and in the backward the lane
 // ballots first and the arrays at stride bwd_ts (with a dense sigma 2 d
-// more rows).  The wrapper's _stopped_smem_bytes and _stopped_per_path
+// more rows), which the device plan (`device`) keeps in its workspace
+// instead.  The wrapper's _stopped_smem_bytes and _stopped_per_path
 // compute the same.
-size_t smem_floats(const StoppedArgs& a, const StoppedExt& ext, int bwd_ts) {
+size_t smem_floats(const StoppedArgs& a, const StoppedExt& ext, int bwd_ts,
+                   bool device = false) {
   const bool backward = bwd_ts > 0;
   const size_t H = a.F - (a.time_stopping ? a.d + 1 : a.d);
   const size_t full_rows = ext.sig_off >= 0 ? (backward ? 2 : 1) * a.d : 0;
@@ -1426,16 +1486,24 @@ size_t smem_floats(const StoppedArgs& a, const StoppedExt& ext, int bwd_ts) {
       n_in += a.width[l];
     }
   }
+  if (device) return kBallotWords + net;
   return (backward ? kBallotWords : 0) + net +
          per_path * static_cast<size_t>(backward ? bwd_ts : a.tile + 1);
 }
 
 // StoppedArgs from the wrapper's arrays, checked but for the tile, which
 // each kernel checks itself (bwd_layout, fwd_layout).
-// Whether a call belongs to the breadth families (their instantiations).
-bool breadth(const StoppedArgs& a, const StoppedExt& ext) {
+// The breadth fields that go without the clock: the two spheres, a dense
+// sigma, the committor's reference, c_ys1.
+bool unclocked(const StoppedArgs& a, const StoppedExt& ext) {
   return a.geom == 3 || ext.sig_off >= 0 || ext.vref != 0 ||
          ext.c_ys1 != 0.0f;
+}
+
+// Whether a call belongs to the breadth families (their instantiations):
+// those fields, or the cubic's c_y3, which goes with the clock.
+bool breadth(const StoppedArgs& a, const StoppedExt& ext) {
+  return unclocked(a, ext) || ext.c_y3 != 0.0f;
 }
 
 int unpack(const int* iargs, const float* fargs, unsigned long long seed,
@@ -1457,7 +1525,8 @@ int unpack(const int* iargs, const float* fargs, unsigned long long seed,
                  a->lam_off >= a->n_params || a->g_lam != a->n_grad - 1)) ||
       ext->vref < 0 || ext->vref > 1 ||
       (ext->sig_off >= 0 && ext->sig_off + a->d * a->d > a->n_params) ||
-      (breadth(*a, *ext) && (torus || a->time_stopping)))
+      (unclocked(*a, *ext) && (torus || a->time_stopping)) ||
+      (ext->c_y3 != 0.0f && !a->time_stopping))
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaSetDevice(device));
 }
@@ -1486,12 +1555,13 @@ bool fwd_layout(const StoppedArgs& a, const int* iargs, int* tpp,
   return true;
 }
 
-// Lets `kernel` take the dynamic shared memory of one block (bwd_ts: as
-// smem_floats).
+// Lets `kernel` take the dynamic shared memory of one block (bwd_ts,
+// device: as smem_floats).
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, const StoppedArgs& a,
-                       const StoppedExt& ext, int bwd_ts, size_t* smem) {
-  *smem = sizeof(float) * smem_floats(a, ext, bwd_ts);
+                       const StoppedExt& ext, int bwd_ts, size_t* smem,
+                       bool device = false) {
+  *smem = sizeof(float) * smem_floats(a, ext, bwd_ts, device);
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(*smem));
@@ -1514,8 +1584,8 @@ int launch(Kernel kernel, const StoppedArgs& a, const StoppedExt& ext,
 template <typename Kernel>
 int occupancy(Kernel kernel, const StoppedArgs& a, const StoppedExt& ext,
               int bwd_ts, int threads, int device, int* per_sm, int* sms,
-              size_t* smem) {
-  cudaError_t e = allow_smem(kernel, a, ext, bwd_ts, smem);
+              size_t* smem, bool in_device = false) {
+  cudaError_t e = allow_smem(kernel, a, ext, bwd_ts, smem, in_device);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel,
                                                       threads, *smem);
@@ -1525,7 +1595,8 @@ int occupancy(Kernel kernel, const StoppedArgs& a, const StoppedExt& ext,
 }
 
 // A launch's instantiation: the clock, the torus family, the output clamp,
-// a dense sigma and the breadth families (the header).
+// a dense sigma and the breadth families (the header; with the clock, the
+// cubic).
 template <bool kTimed, bool kTorus, bool kRelu, bool kFull, bool kBreadth>
 struct Family {
   static constexpr bool timed = kTimed, torus = kTorus, relu = kRelu,
@@ -1535,6 +1606,9 @@ struct Family {
 template <typename Fn>
 int with_family(const StoppedArgs& a, const StoppedExt& ext, Fn fn) {
   if (breadth(a, ext)) {
+    if (a.time_stopping)   // the cubic, the one breadth field with the clock
+      return a.out_relu ? fn(Family<true, false, true, false, true>())
+                        : fn(Family<true, false, false, false, true>());
     if (ext.sig_off >= 0)
       return a.out_relu ? fn(Family<false, false, true, true, true>())
                         : fn(Family<false, false, false, true, true>());
@@ -1549,6 +1623,26 @@ int with_family(const StoppedArgs& a, const StoppedExt& ext, Fn fn) {
                       : fn(Family<true, false, false, false, false>());
   return a.out_relu ? fn(Family<false, false, true, false, false>())
                     : fn(Family<false, false, false, false, false>());
+}
+
+// The backward's instantiation: the family and the memory plan (fn takes
+// the Family and std::bool_constant<kDevice>).  The device plan is
+// instantiated for the ball, the clock's families (the cubic's too) and
+// the torus; the breadth families without the clock have none (ROADMAP.md
+// Queue 2 item 4(f)) and are refused.
+template <typename Fn>
+int with_bwd_family(const StoppedArgs& a, const StoppedExt& ext,
+                    bool device, Fn fn) {
+  if (device && unclocked(a, ext))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return with_family(a, ext, [&](auto fam) {
+    using Fam = decltype(fam);
+    if constexpr (Fam::breadth && !Fam::timed) {
+      return fn(fam, std::false_type());
+    } else {
+      return device ? fn(fam, std::true_type()) : fn(fam, std::false_type());
+    }
+  });
 }
 
 }  // namespace
@@ -1613,11 +1707,17 @@ extern "C" int pspde_stopped_fwd_occupancy(const int* iargs,
   });
 }
 
-// The backward's stride, the int after StoppedArgs' and StoppedExt's ints:
-// tile + 4, or tile + 1 where that does not fit (the note on the backward's
-// arrays); 0 if it is neither.
-int unpack_bwd_stride(const StoppedArgs& a, const int* iargs) {
+// The backward's stride and plan, the ints after StoppedArgs' and
+// StoppedExt's: [ts, grid, plan].  The shared plan (0): tile + 4, or tile +
+// 1 where that does not fit (the note on the backward's arrays); the device
+// plan (1, *device): the workspace's stride, at least the tile (grid x tile
+// in a launch).  0 if it is none of these.
+int unpack_bwd_stride(const StoppedArgs& a, const int* iargs, bool* device) {
   const int ts = iargs[kNumPackedInts];
+  const int plan = iargs[kNumPackedInts + 2];
+  *device = plan == 1;
+  if (plan == 1) return ts >= a.tile ? ts : 0;
+  if (plan != 0) return 0;
   return ts == a.tile + 4 || ts == a.tile + 1 ? ts : 0;
 }
 
@@ -1625,15 +1725,19 @@ int unpack_bwd_stride(const StoppedArgs& a, const int* iargs) {
 // per-layer [W (n_in, width); b (1, width)] and [wL (F); bL] sums per block,
 // and on the torus the lambda entry last; counts (grid, 2): each block's
 // block-steps and its busy lanes summed over them.  `iargs` carries the
-// stride and the grid after StoppedArgs' and StoppedExt's ints: 1 <= grid
-// <= ceil(K / tile), at most the blocks the card holds at once
+// stride, the grid and the plan after StoppedArgs' and StoppedExt's ints:
+// 1 <= grid <= ceil(K / tile), at most the blocks the card holds at once
 // (pspde_stopped_bwd_slots); block b replays the paths of its range
-// (range_start).
+// (range_start).  The device plan's workspace `ws` (per-path rows x ts
+// floats, ts >= grid x tile) must follow the grid's rows, ws = grad_out +
+// grid x n_grad (the kernel finds it there); it is null in the shared
+// plan.
 extern "C" int pspde_stopped_rollout_bwd(const float* params,
                                          const float* host_noise,
                                          const float* X0, const float* t0,
                                          const float* gY, float* grad_out,
-                                         int* counts, const int* iargs,
+                                         int* counts, float* ws,
+                                         const int* iargs,
                                          const float* fargs,
                                          unsigned long long seed, int device,
                                          void* stream) {
@@ -1641,42 +1745,56 @@ extern "C" int pspde_stopped_rollout_bwd(const float* params,
   StoppedExt ext;
   const int err = unpack(iargs, fargs, seed, device, &a, &ext);
   if (err != 0) return err;
-  const int ts = unpack_bwd_stride(a, iargs);
+  bool in_device = false;
+  const int ts = unpack_bwd_stride(a, iargs, &in_device);
   const int grid = iargs[kNumPackedInts + 1];
   if (!bwd_tile_ok(a) || ts == 0 || grid < 1 ||
-      grid > (a.K + a.tile - 1) / a.tile)
+      grid > (a.K + a.tile - 1) / a.tile ||
+      (in_device && (ws != grad_out + static_cast<size_t>(grid) * a.n_grad ||
+                     static_cast<long long>(grid) * a.tile > ts)))
     return static_cast<int>(cudaErrorInvalidValue);
-  return with_family(a, ext, [&](auto fam) {
+  return with_bwd_family(a, ext, in_device, [&](auto fam, auto dev) {
     using Fam = decltype(fam);
-    return launch(stopped_bwd_kernel<Fam::timed, Fam::torus, Fam::relu,
-                                     Fam::full, Fam::breadth>,
-                  a, ext, ts, grid, a.tile, stream, params, host_noise, X0,
-                  t0, gY, grad_out, counts, ts);
+    constexpr bool kDev = decltype(dev)::value;
+    const auto kernel =
+        stopped_bwd_kernel<Fam::timed, Fam::torus, Fam::relu, Fam::full,
+                           Fam::breadth, kDev>;
+    size_t smem = 0;
+    const cudaError_t e = allow_smem(kernel, a, ext, ts, &smem, kDev);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    kernel<<<static_cast<unsigned>(grid), a.tile, smem,
+             static_cast<cudaStream_t>(stream)>>>(a, params, host_noise, X0,
+                                                  t0, gY, grad_out, counts,
+                                                  ts, ext);
+    return static_cast<int>(cudaGetLastError());
   });
 }
 
 // The blocks of the backward's instantiation for `iargs` (StoppedArgs' and
-// StoppedExt's ints and the stride) that device `device` holds at once (its
-// SMs times the blocks per SM that the shared memory, the registers and the
-// threads allow) into *slots: the most blocks worth launching, since each
-// walks its range to the end.
+// StoppedExt's ints, then the stride, the grid (not read) and the plan, as
+// the launch takes them) that device `device` holds at once (its SMs times
+// the blocks per SM that the shared memory, the registers and the threads
+// allow) into *slots: the most blocks worth launching, since each walks
+// its range to the end.
 extern "C" int pspde_stopped_bwd_slots(const int* iargs, const float* fargs,
                                        int device, int* slots) {
   StoppedArgs a;
   StoppedExt ext;
   const int err = unpack(iargs, fargs, 0ull, device, &a, &ext);
   if (err != 0) return err;
-  const int ts = unpack_bwd_stride(a, iargs);
+  bool in_device = false;
+  const int ts = unpack_bwd_stride(a, iargs, &in_device);
   if (!bwd_tile_ok(a) || ts == 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  return with_family(a, ext, [&](auto fam) {
+  return with_bwd_family(a, ext, in_device, [&](auto fam, auto dev) {
     using Fam = decltype(fam);
+    constexpr bool kDev = decltype(dev)::value;
     size_t smem = 0;
     int per_sm = 0, sms = 0;
     const int e = occupancy(
         stopped_bwd_kernel<Fam::timed, Fam::torus, Fam::relu, Fam::full,
-                           Fam::breadth>,
-        a, ext, ts, a.tile, device, &per_sm, &sms, &smem);
+                           Fam::breadth, kDev>,
+        a, ext, ts, a.tile, device, &per_sm, &sms, &smem, kDev);
     *slots = per_sm * sms;
     return e;
   });

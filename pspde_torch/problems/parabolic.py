@@ -7,7 +7,8 @@ each with the GeneralSolver protocol: ``f_terminal(x)`` the terminal
 condition V(x, T), ``g(x, t)`` the spatial boundary data, ``h(t, x, y, z)``
 the nonlinearity and, where there is one, ``v_ref(x, t)``.  Zero drift,
 sigma = sqrt(2) I.  ``h_family`` states h in the stopped kernels' form with
-the time coefficient k_t; ``AllenCahn``'s cubic h is outside it.
+the time coefficient k_t; ``AllenCahn``'s cubic h with the coefficient
+c_y3 of y^3 (the tuple's eighth entry).
 """
 
 from __future__ import annotations
@@ -89,7 +90,8 @@ class AllenCahn(_ZeroDriftParabolic):
         return 1.0 / (2.0 + 0.4 * _r2(x))
 
     def h_family(self):
-        return ("cubic_y",)
+        # ('ball_exp', c_y, c_yr2, k, phi, k_t, c_ys1, c_y3): y - y^3
+        return ("ball_exp", 1.0, 0.0, 0.0, "none", 0.0, 0.0, -1.0)
 
 
 class ExponentialOnSphereParabolic(_ZeroDriftParabolic):

@@ -57,7 +57,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                         ("pspde_train_rollout_fwd", 7),
                         ("pspde_train_rollout_bwd", 6),
                         ("pspde_stopped_rollout_fwd", 7),
-                        ("pspde_stopped_rollout_bwd", 7)):
+                        ("pspde_stopped_rollout_bwd", 8)):
         fn = getattr(lib, name)
         fn.argtypes = [vp] * n_ptr + tail
         fn.restype = ctypes.c_int

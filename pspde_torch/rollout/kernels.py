@@ -20,7 +20,10 @@ There is no fallback from CUDA to the plain version: a CUDA call either
 launches the kernel or raises.  The serve and HJB training kernels have
 two memory plans (``_choose_plan``): the net staged in each block's shared
 memory beside its paths' arrays where that fits, else read from device
-memory with the arrays in a [row][K] workspace (d=1000).
+memory with the arrays in a [row][K] workspace (d=1000).  The stopped
+backward has two too (``_stopped_bwd_plan``): its lanes' arrays in shared
+memory where a tile fits, else in a [row][grid x tile] workspace (the
+Allen-Cahn notebook's net at d=100).
 
 Noise is either given (``host_noise``, (N, K, d)) or drawn from a
 counter-based Philox4x32-10 stream keyed by (seed, path k, step n,
@@ -929,7 +932,8 @@ STOPPED_KERNEL_FAMILY = (
     "c_yr2 |x|^2) + phi(exp(k |x|^2 + k_t t) - y^2) with phi none, "
     "identity or sin (Problem.h_family 'ball_exp') and v_ref exp(a |x|^2) or "
     "none (Problem.v_ref_family; no in-kernel reference with "
-    "time_stopping); without time_stopping also sigma 'diag' or 'full' (a "
+    "time_stopping), with time_stopping h gaining c_y3 y^3 (AllenCahn's y "
+    "- y^3); without time_stopping also sigma 'diag' or 'full' (a "
     "d x d matrix), the geometry 'two_spheres' (a < |x| < c, tested on the "
     "current state), h gaining c_ys1 y (sum_j x_j)^2 and the committor's "
     "reference (a^2 - r^(2-d) a^d) / (a^2 - c^(2-d) a^d) ('committor'); "
@@ -971,10 +975,11 @@ def _stopped_outside(msg: str):
 def _check_stopped_family(problem, v_net, rng, time_stopping=False,
                           lam=None):
     """(h_family, v_ref_family) of a problem and net inside the stopped
-    kernels' family: ('ball_exp', c_y, c_yr2, k, phi, k_t, c_ys1) with its
-    reference ('exp_r2', a), ('committor', a, c, d) or None, or on the
-    torus ('torus_fp', c) with ('torus_fp', c) or None; raises ValueError
-    naming STOPPED_KERNEL_FAMILY outside it.  With ``time_stopping`` the
+    kernels' family: ('ball_exp', c_y, c_yr2, k, phi, k_t, c_ys1, c_y3)
+    (a shorter tuple padded with 0.0) with its reference ('exp_r2', a),
+    ('committor', a, c, d) or None, or on the torus ('torus_fp', c) with
+    ('torus_fp', c) or None; raises ValueError naming
+    STOPPED_KERNEL_FAMILY outside it.  With ``time_stopping`` the
     net reads [x, t] and there is no in-kernel reference (v_ref_family
     None).  A lambda leaf ``lam`` belongs to the torus family."""
     name = type(problem).__name__
@@ -1027,11 +1032,15 @@ def _check_stopped_family(problem, v_net, rng, time_stopping=False,
         if hfam is None or hfam[0] != "ball_exp" or hfam[4] not in _PHI:
             raise _stopped_outside(f"h of {name} is not in the 'ball_exp' "
                                    "family")
-        hfam = tuple(hfam) + (0.0,) * (7 - len(hfam))
+        hfam = tuple(hfam) + (0.0,) * (8 - len(hfam))
         if hfam[6] != 0.0 and time_stopping:
             raise _stopped_outside(f"h of {name} has a (sum_j x_j)^2 term, "
                                    "which the kernels take without "
                                    "time_stopping")
+        if hfam[7] != 0.0 and not time_stopping:
+            raise _stopped_outside(f"h of {name} has a y^3 term, which the "
+                                   "kernels take with time_stopping (the "
+                                   "clock's instantiations)")
         if vfam is not None and (vfam[0] not in _VREFS or (
                 vfam[0] == "committor" and tuple(vfam[3:]) != (problem.d,))):
             raise _stopped_outside(f"v_ref of {name} is neither exp(a "
@@ -1157,6 +1166,54 @@ def _stopped_tile(n_params: int, per_path: int, tile: Optional[int],
     raise _stopped_outside(f"{least} bytes of per-path shared memory at "
                            f"tile={t} exceed the {_SMEM_LIMIT}-byte limit of "
                            "one block")
+
+
+def _stopped_bwd_plan(n_params: int, per_path: int, tile: Optional[int],
+                      plan: Optional[str], device_ok: bool = True):
+    """(tile, stage, plan) of the backward.
+
+    The shared plan keeps each lane's ``per_path`` floats in shared memory
+    (``_stopped_tile``: the tile, the stride and the staged net as before).
+    Where no tile fits (or ``plan='device'``), the device plan keeps them in
+    a [row][grid x tile] workspace of device memory (``_stopped_bwd_ws``):
+    tile 64 unless given, and the net staged in shared memory where the
+    ballots and the net take at most half a block's limit (an SM then still
+    holds two blocks), else read from device memory.  ``plan='shared'``
+    where no tile fits raises the family's ValueError; the device plan for
+    an instantiation that lacks it (``device_ok`` False: the committor's and
+    the dense sigma's) raises, naming ROADMAP.md."""
+    _check_plan(plan)
+    if plan == "shared":
+        return (*_stopped_tile(n_params, per_path, tile, True), "shared")
+    if plan is None:
+        try:
+            return (*_stopped_tile(n_params, per_path, tile, True), "shared")
+        except ValueError:
+            pass
+    if not device_ok:
+        raise _stopped_outside(
+            "the backward's device plan is not instantiated for the breadth "
+            "families without time_stopping (the two spheres, a dense sigma, "
+            "the committor's reference, c_ys1; ROADMAP.md Queue 2 item "
+            "4(f))")
+    if tile is not None and tile not in _STOPPED_TILES:
+        raise ValueError(f"tile={tile} must be one of {_STOPPED_TILES}")
+    t = max(_STOPPED_TILES) if tile is None else tile
+    stage = 2 * _stopped_smem_bytes(n_params, 0, t, True) <= _SMEM_LIMIT
+    return t, stage, "device"
+
+
+def _stopped_bwd_ws(per_path: int, tile: int, grid: int) -> int:
+    """The device plan's workspace stride: one column a lane, grid x tile
+    (the backward refills its lanes, so the arrays belong to a lane, not to
+    a path); its per_path x stride floats are indexed with 32-bit ints, so
+    they must stay below 2^31."""
+    stride = grid * tile
+    if per_path * stride >= 2 ** 31:
+        raise _stopped_outside(
+            f"the backward's device-plan workspace of {per_path} x {stride} "
+            "floats exceeds the kernels' 32-bit indices")
+    return stride
 
 
 class _FwdLayout(NamedTuple):
@@ -1319,27 +1376,42 @@ def _stopped_full(packed: _Packed) -> bool:
     return packed.iargs[_STOPPED_N_INTS] >= 0
 
 
+def _stopped_unclocked(geom: str, sig_off: int, vref: str, c_ys1) -> bool:
+    """Whether a call carries a breadth term that goes without the clock
+    (csrc unclocked): the two spheres, a dense sigma, the committor's
+    reference, c_ys1.  Their instantiations have no device plan for the
+    backward (ROADMAP.md Queue 2 item 4(f))."""
+    return (geom == "two_spheres" or sig_off >= 0 or vref != "exp_r2"
+            or c_ys1 != 0.0)
+
+
 def _stopped_instance(packed: _Packed) -> tuple:
     """What picks the kernels' instantiation of a packed call (csrc
     with_family): the clock, the geometry, the output clamp, and the
-    breadth terms (StoppedExt: the dense sigma, the reference, c_ys1)."""
+    breadth terms (StoppedExt: the dense sigma, the reference, c_ys1,
+    c_y3)."""
     ia, fa = packed.iargs, packed.fargs
     return (ia[14], ia[15], ia[16 + 4 * _MAX_HIDDEN + 3],
             *ia[_STOPPED_N_INTS:_STOPPED_N_INTS + 2],
-            fa[_STOPPED_N_FLOATS + 1] != 0.0)
+            fa[_STOPPED_N_FLOATS + 1] != 0.0,
+            fa[_STOPPED_N_FLOATS + 5] != 0.0)
 
 
 def _pack_stopped(problem, v_net, hfam, vfam, K, N, delta_t, tile, *,
                   backward, host_noise, adaptive_forward, rng,
-                  time_stopping=False, lam=None, fwd_layout=None) -> _Packed:
+                  time_stopping=False, lam=None, fwd_layout=None,
+                  plan=None) -> _Packed:
     """The stopped kernels' arguments (stopped_rollout.cu: StoppedArgs,
-    then StoppedExt: ints [sig_off, vref], floats [r_in, c_ys1, and the
-    committor's a^2, a^d, a^2 - c^(2-d) a^d]).  The state has d rows and
-    the net d_in = d (+ 1 with time_stopping) input rows; F and the hidden
-    rows H count from d_in.  The torus family always carries lambda in the
-    packed net (``lam``, or 0 without it) and its gradient entry; a diag or
-    full sigma is packed after the net as a (d, d) matrix.  The forward's
-    ``layout`` is ``_stopped_fwd_layout`` (``fwd_layout`` where given)."""
+    then StoppedExt: ints [sig_off, vref], floats [r_in, c_ys1, the
+    committor's a^2, a^d, a^2 - c^(2-d) a^d, and c_y3]).  The state has d
+    rows and the net d_in = d (+ 1 with time_stopping) input rows; F and
+    the hidden rows H count from d_in.  The torus family always carries
+    lambda in the packed net (``lam``, or 0 without it) and its gradient
+    entry; a diag or full sigma is packed after the net as a (d, d)
+    matrix.  The forward's
+    ``layout`` is ``_stopped_fwd_layout`` (``fwd_layout`` where given), the
+    backward's ``(plan,)`` of ``_stopped_bwd_plan`` (``plan`` forces
+    one)."""
     d = problem.d
     geom = problem.geometry
     torus = hfam[0] == "torus_fp"
@@ -1352,31 +1424,13 @@ def _pack_stopped(problem, v_net, hfam, vfam, K, N, delta_t, tile, *,
     H = lay.F - v_net.d_in
     per_path = _stopped_per_path(lay.F, H, d, backward, full)
     n_params = lay.buf.numel()
-    fwd = ()
-    if backward:
-        tile, stage = _stopped_tile(n_params, per_path, tile, backward)
-    else:
-        fwd, stage = _stopped_fwd_layout(
-            lay.widths, geom.kind, K,
-            _stopped_fwd_net_floats(n_params, lay.widths, v_net.d_in),
-            per_path, tile, fwd_layout)
-        tile = fwd.tile
-    c_ys1 = 0.0
+    c_ys1 = c_y3 = 0.0
     if torus:
         c_y = c_yr2 = k_exp = k_t = 0.0
         phi, c_tor = "none", float(hfam[1])
     else:
-        _, c_y, c_yr2, k_exp, phi, k_t, c_ys1 = hfam
+        _, c_y, c_yr2, k_exp, phi, k_t, c_ys1, c_y3 = hfam
         c_tor = 0.0
-    two = geom.kind == "two_spheres"
-    iargs = [K, N, d, len(lay.widths), lay.F, tile, int(stage), n_params,
-             int(host_noise is not None), int(adaptive_forward),
-             RNG_MAPS.index(rng), _PHI.index(phi), int(vfam is not None),
-             lay.n_grad, int(time_stopping), _GEOMETRIES.index(geom.kind)]
-    iargs += (_pad_hidden(lay.widths) + _pad_hidden(lay.w_off)
-              + _pad_hidden(lay.b_off) + _pad_hidden(lay.g_off))
-    iargs += [lay.wL_off, lay.bL_off, lay.gL_off, int(v_net.output_relu),
-              lay.lam_off, lay.g_lam]
     # the ball's reference exp(a_vref |x|^2), or the committor's constants
     vref, a_vref, vr = "exp_r2", 0.0, [0.0, 0.0, 0.0]
     if vfam is not None and not torus:
@@ -1386,6 +1440,27 @@ def _pack_stopped(problem, v_net, hfam, vfam, K, N, delta_t, tile, *,
         else:
             a, c, dv = (float(v) for v in vfam[1:])
             vr = [a ** 2, a ** dv, a ** 2 - c ** (2 - dv) * a ** dv]
+    fwd = ()
+    if backward:
+        tile, stage, plan = _stopped_bwd_plan(
+            n_params, per_path, tile, plan, device_ok=not _stopped_unclocked(
+                geom.kind, lay.sig_off, vref, c_ys1))
+        fwd = (plan,)
+    else:
+        fwd, stage = _stopped_fwd_layout(
+            lay.widths, geom.kind, K,
+            _stopped_fwd_net_floats(n_params, lay.widths, v_net.d_in),
+            per_path, tile, fwd_layout)
+        tile = fwd.tile
+    two = geom.kind == "two_spheres"
+    iargs = [K, N, d, len(lay.widths), lay.F, tile, int(stage), n_params,
+             int(host_noise is not None), int(adaptive_forward),
+             RNG_MAPS.index(rng), _PHI.index(phi), int(vfam is not None),
+             lay.n_grad, int(time_stopping), _GEOMETRIES.index(geom.kind)]
+    iargs += (_pad_hidden(lay.widths) + _pad_hidden(lay.w_off)
+              + _pad_hidden(lay.b_off) + _pad_hidden(lay.g_off))
+    iargs += [lay.wL_off, lay.bL_off, lay.gL_off, int(v_net.output_relu),
+              lay.lam_off, lay.g_lam]
     iargs += [lay.sig_off, _VREFS.index(vref)]
     dt, sq_dt = step_constants(delta_t)
     fargs = [dt, sq_dt, 0.0 if full else sig.scale,
@@ -1396,7 +1471,7 @@ def _pack_stopped(problem, v_net, hfam, vfam, K, N, delta_t, tile, *,
              float(geom.X_l) if torus else 0.0,
              float(geom.X_r) if torus else 0.0, c_tor]
     fargs += [float(geom.boundary_distance_1) if two else 0.0,
-              float(c_ys1)] + vr
+              float(c_ys1)] + vr + [float(c_y3)]
     return _Packed(lay.buf, iargs, fargs, layout=fwd)
 
 
@@ -1416,6 +1491,7 @@ class _StoppedCall(NamedTuple):
     tile: Optional[int]
     lam: Optional[torch.Tensor] = None   # the torus family's lambda leaf
     fwd_layout: Optional[tuple] = None   # a forced _FwdLayout of the forward
+    plan: Optional[str] = None           # a forced plan of the backward
 
     def plain(self) -> FusedStoppedOut:
         return reference_stopped_train_rollout(
@@ -1431,7 +1507,7 @@ class _StoppedCall(NamedTuple):
             host_noise=o["host_noise"],
             adaptive_forward=o["adaptive_forward"], rng=o["rng"],
             time_stopping=o.get("time_stopping", False), lam=self.lam,
-            fwd_layout=self.fwd_layout)
+            fwd_layout=self.fwd_layout, plan=self.plan)
 
 
 # the forward's occupancy per (device, tile, tpp, shared bytes,
@@ -1548,13 +1624,28 @@ def _stopped_bwd_per_path(packed: _Packed) -> int:
                              _stopped_full(packed))
 
 
-def _stopped_bwd_ts(packed: _Packed) -> int:
-    """The backward's stride for one packed call (``_stopped_bwd_stride``
-    of its tile, staged net and per-path floats)."""
+def _stopped_bwd_ts(packed: _Packed, grid: Optional[int] = None) -> int:
+    """The backward's stride for one packed call: in the shared plan
+    ``_stopped_bwd_stride`` of its tile, staged net and per-path floats; in
+    the device plan the workspace's, grid x tile (``_stopped_bwd_ws``)."""
     ia = packed.iargs
     tile, stage, n_params = ia[5], ia[6], ia[7]
+    if packed.layout[0] == "device":
+        return _stopped_bwd_ws(_stopped_bwd_per_path(packed), tile, grid)
     return _stopped_bwd_stride(n_params if stage else 0,
                                _stopped_bwd_per_path(packed), tile)
+
+
+def _stopped_bwd_smem(packed: _Packed, ts: int) -> int:
+    """Shared bytes of one backward block (stopped_rollout.cu:smem_floats):
+    the ballots, the staged net and, in the shared plan, the per-path
+    arrays at stride ``ts``."""
+    ia = packed.iargs
+    tile, stage, n_params = ia[5], ia[6], ia[7]
+    per_path = (_stopped_bwd_per_path(packed)
+                if packed.layout[0] == "shared" else 0)
+    return _stopped_smem_bytes(n_params if stage else 0, per_path, tile,
+                               True, ts)
 
 
 def _stopped_bwd_grid(packed: _Packed, dev: torch.device) -> int:
@@ -1567,20 +1658,21 @@ def _stopped_bwd_grid(packed: _Packed, dev: torch.device) -> int:
     gains nothing, one block per tile paths (the block scheduler balances
     the SMs)."""
     ia = packed.iargs
-    K, tile, stage, n_params = ia[0], ia[5], ia[6], ia[7]
+    K, tile = ia[0], ia[5]
     if _GEOMETRIES[ia[15]] not in _EXITS:
         return -(-K // tile)
-    ts = _stopped_bwd_ts(packed)
-    smem = _stopped_smem_bytes(n_params if stage else 0,
-                               _stopped_bwd_per_path(packed), tile, True, ts)
+    plan = packed.layout[0]
+    # the device plan's stride waits for the grid: the query reads none
+    ts = _stopped_bwd_ts(packed) if plan == "shared" else tile
+    smem = _stopped_bwd_smem(packed, ts)
     index = dev.index if dev.index is not None else \
         torch.cuda.current_device()
-    key = (index, tile, smem, _stopped_instance(packed))
+    key = (index, tile, smem, _stopped_instance(packed), plan)
     if key not in _STOPPED_BWD_SLOTS:
         from ._build import library
         lib = library()
         slots = ctypes.c_int(0)
-        ia = ia + [ts]
+        ia = ia + [ts, 0, PLANS.index(plan)]
         err = lib.pspde_stopped_bwd_slots(
             (ctypes.c_int * len(ia))(*ia),
             (ctypes.c_float * len(packed.fargs))(*packed.fargs), index,
@@ -1594,23 +1686,39 @@ def _stopped_bwd_grid(packed: _Packed, dev: torch.device) -> int:
     return _stopped_grid(K, tile, _STOPPED_BWD_SLOTS[key])
 
 
-def _stopped_backward_rows(call: _StoppedCall, gY):
+def _stopped_backward_rows(call: _StoppedCall, gY,
+                           grid: Optional[int] = None):
     """The backward kernel's per-block gradient rows (grid, n_grad) and
     what each block ran, (grid, 2) int32: its block-steps and its busy
     lanes summed over them.  Each block replays its range of paths
-    (``_stopped_ranges``) and writes the sums of their steps."""
+    (``_stopped_ranges``) and writes the sums of their steps.  In the
+    device plan the lanes' arrays live in a workspace of per-path rows x
+    grid x tile floats (``_stopped_bwd_ws``) right after the rows, which
+    the kernel zeroes a lane's rows of as it takes a path, as it does in
+    shared memory.
+    ``grid`` forces the grid (1 .. ceil(K / tile)), so that two plans can
+    be held to each other's rows."""
     X0 = call.X0
     packed = call.pack(backward=True)
-    ts = _stopped_bwd_ts(packed)
-    grid = _stopped_bwd_grid(packed, X0.device)
-    part = torch.empty((grid, packed.iargs[13]), dtype=torch.float32,
-                       device=X0.device)
+    plan = packed.layout[0]
+    if grid is None:
+        grid = _stopped_bwd_grid(packed, X0.device)
+    ts = _stopped_bwd_ts(packed, grid)
+    n_rows = grid * packed.iargs[13]
+    n_ws = _stopped_bwd_per_path(packed) * ts if plan == "device" else 0
+    # the workspace follows the rows in one buffer, where the kernel finds
+    # it (stopped_rollout.cu: stopped_bwd_kernel)
+    buf = torch.empty(n_rows + n_ws, dtype=torch.float32, device=X0.device)
+    part = buf[:n_rows].view(grid, packed.iargs[13])
+    ws = buf[n_rows:] if n_ws else None
     counts = torch.empty((grid, 2), dtype=torch.int32, device=X0.device)
     _launch("pspde_stopped_rollout_bwd", "fused_stopped_train_rollout",
-            packed._replace(iargs=packed.iargs + [ts, grid]),
+            packed._replace(iargs=packed.iargs + [ts, grid,
+                                                  PLANS.index(plan)]),
             [packed.params, call.opts["host_noise"], X0, call.t0,
-             gY.contiguous(), part, counts], call.seed, X0.device)
+             gY.contiguous(), part, counts, ws], call.seed, X0.device)
     fused_stopped_train_rollout.backward_launches += 1
+    fused_stopped_train_rollout.backward_launches_by_plan[plan] += 1
     return part, counts
 
 
@@ -1630,7 +1738,9 @@ def _reference_stopped_backward(call: _StoppedCall, gY) -> list:
     replay the plain forward's X chain and masks, and accumulate per step
     d/dtheta [alpha V(X) + w^T grad V(X)] with alpha = gY adv (-dh/dy) dt
     and w = gY adv s (xi sqrt(dt) + c dt), by one tangent sweep through the
-    DenseNet in direction w and one reverse sweep over the pair.  With
+    DenseNet in direction w and one reverse sweep over the pair; dh/dy of
+    the 'ball_exp' family c_y + c_yr2 |X|^2 + c_ys1 (sum_j X_j)^2 + 3 c_y3
+    V^2 - 2 V phi'(u).  With
     ``time_stopping`` the primal sweep starts from [X, t] and the tangent
     has a zero in the t slot (Z is the gradient in x only).  With the
     output clamp both terms carry the mask 1[V > 0].  With ``call.lam``
@@ -1670,11 +1780,13 @@ def _reference_stopped_backward(call: _StoppedCall, gY) -> list:
             # h is linear in y: dh/dy = h(x, 1)
             dh_dy = problem.h(X, torch.ones_like(V), Z)
         else:
-            _, c_y, c_yr2, k_exp, phi, k_t, c_ys1 = hfam
+            _, c_y, c_yr2, k_exp, phi, k_t, c_ys1, c_y3 = hfam
             r2 = torch.sum(X * X, dim=-1)
             dh_dy = c_y + c_yr2 * r2
             if c_ys1 != 0.0:
                 dh_dy = dh_dy + c_ys1 * torch.sum(X, dim=-1) ** 2
+            if c_y3 != 0.0:
+                dh_dy = dh_dy + 3.0 * c_y3 * V * V
             if phi != "none":
                 u = torch.exp(k_exp * r2 + k_t * t) - V * V
                 dh_dy = dh_dy - 2.0 * V * (1.0 if phi == "identity"
@@ -1771,7 +1883,8 @@ def fused_stopped_train_rollout(problem, v_net, X0: torch.Tensor,
                                 host_noise: Optional[torch.Tensor] = None,
                                 tile: Optional[int] = None,
                                 time_stopping: bool = False,
-                                lam: Optional[torch.Tensor] = None
+                                lam: Optional[torch.Tensor] = None,
+                                plan: Optional[str] = None
                                 ) -> FusedStoppedOut:
     """Stopped training rollout of the K paths starting at X0 (K, d), t0
     (K,), over at most N steps with a detached forward: ``FusedStoppedOut``,
@@ -1784,7 +1897,10 @@ def fused_stopped_train_rollout(problem, v_net, X0: torch.Tensor,
     ``host_noise`` (N, K, d) must live there.  CPU: the plain version
     (forward, and ``_reference_stopped_backward``).  CUDA: the kernels of
     ``csrc/stopped_rollout.cu``, counted by
-    ``fused_stopped_train_rollout.launches`` and ``.backward_launches``.
+    ``fused_stopped_train_rollout.launches`` and ``.backward_launches``
+    (per memory plan of the backward: ``.backward_launches_by_plan``).
+    ``plan`` forces the backward's plan, 'shared' or 'device'
+    (``_stopped_bwd_plan``; None: shared where a block fits).
     Noise is ``host_noise`` or the Philox stream of ``seed`` through
     ``rng`` ('erfinv', the default, or 'binom').  ``time_stopping`` (the
     general, space-time solver): the net reads [x, t], each path's clock
@@ -1795,6 +1911,7 @@ def fused_stopped_train_rollout(problem, v_net, X0: torch.Tensor,
     alike."""
     families = _check_stopped_family(problem, v_net, rng, time_stopping,
                                      lam)
+    _check_plan(plan)
     dev = problem.X_0.device
     K, d = X0.shape
     if d != problem.d:
@@ -1816,10 +1933,13 @@ def fused_stopped_train_rollout(problem, v_net, X0: torch.Tensor,
                         int(seed), families,
                         dict(adaptive_forward=adaptive_forward, rng=rng,
                              host_noise=host_noise,
-                             time_stopping=bool(time_stopping)), tile, lam)
+                             time_stopping=bool(time_stopping)), tile, lam,
+                        plan=plan)
     leaves = list(v_net.parameters()) + ([lam] if lam is not None else [])
     return FusedStoppedOut(*_FusedStoppedFn.apply(call, *leaves))
 
 
 fused_stopped_train_rollout.launches = 0
 fused_stopped_train_rollout.backward_launches = 0
+fused_stopped_train_rollout.backward_launches_by_plan = dict.fromkeys(PLANS,
+                                                                      0)

@@ -333,8 +333,8 @@ def test_pack_stopped_torus(backward, with_lam):
                               backward=backward, host_noise=None,
                               adaptive_forward=False, rng="erfinv", lam=lam)
     ia, fa = packed.iargs, packed.fargs
-    # StoppedArgs' ints and floats, then StoppedExt's 2 and 5
-    assert len(ia) == 16 + 4 * tk._MAX_HIDDEN + 6 + 2 and len(fa) == 13 + 5
+    # StoppedArgs' ints and floats, then StoppedExt's 2 and 6
+    assert len(ia) == 16 + 4 * tk._MAX_HIDDEN + 6 + 2 and len(fa) == 13 + 6
     assert (ia[5], ia[6]) == ((64, 1) if backward else (4, 1))
     assert (ia[11], ia[12], ia[14], ia[15]) == (0, 1, 0, 2)
     relu, lam_off, g_lam = ia[-5:-2]

@@ -131,12 +131,13 @@ def test_family_hooks_state_h_and_v_ref(case):
     """('ball_exp', c_y, c_yr2, k, phi, k_t, c_ys1) evaluates to the JAX
     problem's h, ('exp_r2', a) or ('committor', a, c, d) to its v_ref;
     the drift is zero; the kernels' family check takes the problem with a
-    DenseNet and pads h's family to seven entries."""
+    DenseNet and pads h's family to eight entries (c_y3, the cubic's, 0
+    here)."""
     pj, pt = _pair(case)
     x, y, z = _inputs(pj, seed=1)
-    fam = tuple(pt.h_family()) + (0.0,) * (7 - len(pt.h_family()))
-    kind, c_y, c_yr2, k, phi, k_t, c_ys1 = fam
-    assert kind == "ball_exp" and k_t == 0.0
+    fam = tuple(pt.h_family()) + (0.0,) * (8 - len(pt.h_family()))
+    kind, c_y, c_yr2, k, phi, k_t, c_ys1, c_y3 = fam
+    assert kind == "ball_exp" and k_t == 0.0 and c_y3 == 0.0
     x64, y64 = x.astype(np.float64), y.astype(np.float64)
     r2 = np.sum(x64 ** 2, axis=-1)
     s1 = np.sum(x64, axis=-1)

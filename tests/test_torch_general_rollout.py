@@ -314,16 +314,27 @@ class _NoHorizon(tp.ExponentialOnSphere):
     pass
 
 
+class _TanhH(tp.AllenCahn):
+    """A space-time problem outside STOPPED_KERNEL_FAMILY: h = tanh(y)."""
+
+    def h(self, t, x, y, z):
+        return torch.tanh(y)
+
+    def h_family(self):
+        return None
+
+
 def test_time_stopping_family_errors():
     """Outside STOPPED_KERNEL_FAMILY the wrapper raises on the CPU as on
-    CUDA, naming the family: AllenCahn's cubic h, a net of input width d
-    under time_stopping (and of width d + 1 without it), a problem without
-    a horizon; the plain version takes AllenCahn."""
+    CUDA, naming the family: an h outside the 'ball_exp' family (tanh y), a
+    net of input width d under time_stopping (and of width d + 1 without
+    it), a problem without a horizon; the plain version takes that h, and
+    AllenCahn's cubic h."""
     d = 3
     pt, net, X0, t0 = _torch_setup("nonlinear", d)
     net_x = DenseNet(1, ARCH, d_in=d, device="cpu")
     cases = [
-        (tp.AllenCahn(d=d, device="cpu"), net, True, "h of AllenCahn"),
+        (_TanhH(d=d, device="cpu"), net, True, "h of _TanhH"),
         (pt, net_x, True, f"need {d + 1}, 1, False"),
         (pt, net, False, f"need {d}, 1, False"),
         (_NoHorizon(d=d, device="cpu"), net, True, "T=None"),
@@ -339,10 +350,10 @@ def test_time_stopping_family_errors():
                                        lam=torch.zeros(()))
     assert "time_stopping" in tk.STOPPED_KERNEL_FAMILY
     assert "unbounded" in tk.STOPPED_KERNEL_FAMILY
-    out = tk.reference_stopped_train_rollout(
-        tp.AllenCahn(d=d, device="cpu"), net, X0, t0, N, DT,
-        time_stopping=True)
-    assert torch.isfinite(out.Y).all()
+    for prob in (_TanhH(d=d, device="cpu"), tp.AllenCahn(d=d, device="cpu")):
+        out = tk.reference_stopped_train_rollout(prob, net, X0, t0, N, DT,
+                                                 time_stopping=True)
+        assert torch.isfinite(out.Y).all()
 
 
 @pytest.mark.parametrize("d,arch,case,backward,smem", [
@@ -366,14 +377,14 @@ def test_pack_stopped_time_stopping(d, arch, case, backward, smem):
     net = DenseNet(1, arch, d_in=d + 1, device="cpu",
                    generator=torch.Generator().manual_seed(0))
     fam = tk._check_stopped_family(pt, net, "erfinv", time_stopping=True)
-    assert len(fam[0]) == 7 and fam[1] is None
+    assert len(fam[0]) == 8 and fam[1] is None
     packed = tk._pack_stopped(pt, net, *fam, 4096, 20, 1e-3, None,
                               backward=backward, host_noise=None,
                               adaptive_forward=False, rng="erfinv",
                               time_stopping=True)
     ia, fa = packed.iargs, packed.fargs
-    # StoppedArgs' ints and floats, then StoppedExt's 2 and 5
-    assert len(ia) == 16 + 4 * tk._MAX_HIDDEN + 6 + 2 and len(fa) == 13 + 5
+    # StoppedArgs' ints and floats, then StoppedExt's 2 and 6
+    assert len(ia) == 16 + 4 * tk._MAX_HIDDEN + 6 + 2 and len(fa) == 13 + 6
     lay = tk._stopped_layout(net)
     F, H = d + 1 + sum(arch), sum(arch)
     assert (ia[2], ia[4], ia[14]) == (d, F, 1)

@@ -39,6 +39,7 @@ from pspde_torch.eval import compute_test_error
 from pspde_torch.rollout import kernels as tk
 from pspde_torch.solvers import EllipticSolver, GeneralSolver as TSolver
 from pspde_torch.utils.convert import dense_net_to_flax
+from tests.test_torch_general_rollout import _TanhH
 
 D, K, KB, N, DT, T_END, STEPS = 3, 64, 16, 12, 0.01, 0.15, 20
 TRAJ_RTOL, PARAM_ATOL = 2e-4, 1e-5
@@ -130,9 +131,9 @@ def test_twenty_steps_match_jax(case, engine, loss_method, opts):
 
 def test_fused_train_gates_and_not_ported_options():
     """Off CUDA every gate but the device passes for the slice's recipe and
-    'fused_train' resolves to 'scan' with a warning; AllenCahn fails the
-    family gate, which names STOPPED_KERNEL_FAMILY, and the kernels'
-    wrapper raises on it; what is not ported raises, naming ROADMAP.md;
+    'fused_train' resolves to 'scan' with a warning; an h outside the
+    'ball_exp' family (tanh y) fails the family gate, which names
+    STOPPED_KERNEL_FAMILY, and the kernels' wrapper raises on it; what is not ported raises, naming ROADMAP.md;
     without a card device=None raises."""
     _, pt = _problems("dirichlet")
     kw = dict(K=32, K_boundary=8, N=4, delta_t=1e-3, verbose=False,
@@ -152,7 +153,7 @@ def test_fused_train_gates_and_not_ported_options():
     with pytest.warns(UserWarning, match="solve_linear_L2_projection=False"):
         TSolver(pt, "t", solve_linear_L2_projection=True,
                 rollout_mode="fused_train", **kw)
-    ac = tp.AllenCahn(d=D, device="cpu")
+    ac = _TanhH(d=D, device="cpu")
     with pytest.warns(UserWarning, match="STOPPED_KERNEL_FAMILY"):
         a = TSolver(ac, "t", rollout_mode="fused_train", **kw)
     assert a.resolved_rollout_mode == "scan"

@@ -103,6 +103,15 @@ def test_h_family_states_h(case, d):
 
 
 def test_allen_cahn_is_outside_the_kernels_family():
+    """AllenCahn's cubic h is the 'ball_exp' family's y (c_y + c_yr2 |x|^2)
+    with c_y3 y^3 (the eighth entry), which the kernels take with the clock
+    only: without time_stopping (JAX's elliptic "ac100" form) it stays
+    outside their family, as the whole space does."""
     pt = tp.AllenCahn(d=3, device="cpu")
-    assert pt.h_family()[0] != "ball_exp"
+    hfam = pt.h_family()
+    assert hfam == ("ball_exp", 1.0, 0.0, 0.0, "none", 0.0, 0.0, -1.0)
+    x, t, y, z = (torch.from_numpy(a) for a in _inputs(3, pt.T, seed=2))
+    _, c_y, c_yr2, _, _, _, _, c_y3 = hfam
+    h = y * (c_y + c_yr2 * torch.sum(x * x, dim=-1)) + c_y3 * y ** 3
+    torch.testing.assert_close(h, pt.h(t, x, y, z))
     assert not pt.has_v_ref and pt.V0_LITERATURE == 0.052802

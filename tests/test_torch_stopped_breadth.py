@@ -241,16 +241,17 @@ def test_pack_breadth_fields_against_the_cu():
     """StoppedExt follows StoppedArgs' ints and floats in the wrapper's
     arrays, in the .cu's field order: the dense sigma's offset (and sigma
     row-major there, after the net), the reference's kind, the inner
-    radius, c_ys1 and the committor's constants; the two spheres' outer
+    radius, c_ys1, the committor's constants and c_y3 (0: the cubic goes
+    with the clock); the two spheres' outer
     radius in StoppedArgs.radius, sigma's scalar 0 where it is dense; the
     per-path rows gain d (forward) and 2 d (backward) with a dense
     sigma."""
     fields, src = _cu_struct("StoppedExt")
     assert fields == ["sig_off", "vref", "r_in", "c_ys1", "vr_a2", "vr_ad",
-                      "vr_den"]
+                      "vr_den", "c_y3"]
     n_ext_i = int(re.search(r"kNumExtInts = (\d+);", src).group(1))
     n_ext_f = int(re.search(r"kNumExtFloats = (\d+);", src).group(1))
-    assert (n_ext_i, n_ext_f) == (2, 5)
+    assert (n_ext_i, n_ext_f) == (2, 6)
     args, _ = _cu_struct("StoppedArgs")
     n_int = args.index("dt") + 3 * (args.index("X_l") > args.index("dt"))
     n_int += sum(3 for f in ("width", "w_off", "b_off", "g_off") if f in args)
@@ -295,8 +296,9 @@ def test_pack_breadth_fields_against_the_cu():
                 assert ext["c_ys1"] == pytest.approx(-4 * 0.25)
                 assert (fa[4], fa[5], fa[6]) == (-2 * 0.5 * D, 0.0, 1.0)
                 assert ia[13] == lay.n_grad   # sigma takes no gradient
+            assert ext["c_y3"] == 0.0
             assert tk._stopped_instance(p)[3:] == (ext["sig_off"],
-                                                   ext["vref"], full)
+                                                   ext["vref"], full, False)
 
 
 def _fma(a, b, c):
@@ -426,3 +428,44 @@ def test_twenty_fused_steps_match_jax(case, opts):
     for a, b in zip(jax.tree.leaves(got),
                     jax.tree.leaves(jax.device_get(params))):
         np.testing.assert_allclose(a, b, rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("half", ["outer", "inner"])
+def test_committor_boundary_loss_matches_jax(half):
+    """The committor's boundary term, the Dirichlet mean of (V - g)^2 with
+    g = 1[|x| > a] (0 on the inner sphere, 1 on the outer), of the port's
+    EllipticSolver against JAX's ``_boundary_loss`` from the same initial
+    DenseNet (8, 8), value and gradient, on JAX's own boundary samples: the
+    outer-sphere half as drawn (|x| = c, far from the jump), and the inner
+    half moved off the jump at |x| = a by a margin (scaled to |x| = 0.99
+    a), where float32 roundoff of |x| cannot set g (the 20-step tests run
+    the committor without this term for that reason)."""
+    pj, pt, js, *_ = _setup("committor")
+    ts = TSolver(pt, "t", value_net=DenseNet(1, (8, 8), d_in=D,
+                                             device="cpu"),
+                 K=K, N=N, delta_t=DT, verbose=False, device="cpu")
+    ts.load_jax_params(jax.device_get(js.params))
+    Xb = np.asarray(j_boundary(jax.random.PRNGKey(8), pj.geometry, 4 * K,
+                               D))
+    r = np.linalg.norm(Xb, axis=1)
+    mid = 0.5 * (pt.a + pt.c)
+    if half == "outer":
+        Xb = Xb[r > mid]
+    else:
+        Xb = Xb[r < mid] * np.float32(0.99)
+    Xb = Xb.astype(np.float32)
+    assert Xb.shape[0] >= K
+    l_j, g_j = jax.value_and_grad(js._boundary_loss)(js.params,
+                                                     jnp.asarray(Xb))
+    Xt = torch.from_numpy(Xb)
+    g = pt.g(Xt)
+    assert torch.equal(g, torch.full_like(g, float(half == "outer")))
+    l_t = ts._boundary_loss(Xt)
+    assert float(l_t.detach()) > 0
+    np.testing.assert_allclose(_np(l_t), float(l_j), rtol=Y_RTOL)
+    g_t = torch.autograd.grad(l_t, list(ts.V_net.parameters()))
+    for a, b in zip(jax.tree.leaves(dense_net_to_flax(g_t)),
+                    jax.tree.leaves(jax.device_get(g_j))):
+        assert a.shape == b.shape
+        np.testing.assert_allclose(a, np.asarray(b), rtol=G_RTOL,
+                                   atol=G_ATOL)

@@ -79,9 +79,10 @@ N_INTS = 16 + 4 * tk._MAX_HIDDEN + 6 + 2  # StoppedArgs', StoppedExt's
                                      (8192 + 37, 132)])
 def test_backward_rows_sized_to_the_grid(monkeypatch, K, slots):
     """The wrapper asks the library once for the slots of an
-    instantiation (StoppedArgs' ints and the stride), sizes the gradient
-    rows and the block counts to the grid, passes the stride and the grid
-    after StoppedArgs' ints, and sums the rows it gets back."""
+    instantiation (StoppedArgs' ints, the stride, a grid it does not read
+    and the plan), sizes the gradient rows and the block counts to the
+    grid, passes the stride, the grid and the plan (0: shared) after
+    StoppedArgs' ints and no workspace, and sums the rows it gets back."""
     asked = []
 
     class FakeLib:
@@ -94,11 +95,11 @@ def test_backward_rows_sized_to_the_grid(monkeypatch, K, slots):
 
     def fake_launch(fn, who, packed, tensors, seed, dev):
         assert fn == "pspde_stopped_rollout_bwd"
-        part, counts = tensors[-2:]
-        assert counts.dtype == torch.int32
+        part, counts, ws = tensors[-3:]
+        assert counts.dtype == torch.int32 and ws is None
         launched.append((packed.iargs[N_INTS:], tuple(part.shape),
                          tuple(counts.shape)))
-        assert len(packed.iargs) == N_INTS + 2
+        assert len(packed.iargs) == N_INTS + 3
         part.copy_(torch.arange(1, part.shape[0] + 1,
                                 dtype=torch.float32)[:, None].expand_as(part))
         counts.fill_(1)
@@ -114,8 +115,9 @@ def test_backward_rows_sized_to_the_grid(monkeypatch, K, slots):
         grads = tk._stopped_backward_kernel(call, gY)
     tile = call.pack(backward=True).iargs[5]
     grid = tk._stopped_grid(K, tile, slots)
-    assert asked == [(0, N_INTS + 1, tile + 4)]
-    assert launched == [([tile + 4, grid], (grid, n_grad), (grid, 2))] * 2
+    assert asked == [(0, N_INTS + 3, tile + 4)]
+    assert launched == [([tile + 4, grid, 0], (grid, n_grad),
+                         (grid, 2))] * 2
     total = grid * (grid + 1) / 2
     for g in grads:
         assert torch.all(g == total)
@@ -244,11 +246,17 @@ def test_backward_stride(arch, tile, stride):
 
 def test_backward_too_wide_raises():
     """A net whose backward arrays exceed one block even at tile 32 and
-    stride 33 stays outside the kernel family."""
+    stride 33 stays outside the shared plan: plan='shared' raises, naming
+    the kernel family, and by default the backward takes the device plan
+    (tile 64, the net's 47,468 floats read from device memory: staged, they
+    would leave room for one block an SM)."""
     call = _ball_call(64, d=50, arch=(100, 100, 100))
     call.pack(backward=False)
     with pytest.raises(ValueError, match="STOPPED_KERNEL_FAMILY"):
-        call.pack(backward=True)
+        call._replace(plan="shared").pack(backward=True)
+    packed = call.pack(backward=True)
+    assert packed.layout == ("device",) and packed.iargs[5:8] == [64, 0,
+                                                                  47468]
 
 
 def _grid_call(kind, K):
