@@ -10,10 +10,10 @@ control is learned.  This script
      four (both plans, with and without the double well's drift),
      the HJB forward's and backward's two instantiations each, of the
      ablation ladder's net and full stages on both plans and of the
-     stopped backward's twenty (twelve families on the shared plan, eight
-     on the device plan) in the library's SASS (none fails), and prints
-     the registers and spill bytes of the serve kernel's, the HJB
-     forward's and the stopped forward's (twelve) instantiations from
+     stopped backward's twenty-two (fourteen families on the shared plan,
+     eight on the device plan) in the library's SASS (none fails), and
+     prints the registers and spill bytes of the serve kernel's, the HJB
+     forward's and the stopped forward's (fourteen) instantiations from
      ptxas
      (a spill fails);
   2. compares the serve kernel with its plain PyTorch version on host
@@ -129,7 +129,8 @@ control is learned.  This script
      and one backward launch per step, no plain call): the tail-100 V_L2
      and the lambda tail mean within their bounds of JAX's own run
      (experiments/eigen_fp_reference.py); then estimate_lambda on the
-     trained net; SchrodingerEigen on fused_train raises, naming the gate;
+     trained net; SchrodingerEigen with the default relu^2 DenseNet on
+     fused_train raises, naming the gate;
  22. times both kernels of the family, their plain versions and the solver
      step (against the scan's) at K=500 and K=65536, and profiles three
      steps.
@@ -198,6 +199,28 @@ control is learned.  This script
      (experiments/allen_cahn_reference.py, three sampling seeds), the
      tail-50 loss within 3x JAX's and v(0, 0) moved at least half as far as
      JAX's; profiles three steps and times 20 steps of the BSDE leg (N=300).
+ 33. compares the Schroedinger family of the stopped kernels (zero drift on
+     the square, h = -y^3 - y pot(x) + lambda y, v_ref (1/c) exp((1/d) sum
+     cos x_j), the tanh features of DenseNetTanh: the <kSch, kTanh>
+     instantiations) with its plain version on SchrodingerEigen(d=10),
+     DenseNetTanh (15, 15, 15, 15), K=8192, N=20, dt 1e-3, lambda = -2.5:
+     with and without the output clamp and JAX's initial net, adaptive or
+     not, host noise and both Philox maps; the checks of phase 20, and
+     prints the forward's layout and the backward's plan;
+ 34. times both kernels and their plain versions at the notebook's K=500
+     and at K=65536 (CUDA events and the profiler's device time a launch)
+     with the bound and the lane use, and the notebook's step on
+     'fused_train' and on 'scan' at K=500, each profiled (idle share);
+ 35. drives the main path: EigenSolver(SchrodingerEigen(d=10),
+     rollout_mode='fused_train') on the d=10 recipe of experiments/
+     eigenvalue_schroedinger.py (DenseNetTanh with the clamp, lr 1e-3,
+     lambda_init -2, K=500, K_boundary=50, alpha (50, 1), 'l2_penalty')
+     for 2000 steps from JAX's initial net (one backward launch a step, at
+     least one forward launch a step, no plain call): lambda's tail mean
+     within JAX's band (experiments/schrodinger_reference.py, three
+     sampling seeds), the tail-100 V_L2 within 3x JAX's and lambda moved
+     from -2 at least half as far as JAX's; then prints estimate_lambda
+     beside lambda_true = -3.
 
 Any failure exits nonzero.  The last line is one JSON object naming the
 device.  Run from the repository root:
@@ -348,6 +371,22 @@ AC_V00_JAX = (0.14785002171993256, 0.18548327684402466, 0.1701224446296692)
 AC_V00_INIT_JAX = 0.0
 AC_TAIL_JAX = 0.03553759202361107
 AC_V00_LITERATURE = 0.052802
+# the Schroedinger slice: SchrodingerEigen(d=10) on the d=10 recipe of
+# experiments/eigenvalue_schroedinger.py (DenseNetTanh (15, 15, 15, 15) with
+# the clamp, lr 1e-3, lambda_init -2, K=500, K_boundary=50, alpha (50, 1),
+# 'l2_penalty', N=20, dt 1e-3; L_SCH of its 200k steps), checked at
+# K_SCH_CHECK with lambda = LAM_SCH and timed at K_SCH and K_SCH_BENCH
+D_SCH, N_SCH, DT_SCH, LAM_SCH = 10, 20, 1e-3, -2.5
+NET_SCH = (15, 15, 15, 15)
+K_SCH, KB_SCH, L_SCH, K_SCH_CHECK, K_SCH_BENCH = 500, 50, 2000, 8192, 65536
+# the JAX package's runs of that recipe from the same initial net (seed 44;
+# sampling seeds 42, 43, 44; CPU; experiments/schrodinger_reference.py):
+# lambda's first value and its mean over the last 10% of L_SCH steps, and
+# the mean over the three runs of the mean of the last 100 V_L2
+SCH_LAMBDA_FIRST_JAX = -2.0
+SCH_LAMBDA_TAIL_JAX = (-3.1225801849365236, -3.1211551034450533,
+                       -3.1258440446853637)
+SCH_V_L2_TAIL_JAX = 0.0007755157766708484
 # |log IS mean + v_ref(X_0, 0)| of the eta=1, kappa=1 recipe at dt 0.01:
 # the JAX package reads 0.0116-0.0119 at K=2^18 over three keys, and the
 # FD table's own control 0.0119, the Euler chain's bias against the FD
@@ -896,7 +935,7 @@ def main():
           f"{serve_hmma}; the HJB forward's: {fwd_hmma}; "
           f"the backward's: {train_hmma}; the ladder's stages (stage, "
           f"s/d plan): {dict(sorted(ladder_hmma.items()))}; the stopped "
-          f"backward's twenty instantiations: {stopped_hmma}")
+          f"backward's twenty-two instantiations: {stopped_hmma}")
     check(len(train_hmma) == 2 and all(train_hmma.values()),
           "both plans of the HJB backward run TF32 mma")
     check(len(fwd_hmma) == 2 and all(fwd_hmma.values()),
@@ -908,7 +947,7 @@ def main():
           and all(ladder_hmma[f"{st}{p}"] for st in range(2, 7)
                   for p in "sd"),
           "the ladder's net and full stages run TF32 mma on both plans")
-    check(len(stopped_hmma) == 20 and all(stopped_hmma),
+    check(len(stopped_hmma) == 22 and all(stopped_hmma),
           "every instantiation of the stopped backward runs TF32 mma")
     for kernel, what, keys, n in (
             ("controlled_rollout_kernel", "the serve kernel", serve_keys, 4),
@@ -919,11 +958,11 @@ def main():
         check(len(use) == n and all(u[1] == u[2] == 0 for u in use.values()),
               f"{what}'s instantiations spill no registers")
     stopped_use = ptxas_usage(info["log"], "stopped_fwd_kernel")
-    print(f"  ptxas, the stopped forward's twelve instantiations "
+    print(f"  ptxas, the stopped forward's fourteen instantiations "
           f"(registers, spill store and load bytes): "
-          f"{sorted(stopped_use.values())}; the backward's twenty: "
+          f"{sorted(stopped_use.values())}; the backward's twenty-two: "
           f"{sorted(ptxas_usage(info['log'], 'stopped_bwd_kernel').values())}")
-    check(len(stopped_use) == 12
+    check(len(stopped_use) == 14
           and all(u[1] == u[2] == 0 for u in stopped_use.values()),
           "the stopped forward's instantiations spill no registers")
 
@@ -1049,12 +1088,14 @@ def main():
     dw_rows = double_well_phases(dev, smi)
     breadth_rows = breadth_phases(dev, smi)
     ac_rows = allen_cahn_phases(dev, smi)
+    sch_rows = schrodinger_phases(dev, smi)
 
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [serve_row] + train_rows + stopped_rows
                       + roofline_rows + wide_rows + general_rows
-                      + eigen_rows + dw_rows + breadth_rows + ac_rows}))
+                      + eigen_rows + dw_rows + breadth_rows + ac_rows
+                      + sch_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -1267,7 +1308,7 @@ def profile_steps(what, step, n=3):
 
 
 def stopped_flops(v_net, d, adaptive, torus=False, full=False,
-                  cubic=False):
+                  cubic=False, sch=False):
     """FP32 operations of one advancing path-step of the stopped kernels,
     counted from their code (csrc/stopped_rollout.cu): (V only, forward,
     backward).  The net reads ``v_net.d_in`` inputs (d, or d + 1 with
@@ -1285,7 +1326,15 @@ def stopped_flops(v_net, d, adaptive, torus=False, full=False,
     when adaptive (and Z's to the backward), and w to the backward.  The
     cubic (``cubic``: h's c_y3 y^3) adds 4 to the forward (y y y, the
     coefficient and the sum) and 4 to the backward's dh/dy (3 c_y3 y y and
-    the sum)."""
+    the sum).  The Schroedinger family (``sch``; the net's tanh features,
+    each tanh one operation) adds S and pot's terms (8 per dimension: cos,
+    sin, sin^2, the two divisions, their difference and the two sums) and
+    the box test (2 per dimension) to both kernels, pot's 5 (2/d S, exp,
+    the product, two sums), h with lambda (7) and v_ref (7) to the forward,
+    dh/dy + lambda and the lambda gradient (9) to the backward; a tanh unit
+    costs one more operation than relu^2 in V (tanh and the slope 1 - t^2
+    against relu and the square) and one less in grad V and in the
+    backward's tangent (a product by the slope against 2 r g)."""
     widths, d_in = list(v_net.arch), v_net.d_in
     ins = [d_in + sum(widths[:l]) for l in range(len(widths))]
     F = d_in + sum(widths)
@@ -1305,6 +1354,13 @@ def stopped_flops(v_net, d, adaptive, torus=False, full=False,
     if cubic:
         fwd += 4
         bwd += 4
+    if sch:
+        # tanh: V +1 a unit, grad V -1 (the forward's sum is even), the
+        # backward's replay +1, its tangent -1, its grad V (adaptive) -1
+        H = sum(widths)
+        v += H
+        fwd += 10 * d + 19
+        bwd += 10 * d + 14 - (H if adaptive else 0)
     return v, fwd, bwd
 
 
@@ -2598,9 +2654,10 @@ def general_phases(dev, smi):
     return rows
 
 
-def compare_eigen(tag, prob, net, X0, N, dt, kw, worst):
-    """The torus family of the stopped kernels against its plain version
-    from X0 with the lambda leaf at LAM_EIG: outputs on the paths whose exit
+def compare_eigen(tag, prob, net, X0, N, dt, kw, worst, lam_value=LAM_EIG):
+    """The square's families of the stopped kernels (the torus, the
+    Schroedinger family) against their plain version from X0 with the
+    lambda leaf at ``lam_value``: outputs on the paths whose exit
     step agrees (at most MASK_TOL K differ); the diffusion-loss gradients
     of every leaf through both, within GRAD_TOL of the leaf's largest entry,
     lambda's nonzero; and the backward kernel against the plain backward on
@@ -2613,7 +2670,7 @@ def compare_eigen(tag, prob, net, X0, N, dt, kw, worst):
     from pspde_torch.rollout import kernels as km
     K = X0.shape[0]
     t0 = torch.zeros(K, device=X0.device)
-    lam = torch.full((1,), LAM_EIG, device=X0.device, requires_grad=True)
+    lam = torch.full((1,), lam_value, device=X0.device, requires_grad=True)
     leaves = list(net.parameters()) + [lam]
     names = [n for n, _ in net.named_parameters()] + ["lambda"]
 
@@ -2746,9 +2803,11 @@ def eigen_phases(dev, smi):
     except ValueError as e:
         raised = str(e)
     check("gate failed" in raised and "STOPPED_KERNEL_FAMILY" in raised,
-          "SchrodingerEigen on fused_train raises a ValueError naming the "
-          f"gate (got {raised[:80]!r})")
-    print(f"  SchrodingerEigen(d=10) on fused_train raises: {raised[:120]}")
+          "SchrodingerEigen with the solver's default relu^2 DenseNet on "
+          "fused_train raises a ValueError naming the gate (got "
+          f"{raised[:80]!r})")
+    print(f"  SchrodingerEigen(d=10) with the default relu^2 DenseNet on "
+          f"fused_train raises: {raised[:120]}")
     reset_counts(km.fused_stopped_train_rollout, "launches",
                  "backward_launches")
     torch.cuda.synchronize()
@@ -3836,6 +3895,281 @@ def allen_cahn_phases(dev, smi):
              plain_ms=device_t["backward"][1],
              shared_plan_ms=shared_t["backward"][0],
              workspace_bytes=d_ws, **b_dev)]
+
+
+def schrodinger_phases(dev, smi):
+    """Phases 33-35: the Schroedinger family of the stopped kernels (zero
+    drift on the square, h = -y^3 - y pot(x) + lambda y, the tanh features
+    of DenseNetTanh, the output clamp) against its plain version, the times
+    of both kernels and of the notebook's step on both engines, and the
+    EigenSolver main path from JAX's initial net against JAX's runs.
+    Returns the kernels' JSON rows."""
+    import numpy as np
+    from pspde_torch.ansatz import DenseNetTanh
+    from pspde_torch.problems import SchrodingerEigen
+    from pspde_torch.rollout import kernels as km
+    from pspde_torch.rollout.sampling import sample_domain
+    from pspde_torch.solvers import EigenSolver
+    from pspde_torch.utils.convert import (eigen_params_from_flax,
+                                           load_control_npz)
+
+    t_phases = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(root, "experiments"))
+    from torch_kernel_times import device_ms
+    d, N, dt = D_SCH, N_SCH, DT_SCH
+    sch = SchrodingerEigen(d=d, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(33)
+    tree, _ = load_control_npz(os.path.join(
+        root, "pspde_torch", "assets", "schrodinger_d10_densenet_tanh.npz"))
+
+    def net_of(seed, clamp=True):
+        return DenseNetTanh(1, NET_SCH, output_relu=clamp, d_in=d,
+                            device=dev,
+                            generator=torch.Generator(dev).manual_seed(seed))
+
+    jax_net, jax_lam = eigen_params_from_flax(tree, output_relu=True,
+                                              device=dev, cls=DenseNetTanh)
+
+    # -- phase 33: the Schroedinger family vs plain --------------------------
+    t33 = time.perf_counter()
+    Kc = K_SCH_CHECK
+    print(f"phase 33: Schroedinger kernels vs plain, SchrodingerEigen(d={d}),"
+          f" K={Kc}, N={N}, dt={dt}, lambda={LAM_SCH}, DenseNetTanh "
+          f"{NET_SCH} with the clamp and without, and JAX's initial net; "
+          f"outputs rel {REL_TOL:g} on agreeing paths, exit-step "
+          f"disagreements <= {MASK_TOL:g} K, loss gradients {GRAD_TOL:g} "
+          f"and the backward on plain cotangents {BWD_REL_TOL:g} x "
+          "max|plain|, two launches bitwise equal, the forward bitwise "
+          "across its layouts")
+    probe_lam = torch.full((1,), LAM_SCH, device=dev)
+    probe = km._StoppedCall(
+        sch, jax_net, torch.zeros((Kc, d), device=dev),
+        torch.zeros(Kc, device=dev), N, dt, 0,
+        km._check_stopped_family(sch, jax_net, "erfinv", lam=probe_lam),
+        dict(adaptive_forward=False, rng="erfinv", host_noise=None,
+             time_stopping=False), None, probe_lam)
+    fwd_packed, bwd_packed = probe.pack(False), probe.pack(True)
+    lay = km._FwdLayout(*fwd_packed.layout)
+    bwd_ts = km._stopped_bwd_ts(bwd_packed)
+    print(f"  forward: {lay.tile} lanes x {lay.tpp} threads, "
+          f"{'refilled' if lay.refill else 'one block a tile'}, net "
+          f"{'staged' if fwd_packed.iargs[6] else 'from device memory'}; "
+          f"backward: plan {bwd_packed.layout[0]}, tile "
+          f"{bwd_packed.iargs[5]}, {km._stopped_bwd_per_path(bwd_packed)} "
+          f"floats a path at stride {bwd_ts}, net "
+          f"{'staged' if bwd_packed.iargs[6] else 'from device memory'}, "
+          f"{km._stopped_bwd_smem(bwd_packed, bwd_ts)} shared bytes a block")
+    check(bwd_packed.layout[0] == "shared" and bwd_packed.iargs[5] == 64
+          and bwd_packed.iargs[6] == 1, "the notebook net's backward: the "
+          "shared plan, tile 64, the net staged")
+    worst = {"out": 0.0, "grad": 0.0, "bwd": 0.0}
+    X0 = sample_domain(gen, sch.geometry, Kc, d)
+    noise = torch.randn((N, Kc, d), generator=gen, device=dev)
+    cases = [("clamp", True, False, ("host noise", "erfinv", "binom")),
+             ("clamp", True, True, ("host noise", "erfinv", "binom")),
+             ("no clamp", False, False, ("erfinv",)),
+             ("no clamp", False, True, ("binom",)),
+             ("JAX's initial net", None, False, ("erfinv",)),
+             ("JAX's initial net", None, True, ("binom",))]
+    for tag, clamp, adaptive, maps in cases:
+        net = jax_net if clamp is None else net_of(1 + 2 * clamp + adaptive,
+                                                   clamp)
+        for what in maps:
+            kw = (dict(host_noise=noise) if what == "host noise"
+                  else dict(seed=4321, rng=what))
+            compare_eigen(f"[schrodinger, {tag}"
+                          f"{', adaptive' if adaptive else ''}, {what}]",
+                          sch, net, X0, N, dt,
+                          dict(kw, adaptive_forward=adaptive), worst,
+                          lam_value=LAM_SCH)
+    del noise
+    print(f"  phase 33 took {time.perf_counter() - t33:.1f} s")
+
+    # -- phase 34: times -----------------------------------------------------
+    t34 = time.perf_counter()
+    print(f"phase 34: timing at K={K_SCH} and K={K_SCH_BENCH}, N={N}, d={d}, "
+          f"DenseNetTanh {NET_SCH} with the clamp (JAX's initial net), "
+          f"lambda {LAM_SCH}, erfinv Philox noise; CUDA events and the "
+          "profiler's device time a launch; the notebook's step on "
+          "'fused_train' and on 'scan'")
+
+    def recipe(K, mode, L=L_SCH):
+        s = EigenSolver(
+            sch, f"schroedinger-{mode}", seed=42, delta_t=dt, N=N, lr=1e-3,
+            lambda_init=-2.0, L=L, K=K, K_boundary=KB_SCH,
+            alpha=(50.0, 1.0), normalization="l2_penalty",
+            value_net=net_of(0), rollout_mode=mode, verbose=False,
+            device=dev)
+        s.load_jax_params(tree)
+        check(s.resolved_rollout_mode == mode,
+              f"{mode} at K={K}: engine {s.resolved_rollout_mode}")
+        return s
+
+    times = {}
+    for K in (K_SCH, K_SCH_BENCH):
+        X0 = sample_domain(gen, sch.geometry, K, d)
+        t0b = torch.zeros(K, device=dev)
+        lam = torch.full((1,), LAM_SCH, device=dev)
+        gY = torch.randn(K, generator=gen, device=dev) / K
+        call = km._StoppedCall(
+            sch, jax_net, X0, t0b, N, dt, 17,
+            km._check_stopped_family(sch, jax_net, "erfinv", lam=lam),
+            dict(adaptive_forward=False, rng="erfinv", host_noise=None,
+                 time_stopping=False), None, lam)
+        probe = km._stopped_forward_kernel(call)
+        hit = float(probe.hitting.sum())
+        adv = float(probe.adv_steps.sum())
+        n_par = sum(p.numel() for p in jax_net.parameters()) + 1
+        _, fwd_f, bwd_f = stopped_flops(jax_net, d, adaptive=False, sch=True)
+        # on the square a step that stops still forms its proposal
+        b_fwd = roofline(hit * fwd_f, 4 * (n_par + K * (2 * d + 7)))
+        b_bwd = stopped_bwd_roofline(adv, bwd_f, jax_net,
+                                     4 * (2 * n_par + K * (d + 2)))
+        use = lane_use(call, probe, gY, torus=True)
+        print_lane_use(f"K={K}", use)
+        fwd_use = fwd_lane_use(call, dev)
+        print_fwd_lane_use(f"K={K}", fwd_use)
+
+        def plain_fwd():
+            with torch.no_grad():
+                call.plain()
+
+        r = {}
+        for name, kern_fn, plain_fn, reps, key in (
+                ("forward", lambda: km._stopped_forward_kernel(call),
+                 plain_fwd, 20, "stopped_fwd_kernel"),
+                ("backward", lambda: km._stopped_backward_kernel(call, gY),
+                 lambda: km._reference_stopped_backward(call, gY), 10,
+                 "stopped_bwd_kernel")):
+            p1 = timed(plain_fn, 1)
+            k = [timed(kern_fn, reps), timed(kern_fn, reps)]
+            p2 = timed(plain_fn, 1)
+            dms, seen = device_ms(kern_fn, reps, key)
+            r[name] = (min(k), min(p1, p2), dms)
+            print(f"  K={K:6d} {name:8s} kernel {k[0]:.3f}, {k[1]:.3f} ms "
+                  f"(device {'none' if dms is None else f'{dms:.4f}'} ms a "
+                  f"launch over the {seen} of {reps} launches the profiler "
+                  f"recorded); plain {p1:.3f}, {p2:.3f} ms")
+        print(f"  K={K}: {hit:.0f} active and {adv:.0f} advancing path-steps "
+              f"of K N = {K * N}; bound forward {b_fwd['bound_ms']:.5f} ms, "
+              f"backward {b_bwd['bound_ms']:.5f} ms (all FP32 "
+              f"{b_bwd['bound_ms_fp32']:.5f}; {b_fwd['bound_by']})")
+        times[K] = (r, dict(b_fwd, layout=fwd_use["layout"]),
+                    dict(b_bwd, lanes=use[0]))
+    # the notebook's step at K=500 on both engines, from JAX's initial net:
+    # fused, scan, scan, fused
+    solvers = {m: recipe(K_SCH, m, L=1) for m in ("fused_train", "scan")}
+    per = {m: [] for m in solvers}
+    for m in solvers:
+        solvers[m].step()
+    for m in ("fused_train", "scan", "scan", "fused_train"):
+        per[m] += [timed(solvers[m].step, 1, warm=False) for _ in range(10)]
+    engines = {m: float(np.median(v)) for m, v in per.items()}
+    print(f"  the notebook's step at K={K_SCH}, 20 steps each (fused, scan, "
+          "scan, fused): " + "; ".join(
+              f"{m} median {engines[m]:.2f} ms (min {min(v):.2f}, max "
+              f"{max(v):.2f})" for m, v in per.items())
+          + f"; scan / fused {engines['scan'] / engines['fused_train']:.3f}")
+    for m in ("fused_train", "scan"):
+        profile_steps(f"3 EigenSolver steps on {m}, K={K_SCH}",
+                      solvers[m].step)
+    check(all(math.isfinite(v) for s in solvers.values()
+              for v in s.loss_log), "the notebook's steps: finite losses")
+    del solvers
+    print(f"  card: {smi}")
+    print(f"  phase 34 took {time.perf_counter() - t34:.1f} s")
+
+    # -- phase 35: the main path ---------------------------------------------
+    t35 = time.perf_counter()
+    lo, hi = min(SCH_LAMBDA_TAIL_JAX), max(SCH_LAMBDA_TAIL_JAX)
+    lam_mean = float(np.mean(SCH_LAMBDA_TAIL_JAX))
+    move_jax = abs(lam_mean - SCH_LAMBDA_FIRST_JAX)
+    w = max(hi - lo, 0.1 * move_jax)
+    print(f"phase 35: EigenSolver(SchrodingerEigen(d={d}), "
+          f"rollout_mode='fused_train'), experiments/eigenvalue_schroedinger"
+          f".py's d=10 recipe: DenseNetTanh {NET_SCH} with the clamp, lr "
+          f"1e-3, lambda_init -2, K={K_SCH}, K_boundary={KB_SCH}, alpha (50, "
+          f"1), 'l2_penalty', N={N}, dt={dt}, {L_SCH} steps from JAX's "
+          "initial net (experiments/schrodinger_reference.py)")
+    main = recipe(K_SCH, "fused_train")
+    reset_counts(km.fused_stopped_train_rollout, "launches",
+                 "backward_launches")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with PlainCalls(km) as plain_calls:
+        main.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = (km.fused_stopped_train_rollout.launches,
+                km.fused_stopped_train_rollout.backward_launches)
+    steps = len(main.loss_log)
+    lam_tail = main.lambda_tail_mean()
+    lam_first = main.lambda_log[0]
+    v_tail = float(np.mean(main.V_L2_log[-100:]))
+    v_bound = 3.0 * SCH_V_L2_TAIL_JAX
+    move = abs(lam_tail - lam_first)
+    print(f"  {steps} steps in {wall:.2f} s ({1e3 * wall / steps:.3f} ms a "
+          f"step); launches forward {launches[0]}, backward {launches[1]}; "
+          f"plain-version calls {plain_calls.n}; lambda every 200: "
+          f"{['%.4f' % v for v in main.lambda_log[::200]]}; V_L2 every 200: "
+          f"{['%.3e' % v for v in main.V_L2_log[::200]]}")
+    jax_tails = ['%.4f' % v for v in SCH_LAMBDA_TAIL_JAX]
+    print(f"  lambda {lam_first:.4f} -> tail mean {lam_tail:.4f} (JAX "
+          f"{SCH_LAMBDA_FIRST_JAX} -> {jax_tails}, band [{lo - w:.4f}, {hi + w:.4f}]; moved {move:.4f}, at least "
+          f"half of JAX's {move_jax:.4f}); tail-100 V_L2 {v_tail:.4e} (bound "
+          f"3x JAX's {SCH_V_L2_TAIL_JAX:.4e})")
+    check(launches[1] == steps and launches[0] >= steps
+          and plain_calls.n == 0,
+          "the main path: one backward launch a step, at least one forward "
+          "launch a step, no plain call")
+    check(all(math.isfinite(v) for v in main.loss_log + main.lambda_log
+              + main.V_L2_log), "finite losses, lambdas and V_L2")
+    check(lo - w <= lam_tail <= hi + w, f"lambda tail mean {lam_tail:.4f} "
+          f"outside [{lo - w:.4f}, {hi + w:.4f}]")
+    check(v_tail <= v_bound, f"tail-100 V_L2 {v_tail:.4e} > {v_bound:.4e}")
+    check(move >= 0.5 * move_jax, f"lambda moved {move:.4f}, less than half "
+          f"of JAX's {move_jax:.4f}")
+    reset_counts(km.fused_stopped_train_rollout, "launches")
+    t0 = time.perf_counter()
+    lam_hat, lam_se = main.estimate_lambda(K=8192, n_batches=16)
+    print(f"  estimate_lambda (K=8192, 16 batches, two forward launches each:"
+          f" {km.fused_stopped_train_rollout.launches}): {lam_hat:.4f} +- "
+          f"{lam_se:.1e} in {time.perf_counter() - t0:.2f} s (lambda_true "
+          f"{sch.lambda_true}; printed, not checked)")
+    check(km.fused_stopped_train_rollout.launches == 32
+          and math.isfinite(lam_hat) and math.isfinite(lam_se),
+          "estimate_lambda ran on the kernel")
+    profile_steps(f"3 steps of the main path (K={K_SCH})", main.step)
+    print(f"  card: {smi}")
+    print(f"  phase 35 took {time.perf_counter() - t35:.1f} s; phases 33-35 "
+          f"{time.perf_counter() - t_phases:.1f} s")
+
+    (r, b_fwd, b_bwd), (rb, bb_fwd, bb_bwd) = (times[K_SCH],
+                                               times[K_SCH_BENCH])
+    row = {"route": "cuda", "source": STOPPED_SOURCE,
+           "shape": f"SchrodingerEigen, d={d}, DenseNetTanh {NET_SCH} with "
+                    f"the clamp, K={K_SCH}, N={N}, lambda",
+           "launches_shape": f"phase 35's {L_SCH} steps, K={K_SCH}"}
+    return [
+        dict(row, name="fused_stopped_train_rollout.forward.schrodinger",
+             replaces="pspde/rollout/kernels.py:1184", launches=launches[0],
+             max_abs_err=worst["out"], ms=r["forward"][0],
+             device_ms=r["forward"][2], plain_ms=r["forward"][1], **b_fwd,
+             ms_K65536=rb["forward"][0], device_ms_K65536=rb["forward"][2],
+             plain_ms_K65536=rb["forward"][1],
+             bound_ms_K65536=bb_fwd["bound_ms"],
+             layout_K65536=bb_fwd["layout"],
+             step_ms={m: v for m, v in engines.items()}),
+        dict(row, name="fused_stopped_train_rollout.backward.schrodinger",
+             replaces="pspde/rollout/kernels.py:1272", launches=launches[1],
+             max_abs_err=max(worst["grad"], worst["bwd"]),
+             ms=r["backward"][0], device_ms=r["backward"][2],
+             plain_ms=r["backward"][1], **b_bwd,
+             ms_K65536=rb["backward"][0], device_ms_K65536=rb["backward"][2],
+             plain_ms_K65536=rb["backward"][1],
+             bound_ms_K65536=bb_bwd["bound_ms"]),
+    ]
 
 
 if __name__ == "__main__":

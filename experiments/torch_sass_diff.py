@@ -10,9 +10,11 @@ and pairs every kernel of the old tree with the new kernel of the same name
 whose template arguments extend the old ones by ``false`` (a template
 parameter added after the old ones, at its value for the old family: e.g.
 ``stopped_fwd_kernel<false>`` and ``stopped_fwd_kernel<false, false,
-false>``; the stopped backward's memory plan, ``kDevice``, appended last
-with ``false`` for the shared plan, renames each of the old backward's
-instantiations so).  It prints that name map first, old -> new (or "no
+false>``; the stopped backward's memory plan, ``kDevice``, appended
+with ``false`` for the shared plan, renamed each of the older backward's
+instantiations so, and the Schroedinger family and the tanh features,
+``kSch`` and ``kTanh``, appended last to both stopped kernels, rename
+every earlier instantiation to the name ending in ``false, false``).  It prints that name map first, old -> new (or "no
 counterpart"), then for each pair the instruction counts and the count of
 instructions that differ (addresses and encodings stripped; a line that
 differs only in a branch target's address still counts), and one JSON line

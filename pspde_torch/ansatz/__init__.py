@@ -1,3 +1,9 @@
-from .nets import DenseNet, LinearLQ, LinearLQTime, ScalarParam, TanhMLP
+from .nets import (Affine, BatchNormMLP, ConcatSkipNet, ConstantVector,
+                   DenseNet, DenseNetRelu, DenseNetTanh, DenseNetTanh2,
+                   LinearLQ, LinearLQTime, ReluMLP1d, ScalarParam, Sines,
+                   TanhMLP)
 
-__all__ = ["DenseNet", "LinearLQ", "LinearLQTime", "ScalarParam", "TanhMLP"]
+__all__ = ["Affine", "BatchNormMLP", "ConcatSkipNet", "ConstantVector",
+           "DenseNet", "DenseNetRelu", "DenseNetTanh", "DenseNetTanh2",
+           "LinearLQ", "LinearLQTime", "ReluMLP1d", "ScalarParam", "Sines",
+           "TanhMLP"]

@@ -78,6 +78,30 @@
 // cubic_h_dy), which test the exit and the clock as the other kTimed ones
 // do; the breadth families' other terms stay without the clock.
 //
+// The Schroedinger family (the eigenvalue solver on SchrodingerEigen:
+// zero drift on the square [X_l, X_r]^d with the proposal's exit test and
+// the lambda leaf, as the torus family) replaces h and the reference, with
+// S = sum_j cos X_j and the potential
+//
+//   pot = -(1/c^2) exp((2/d) S) + sum_j (sin^2 X_j / d^2 - cos X_j / d) - 3,
+//   h = -V^3 - V pot + lambda V,    dh/dy = -3 V^2 - pot + lambda,
+//   P = X + s c dt + s xi sqrt(dt),  v_l2 += (V - (1/c) exp((1/d) S))^2 dt
+//
+// in float32 term by term as pspde's SchrodingerEigen.h_T forms them (the
+// constants -1/c^2, 1/c, 2/d and 1/d from StoppedExt, Python floats
+// rounded to float32 as JAX's weak types round them; the divisions by d^2
+// and d as divisions).  Its value net is a DenseNetTanh: tanh(h) features
+// where the DenseNet has relu(h)^2, so
+//
+//   f = tanh(h),  f' = (1 - f^2) h',  f'' = -2 f (1 - f^2),
+//
+// with the slope 1 - f^2 kept where relu(h) was (value_forward's r rows),
+// formed in one device function (tanh_slope) that both kernels call.  The
+// family (kSch) and the feature map (kTanh) are template parameters after
+// the old ones, instantiated together, and their fields (StoppedExt's
+// feat, hfam and the four constants) come after StoppedExt's old ones, so
+// that every older instantiation keeps its SASS.
+//
 // With the output clamp (DenseNet output_relu) V = relu(o) of the output
 // o: Z, the step's increment and both sweeps of the backward carry the
 // mask 1[o > 0] (the gradient at o = 0 is 0, as in JAX and torch).
@@ -301,14 +325,33 @@ struct StoppedExt {
   float vr_a2, vr_ad, vr_den;   // the committor's a^2, a^d and
                                 // a^2 - c^(2-d) a^d
   float c_y3;       // h's coefficient on V^3 (with the clock)
+  // The Schroedinger family and the feature map come last, so that every
+  // field above keeps its offset (and the breadth families' code its SASS).
+  int feat;         // the value net's features: 0 relu(h)^2, 1 tanh(h)
+  int hfam;         // 1: the Schroedinger family (on the square)
+  float sch_a, sch_b;   // -1/c^2 and 1/c
+  float sch_2d, sch_1d; // 2/d and 1/d
 };
-constexpr int kNumExtInts = 2;
-constexpr int kNumExtFloats = 6;
-static_assert(offsetof(StoppedExt, r_in) == kNumExtInts * sizeof(int) &&
+// The wrapper packs kNumExtInts ints (sig_off, vref, then feat, hfam) and
+// kNumExtFloats floats (r_in ... c_y3, then sch_a ... sch_1d).
+constexpr int kNumExtInts = 4;
+constexpr int kNumExtFloats = 10;
+constexpr int kNumExtTailInts = 2;
+constexpr int kNumExtTailFloats = 4;
+static_assert(offsetof(StoppedExt, r_in) ==
+                      (kNumExtInts - kNumExtTailInts) * sizeof(int) &&
+                  offsetof(StoppedExt, feat) ==
+                      offsetof(StoppedExt, r_in) +
+                          (kNumExtFloats - kNumExtTailFloats) *
+                              sizeof(float) &&
+                  offsetof(StoppedExt, sch_a) ==
+                      offsetof(StoppedExt, feat) +
+                          kNumExtTailInts * sizeof(int) &&
                   sizeof(StoppedExt) ==
                       kNumExtInts * sizeof(int) +
                           kNumExtFloats * sizeof(float),
-              "the wrapper's ext ints, then its ext floats");
+              "the wrapper's first ext ints, then its first ext floats, "
+              "then the last two ints and the last four floats");
 // The launch's own ints (the layout) follow all the wrapper's ints.
 constexpr int kNumPackedInts = kNumIntArgs + kNumExtInts;
 
@@ -420,10 +463,54 @@ __device__ __forceinline__ bool in_box(const StoppedArgs& a, float p) {
   return p >= a.X_l && p <= a.X_r;
 }
 
+// The Schroedinger family at the pre-step state X (rows 0..d of f): S =
+// sum_j cos X_j and pot(X), each term rounded as the plain version rounds
+// it (pspde_torch/problems/eigen.py:schrodinger_pot).
+__device__ __forceinline__ void sch_terms(const StoppedArgs& a,
+                                          const StoppedExt& ext,
+                                          const float* f, int ts, float* S,
+                                          float* pot) {
+  const float d1 = static_cast<float>(a.d);
+  const float d2 = static_cast<float>(a.d * a.d);
+  float sc = 0.0f, u = 0.0f;
+  for (int j = 0; j < a.d; ++j) {
+    const float x = f[j * ts];
+    const float cx = cosf(x), sx = sinf(x);
+    sc = __fadd_rn(sc, cx);
+    u = __fadd_rn(u, __fsub_rn(__fdiv_rn(__fmul_rn(sx, sx), d2),
+                               __fdiv_rn(cx, d1)));
+  }
+  *S = sc;
+  *pot = __fsub_rn(
+      __fadd_rn(__fmul_rn(ext.sch_a, expf(__fmul_rn(ext.sch_2d, sc))), u),
+      3.0f);
+}
+
+// h = -V^3 - V pot of the Schroedinger family, without lambda, and dh/dy.
+__device__ __forceinline__ float sch_h(float y, float pot) {
+  return __fsub_rn(-__fmul_rn(__fmul_rn(y, y), y), __fmul_rn(y, pot));
+}
+
+__device__ __forceinline__ float sch_h_dy(float y, float pot) {
+  return __fsub_rn(__fmul_rn(__fmul_rn(-3.0f, y), y), pot);
+}
+
+// Its reference (1/c) exp((1/d) S).
+__device__ __forceinline__ float sch_vref(const StoppedExt& ext, float S) {
+  return __fmul_rn(ext.sch_b, expf(__fmul_rn(ext.sch_1d, S)));
+}
+
+// The tanh features' slope 1 - f^2 at f = tanh(h): the derivative that
+// both kernels' sweeps read, formed once so that its rounding is one.
+__device__ __forceinline__ float tanh_slope(float tv) {
+  return __fsub_rn(1.0f, __fmul_rn(tv, tv));
+}
+
 // The net's output o of the inputs in rows 0..d_in of f (V, or relu's
 // argument with the output clamp): writes the features relu(h)^2 into rows
-// d_in..F of f and relu(h) into r, and returns o.
-template <bool kTimed>
+// d_in..F of f and relu(h) into r, and returns o; kTanh: the features
+// tanh(h) and their slope 1 - tanh(h)^2 into r.
+template <bool kTimed, bool kTanh = false>
 __device__ float value_forward(const StoppedArgs& a,
                                const float* __restrict__ W, float* f,
                                float* r, int ts) {
@@ -442,10 +529,18 @@ __device__ float value_forward(const StoppedArgs& a,
 #pragma unroll
       for (int c = 0; c < kChunk; ++c) {
         const int j = j0 + c;
-        if (j < w) {
-          const float rv = fmaxf(acc[c] + bl[j], 0.0f);
-          rl[j * ts] = rv;
-          f[(n_in + j) * ts] = rv * rv;
+        if constexpr (kTanh) {
+          if (j < w) {
+            const float tv = tanhf(acc[c] + bl[j]);
+            rl[j * ts] = tanh_slope(tv);
+            f[(n_in + j) * ts] = tv;
+          }
+        } else {
+          if (j < w) {
+            const float rv = fmaxf(acc[c] + bl[j], 0.0f);
+            rl[j * ts] = rv;
+            f[(n_in + j) * ts] = rv * rv;
+          }
         }
       }
     }
@@ -459,8 +554,8 @@ __device__ float value_forward(const StoppedArgs& a,
 
 // g = dV/d(features) into rows 0..F of g (rows 0..d: grad_x V; row d with
 // time_stopping: dV/dt, which nothing reads), from the relu values r of the
-// last value_forward.
-template <bool kTimed>
+// last value_forward (kTanh: the slopes).
+template <bool kTimed, bool kTanh = false>
 __device__ void value_grad(const StoppedArgs& a, const float* __restrict__ W,
                            const float* r, float* g, int ts) {
   const int d_in = net_inputs<kTimed>(a);
@@ -471,8 +566,13 @@ __device__ void value_grad(const StoppedArgs& a, const float* __restrict__ W,
     const int w = a.width[l], wp = padded(w);
     o -= w;   // layer l's outputs are feature rows o..o + w, its inputs 0..o
     const float* rl = r + (o - d_in) * ts;
-    for (int j = 0; j < w; ++j)
-      g[(o + j) * ts] = 2.0f * rl[j * ts] * g[(o + j) * ts];
+    if constexpr (kTanh) {
+      for (int j = 0; j < w; ++j)
+        g[(o + j) * ts] = __fmul_rn(rl[j * ts], g[(o + j) * ts]);
+    } else {
+      for (int j = 0; j < w; ++j)
+        g[(o + j) * ts] = 2.0f * rl[j * ts] * g[(o + j) * ts];
+    }
     const float* Wl = W + a.w_off[l];
     for (int i = 0; i < o; ++i) {
       const float* Wi = Wl + i * wp;
@@ -685,7 +785,7 @@ __device__ __forceinline__ FwdNet stage_fwd_net(const StoppedArgs& a,
 // with matvec_chunk, each output's sum over the input rows in
 // value_forward's order; the threads meet after each layer, and each forms
 // the output row's sum, the same sum in every thread.
-template <bool kTimed>
+template <bool kTimed, bool kTanh = false>
 __device__ float lane_value_forward(const StoppedArgs& a, const FwdNet& net,
                                     float* f, float* r, int ts,
                                     const Lane& ln) {
@@ -704,10 +804,18 @@ __device__ float lane_value_forward(const StoppedArgs& a, const FwdNet& net,
 #pragma unroll
       for (int c = 0; c < kChunk; ++c) {
         const int j = j0 + c;
-        if (j < w) {
-          const float rv = fmaxf(acc[c] + bl[j], 0.0f);
-          rl[j * ts] = rv;
-          f[(n_in + j) * ts] = rv * rv;
+        if constexpr (kTanh) {
+          if (j < w) {
+            const float tv = tanhf(acc[c] + bl[j]);
+            rl[j * ts] = tanh_slope(tv);
+            f[(n_in + j) * ts] = tv;
+          }
+        } else {
+          if (j < w) {
+            const float rv = fmaxf(acc[c] + bl[j], 0.0f);
+            rl[j * ts] = rv;
+            f[(n_in + j) * ts] = rv * rv;
+          }
         }
       }
     }
@@ -725,7 +833,7 @@ __device__ float lane_value_forward(const StoppedArgs& a, const FwdNet& net,
 // rows a pass (i and i + p, two chains sharing the loads of the outputs'
 // rows).  The threads meet before each layer's sums, which read other
 // threads' rows; the caller makes them meet after the last.
-template <bool kTimed>
+template <bool kTimed, bool kTanh = false>
 __device__ void lane_value_grad(const StoppedArgs& a, const FwdNet& net,
                                 const float* r, float* g, int ts,
                                 const Lane& ln) {
@@ -737,8 +845,13 @@ __device__ void lane_value_grad(const StoppedArgs& a, const FwdNet& net,
     const int w = a.width[l], ws = net.stride(a, l);
     o -= w;   // layer l's outputs are feature rows o..o + w, its inputs 0..o
     const float* rl = r + (o - d_in) * ts;
-    for (int j = (ln.q - o) & (ln.p - 1); j < w; j += ln.p)
-      g[(o + j) * ts] = 2.0f * rl[j * ts] * g[(o + j) * ts];
+    if constexpr (kTanh) {
+      for (int j = (ln.q - o) & (ln.p - 1); j < w; j += ln.p)
+        g[(o + j) * ts] = __fmul_rn(rl[j * ts], g[(o + j) * ts]);
+    } else {
+      for (int j = (ln.q - o) & (ln.p - 1); j < w; j += ln.p)
+        g[(o + j) * ts] = 2.0f * rl[j * ts] * g[(o + j) * ts];
+    }
     ln.sync();
     const float* Wl = net.w(a, l);
     for (int i = ln.q; i < o; i += 2 * ln.p) {
@@ -757,7 +870,8 @@ __device__ void lane_value_grad(const StoppedArgs& a, const FwdNet& net,
   }
 }
 
-template <bool kTimed, bool kTorus, bool kRelu, bool kFull, bool kBreadth>
+template <bool kTimed, bool kTorus, bool kRelu, bool kFull, bool kBreadth,
+          bool kSch, bool kTanh>
 __global__ void __launch_bounds__(kFwdThreads, kFwdMinBlocks)
 stopped_fwd_kernel(const StoppedArgs a, const float* __restrict__ P,
                    const float* __restrict__ noise,
@@ -777,7 +891,7 @@ stopped_fwd_kernel(const StoppedArgs a, const float* __restrict__ P,
   const int d_in = net_inputs<kTimed>(a);
   float* f = col;                        // features: X, [t,] relu(h)^2
   float* r = f + a.F * ts;               // relu(h) of the hidden layers
-  float* g = r + (a.F - d_in) * ts;      // dV/d(features); on the torus
+  float* g = r + (a.F - d_in) * ts;      // dV/d(features); on the square
                                          // rows 0..d then hold the proposal
   float* xs = g + a.F * ts;              // the step's normals; kFull: Z
                                          // in the d rows after them
@@ -803,10 +917,12 @@ stopped_fwd_kernel(const StoppedArgs a, const float* __restrict__ P,
   // Step n of path k, the old one-thread loop's body with the net split
   // over the lane's threads; false where the path stops at this step.
   auto step = [&]() -> bool {
-    float r2 = 0.0f, s = 0.0f, qs = 0.0f;
+    float r2 = 0.0f, s = 0.0f, qs = 0.0f;   // kSch: s = S, qs = pot
     bool sel = true;
     float s1 = 0.0f;   // kBreadth: sum_j X_j, read before X moves
-    if (kTorus) {
+    if constexpr (kSch) {
+      sch_terms(a, ext, f, ts, &s, &qs);
+    } else if (kTorus) {
       torus_terms(a, f, ts, &s, &qs);
     } else {
       r2 = sq_norm(f, a.d, ts);
@@ -826,11 +942,14 @@ stopped_fwd_kernel(const StoppedArgs a, const float* __restrict__ P,
       if (ln.q == 0) f[a.d * ts] = t;
       ln.sync();
     }
-    const float o = lane_value_forward<kTimed>(a, net, f, r, ts, ln);
+    const float o = lane_value_forward<kTimed, kTanh>(a, net, f, r, ts, ln);
     const bool on = !kRelu || o > 0.0f;   // the output clamp's mask
     const float V = on ? o : 0.0f;
     if (a.have_vref) {
-      if constexpr (kBreadth && !kTimed) {
+      if constexpr (kSch) {
+        const float e = V - sch_vref(ext, s);
+        vl2 += e * e * a.dt;
+      } else if constexpr (kBreadth && !kTimed) {
         const float e = V - breadth_vref(a, ext, r2);
         vl2 += e * e * a.dt;
       } else {
@@ -842,10 +961,12 @@ stopped_fwd_kernel(const StoppedArgs a, const float* __restrict__ P,
       stopped = true;
       return false;
     }
-    if (on) lane_value_grad<kTimed>(a, net, r, g, ts, ln);
+    if (on) lane_value_grad<kTimed, kTanh>(a, net, r, g, ts, ln);
     ln.sync();   // grad V complete, and every read of X by the net done
     float h;
-    if constexpr (kBreadth && kTimed) {
+    if constexpr (kSch) {
+      h = fmaf(lam, V, sch_h(V, qs));
+    } else if constexpr (kBreadth && kTimed) {
       h = cubic_h_value(a, ext, r2, t, V);
     } else if constexpr (kBreadth) {
       h = breadth_h_value(a, ext, r2, s1, V);
@@ -917,14 +1038,27 @@ stopped_fwd_kernel(const StoppedArgs a, const float* __restrict__ P,
     if (kTorus) {
       ln.sync();   // every read of grad V done: its rows 0..d take P
       bool inside = true;
-      for (int gi = ln.q; 4 * gi < a.d; gi += ln.p) {
-        for (int j = 4 * gi; j < min(4 * gi + 4, a.d); ++j) {
-          const float z = on ? a.sig * g[j * ts] : 0.0f;
-          const float c = a.adaptive ? -z : 0.0f;
-          const float p = __fadd_rn(
-              f[j * ts], torus_step(a, m_cs, f[j * ts], c, xs[j * ts]));
-          inside = inside && in_box(a, p);
-          g[j * ts] = p;
+      if constexpr (kSch) {   // zero drift: the ball's step of each row
+        for (int gi = ln.q; 4 * gi < a.d; gi += ln.p) {
+          for (int j = 4 * gi; j < min(4 * gi + 4, a.d); ++j) {
+            const float z = on ? a.sig * g[j * ts] : 0.0f;
+            const float c = a.adaptive ? -z : 0.0f;
+            const float p =
+                __fadd_rn(f[j * ts], step_of(a, c, xs[j * ts]));
+            inside = inside && in_box(a, p);
+            g[j * ts] = p;
+          }
+        }
+      } else {
+        for (int gi = ln.q; 4 * gi < a.d; gi += ln.p) {
+          for (int j = 4 * gi; j < min(4 * gi + 4, a.d); ++j) {
+            const float z = on ? a.sig * g[j * ts] : 0.0f;
+            const float c = a.adaptive ? -z : 0.0f;
+            const float p = __fadd_rn(
+                f[j * ts], torus_step(a, m_cs, f[j * ts], c, xs[j * ts]));
+            inside = inside && in_box(a, p);
+            g[j * ts] = p;
+          }
         }
       }
       if (!__all_sync(ln.mask, inside)) {   // the proposal left: no move,
@@ -1179,7 +1313,7 @@ __device__ __forceinline__ void step_weight_grads(
 // kernel's parameters as they were keep every shared-plan instantiation's
 // SASS as it was before the plan; experiments/torch_sass_diff.py).
 template <bool kTimed, bool kTorus, bool kRelu, bool kFull, bool kBreadth,
-          bool kDevice>
+          bool kDevice, bool kSch, bool kTanh>
 __global__ void __launch_bounds__(kStoppedTile, kMinBlocksPerSm)
 stopped_bwd_kernel(const StoppedArgs a, const float* __restrict__ P,
                    const float* __restrict__ noise,
@@ -1207,7 +1341,7 @@ stopped_bwd_kernel(const StoppedArgs a, const float* __restrict__ P,
   const int d_in = net_inputs<kTimed>(a);
   const int H = a.F - d_in;              // hidden feature rows
   float* f = col;                        // features (rows 0..d: X, [d: t])
-  float* r = f + a.F * ts;               // relu(h)
+  float* r = f + a.F * ts;               // relu(h) (kTanh: 1 - tanh(h)^2)
   float* fd = r + H * ts;                // tangent of the features (0..d: w;
                                          // the t slot stays 0: Z is the
                                          // gradient in x only)
@@ -1283,13 +1417,17 @@ stopped_bwd_kernel(const StoppedArgs a, const float* __restrict__ P,
     bool adv = false;
     bool opened = false;   // with the clamp: adv and o > 0
     if (busy) {
-      float s = 0.0f, qs = 0.0f;
-      if (kTorus) torus_terms(a, f, ts, &s, &qs);
+      float s = 0.0f, qs = 0.0f;   // kSch: s = S, qs = pot
+      if constexpr (kSch) {
+        sch_terms(a, ext, f, ts, &s, &qs);
+      } else if (kTorus) {
+        torus_terms(a, f, ts, &s, &qs);
+      }
       if (kTimed) f[a.d * ts] = t;
-      const float v_out = value_forward<kTimed>(a, W, f, r, ts);
+      const float v_out = value_forward<kTimed, kTanh>(a, W, f, r, ts);
       const bool on = !kRelu || v_out > 0.0f;   // the output clamp's mask
       const float V = on ? v_out : 0.0f;
-      if (a.adaptive && on) value_grad<kTimed>(a, W, r, gb, ts);
+      if (a.adaptive && on) value_grad<kTimed, kTanh>(a, W, r, gb, ts);
       const float m_cs = kTorus ? -cosf(s) : 0.0f;
       bool inside = true;
       if constexpr (kFull) {
@@ -1331,7 +1469,11 @@ stopped_bwd_kernel(const StoppedArgs a, const float* __restrict__ P,
             if (j >= a.d) break;
             const float c = a.adaptive && on ? -(a.sig * gb[j * ts]) : 0.0f;
             fd[j * ts] = gy * (a.sig * (xi[q] * a.sq_dt + c * a.dt));
-            if (kTorus) {
+            if constexpr (kSch) {   // zero drift on the square
+              const float st = step_of(a, c, xi[q]);
+              inside = inside && in_box(a, __fadd_rn(f[j * ts], st));
+              gb[j * ts] = st;
+            } else if (kTorus) {
               const float st = torus_step(a, m_cs, f[j * ts], c, xi[q]);
               inside = inside && in_box(a, __fadd_rn(f[j * ts], st));
               gb[j * ts] = st;
@@ -1344,7 +1486,10 @@ stopped_bwd_kernel(const StoppedArgs a, const float* __restrict__ P,
       adv = !kTorus || inside;
       if (adv) {
         opened = on;
-        if (kTorus) {
+        if constexpr (kSch) {
+          *al = -gy * (sch_h_dy(V, qs) + lam) * a.dt;
+          g_lam = fmaf(-gy * V, a.dt, g_lam);
+        } else if (kTorus) {
           *al = -gy * (torus_h_dy(s, qs) + lam) * a.dt;
           g_lam = fmaf(-gy * V, a.dt, g_lam);
         } else {
@@ -1365,6 +1510,7 @@ stopped_bwd_kernel(const StoppedArgs a, const float* __restrict__ P,
         // is shut (there V = 0 and Z = 0 near theta)
         if (on) {
           // tangent sweep: h' = W_l f', (relu(h)^2)' = 2 relu(h) h'
+          // (kTanh: tanh(h)' = (1 - tanh(h)^2) h')
           int n_in = d_in;
           for (int l = 0; l < a.L; ++l) {
             const int w = a.width[l], wp = padded(w);
@@ -1379,9 +1525,16 @@ stopped_bwd_kernel(const StoppedArgs a, const float* __restrict__ P,
 #pragma unroll
               for (int c = 0; c < kChunk; ++c) {
                 const int j = j0 + c;
-                if (j < w) {
-                  hdl[j * ts] = acc[c];
-                  fd[(n_in + j) * ts] = 2.0f * rl[j * ts] * acc[c];
+                if constexpr (kTanh) {
+                  if (j < w) {
+                    hdl[j * ts] = acc[c];
+                    fd[(n_in + j) * ts] = __fmul_rn(rl[j * ts], acc[c]);
+                  }
+                } else {
+                  if (j < w) {
+                    hdl[j * ts] = acc[c];
+                    fd[(n_in + j) * ts] = 2.0f * rl[j * ts] * acc[c];
+                  }
                 }
               }
             }
@@ -1390,7 +1543,9 @@ stopped_bwd_kernel(const StoppedArgs a, const float* __restrict__ P,
 
           // reverse sweep over the pair (V, V'): S = alpha V + V' with
           // V' = wL . f'; rows d_in..F of gb / gdb end as the cotangents
-          // of h and h' of each hidden layer
+          // of h and h' of each hidden layer (kTanh: with f = tanh(h) and
+          // its slope s = 1 - f^2, hbar = s fbar - 2 f s h' fbar',
+          // hbar' = s fbar')
           for (int i = d_in; i < a.F; ++i) {
             gb[i * ts] = *al * wL[i];
             gdb[(i - d_in) * ts] = wL[i];
@@ -1401,14 +1556,26 @@ stopped_bwd_kernel(const StoppedArgs a, const float* __restrict__ P,
             o -= w;
             const float* rl = r + (o - d_in) * ts;
             const float* hdl = hd + (o - d_in) * ts;
-            for (int j = 0; j < w; ++j) {
-              const float rv = rl[j * ts];
-              const float ab = gb[(o + j) * ts];
-              const float adb = gdb[(o + j - d_in) * ts];
-              gb[(o + j) * ts] =
-                  rv > 0.0f ? 2.0f * rv * ab + 2.0f * hdl[j * ts] * adb
-                            : 0.0f;
-              gdb[(o + j - d_in) * ts] = 2.0f * rv * adb;
+            if constexpr (kTanh) {
+              for (int j = 0; j < w; ++j) {
+                const float sl = rl[j * ts];
+                const float tv = f[(o + j) * ts];
+                const float ab = gb[(o + j) * ts];
+                const float adb = gdb[(o + j - d_in) * ts];
+                gb[(o + j) * ts] =
+                    sl * ab + (-2.0f * tv * sl) * hdl[j * ts] * adb;
+                gdb[(o + j - d_in) * ts] = sl * adb;
+              }
+            } else {
+              for (int j = 0; j < w; ++j) {
+                const float rv = rl[j * ts];
+                const float ab = gb[(o + j) * ts];
+                const float adb = gdb[(o + j - d_in) * ts];
+                gb[(o + j) * ts] =
+                    rv > 0.0f ? 2.0f * rv * ab + 2.0f * hdl[j * ts] * adb
+                              : 0.0f;
+                gdb[(o + j - d_in) * ts] = 2.0f * rv * adb;
+              }
             }
             const float* Wl = W + a.w_off[l];
             for (int i = d_in; i < o; ++i) {
@@ -1514,8 +1681,15 @@ int unpack(const int* iargs, const float* fargs, unsigned long long seed,
          kNumTailArgs * sizeof(int));
   memcpy(&a->X_l, fargs + kNumFloatArgs - kNumTailArgs,
          kNumTailArgs * sizeof(float));
-  memcpy(ext, iargs + kNumIntArgs, kNumExtInts * sizeof(int));
-  memcpy(&ext->r_in, fargs + kNumFloatArgs, kNumExtFloats * sizeof(float));
+  memcpy(ext, iargs + kNumIntArgs,
+         (kNumExtInts - kNumExtTailInts) * sizeof(int));
+  memcpy(&ext->r_in, fargs + kNumFloatArgs,
+         (kNumExtFloats - kNumExtTailFloats) * sizeof(float));
+  memcpy(&ext->feat, iargs + kNumIntArgs + kNumExtInts - kNumExtTailInts,
+         kNumExtTailInts * sizeof(int));
+  memcpy(&ext->sch_a, fargs + kNumFloatArgs + kNumExtFloats -
+                          kNumExtTailFloats,
+         kNumExtTailFloats * sizeof(float));
   a->key0 = static_cast<uint32_t>(seed & 0xFFFFFFFFull);
   a->key1 = static_cast<uint32_t>(seed >> 32);
   const bool torus = a->geom == 2;
@@ -1526,7 +1700,12 @@ int unpack(const int* iargs, const float* fargs, unsigned long long seed,
       ext->vref < 0 || ext->vref > 1 ||
       (ext->sig_off >= 0 && ext->sig_off + a->d * a->d > a->n_params) ||
       (unclocked(*a, *ext) && (torus || a->time_stopping)) ||
-      (ext->c_y3 != 0.0f && !a->time_stopping))
+      (ext->c_y3 != 0.0f && !a->time_stopping) ||
+      // the Schroedinger family goes on the square, with tanh features;
+      // tanh with another family is not instantiated (ROADMAP.md Queue 2
+      // item 4(g))
+      ext->hfam < 0 || ext->hfam > 1 || ext->feat != ext->hfam ||
+      (ext->hfam == 1 && !torus))
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaSetDevice(device));
 }
@@ -1596,11 +1775,13 @@ int occupancy(Kernel kernel, const StoppedArgs& a, const StoppedExt& ext,
 
 // A launch's instantiation: the clock, the torus family, the output clamp,
 // a dense sigma and the breadth families (the header; with the clock, the
-// cubic).
-template <bool kTimed, bool kTorus, bool kRelu, bool kFull, bool kBreadth>
+// cubic), the Schroedinger family on the square and the tanh features.
+template <bool kTimed, bool kTorus, bool kRelu, bool kFull, bool kBreadth,
+          bool kSch = false, bool kTanh = false>
 struct Family {
   static constexpr bool timed = kTimed, torus = kTorus, relu = kRelu,
-                        full = kFull, breadth = kBreadth;
+                        full = kFull, breadth = kBreadth, sch = kSch,
+                        tanh = kTanh;
 };
 
 template <typename Fn>
@@ -1615,6 +1796,10 @@ int with_family(const StoppedArgs& a, const StoppedExt& ext, Fn fn) {
     return a.out_relu ? fn(Family<false, false, true, false, true>())
                       : fn(Family<false, false, false, false, true>());
   }
+  if (a.geom == 2 && ext.hfam == 1)
+    return a.out_relu
+               ? fn(Family<false, true, true, false, false, true, true>())
+               : fn(Family<false, true, false, false, false, true, true>());
   if (a.geom == 2)
     return a.out_relu ? fn(Family<false, true, true, false, false>())
                       : fn(Family<false, true, false, false, false>());
@@ -1628,16 +1813,16 @@ int with_family(const StoppedArgs& a, const StoppedExt& ext, Fn fn) {
 // The backward's instantiation: the family and the memory plan (fn takes
 // the Family and std::bool_constant<kDevice>).  The device plan is
 // instantiated for the ball, the clock's families (the cubic's too) and
-// the torus; the breadth families without the clock have none (ROADMAP.md
-// Queue 2 item 4(f)) and are refused.
+// the torus; the breadth families without the clock and the Schroedinger
+// family have none (ROADMAP.md Queue 2 item 4(f)) and are refused.
 template <typename Fn>
 int with_bwd_family(const StoppedArgs& a, const StoppedExt& ext,
                     bool device, Fn fn) {
-  if (device && unclocked(a, ext))
+  if (device && (unclocked(a, ext) || ext.hfam == 1))
     return static_cast<int>(cudaErrorInvalidValue);
   return with_family(a, ext, [&](auto fam) {
     using Fam = decltype(fam);
-    if constexpr (Fam::breadth && !Fam::timed) {
+    if constexpr ((Fam::breadth && !Fam::timed) || Fam::sch) {
       return fn(fam, std::false_type());
     } else {
       return device ? fn(fam, std::true_type()) : fn(fam, std::false_type());
@@ -1674,7 +1859,8 @@ extern "C" int pspde_stopped_rollout_fwd(const float* params,
   return with_family(a, ext, [&](auto fam) {
     using Fam = decltype(fam);
     return launch(stopped_fwd_kernel<Fam::timed, Fam::torus, Fam::relu,
-                                     Fam::full, Fam::breadth>,
+                                     Fam::full, Fam::breadth, Fam::sch,
+                                     Fam::tanh>,
                   a, ext, 0, grid, a.tile * tpp, stream, params, host_noise,
                   X0, t0, X_out, acc_out, queue, tpp);
   });
@@ -1700,7 +1886,7 @@ extern "C" int pspde_stopped_fwd_occupancy(const int* iargs,
     out[1] = a.tile * tpp;
     const int e = occupancy(
         stopped_fwd_kernel<Fam::timed, Fam::torus, Fam::relu, Fam::full,
-                           Fam::breadth>,
+                           Fam::breadth, Fam::sch, Fam::tanh>,
         a, ext, 0, out[1], device, &out[0], &out[3], &smem);
     out[2] = static_cast<int>(smem);
     return e;
@@ -1758,7 +1944,7 @@ extern "C" int pspde_stopped_rollout_bwd(const float* params,
     constexpr bool kDev = decltype(dev)::value;
     const auto kernel =
         stopped_bwd_kernel<Fam::timed, Fam::torus, Fam::relu, Fam::full,
-                           Fam::breadth, kDev>;
+                           Fam::breadth, kDev, Fam::sch, Fam::tanh>;
     size_t smem = 0;
     const cudaError_t e = allow_smem(kernel, a, ext, ts, &smem, kDev);
     if (e != cudaSuccess) return static_cast<int>(e);
@@ -1793,7 +1979,7 @@ extern "C" int pspde_stopped_bwd_slots(const int* iargs, const float* fargs,
     int per_sm = 0, sms = 0;
     const int e = occupancy(
         stopped_bwd_kernel<Fam::timed, Fam::torus, Fam::relu, Fam::full,
-                           Fam::breadth, kDev>,
+                           Fam::breadth, kDev, Fam::sch, Fam::tanh>,
         a, ext, ts, a.tile, device, &per_sm, &sms, &smem, kDev);
     *slots = per_sm * sms;
     return e;

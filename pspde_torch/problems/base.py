@@ -185,16 +185,19 @@ class Problem:
         * ('torus_fp', c): the z-free, linear in y
           h = y (-c^2 sum_j sin^2 x_j sin(s) - cos(s) s) with
           s = c sum_j cos x_j (``FokkerPlanckEigen``; the stopped kernels'
-          torus family).
+          torus family);
+        * ('schrodinger', c): the z-free h = -y^3 - y pot(x)
+          (``SchrodingerEigen``; the stopped kernels' Schroedinger family,
+          ``problems/eigen.py:schrodinger_pot``).
         """
         return None
 
     def v_ref_family(self):
         """('exp_r2', a) for the closed form v_ref(x) = exp(a |x|^2),
         ('committor', a, c, d) for (a^2 - r^(2-d) a^d) / (a^2 - c^(2-d) a^d)
-        with r = |x|, or ('torus_fp', c) for v_ref(x) = exp(-sin(s)), s =
-        c sum_j cos x_j, which the stopped kernels evaluate in-kernel, or
-        None."""
+        with r = |x|, ('torus_fp', c) for v_ref(x) = exp(-sin(s)), s =
+        c sum_j cos x_j, or ('schrodinger', c) for (1/c) exp((1/d) sum_j
+        cos x_j), which the stopped kernels evaluate in-kernel, or None."""
         return None
 
     def running_cost(self, x: torch.Tensor, t: float) -> torch.Tensor:

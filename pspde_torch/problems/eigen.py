@@ -16,8 +16,10 @@ boundary conditions are the solver's value and gradient matching
 (``solvers/eigen.py``).  ``FokkerPlanckEigen`` states its drift, h and
 reference in the stopped kernels' torus family (``drift_family``,
 ``h_family``, ``v_ref_family``: ('torus_cos', c) and ('torus_fp', c) for a
-uniform c); ``SchrodingerEigen``'s cubic h is outside every kernel's
-family (ROADMAP.md, Queue 2 item 4).
+uniform c); ``SchrodingerEigen`` states its zero drift, its cubic h and
+its reference in the kernels' Schroedinger family (('zero', None),
+('schrodinger', c) and ('schrodinger', c)), which the kernels take with a
+``DenseNetTanh`` value net.
 """
 
 from __future__ import annotations
@@ -103,6 +105,20 @@ class FokkerPlanckEigen(_Torus):
         return self.h_family()
 
 
+def schrodinger_pot(x: torch.Tensor, c: float, d: int) -> torch.Tensor:
+    """The Schroedinger notebooks' potential, one value per row of x,
+    term by term as pspde's ``SchrodingerEigen.h`` (float32, the Python
+    floats -1/c^2 and 2/d rounded to float32 as JAX's weak types round
+    them; sin^2 divided by d^2 and cos by d):
+
+        pot(x) = -(1/c^2) exp((2/d) sum_j cos x_j)
+                 + sum_j (sin^2 x_j / d^2 - cos x_j / d) - 3."""
+    return (-1.0 / c ** 2 * torch.exp(2.0 / d * torch.sum(torch.cos(x),
+                                                            dim=-1))
+            + torch.sum(torch.sin(x) ** 2 / d ** 2 - torch.cos(x) / d,
+                        dim=-1) - 3.0)
+
+
 class SchrodingerEigen(_Torus):
     """Nonlinear Schroedinger eigenproblem (Schroedinger notebooks cell 5).
 
@@ -119,12 +135,11 @@ class SchrodingerEigen(_Torus):
     def b(self, x):
         return torch.zeros_like(x)
 
+    def pot(self, x):
+        return schrodinger_pot(x, self.c, self.d)
+
     def h(self, x, y, z):
-        pot = (-1.0 / self.c ** 2
-               * torch.exp(2.0 / self.d * torch.sum(torch.cos(x), dim=-1))
-               + torch.sum(torch.sin(x) ** 2 / self.d ** 2
-                           - torch.cos(x) / self.d, dim=-1) - 3.0)
-        return -y ** 3 - y * pot
+        return -y ** 3 - y * self.pot(x)
 
     def v_ref(self, x):
         return (1.0 / self.c
@@ -132,3 +147,12 @@ class SchrodingerEigen(_Torus):
 
     def drift_family(self):
         return ("zero", None)
+
+    def h_family(self):
+        """('schrodinger', c): h = -y^3 - y pot(x) (``schrodinger_pot``),
+        dh/dy = -3 y^2 - pot(x)."""
+        return ("schrodinger", self.c)
+
+    def v_ref_family(self):
+        """('schrodinger', c): v_ref(x) = (1/c) exp((1/d) sum_j cos x_j)."""
+        return self.h_family()

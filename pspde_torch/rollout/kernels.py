@@ -43,7 +43,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..ansatz import DenseNet, TanhMLP
+from ..ansatz import ConcatSkipNet, TanhMLP
+from ..problems.eigen import schrodinger_pot
 from .sampling import inside_fn
 from .sde import (HJBRolloutConfig, LambdaShiftedProblem,
                   StoppedRolloutConfig, hjb_rollout, step_constants,
@@ -943,10 +944,17 @@ STOPPED_KERNEL_FAMILY = (
     "scalar, h = y "
     "(-c^2 sum sin^2 x_j sin(s) - cos(s) s) and v_ref exp(-sin(s)) or none "
     "('torus_fp'), with an optional lambda leaf (a one-element tensor: h + "
-    "lambda y, the EigenSolver's); a DenseNet value net with d_out=1, "
+    "lambda y, the EigenSolver's); or the Schroedinger family without "
+    "time_stopping: zero drift with sigma scalar on the two-sided square "
+    "(exit tested on the proposal), h = -y^3 - y pot(x) with pot(x) = "
+    "-(1/c^2) exp((2/d) sum cos x_j) + sum (sin^2 x_j / d^2 - cos x_j / d) "
+    "- 3 and v_ref (1/c) exp((1/d) sum cos x_j) or none ('schrodinger'), "
+    "with the lambda leaf; a concat-skip value net with d_out=1, "
     "output_relu or not, 1-4 hidden layers and input width d, or d + 1 "
     "reading [x, t] with time_stopping (a step advances while t + dt <= "
-    "T); rng 'erfinv' or 'binom'")
+    "T): a DenseNet (relu^2 features) with every family but the "
+    "Schroedinger one, a DenseNetTanh (tanh features) with the "
+    "Schroedinger family; rng 'erfinv' or 'binom'")
 _MAX_HIDDEN = 4            # csrc/stopped_rollout.cu kMaxHidden
 _STOPPED_TILES = (64, 32)  # csrc kStoppedTile bounds the backward's block
 # The forward's block: `tile` lanes of `tpp` threads, tile x tpp a multiple
@@ -965,6 +973,11 @@ _PHI = ("none", "identity", "sin")
 _GEOMETRIES = ("sphere", "unbounded", "square", "two_spheres")
 _EXITS = ("sphere", "two_spheres")    # paths leave after a few steps
 _VREFS = ("exp_r2", "committor")                   # csrc StoppedExt.vref
+# csrc StoppedExt.feat: the value net's feature map, and the families' h
+# (StoppedExt.hfam: 0 the ball, the torus and the breadth families by
+# their other fields, 1 the Schroedinger family)
+_FEATURES = ("relu2", "tanh")
+_SQUARE_FAMILIES = ("torus_fp", "schrodinger")
 
 
 def _stopped_outside(msg: str):
@@ -977,11 +990,14 @@ def _check_stopped_family(problem, v_net, rng, time_stopping=False,
     """(h_family, v_ref_family) of a problem and net inside the stopped
     kernels' family: ('ball_exp', c_y, c_yr2, k, phi, k_t, c_ys1, c_y3)
     (a shorter tuple padded with 0.0) with its reference ('exp_r2', a),
-    ('committor', a, c, d) or None, or on the torus ('torus_fp', c) with
-    ('torus_fp', c) or None; raises ValueError naming
-    STOPPED_KERNEL_FAMILY outside it.  With ``time_stopping`` the
-    net reads [x, t] and there is no in-kernel reference (v_ref_family
-    None).  A lambda leaf ``lam`` belongs to the torus family."""
+    ('committor', a, c, d) or None, or on the square ('torus_fp', c) with
+    ('torus_fp', c) or None, or ('schrodinger', c) with ('schrodinger', c)
+    or None; raises ValueError naming STOPPED_KERNEL_FAMILY outside it.
+    With ``time_stopping`` the net reads [x, t] and there is no in-kernel
+    reference (v_ref_family None).  A lambda leaf ``lam`` belongs to the
+    square's families.  The value net is a concat-skip net whose feature
+    map the family takes: relu^2 (``DenseNet``), or tanh
+    (``DenseNetTanh``) with the Schroedinger family only."""
     name = type(problem).__name__
     if time_stopping and getattr(problem, "T", None) is None:
         raise _stopped_outside(f"time_stopping needs a horizon, and {name} "
@@ -991,10 +1007,14 @@ def _check_stopped_family(problem, v_net, rng, time_stopping=False,
         raise _stopped_outside(f"drift of {name} is neither zero nor "
                                "'torus_cos'")
     torus = drift[0] == "torus_cos"
+    hfam = problem.h_family()
+    sch = (drift[0] == "zero" and hfam is not None
+           and hfam[0] == "schrodinger")
+    square = torus or sch
     geom = problem.geometry
     kind = getattr(geom, "kind", None)
     sig_kind = problem.sigma_struct.kind
-    if sig_kind != "scalar" and (torus or time_stopping or kind not in (
+    if sig_kind != "scalar" and (square or time_stopping or kind not in (
             "sphere", "two_spheres")):
         raise _stopped_outside(
             f"sigma of {name} is {sig_kind}, not scalar: a diag or full "
@@ -1002,26 +1022,33 @@ def _check_stopped_family(problem, v_net, rng, time_stopping=False,
             "without time_stopping")
     if kind not in _GEOMETRIES:
         raise _stopped_outside(f"geometry of {name} is {kind!r}")
-    if (kind == "square") != torus:
+    if (kind == "square") != square:
         raise _stopped_outside(
             f"geometry of {name} is {kind!r} with drift {drift[0]!r}: the "
             "kernels test the square only with the torus family "
-            "('torus_cos' drift, 'torus_fp' h)")
-    if torus and (geom.one_boundary or time_stopping):
+            "('torus_cos' drift, 'torus_fp' h) and the Schroedinger family "
+            "(zero drift, 'schrodinger' h)")
+    if square and (geom.one_boundary or time_stopping):
         raise _stopped_outside(f"geometry of {name} is a one-sided square or "
-                               "runs with time_stopping")
+                               "runs with time_stopping (ROADMAP.md Queue 2 "
+                               "item 4(b))")
     if kind == "unbounded" and not time_stopping:
         raise _stopped_outside(f"geometry of {name} is 'unbounded' and "
                                "without time_stopping no path would stop")
     if kind == "two_spheres" and time_stopping:
         raise _stopped_outside(f"geometry of {name} is 'two_spheres', which "
                                "the kernels take without time_stopping")
-    if lam is not None and not torus:
+    if lam is not None and not square:
         raise _stopped_outside("a lambda leaf (the EigenSolver's h + lambda "
-                               "y) goes with the torus family only")
-    hfam = problem.h_family()
+                               "y) goes with the square's families only (the "
+                               "torus and the Schroedinger family)")
     vfam = None if time_stopping else problem.v_ref_family()
-    if torus:
+    if sch:
+        hfam = ("schrodinger", float(hfam[1]))
+        if vfam is not None and tuple(vfam) != hfam:
+            raise _stopped_outside(f"v_ref of {name} is not (1/c) exp((1/d) "
+                                   "sum cos x_j) of its h's c")
+    elif torus:
         if hfam is None or tuple(hfam) != ("torus_fp", drift[1]):
             raise _stopped_outside(f"h of {name} is not in the 'torus_fp' "
                                    "family of its drift's c")
@@ -1045,18 +1072,26 @@ def _check_stopped_family(problem, v_net, rng, time_stopping=False,
                 vfam[0] == "committor" and tuple(vfam[3:]) != (problem.d,))):
             raise _stopped_outside(f"v_ref of {name} is neither exp(a "
                                    "|x|^2) nor the committor's")
-    if not isinstance(v_net, DenseNet):
+    want = "tanh" if sch else "relu2"
+    if not isinstance(v_net, ConcatSkipNet):
         raise _stopped_outside(f"value net {type(v_net).__name__} is not a "
-                               "DenseNet")
+                               "DenseNet (nor another concat-skip net)")
+    if v_net.feature != want:
+        raise _stopped_outside(
+            f"value net {type(v_net).__name__} has {v_net.feature} "
+            f"features: the {hfam[0]!r} family takes {want} features "
+            f"({'DenseNetTanh' if sch else 'DenseNet'}); the other pairs "
+            "stay on the scan (ROADMAP.md Queue 2 item 4(g))")
     d_in = problem.d + int(bool(time_stopping))
     if v_net.d_in != d_in or v_net.d_out != 1:
         raise _stopped_outside(
-            f"DenseNet d_in={v_net.d_in}, d_out={v_net.d_out}, "
+            f"{type(v_net).__name__} d_in={v_net.d_in}, "
+            f"d_out={v_net.d_out}, "
             f"output_relu={v_net.output_relu} (need {d_in}, 1, "
             f"{v_net.output_relu} with time_stopping={bool(time_stopping)})")
     if not 1 <= len(v_net.arch) <= _MAX_HIDDEN:
-        raise _stopped_outside(f"DenseNet has {len(v_net.arch)} hidden "
-                               "layers")
+        raise _stopped_outside(f"{type(v_net).__name__} has "
+                               f"{len(v_net.arch)} hidden layers")
     if rng not in RNG_MAPS:
         raise _stopped_outside(f"rng={rng!r}")
     return hfam, vfam
@@ -1180,8 +1215,9 @@ def _stopped_bwd_plan(n_params: int, per_path: int, tile: Optional[int],
     ballots and the net take at most half a block's limit (an SM then still
     holds two blocks), else read from device memory.  ``plan='shared'``
     where no tile fits raises the family's ValueError; the device plan for
-    an instantiation that lacks it (``device_ok`` False: the committor's and
-    the dense sigma's) raises, naming ROADMAP.md."""
+    an instantiation that lacks it (``device_ok`` False: the committor's,
+    the dense sigma's and the Schroedinger family's) raises, naming
+    ROADMAP.md."""
     _check_plan(plan)
     if plan == "shared":
         return (*_stopped_tile(n_params, per_path, tile, True), "shared")
@@ -1194,8 +1230,8 @@ def _stopped_bwd_plan(n_params: int, per_path: int, tile: Optional[int],
         raise _stopped_outside(
             "the backward's device plan is not instantiated for the breadth "
             "families without time_stopping (the two spheres, a dense sigma, "
-            "the committor's reference, c_ys1; ROADMAP.md Queue 2 item "
-            "4(f))")
+            "the committor's reference, c_ys1) and the Schroedinger family; "
+            "ROADMAP.md Queue 2 item 4(f)")
     if tile is not None and tile not in _STOPPED_TILES:
         raise ValueError(f"tile={tile} must be one of {_STOPPED_TILES}")
     t = max(_STOPPED_TILES) if tile is None else tile
@@ -1312,12 +1348,13 @@ class _StoppedLayout(NamedTuple):
     sig_off: int = -1      # a dense sigma's offset in buf, -1 without it
 
 
-def _stopped_layout(v_net: DenseNet, lam: Optional[torch.Tensor] = None,
+def _stopped_layout(v_net: ConcatSkipNet,
+                    lam: Optional[torch.Tensor] = None,
                     sigma: Optional[torch.Tensor] = None) -> _StoppedLayout:
-    """The DenseNet in one buffer: per hidden layer W (n_in, width padded
-    to _CHUNK) as (in, out) and its bias, then the output row and bias and,
-    with ``lam``, lambda after them, and with ``sigma`` the (d, d) matrix
-    row-major (no gradient); sections aligned to 4 floats.  And the layout
+    """The concat-skip net in one buffer: per hidden layer W (n_in, width
+    padded to _CHUNK) as (in, out) and its bias, then the output row and
+    bias and, with ``lam``, lambda after them, and with ``sigma`` the (d, d)
+    matrix row-major (no gradient); sections aligned to 4 floats.  And the layout
     of one block's gradient row: per hidden layer [W (n_in, width); b (1,
     width)], then [wL (F); bL] and, with ``lam``, d/dlambda."""
     dev = v_net.layers[0].weight.device
@@ -1365,10 +1402,13 @@ def _pad_hidden(vals: list) -> list:
     return vals + [0] * (_MAX_HIDDEN - len(vals))
 
 
-# StoppedArgs' ints; then StoppedExt's (sig_off, vref) at
-# _STOPPED_N_INTS, _STOPPED_N_INTS + 1, and the launch's ints after them
+# StoppedArgs' ints; then StoppedExt's (sig_off, vref, feat, hfam) from
+# _STOPPED_N_INTS, and the launch's ints after them; StoppedArgs' floats,
+# then StoppedExt's
 _STOPPED_N_INTS = 16 + 4 * _MAX_HIDDEN + 6
 _STOPPED_N_FLOATS = 13
+_STOPPED_N_EXT_INTS, _STOPPED_N_EXT_FLOATS = 4, 10
+_STOPPED_N_PACKED_INTS = _STOPPED_N_INTS + _STOPPED_N_EXT_INTS
 
 
 def _stopped_full(packed: _Packed) -> bool:
@@ -1389,12 +1429,13 @@ def _stopped_instance(packed: _Packed) -> tuple:
     """What picks the kernels' instantiation of a packed call (csrc
     with_family): the clock, the geometry, the output clamp, and the
     breadth terms (StoppedExt: the dense sigma, the reference, c_ys1,
-    c_y3)."""
+    c_y3), then the feature map and the Schroedinger family."""
     ia, fa = packed.iargs, packed.fargs
     return (ia[14], ia[15], ia[16 + 4 * _MAX_HIDDEN + 3],
             *ia[_STOPPED_N_INTS:_STOPPED_N_INTS + 2],
             fa[_STOPPED_N_FLOATS + 1] != 0.0,
-            fa[_STOPPED_N_FLOATS + 5] != 0.0)
+            fa[_STOPPED_N_FLOATS + 5] != 0.0,
+            *ia[_STOPPED_N_INTS + 2:_STOPPED_N_PACKED_INTS])
 
 
 def _pack_stopped(problem, v_net, hfam, vfam, K, N, delta_t, tile, *,
@@ -1402,38 +1443,42 @@ def _pack_stopped(problem, v_net, hfam, vfam, K, N, delta_t, tile, *,
                   time_stopping=False, lam=None, fwd_layout=None,
                   plan=None) -> _Packed:
     """The stopped kernels' arguments (stopped_rollout.cu: StoppedArgs,
-    then StoppedExt: ints [sig_off, vref], floats [r_in, c_ys1, the
-    committor's a^2, a^d, a^2 - c^(2-d) a^d, and c_y3]).  The state has d
-    rows and the net d_in = d (+ 1 with time_stopping) input rows; F and
-    the hidden rows H count from d_in.  The torus family always carries
-    lambda in the packed net (``lam``, or 0 without it) and its gradient
-    entry; a diag or full sigma is packed after the net as a (d, d)
-    matrix.  The forward's
+    then StoppedExt: ints [sig_off, vref, feat, hfam], floats [r_in, c_ys1,
+    the committor's a^2, a^d, a^2 - c^(2-d) a^d, c_y3, and the
+    Schroedinger family's -1/c^2, 1/c, 2/d and 1/d, Python floats that
+    the float32 arguments round as JAX's weak types round them]).  The
+    state has d rows and the net d_in = d (+ 1 with time_stopping) input
+    rows; F and the hidden rows H count from d_in.  The square's families
+    (the torus and the Schroedinger family) always carry lambda in the
+    packed net (``lam``, or 0 without it) and its gradient entry; a diag
+    or full sigma is packed after the net as a (d, d) matrix.  The
+    forward's
     ``layout`` is ``_stopped_fwd_layout`` (``fwd_layout`` where given), the
     backward's ``(plan,)`` of ``_stopped_bwd_plan`` (``plan`` forces
     one)."""
     d = problem.d
     geom = problem.geometry
-    torus = hfam[0] == "torus_fp"
-    if torus and lam is None:
+    square = hfam[0] in _SQUARE_FAMILIES
+    sch = hfam[0] == "schrodinger"
+    if square and lam is None:
         lam = torch.zeros(1, dtype=torch.float32, device=problem.X_0.device)
     sig = problem.sigma_struct
     full = sig.kind != "scalar"
-    lay = _stopped_layout(v_net, lam if torus else None,
+    lay = _stopped_layout(v_net, lam if square else None,
                           sig.mat if full else None)
     H = lay.F - v_net.d_in
     per_path = _stopped_per_path(lay.F, H, d, backward, full)
     n_params = lay.buf.numel()
     c_ys1 = c_y3 = 0.0
-    if torus:
+    if square:
         c_y = c_yr2 = k_exp = k_t = 0.0
-        phi, c_tor = "none", float(hfam[1])
+        phi, c_tor = "none", 0.0 if sch else float(hfam[1])
     else:
         _, c_y, c_yr2, k_exp, phi, k_t, c_ys1, c_y3 = hfam
         c_tor = 0.0
     # the ball's reference exp(a_vref |x|^2), or the committor's constants
     vref, a_vref, vr = "exp_r2", 0.0, [0.0, 0.0, 0.0]
-    if vfam is not None and not torus:
+    if vfam is not None and not square:
         vref = vfam[0]
         if vref == "exp_r2":
             a_vref = float(vfam[1])
@@ -1443,8 +1488,9 @@ def _pack_stopped(problem, v_net, hfam, vfam, K, N, delta_t, tile, *,
     fwd = ()
     if backward:
         tile, stage, plan = _stopped_bwd_plan(
-            n_params, per_path, tile, plan, device_ok=not _stopped_unclocked(
-                geom.kind, lay.sig_off, vref, c_ys1))
+            n_params, per_path, tile, plan, device_ok=not (
+                sch or _stopped_unclocked(geom.kind, lay.sig_off, vref,
+                                          c_ys1)))
         fwd = (plan,)
     else:
         fwd, stage = _stopped_fwd_layout(
@@ -1461,17 +1507,20 @@ def _pack_stopped(problem, v_net, hfam, vfam, K, N, delta_t, tile, *,
               + _pad_hidden(lay.b_off) + _pad_hidden(lay.g_off))
     iargs += [lay.wL_off, lay.bL_off, lay.gL_off, int(v_net.output_relu),
               lay.lam_off, lay.g_lam]
-    iargs += [lay.sig_off, _VREFS.index(vref)]
+    iargs += [lay.sig_off, _VREFS.index(vref),
+              _FEATURES.index(v_net.feature), int(sch)]
     dt, sq_dt = step_constants(delta_t)
     fargs = [dt, sq_dt, 0.0 if full else sig.scale,
              float(geom.boundary_distance_2 if two
                    else geom.boundary_distance), float(c_y), float(c_yr2),
              float(k_exp), a_vref,
              float(problem.T) if time_stopping else 0.0, float(k_t),
-             float(geom.X_l) if torus else 0.0,
-             float(geom.X_r) if torus else 0.0, c_tor]
+             float(geom.X_l) if square else 0.0,
+             float(geom.X_r) if square else 0.0, c_tor]
     fargs += [float(geom.boundary_distance_1) if two else 0.0,
               float(c_ys1)] + vr + [float(c_y3)]
+    fargs += ([-1.0 / hfam[1] ** 2, 1.0 / hfam[1], 2.0 / d, 1.0 / d] if sch
+              else [0.0] * 4)
     return _Packed(lay.buf, iargs, fargs, layout=fwd)
 
 
@@ -1597,7 +1646,7 @@ def _stopped_forward_kernel(call: _StoppedCall) -> FusedStoppedOut:
     return _stopped_forward_launch(call)[0]
 
 
-def _stopped_grads_from_row(v_net: DenseNet, lay: _StoppedLayout,
+def _stopped_grads_from_row(v_net: ConcatSkipNet, lay: _StoppedLayout,
                             total: torch.Tensor) -> list:
     """One summed gradient row -> the gradients of ``v_net.parameters()``
     (weight (out, in) and bias per layer)."""
@@ -1738,9 +1787,11 @@ def _reference_stopped_backward(call: _StoppedCall, gY) -> list:
     replay the plain forward's X chain and masks, and accumulate per step
     d/dtheta [alpha V(X) + w^T grad V(X)] with alpha = gY adv (-dh/dy) dt
     and w = gY adv s (xi sqrt(dt) + c dt), by one tangent sweep through the
-    DenseNet in direction w and one reverse sweep over the pair; dh/dy of
+    net in direction w and one reverse sweep over the pair; dh/dy of
     the 'ball_exp' family c_y + c_yr2 |X|^2 + c_ys1 (sum_j X_j)^2 + 3 c_y3
-    V^2 - 2 V phi'(u).  With
+    V^2 - 2 V phi'(u), of the 'schrodinger' family -3 V^2 - pot(X).  The
+    features are relu(h)^2 (f' = 2 relu(h) h', f'' = 2 [h > 0]) or, for a
+    tanh net, tanh(h) (f' = (1 - f^2) h', f'' = -2 f (1 - f^2)).  With
     ``time_stopping`` the primal sweep starts from [X, t] and the tangent
     has a zero in the t slot (Z is the gradient in x only).  With the
     output clamp both terms carry the mask 1[V > 0].  With ``call.lam``
@@ -1758,6 +1809,7 @@ def _reference_stopped_backward(call: _StoppedCall, gY) -> list:
     ins = inside_fn(problem.geometry)
     hidden, out = list(net.layers[:-1]), net.layers[-1]
     wL = out.weight[0]
+    tanh = net.feature == "tanh"
     grads = [torch.zeros_like(p) for p in net.parameters()]
     lam = None if call.lam is None else call.lam.detach().reshape(())
     g_lam = torch.zeros((), dtype=torch.float32, device=X.device)
@@ -1779,6 +1831,8 @@ def _reference_stopped_backward(call: _StoppedCall, gY) -> list:
         if hfam[0] == "torus_fp":
             # h is linear in y: dh/dy = h(x, 1)
             dh_dy = problem.h(X, torch.ones_like(V), Z)
+        elif hfam[0] == "schrodinger":
+            dh_dy = -3.0 * V * V - schrodinger_pot(X, hfam[1], d)
         else:
             _, c_y, c_yr2, k_exp, phi, k_t, c_ys1, c_y3 = hfam
             r2 = torch.sum(X * X, dim=-1)
@@ -1807,11 +1861,16 @@ def _reference_stopped_backward(call: _StoppedCall, gY) -> list:
         for lin in hidden:
             h = lin(f)
             hd = fd @ lin.weight.T
-            r = torch.relu(h)
             pre.append(h)
             hds.append(hd)
-            f = torch.cat([f, r * r], dim=-1)
-            fd = torch.cat([fd, 2.0 * r * hd], dim=-1)
+            if tanh:
+                th = torch.tanh(h)
+                f = torch.cat([f, th], dim=-1)
+                fd = torch.cat([fd, (1.0 - th * th) * hd], dim=-1)
+            else:
+                r = torch.relu(h)
+                f = torch.cat([f, r * r], dim=-1)
+                fd = torch.cat([fd, 2.0 * r * hd], dim=-1)
         # reverse sweep over the pair
         grads[-2] += (alpha[:, None] * f + fd).sum(dim=0)[None]
         grads[-1] += alpha.sum()[None]
@@ -1822,11 +1881,17 @@ def _reference_stopped_backward(call: _StoppedCall, gY) -> list:
             lin = hidden[l]
             w_l = lin.out_features
             o_l = o_end - w_l
-            r = torch.relu(pre[l])
             ab, adb = fb[:, o_l:o_end], fdb[:, o_l:o_end]
-            hb = (pre[l] > 0).to(torch.float32) * (2.0 * r * ab
-                                                   + 2.0 * hds[l] * adb)
-            hdb = 2.0 * r * adb
+            if tanh:
+                th = f[:, o_l:o_end]
+                slope = 1.0 - th * th
+                hb = slope * ab + (-2.0 * th * slope) * hds[l] * adb
+                hdb = slope * adb
+            else:
+                r = torch.relu(pre[l])
+                hb = (pre[l] > 0).to(torch.float32) * (2.0 * r * ab
+                                                       + 2.0 * hds[l] * adb)
+                hdb = 2.0 * r * adb
             grads[2 * l] += hb.T @ f[:, :o_l] + hdb.T @ fd[:, :o_l]
             grads[2 * l + 1] += hb.sum(dim=0)
             fb = fb[:, :o_l] + hb @ lin.weight

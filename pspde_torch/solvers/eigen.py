@@ -17,7 +17,8 @@ One step per iteration, as the FP and Schroedinger notebooks train:
 Two engines for the domain leg, resolved as ``EllipticSolver`` resolves
 them (its ``_fused_train_gates`` and ``_resolve_engine``): 'scan' (the
 plain autograd ``stopped_rollout`` on the lambda-shifted problem) and
-'fused_train' (the torus family of the stopped kernels, lambda a leaf of
+'fused_train' (the stopped kernels' torus family, or their Schroedinger
+family with a ``DenseNetTanh`` value net; lambda a leaf of
 ``fused_stopped_train_rollout`` whose gradient the backward kernel
 returns).  On a CUDA problem a failed gate raises a ValueError naming it;
 on the CPU 'fused_train' resolves to 'scan' with a warning.  ``mesh``,
@@ -33,7 +34,7 @@ import time
 import numpy as np
 import torch
 
-from ..ansatz import DenseNet, ScalarParam
+from ..ansatz import ConcatSkipNet, DenseNet, ScalarParam
 from ..rollout.kernels import RNG_MAPS, fused_stopped_train_rollout
 from ..rollout.sampling import (inside_fn, sample_boundary_reflected,
                                 sample_domain)
@@ -181,13 +182,17 @@ class EigenSolver:
              "lr": lr_at(self.lr_lambda, self.iteration)}])
 
     def load_jax_params(self, tree):
-        """Load the JAX solver's ``params`` tree {"V": <Flax DenseNet>,
-        "lam": <ScalarParam>} (nested dicts of arrays) and start a fresh
-        optimizer."""
+        """Load the JAX solver's ``params`` tree {"V": <Flax concat-skip
+        net>, "lam": <ScalarParam>} (nested dicts of arrays) into a net of
+        the value net's class (``DenseNet`` unless it is another
+        concat-skip net, e.g. the Schroedinger notebook's
+        ``DenseNetTanh``) and start a fresh optimizer."""
         from ..utils.convert import eigen_params_from_flax
+        cls = (type(self.V_net) if isinstance(self.V_net, ConcatSkipNet)
+               else DenseNet)
         self.V_net, self.lam_net = eigen_params_from_flax(
             tree, output_relu=getattr(self.V_net, "output_relu", False),
-            device=self.device)
+            device=self.device, cls=cls)
         self._make_optimizer()
         self.resolved_rollout_mode = self._resolve_engine()
 

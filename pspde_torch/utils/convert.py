@@ -8,10 +8,14 @@ A Flax parameter tree arrives as nested dicts of numpy arrays, e.g. the
 A Flax ``Dense`` kernel is (in, out); an ``nn.Linear.weight`` is (out, in),
 so kernels are transposed on the way in.  The ``DenseNet`` value net has
 the same tree, with layer i's kernel (d_in + sum(arch[:i]), arch[i]).
-Modules are built on ``device=``, the CUDA card when None
-(``utils/device.py``).  ``eigen_params_from_flax`` carries the eigen
-solver's {'V': DenseNet tree, 'lam': ScalarParam tree}.  The LQ controls
-``LinearLQ`` and ``LinearLQTime`` have one leaf, {'params': {'F': ...}}.
+The other concat-skip nets (``DenseNetTanh``, ``DenseNetTanh2``,
+``DenseNetRelu``) and ``ReluMLP1d`` have the same tree; ``BatchNormMLP``'s
+Dense_i have a kernel only, beside its bn_scale_i and bn_bias_i; ``Sines``
+has {'alpha'}, ``ConstantVector`` {'c'}, ``Affine`` {'A', 'b'}.  Modules
+are built on ``device=``, the CUDA card when None (``utils/device.py``).
+``eigen_params_from_flax`` carries the eigen solver's {'V': concat-skip
+tree, 'lam': ScalarParam tree}.  The LQ controls ``LinearLQ`` and
+``LinearLQTime`` have one leaf, {'params': {'F': ...}}.
 ``flax_state_dict`` maps a tree to the ``state_dict()`` of a given module
 of any of these kinds, also for trees stacked on a leading axis (the HJB
 solver's 'outer' time approximation, one parameter set per step).
@@ -27,7 +31,9 @@ import json
 import numpy as np
 import torch
 
-from ..ansatz import DenseNet, LinearLQ, LinearLQTime, ScalarParam, TanhMLP
+from ..ansatz import (Affine, BatchNormMLP, ConcatSkipNet, ConstantVector,
+                      DenseNet, LinearLQ, LinearLQTime, ReluMLP1d,
+                      ScalarParam, Sines, TanhMLP)
 
 
 def unflatten_tree(flat: dict) -> dict:
@@ -89,10 +95,11 @@ def tanh_mlp_to_flax(tensors) -> dict:
 
 
 def dense_net_from_flax(tree: dict, output_relu: bool = False,
-                        device=None) -> DenseNet:
-    """Build a ``DenseNet`` whose d_in, arch and d_out are read off the
-    Flax tree and load its parameters (``output_relu`` is not in the tree:
-    pass the Flax module's)."""
+                        device=None, cls=DenseNet) -> ConcatSkipNet:
+    """Build a concat-skip net of class ``cls`` (``DenseNet``, or
+    ``DenseNetTanh``, ``DenseNetTanh2``, ``DenseNetRelu``) whose d_in, arch
+    and d_out are read off the Flax tree and load its parameters
+    (``output_relu`` is not in the tree: pass the Flax module's)."""
     layers = _dense_layers(tree)
     d_in = layers[0][0].shape[0]
     arch = tuple(k.shape[1] for k, _ in layers[:-1])
@@ -100,8 +107,9 @@ def dense_net_from_flax(tree: dict, output_relu: bool = False,
         if k.shape[0] != d_in + sum(arch[:i]):
             raise ValueError(f"Dense_{i} kernel {k.shape} is not a "
                              f"concat-skip layer of d_in={d_in}, arch={arch}")
-    net = DenseNet(d_out=layers[-1][0].shape[1], arch=arch,
-                   output_relu=output_relu, d_in=d_in, device=device)
+    clamp = {"output_relu": True} if output_relu else {}
+    net = cls(d_out=layers[-1][0].shape[1], arch=arch, d_in=d_in,
+              device=device, **clamp)
     net.load_state_dict(tanh_mlp_state_dict(tree))
     return net
 
@@ -110,11 +118,11 @@ dense_net_to_flax = tanh_mlp_to_flax
 
 
 def eigen_params_from_flax(tree: dict, output_relu: bool = False,
-                           device=None):
-    """The eigen solver's tree {'V': <Flax DenseNet>, 'lam':
-    <ScalarParam>} -> (DenseNet, ScalarParam)."""
+                           device=None, cls=DenseNet):
+    """The eigen solver's tree {'V': <Flax concat-skip net>, 'lam':
+    <ScalarParam>} -> (the net of class ``cls``, ScalarParam)."""
     return (dense_net_from_flax(tree["V"], output_relu=output_relu,
-                                device=device),
+                                device=device, cls=cls),
             scalar_param_from_flax(tree["lam"], device=device))
 
 
@@ -152,18 +160,61 @@ def linear_lq_time_from_flax(tree: dict, B, Q, T, device=None
     return net
 
 
+def _leaves(tree: dict, names) -> dict:
+    """The named leaves of a Flax tree as float32 tensors; raises on other
+    keys."""
+    params = tree["params"] if "params" in tree else tree
+    if sorted(params) != sorted(names):
+        raise ValueError(f"expected a tree of {sorted(names)}, got keys "
+                         f"{sorted(params)}")
+    return {k: torch.tensor(np.asarray(params[k], dtype=np.float32))
+            for k in names}
+
+
+def _batch_norm_state(module, tree: dict) -> dict:
+    """BatchNormMLP: Dense_i's kernel (no bias) transposed into
+    layers.i.weight, the bn_scale_i / bn_bias_i leaves under their own
+    names."""
+    params = tree["params"] if "params" in tree else tree
+    n_bn = len(module.layers) + 1
+    names = ([f"Dense_{i}" for i in range(len(module.layers))]
+             + [f"bn_{k}_{i}" for i in range(n_bn)
+                for k in ("scale", "bias")])
+    if sorted(params) != sorted(names):
+        raise ValueError(f"expected a BatchNormMLP tree of {sorted(names)}, "
+                         f"got keys {sorted(params)}")
+    state = {}
+    for i in range(len(module.layers)):
+        kernel = np.asarray(params[f"Dense_{i}"]["kernel"], dtype=np.float32)
+        state[f"layers.{i}.weight"] = torch.tensor(
+            np.ascontiguousarray(np.swapaxes(kernel, -1, -2)))
+    for name in names[len(module.layers):]:
+        state[name] = torch.tensor(np.asarray(params[name],
+                                              dtype=np.float32))
+    return state
+
+
 def flax_state_dict(module, tree: dict) -> dict:
-    """A Flax tree of the kind of ``module`` (TanhMLP, DenseNet, LinearLQ,
-    LinearLQTime) -> ``module.state_dict()``'s parameters
-    (its buffers are not in the tree and are kept); leaves stacked on a
-    leading axis stay stacked."""
-    if isinstance(module, (TanhMLP, DenseNet)):
+    """A Flax tree of the kind of ``module`` (TanhMLP, any concat-skip net,
+    ReluMLP1d, BatchNormMLP, Sines, ConstantVector, Affine, LinearLQ,
+    LinearLQTime) -> ``module.state_dict()``'s parameters (its buffers are
+    not in the tree and are kept); leaves stacked on a leading axis stay
+    stacked.  Also maps a tree of gradients to the parameters' names."""
+    if isinstance(module, (TanhMLP, ConcatSkipNet, ReluMLP1d)):
         return tanh_mlp_state_dict(tree)
+    if isinstance(module, BatchNormMLP):
+        return _batch_norm_state(module, tree)
     if isinstance(module, (LinearLQ, LinearLQTime)):
         state = {k: v for k, v in module.state_dict().items() if k != "F"}
         state["F"] = torch.tensor(_lq_F(tree))
         return state
-    raise ValueError(f"no Flax converter for {type(module).__name__}")
+    leaf = {Sines: ("alpha",), ConstantVector: ("c",),
+            Affine: ("A", "b")}.get(type(module))
+    if leaf is None:
+        raise ValueError(f"no Flax converter for {type(module).__name__}")
+    state = dict(module.state_dict())
+    state.update(_leaves(tree, leaf))
+    return state
 
 
 def scalar_param_from_flax(tree: dict, device=None) -> ScalarParam:

@@ -303,7 +303,8 @@ def test_older_cells_keep_the_shared_plan(case, d_in, arch, timed, tile,
     packed = call.pack(backward=True)
     assert packed.layout == ("shared",) and packed.iargs[5] == tile
     assert tk._stopped_bwd_ts(packed) == stride
-    assert packed.fargs[-1] == 0.0 and len(packed.fargs) == 13 + 6
+    assert packed.fargs[tk._STOPPED_N_FLOATS + 5] == 0.0   # c_y3
+    assert len(packed.fargs) == 13 + 10
     assert packed.iargs[6] == int(case != "notebook_elliptic")
     forced = call._replace(plan="device").pack(backward=True)
     assert forced.layout == ("device",) and forced.iargs[5] == 64
@@ -321,7 +322,7 @@ def test_device_plan_launch(monkeypatch):
     ints, a workspace of per-path rows x stride floats after the block
     counts, the rows summed into the leaves' gradients, and the launch
     counted by plan."""
-    n_ints = tk._STOPPED_N_INTS + 2
+    n_ints = tk._STOPPED_N_INTS + 4
     asked, launched = [], []
 
     class FakeLib:

@@ -64,8 +64,9 @@ def test_schrodinger_normalization_constant(d, c):
 def test_family_hooks():
     """FokkerPlanckEigen states its drift, h and reference in the stopped
     kernels' torus family with its uniform c (0.1 in float32); a
-    non-uniform c is outside it.  SchrodingerEigen has zero drift and its
-    cubic h is outside every family."""
+    non-uniform c is outside it.  SchrodingerEigen has zero drift and
+    states its cubic h and its reference in the kernels' Schroedinger
+    family with its c."""
     fp = tp.FokkerPlanckEigen(d=5, device="cpu")
     c = float(np.float32(0.1))
     assert fp.drift_family() == ("torus_cos", c)
@@ -80,5 +81,5 @@ def test_family_hooks():
         None, None, None)
     sch = tp.SchrodingerEigen(d=10, device="cpu")
     assert sch.drift_family() == ("zero", None)
-    assert sch.h_family() is None and sch.v_ref_family() is None
+    assert sch.h_family() == sch.v_ref_family() == ("schrodinger", sch.c)
     assert sch.has_v_ref and fp.has_v_ref

@@ -283,7 +283,8 @@ class _TorusBallH(tp.FokkerPlanckEigen):
 
 def test_torus_family_errors():
     """Outside the torus family the wrapper raises naming the family: the
-    Schrodinger problem (zero drift on the square), a one-sided square, the
+    Schrodinger problem with a relu^2 DenseNet (its family takes tanh
+    features), a one-sided square, the
     torus drift on a sphere, another h, a non-uniform c, time_stopping, a
     lambda of two elements; the plain version takes them all."""
     d = 4
@@ -292,7 +293,8 @@ def test_torus_family_errors():
     nonuniform = tp.FokkerPlanckEigen(d=d, device="cpu")
     nonuniform.c = torch.linspace(0.1, 0.2, d)
     cases = [
-        (dict(problem=tp.SchrodingerEigen(d=d, device="cpu")), "geometry"),
+        (dict(problem=tp.SchrodingerEigen(d=d, device="cpu")),
+         "relu2 features"),
         (dict(problem=_OneSided(d)), "one-sided"),
         (dict(problem=_TorusSphere(d)), "geometry"),
         (dict(problem=_TorusBallH(d=d, device="cpu")), "'torus_fp'"),
@@ -333,11 +335,11 @@ def test_pack_stopped_torus(backward, with_lam):
                               backward=backward, host_noise=None,
                               adaptive_forward=False, rng="erfinv", lam=lam)
     ia, fa = packed.iargs, packed.fargs
-    # StoppedArgs' ints and floats, then StoppedExt's 2 and 6
-    assert len(ia) == 16 + 4 * tk._MAX_HIDDEN + 6 + 2 and len(fa) == 13 + 6
+    # StoppedArgs' ints and floats, then StoppedExt's 4 and 10
+    assert len(ia) == 16 + 4 * tk._MAX_HIDDEN + 6 + 4 and len(fa) == 13 + 10
     assert (ia[5], ia[6]) == ((64, 1) if backward else (4, 1))
     assert (ia[11], ia[12], ia[14], ia[15]) == (0, 1, 0, 2)
-    relu, lam_off, g_lam = ia[-5:-2]
+    relu, lam_off, g_lam = ia[-7:-4]
     lay = tk._stopped_layout(net, torch.zeros(1))
     n_net = sum(p.numel() for p in net.parameters())
     assert relu == 1 and (lam_off, g_lam) == (lay.lam_off, lay.g_lam)

@@ -40,6 +40,7 @@ from pspde_torch.rollout import kernels as tk
 from pspde_torch.rollout import sde as tsde
 from pspde_torch.rollout.sampling import inside_fn as t_inside
 from pspde_torch.utils.convert import dense_net_from_flax, dense_net_to_flax
+from tests.torch_outside_family import _TanhH
 
 K, N, DT, T_END, ARCH = 64, 12, 0.01, 0.15, (6, 5)
 X_RTOL, X_ATOL, Y_RTOL, Y_ATOL = 2e-5, 2e-6, 2e-4, 1e-5
@@ -314,16 +315,6 @@ class _NoHorizon(tp.ExponentialOnSphere):
     pass
 
 
-class _TanhH(tp.AllenCahn):
-    """A space-time problem outside STOPPED_KERNEL_FAMILY: h = tanh(y)."""
-
-    def h(self, t, x, y, z):
-        return torch.tanh(y)
-
-    def h_family(self):
-        return None
-
-
 def test_time_stopping_family_errors():
     """Outside STOPPED_KERNEL_FAMILY the wrapper raises on the CPU as on
     CUDA, naming the family: an h outside the 'ball_exp' family (tanh y), a
@@ -383,8 +374,8 @@ def test_pack_stopped_time_stopping(d, arch, case, backward, smem):
                               adaptive_forward=False, rng="erfinv",
                               time_stopping=True)
     ia, fa = packed.iargs, packed.fargs
-    # StoppedArgs' ints and floats, then StoppedExt's 2 and 6
-    assert len(ia) == 16 + 4 * tk._MAX_HIDDEN + 6 + 2 and len(fa) == 13 + 6
+    # StoppedArgs' ints and floats, then StoppedExt's 4 and 10
+    assert len(ia) == 16 + 4 * tk._MAX_HIDDEN + 6 + 4 and len(fa) == 13 + 10
     lay = tk._stopped_layout(net)
     F, H = d + 1 + sum(arch), sum(arch)
     assert (ia[2], ia[4], ia[14]) == (d, F, 1)

@@ -39,7 +39,7 @@ from pspde_torch.eval import compute_test_error
 from pspde_torch.rollout import kernels as tk
 from pspde_torch.solvers import EllipticSolver, GeneralSolver as TSolver
 from pspde_torch.utils.convert import dense_net_to_flax
-from tests.test_torch_general_rollout import _TanhH
+from tests.torch_outside_family import _TanhH
 
 D, K, KB, N, DT, T_END, STEPS = 3, 64, 16, 12, 0.01, 0.15, 20
 TRAJ_RTOL, PARAM_ATOL = 2e-4, 1e-5

@@ -237,21 +237,36 @@ def _cu_struct(name):
     return fields, src
 
 
+def _cu_int_fields(name):
+    """The names of a struct's int fields in csrc/stopped_rollout.cu."""
+    body = re.search(r"struct %s \{(.*?)\n\};" % name, open(CU).read(),
+                     re.S).group(1)
+    body = re.sub(r"//[^\n]*", "", body)
+    return {re.sub(r"\[.*\]", "", n).strip()
+            for decl in body.split(";") if decl.split()[:1] == ["int"]
+            for n in decl.split(None, 1)[1].split(",")}
+
+
 def test_pack_breadth_fields_against_the_cu():
     """StoppedExt follows StoppedArgs' ints and floats in the wrapper's
     arrays, in the .cu's field order: the dense sigma's offset (and sigma
     row-major there, after the net), the reference's kind, the inner
     radius, c_ys1, the committor's constants and c_y3 (0: the cubic goes
-    with the clock); the two spheres' outer
+    with the clock), then the feature map, the Schroedinger family and its
+    four constants (ints, then floats, each after their kind's old ones;
+    all 0 here); the two spheres' outer
     radius in StoppedArgs.radius, sigma's scalar 0 where it is dense; the
     per-path rows gain d (forward) and 2 d (backward) with a dense
     sigma."""
     fields, src = _cu_struct("StoppedExt")
     assert fields == ["sig_off", "vref", "r_in", "c_ys1", "vr_a2", "vr_ad",
-                      "vr_den", "c_y3"]
+                      "vr_den", "c_y3", "feat", "hfam", "sch_a", "sch_b",
+                      "sch_2d", "sch_1d"]
+    ints = _cu_int_fields("StoppedExt")
+    assert ints == {"sig_off", "vref", "feat", "hfam"}
     n_ext_i = int(re.search(r"kNumExtInts = (\d+);", src).group(1))
     n_ext_f = int(re.search(r"kNumExtFloats = (\d+);", src).group(1))
-    assert (n_ext_i, n_ext_f) == (2, 6)
+    assert (n_ext_i, n_ext_f) == (4, 10)
     args, _ = _cu_struct("StoppedArgs")
     n_int = args.index("dt") + 3 * (args.index("X_l") > args.index("dt"))
     n_int += sum(3 for f in ("width", "w_off", "b_off", "g_off") if f in args)
@@ -269,7 +284,8 @@ def test_pack_breadth_fields_against_the_cu():
                                  adaptive_forward=False, rng="erfinv")
             ia, fa = p.iargs, p.fargs
             assert len(ia) == ni + n_ext_i and len(fa) == nf + n_ext_f
-            ext = dict(zip(fields, ia[ni:] + fa[nf:]))
+            ext = dict(zip([f for f in fields if f in ints], ia[ni:]))
+            ext.update(zip([f for f in fields if f not in ints], fa[nf:]))
             F, H = ia[4], ia[4] - D
             full = prob is hes
             per = tk._stopped_per_path(F, H, D, backward, full)
@@ -297,8 +313,10 @@ def test_pack_breadth_fields_against_the_cu():
                 assert (fa[4], fa[5], fa[6]) == (-2 * 0.5 * D, 0.0, 1.0)
                 assert ia[13] == lay.n_grad   # sigma takes no gradient
             assert ext["c_y3"] == 0.0
+            assert [ext[f] for f in fields[8:]] == [0] * 2 + [0.0] * 4
             assert tk._stopped_instance(p)[3:] == (ext["sig_off"],
-                                                   ext["vref"], full, False)
+                                                   ext["vref"], full, False,
+                                                   ext["feat"], ext["hfam"])
 
 
 def _fma(a, b, c):

@@ -32,7 +32,7 @@ _spec = importlib.util.spec_from_file_location(
 chip_smoke = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(chip_smoke)
 
-N_INTS = 16 + 4 * tk._MAX_HIDDEN + 6 + 2  # StoppedArgs', StoppedExt's
+N_INTS = 16 + 4 * tk._MAX_HIDDEN + 6 + 4  # StoppedArgs', StoppedExt's
 CHUNK = 8                               # csrc kChunk
 
 

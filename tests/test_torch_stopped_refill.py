@@ -72,7 +72,7 @@ def _ball_call(K, d=6, arch=(6, 5), seed=0, N=20, adaptive=False):
         dict(adaptive_forward=adaptive, rng="erfinv", host_noise=None), None)
 
 
-N_INTS = 16 + 4 * tk._MAX_HIDDEN + 6 + 2  # StoppedArgs', StoppedExt's
+N_INTS = 16 + 4 * tk._MAX_HIDDEN + 6 + 4  # StoppedArgs', StoppedExt's
 
 
 @pytest.mark.parametrize("K,slots", [(65, 1), (500, 3), (500, 132),

@@ -483,11 +483,12 @@ def test_pack_stopped_layout(arch, backward, tile, stage):
                               backward=backward, host_noise=None,
                               adaptive_forward=False, rng="erfinv")
     ia = packed.iargs
-    # StoppedArgs' 38 ints and 13 floats, then StoppedExt's 2 and 6
-    assert len(ia) == 16 + 4 * tk._MAX_HIDDEN + 6 + 2
-    assert len(packed.fargs) == 13 + 6
+    # StoppedArgs' 38 ints and 13 floats, then StoppedExt's 4 and 10
+    assert len(ia) == 16 + 4 * tk._MAX_HIDDEN + 6 + 4
+    assert len(packed.fargs) == 13 + 10
     assert ia[14:16] == [0, 0]    # no clock, the sphere
-    assert ia[-2:] == [-1, 0]     # no dense sigma, the exp reference
+    assert ia[-4:-2] == [-1, 0]   # no dense sigma, the exp reference
+    assert ia[-2:] == [0, 0]      # relu^2 features, no Schroedinger h
     assert (ia[5], ia[6]) == (tile, int(stage))
     lay = tk._stopped_layout(net)
     assert lay.F == d + sum(arch) and ia[4] == lay.F
