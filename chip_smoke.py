@@ -220,7 +220,22 @@ control is learned.  This script
      within JAX's band (experiments/schrodinger_reference.py, three
      sampling seeds), the tail-100 V_L2 within 3x JAX's and lambda moved
      from -2 at least half as far as JAX's; then prints estimate_lambda
-     beside lambda_true = -3.
+     beside lambda_true = -3;
+ 36. trains six legs (the HJB export recipe, the LQGC 'outer' scan, the
+     committor's diffusion and PINN legs, the Allen-Cahn and Schroedinger
+     notebook steps), each from one seed for 2 x 50 + 7 steps, once at one
+     step per call and once at steps_per_call=50 (one captured CUDA graph,
+     replayed): logs, parameters, Adam's state and the generators'
+     states bitwise equal, and the training kernels launched once a step
+     (and in the graph's warm-up step); prints each mode's step time (CUDA
+     events over whole chunks), idle share (torch.profiler), the graph's
+     replays and the launches; then holds that a step with a host sync
+     under steps_per_call=4 raises at its capture, naming the op.
+
+Every train() above runs the solvers' default steps_per_call='auto', as
+pspde resolves it (min(50, print_every) steps per call): on the card each
+chunk is one captured CUDA graph, replayed (pspde_torch/solvers/_chunk.py),
+and each leg's launch counts include the graph's one eager warm-up step.
 
 Any failure exits nonzero.  The last line is one JSON object naming the
 device.  Run from the repository root:
@@ -481,6 +496,21 @@ def train_flops(widths, n_par):
 def check(ok, what):
     if not ok:
         raise RuntimeError(f"chip_smoke: check failed: {what}")
+
+
+def captured(s, L):
+    """The warm-up steps of solver ``s``'s chunked train() (each launches
+    the step's kernels once, eagerly, before its capture), after checking
+    that its L steps ran through the default 'auto' steps_per_call as
+    captured CUDA graphs: one capture, L // n replays of n steps."""
+    g, n = s.graph_stats, s.resolved_steps_per_call
+    print(f"  steps_per_call 'auto' -> {n}: {g['captures']} capture(s), "
+          f"{g['warmup_steps']} warm-up step(s), {g['replays']} replays of "
+          f"{n} steps, {L - n * g['replays']} eager step(s)")
+    check(s.steps_per_call == "auto" and n > 1 and g["captures"] == 1
+          and g["replays"] == L // n,
+          f"the {L} steps ran as captured graphs ({g}, n={n})")
+    return g["warmup_steps"]
 
 
 def ptxas_usage(log, kernel):
@@ -1089,6 +1119,7 @@ def main():
     breadth_rows = breadth_phases(dev, smi)
     ac_rows = allen_cahn_phases(dev, smi)
     sch_rows = schrodinger_phases(dev, smi)
+    chunk_phase(dev, smi, llgc)
 
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")
@@ -1154,23 +1185,24 @@ def train_phases(dev, smi, llgc, solver, lqgc, gen, timed):
                         rollout_mode="fused_train", device=dev)
     check(trainer.resolved_rollout_mode == "fused_train",
           f"engine {trainer.resolved_rollout_mode}")
-    km.fused_train_rollout.launches = 0
-    km.fused_train_rollout.backward_launches = 0
+    zero_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     trainer.train()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    fwd_launches = km.fused_train_rollout.launches
-    bwd_launches = km.fused_train_rollout.backward_launches
+    fwd_launches, bwd_launches = counted(km.fused_train_rollout, "launches",
+                                         "backward_launches")
     u0, u_end = trainer.u_L2_loss[0], trainer.u_L2_loss[-1]
     print(f"  {len(trainer.u_L2_loss)} steps in {wall:.2f} s; kernel "
           f"launches: forward {fwd_launches}, backward {bwd_launches}")
     print(f"  u_L2 {u0:.4f} -> {u_end:.4f} (every 100: "
           f"{['%.4f' % u for u in trainer.u_L2_loss[::100]]}); loss "
           f"{trainer.loss_log[-1]:.4e}; Y_0 {trainer.Y_0_log[-1]:.4f}")
-    check(fwd_launches >= 600 and bwd_launches >= 600,
-          "the training path launched both training kernels every step")
+    warm = captured(trainer, 600)
+    check(fwd_launches == 600 + warm and bwd_launches == 600 + warm,
+          "the training path launched both training kernels every step (and "
+          "in the warm-up step)")
     check(all(math.isfinite(v) for v in trainer.loss_log), "finite losses")
     check(u_end <= 0.1, f"final u_L2 {u_end:.4f} > 0.1")
     mean, var, rel = importance_sampling_fused(llgc, trainer, 2 ** 18,
@@ -1846,16 +1878,15 @@ def stopped_phases(dev, smi, timed):
                              rollout_mode="fused_train", device=dev)
     check(trainer.resolved_rollout_mode == "fused_train",
           f"engine {trainer.resolved_rollout_mode}")
-    reset_counts(km.fused_stopped_train_rollout, "launches",
-                 "backward_launches")
+    zero_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with PlainCalls(km) as plain_calls:
         trainer.train()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    fwd_launches = km.fused_stopped_train_rollout.launches
-    bwd_launches = km.fused_stopped_train_rollout.backward_launches
+    fwd_launches, bwd_launches = counted(km.fused_stopped_train_rollout,
+                                         "launches", "backward_launches")
     tail = float(np.mean(trainer.V_test_L2[-50:]))
     print(f"  {len(trainer.loss_log)} steps in {wall:.2f} s; kernel "
           f"launches: forward {fwd_launches}, backward {bwd_launches}; "
@@ -1865,9 +1896,11 @@ def stopped_phases(dev, smi, timed):
           f"{trainer.loss_log[0]:.4e} -> {trainer.loss_log[-1]:.4e}; "
           f"advancing path-steps per step {np.mean(trainer.K_log):.0f}; "
           f"tail-50 test L2 {tail:.4e} (bound {TEST_L2_BOUND:g})")
-    check(fwd_launches == L_ELL and bwd_launches == L_ELL
+    warm = captured(trainer, L_ELL)
+    check(fwd_launches == L_ELL + warm and bwd_launches == L_ELL + warm
           and plain_calls.n == 0, "the training path launched both "
-          "stopped kernels every step and no plain version")
+          "stopped kernels every step (and in the warm-up step) and no "
+          "plain version")
     check(all(math.isfinite(v) for v in trainer.loss_log), "finite losses")
     check(tail <= TEST_L2_BOUND, f"tail-50 test L2 {tail:.4e}")
 
@@ -1972,6 +2005,27 @@ def reset_counts(fn, *names):
         val = getattr(fn, name)
         setattr(fn, name, dict.fromkeys(val, 0) if isinstance(val, dict)
                 else 0)
+
+
+def zero_counts():
+    """Every launch count to 0: the wrappers' and the four training
+    kernels' own words on the device."""
+    from pspde_torch.rollout import kernels as km
+    km.reset_launch_counts()
+
+
+def counted(fn, *names):
+    """The launches that the training kernels under wrapper ``fn`` counted
+    on the device since ``zero_counts`` (km.kernel_launch_counts: each
+    launch that ran, a CUDA graph's replays' too), for each count name: an
+    int, or {plan: n} for a '_by_plan' name; one value for one name."""
+    from pspde_torch.rollout import kernels as km
+    c = km.kernel_launch_counts()
+    out = tuple({k[2]: v for k, v in c.items() if k[:2] == (fn.__name__,
+                                                            name)}
+                if name.endswith("_by_plan") else c[(fn.__name__, name)]
+                for name in names)
+    return out[0] if len(out) == 1 else out
 
 
 def wide_phases(dev, smi, llgc, solver):
@@ -2576,16 +2630,15 @@ def general_phases(dev, smi):
                             K=K_GEN_TRAIN, N=N_GEN, delta_t=DT_GEN, lr=1e-3,
                             L=L_GEN, K_test_log=4096, verbose=False,
                             rollout_mode="fused_train", device=dev)
-    reset_counts(km.fused_stopped_train_rollout, "launches",
-                 "backward_launches")
+    zero_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with PlainCalls(km) as plain_calls:
         trainer.train()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    conv_launches = (km.fused_stopped_train_rollout.launches,
-                     km.fused_stopped_train_rollout.backward_launches)
+    conv_launches = counted(km.fused_stopped_train_rollout, "launches",
+                            "backward_launches")
     tail = float(np.mean(trainer.V_test_L2[-50:]))
     print(f"  {len(trainer.loss_log)} steps in {wall:.2f} s; kernel launches "
           f"{conv_launches}; plain-version calls {plain_calls.n}; test L2 "
@@ -2593,9 +2646,11 @@ def general_phases(dev, smi):
           f"{['%.3e' % v for v in trainer.V_test_L2[::250]]}; loss "
           f"{trainer.loss_log[0]:.4e} -> {trainer.loss_log[-1]:.4e}; "
           f"tail-50 test L2 {tail:.4e} (bound {TEST_L2_BOUND_GEN:g})")
-    check(conv_launches == (L_GEN, L_GEN) and plain_calls.n == 0,
-          "the training path launched both kernels every step and no plain "
-          "version")
+    warm = captured(trainer, L_GEN)
+    check(conv_launches == (L_GEN + warm, L_GEN + warm)
+          and plain_calls.n == 0,
+          "the training path launched both kernels every step (and in the "
+          "warm-up step) and no plain version")
     check(all(math.isfinite(v) for v in trainer.loss_log), "finite losses")
     check(tail <= TEST_L2_BOUND_GEN, f"tail-50 test L2 {tail:.4e}")
 
@@ -2808,16 +2863,15 @@ def eigen_phases(dev, smi):
           f"{raised[:80]!r})")
     print(f"  SchrodingerEigen(d=10) with the default relu^2 DenseNet on "
           f"fused_train raises: {raised[:120]}")
-    reset_counts(km.fused_stopped_train_rollout, "launches",
-                 "backward_launches")
+    zero_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with PlainCalls(km) as plain_calls:
         main.train()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = (km.fused_stopped_train_rollout.launches,
-                km.fused_stopped_train_rollout.backward_launches)
+    launches = counted(km.fused_stopped_train_rollout, "launches",
+                       "backward_launches")
     v_tail = float(np.mean(main.V_L2_log[-100:]))
     lam_tail = main.lambda_tail_mean()
     v_bound = 3.0 * V_L2_TAIL_JAX
@@ -2831,8 +2885,10 @@ def eigen_phases(dev, smi):
     print(f"  tail-100 V_L2 {v_tail:.4e} (bound {v_bound:.4e}, JAX "
           f"{V_L2_TAIL_JAX:.4e}); lambda tail mean {lam_tail:.4e} (bound "
           f"|.| <= {lam_bound:g}, JAX {LAMBDA_TAIL_JAX:.4e})")
-    check(launches == (L_EIG, L_EIG) and plain_calls.n == 0,
-          "one forward and one backward launch per step, no plain call")
+    warm = captured(main, L_EIG)
+    check(launches == (L_EIG + warm, L_EIG + warm) and plain_calls.n == 0,
+          "one forward and one backward launch per step (and in the warm-up "
+          "step), no plain call")
     check(all(math.isfinite(v) for v in main.loss_log + main.lambda_log),
           "finite losses and lambdas")
     check(v_tail <= v_bound, f"tail-100 V_L2 {v_tail:.4e} > {v_bound:.4e}")
@@ -2993,12 +3049,15 @@ def double_well_phases(dev, smi):
           "the training kernels refuse the double well's drift")
 
     def train(s):
-        """Train ``s`` and return the wall seconds a step."""
+        """Train ``s`` (its default 'auto' steps_per_call: captured
+        graphs) and return the wall seconds a step."""
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         s.train()
         torch.cuda.synchronize()
-        return (time.perf_counter() - t0) / len(s.loss_log)
+        wall = (time.perf_counter() - t0) / len(s.loss_log)
+        captured(s, len(s.loss_log))
+        return wall
 
     def falls(s, what):
         u = s.u_L2_loss
@@ -3344,16 +3403,15 @@ def breadth_phases(dev, smi):
         fused = kw.get("rollout_mode") == "fused_train"
         check(s.resolved_rollout_mode == ("fused_train" if fused else "scan"),
               f"{leg}: engine {s.resolved_rollout_mode}")
-        reset_counts(km.fused_stopped_train_rollout, "launches",
-                     "backward_launches")
+        zero_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with PlainCalls(km) as plain_calls:
             s.train()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        n = (km.fused_stopped_train_rollout.launches,
-             km.fused_stopped_train_rollout.backward_launches)
+        n = counted(km.fused_stopped_train_rollout, "launches",
+                    "backward_launches")
         tail = float(np.mean(s.V_test_L2[-50:]))
         bound = 3.0 * BR_TAIL_JAX[leg]
         fall = s.V_test_L2[0] - tail
@@ -3368,9 +3426,12 @@ def breadth_phases(dev, smi):
               f" -> {BR_TAIL_JAX[leg]:.4e}, {fall_jax:.4e}; at least half)")
         check(all(math.isfinite(v) for v in s.loss_log), f"{leg}: finite "
               "losses")
-        check(n == ((L, L) if fused else (0, 0)) and plain_calls.n == 0,
-              f"{leg}: one forward and one backward launch a step on "
-              "'fused_train' and none on PINN, no plain call")
+        warm = captured(s, L)
+        check(n == ((L + warm, L + warm) if fused else (0, 0))
+              and plain_calls.n == 0,
+              f"{leg}: one forward and one backward launch a step (and in "
+              "the warm-up step) on 'fused_train' and none on PINN, no "
+              "plain call")
         check(tail <= bound, f"{leg}: tail-50 test L2 {tail:.4e} > "
               f"{bound:.4e}")
         check(fall >= 0.5 * fall_jax, f"{leg}: the test L2 fell by "
@@ -3736,17 +3797,16 @@ def allen_cahn_phases(dev, smi):
     s = leg("allen_cahn_diffusion", L_AC, loss_method="diffusion", N=N_AC,
             alpha=(10.0, 1.0, 1.0))
     v_init = v00(s)
-    reset_counts(km.fused_stopped_train_rollout, "launches",
-                 "backward_launches", "backward_launches_by_plan")
+    zero_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with PlainCalls(km) as plain_calls:
         s.train()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    n = (km.fused_stopped_train_rollout.launches,
-         km.fused_stopped_train_rollout.backward_launches)
-    by_plan = dict(km.fused_stopped_train_rollout.backward_launches_by_plan)
+    *n, by_plan = counted(km.fused_stopped_train_rollout, "launches",
+                          "backward_launches", "backward_launches_by_plan")
+    n = tuple(n)
     v_end = v00(s)
     tail = float(np.mean(s.loss_log[-50:]))
     move = abs(v_end - v_init)
@@ -3764,10 +3824,12 @@ def allen_cahn_phases(dev, smi):
           "~60k steps (not checked)")
     check(all(math.isfinite(v) for v in s.loss_log), "diffusion leg: finite "
           "losses")
-    check(n == (L_AC, L_AC) and by_plan["device"] == L_AC
+    warm = captured(s, L_AC)
+    check(n == (L_AC + warm, L_AC + warm) and by_plan["device"] == L_AC + warm
           and plain_calls.n == 0,
-          "diffusion leg: one forward and one backward launch a step, every "
-          "backward on the device plan, no plain call")
+          "diffusion leg: one forward and one backward launch a step (and in "
+          "the warm-up step), every backward on the device plan, no plain "
+          "call")
     check(lo - w <= v_end <= hi + w, f"diffusion leg: v(0, 0) {v_end:.6f} "
           f"outside [{lo - w:.6f}, {hi + w:.6f}]")
     check(tail <= 3.0 * AC_TAIL_JAX, f"diffusion leg: tail-50 loss "
@@ -4093,16 +4155,15 @@ def schrodinger_phases(dev, smi):
           f"1), 'l2_penalty', N={N}, dt={dt}, {L_SCH} steps from JAX's "
           "initial net (experiments/schrodinger_reference.py)")
     main = recipe(K_SCH, "fused_train")
-    reset_counts(km.fused_stopped_train_rollout, "launches",
-                 "backward_launches")
+    zero_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with PlainCalls(km) as plain_calls:
         main.train()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = (km.fused_stopped_train_rollout.launches,
-                km.fused_stopped_train_rollout.backward_launches)
+    launches = counted(km.fused_stopped_train_rollout, "launches",
+                       "backward_launches")
     steps = len(main.loss_log)
     lam_tail = main.lambda_tail_mean()
     lam_first = main.lambda_log[0]
@@ -4119,10 +4180,11 @@ def schrodinger_phases(dev, smi):
           f"{SCH_LAMBDA_FIRST_JAX} -> {jax_tails}, band [{lo - w:.4f}, {hi + w:.4f}]; moved {move:.4f}, at least "
           f"half of JAX's {move_jax:.4f}); tail-100 V_L2 {v_tail:.4e} (bound "
           f"3x JAX's {SCH_V_L2_TAIL_JAX:.4e})")
-    check(launches[1] == steps and launches[0] >= steps
+    warm = captured(main, steps)
+    check(launches[1] == steps + warm and launches[0] >= steps + warm
           and plain_calls.n == 0,
-          "the main path: one backward launch a step, at least one forward "
-          "launch a step, no plain call")
+          "the main path: one backward launch a step (and in the warm-up "
+          "step), at least one forward launch a step, no plain call")
     check(all(math.isfinite(v) for v in main.loss_log + main.lambda_log
               + main.V_L2_log), "finite losses, lambdas and V_L2")
     check(lo - w <= lam_tail <= hi + w, f"lambda tail mean {lam_tail:.4f} "
@@ -4170,6 +4232,324 @@ def schrodinger_phases(dev, smi):
              plain_ms_K65536=rb["backward"][1],
              bound_ms_K65536=bb_bwd["bound_ms"]),
     ]
+
+
+# phase 36: steps_per_call, each leg trained for 2 n + r steps once at one
+# step per call and once at n per call (one captured CUDA graph of n steps,
+# replayed), then CHUNK_TIMED chunks of n steps timed per mode with CUDA
+# events, and profiled: one chunk captured, CHUNK_PROFILED eager steps (the
+# profiler's processing of an eager chunk's ~40k kernels took ~20 s a leg)
+CHUNK_N, CHUNK_R, CHUNK_TIMED, CHUNK_PROFILED = 50, 7, 4, 10
+# eager step() calls timed one by one (phase 34's way) after each eager chunk
+STEPS_TIMED = 5
+# the kernels of the training legs, as the profiler names them
+TRAIN_KERNELS = ("train_forward_kernel", "train_backward_kernel",
+                 "stopped_fwd_kernel", "stopped_bwd_kernel")
+
+
+def chunk_phase(dev, smi, llgc):
+    """Phase 36: steps_per_call on six training legs (the HJB export
+    recipe, the LQGC 'outer' scan, the committor's diffusion and PINN legs,
+    the Allen-Cahn and the Schroedinger notebook steps), each trained from
+    one seed for 2 n + r steps at one step per call and at n per call: the
+    logs, the parameters, Adam's state and the generators' states bitwise
+    equal; the step time of each mode (CUDA events over whole chunks), its
+    idle share (torch.profiler over one chunk), the graph's replays and
+    the training kernels' launches.  Then a step with a host sync under
+    an explicit steps_per_call: the capture raises naming the op, and no
+    step runs."""
+    import gc
+
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from pspde_torch.ansatz import DenseNet, DenseNetTanh, LinearLQ
+    from pspde_torch.problems import (LQGC, AllenCahn, Committor,
+                                      ExponentialOnBallNonlinearSin,
+                                      Geometry, SchrodingerEigen)
+    from pspde_torch.rollout import kernels as km
+    from pspde_torch.solvers import (EigenSolver, EllipticSolver,
+                                     GeneralSolver, HJBSolver)
+    from pspde_torch.utils.convert import load_control_npz
+
+    t36 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    n, L = CHUNK_N, 2 * CHUNK_N + CHUNK_R
+
+    def asset(name):
+        return load_control_npz(os.path.join(root, "pspde_torch", "assets",
+                                             name))[0]
+
+    lq = LQGC(d=10, T=0.5, delta_t=0.05, device=dev)
+    com = Committor(d=D_COM, device=dev)
+    ac = AllenCahn(d=D_AC, T=T_AC, device=dev)
+    ac.geometry = Geometry(kind="unbounded", boundary_distance=R_AC)
+    sch = SchrodingerEigen(d=D_SCH, device=dev)
+    trees = {"committor": asset("committor_d10_densenet.npz"),
+             "allen_cahn": asset("allen_cahn_d100_densenet.npz"),
+             "schrodinger": asset("schrodinger_d10_densenet_tanh.npz")}
+
+    def hjb_export(spc):
+        return HJBSolver("chunk-hjb", llgc, lr=1e-2, L=L, K=1024,
+                         delta_t=DT_TRAIN, time_approx="inner",
+                         loss_method="log-variance", detach_forward=True,
+                         learn_Y_0=True, verbose=False,
+                         early_stopping_time=None, seed=42,
+                         rollout_mode="fused_train", steps_per_call=spc,
+                         device=dev)
+
+    def lqgc_outer(spc):
+        return HJBSolver("chunk-lq", lq, lr=1e-2, L=L, K=512, delta_t=0.05,
+                         time_approx="outer", loss_method="log-variance",
+                         detach_forward=True, learn_Y_0=False,
+                         control_net=LinearLQ(lq.B, lq.Q, device=dev,
+                                              generator=torch.Generator()
+                                              .manual_seed(26)),
+                         early_stopping_time=None, verbose=False,
+                         steps_per_call=spc, device=dev)
+
+    def committor(spc, **kw):
+        s = EllipticSolver(com, "chunk-com", seed=42, delta_t=DT_BR, N=N_COM,
+                           lr=1e-3, L=L, K=200, K_boundary=50,
+                           K_test_log=10000, loss_with_stopped=False,
+                           verbose=False, steps_per_call=spc, device=dev,
+                           **kw)
+        s.load_jax_params(trees["committor"])
+        return s
+
+    def allen_cahn(spc):
+        s = GeneralSolver(ac, "chunk-ac", seed=42, delta_t=DT_AC, lr=1e-3,
+                          L=L, K=K_AC, K_boundary=KB_AC, uniform_square=True,
+                          loss_with_stopped=False, loss_method="diffusion",
+                          N=N_AC, alpha=(10.0, 1.0, 1.0),
+                          value_net=DenseNet(1, NET_AC, d_in=D_AC + 1,
+                                             weight_scale=0.05, device=dev),
+                          rollout_mode="fused_train", verbose=False,
+                          steps_per_call=spc, device=dev)
+        s.load_jax_params(trees["allen_cahn"])
+        return s
+
+    def schrodinger(spc):
+        s = EigenSolver(sch, "chunk-sch", seed=42, delta_t=DT_SCH, N=N_SCH,
+                        lr=1e-3, lambda_init=-2.0, L=L, K=K_SCH,
+                        K_boundary=KB_SCH, alpha=(50.0, 1.0),
+                        normalization="l2_penalty",
+                        value_net=DenseNetTanh(1, NET_SCH, output_relu=True,
+                                               d_in=D_SCH, device=dev),
+                        rollout_mode="fused_train", verbose=False,
+                        steps_per_call=spc, device=dev)
+        s.load_jax_params(trees["schrodinger"])
+        return s
+
+    legs = {
+        "hjb_export (LLGC d=100, K=1024, N=32, fused_train)":
+            (hjb_export, "fused_train_rollout"),
+        "lqgc_outer (LQGC d=10, LinearLQ 'outer', K=512, N=10, scan)":
+            (lqgc_outer, None),
+        f"committor_diffusion (d={D_COM}, K=200, N={N_COM}, fused_train)":
+            (lambda spc: committor(spc, alpha=(10.0, 1.0),
+                                   loss_method="diffusion",
+                                   rollout_mode="fused_train"),
+             "fused_stopped_train_rollout"),
+        f"committor_pinn (d={D_COM}, K=200, PINN)":
+            (lambda spc: committor(spc, alpha=(1e-3, 1.0),
+                                   loss_method="PINN"), None),
+        f"allen_cahn (d={D_AC}, K={K_AC}, N={N_AC}, GeneralSolver "
+        "fused_train)": (allen_cahn, "fused_stopped_train_rollout"),
+        f"schrodinger (d={D_SCH}, K={K_SCH}, N={N_SCH}, EigenSolver "
+        "fused_train)": (schrodinger, "fused_stopped_train_rollout"),
+    }
+    print(f"phase 36: steps_per_call on six legs, each from one seed for "
+          f"L = 2 x {n} + {CHUNK_R} = {L} steps at 1 and at {n} steps per "
+          f"call (one captured CUDA graph, replayed): logs, parameters, "
+          f"Adam's state and the generators bitwise equal, the launches "
+          f"that the kernels counted on the device; then, interleaved, "
+          f"{CHUNK_TIMED} chunks of {n} steps a mode through train() and "
+          f"{CHUNK_TIMED} x {STEPS_TIMED} eager step() calls each of the "
+          f"trained solver, of a fresh one (phase 34's timing) and of the "
+          f"trained one without the cyclic GC, timed with CUDA events; one "
+          f"captured chunk and "
+          f"{CHUNK_PROFILED} eager steps profiled; card: {smi}")
+
+    def logs_of(s):
+        return {k: v for k, v in vars(s).items() if isinstance(v, list)
+                and not k.startswith("_") and k != "times"}
+
+    def totals(counts):
+        return {k[0] + "." + k[1]: v for k, v in counts.items()
+                if len(k) == 2 and v}
+
+    def chunk_ms(s):
+        """ms a step of the next n steps of ``s`` through train()."""
+        s.L = s.iteration + n
+        return timed(s.train, 1, warm=False) / n
+
+    def profiled_chunk(s, steps):
+        """Wall and device ms a step, idle share and launches over the next
+        ``steps`` steps of ``s`` under torch.profiler (CUDA activity): the
+        kernels the profiler recorded, the training kernels' launches it
+        recorded and those the kernels counted on the device."""
+        s.L = s.iteration + steps
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            # one kernel and a sync before the window, so that the
+            # tracer is running when the window's first launch comes
+            torch.ones(1, device=dev).add_(1.0)
+            torch.cuda.synchronize()
+            zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s.train()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        dev_us, kernels, train_k = 0.0, 0, {}
+        for ev in prof.key_averages():
+            t = getattr(ev, "self_device_time_total",
+                        getattr(ev, "self_cuda_time_total", 0.0))
+            if ev.device_type == DeviceType.CUDA and t > 0:
+                dev_us += t
+                kernels += ev.count
+                for k in TRAIN_KERNELS:
+                    if k in ev.key:
+                        train_k[k] = train_k.get(k, 0) + ev.count
+        # (the totals take in the add_ and zero_counts' zero_: two small
+        # kernels)
+        made = sum(totals(km.kernel_launch_counts()).values())
+        return dict(wall_ms=1e3 * wall / steps,
+                    device_ms=dev_us / 1e3 / steps,
+                    idle=max(0.0, 1.0 - dev_us / 1e6 / wall), steps=steps,
+                    kernels=kernels, train_recorded=sum(train_k.values()),
+                    train_by_kernel=train_k, train_made=made)
+
+    results = {}
+    for name, (make, wrapper) in legs.items():
+        t_leg = time.perf_counter()
+        runs, launches, made = {}, {}, {}
+        for spc in (1, n):
+            s = make(spc)
+            zero_counts()
+            s.train()
+            torch.cuda.synchronize()
+            launches[spc] = totals(km.kernel_launch_counts())
+            made[spc] = totals(km.launch_counts())
+            runs[spc] = s
+        a, b = runs[1], runs[n]
+        la, lb = logs_of(a), logs_of(b)
+        bad = [k for k in la if not (len(la[k]) == len(lb[k]) and np.array_equal(
+            np.asarray(la[k], dtype=np.float64),
+            np.asarray(lb[k], dtype=np.float64), equal_nan=True))]
+        sa, sb = a._state_tensors(), b._state_tensors()
+        bad += [k for k in sa if k not in sb or not torch.equal(sa[k],
+                                                               sb[k])]
+        gens = dict(a._chunk_generators(), _seed_gen=a._seed_gen)
+        gens_b = dict(b._chunk_generators(), _seed_gen=b._seed_gen)
+        bad += [k for k in gens if not torch.equal(gens[k].get_state(),
+                                                   gens_b[k].get_state())]
+        g = b.graph_stats
+        print(f"  [{name}] {L} steps: launches counted on the device, per "
+              f"step {launches[1]}, chunked {launches[n]} (the warm-up "
+              f"step's included); made eagerly (the wrappers' counts) "
+              f"{made[1]} and {made[n]}; graph {g['captures']} capture, "
+              f"{g['warmup_steps']} warm-up step, {g['replays']} replays, "
+              f"resolved {b.resolved_steps_per_call}; {len(la)} logs, "
+              f"{len(sa)} state tensors, {len(gens)} generators: "
+              + ("bitwise equal" if not bad else f"DIFFER: {bad}"))
+        check(not bad, f"{name}: per-step and chunked runs bitwise equal "
+              f"(differ: {bad})")
+        check(a.resolved_steps_per_call == 1 and a.graph_stats["replays"]
+              == 0 and b.resolved_steps_per_call == n and g["captures"] == 1
+              and g["replays"] == 2, f"{name}: one step per call, and two "
+              f"replays of one graph of {n} steps ({g})")
+        if wrapper is not None:
+            key = f"{wrapper}.launches"
+            bkey = f"{wrapper}.backward_launches"
+            check(launches[1].get(key) == launches[1].get(bkey) == L
+                  and launches[n].get(key) == launches[n].get(bkey) == L + 1,
+                  f"{name}: one forward and one backward launch a step, and "
+                  f"the warm-up step's ({launches})")
+            # the eager launches are the wrappers'; the rest, the replays'
+            check(made[1] == launches[1] and all(
+                made[n].get(k) == launches[n][k] - g["replays"] * n
+                for k in (key, bkey)), f"{name}: the device counts are the "
+                f"wrappers' eager launches and the replays' ({made})")
+        else:
+            check(not launches[1] and not launches[n],
+                  f"{name}: no training kernel ({launches})")
+        # the eager step also as phase 34 times it (a fresh solver, one
+        # untimed step), and without the cyclic garbage collector
+        fresh = make(1)
+        fresh.step()
+        times = {"eager": [], "eager step()": [], "fresh step()": [],
+                 "step(), no GC": [], "captured": []}
+        for _ in range(CHUNK_TIMED):
+            times["eager"].append(chunk_ms(a))
+            times["eager step()"] += [timed(a.step, 1, warm=False)
+                                      for _ in range(STEPS_TIMED)]
+            times["fresh step()"] += [timed(fresh.step, 1, warm=False)
+                                      for _ in range(STEPS_TIMED)]
+            gc.disable()
+            try:
+                times["step(), no GC"] += [timed(a.step, 1, warm=False)
+                                           for _ in range(STEPS_TIMED)]
+            finally:
+                gc.enable()
+            times["captured"].append(chunk_ms(b))
+        prof = {"eager": profiled_chunk(a, CHUNK_PROFILED),
+                "captured": profiled_chunk(b, n)}
+        results[name] = (times, prof)
+        med = {m: float(np.median(v)) for m, v in times.items()}
+        for m in ("eager step()", "fresh step()", "step(), no GC"):
+            print(f"    {m} {med[m]:.3f} ms median of {len(times[m])} "
+                  f"{['%.3f' % t for t in times[m]]}")
+        for m in ("eager", "captured"):
+            p = prof[m]
+            # the profiler's wall carries its own cost a kernel; the device
+            # time over the unprofiled step time reads the idle share
+            # without it
+            print(f"    {m:8s} step {med[m]:.3f} ms median of {CHUNK_TIMED} "
+                  f"chunks of {n} through train() "
+                  f"{['%.3f' % t for t in times[m]]}; profiled "
+                  f"({p['steps']} steps) {p['wall_ms']:.3f} ms a step, "
+                  f"device {p['device_ms']:.3f} ms a step, idle "
+                  f"{100 * p['idle']:.1f}% (of the unprofiled step "
+                  f"{100 * max(0.0, 1 - p['device_ms'] / med[m]):.1f}%), "
+                  f"{p['kernels']} kernels recorded, of them "
+                  f"{p['train_recorded']} training-kernel launches "
+                  f"{p['train_by_kernel']}; the kernels counted "
+                  f"{p['train_made']}")
+            want = 2 * p["steps"] if wrapper is not None else 0
+            check(p["train_made"] == want
+                  and p["train_recorded"] <= p["train_made"],
+                  f"{name}, {m}: the kernels counted {want} launches in the "
+                  f"profiled window ({p['train_made']}), the profiler no "
+                  f"more ({p['train_recorded']})")
+        print(f"    speed-up {med['eager'] / med['captured']:.2f}x against "
+              f"train(), {med['eager step()'] / med['captured']:.2f}x "
+              f"against step(); replays {b.graph_stats['replays']}; leg "
+              f"{time.perf_counter() - t_leg:.1f} s; card: {smi}")
+        del runs, a, b, s, fresh
+
+    # a step that cannot be captured: a host sync in h
+    class SyncingH(ExponentialOnBallNonlinearSin):
+        def h(self, x, y, z):
+            if float(y.abs().max()) < 0.0:   # a host read of a device value
+                return y
+            return super().h(x, y, z)
+
+    s = EllipticSolver(SyncingH(d=4, alpha=0.1, device=dev), "chunk-sync",
+                       K=64, N=5, L=8, steps_per_call=4, verbose=False,
+                       device=dev)
+    try:
+        s.train()
+        raised = ""
+    except RuntimeError as e:
+        raised = str(e)
+    print(f"  a host sync in h under steps_per_call=4 raises: {raised[:400]}")
+    check("cannot be captured" in raised and "chip_smoke.py" in raised
+          and "float(y.abs().max())" in raised and not s.loss_log,
+          "the capture of a step with a host sync raises naming the op, and "
+          "no step ran")
+    print(f"  phase 36 took {time.perf_counter() - t36:.1f} s")
+    return results
 
 
 if __name__ == "__main__":

@@ -14,11 +14,49 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+#include <unordered_map>
+#include <utility>
+
 namespace pspde {
 
 constexpr int kMaxLayers = 8;   // pspde_torch/rollout/kernels.py _MAX_LAYERS
 constexpr int kChunk = 8;       // ... _CHUNK
 constexpr int kMaxTile = 128;   // ... _MAX_TILE
+
+// Host: lets `kernel` take `bytes` of dynamic shared memory on the current
+// device (cudaFuncSetAttribute), asking the runtime only when `bytes`
+// exceeds what this process set for that kernel and device before.  A
+// launch at a shape run once already makes no such call, so the training
+// kernels' launches inside a CUDA graph's capture, after the eager warm-up
+// step at the same shapes (pspde_torch/solvers/_chunk.py), are stream
+// operations only; and a launch saves a runtime call.
+inline cudaError_t allow_dynamic_smem(const void* kernel, size_t bytes) {
+  static std::mutex mu;
+  static std::unordered_map<const void*, size_t> set[64];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> lock(mu);
+  const auto it = set[dev].find(kernel);
+  if (it != set[dev].end() && it->second >= bytes) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(bytes));
+  if (e == cudaSuccess) set[dev][kernel] = bytes;
+  return e;
+}
+
+// Counts a launch of the calling kernel: block 0's thread 0 adds one to the
+// 64-bit word `launches` (none where it is null).  The word is the kernel's
+// launch count on the device, so that a launch recorded into a CUDA graph is
+// counted each time the graph runs it.
+__device__ __forceinline__ void count_launch(unsigned long long* launches) {
+  if (launches != nullptr && blockIdx.x == 0 && blockIdx.y == 0 &&
+      blockIdx.z == 0 && threadIdx.x == 0 && threadIdx.y == 0 &&
+      threadIdx.z == 0)
+    atomicAdd(launches, 1ull);
+}
 
 __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0,
                                                uint32_t k1) {

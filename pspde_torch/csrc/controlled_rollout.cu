@@ -78,7 +78,7 @@ controlled_rollout_kernel(const TrainArgs a, const float* __restrict__ P,
   for (int j = q; j < a.dp; j += a.tpp) st.X[j * ts] = P[a.x0_off + j];
   __syncthreads();
 
-  const TrainDraw draw{a, noise, k < a.K, k};
+  const TrainDraw draw{a, noise, k < a.K, k, a.key0, a.key1};
   FwdAcc acc = {};
   for (int n = 0; n < a.N; ++n)
     train_forward_step<!kDevice, !kDevice, true, kSumIS, kDW>(a, P, W, st, n,

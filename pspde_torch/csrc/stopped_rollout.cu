@@ -237,7 +237,9 @@
 //     the step (backward), which are free by then.
 //
 // Noise: host noise (N, K, d), or Philox4x32-10 keyed by (seed, k, n, j / 4)
-// through the erfinv map (default) or the binom map.  The plain version
+// through the erfinv map (default) or the binom map; the seed is a device
+// word that each thread reads once at entry (stopped_seed), so that a
+// captured CUDA graph reads the value written there before each replay.  The plain version
 // (pspde_torch/rollout/kernels.py: reference_stopped_train_rollout) draws
 // the same stream.
 
@@ -288,7 +290,6 @@ struct StoppedArgs {
   float dt, sq_dt, sig, radius, c_y, c_yr2, k_exp, a_vref;
   float T;          // the horizon of time_stopping
   float k_t;        // h's time coefficient
-  uint32_t key0, key1;
   // The torus family and the clamp come last, so that every field the
   // other families read keeps its offset (and their code its SASS).
   int out_relu;     // V = relu(o) (DenseNet output_relu)
@@ -296,6 +297,8 @@ struct StoppedArgs {
   int g_lam;        // and its entry of the gradient row (the last)
   float X_l, X_r;   // the square of the torus family
   float c_tor;      // its uniform coefficient c
+  const unsigned long long* seed;   // the Philox seed's device word
+  unsigned long long* launches;     // the launch count (count_launch)
 };
 // The wrapper packs kNumIntArgs ints (the block up to gL_off, then
 // out_relu, lam_off, g_lam) and kNumFloatArgs floats (dt ... k_t, then
@@ -307,7 +310,7 @@ static_assert(offsetof(StoppedArgs, dt) ==
                   (kNumIntArgs - kNumTailArgs) * sizeof(int),
               "StoppedArgs must start with the wrapper's ints but the last "
               "three");
-static_assert(offsetof(StoppedArgs, key0) ==
+static_assert(offsetof(StoppedArgs, out_relu) ==
                   offsetof(StoppedArgs, dt) +
                       (kNumFloatArgs - kNumTailArgs) * sizeof(float),
               "the wrapper's floats but the last three follow");
@@ -365,7 +368,14 @@ __device__ __forceinline__ int padded(int w) {
   return (w + kChunk - 1) / kChunk * kChunk;
 }
 
-__device__ __forceinline__ void draw4(const StoppedArgs& a,
+// The Philox key, read from the seed's device word.
+__device__ __forceinline__ uint2 stopped_seed(const StoppedArgs& a) {
+  const unsigned long long s = __ldg(a.seed);
+  return make_uint2(static_cast<uint32_t>(s & 0xFFFFFFFFull),
+                    static_cast<uint32_t>(s >> 32));
+}
+
+__device__ __forceinline__ void draw4(const StoppedArgs& a, uint2 key,
                                       const float* __restrict__ noise, int k,
                                       int n, int g, float (&xi)[4]) {
   if (a.host_noise) {
@@ -376,7 +386,7 @@ __device__ __forceinline__ void draw4(const StoppedArgs& a,
     return;
   }
   philox_normals4(static_cast<uint32_t>(k), static_cast<uint32_t>(n),
-                  static_cast<uint32_t>(g), a.key0, a.key1, a.rng, xi);
+                  static_cast<uint32_t>(g), key.x, key.y, a.rng, xi);
 }
 
 // |x|^2 over rows 0..d of this path's column, in a fixed order.
@@ -887,6 +897,8 @@ stopped_fwd_kernel(const StoppedArgs a, const float* __restrict__ P,
   float* col = S + slot;
   const FwdNet net = stage_fwd_net(a, P, S, &col);
   __syncthreads();   // no barrier below
+  count_launch(a.launches);
+  const uint2 key = stopped_seed(a);
 
   const int d_in = net_inputs<kTimed>(a);
   float* f = col;                        // features: X, [t,] relu(h)^2
@@ -984,7 +996,7 @@ stopped_fwd_kernel(const StoppedArgs a, const float* __restrict__ P,
       const float* sg = net.W + ext.sig_off + net.shift[a.L];
       for (int gi = ln.q; 4 * gi < a.d; gi += ln.p) {
         float xi[4];
-        draw4(a, noise, k, n, gi, xi);
+        draw4(a, key, noise, k, n, gi, xi);
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           const int j = 4 * gi + q;
@@ -1002,7 +1014,7 @@ stopped_fwd_kernel(const StoppedArgs a, const float* __restrict__ P,
       // xs and, off the torus, moves those coordinates
       for (int gi = ln.q; 4 * gi < a.d; gi += ln.p) {
         float xi[4];
-        draw4(a, noise, k, n, gi, xi);
+        draw4(a, key, noise, k, n, gi, xi);
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           const int j = 4 * gi + q;
@@ -1353,6 +1365,8 @@ stopped_bwd_kernel(const StoppedArgs a, const float* __restrict__ P,
                                          // normals and Z in the 2 d rows
                                          // after it
   for (float* p = f; p <= al; p += ts) *p = 0.0f;
+  count_launch(a.launches);
+  const uint2 key = stopped_seed(a);
   const float* wL = W + a.wL_off;
   const float lam = kTorus ? P[a.lam_off] : 0.0f;   // not W: unstaged yet
   float g_lam = 0.0f;                    // this lane's d/dlambda
@@ -1438,7 +1452,7 @@ stopped_bwd_kernel(const StoppedArgs a, const float* __restrict__ P,
         const float* sg = W + ext.sig_off;   // sigma, after the net
         for (int gi = 0; 4 * gi < a.d; ++gi) {
           float xi[4];
-          draw4(a, noise, k, n, gi, xi);
+          draw4(a, key, noise, k, n, gi, xi);
 #pragma unroll
           for (int q = 0; q < 4; ++q) {
             const int j = 4 * gi + q;
@@ -1462,7 +1476,7 @@ stopped_bwd_kernel(const StoppedArgs a, const float* __restrict__ P,
       } else {
         for (int gi = 0; 4 * gi < a.d; ++gi) {
           float xi[4];
-          draw4(a, noise, k, n, gi, xi);
+          draw4(a, key, noise, k, n, gi, xi);
 #pragma unroll
           for (int q = 0; q < 4; ++q) {
             const int j = 4 * gi + q;
@@ -1673,8 +1687,9 @@ bool breadth(const StoppedArgs& a, const StoppedExt& ext) {
   return unclocked(a, ext) || ext.c_y3 != 0.0f;
 }
 
-int unpack(const int* iargs, const float* fargs, unsigned long long seed,
-           int device, StoppedArgs* a, StoppedExt* ext) {
+int unpack(const int* iargs, const float* fargs,
+           const unsigned long long* seed, int device, StoppedArgs* a,
+           StoppedExt* ext) {
   memcpy(a, iargs, (kNumIntArgs - kNumTailArgs) * sizeof(int));
   memcpy(&a->dt, fargs, (kNumFloatArgs - kNumTailArgs) * sizeof(float));
   memcpy(&a->out_relu, iargs + kNumIntArgs - kNumTailArgs,
@@ -1690,8 +1705,8 @@ int unpack(const int* iargs, const float* fargs, unsigned long long seed,
   memcpy(&ext->sch_a, fargs + kNumFloatArgs + kNumExtFloats -
                           kNumExtTailFloats,
          kNumExtTailFloats * sizeof(float));
-  a->key0 = static_cast<uint32_t>(seed & 0xFFFFFFFFull);
-  a->key1 = static_cast<uint32_t>(seed >> 32);
+  a->seed = seed;
+  a->launches = nullptr;
   const bool torus = a->geom == 2;
   if (a->L < 1 || a->L > kMaxHidden || a->K <= 0 || a->geom < 0 ||
       a->geom > 3 || (a->geom == 1 && !a->time_stopping) ||
@@ -1735,15 +1750,13 @@ bool fwd_layout(const StoppedArgs& a, const int* iargs, int* tpp,
 }
 
 // Lets `kernel` take the dynamic shared memory of one block (bwd_ts,
-// device: as smem_floats).
+// device: as smem_floats), once per kernel and size (allow_dynamic_smem).
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, const StoppedArgs& a,
                        const StoppedExt& ext, int bwd_ts, size_t* smem,
                        bool device = false) {
   *smem = sizeof(float) * smem_floats(a, ext, bwd_ts, device);
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(*smem));
+  return allow_dynamic_smem(reinterpret_cast<const void*>(kernel), *smem);
 }
 
 template <typename Kernel, typename... Args>
@@ -1834,7 +1847,10 @@ int with_bwd_family(const StoppedArgs& a, const StoppedExt& ext,
 
 // Launch on `stream` of CUDA device `device`; each returns the cudaError_t
 // of the launch (0 = success).  `iargs` and `fargs` are host arrays in the
-// order of StoppedArgs, then StoppedExt.
+// order of StoppedArgs, then StoppedExt; `seed` is the Philox seed's device
+// word (a 0-d int64 tensor), read by the kernel when it runs, and
+// `launches` the 64-bit device word it adds one to (count_launch; null:
+// none).
 
 // Forward: X0 (K, d), t0 (K,) -> X_out (K, d), acc_out (6, K): Y, stopped,
 // hitting, v_l2, adv_steps, t.  `iargs` carries the layout after
@@ -1847,12 +1863,15 @@ extern "C" int pspde_stopped_rollout_fwd(const float* params,
                                          float* X_out, float* acc_out,
                                          int* queue, const int* iargs,
                                          const float* fargs,
-                                         unsigned long long seed, int device,
-                                         void* stream) {
+                                         const unsigned long long* seed,
+                                         unsigned long long* launches,
+                                         int device, void* stream) {
   StoppedArgs a;
   StoppedExt ext;
   const int err = unpack(iargs, fargs, seed, device, &a, &ext);
   if (err != 0) return err;
+  if (seed == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  a.launches = launches;
   int tpp = 0, grid = 0;
   if (!fwd_layout(a, iargs, &tpp, &grid))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1875,7 +1894,7 @@ extern "C" int pspde_stopped_fwd_occupancy(const int* iargs,
                                            int* out) {
   StoppedArgs a;
   StoppedExt ext;
-  const int err = unpack(iargs, fargs, 0ull, device, &a, &ext);
+  const int err = unpack(iargs, fargs, nullptr, device, &a, &ext);
   if (err != 0) return err;
   int tpp = 0;
   if (!fwd_layout(a, iargs, &tpp, nullptr))
@@ -1925,12 +1944,15 @@ extern "C" int pspde_stopped_rollout_bwd(const float* params,
                                          int* counts, float* ws,
                                          const int* iargs,
                                          const float* fargs,
-                                         unsigned long long seed, int device,
-                                         void* stream) {
+                                         const unsigned long long* seed,
+                                         unsigned long long* launches,
+                                         int device, void* stream) {
   StoppedArgs a;
   StoppedExt ext;
   const int err = unpack(iargs, fargs, seed, device, &a, &ext);
   if (err != 0) return err;
+  if (seed == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  a.launches = launches;
   bool in_device = false;
   const int ts = unpack_bwd_stride(a, iargs, &in_device);
   const int grid = iargs[kNumPackedInts + 1];
@@ -1966,7 +1988,7 @@ extern "C" int pspde_stopped_bwd_slots(const int* iargs, const float* fargs,
                                        int device, int* slots) {
   StoppedArgs a;
   StoppedExt ext;
-  const int err = unpack(iargs, fargs, 0ull, device, &a, &ext);
+  const int err = unpack(iargs, fargs, nullptr, device, &a, &ext);
   if (err != 0) return err;
   bool in_device = false;
   const int ts = unpack_bwd_stride(a, iargs, &in_device);

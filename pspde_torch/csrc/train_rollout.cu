@@ -72,7 +72,8 @@
 //     L1 and L2.  At d = 1000 a forward path-step is ~137 kFLOP and moves
 //     ~20 KB of per-path state through L2 and device memory.
 //
-// Noise: host noise (N, K, d), or Philox4x32-10 keyed by (seed, k, n, j / 4)
+// Noise: host noise (N, K, d), or Philox4x32-10 keyed by (seed, k, n, j / 4),
+// the seed read from its device word by each thread at entry,
 // through the erfinv map (counter word 3 = 0) or the binom map (b1 from
 // word 3 = 0, b2 from word 3 = 1), times noise_sign.  The plain version
 // (pspde_torch/rollout/kernels.py: reference_train_rollout) draws the same
@@ -114,7 +115,9 @@ train_forward_kernel(const TrainArgs a, const float* __restrict__ P,
   for (int j = q; j < a.dp; j += a.tpp) st.X[j * ts] = P[a.x0_off + j];
   __syncthreads();
 
-  const TrainDraw draw{a, noise, live, k};
+  count_launch(a.launches);
+  const uint2 key = train_seed(a);
+  const TrainDraw draw{a, noise, live, k, key.x, key.y};
   FwdAcc acc = {};
   for (int n = 0; n < a.N; ++n)
     train_forward_step<!kDevice, !kDevice, true, kSumAll>(a, P, W, st, n,
@@ -176,7 +179,9 @@ train_backward_kernel(const TrainArgs a, const float* __restrict__ P,
   const float gy = live ? gY[k] : 0.0f;
   // without the KL sum, Z_sum is 0 and its cotangent reaches nothing
   const float gk = live && a.accumulate_kl ? gKL[k] : 0.0f;
-  const TrainDraw draw{a, noise, live, k};
+  count_launch(a.launches);
+  const uint2 key = train_seed(a);
+  const TrainDraw draw{a, noise, live, k, key.x, key.y};
   const bool dense_update = a.drift_kind == 1 || a.sig_kind == 2;
   __syncthreads();   // X_0 of every path before the first products
 
@@ -243,16 +248,14 @@ int launch_plan(const TrainArgs& a, const float* params, const float* noise,
   const unsigned grid = static_cast<unsigned>((a.K + a.tile - 1) / a.tile);
   cudaError_t e;
   if (kBwd) {
-    e = cudaFuncSetAttribute(train_backward_kernel<kDevice>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
+    e = allow_dynamic_smem(
+        reinterpret_cast<const void*>(train_backward_kernel<kDevice>), smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     train_backward_kernel<kDevice><<<grid, a.tile, smem, s>>>(
         a, params, noise, gY, gKL, grad_out, ws);
   } else {
-    e = cudaFuncSetAttribute(train_forward_kernel<kDevice>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
+    e = allow_dynamic_smem(
+        reinterpret_cast<const void*>(train_forward_kernel<kDevice>), smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     train_forward_kernel<kDevice><<<grid, a.tile * a.tpp, smem, s>>>(
         a, params, noise, X_out, Y_out, Zs_out, U_out, ws);
@@ -279,7 +282,10 @@ int launch(const TrainArgs& a, const float* params, const float* noise,
 // Launch on `stream` of CUDA device `device`; each returns the cudaError_t
 // of the launch (0 = success).  `iargs` and `fargs` are host arrays in the
 // order of TrainArgs; `ws` is the device plan's workspace (null in the
-// shared plan).
+// shared plan); `seed` is a device word (a 0-d int64 tensor) that the
+// kernel reads when it runs, so that a captured CUDA graph replays with the
+// seed written there before each replay; `launches` is the 64-bit device
+// word that the kernel adds one to as it runs (count_launch; null: none).
 
 // Forward: X_out (K, d), Y_out, Zs_out, U_out (K,).
 extern "C" int pspde_train_rollout_fwd(const float* params,
@@ -287,11 +293,15 @@ extern "C" int pspde_train_rollout_fwd(const float* params,
                                        float* Y_out, float* Zs_out,
                                        float* U_out, float* ws,
                                        const int* iargs, const float* fargs,
-                                       unsigned long long seed, int device,
-                                       void* stream) {
+                                       const unsigned long long* seed,
+                                       unsigned long long* launches,
+                                       int device, void* stream) {
   TrainArgs a;
-  const int err = train_unpack(iargs, fargs, seed, device, &a);
+  const int err = train_unpack(iargs, fargs, 0ull, device, &a);
   if (err != 0) return err;
+  if (seed == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  a.seed = seed;
+  a.launches = launches;
   // the double well's drift (drift_kind 2) runs in the serve kernel only
   if (a.backward || a.drift_kind == 2)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -306,11 +316,15 @@ extern "C" int pspde_train_rollout_bwd(const float* params,
                                        const float* gY, const float* gKL,
                                        float* grad_out, float* ws,
                                        const int* iargs, const float* fargs,
-                                       unsigned long long seed, int device,
-                                       void* stream) {
+                                       const unsigned long long* seed,
+                                       unsigned long long* launches,
+                                       int device, void* stream) {
   TrainArgs a;
-  const int err = train_unpack(iargs, fargs, seed, device, &a);
+  const int err = train_unpack(iargs, fargs, 0ull, device, &a);
   if (err != 0) return err;
+  if (seed == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  a.seed = seed;
+  a.launches = launches;
   if (!a.backward || a.drift_kind == 2)
     return static_cast<int>(cudaErrorInvalidValue);
   return launch<true>(a, params, host_noise, gY, gKL, nullptr, nullptr,
@@ -334,16 +348,14 @@ extern "C" int pspde_train_fwd_occupancy(const int* iargs,
   const int threads = a.tile * a.tpp;
   cudaError_t e;
   if (a.plan == 1) {
-    e = cudaFuncSetAttribute(train_forward_kernel<true>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
+    e = allow_dynamic_smem(
+        reinterpret_cast<const void*>(train_forward_kernel<true>), smem);
     if (e == cudaSuccess)
       e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
           &out[0], train_forward_kernel<true>, threads, smem);
   } else {
-    e = cudaFuncSetAttribute(train_forward_kernel<false>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
+    e = allow_dynamic_smem(
+        reinterpret_cast<const void*>(train_forward_kernel<false>), smem);
     if (e == cudaSuccess)
       e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
           &out[0], train_forward_kernel<false>, threads, smem);

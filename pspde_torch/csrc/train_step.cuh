@@ -74,7 +74,14 @@ struct TrainArgs {
   int plan;         // 0: shared, 1: device
   int ws_stride;    // device plan: the row stride of the workspace
   float dt, sq_dt, noise_sign, sig_scale, c_h, f_coef;
-  uint32_t key0, key1;
+  uint32_t key0, key1;   // the serve's and the ladder's seed, by value
+  // The training kernels' seed: a device word that each thread reads once
+  // at entry (train_seed), so that a captured CUDA graph reads the value of
+  // each replay; null in the serve's and the ladder's launches.
+  const unsigned long long* seed;
+  // The training kernels' launch count (count_launch); null in the serve's
+  // and the ladder's launches.
+  unsigned long long* launches;
 };
 constexpr int kTrainIntArgs = 26 + 5 * kMaxLayers;   // the ints before `dt`
 constexpr int kTrainFloatArgs = 6;
@@ -489,6 +496,7 @@ struct TrainDraw {
   const float* __restrict__ noise;
   bool live;
   int k;
+  uint32_t key0, key1;   // the Philox key: the seed's low and high words
   __device__ __forceinline__ void operator()(int n, int g,
                                              float (&xi)[4]) const {
     if (a.host_noise) {
@@ -499,9 +507,16 @@ struct TrainDraw {
       return;
     }
     philox_normals4(static_cast<uint32_t>(k), static_cast<uint32_t>(n),
-                    static_cast<uint32_t>(g), a.key0, a.key1, a.rng, xi);
+                    static_cast<uint32_t>(g), key0, key1, a.rng, xi);
   }
 };
+
+// The training kernels' Philox key, read from the seed's device word.
+__device__ __forceinline__ uint2 train_seed(const TrainArgs& a) {
+  const unsigned long long s = __ldg(a.seed);
+  return make_uint2(static_cast<uint32_t>(s & 0xFFFFFFFFull),
+                    static_cast<uint32_t>(s >> 32));
+}
 
 // Noise, the step's sums (forward), dZ into st.Zb (backward), and X'
 // (elementwise update: b(x) = -x, or the double well's with kDW) or V = c dt
@@ -828,14 +843,17 @@ __device__ __forceinline__ void train_weight_grads(const TrainArgs& a,
   }
 }
 
-// TrainArgs from the wrapper's arrays and the seed; checks what the
-// kernels index by, then selects the device.
+// TrainArgs from the wrapper's arrays and the by-value seed (the serve's
+// and the ladder's; the training entries set TrainArgs::seed after it);
+// checks what the kernels index by, then selects the device.
 inline int train_unpack(const int* iargs, const float* fargs,
                         unsigned long long seed, int device, TrainArgs* a) {
   memcpy(a, iargs, kTrainIntArgs * sizeof(int));
   memcpy(&a->dt, fargs, kTrainFloatArgs * sizeof(float));
   a->key0 = static_cast<uint32_t>(seed & 0xFFFFFFFFull);
   a->key1 = static_cast<uint32_t>(seed >> 32);
+  a->seed = nullptr;
+  a->launches = nullptr;
   if (a->tile <= 0 || a->tile > kMaxTile || a->tile % 32 != 0 ||
       a->n_layers < 1 || a->n_layers > kMaxLayers || a->K <= 0 ||
       a->drift_kind < 0 || a->drift_kind > 2 ||

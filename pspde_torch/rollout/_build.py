@@ -52,14 +52,18 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     tail = [ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_float),
             ctypes.c_ulonglong, ctypes.c_int, vp]
     # (params, host_noise, outputs..., [workspace,] iargs, fargs, seed,
-    # device, stream)
-    for name, n_ptr in (("pspde_controlled_rollout", 4),
-                        ("pspde_train_rollout_fwd", 7),
+    # device, stream): the serve's seed by value; the training kernels' the
+    # pointer of a 0-d int64 device tensor (read when the kernel runs), then
+    # the pointer of their launch count's 64-bit device word
+    fn = lib.pspde_controlled_rollout
+    fn.argtypes = [vp] * 4 + tail
+    fn.restype = ctypes.c_int
+    for name, n_ptr in (("pspde_train_rollout_fwd", 7),
                         ("pspde_train_rollout_bwd", 6),
                         ("pspde_stopped_rollout_fwd", 7),
                         ("pspde_stopped_rollout_bwd", 8)):
         fn = getattr(lib, name)
-        fn.argtypes = [vp] * n_ptr + tail
+        fn.argtypes = [vp] * n_ptr + tail[:2] + [vp, vp] + tail[3:]
         fn.restype = ctypes.c_int
     # the roofline kernels (csrc/roofline.cu)
     c_int = ctypes.c_int

@@ -38,7 +38,7 @@ mirrored (antithetic) pairs path by path.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -458,11 +458,49 @@ def _check_tensor(name, t, shape, device):
         raise ValueError(f"{name} is not contiguous")
 
 
-def _launch(fn_name: str, who: str, packed: _Packed, tensors, seed: int,
+Seed = Union[int, torch.Tensor]
+
+_M64 = 0xFFFFFFFFFFFFFFFF
+# the C entries that read their seed from a device word (the training
+# kernels); the serve kernel takes it by value
+_DEVICE_SEED_ENTRIES = ("pspde_train_rollout_fwd", "pspde_train_rollout_bwd",
+                        "pspde_stopped_rollout_fwd",
+                        "pspde_stopped_rollout_bwd")
+
+
+def device_seed(seed: Seed, dev: torch.device) -> torch.Tensor:
+    """The training kernels' seed as they read it: a 0-d int64 tensor on
+    ``dev`` whose 64 bits are seed mod 2^64 (the Philox key (low word, high
+    word)).  A tensor is checked and returned as it is, so that a caller
+    (a captured CUDA graph's step) can write a new seed into it before each
+    run; an int is written into a new one."""
+    if torch.is_tensor(seed):
+        if seed.dtype != torch.int64 or seed.dim() != 0:
+            raise ValueError(f"seed has dtype {seed.dtype} and shape "
+                             f"{tuple(seed.shape)}, expected a 0-d int64 "
+                             "tensor")
+        if seed.device != torch.device(dev):
+            raise ValueError(f"seed is on {seed.device}, expected {dev}")
+        return seed
+    s = int(seed) & _M64
+    return torch.full((), s - (1 << 64) if s >> 63 else s, dtype=torch.int64,
+                      device=dev)
+
+
+def host_seed(seed: Seed) -> int:
+    """The seed as the plain versions take it: an int (a tensor's value,
+    read back to the host)."""
+    return int(seed.item()) if torch.is_tensor(seed) else int(seed)
+
+
+def _launch(fn_name: str, who: str, packed: _Packed, tensors, seed: Seed,
             dev: torch.device):
     """Call the library's C entry ``fn_name`` with the tensors' pointers
     (None -> null), the packed arguments, the seed, the device and its
-    current stream; raise if the launch is refused."""
+    current stream; raise if the launch is refused.  The training entries
+    (``_DEVICE_SEED_ENTRIES``) take the pointer of the seed's device word
+    (``device_seed``), the serve its value, and then the pointer of their
+    launch count's device word (``_count_word``)."""
     from ._build import library
     lib = library()
     iargs = (ctypes.c_int * len(packed.iargs))(*packed.iargs)
@@ -470,8 +508,15 @@ def _launch(fn_name: str, who: str, packed: _Packed, tensors, seed: int,
     ptrs = [0 if t is None else t.data_ptr() for t in tensors]
     dev_index = dev.index if dev.index is not None else \
         torch.cuda.current_device()
+    if fn_name in _DEVICE_SEED_ENTRIES:
+        # kept referenced until the launch is queued; a temporary's memory
+        # is reused only by later work on the same stream
+        seed_word = device_seed(seed, dev)
+        seed_args = (seed_word.data_ptr(), _count_word(fn_name, packed, dev))
+    else:
+        seed_args = (int(seed) & _M64,)
     err = getattr(lib, fn_name)(
-        *ptrs, iargs, fargs, int(seed) & 0xFFFFFFFFFFFFFFFF, dev_index,
+        *ptrs, iargs, fargs, *seed_args, dev_index,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{who}: kernel launch failed: "
@@ -719,7 +764,8 @@ class _TrainCall(NamedTuple):
     K: int
     N: int
     delta_t: float
-    seed: int
+    seed: Seed               # CUDA: the 0-d int64 device word both kernels
+                             # read (device_seed); CPU: an int
     families: tuple          # (drift, cost, hfam) of the family check
     opts: dict               # adaptive_forward, accumulate_kl, kl_ito_term,
                              # u_tab, rng, noise_sign, host_noise
@@ -728,8 +774,8 @@ class _TrainCall(NamedTuple):
 
     def plain(self) -> FusedTrainOut:
         return reference_train_rollout(self.problem, self.z_net, self.K,
-                                       self.N, self.delta_t, self.seed,
-                                       **self.opts)
+                                       self.N, self.delta_t,
+                                       host_seed(self.seed), **self.opts)
 
     def pack(self, backward: bool) -> _Packed:
         o = self.opts
@@ -752,8 +798,9 @@ def _train_forward_kernel(call: _TrainCall) -> FusedTrainOut:
     _launch("pspde_train_rollout_fwd", "fused_train_rollout", packed,
             [packed.params, call.opts["host_noise"], X, *acc,
              _workspace(packed, dev)], call.seed, dev)
-    fused_train_rollout.launches += 1
-    fused_train_rollout.launches_by_plan[_plan_of(packed)] += 1
+    if not _capturing(dev):
+        fused_train_rollout.launches += 1
+        fused_train_rollout.launches_by_plan[_plan_of(packed)] += 1
     return FusedTrainOut(X, *acc)
 
 
@@ -797,8 +844,9 @@ def _train_backward_kernel(call: _TrainCall, gY, gKL) -> list:
             [packed.params, call.opts["host_noise"], gY.contiguous(),
              gKL.contiguous(), part, _workspace(packed, dev)], call.seed,
             dev)
-    fused_train_rollout.backward_launches += 1
-    fused_train_rollout.backward_launches_by_plan[_plan_of(packed)] += 1
+    if not _capturing(dev):
+        fused_train_rollout.backward_launches += 1
+        fused_train_rollout.backward_launches_by_plan[_plan_of(packed)] += 1
     total = part.sum(dim=0)
     rows = ia[22:22 + n_layers]
     cols = ia[22 + _MAX_LAYERS:22 + _MAX_LAYERS + n_layers]
@@ -863,7 +911,7 @@ class _FusedTrainFn(torch.autograd.Function):
 
 
 def fused_train_rollout(problem, z_net, K: int, N: int, delta_t: float,
-                        seed: int = 0, *, adaptive_forward: bool = True,
+                        seed: Seed = 0, *, adaptive_forward: bool = True,
                         accumulate_kl: bool = False,
                         kl_ito_term: bool = False,
                         u_tab: Optional[torch.Tensor] = None,
@@ -886,7 +934,11 @@ def fused_train_rollout(problem, z_net, K: int, N: int, delta_t: float,
     ``host_noise`` or the Philox stream of ``seed`` through ``rng``
     ('binom', the default, or 'erfinv'), times ``noise_sign``; antithetic
     training is two calls over K/2 paths with one seed and signs +1, -1.
-    Raises ValueError outside ``TRAIN_KERNEL_FAMILY``."""
+    On CUDA both kernels read the seed from one 0-d int64 device tensor
+    when they run (``device_seed``: a tensor given is that word, an int is
+    written into one), so a captured CUDA graph takes the seed written
+    there before each replay.  Raises ValueError outside
+    ``TRAIN_KERNEL_FAMILY``."""
     families = _check_train_family(problem, z_net, N, noise_sign, u_tab, rng)
     d = problem.d
     dev = problem.X_0.device
@@ -899,7 +951,9 @@ def fused_train_rollout(problem, z_net, K: int, N: int, delta_t: float,
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_train_rollout: no kernel for device {dev}")
     _check_plan(plan)
-    call = _TrainCall(problem, z_net, K, N, delta_t, int(seed), families,
+    seed = (device_seed(seed, dev) if dev.type == "cuda"
+            else host_seed(seed))
+    call = _TrainCall(problem, z_net, K, N, delta_t, seed, families,
                       dict(adaptive_forward=adaptive_forward,
                            accumulate_kl=accumulate_kl,
                            kl_ito_term=kl_ito_term, u_tab=u_tab, rng=rng,
@@ -1533,7 +1587,7 @@ class _StoppedCall(NamedTuple):
     t0: torch.Tensor
     N: int
     delta_t: float
-    seed: int
+    seed: Seed               # as _TrainCall's
     families: tuple          # (h_family, v_ref_family)
     opts: dict               # adaptive_forward, rng, host_noise and,
                              # where set, time_stopping
@@ -1545,7 +1599,7 @@ class _StoppedCall(NamedTuple):
     def plain(self) -> FusedStoppedOut:
         return reference_stopped_train_rollout(
             self.problem, self.v_net, self.X0, self.t0, self.N, self.delta_t,
-            self.seed, with_v_ref=self.families[1] is not None,
+            host_seed(self.seed), with_v_ref=self.families[1] is not None,
             lam=self.lam, **self.opts)
 
     def pack(self, backward: bool) -> _Packed:
@@ -1637,7 +1691,8 @@ def _stopped_forward_launch(call: _StoppedCall):
             packed._replace(iargs=packed.iargs + [lay.tpp, grid]),
             [packed.params, call.opts["host_noise"], X0, call.t0, X, acc,
              queue], call.seed, X0.device)
-    fused_stopped_train_rollout.launches += 1
+    if not _capturing(X0.device):
+        fused_stopped_train_rollout.launches += 1
     return (FusedStoppedOut(X, acc[0], acc[5], *acc[1:5]),
             queue[1:].view(grid, lay.tile))
 
@@ -1766,8 +1821,9 @@ def _stopped_backward_rows(call: _StoppedCall, gY,
                                                   PLANS.index(plan)]),
             [packed.params, call.opts["host_noise"], X0, call.t0,
              gY.contiguous(), part, counts, ws], call.seed, X0.device)
-    fused_stopped_train_rollout.backward_launches += 1
-    fused_stopped_train_rollout.backward_launches_by_plan[plan] += 1
+    if not _capturing(X0.device):
+        fused_stopped_train_rollout.backward_launches += 1
+        fused_stopped_train_rollout.backward_launches_by_plan[plan] += 1
     return part, counts
 
 
@@ -1797,6 +1853,8 @@ def _reference_stopped_backward(call: _StoppedCall, gY) -> list:
     output clamp both terms carry the mask 1[V > 0].  With ``call.lam``
     dh/dy gains lambda, and d/dlambda = sum -gY adv V dt comes last."""
     problem, net = call.problem, call.v_net
+    seed = None if call.opts["host_noise"] is not None else host_seed(
+        call.seed)
     X = call.X0.to(torch.float32)
     t = call.t0.to(torch.float32)
     K, d = X.shape
@@ -1816,7 +1874,7 @@ def _reference_stopped_backward(call: _StoppedCall, gY) -> list:
     stopped = torch.zeros((K,), dtype=torch.bool, device=X.device)
     for n in range(call.N):
         xi = (o["host_noise"][n] if o["host_noise"] is not None
-              else train_normals(call.seed, K, n, d, o["rng"], X.device))
+              else train_normals(seed, K, n, d, o["rng"], X.device))
         active = ~stopped
         # the X chain and the masks, as the plain forward computes them
         V, Z = vg(X, t)
@@ -1942,7 +2000,7 @@ class _FusedStoppedFn(torch.autograd.Function):
 
 def fused_stopped_train_rollout(problem, v_net, X0: torch.Tensor,
                                 t0: torch.Tensor, N: int, delta_t: float,
-                                seed: int = 0, *,
+                                seed: Seed = 0, *,
                                 adaptive_forward: bool = False,
                                 rng: str = "erfinv",
                                 host_noise: Optional[torch.Tensor] = None,
@@ -1967,7 +2025,8 @@ def fused_stopped_train_rollout(problem, v_net, X0: torch.Tensor,
     ``plan`` forces the backward's plan, 'shared' or 'device'
     (``_stopped_bwd_plan``; None: shared where a block fits).
     Noise is ``host_noise`` or the Philox stream of ``seed`` through
-    ``rng`` ('erfinv', the default, or 'binom').  ``time_stopping`` (the
+    ``rng`` ('erfinv', the default, or 'binom'); on CUDA the seed is a
+    device word as in ``fused_train_rollout``.  ``time_stopping`` (the
     general, space-time solver): the net reads [x, t], each path's clock
     starts at its t0, a step advances only while t + dt <= problem.T, and
     ``t`` returns the clock.  ``lam`` (the eigen solver, torus family): a
@@ -1994,8 +2053,10 @@ def fused_stopped_train_rollout(problem, v_net, X0: torch.Tensor,
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_stopped_train_rollout: no kernel for device "
                          f"{dev}")
+    seed = (device_seed(seed, dev) if dev.type == "cuda"
+            else host_seed(seed))
     call = _StoppedCall(problem, v_net, X0, t0, N, float(delta_t),
-                        int(seed), families,
+                        seed, families,
                         dict(adaptive_forward=adaptive_forward, rng=rng,
                              host_noise=host_noise,
                              time_stopping=bool(time_stopping)), tile, lam,
@@ -2008,3 +2069,109 @@ fused_stopped_train_rollout.launches = 0
 fused_stopped_train_rollout.backward_launches = 0
 fused_stopped_train_rollout.backward_launches_by_plan = dict.fromkeys(PLANS,
                                                                       0)
+
+
+# -- launch counts ----------------------------------------------------------
+#
+# Each wrapper counts the launches it makes (``.launches``,
+# ``.backward_launches``, per plan ``.launches_by_plan``,
+# ``.backward_launches_by_plan``).  The four training kernels also count
+# their own launches on the device: each launch gets the pointer of one
+# 64-bit word of its device's count words (its C entry's, and its plan's),
+# to which its block 0's thread 0 adds one as it runs (csrc/common.cuh:
+# count_launch).  A launch recorded in a CUDA graph's capture is made by the
+# graph, at each replay: the wrapper counts none at capture, and the word
+# counts each replay's (``kernel_launch_counts``).
+
+# the count words of a device, in this order: (wrapper, count, plan) where
+# the entry has memory plans, (wrapper, count) where it has one
+_COUNT_OF_ENTRY = {
+    "pspde_train_rollout_fwd": ("fused_train_rollout", "launches", True),
+    "pspde_train_rollout_bwd": ("fused_train_rollout", "backward_launches",
+                                True),
+    "pspde_stopped_rollout_fwd": ("fused_stopped_train_rollout", "launches",
+                                  False),
+    "pspde_stopped_rollout_bwd": ("fused_stopped_train_rollout",
+                                  "backward_launches", True)}
+_COUNT_KEYS = [k for fn, count, by_plan in _COUNT_OF_ENTRY.values()
+               for k in ([(fn, count, plan) for plan in PLANS] if by_plan
+                         else [(fn, count)])]
+_COUNT_WORDS: dict = {}   # device -> int64 tensor (len(_COUNT_KEYS),)
+
+
+def _capturing(dev: torch.device) -> bool:
+    """Whether work queued on ``dev``'s current stream is being captured in
+    a CUDA graph (and so recorded, not run)."""
+    return dev.type == "cuda" and torch.cuda.is_current_stream_capturing()
+
+
+def _count_word(fn_name: str, packed: _Packed, dev: torch.device) -> int:
+    """The pointer of the count word of a launch of the training entry
+    ``fn_name`` with ``packed`` (its plan: the train entries' iargs[-2],
+    the stopped backward's last) on ``dev``.  A device's words are made at
+    its first launch, which comes before any capture (the chunk's warm-up
+    step): made in a capture, they would be zeroed at each replay."""
+    fn, count, by_plan = _COUNT_OF_ENTRY[fn_name]
+    key = (fn, count)
+    if by_plan:
+        plan = packed.iargs[-1 if fn_name == "pspde_stopped_rollout_bwd"
+                            else -2]
+        key = (fn, count, PLANS[plan])
+    words = _COUNT_WORDS.get(dev)
+    if words is None:
+        if _capturing(dev):
+            raise RuntimeError(
+                f"{fn}: the first launch on {dev} is inside a CUDA graph's "
+                "capture: launch the step once eagerly first")
+        words = _COUNT_WORDS[dev] = torch.zeros(
+            len(_COUNT_KEYS), dtype=torch.int64, device=dev)
+    return words.data_ptr() + words.element_size() * _COUNT_KEYS.index(key)
+
+
+def _counted():
+    return (fused_controlled_rollout, fused_train_rollout,
+            fused_stopped_train_rollout)
+
+
+def launch_counts() -> dict:
+    """The kernel wrappers' counts of the launches they made, flat:
+    {(wrapper, count): n} and {(wrapper, count_by_plan, plan): n}."""
+    out = {}
+    for fn in _counted():
+        for name, val in vars(fn).items():
+            if name.endswith("launches"):
+                out[(fn.__name__, name)] = val
+            elif name.endswith("launches_by_plan"):
+                out.update(((fn.__name__, name, plan), v)
+                           for plan, v in val.items())
+    return out
+
+
+def kernel_launch_counts() -> dict:
+    """The four training kernels' launches as they counted them on the
+    device, summed over the devices (one read of each device's words):
+    {(wrapper, count): n} and, where the entry has plans,
+    {(wrapper, count + '_by_plan', plan): n}, keyed as ``launch_counts``.
+    Every launch that ran is counted, a CUDA graph's replays' too."""
+    totals = dict.fromkeys(_COUNT_KEYS, 0)
+    for words in _COUNT_WORDS.values():
+        for key, n in zip(_COUNT_KEYS, words.tolist()):
+            totals[key] += n
+    out = {}
+    for key, n in totals.items():
+        out[key[:2]] = out.get(key[:2], 0) + n
+        if len(key) == 3:
+            out[(key[0], key[1] + "_by_plan", key[2])] = n
+    return out
+
+
+def reset_launch_counts() -> None:
+    """Set every wrapper's counts and the kernels' count words to 0."""
+    for fn in _counted():
+        for name, val in list(vars(fn).items()):
+            if name.endswith("launches"):
+                setattr(fn, name, 0)
+            elif name.endswith("launches_by_plan"):
+                setattr(fn, name, dict.fromkeys(val, 0))
+    for words in _COUNT_WORDS.values():
+        words.zero_()

@@ -22,14 +22,14 @@ family with a ``DenseNetTanh`` value net; lambda a leaf of
 ``fused_stopped_train_rollout`` whose gradient the backward kernel
 returns).  On a CUDA problem a failed gate raises a ValueError naming it;
 on the CPU 'fused_train' resolves to 'scan' with a warning.  ``mesh``,
-``steps_per_call`` other than one step per call, ``rng_impl``,
-``layout='dk'`` and save/load raise NotImplementedError naming their
-ROADMAP.md item; ``eval/eigen_power.py`` waits in Queue 1 item 9.
+``rng_impl``, ``layout='dk'`` and save/load raise NotImplementedError
+naming their ROADMAP.md item; ``eval/eigen_power.py`` waits in Queue 1
+item 9.  ``train()`` runs ``steps_per_call`` steps per call as JAX resolves
+it ('auto': min(50, print_every); ``solvers/_chunk.py``): on CUDA each
+chunk is one captured CUDA graph, replayed, with its metrics read once.
 """
 
 from __future__ import annotations
-
-import time
 
 import numpy as np
 import torch
@@ -41,7 +41,8 @@ from ..rollout.sampling import (inside_fn, sample_boundary_reflected,
 from ..rollout.sde import (LambdaShiftedProblem, StoppedRolloutConfig,
                            stopped_rollout, value_and_z)
 from ..utils.device import solver_device
-from ..utils.schedule import apply_lr, lr_at
+from ..utils.schedule import adam
+from ._chunk import ChunkedSolver, run_training
 from .elliptic import EllipticSolver, _not_ported
 
 
@@ -51,7 +52,7 @@ def hat_function(x):
     return torch.exp(-200.0 * x ** 2) * ((x > -0.2) & (x < 0.2))
 
 
-class EigenSolver:
+class EigenSolver(ChunkedSolver):
     """Trains (and holds) an eigenfunction net V and its eigenvalue lambda.
 
     Constructor arguments mirror ``pspde.solvers.EigenSolver``; the port
@@ -64,8 +65,9 @@ class EigenSolver:
     device seeded with seed + 1, the kernels' per-step seeds from a CPU
     generator seeded with seed + 2 (as ``EllipticSolver``).  ``lr`` and
     ``lr_lambda`` are numbers or callables step -> lr
-    (``utils/schedule.py``).  ``fused_unroll`` is a TPU lever, accepted and
-    ignored.
+    (``utils/schedule.py``); on CUDA the Adam is ``capturable`` with its
+    lrs on the device (``utils/schedule.py:adam``).  ``fused_unroll`` is a
+    TPU lever, accepted and ignored.
     """
 
     _LOG_ATTRS = ("loss_log", "loss_log_boundary",
@@ -92,10 +94,6 @@ class EigenSolver:
         who = type(self).__name__
         if mesh is not None:
             raise _not_ported(who, "mesh=", "Queue 1 item 5")
-        if steps_per_call not in ("auto", 1):
-            raise _not_ported(who, f"steps_per_call={steps_per_call!r} "
-                              "(CUDA-graph capture of several steps)",
-                              "Queue 1 item 6")
         if layout == "dk":
             raise _not_ported(who, "layout='dk', a TPU lane-layout lever,",
                               "'Do not port'")
@@ -175,11 +173,10 @@ class EigenSolver:
     def _make_optimizer(self):
         """A fresh Adam: the net's group at lr, lambda's at lr_lambda (one
         Adam per group, as pspde's optax.multi_transform)."""
-        self.optimizer = torch.optim.Adam([
-            {"params": list(self.V_net.parameters()),
-             "lr": lr_at(self.lr, self.iteration)},
-            {"params": [self.lam_net.Y_0],
-             "lr": lr_at(self.lr_lambda, self.iteration)}])
+        self._lrs = [self.lr, self.lr_lambda]
+        self.optimizer = adam([(self.V_net.parameters(), self.lr),
+                               ([self.lam_net.Y_0], self.lr_lambda)],
+                              self.iteration, self.device)
 
     def load_jax_params(self, tree):
         """Load the JAX solver's ``params`` tree {"V": <Flax concat-skip
@@ -228,8 +225,8 @@ class EigenSolver:
     def _rollout(self, X0, lam, host_noise, seed=None, N=None,
                  delta_t=None):
         """(X_end, Y, v_l2) of the lambda-shifted stopped rollout from X0
-        with Y_0 = 0 on the resolved engine; ``seed`` (the kernels') is
-        drawn from the seed generator when None."""
+        with Y_0 = 0 on the resolved engine; ``seed`` is the kernels' (an
+        int, or on CUDA their 0-d int64 device word)."""
         problem, K = self.problem, X0.shape[0]
         zeros = torch.zeros((K,), dtype=torch.float32, device=self.device)
         N = self.N if N is None else N
@@ -242,9 +239,6 @@ class EigenSolver:
                 v_ref=problem.v_ref if problem.has_v_ref else None,
                 host_noise=host_noise)
             return out.X, out.Y, out.v_l2
-        if seed is None:
-            seed = int(torch.randint(0, 2 ** 31 - 1, (1,),
-                                     generator=self._seed_gen))
         fo = fused_stopped_train_rollout(
             problem, self.V_net, X0, zeros, N, dt, seed,
             adaptive_forward=self.adaptive_forward_process,
@@ -258,13 +252,31 @@ class EigenSolver:
         return fo.X, fo.Y, v_l2
 
     # -- training ------------------------------------------------------------
+    @property
+    def _draws_seed(self) -> bool:
+        return self.resolved_rollout_mode == "fused_train"
+
+    def _chunk_modules(self) -> dict:
+        return {"V_net": self.V_net, "lam_net": self.lam_net}
+
+    def _chunk_generators(self) -> dict:
+        return {"_gen": self._gen}
+
     def step(self, X0=None, Xb=None, X2=None, host_noise=None) -> dict:
         """One training step (pspde's ``_build_step``): normalization,
         periodic boundary matching, the domain rollout, backward, Adam.
         ``X0`` (K, d), ``Xb`` (the pair (Xb, Xb_reflected) of
         (K_boundary, d) points), ``X2`` (K, d; 'l2_penalty') and
         ``host_noise`` (N, K, d) replace the solver's own draws.  Appends
-        to the logs and returns the metrics."""
+        to the logs and returns the metrics (0-d tensors)."""
+        return self._logged_step(dict(X0=X0, Xb=Xb, X2=X2,
+                                      host_noise=host_noise))[0]
+
+    def _train_step(self, seed, X0=None, Xb=None, X2=None,
+                    host_noise=None) -> dict:
+        """The step at the optimizer's current lrs with the kernels'
+        ``seed``: its metrics as 0-d tensors (lambda before the
+        update)."""
         problem, geom = self.problem, self.problem.geometry
         K, Kb, d = self.K, self.K_boundary, self.d
         a0, a1 = self.alpha
@@ -292,7 +304,7 @@ class EigenSolver:
         if X0 is None:
             X0 = sample_domain(self._gen, geom, K, d)
         phi_0 = self.V(X0)
-        X_end, Y, v_l2 = self._rollout(X0, lam, host_noise)
+        X_end, Y, v_l2 = self._rollout(X0, lam, host_noise, seed)
         dom_l = torch.mean((self.V(X_end) - phi_0 - Y) ** 2)
         loss = loss + a0 * dom_l
         aux = {"loss": loss.detach(), "center": center_l.detach(),
@@ -300,19 +312,12 @@ class EigenSolver:
                "domain": dom_l.detach(), "V_L2": torch.mean(v_l2.detach()),
                "lambda": lam.detach()[0].clone()}   # before the update
         loss.backward()
-        apply_lr(self.optimizer, [self.lr, self.lr_lambda], self.iteration)
         self.optimizer.step()
-        self._record(aux)
-        self.iteration += 1
         return aux
 
-    def _record(self, aux):
-        """Append one iteration's metrics to the reference-name logs (one
-        device-to-host copy for all of them)."""
-        keys = ("loss", "center", "boundary", "dboundary", "domain", "V_L2",
-                "lambda")
-        vals = dict(zip(keys, torch.stack(
-            [aux[k].to(torch.float32) for k in keys]).tolist()))
+    def _record(self, vals: dict):
+        """Append one iteration's metrics (floats) to the reference-name
+        logs."""
         self.loss_log.append(vals["loss"])
         self.loss_log_center.append(vals["center"])
         self.loss_log_boundary.append(vals["boundary"])
@@ -321,16 +326,17 @@ class EigenSolver:
         self.V_L2_log.append(vals["V_L2"])
         self.lambda_log.append(vals["lambda"])
 
+    def _maybe_print(self, done: int, n: int):
+        first = done - n
+        if self.verbose and (first == 0 or first // self.print_every
+                             != done // self.print_every):
+            print("%d - loss = %.4e, v L2 error = %.4e, lambda = %.4e, %.2f"
+                  % (done - 1, self.loss_log[-1], self.V_L2_log[-1],
+                     self.lambda_log[-1],
+                     np.mean(self.times[-self.print_every:])))
+
     def train(self):
-        for l in range(self.iteration, self.L):
-            t0 = time.time()
-            self.step()
-            self.times.append(time.time() - t0)
-            if self.verbose and l % self.print_every == 0:
-                print("%d - loss = %.4e, v L2 error = %.4e, lambda = %.4e, "
-                      "%.2f" % (l, self.loss_log[-1], self.V_L2_log[-1],
-                                self.lambda_log[-1],
-                                np.mean(self.times[-self.print_every:])))
+        run_training(self)
 
     # -- eigenvalue readouts beyond the last iterate -------------------------
     def lambda_tail_mean(self, window=None):

@@ -22,10 +22,12 @@ Deviation from the JAX package, as in ``HJBSolver``: on a CUDA problem a
 failed 'fused_train' gate raises a ValueError naming the gate (PINN
 with 'fused_train' among them); on the CPU the kernels do not exist and
 'fused_train' resolves to 'scan' with a warning, as JAX does off the TPU.
-``layout='dk'``, ``rng_impl``, ``mesh``, ``steps_per_call`` other than
-one step per call, and save/load raise NotImplementedError naming their
-ROADMAP.md item.  ``lr`` is a
-number or a callable step -> lr (``utils/schedule.py``).
+``layout='dk'``, ``rng_impl``, ``mesh`` and save/load raise
+NotImplementedError naming their ROADMAP.md item.  ``lr`` is a number or a
+callable step -> lr (``utils/schedule.py``).  ``train()`` runs
+``steps_per_call`` steps per call as JAX resolves it ('auto': min(50,
+print_every); ``solvers/_chunk.py``), PINN too: on CUDA each chunk is one
+captured CUDA graph, replayed, with its metrics read once.
 
 ``GeneralSolver`` (``solvers/general.py``) is this class with a clock: the
 gates, the engine resolution, ``_rollout``, ``_record`` and ``train`` are
@@ -34,7 +36,6 @@ defined here once and switch on ``_time_stopping``.
 
 from __future__ import annotations
 
-import time
 import warnings
 
 import numpy as np
@@ -49,7 +50,8 @@ from ..rollout.sampling import inside_fn, sample_boundary, sample_domain
 from ..rollout.sde import (StoppedRolloutConfig, StoppedRolloutOut,
                            stopped_rollout, value_and_z)
 from ..utils.device import solver_device
-from ..utils.schedule import apply_lr, lr_at
+from ..utils.schedule import adam
+from ._chunk import ChunkedSolver, run_training
 
 
 def _unbiased_var(x):
@@ -67,7 +69,7 @@ def _not_ported(who: str, what: str, item: str):
                                f"pspde_torch yet (ROADMAP.md, {item})")
 
 
-class EllipticSolver:
+class EllipticSolver(ChunkedSolver):
     """Trains (and holds) the value net of an elliptic problem.
 
     Constructor arguments mirror ``pspde.solvers.EllipticSolver``; the port
@@ -78,8 +80,10 @@ class EllipticSolver:
     with ``load_jax_params``.  Sampling and the scan engine's noise come
     from a generator on the problem's device seeded with seed + 1, the
     kernels' per-step seeds from a CPU generator seeded with seed + 2, the
-    test samples from a device generator seeded with seed + 3.
-    ``fused_unroll`` is a TPU lever, accepted and ignored.
+    test samples from a device generator seeded with seed + 3.  On CUDA the
+    Adam is ``capturable`` with its lr on the device
+    (``utils/schedule.py:adam``).  ``fused_unroll`` is a TPU lever,
+    accepted and ignored.
     """
 
     # GeneralSolver: the value net reads [x, t], every path carries a clock
@@ -117,10 +121,6 @@ class EllipticSolver:
                               "'Do not port'")
         if mesh is not None:
             raise _not_ported(who, "mesh=", "Queue 1 item 5")
-        if steps_per_call not in ("auto", 1):
-            raise _not_ported(who, f"steps_per_call={steps_per_call!r} "
-                              "(CUDA-graph capture of several steps)",
-                              "Queue 1 item 6")
         if rollout_mode not in ("scan", "fused_train"):
             raise _not_ported(who, f"rollout_mode={rollout_mode!r}",
                               "'Do not port'")
@@ -195,12 +195,9 @@ class EllipticSolver:
 
     def _make_optimizer(self):
         """A fresh Adam at the lr of the current iteration."""
-        self.optimizer = torch.optim.Adam(
-            self.V_net.parameters(), lr=lr_at(self.lr, self.iteration))
-
-    def _optimizer_step(self):
-        apply_lr(self.optimizer, [self.lr], self.iteration)
-        self.optimizer.step()
+        self._lrs = [self.lr]
+        self.optimizer = adam([(self.V_net.parameters(), self.lr)],
+                              self.iteration, self.device)
 
     def load_jax_params(self, tree):
         """Load the JAX solver's ``params`` tree (a Flax DenseNet tree,
@@ -276,10 +273,12 @@ class EllipticSolver:
             no_y_update=self.solve_linear_L2_projection,
             remat=self.remat, alpha0=self.alpha[0])
 
-    def _rollout(self, X0, Y0, host_noise, t0=None) -> StoppedRolloutOut:
+    def _rollout(self, X0, Y0, host_noise, t0=None,
+                 seed=None) -> StoppedRolloutOut:
         """The stopped rollout from (X0, t0) on the resolved engine; t0 is
-        zeros without ``_time_stopping``.  The space-time scan carries no
-        reference (as pspde: V_L2 reads 0 there)."""
+        zeros without ``_time_stopping``; ``seed`` is the kernels' (an int,
+        or on CUDA their 0-d int64 device word).  The space-time scan
+        carries no reference (as pspde: V_L2 reads 0 there)."""
         problem, K = self.problem, X0.shape[0]
         timed = self._time_stopping
         if t0 is None:
@@ -294,8 +293,6 @@ class EllipticSolver:
                 X0, Y0, t0, inside_fn(problem.geometry), generator=self._gen,
                 v_ref=problem.v_ref if with_ref else None,
                 host_noise=host_noise)
-        seed = int(torch.randint(0, 2 ** 31 - 1, (1,),
-                                 generator=self._seed_gen))
         fo = fused_stopped_train_rollout(
             problem, self.V_net, X0, t0, self.N, self.delta_t, seed,
             adaptive_forward=self.adaptive_forward_process,
@@ -335,15 +332,13 @@ class EllipticSolver:
         return torch.mean(resid ** 2)
 
     def _finish_step(self, loss, aux) -> dict:
-        """Backward, Adam, the test errors and the logs of one step."""
+        """Backward, Adam and the test errors of one step: its metrics."""
         loss.backward()
-        self._optimizer_step()
+        self.optimizer.step()
         aux["loss"] = loss.detach()
         if self.K_test_log is not None:
             aux["test_L2"], aux["test_abs"], aux["test_rel_abs"] = \
                 self._test_errors()
-        self._record(aux)
-        self.iteration += 1
         return aux
 
     def _test_errors(self):
@@ -381,12 +376,28 @@ class EllipticSolver:
                "all_stopped": torch.ones((), dtype=torch.bool, device=dev)}
         return self._finish_step(loss, aux)
 
+    @property
+    def _draws_seed(self) -> bool:
+        return self.resolved_rollout_mode == "fused_train"
+
+    def _chunk_modules(self) -> dict:
+        return {"V_net": self.V_net}
+
+    def _chunk_generators(self) -> dict:
+        return {"_gen": self._gen, "_test_gen": self._test_gen}
+
     def step(self, X0=None, Xb=None, host_noise=None) -> dict:
         """One training step (pspde's ``_build_step``): sampling, rollout,
         loss, backward, Adam, test errors; with PINN ``_pinn_step`` on the
         domain samples ``X0``.  ``X0`` (K, d), ``Xb`` (K_boundary, d) and
         ``host_noise`` (N, K, d) replace the solver's own draws.  Appends
-        to the logs and returns the metrics."""
+        to the logs and returns the metrics (0-d tensors)."""
+        return self._logged_step(dict(X0=X0, Xb=Xb,
+                                      host_noise=host_noise))[0]
+
+    def _train_step(self, seed, X0=None, Xb=None, host_noise=None) -> dict:
+        """The step at the optimizer's current lr with the kernels'
+        ``seed``: its metrics as 0-d tensors."""
         if self.loss_method == "PINN":
             return self._pinn_step(X0, Xb)
         problem, geom, lm = self.problem, self.problem.geometry, \
@@ -413,7 +424,7 @@ class EllipticSolver:
             Y0 = self.V(X0)
         else:
             Y0 = torch.zeros((K,), device=dev)
-        out = self._rollout(X0, Y0, host_noise)
+        out = self._rollout(X0, Y0, host_noise, seed=seed)
         loss = loss + out.step_loss
         if lm == "diffusion":
             r = self.V(out.X) - out.Y
@@ -434,14 +445,9 @@ class EllipticSolver:
                "all_stopped": torch.all(out.stopped)}
         return self._finish_step(loss, aux)
 
-    def _record(self, aux):
-        """Append one iteration's metrics to the reference-name logs (one
-        device-to-host copy for all of them)."""
-        keys = [k for k in ("loss", "V_L2", "K_count", "all_stopped",
-                            "domain", "boundary", "test_L2", "test_abs",
-                            "test_rel_abs") if k in aux]
-        vals = dict(zip(keys, torch.stack(
-            [aux[k].to(torch.float32) for k in keys]).tolist()))
+    def _record(self, vals: dict):
+        """Append one iteration's metrics (floats) to the reference-name
+        logs."""
         self.loss_log.append(vals["loss"])
         self.V_L2_log.append(vals["V_L2"])
         self.K_log.append(vals["K_count"])
@@ -456,12 +462,13 @@ class EllipticSolver:
             self.V_test_abs.append(vals["test_abs"])
             self.V_test_rel_abs.append(vals["test_rel_abs"])
 
+    def _maybe_print(self, done: int, n: int):
+        first = done - n
+        if self.verbose and (first == 0 or first // self.print_every
+                             != done // self.print_every):
+            print("%d - loss = %.4e, v L2 error = %.4e, %.2f"
+                  % (done - 1, self.loss_log[-1], self.V_L2_log[-1],
+                     np.mean(self.times[-self.print_every:])))
+
     def train(self):
-        for l in range(self.iteration, self.L):
-            t0 = time.time()
-            self.step()
-            self.times.append(time.time() - t0)
-            if self.verbose and l % self.print_every == 0:
-                print("%d - loss = %.4e, v L2 error = %.4e, %.2f"
-                      % (l, self.loss_log[-1], self.V_L2_log[-1],
-                         np.mean(self.times[-self.print_every:])))
+        run_training(self)

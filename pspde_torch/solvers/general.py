@@ -176,8 +176,15 @@ class GeneralSolver(EllipticSolver):
         loss, backward, Adam, test errors; with PINN ``_pinn_step`` at
         ``X0``, ``t0``.  ``X0`` (K, d), ``t0`` (K,), ``Xb`` (K_boundary,
         d), ``tb`` (K_boundary,) and ``host_noise`` (N, K, d) replace the
-        solver's own draws.  Appends to the logs and returns the
-        metrics."""
+        solver's own draws.  Appends to the logs and returns the metrics
+        (0-d tensors)."""
+        return self._logged_step(dict(X0=X0, t0=t0, Xb=Xb, tb=tb,
+                                      host_noise=host_noise))[0]
+
+    def _train_step(self, seed, X0=None, t0=None, Xb=None, tb=None,
+                    host_noise=None) -> dict:
+        """The step at the optimizer's current lr with the kernels'
+        ``seed``: its metrics as 0-d tensors."""
         if self.loss_method == "PINN":
             return self._pinn_step(X0, t0, Xb, tb)
         problem, geom, lm = self.problem, self.problem.geometry, \
@@ -213,7 +220,7 @@ class GeneralSolver(EllipticSolver):
             Y0 = self.V(X0, t0)
         else:
             Y0 = torch.zeros((K,), device=dev)
-        out = self._rollout(X0, Y0, host_noise, t0)
+        out = self._rollout(X0, Y0, host_noise, t0, seed)
         loss = loss + out.step_loss
         if lm == "diffusion":
             loss = loss + a0 * torch.mean((self.V(out.X, out.t) - out.Y) ** 2)

@@ -25,14 +25,15 @@ Deviation from the JAX package, deliberate: where a 'fused_train' gate
 fails on a CUDA problem, the solver raises a ValueError naming the gate
 instead of warning and falling back to the scan.  On a CPU problem the
 kernels do not exist and 'fused_train' resolves to 'scan' with a warning,
-as JAX does off the TPU.  ``steps_per_call`` is accepted; every step is
-one Python iteration (CUDA-graph capture is later work).
+as JAX does off the TPU.  ``train()`` runs ``steps_per_call`` steps per
+call as JAX resolves it (``solvers/_chunk.py``: 'auto' is min(50,
+print_every) unless the loss has phases; an integer forces): on CUDA each
+chunk is one captured CUDA graph, replayed, with its metrics read once.
 """
 
 from __future__ import annotations
 
 import copy
-import time
 import warnings
 from typing import Sequence
 
@@ -48,7 +49,8 @@ from ..rollout.sde import HJBRolloutConfig, HJBRolloutOut, hjb_rollout
 from ..utils.convert import (flax_state_dict, load_control_npz,
                              scalar_param_from_flax, tanh_mlp_from_flax)
 from ..utils.device import solver_device
-from ..utils.schedule import apply_lr, lr_at, lr_text
+from ..utils.schedule import adam, lr_text
+from ._chunk import ChunkedSolver, resolve_steps_per_call, run_training
 
 # options of the JAX solver that the port does not have yet: a value other
 # than the default raises (ROADMAP.md, Queue 1 items 6, 9, 10 and 11)
@@ -111,7 +113,7 @@ def _per_step(net: nn.Module, n_copies: int,
                                for _ in range(n_copies - 1)])
 
 
-class HJBSolver:
+class HJBSolver(ChunkedSolver):
     """Trains (and holds) the control or value model of a parabolic/HJB
     problem.
 
@@ -128,8 +130,11 @@ class HJBSolver:
     parameters).  The scan
     engine's noise (and ``random_X_0``'s X_0) comes from a generator on the
     problem's device seeded with seed + 1; the kernels' per-step seeds
-    from a CPU generator seeded with seed + 2.
+    from a CPU generator seeded with seed + 2.  On CUDA the Adam is
+    ``capturable`` with its lrs on the device (``utils/schedule.py:adam``).
     """
+
+    _stepwise = False   # train() runs pspde's per-step loop (no chunks)
 
     def __init__(self, name, problem, lr=0.001, L=10000, K=50, delta_t=0.05,
                  approx_method="control", loss_method="log-variance",
@@ -282,15 +287,12 @@ class HJBSolver:
     def _make_optimizer(self):
         """Adam over the control (or value) net, with Y_0 in its own lr_y0
         group."""
-        step = getattr(self, "iteration", 0)
-        groups = [{"params": list(self._net.parameters()),
-                   "lr": lr_at(self.lr, step)}]
-        self._group_lrs = [self.lr]
+        groups = [(self._net.parameters(), self.lr)]
         if self._y0_learned:
-            groups.append({"params": list(self.y0_net.parameters()),
-                           "lr": lr_at(self.lr_y0, step)})
-            self._group_lrs.append(self.lr_y0)
-        self.optimizer = torch.optim.Adam(groups, lr=lr_at(self.lr, step))
+            groups.append((self.y0_net.parameters(), self.lr_y0))
+        self._lrs = [lr for _, lr in groups]
+        self.optimizer = adam(groups, getattr(self, "iteration", 0),
+                              self.device)
 
     def _value_fn(self):
         """(X, n, t) -> V(X, t_n) of the value net (value mode)."""
@@ -465,19 +467,18 @@ class HJBSolver:
         return X0, Y0
 
     def _rollout_outputs(self, cfg: HJBRolloutConfig, host_noise=None,
-                         X0=None) -> HJBRolloutOut:
+                         X0=None, seed=None) -> HJBRolloutOut:
         """One rollout of K paths from X_0 with Y = Y_0 + sum of the
         increments.  ``host_noise`` (N, K, d), or (N, K/2, d) with
         antithetic pairs, replaces the engine's own noise; ``X0`` (K, d)
-        the draws of ``random_X_0``."""
+        the draws of ``random_X_0``; ``seed`` is the kernels' (an int, or
+        on CUDA the 0-d int64 device word they read)."""
         K = self.K
         X0, Y0 = self._initial_state(X0)
         if self.resolved_rollout_mode != "fused_train":
             return hjb_rollout(cfg, self.problem, self._control_fn(), X0, Y0,
                                generator=self._noise_gen, u_ref=self._u_ref,
                                host_noise=host_noise)
-        seed = int(torch.randint(0, 2 ** 31 - 1, (1,),
-                                 generator=self._seed_gen))
         kw = dict(adaptive_forward=cfg.adaptive_forward,
                   accumulate_kl=cfg.accumulate_kl,
                   kl_ito_term=cfg.kl_ito_term, u_tab=self._u_tab,
@@ -505,14 +506,31 @@ class HJBSolver:
             return 0 if l < 1000 else 1
         return 0
 
+    @property
+    def _draws_seed(self) -> bool:
+        return self.resolved_rollout_mode == "fused_train"
+
+    def _chunk_modules(self) -> dict:
+        return {"z_net" if self.approx_method == "control" else "y_net":
+                self._net, "y0_net": self.y0_net}
+
+    def _chunk_generators(self) -> dict:
+        return {"_noise_gen": self._noise_gen}
+
     def step(self, host_noise=None, X0=None) -> dict:
         """One training step (pspde's ``_build_step``): rollout, loss,
-        backward, Adam.  Appends to the logs and returns the metrics.
-        ``host_noise`` and ``X0`` replace the rollout's draws
+        backward, Adam.  Appends to the logs and returns the metrics (as
+        floats).  ``host_noise`` and ``X0`` replace the rollout's draws
         (``_rollout_outputs``)."""
+        return self._logged_step(dict(host_noise=host_noise, X0=X0))[1]
+
+    def _train_step(self, seed, host_noise=None, X0=None) -> dict:
+        """The step at the optimizer's current lrs, the kernels' ``seed``:
+        its metrics as 0-d tensors (loss, u_l2, Y_0 after the update where
+        it is learned, meta_frac with ``metastability_logs``)."""
         phase = self._phase(self.iteration)
         cfg = self._rollout_cfg(phase)
-        out = self._rollout_outputs(cfg, host_noise, X0)
+        out = self._rollout_outputs(cfg, host_noise, X0, seed)
         gX = self.problem.g(out.X)
         self.optimizer.zero_grad(set_to_none=True)
         if self.loss_method == "log-variance-y_0":
@@ -534,27 +552,43 @@ class HJBSolver:
                             phase=phase)
             loss = loss + torch.mean(out.add_loss)
             loss.backward()
-        apply_lr(self.optimizer, self._group_lrs, self.iteration)
         self.optimizer.step()
-        metrics = {"loss": float(loss.detach()),
-                   "u_l2": float(out.u_l2.mean())}
+        metrics = {"loss": loss.detach(), "u_l2": out.u_l2.detach().mean()}
         if self._y0_learned:
-            metrics["Y_0"] = float(self.y0_net.Y_0.detach()[0])
+            metrics["Y_0"] = self.y0_net.Y_0.detach()[0].clone()
         if self._meta is not None:
             # the fraction of final states within eps of the target
             target, eps = self._meta
             dist = torch.sqrt(torch.sum((out.X.detach() - target) ** 2,
                                         dim=-1))
-            metrics["meta_frac"] = float(torch.mean(
-                (dist < eps).to(torch.float32)))
-        self.loss_log.append(metrics["loss"])
-        self.u_L2_loss.append(metrics["u_l2"])
-        if "Y_0" in metrics:
-            self.Y_0_log.append(metrics["Y_0"])
-        if "meta_frac" in metrics:
-            self.particles_close_to_target.append(metrics["meta_frac"])
-        self.iteration += 1
+            metrics["meta_frac"] = torch.mean((dist < eps).to(torch.float32))
         return metrics
+
+    def _record(self, m: dict):
+        self.loss_log.append(m["loss"])
+        self.u_L2_loss.append(m["u_l2"])
+        if "Y_0" in m:
+            self.Y_0_log.append(m["Y_0"])
+        if "meta_frac" in m:
+            self.particles_close_to_target.append(m["meta_frac"])
+
+    def _maybe_print(self, done: int, n: int):
+        first = done - n
+        if self._stepwise:
+            due = first % self.print_every == 0
+        else:
+            due = first == 0 or first // self.print_every != (
+                done // self.print_every)
+        if self.verbose and due:
+            self._print(done - 1)
+
+    def _print(self, l: int):
+        s = ("%d - loss: %.4e - u L2: %.4e - time/iter: %.2fs"
+             % (l, self.loss_log[-1], self.u_L2_loss[-1],
+                np.mean(self.times[-self.print_every:])))
+        if self.Y_0_log:
+            s += " - Y_0: %.4e" % self.Y_0_log[-1]
+        print(s)
 
     def _early_stop(self, done: int) -> bool:
         """u-L2 plateau early stopping (pspde's rule)."""
@@ -564,6 +598,14 @@ class HJBSolver:
         return (np.std(self.u_L2_loss[-est:])
                 / (self.u_L2_loss[-1] + 1e-30) < 0.02)
 
+    @property
+    def _chunkable(self) -> bool:
+        """pspde's gate of chunked training: a loss without phases (the
+        per-iteration diagnostics of its gate, compute_gradient_variance
+        and IS_variance_K, raise in the port's constructor)."""
+        return self.loss_method not in ("log-variance-repa",
+                                        "relative_entropy_log-variance")
+
     def train(self):
         if self.verbose:
             print("d = %d, L = %d, K = %d, delta_t = %.2e, lr = %s, %s, "
@@ -572,16 +614,10 @@ class HJBSolver:
                      self.approx_method, self.time_approx, self.loss_method,
                      "adaptive" if self.adaptive_forward_process else "",
                      self.resolved_rollout_mode))
-        for l in range(self.iteration, self.L):
-            t0 = time.time()
-            self.step()
-            self.times.append(time.time() - t0)
-            if self.verbose and l % self.print_every == 0:
-                s = ("%d - loss: %.4e - u L2: %.4e - time/iter: %.2fs"
-                     % (l, self.loss_log[-1], self.u_L2_loss[-1],
-                        np.mean(self.times[-self.print_every:])))
-                if self.Y_0_log:
-                    s += " - Y_0: %.4e" % self.Y_0_log[-1]
-                print(s)
-            if self._early_stop(l):
-                break
+        chunkable = self._chunkable
+        # pspde chunks where its gate lets it, and else runs its per-step
+        # loop, which prints and checks the plateau after step done - 1
+        self._stepwise = not (chunkable and
+                              resolve_steps_per_call(self, chunkable) > 1)
+        run_training(self, stop_check=lambda done: self._early_stop(
+            done - 1 if self._stepwise else done), chunkable=chunkable)

@@ -29,9 +29,11 @@ from pspde.ansatz import DenseNet as JDenseNet
 from pspde.rollout.sampling import sample_boundary_reflected as j_reflected
 from pspde.rollout.sampling import sample_domain as j_domain
 from pspde.solvers import EigenSolver as JSolver
+from pspde.solvers._chunk import resolve_steps_per_call as j_resolve
 import pspde_torch.problems as tp
 from pspde_torch.ansatz import DenseNet
 from pspde_torch.solvers import EigenSolver as TSolver
+from pspde_torch.solvers._chunk import resolve_steps_per_call as t_resolve
 from pspde_torch.solvers.eigen import hat_function
 from pspde_torch.utils.convert import eigen_params_to_flax
 
@@ -179,11 +181,13 @@ def test_gates_and_not_ported_options():
         TSolver(fp, "t", detach_forward=False, rollout_mode="fused_train",
                 **kw)
     for bad, match in ((dict(mesh=object()), "mesh"),
-                       (dict(steps_per_call=50), "steps_per_call"),
                        (dict(layout="dk"), "dk"),
                        (dict(rng_impl="rbg"), "rng_impl")):
         with pytest.raises(NotImplementedError, match=match):
             TSolver(fp, "t", **bad, **kw)
+    # steps_per_call is ported: accepted, and resolved as pspde resolves it
+    chunked = TSolver(fp, "t", steps_per_call=50, **kw)
+    assert t_resolve(chunked) == j_resolve(chunked) == 50
     with pytest.raises(ValueError, match="normalization"):
         TSolver(fp, "t", normalization="l1", **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

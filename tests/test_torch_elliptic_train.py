@@ -26,9 +26,11 @@ from pspde.ansatz import DenseNet as JDenseNet
 from pspde.rollout.sampling import sample_boundary as j_boundary
 from pspde.rollout.sampling import sample_domain as j_domain
 from pspde.solvers import EllipticSolver as JSolver
+from pspde.solvers._chunk import resolve_steps_per_call as j_resolve
 import pspde_torch.problems as tp
 from pspde_torch.eval import compute_test_error
 from pspde_torch.solvers import EllipticSolver as TSolver
+from pspde_torch.solvers._chunk import resolve_steps_per_call as t_resolve
 from pspde_torch.utils.convert import dense_net_to_flax
 
 D, K, KB, N, DT, STEPS = 4, 64, 16, 16, 0.01, 20
@@ -119,10 +121,12 @@ def test_fused_train_gates_and_not_ported_options():
                 **kw)
     for bad, match in ((dict(layout="dk"), "dk"),
                        (dict(rng_impl="rbg"), "rng_impl"),
-                       (dict(mesh=object()), "mesh"),
-                       (dict(steps_per_call=50), "steps_per_call")):
+                       (dict(mesh=object()), "mesh")):
         with pytest.raises(NotImplementedError, match=match):
             TSolver(pt, "t", **bad, **kw)
+    # steps_per_call is ported: accepted, and resolved as pspde resolves it
+    chunked = TSolver(pt, "t", steps_per_call=50, **kw)
+    assert t_resolve(chunked) == j_resolve(chunked) == 50
     with pytest.raises(ValueError, match="approx_method"):
         TSolver(pt, "t", approx_method="Z", **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

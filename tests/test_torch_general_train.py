@@ -34,10 +34,12 @@ from pspde.ansatz import DenseNet as JDenseNet
 from pspde.rollout.sampling import sample_boundary as j_boundary
 from pspde.rollout.sampling import sample_domain as j_domain
 from pspde.solvers import GeneralSolver as JSolver
+from pspde.solvers._chunk import resolve_steps_per_call as j_resolve
 import pspde_torch.problems as tp
 from pspde_torch.eval import compute_test_error
 from pspde_torch.rollout import kernels as tk
 from pspde_torch.solvers import EllipticSolver, GeneralSolver as TSolver
+from pspde_torch.solvers._chunk import resolve_steps_per_call as t_resolve
 from pspde_torch.utils.convert import dense_net_to_flax
 from tests.torch_outside_family import _TanhH
 
@@ -174,12 +176,14 @@ def test_fused_train_gates_and_not_ported_options():
                 **kw)
     for bad, match in ((dict(layout="dk"), "dk"),
                        (dict(rng_impl="rbg"), "rng_impl"),
-                       (dict(mesh=object()), "mesh"),
-                       (dict(steps_per_call=50), "steps_per_call")):
+                       (dict(mesh=object()), "mesh")):
         with pytest.raises(NotImplementedError,
                            match="GeneralSolver") as e:
             TSolver(pt, "t", **bad, **kw)
         assert match in str(e.value) and "ROADMAP.md" in str(e.value)
+    # steps_per_call is ported: accepted, and resolved as pspde resolves it
+    chunked = TSolver(pt, "t", steps_per_call=50, **kw)
+    assert t_resolve(chunked) == j_resolve(chunked) == 50
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         s.save_training_state()
     with pytest.raises(ValueError, match="horizon"):
