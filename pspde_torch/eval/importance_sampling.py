@@ -10,12 +10,13 @@ exponentials cannot overflow.
 
 ``importance_sampling`` is the plain tensor version (any control, or
 the problem's reference control with ``control='true'``, e.g. the FD
-table of the double-well problems); ``importance_sampling_fused`` runs the
-whole simulation in the rollout kernel (``rollout/kernels.py``) on a CUDA
-problem, and its plain version on a CPU one; ``do_importance_sampling``
-and ``do_importance_sampling_Wei`` are the reference's names for the
-naive-and-IS comparison.  QMC noise and multi-device meshes are not ported
-yet.
+table of the double-well problems; scrambled-Sobol noise with ``qmc``);
+``make_is_runner`` is the training loop's per-iteration IS hook over the
+same simulation; ``importance_sampling_fused`` runs the whole simulation
+in the rollout kernel (``rollout/kernels.py``) on a CUDA problem, and its
+plain version on a CPU one; ``do_importance_sampling`` and
+``do_importance_sampling_Wei`` are the reference's names for the
+naive-and-IS comparison.  Multi-device meshes are not ported yet.
 """
 
 from __future__ import annotations
@@ -33,8 +34,74 @@ def _not_ported(what: str):
 
 
 def make_is_runner(problem, model, K: int, delta_t: float = 0.01):
-    """The training loop's per-iteration IS hook; waits for training."""
-    raise _not_ported("make_is_runner")
+    """The training loop's per-iteration IS hook (pspde's ``make_is_runner``
+    over its ``_is_scan``): returns ``run(generator) -> (mean, var, rel)``,
+    0-d tensors, of K controlled paths on the delta_t grid with the
+    model's control as it is at each call (its live modules), the noise
+    drawn from ``generator``.  Built once and cached by the solver."""
+    N = int(np.ceil(problem.T / delta_t))
+
+    def run(generator: Optional[torch.Generator] = None):
+        u_fn = _control_closure(model, delta_t, N)
+        _, X_u, ito, riem, _, f_int_u = _is_scan(
+            problem, u_fn, K, N, delta_t, generator, False, None)
+        return _stats_from_logw(-f_int_u - problem.g(X_u) - ito - 0.5 * riem)
+
+    return run
+
+
+def _qmc_seed(generator: Optional[torch.Generator]) -> int:
+    """The scramble seed of a QMC run, drawn from ``generator`` (a CPU
+    generator seeded 0 where none is given, as pspde's default key), so
+    that independent generators give independent replicates."""
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    return int(torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
+                             device=generator.device))
+
+
+def _qmc_noise(K: int, N: int, d: int, seed: int, bridge: bool = True):
+    """(N, K, d) float32 standard normals from a scrambled Sobol sequence
+    (pspde's ``_qmc_noise``, host NumPy and SciPy): each path one
+    Owen-scrambled Sobol point of dimension N d, mapped to normals by the
+    erfinv quantile; with ``bridge`` the path is assembled by
+    Brownian-bridge bisection (Sobol dimension 0 sets W_N, the next ones
+    the midpoints coarse to fine) and the increments returned.  A NumPy
+    array; the caller moves it to its device."""
+    import warnings
+    from collections import deque
+
+    from scipy.special import erfinv
+    from scipy.stats import qmc
+
+    eng = qmc.Sobol(d=N * d, scramble=True, seed=int(seed))
+    with warnings.catch_warnings():
+        # scipy warns when K is not a power of two; Owen scrambling keeps
+        # the estimator unbiased at any K
+        warnings.simplefilter("ignore", UserWarning)
+        u = eng.random(K).astype(np.float64)
+    eps = 1e-12
+    u = np.clip(u, eps, 1.0 - eps)
+    z = (erfinv(2.0 * u - 1.0) * np.sqrt(2.0)).reshape(K, N, d)
+    if not bridge:
+        return z.transpose(1, 0, 2).astype(np.float32)
+    W = np.zeros((K, N + 1, d))
+    W[:, N] = np.sqrt(N) * z[:, 0]
+    q = deque([(0, N)])
+    k = 1
+    while q:  # breadth first: coarse levels take the lowest dimensions
+        a, b = q.popleft()
+        if b - a < 2:
+            continue
+        m = (a + b) // 2
+        s = np.sqrt((m - a) * (b - m) / (b - a))
+        W[:, m] = ((b - m) * W[:, a] + (m - a) * W[:, b]) / (b - a) \
+            + s * z[:, k]
+        k += 1
+        q.append((a, m))
+        q.append((m, b))
+    assert k == N, (k, N)
+    return np.diff(W, axis=1).transpose(1, 0, 2).astype(np.float32)
 
 
 def _control_closure(model, delta_t: float, N: int):
@@ -117,14 +184,23 @@ def importance_sampling(problem, model, K: int, control: str = "approx",
     the problem's closed-form one (``'true'``).  Returns (mean, var, RE),
     or the 6-tuple with the naive statistics first when
     ``simulate_naive``.  ``host_noise`` (N, K, d) replaces the generator's
-    normals."""
+    normals; ``qmc`` replaces them with scrambled-Sobol normals
+    (``_qmc_noise``, Brownian bridge; ``qmc='natural'``: the increments in
+    their natural order), scrambled with a seed drawn from ``generator``.
+    The reported variance and RE are the integrand's spread under one
+    scramble, not the QMC error."""
     if mesh is not None:
         raise _not_ported("importance_sampling(mesh=...)")
-    if qmc:
-        raise _not_ported("importance_sampling(qmc=...)")
     if antithetic and K % 2:
         raise ValueError("antithetic importance sampling needs even K")
+    if qmc and antithetic:
+        raise ValueError("qmc and antithetic are mutually exclusive")
     N = int(np.ceil(problem.T / delta_t))
+    if qmc:
+        host_noise = torch.as_tensor(
+            _qmc_noise(K, N, problem.d, _qmc_seed(generator),
+                       bridge=(qmc != "natural")),
+            device=problem.X_0.device)
     u_fn = u_true_fn = None
     if control == "true":
         u_true_fn = problem.u_ref_fn(np.arange(N) * delta_t)

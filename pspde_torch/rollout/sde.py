@@ -17,9 +17,12 @@ X' with time t_n):
 Ported: control mode with adaptive or fixed forward process, value mode
 (the consistency penalty (V(X_n, t_n) - Y_n)^2 for n > 0 in ``add_loss``),
 ``detach_forward``, the KL accumulator (with or without its Ito term),
-the u_L2 diagnostic, antithetic pairs and per-step recomputation
-(``remat``, ``torch.utils.checkpoint``).  The repa phases, the
-reparametrization accumulator and the Burgers drift raise.
+the even/odd phases of 'log-variance-repa' (phase 0: Z frozen, the
+gradient flows through the forward process; phase 1: the control c
+frozen), the reparametrization accumulator, the Burgers drift c = Y - (2 +
+d) / (2 d), the u_L2 diagnostic, antithetic pairs and recomputation
+(``remat``): per step (``torch.utils.checkpoint``), or, for long horizons
+or carry stacks past a byte budget, JAX's sqrt schedule (``_remat_scan``).
 
 ``stopped_rollout`` (``sde.py:536``) is the scan engine of
 ``EllipticSolver`` and the plain version of the stopped training kernels
@@ -33,7 +36,10 @@ differentiable through Z: the second-order path).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import math
+import os
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -76,14 +82,127 @@ def step_time(n: int, dt: float) -> float:
     return float(np.float32(n) * np.float32(dt))
 
 
-def _not_ported(cfg: HJBRolloutConfig):
-    for flag, name in ((cfg.repa_phase is not None, "repa_phase"),
-                       (cfg.reparametrization, "reparametrization"),
-                       (cfg.burgers_drift, "burgers_drift")):
-        if flag:
-            raise NotImplementedError(
-                f"hjb_rollout: {name} is not ported to pspde_torch yet "
-                "(ROADMAP.md, Queue 1 item 6)")
+def default_carry_budget(device) -> int:
+    """The byte budget of ``_remat_scan``'s stored carries on ``device``:
+    half of the card's memory (JAX's 8 GiB of a 16 GB v5e, the same
+    share; 40 GiB of an 80 GB H100), half of the host's physical memory
+    for a CPU tensor."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return torch.cuda.get_device_properties(device).total_memory // 2
+    return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES") // 2
+
+
+def _replica(generator: torch.Generator, state) -> torch.Generator:
+    """A new generator on ``generator``'s device at ``state``."""
+    g = torch.Generator(device=generator.device)
+    g.set_state(state)
+    return g
+
+
+def replicas(generator: torch.Generator) -> Callable:
+    """A callable giving, at each call, a new generator at the state that
+    ``generator`` has now."""
+    state = generator.get_state()
+    return lambda: _replica(generator, state)
+
+
+# Where a chunk of the sqrt schedule takes the generators its
+# recomputations draw from: ``replicas``, or a callable generator ->
+# callable installed by ``chunk_forks`` (``solvers/_chunk.py``: in a CUDA
+# graph's capture, generators registered with the graph that each replay
+# sets to the chunk's start).
+_CHUNK_FORK: Optional[Callable] = None
+
+
+@contextlib.contextmanager
+def chunk_forks(fork: Optional[Callable]):
+    """Let ``fork(generator)`` give each sqrt-schedule chunk started inside
+    the block the source of its recomputations' generators: a callable
+    whose every call gives a generator positioned at the chunk's start (a
+    recomputation of a step that differentiates inside it, as the value
+    mode and the stopped rollout do, can run more than once)."""
+    global _CHUNK_FORK
+    old, _CHUNK_FORK = _CHUNK_FORK, fork
+    try:
+        yield
+    finally:
+        _CHUNK_FORK = old
+
+
+def _remat_scan(step: Callable, carry: tuple, N: int, remat: bool,
+                draw: Callable, generator: Optional[torch.Generator] = None,
+                threshold: int = 2048,
+                carry_budget_bytes: Optional[int] = None) -> tuple:
+    """``carry = step(n, *carry, draw(n, generator))`` for n < N (counterpart
+    of ``pspde/rollout/sde.py:_remat_scan``), with recomputation under
+    ``remat`` while grad mode is on.
+
+    Backward through N steps stores every step's carry (N K d floats of X
+    alone) whatever is recomputed within a step.  So where the horizon is
+    long (N > ``threshold``) or the stored carries would pass
+    ``carry_budget_bytes`` (default ``default_carry_budget``: half of the
+    card's memory), the steps run in chunks of ~sqrt(N), each chunk
+    recomputed as a whole on the backward pass: the ~sqrt(N) chunk carries
+    are stored, and one chunk's steps at a time; compute ~2x the forward.
+    Else each step is recomputed on its own, on the noise drawn outside it
+    (stored: N K d floats).
+
+    The chunked schedule stores no noise: a chunk draws its noise inside,
+    from ``generator`` on the forward pass, and its recomputation draws it
+    again from a generator at the state ``generator`` had at the chunk's
+    start, kept beside the chunk's carry (``generator`` itself is not
+    moved back): a replica made from its saved state, or, inside a CUDA
+    graph's capture, where no state can be read or set, a generator that
+    ``chunk_forks`` gives (``solvers/_chunk.py`` registers them with the
+    graph and sets them before each replay).  Outputs and gradients are
+    bitwise those of the per-step schedule: the same ops on the same
+    numbers, the same autograd graph."""
+    grad = torch.is_grad_enabled()
+    if not (remat and grad):
+        for n in range(N):
+            carry = step(n, *carry, draw(n, generator))
+        return carry
+    if carry_budget_bytes is None:
+        carry_budget_bytes = default_carry_budget(carry[0].device)
+    carry_bytes = sum(x.numel() * x.element_size() for x in carry)
+    if N <= threshold and N * carry_bytes <= carry_budget_bytes:
+        for n in range(N):
+            # the noise is drawn outside, so recomputation sees the same xi
+            # (and draws nothing: no generator state to keep, which a CUDA
+            # graph's capture could not restore)
+            carry = checkpoint(step, n, *carry, draw(n, generator),
+                               use_reentrant=False, preserve_rng_state=False)
+        return carry
+    fork = _CHUNK_FORK
+    if (fork is None and generator is not None
+            and generator.device.type == "cuda"
+            and torch.cuda.is_current_stream_capturing()):
+        raise RuntimeError(
+            "the sqrt-schedule rollout draws each chunk's noise again on "
+            "its recomputation: inside a CUDA graph's capture it needs the "
+            "generators that solvers/_chunk.py registers (chunk_forks)")
+    fork = fork or replicas
+    inner = math.isqrt(N - 1) + 1
+
+    def chunk(start: int, stop: int) -> Callable:
+        # the generators of the chunk's recomputations, at its start
+        again = None if generator is None else fork(generator)
+        runs = []
+
+        def run(*c):
+            gen = again() if runs and again is not None else generator
+            runs.append(1)
+            for n in range(start, stop):
+                c = step(n, *c, draw(n, gen))
+            return c
+
+        return run
+
+    for start in range(0, N, inner):
+        carry = checkpoint(chunk(start, min(start + inner, N)), *carry,
+                           use_reentrant=False, preserve_rng_state=False)
+    return tuple(carry)
 
 
 def hjb_rollout(
@@ -96,6 +215,8 @@ def hjb_rollout(
     u_ref: Optional[Callable] = None,          # (X, n) -> (K, d)
     host_noise: Optional[torch.Tensor] = None,  # (N, K_draw, d)
     noise_fn: Optional[Callable] = None,        # n -> (K_draw, d)
+    remat_threshold: int = 2048,
+    carry_budget_bytes: Optional[int] = None,
 ) -> HJBRolloutOut:
     """Forward ensemble rollout with the value accumulation, differentiable
     in the parameters ``control_fn`` closes over.
@@ -105,8 +226,9 @@ def hjb_rollout(
     rows, or K/2 with ``cfg.antithetic``, whose rows i and i + K/2 are
     then (xi, -xi).  Y, Z_sum, u_l2 and add_loss accumulate in float32;
     with ``cfg.value_mode`` the second output of ``control_fn`` is
-    V(X_n, t_n), and add_loss sums (V - Y_n)^2 over the steps n > 0."""
-    _not_ported(cfg)
+    V(X_n, t_n), and add_loss sums (V - Y_n)^2 over the steps n > 0.
+    ``remat_threshold`` and ``carry_budget_bytes`` decide where
+    ``cfg.remat`` takes the sqrt schedule (``_remat_scan``)."""
     K, d = X0.shape
     K_draw = K // 2 if cfg.antithetic else K
     if cfg.antithetic and K % 2:
@@ -119,33 +241,50 @@ def hjb_rollout(
     sig = problem.sigma_struct
     f32 = torch.float32
     track_u = cfg.track_u_l2 and u_ref is not None
+    burgers_c = (2.0 + d) / (2.0 * d)
 
-    def draw(n):
+    def draw(n, gen):
         if host_noise is not None:
             xi = host_noise[n]
         elif noise_fn is not None:
             xi = noise_fn(n)
         else:
-            xi = torch.randn((K_draw, d), generator=generator, dtype=f32,
+            xi = torch.randn((K_draw, d), generator=gen, dtype=f32,
                              device=X0.device)
         if cfg.antithetic:
             xi = torch.cat([xi, -xi], dim=0)
         return xi
 
-    def step(n, t, X, Y, Z_sum, u_l2, add_loss, xi):
+    def step(n, X, Y, Z_sum, u_l2, add_loss, xi):
+        t = step_time(n, dt)
         Z, V_here = control_fn(X, n, t)
         if cfg.value_mode and n > 0:
             add_loss = add_loss + (V_here.to(f32) - Y) ** 2
-        c = -Z if cfg.adaptive_forward else torch.zeros_like(X)
-        if cfg.detach_forward:
+        # the even phase of 'log-variance-repa': Z frozen, the gradient
+        # flows through the forward process only
+        Z_used = Z.detach() if cfg.repa_phase == 0 else Z
+        if not cfg.adaptive_forward:
+            c = torch.zeros_like(X)
+        elif cfg.burgers_drift:
+            c = torch.ones_like(X) * (Y[:, None] - burgers_c)
+        else:
+            c = -Z
+        if cfg.detach_forward or cfg.repa_phase == 1:
             c = c.detach()
         X_new = X + (problem.b(X) + sig.apply(c)) * dt + sig.apply(xi) * sq_dt
         if cfg.detach_forward:
             X_new = X_new.detach()
-        Z32 = Z.to(f32)
+        Z32 = Z_used.to(f32)
         Zc = torch.sum(Z32 * c.to(f32), dim=-1)
         Zxi = torch.sum(Z32 * xi, dim=-1)
-        Y = Y + (-problem.h(t, X_new, Y, Z).to(f32) + Zc) * dt + Zxi * sq_dt
+        Y = (Y + (-problem.h(t, X_new, Y, Z_used).to(f32) + Zc) * dt
+             + Zxi * sq_dt)
+        if cfg.reparametrization:
+            # v from a frozen copy of the net
+            v = (-Z).detach().to(f32)
+            Z_sum = Z_sum + (-0.5 * torch.sum(v * v, dim=-1) * dt
+                             + torch.sum(v * c.to(f32), dim=-1) * dt
+                             + torch.sum(v * xi, dim=-1) * sq_dt)
         if cfg.accumulate_kl:
             Z_sum = Z_sum + (0.5 * torch.sum(Z32 * Z32, dim=-1)
                              + problem.running_cost(X_new, t).to(f32)) * dt
@@ -158,15 +297,9 @@ def hjb_rollout(
 
     zeros = torch.zeros((K,), dtype=f32, device=X0.device)
     carry = (X0, Y0.to(f32), zeros, zeros, zeros)
-    for n in range(cfg.N):
-        t = step_time(n, dt)
-        xi = draw(n)
-        if cfg.remat and torch.is_grad_enabled():
-            # the noise is drawn outside, so recomputation sees the same xi
-            carry = checkpoint(step, n, t, *carry, xi, use_reentrant=False)
-        else:
-            carry = step(n, t, *carry, xi)
-    return HJBRolloutOut(*carry)
+    return HJBRolloutOut(*_remat_scan(
+        step, carry, cfg.N, cfg.remat, draw, generator,
+        threshold=remat_threshold, carry_budget_bytes=carry_budget_bytes))
 
 
 # -- stopped-path (first-exit) rollout ---------------------------------------
@@ -262,11 +395,14 @@ def stopped_rollout(
     v_ref: Optional[Callable] = None,           # (X,) -> (K,)
     host_noise: Optional[torch.Tensor] = None,  # (N, K, d)
     noise_fn: Optional[Callable] = None,        # n -> (K, d)
+    remat_threshold: int = 2048,
+    carry_budget_bytes: Optional[int] = None,
 ) -> StoppedRolloutOut:
     """Fixed-length rollout with stopped-path masking (solver.py:723-785),
     differentiable in the parameters ``value_grad_fn`` closes over.  The
     noise of step n is ``host_noise[n]``, else ``noise_fn(n)``, else
-    ``torch.randn`` from ``generator`` on X0's device."""
+    ``torch.randn`` from ``generator`` on X0's device.  ``cfg.remat``
+    recomputes as ``_remat_scan`` decides."""
     K, d = X0.shape
     f32 = torch.float32
     dt, sq_dt = step_constants(cfg.delta_t)
@@ -276,15 +412,16 @@ def stopped_rollout(
         raise ValueError(f"host_noise has shape {tuple(host_noise.shape)}, "
                          f"expected {(cfg.N, K, d)}")
 
-    def draw(n):
+    def draw(n, gen):
         if host_noise is not None:
             return host_noise[n]
         if noise_fn is not None:
             return noise_fn(n)
-        return torch.randn((K, d), generator=generator, dtype=f32,
+        return torch.randn((K, d), generator=gen, dtype=f32,
                            device=X0.device)
 
-    def step(X, Y, t, stopped, hitting, v_l2, step_loss, active_count, xi):
+    def step(n, X, Y, t, stopped, hitting, v_l2, step_loss, active_count,
+             xi):
         active = ~stopped
         V_here, Z = value_grad_fn(X, t)
         if v_ref is not None:
@@ -335,11 +472,6 @@ def stopped_rollout(
     carry = (X0, Y0.to(f32), t0.to(f32),
              torch.zeros((K,), dtype=torch.bool, device=X0.device), zeros,
              zeros, scalar, scalar)
-    for n in range(cfg.N):
-        xi = draw(n)
-        if cfg.remat and torch.is_grad_enabled():
-            # the noise is drawn outside, so recomputation sees the same xi
-            carry = checkpoint(step, *carry, xi, use_reentrant=False)
-        else:
-            carry = step(*carry, xi)
-    return StoppedRolloutOut(*carry)
+    return StoppedRolloutOut(*_remat_scan(
+        step, carry, cfg.N, cfg.remat, draw, generator,
+        threshold=remat_threshold, carry_budget_bytes=carry_budget_bytes))

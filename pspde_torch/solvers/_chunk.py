@@ -13,7 +13,13 @@ generators that the step draws from are registered with the graph, so that
 a replay advances them as n eager steps do.  So a chunk gives what n eager
 ``step()`` calls give, bitwise: the same ops in the same order on the same
 numbers.  On the CPU, which only the tests reach, ``run_training`` runs
-the same n steps without capture.
+the same n steps without capture.  A step whose rollout takes the
+sqrt-schedule remat draws each chunk's noise again when it recomputes the
+chunk (``rollout/sde.py:_remat_scan``); a capture cannot rewind a
+generator, so the warm-up step records each chunk's Philox offset and its
+recomputations (``_ForkRecorder``), the capture hands the chunks
+generators of their own registered with the graph, and each replay sets
+them to the offsets the live generators will have there.
 
 Before its capture the graph runs one eager warm-up step on its stream and
 then restores the state the step changed (parameters, Adam's state, the
@@ -33,10 +39,13 @@ from __future__ import annotations
 import os
 import time
 import traceback
+from datetime import date
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
+from ..rollout.sde import chunk_forks, replicas
 from ..utils.schedule import apply_lr, lr_at
 
 Draws = Optional[Callable[[int], dict]]
@@ -67,9 +76,26 @@ def chunk_sizes(total: int, n_steps: int):
 
 
 def metric_row(metrics: dict) -> torch.Tensor:
-    """A step's metrics (0-d tensors) as one float32 row, in their order."""
-    return torch.stack([v.detach().to(torch.float32)
-                        for v in metrics.values()])
+    """A step's metrics (0-d tensors, or vectors such as ``log_gradient``'s
+    flat gradient) as one float32 row, flattened in their order."""
+    return torch.cat([v.detach().to(torch.float32).reshape(-1)
+                      for v in metrics.values()])
+
+
+def metric_layout(metrics: dict) -> list:
+    """(name, number of floats, scalar or not) of each metric in a row."""
+    return [(k, v.numel(), v.dim() == 0) for k, v in metrics.items()]
+
+
+def unpack_row(layout: list, row: list) -> dict:
+    """A row read back (``metric_row(...).tolist()``) as {name: float, or a
+    float32 array for a vector metric}."""
+    out, i = {}, 0
+    for name, size, scalar in layout:
+        out[name] = (row[i] if scalar
+                     else np.asarray(row[i:i + size], dtype=np.float32))
+        i += size
+    return out
 
 
 class ChunkedSolver:
@@ -102,6 +128,40 @@ class ChunkedSolver:
             self._graph_stats = dict(warmup_steps=0, captures=0, replays=0)
         return self._graph_stats
 
+    @property
+    def date(self) -> str:
+        """Today's date, as pspde stamps its files."""
+        return date.today().strftime("%Y-%m-%d")
+
+    # -- persistence (pspde's save_networks etc., solver.py:313-332) ---------
+    def save_networks(self, out_dir="output") -> str:
+        """The trained modules and the optimizer's state, to
+        ``<out_dir>/<name>_<date>`` (``utils/checkpoint.py:save_params``)."""
+        from ..utils.checkpoint import save_params
+        os.makedirs(out_dir, exist_ok=True)
+        path = save_params(os.path.join(out_dir, "%s_%s"
+                                        % (self.name, self.date)), self)
+        if self.verbose:
+            print("\nnetworks data has been stored to: %s" % path)
+        return path
+
+    def load_networks(self, path):
+        from ..utils.checkpoint import load_params
+        load_params(path, self)
+
+    def save_training_state(self, out_dir="output") -> str:
+        """The full resume checkpoint: modules, optimizer, generators,
+        iteration and logs (``utils/checkpoint.py``)."""
+        from ..utils.checkpoint import save_training_state
+        os.makedirs(out_dir, exist_ok=True)
+        return save_training_state(
+            os.path.join(out_dir, "%s_%s_state" % (self.name, self.date)),
+            self)
+
+    def load_training_state(self, path):
+        from ..utils.checkpoint import load_training_state
+        load_training_state(path, self)
+
     def release_graph(self):
         """Drop the captured graph (and its memory); the next chunked
         ``train()`` captures anew."""
@@ -133,7 +193,8 @@ class ChunkedSolver:
         tensors and their floats (one device-to-host copy).  Records
         nothing."""
         metrics = self._step_at(self.iteration, draws)
-        return metrics, dict(zip(metrics, metric_row(metrics).tolist()))
+        return metrics, unpack_row(metric_layout(metrics),
+                                   metric_row(metrics).tolist())
 
     def _logged_step(self, draws: dict) -> tuple:
         """``_eager_step``, recorded in the logs: iteration advances."""
@@ -167,7 +228,8 @@ def run_training(solver, stop_check: Optional[Callable[[int], bool]] = None,
     chunkable)`` steps while a full one fits, then single eager steps (all
     single where the step is not ``chunkable``, whatever the option says,
     as pspde's per-step loop); each step's metrics recorded through
-    ``solver._record``, ``times`` the chunk's wall time over its steps, the
+    ``solver._record``, ``times`` the chunk's wall time over its steps
+    (recording and diagnostics included), the
     print cadence of ``_maybe_print``, and ``stop_check(done)`` (early
     stopping) at chunk boundaries.  ``draws(i)``, where given, is step i's
     injected inputs (``_train_step``'s keyword arguments; the CPU route
@@ -184,10 +246,11 @@ def run_training(solver, stop_check: Optional[Callable[[int], bool]] = None,
         else:
             rows = [solver._eager_step(draws(done) if draws else {})[1]]
         n = len(rows)
-        per_iter = (time.time() - t0) / n
         for row in rows:
             solver._record(row)
-            solver.times.append(per_iter)
+        # the diagnostics that _record runs are timed into their step, as
+        # pspde's per-step loop times them
+        solver.times.extend([(time.time() - t0) / n] * n)
         done += n
         solver.iteration = done
         solver._maybe_print(done, n)
@@ -213,6 +276,40 @@ def _where(err: BaseException) -> str:
                if not os.path.abspath(f.filename).startswith(torch_dir)]
     f = (outside or frames)[-1]
     return f"{f.filename}:{f.lineno}: {(f.line or '').strip()}"
+
+
+class _ForkRecorder:
+    """The sqrt-schedule chunks of an eager (warm-up) step: for each, in
+    order, the generator it forks, that generator's Philox offset at the
+    chunk's start from the step's start and the recomputations the chunk
+    ran; after ``finish()``, each generator's offset over the whole step.
+    The recomputations in the eager step draw from replicas, as without a
+    recorder."""
+
+    def __init__(self, generators):
+        self.gens = [g for g in generators if g.device.type == "cuda"]
+        self.start = {id(g): g.get_offset() for g in self.gens}
+        self.forks = []        # [generator, offset, recomputations]
+        self.step_offsets = {}
+
+    def __call__(self, gen: torch.Generator):
+        if id(gen) not in self.start:
+            raise ValueError("a sqrt-schedule chunk draws from a generator "
+                             "that the solver's _chunk_generators() does not "
+                             "name")
+        fork = [gen, gen.get_offset() - self.start[id(gen)], 0]
+        self.forks.append(fork)
+        again = replicas(gen)
+
+        def counted():
+            fork[2] += 1
+            return again()
+
+        return counted
+
+    def finish(self):
+        self.step_offsets = {id(g): g.get_offset() - self.start[id(g)]
+                             for g in self.gens}
 
 
 class StepGraph:
@@ -267,7 +364,7 @@ class StepGraph:
         steps = [s._step_at(i, draws(i) if draws else {})
                  for i in range(done, done + self.n)]
         rows = torch.stack([metric_row(m) for m in steps]).tolist()
-        return [dict(zip(m, r)) for m, r in zip(steps, rows)]
+        return [unpack_row(metric_layout(m), r) for m, r in zip(steps, rows)]
 
     def _replay(self, done: int) -> list:
         s, n = self.solver, self.n
@@ -280,9 +377,15 @@ class StepGraph:
         if self.seed_buf is not None:
             self.seed_buf.copy_(self.seed_host, non_blocking=True)
         self.lr_buf.copy_(self.lr_host, non_blocking=True)
+        # each chunk's generator at the offset its generator will have at
+        # the chunk's start in this replay
+        for i, gen, start, shadow in self.shadows:
+            shadow.manual_seed(gen.initial_seed())
+            shadow.set_offset(gen.get_offset()
+                              + i * self.step_offsets[id(gen)] + start)
         self.graph.replay()
         s.graph_stats["replays"] += 1
-        return [dict(zip(self.keys, r)) for r in self.out_buf.tolist()]
+        return [unpack_row(self.layout, r) for r in self.out_buf.tolist()]
 
     # -- capture ------------------------------------------------------------
     def _snapshot(self):
@@ -326,25 +429,49 @@ class StepGraph:
         snap = self._snapshot()
         stream = torch.cuda.Stream(device=dev)
         stream.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(stream):
+        forks = _ForkRecorder(s._chunk_generators().values())
+        with torch.cuda.stream(stream), chunk_forks(forks):
             metrics = s._train_step(seed)
         torch.cuda.current_stream(dev).wait_stream(stream)
         torch.cuda.synchronize(dev)
+        forks.finish()
         self._restore(snap)
         s.graph_stats["warmup_steps"] += 1
-        self.keys = list(metrics)
-        self.out_buf = torch.zeros((n, len(self.keys)), dtype=torch.float32,
+        self.layout = metric_layout(metrics)
+        width = sum(size for _, size, _ in self.layout)
+        self.out_buf = torch.zeros((n, width), dtype=torch.float32,
                                    device=dev)
         del metrics, snap
 
         graph = torch.cuda.CUDAGraph()
         for g in s._chunk_generators().values():
             graph.register_generator_state(g)
+        # a generator, registered, for each recomputation of each
+        # sqrt-schedule chunk of the n steps (rollout/sde.py:_remat_scan),
+        # set before each replay
+        chunks = [(i, gen, start, [torch.Generator(device=dev)
+                                   for _ in range(calls)])
+                  for i in range(n) for gen, start, calls in forks.forks]
+        self.shadows = [(i, gen, start, g) for i, gen, start, gens in chunks
+                        for g in gens]
+        for *_, shadow in self.shadows:
+            graph.register_generator_state(shadow)
+        self.step_offsets = forks.step_offsets
+        chunks = iter(chunks)
+
+        def shadow_of(gen):
+            _, want, _, gens = next(chunks)
+            if want is not gen:
+                raise RuntimeError("the captured step forks its generators "
+                                   "in another order than its warm-up step")
+            return iter(gens).__next__
+
         saved_lrs = [group["lr"] for group in groups]
         sync_mode = torch.cuda.get_sync_debug_mode()
         i = 0
         try:
-            with torch.cuda.graph(graph, stream=stream):
+            with torch.cuda.graph(graph, stream=stream), \
+                    chunk_forks(shadow_of):
                 torch.cuda.set_sync_debug_mode("error")
                 try:
                     for i in range(n):
@@ -369,5 +496,6 @@ class StepGraph:
         s.optimizer.zero_grad(set_to_none=True)
 
 
-__all__ = ["ChunkedSolver", "StepGraph", "chunk_sizes", "metric_row",
-           "resolve_steps_per_call", "run_training"]
+__all__ = ["ChunkedSolver", "StepGraph", "chunk_sizes", "metric_layout",
+           "metric_row", "resolve_steps_per_call", "run_training",
+           "unpack_row"]

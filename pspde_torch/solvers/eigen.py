@@ -22,8 +22,8 @@ family with a ``DenseNetTanh`` value net; lambda a leaf of
 ``fused_stopped_train_rollout`` whose gradient the backward kernel
 returns).  On a CUDA problem a failed gate raises a ValueError naming it;
 on the CPU 'fused_train' resolves to 'scan' with a warning.  ``mesh``,
-``rng_impl``, ``layout='dk'`` and save/load raise NotImplementedError
-naming their ROADMAP.md item; ``eval/eigen_power.py`` waits in Queue 1
+``rng_impl`` and ``layout='dk'`` raise NotImplementedError naming their
+ROADMAP.md item; save/load and resume are ``utils/checkpoint.py``'s; ``eval/eigen_power.py`` waits in Queue 1
 item 9.  ``train()`` runs ``steps_per_call`` steps per call as JAX resolves
 it ('auto': min(50, print_every); ``solvers/_chunk.py``): on CUDA each
 chunk is one captured CUDA graph, replayed, with its metrics read once.
@@ -192,21 +192,6 @@ class EigenSolver(ChunkedSolver):
             device=self.device, cls=cls)
         self._make_optimizer()
         self.resolved_rollout_mode = self._resolve_engine()
-
-    def _no_checkpoint(self, what):
-        return _not_ported(type(self).__name__, what, "Queue 1 item 10")
-
-    def save_networks(self, out_dir="output"):
-        raise self._no_checkpoint("save_networks")
-
-    def load_networks(self, path):
-        raise self._no_checkpoint("load_networks")
-
-    def save_training_state(self, out_dir="output"):
-        raise self._no_checkpoint("save_training_state")
-
-    def load_training_state(self, path):
-        raise self._no_checkpoint("load_training_state")
 
     # -- the domain leg ------------------------------------------------------
     def _grad_x(self, X):

@@ -22,8 +22,9 @@ Deviation from the JAX package, as in ``HJBSolver``: on a CUDA problem a
 failed 'fused_train' gate raises a ValueError naming the gate (PINN
 with 'fused_train' among them); on the CPU the kernels do not exist and
 'fused_train' resolves to 'scan' with a warning, as JAX does off the TPU.
-``layout='dk'``, ``rng_impl``, ``mesh`` and save/load raise
-NotImplementedError naming their ROADMAP.md item.  ``lr`` is a number or a
+``layout='dk'``, ``rng_impl`` and ``mesh`` raise NotImplementedError
+naming their ROADMAP.md item; save/load and resume are
+``utils/checkpoint.py``'s.  ``lr`` is a number or a
 callable step -> lr (``utils/schedule.py``).  ``train()`` runs
 ``steps_per_call`` steps per call as JAX resolves it ('auto': min(50,
 print_every); ``solvers/_chunk.py``), PINN too: on CUDA each chunk is one
@@ -85,6 +86,10 @@ class EllipticSolver(ChunkedSolver):
     (``utils/schedule.py:adam``).  ``fused_unroll`` is a TPU lever,
     accepted and ignored.
     """
+
+    _LOG_ATTRS = ("loss_log", "loss_log_domain", "loss_log_boundary",
+                  "V_L2_log", "V_test_L2", "V_test_abs", "V_test_rel_abs",
+                  "K_log", "times", "not_all_stopped_count")
 
     # GeneralSolver: the value net reads [x, t], every path carries a clock
     # and stops at the horizon
@@ -209,21 +214,6 @@ class EllipticSolver(ChunkedSolver):
                                          device=self.device)
         self._make_optimizer()
         self.resolved_rollout_mode = self._resolve_engine()
-
-    def _no_checkpoint(self, what):
-        return _not_ported(type(self).__name__, what, "Queue 1 item 10")
-
-    def save_networks(self, out_dir="output"):
-        raise self._no_checkpoint("save_networks")
-
-    def load_networks(self, path):
-        raise self._no_checkpoint("load_networks")
-
-    def save_training_state(self, out_dir="output"):
-        raise self._no_checkpoint("save_training_state")
-
-    def load_training_state(self, path):
-        raise self._no_checkpoint("load_training_state")
 
     # -- engine --------------------------------------------------------------
     def _fused_train_gates(self):

@@ -10,10 +10,18 @@ the value) or the 'outer' one (one parameter set per step, stacked:
 ``StackedNet``; DenseNet on X by default: N copies of the control, N + 1
 of the value); the learnable Y_0, ``random_X_0`` (X_0 ~ N(0, I)),
 ``metastability_logs`` (the fraction of X_T within eps of a target),
-training with the whole loss zoo that the ported rollout supports, Adam
-with a separate ``lr_y0`` group (``lr`` and ``lr_y0`` numbers or callables
-step -> lr, ``utils/schedule.py``), the u_L2 diagnostic, early stopping,
-and two engines:
+training with the whole loss zoo (the repa phases, the reparametrization
+sum and ``burgers_drift`` included), Adam with a separate ``lr_y0`` group
+(``lr`` and ``lr_y0`` numbers or callables step -> lr,
+``utils/schedule.py``), the u_L2 diagnostic, early stopping, pspde's
+per-iteration diagnostics (``compute_gradient_variance``: the relative
+gradient errors of ``eval/gradient_variance.py``; ``IS_variance_K`` /
+``IS_variance_iter``: IS through ``eval/importance_sampling.py:
+make_is_runner``; each from a generator of its own, and either makes
+``train()`` run one step a call, as pspde's gate), ``log_gradient`` (the
+net's flat gradient a step, also from captured chunks),
+``train_LSE_with_reference``, ``save_results`` / ``save_logs`` and the
+checkpoints of ``utils/checkpoint.py``, and two engines:
 
   * 'scan': the plain autograd rollout (``rollout/sde.py:hjb_rollout``);
   * 'fused_train': the training kernels (``rollout/kernels.py:
@@ -27,13 +35,18 @@ instead of warning and falling back to the scan.  On a CPU problem the
 kernels do not exist and 'fused_train' resolves to 'scan' with a warning,
 as JAX does off the TPU.  ``train()`` runs ``steps_per_call`` steps per
 call as JAX resolves it (``solvers/_chunk.py``: 'auto' is min(50,
-print_every) unless the loss has phases; an integer forces): on CUDA each
-chunk is one captured CUDA graph, replayed, with its metrics read once.
+print_every) unless the loss has phases or a diagnostic is on; an integer
+forces): on CUDA each chunk is one captured CUDA graph, replayed, with its
+metrics read once, the sqrt-schedule remat's chunks too
+(``rollout/sde.py:_remat_scan``).
 """
 
 from __future__ import annotations
 
 import copy
+import json
+import os
+import time
 import warnings
 from typing import Sequence
 
@@ -45,19 +58,19 @@ from ..ansatz import DenseNet, ScalarParam, TanhMLP
 from ..losses.pathspace import hjb_loss, log_variance_y0_losses
 from ..rollout.kernels import (FusedTrainOut, RNG_MAPS, _check_train_family,
                                fused_train_rollout)
-from ..rollout.sde import HJBRolloutConfig, HJBRolloutOut, hjb_rollout
+from ..rollout.sde import (HJBRolloutConfig, HJBRolloutOut, hjb_rollout,
+                           step_time)
 from ..utils.convert import (flax_state_dict, load_control_npz,
                              scalar_param_from_flax, tanh_mlp_from_flax)
 from ..utils.device import solver_device
-from ..utils.schedule import adam, lr_text
+from ..utils.schedule import adam, apply_lr, lr_text
 from ._chunk import ChunkedSolver, resolve_steps_per_call, run_training
 
 # options of the JAX solver that the port does not have yet: a value other
-# than the default raises (ROADMAP.md, Queue 1 items 6, 9, 10 and 11)
-_NOT_PORTED = ("compute_gradient_variance", "IS_variance_K", "save_results",
-               "log_gradient", "plot_trajectories", "mesh")
+# than the default raises (ROADMAP.md, Queue 1 items 5 and 9)
+_NOT_PORTED = ("plot_trajectories", "mesh")
 # TPU-only levers of the JAX solver, accepted and ignored
-_TPU_ONLY = ("rng_impl", "layout", "fused_unroll", "IS_variance_iter")
+_TPU_ONLY = ("rng_impl", "layout", "fused_unroll")
 
 
 class StackedNet(nn.Module):
@@ -130,7 +143,9 @@ class HJBSolver(ChunkedSolver):
     parameters).  The scan
     engine's noise (and ``random_X_0``'s X_0) comes from a generator on the
     problem's device seeded with seed + 1; the kernels' per-step seeds
-    from a CPU generator seeded with seed + 2.  On CUDA the Adam is
+    from a CPU generator seeded with seed + 2; the gradient-variance and
+    IS diagnostics from device generators seeded with seed + 3 and + 4.
+    On CUDA the Adam is
     ``capturable`` with its lrs on the device (``utils/schedule.py:adam``).
     """
 
@@ -141,8 +156,11 @@ class HJBSolver(ChunkedSolver):
                  time_approx="outer", learn_Y_0=False,
                  adaptive_forward_process=True, detach_forward=False,
                  early_stopping_time=10000, random_X_0=False,
-                 metastability_logs=None, print_every=100, seed=42,
-                 u_l2_error_flag=True, burgers_drift=False, verbose=True,
+                 compute_gradient_variance=0, IS_variance_K=0,
+                 IS_variance_iter=1, metastability_logs=None,
+                 print_every=100, seed=42, save_results=False,
+                 u_l2_error_flag=True, log_gradient=False,
+                 burgers_drift=False, verbose=True,
                  control_net=None, value_net=None, lr_y0=None, remat=None,
                  dtype=torch.float32, rollout_mode="scan",
                  steps_per_call="auto", antithetic=False, fused_tile=None,
@@ -195,6 +213,11 @@ class HJBSolver(ChunkedSolver):
         self.burgers_drift = burgers_drift
         self.print_every = print_every
         self.verbose = verbose
+        self.save_results = save_results
+        self.compute_gradient_variance = compute_gradient_variance
+        self.IS_variance_K = IS_variance_K
+        self.IS_variance_iter = IS_variance_iter
+        self.log_gradient = log_gradient
         self.remat = (self.N > 512) if remat is None else remat
         self.rollout_mode = rollout_mode
         self.steps_per_call = steps_per_call
@@ -261,14 +284,24 @@ class HJBSolver(ChunkedSolver):
         self._noise_gen = torch.Generator(device=self.device).manual_seed(
             int(seed) + 1)
         self._seed_gen = torch.Generator().manual_seed(int(seed) + 2)
+        # the diagnostics' own streams (JAX folds 3 and 1 into its keys):
+        # neither takes noise from training's
+        self._gv_gen = torch.Generator(device=self.device).manual_seed(
+            int(seed) + 3)
+        self._is_gen = torch.Generator(device=self.device).manual_seed(
+            int(seed) + 4)
+        self._is_runner = None
         self._make_optimizer()
 
         # logs (the reference's names)
         self.Y_0_log = []
         self.loss_log = []
         self.u_L2_loss = []
+        self.IS_rel_log = []
         self.times = []
         self.particles_close_to_target = []
+        self.grads_rel_error_log = []
+        self.gradient_log = []
         self.iteration = 0
         self.resolved_rollout_mode = self._resolve_engine()
         self.resolved_steps_per_call = 1
@@ -551,9 +584,21 @@ class HJBSolver(ChunkedSolver):
                             adaptive=self.adaptive_forward_process,
                             phase=phase)
             loss = loss + torch.mean(out.add_loss)
-            loss.backward()
+            if loss.requires_grad:
+                loss.backward()
+            else:
+                # a loss that reaches no parameter ('reparametrization'
+                # with detach_forward): zero gradients, as JAX's grad
+                for group in self.optimizer.param_groups:
+                    for p in group["params"]:
+                        p.grad = torch.zeros_like(p)
         self.optimizer.step()
         metrics = {"loss": loss.detach(), "u_l2": out.u_l2.detach().mean()}
+        if self.log_gradient and self.loss_method != "log-variance-y_0":
+            # the net's gradient, flat in the order of its parameters
+            metrics["grad_flat"] = torch.cat([
+                (p.grad if p.grad is not None else torch.zeros_like(p))
+                .reshape(-1) for p in self._net.parameters()])
         if self._y0_learned:
             metrics["Y_0"] = self.y0_net.Y_0.detach()[0].clone()
         if self._meta is not None:
@@ -571,6 +616,32 @@ class HJBSolver(ChunkedSolver):
             self.Y_0_log.append(m["Y_0"])
         if "meta_frac" in m:
             self.particles_close_to_target.append(m["meta_frac"])
+        if "grad_flat" in m:
+            self.gradient_log.append(np.asarray(m["grad_flat"]))
+        self._diagnose(self.iteration)
+
+    def _diagnose(self, l: int):
+        """The per-iteration diagnostics of pspde's loop after step l: the
+        relative gradient errors every ``compute_gradient_variance`` steps
+        (their mean absolute value into ``grads_rel_error_log``) and IS at
+        ``IS_variance_K`` paths every ``IS_variance_iter`` steps (its RE
+        into ``IS_rel_log``), each from its own generator."""
+        cgv = self.compute_gradient_variance
+        if cgv > 0 and l % cgv == 0:
+            from ..eval.gradient_variance import gradient_variances
+            rel = gradient_variances(self, self._gv_gen)
+            self.grads_rel_error_log.append(
+                float(torch.mean(torch.abs(rel))))
+        if self.IS_variance_K > 0 and l % self.IS_variance_iter == 0:
+            if self._is_runner is None:
+                from ..eval.importance_sampling import make_is_runner
+                self._is_runner = make_is_runner(self.problem, self,
+                                                 self.IS_variance_K)
+            _, _, rel = self._is_runner(self._is_gen)
+            self.IS_rel_log.append(float(rel))
+
+    def _diagnostic_generators(self) -> dict:
+        return {"_gv_gen": self._gv_gen, "_is_gen": self._is_gen}
 
     def _maybe_print(self, done: int, n: int):
         first = done - n
@@ -588,6 +659,8 @@ class HJBSolver(ChunkedSolver):
                 np.mean(self.times[-self.print_every:])))
         if self.Y_0_log:
             s += " - Y_0: %.4e" % self.Y_0_log[-1]
+        if self.IS_rel_log:
+            s += " - rel IS: %.3e" % self.IS_rel_log[-1]
         print(s)
 
     def _early_stop(self, done: int) -> bool:
@@ -600,11 +673,12 @@ class HJBSolver(ChunkedSolver):
 
     @property
     def _chunkable(self) -> bool:
-        """pspde's gate of chunked training: a loss without phases (the
-        per-iteration diagnostics of its gate, compute_gradient_variance
-        and IS_variance_K, raise in the port's constructor)."""
-        return self.loss_method not in ("log-variance-repa",
-                                        "relative_entropy_log-variance")
+        """pspde's gate of chunked training: a loss without phases and no
+        per-iteration diagnostic."""
+        return (self.loss_method not in ("log-variance-repa",
+                                         "relative_entropy_log-variance")
+                and self.compute_gradient_variance == 0
+                and self.IS_variance_K == 0)
 
     def train(self):
         if self.verbose:
@@ -621,3 +695,64 @@ class HJBSolver(ChunkedSolver):
                               resolve_steps_per_call(self, chunkable) > 1)
         run_training(self, stop_check=lambda done: self._early_stop(
             done - 1 if self._stepwise else done), chunkable=chunkable)
+        if self.save_results:
+            self.save_logs()
+
+    def train_LSE_with_reference(self, xb=2.0, n_grid=200):
+        """Supervised least-squares fit of the control against the
+        reference control on a 1-d grid (pspde's, solver.py:384-418): L
+        Adam steps on sum_n sum_x |-Z(x, t_n) - u_ref(x, t_n)|^2 dt, the
+        losses into ``loss_log``."""
+        assert self.approx_method == "control" and self.u_l2_error_flag
+        X = torch.linspace(-xb, xb, n_grid, dtype=torch.float32,
+                           device=self.device)[:, None]
+        control_fn, u_ref = self._control_fn(), self._u_ref
+        dt = float(np.float32(self.delta_t))
+        for l in range(self.L):
+            t0 = time.time()
+            apply_lr(self.optimizer, self._lrs, l)
+            loss = torch.zeros((), device=self.device)
+            for n in range(self.N):
+                Z, _ = control_fn(X, n, step_time(n, dt))
+                loss = loss + torch.sum((-Z - u_ref(X, n)) ** 2) * dt
+            self.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            self.optimizer.step()
+            self.loss_log.append(float(loss.detach()))
+            self.times.append(time.time() - t0)
+            if self.verbose and l % self.print_every == 0:
+                print("%d - loss: %.3e - time/iter: %.2fs"
+                      % (l, self.loss_log[-1],
+                         np.mean(self.times[-self.print_every:])))
+
+    _LOG_ATTRS = ("loss_log", "u_L2_loss", "Y_0_log", "IS_rel_log",
+                  "times", "particles_close_to_target",
+                  "grads_rel_error_log")
+
+    def save_logs(self, model_name="model", log_dir="logs") -> str:
+        """pspde's JSON log (solver.py:283-311), its keys; ``params`` holds
+        each trained module's state dict as nested lists."""
+        os.makedirs(log_dir, exist_ok=True)
+        logs = {
+            "name": self.name, "date": self.date, "d": self.d, "T": self.T,
+            "seed": self.seed, "delta_t": self.delta_t, "N": self.N,
+            "lr": self.lr if not callable(self.lr) else lr_text(self.lr),
+            "K": self.K, "loss_method": self.loss_method,
+            "learn_Y_0": self.learn_Y_0,
+            "adaptive_forward_process": self.adaptive_forward_process,
+            "Y_0_log": self.Y_0_log, "loss_log": self.loss_log,
+            "u_L2_loss": self.u_L2_loss,
+            "params": {name: {k: v.detach().cpu().tolist()
+                              for k, v in mod.state_dict().items()}
+                       for name, mod in self._chunk_modules().items()},
+        }
+        path = os.path.join(log_dir, "%s_%s_%s.json"
+                            % (model_name, self.name, self.date))
+        i = 1
+        while os.path.isfile(path):
+            i += 1
+            path = os.path.join(log_dir, "%s_%s_%s_%d.json"
+                                % (model_name, self.name, self.date, i))
+        with open(path, "w") as f:
+            json.dump(logs, f, indent=2)
+        return path

@@ -17,6 +17,7 @@ parameters after 20 steps atol 2e-5 (Adam moves each by up to 20 lr_lambda
 Sizes: d=5, K=64, K_boundary=16, N=16, dt=0.01, DenseNet (8, 8).
 """
 
+import tempfile
 import warnings
 
 import jax
@@ -190,7 +191,11 @@ def test_gates_and_not_ported_options():
     assert t_resolve(chunked) == j_resolve(chunked) == 50
     with pytest.raises(ValueError, match="normalization"):
         TSolver(fp, "t", normalization="l1", **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        s.save_networks()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    # save/load are ported (utils/checkpoint.py): the saved state loads
+    # back into the solver, and a missing file raises
+    with tempfile.TemporaryDirectory() as tmp:
+        s.load_networks(s.save_networks(out_dir=tmp))
+        s.load_training_state(s.save_training_state(out_dir=tmp))
+    assert s.iteration == 0 and s.loss_log == []
+    with pytest.raises(FileNotFoundError):
         s.load_training_state("x")

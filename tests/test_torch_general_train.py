@@ -22,6 +22,7 @@ import of jax or of the JAX package.
 
 import ast
 import pathlib
+import tempfile
 import warnings
 
 import jax
@@ -184,8 +185,10 @@ def test_fused_train_gates_and_not_ported_options():
     # steps_per_call is ported: accepted, and resolved as pspde resolves it
     chunked = TSolver(pt, "t", steps_per_call=50, **kw)
     assert t_resolve(chunked) == j_resolve(chunked) == 50
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        s.save_training_state()
+    # save/load are ported (utils/checkpoint.py): a round trip
+    with tempfile.TemporaryDirectory() as tmp:
+        s.load_training_state(s.save_training_state(out_dir=tmp))
+    assert s.iteration == 0
     with pytest.raises(ValueError, match="horizon"):
         TSolver(tp.ExponentialOnSphere(d=D, device="cpu"), "t", **kw)
     with pytest.raises(ValueError, match="K_boundary"):

@@ -303,8 +303,11 @@ def test_outer_and_value_model_structure():
         assert gate in gates
     with pytest.raises(ValueError, match="time_approx"):
         TSolver("x", pt, time_approx="middle", device="cpu")
-    with pytest.raises(NotImplementedError, match="IS_variance_K"):
-        TSolver("x", pt, IS_variance_K=10, device="cpu")
+    # IS_variance_K is ported; plot_trajectories is not and raises
+    assert TSolver("x", pt, IS_variance_K=10, device="cpu").IS_variance_K \
+        == 10
+    with pytest.raises(NotImplementedError, match="plot_trajectories"):
+        TSolver("x", pt, plot_trajectories=10, device="cpu")
 
 
 @pytest.mark.parametrize("kind", ["dense", "linear_lq", "tanh_mlp",

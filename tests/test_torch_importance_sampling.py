@@ -93,12 +93,18 @@ def test_importance_sampling_generator_and_guards():
     np.testing.assert_allclose(m, a[0], rtol=0.1)
     with pytest.raises(ValueError, match="even K"):
         importance_sampling(pt, ts, 511, antithetic=True)
-    with pytest.raises(NotImplementedError, match="qmc"):
-        importance_sampling(pt, ts, 512, qmc=True)
+    # QMC is ported: one scramble seed a generator state, finite
+    q = importance_sampling(pt, ts, 512, delta_t=0.05, qmc=True,
+                            generator=torch.Generator().manual_seed(1))
+    assert q == importance_sampling(
+        pt, ts, 512, delta_t=0.05, qmc=True,
+        generator=torch.Generator().manual_seed(1)) and all(np.isfinite(q))
     with pytest.raises(NotImplementedError, match="mesh"):
         importance_sampling_fused(pt, ts, 512, mesh=object())
-    with pytest.raises(NotImplementedError, match="make_is_runner"):
-        make_is_runner(pt, ts, 512)
+    # make_is_runner is ported: the generator's run of importance_sampling
+    run = make_is_runner(pt, ts, 512, delta_t=0.05)
+    assert tuple(float(v) for v in run(
+        torch.Generator().manual_seed(1))) == a
     with pytest.raises(ValueError, match="approx_method"):
         HJBSolver("v", pt, approx_method="value", device="cpu")
     # 'outer' (the constructor's default) is ported; fused IS needs 'inner'

@@ -283,10 +283,22 @@ def test_outside_train_kernel_family_raises():
         tk.fused_train_rollout(llgc, net, K, N, DT, rng="boxmuller")
     with pytest.raises(ValueError, match="u_tab has shape"):
         tk.fused_train_rollout(llgc, net, K, N, DT, u_tab=u_tab[:3])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        tsde.hjb_rollout(tsde.HJBRolloutConfig(N=2, delta_t=0.1,
-                                               repa_phase=0),
-                         llgc, None, llgc.X_0.expand(4, D), torch.zeros(4))
+    # the repa phases run on the plain rollout (the port has them), and
+    # the solver's 'fused_train' gate refuses them, as JAX's does
+    for phase in (0, 1):
+        out = tsde.hjb_rollout(
+            tsde.HJBRolloutConfig(N=2, delta_t=0.1, repa_phase=phase),
+            llgc, lambda X, n, t: (net(torch.cat(
+                [torch.full((X.shape[0], 1), t), X], dim=1)), None),
+            llgc.X_0.expand(4, D), torch.zeros(4),
+            generator=torch.Generator().manual_seed(phase))
+        assert torch.isfinite(out.Y).all()
+    from pspde_torch.solvers import HJBSolver
+    with pytest.warns(UserWarning, match="fell back"):
+        repa = HJBSolver("r", llgc, K=8, delta_t=0.25, time_approx="inner",
+                         loss_method="log-variance-repa", detach_forward=True,
+                         rollout_mode="fused_train", device="cpu")
+    assert any("repa phases" in g for g in repa._fused_train_gates())
     # the plain version takes any control
     tk.reference_train_rollout(llgc, relu, 8, 2, 0.1)
     assert (llgc.h_family(), lqgc.h_family()) == (
