@@ -1,6 +1,6 @@
-"""Host-side finite-difference reference of the double-well problems (the
-port's own copy of ``pspde/problems/fd_oracles.py:
-parabolic_log_transform_reference``).
+"""Host-side finite-difference references (the port's own copies of
+``pspde/problems/fd_oracles.py:parabolic_log_transform_reference`` and
+``generator_spectrum_periodic_1d``).
 
 The 1-d backward PDE for psi = e^{-v} is solved once per problem on the
 host in float64 with NumPy and SciPy (implicit Euler on a symmetrised
@@ -8,6 +8,10 @@ banded generator, ``scipy.linalg.solve_banded`` each step); the problems
 move the resulting tables to their device, so that the training loop's
 reference lookups are gathers.  The JAX package can also run the sweep in
 its native C++ library; the port keeps the SciPy sweep only.
+
+``generator_spectrum_periodic_1d`` is the dense float64 spectrum of the
+periodic 1-d Feynman-Kac generator, the oracle of ``eval/eigen_power.py:
+eigen_subspace_refine``.
 """
 
 from __future__ import annotations
@@ -73,3 +77,41 @@ def parabolic_log_transform_reference(
     logpsi = np.log(np.maximum(psi, 1e-300))
     u = -(2.0 / beta) * B00 * (logpsi[:, :-1] - logpsi[:, 1:]) / dx
     return xvec, psi, u, dx
+
+
+def generator_spectrum_periodic_1d(
+    b: Callable[[np.ndarray], np.ndarray],
+    W: Callable[[np.ndarray], np.ndarray],
+    n: int = 512,
+    X_l: float = 0.0,
+    X_r: float = 2.0 * np.pi,
+    half_sigma2: float = 1.0,
+    k: int = 4,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Top-``k`` spectrum of A f = half_sigma2 f'' + b f' + W f, periodic.
+
+    Dense central-difference discretization on a periodic 1-d grid of n
+    points, eigendecomposed with numpy.  Returns ``(x, lam, vecs)`` where
+    ``A vecs[:, j] = -lam[j] vecs[:, j]`` and ``lam`` is sorted ascending
+    (``lam[0]`` the Perron-Frobenius eigenvalue of the semigroup,
+    ``lam[1] - lam[0]`` the spectral gap); the eigenvectors have unit
+    grid-RMS, the dominant one positive.
+    """
+    x = np.linspace(X_l, X_r, n, endpoint=False)
+    dx = (X_r - X_l) / n
+    bv = np.asarray(b(x), dtype=np.float64)
+    Wv = np.asarray(W(x), dtype=np.float64)
+    A = np.zeros((n, n))
+    i = np.arange(n)
+    up, dn = (i + 1) % n, (i - 1) % n
+    A[i, i] = -2.0 * half_sigma2 / dx ** 2 + Wv
+    A[i, up] += half_sigma2 / dx ** 2 + bv / (2.0 * dx)
+    A[i, dn] += half_sigma2 / dx ** 2 - bv / (2.0 * dx)
+    w, V = np.linalg.eig(A)
+    order = np.argsort(-w.real)[:k]
+    lam = -w.real[order]
+    vecs = V[:, order].real
+    vecs /= np.sqrt(np.mean(vecs ** 2, axis=0, keepdims=True))
+    if vecs[np.argmax(np.abs(vecs[:, 0])), 0] < 0:
+        vecs[:, 0] *= -1.0
+    return x, lam, vecs

@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from ..rollout.sde import chunk_forks, replicas
+from ..utils.capture import gc_held
 from ..utils.schedule import apply_lr, lr_at
 
 Draws = Optional[Callable[[int], dict]]
@@ -470,7 +471,7 @@ class StepGraph:
         sync_mode = torch.cuda.get_sync_debug_mode()
         i = 0
         try:
-            with torch.cuda.graph(graph, stream=stream), \
+            with gc_held(), torch.cuda.graph(graph, stream=stream), \
                     chunk_forks(shadow_of):
                 torch.cuda.set_sync_debug_mode("error")
                 try:

@@ -23,10 +23,12 @@ family with a ``DenseNetTanh`` value net; lambda a leaf of
 returns).  On a CUDA problem a failed gate raises a ValueError naming it;
 on the CPU 'fused_train' resolves to 'scan' with a warning.  ``mesh``,
 ``rng_impl`` and ``layout='dk'`` raise NotImplementedError naming their
-ROADMAP.md item; save/load and resume are ``utils/checkpoint.py``'s; ``eval/eigen_power.py`` waits in Queue 1
-item 9.  ``train()`` runs ``steps_per_call`` steps per call as JAX resolves
-it ('auto': min(50, print_every); ``solvers/_chunk.py``): on CUDA each
-chunk is one captured CUDA graph, replayed, with its metrics read once.
+ROADMAP.md item; save/load and resume are ``utils/checkpoint.py``'s; the
+semigroup power iteration that refines a trained V is
+``eval/eigen_power.py``.  ``train()`` runs ``steps_per_call`` steps per
+call as JAX resolves it ('auto': min(50, print_every);
+``solvers/_chunk.py``): on CUDA each chunk is one captured CUDA graph,
+replayed, with its metrics read once.
 """
 
 from __future__ import annotations

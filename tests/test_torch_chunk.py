@@ -598,3 +598,41 @@ def test_launches_in_a_capture(fake_lib, monkeypatch):
     assert not any(tk.launch_counts().values())
     assert tk.kernel_launch_counts()[("fused_train_rollout", "launches")] == 1
     assert sum(tk._COUNT_WORDS[torch.device("cpu")].tolist()) == 4
+
+
+@pytest.mark.parametrize("enabled", [True, False])
+def test_gc_held_around_a_capture(enabled):
+    """``gc_held`` (which wraps every capture in the port) collects the
+    dead cycles made before it, collects none inside it however many
+    objects the block makes, and gives back the collector's earlier state,
+    also when the block raises."""
+    import gc
+    import weakref
+
+    from pspde_torch.utils.capture import gc_held
+
+    class Node:
+        pass
+
+    def dead_cycle():
+        a, b = Node(), Node()
+        a.other, b.other = b, a
+        return weakref.ref(a)
+
+    was = gc.isenabled()
+    try:
+        (gc.enable if enabled else gc.disable)()
+        before = dead_cycle()
+        with pytest.raises(KeyError):
+            with gc_held():
+                assert before() is None and not gc.isenabled()
+                inside = dead_cycle()
+                junk = [[Node()] for _ in range(50_000)]
+                assert inside() is not None
+                del junk
+                raise KeyError("the block raises")
+        assert gc.isenabled() == enabled
+        gc.collect()
+        assert inside() is None
+    finally:
+        (gc.enable if was else gc.disable)()
