@@ -233,9 +233,10 @@ control is learned.  This script
      under steps_per_call=4 raises at its capture, naming the op.
  37. runs the HJB loss-study notebooks: (a) experiments/ou_linear_costs.py
      at d=40 (LLGC off_diag 0.1, K=500, N=100, lr 1e-3, JAX's initial net)
-     for 100 steps with IS at K=20000 every 10 steps, the five losses on
-     the scan and the four detached ones on fused_train (launched once a
-     step, per step): 10 finite IS records a leg, u_L2 falling, the fused
+     with IS at K=20000 every 10 steps, the five losses on the scan (40
+     steps) and the four detached ones on fused_train (80 steps, launched
+     once a step, per step): a finite IS record every 10 steps, u_L2
+     falling, the fused
      log-variance leg's IS runner within 5 SE of the Euler chain's exact
      log E, and that leg without the diagnostics (chunked, captured)
      bitwise the same; (b) experiments/gradient_relative_errors.py in full
@@ -249,11 +250,41 @@ control is learned.  This script
      (e) resume: the HJB export recipe and the committor's diffusion leg
      saved at step 100 of 200 and loaded into a fresh solver train on
      bitwise as the uninterrupted run.
+ 38. (run right after 35) refines the nets of phases 19, 21, 29, 32 and
+     35 with the a-posteriori correctors (pspde_torch/eval/refine.py,
+     picard.py, eigen_power.py), each held to its oracle or to JAX's
+     band; (e), the Fokker-Planck power iteration, also reads
+     estimate_lambda on the scan under the same seed (within 3 SE of the
+     kernel's), both engines on one set of host-noise batches (within 0.1
+     SE), the committed refined net against JAX's readout on it, and
+     kernels 4 and 5 against their plain version on the refined net.
+ 39. runs the three notebook recipes no earlier phase ran, at their
+     scripts' widths from JAX's seed-42 initial nets on the scan: (a)
+     experiments/parabolic_neumann.py (GeneralSolver, Neumann data, d=20,
+     four alpha2), (b) experiments/ou_moment_initializations.py (the
+     moment loss on LLGC d=20 from Y_0 = 0, 10 and the exact v(x_0, 0)),
+     (c) experiments/trajectory_length_study.py (EllipticSolver, d=10, N
+     from 1 to 100 at two dt), each reading within the band of JAX's
+     three seeds at the same step counts, (a) and (c) also falling from
+     their first test L2 and (b)'s Y_0 moving from where it was set, each
+     at least half as far as JAX's; (c) at N = 1, 20, 100 also on
+     fused_train, kernels 4 and 5 held to their plain version at the
+     first step and launched once a step; then (d) one scan leg of each
+     solver on the rest of problems/ (the first-exit double well, the
+     parabolic double-well committor, the linear double well of the
+     general solver, the double well beside an OU block): the FD tables
+     the host builds equal to the CPU's, finite losses, a falling
+     reference error (the loss where no reference exists); the linear
+     double well from JAX's initial net, its RMS error against the
+     product of the 1-d psi held to JAX's same leg read on the CPU
+     (experiments/notebooks_11a_reference.py --part d): equal before
+     training, in JAX's band after it, at least half JAX's fall.
 
-Every train() above runs the solvers' default steps_per_call='auto', as
-pspde resolves it (min(50, print_every) steps per call): on the card each
-chunk is one captured CUDA graph, replayed (pspde_torch/solvers/_chunk.py),
-and each leg's launch counts include the graph's one eager warm-up step.
+Every train() above but phase 39's runs the solvers' default
+steps_per_call='auto', as pspde resolves it (min(50, print_every) steps
+per call): on the card each chunk is one captured CUDA graph, replayed
+(pspde_torch/solvers/_chunk.py), and each leg's launch counts include the
+graph's one eager warm-up step.  Phase 39 runs 5 steps a call.
 
 Any failure exits nonzero.  The last line is one JSON object naming the
 device.  Run from the repository root:
@@ -1157,6 +1188,7 @@ def main():
     torch.cuda.empty_cache()
     chunk_phase(dev, smi, llgc)
     loss_study_phase(dev, smi, llgc)
+    notebook_phase(dev, smi)
 
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")
@@ -4675,9 +4707,12 @@ def chunk_phase(dev, smi, llgc):
 
 # phase 37: the HJB loss-study notebooks.  (a) experiments/ou_linear_costs.py's
 # d=40 cell (LLGC off_diag 0.1, seed 42; K=500, dt 0.01, lr 1e-3, 'inner',
-# adaptive, IS with K=20000 every 10 steps) cut to OU_L of its 2000 steps,
-# from JAX's initial net (experiments/hjb_notebooks_reference.py)
-OU_D, OU_K, OU_L, OU_IS_K, OU_IS_ITER = 40, 500, 100, 20000, 10
+# adaptive, IS with K=20000 every 10 steps) cut to OU_L of its 2000 steps
+# on fused_train and OU_L_SCAN on the scan (100 both until phase 39 came;
+# a scan step is ~0.2 s of host time), from JAX's initial net
+# (experiments/hjb_notebooks_reference.py)
+OU_D, OU_K, OU_L, OU_IS_K, OU_IS_ITER = 40, 500, 80, 20000, 10
+OU_L_SCAN = 40
 OU_LOSSES = (
     ("moment", dict(loss_method="moment", detach_forward=True,
                     learn_Y_0=True)),
@@ -4705,7 +4740,7 @@ OU_LOSSES = (
 # option runs per step to DW_STEP_L, against the seed-42 run bitwise; the
 # seeds' steps run in captured chunks of DW_SPC
 DW_L, DW_K, DW_CGV, DW_FIXED_RTOL = 200, 500, 20, 1e-3
-DW_SEEDS, DW_STEP_L, DW_SPC = tuple(range(42, 48)), 21, 5
+DW_SEEDS, DW_STEP_L, DW_SPC = (42, 43), 21, 5   # 42-47 until phase 39
 DW_REL_FIXED_JAX = {"moment": 54.351966857910156,
                     "log-variance": 87.88111877441406}
 DW_POOLED_JAX = {"moment": (46.75161361694336, 35.23500728607178, 100),
@@ -4791,15 +4826,17 @@ def loss_study_phase(dev, smi, llgc):
     print(f"phase 37 (a): experiments/ou_linear_costs.py at d={OU_D} "
           f"(LLGC off_diag 0.1, seed 42), K={OU_K}, dt 0.01 (N=100), lr "
           f"1e-3, 'inner', adaptive, IS at K={OU_IS_K} every {OU_IS_ITER} "
-          f"steps, {OU_L} steps from JAX's initial net; the five losses on "
-          f"the scan, the four detached ones on fused_train; log E of the "
+          f"steps from JAX's initial net; the five losses on the scan "
+          f"({OU_L_SCAN} steps), the four detached ones on fused_train "
+          f"({OU_L} steps); log E of the "
           f"Euler chain {log_e:.6f} (-v_ref(X_0, 0) = {-v0:.6f}, continuous "
           f"time); card: {smi}")
 
     def ou_solver(name, kw, engine, diagnostics=True):
         extra = (dict(IS_variance_K=OU_IS_K, IS_variance_iter=OU_IS_ITER)
                  if diagnostics else {})
-        s = HJBSolver(name, ou, L=OU_L, lr=1e-3, seed=42, delta_t=0.01,
+        L = OU_L_SCAN if engine == "scan" else OU_L
+        s = HJBSolver(name, ou, L=L, lr=1e-3, seed=42, delta_t=0.01,
                       K=OU_K, time_approx="inner",
                       adaptive_forward_process=True, print_every=10,
                       early_stopping_time=None, verbose=False,
@@ -4849,9 +4886,9 @@ def loss_study_phase(dev, smi, llgc):
                   f"{s.loss_log[-1]:.4e}; IS RE every {OU_IS_ITER} steps "
                   f"{['%.4f' % r for r in s.IS_rel_log]}; kernel launches "
                   f"(forward, backward) {launches}")
-            check(len(s.IS_rel_log) == OU_L // OU_IS_ITER
+            check(len(s.IS_rel_log) == s.L // OU_IS_ITER
                   and all(math.isfinite(r) for r in s.IS_rel_log),
-                  f"{engine}, {name}: {OU_L // OU_IS_ITER} finite IS records")
+                  f"{engine}, {name}: {s.L // OU_IS_ITER} finite IS records")
             check(last < first, f"{engine}, {name}: u_L2 falls ({first:.4f} "
                   f"-> {last:.4f})")
             if engine == "fused_train":
@@ -5238,6 +5275,15 @@ FP_RICHARDSON_JAX = ((0.0036402272667989607, 0.00025101864976544304),
                      (0.001321965990448053, 0.00027778324254795506))
 FP_MSE_JAX = (4.1137722291750833e-05, 3.820291021838784e-05,
               7.155604544095695e-05)
+# experiments/fp_lambda_reference.py (CPU): the JAX package's
+# estimate_lambda (K=8192, 16 batches, three keys) and its standard error
+# on the port's refined net, pspde_torch/assets/fp_d5_refined_densenet.npz
+# (phase 38 (e)'s net on the card, written by experiments/
+# torch_fp_refined_net.py)
+FP_ASSET = "fp_d5_refined_densenet.npz"
+FP_ASSET_LAMBDA_JAX = ((0.008209935754807437, 0.0001542839724426105),
+                       (0.007806520214439155, 0.00022191874772792579),
+                       (0.008055247548222703, 0.00015589910850271385))
 
 
 def corrector_phase(dev, smi, heat_leg, fp_leg, committor_leg, ac_leg,
@@ -5399,41 +5445,7 @@ def corrector_phase(dev, smi, heat_leg, fp_leg, committor_leg, ac_leg,
           f"config 2: {refined:.4%} outside JAX's band")
 
     # -- (e) FP eigen --------------------------------------------------------
-    fp = fp_leg.problem
-    Xu = 2 * math.pi * torch.rand((10 ** 5, fp.d),
-                                  generator=torch.Generator(dev)
-                                  .manual_seed(123), device=dev)
-    mse0 = fresh_mse(fp_leg.V_net, fp, Xu)
-    print(f"phase 38 (e): experiments/eigenvalue_fokker_planck.py "
-          f"--power-stages 3 on phase 21's net ({len(fp_leg.loss_log)} "
-          f"steps): eigen_power_refine {COR_FP}, then estimate_lambda and "
-          "estimate_lambda_richardson (K=8192, 16 batches)")
-    refined, hist = leg_run("e eigen_power_refine", lambda: eigen_power_refine(
-        fp, fp_leg.V_net, n_stages=3, generator=387, verbose=True, **COR_FP))
-    mse1 = fresh_mse(refined, fp, Xu)
-    fp_leg.V_net.load_state_dict(refined.state_dict())
-    reset_counts(km.fused_stopped_train_rollout, "launches")
-    lam, lam_se = leg_run("e estimate_lambda", lambda: fp_leg.estimate_lambda(
-        K=8192, n_batches=16))
-    lam_r, lam_r_se = leg_run("e estimate_lambda_richardson",
-                              lambda: fp_leg.estimate_lambda_richardson(
-                                  K=8192, n_batches=16))
-    launches = km.fused_stopped_train_rollout.launches
-    lams = [v for v, _ in FP_LAMBDA_JAX]
-    lo, hi = min(lams), max(lams)
-    w = max(hi - lo, 3.0 * math.sqrt(max(e for _, e in FP_LAMBDA_JAX) ** 2
-                                     + lam_se ** 2))
-    print(f"  fresh MSE {mse0:.4e} -> {mse1:.4e} (JAX {FP_MSE_JAX}); "
-          f"lambda_growth {[round(h['lambda_growth'], 5) for h in hist]}; "
-          f"estimate_lambda {lam:.5f} +- {lam_se:.1e} (JAX "
-          f"{['%.5f +- %.1e' % v for v in FP_LAMBDA_JAX]}, band "
-          f"[{lo - w:.5f}, {hi + w:.5f}]); Richardson {lam_r:.5f} +- "
-          f"{lam_r_se:.1e} (JAX {['%.5f' % v for v, _ in FP_RICHARDSON_JAX]})"
-          f"; stopped-forward launches {launches}")
-    check(mse1 <= mse0 / 4.0, f"FP: fresh MSE {mse0:.4e} -> {mse1:.4e}, "
-          "less than a 4x fall")
-    check(lo - w <= lam <= hi + w and launches > 0,
-          f"FP: lambda {lam:.5f} outside JAX's band")
+    fp_power_leg(dev, fp_leg, leg_run)
 
     # -- (f) Schroedinger SCF ------------------------------------------------
     sch = sch_leg.problem
@@ -5500,6 +5512,577 @@ def corrector_phase(dev, smi, heat_leg, fp_leg, committor_leg, ac_leg,
                                    for k, (w, m) in walls.items()))
     print(f"  card: {smi}")
     print(f"  phase 38 took {time.perf_counter() - t38:.1f} s")
+
+
+def fp_power_leg(dev, fp_leg, leg_run):
+    """Phase 38 (e): ``eigen_power_refine`` on phase 21's net, then
+    ``estimate_lambda`` (K=8192, 16 batches) and its Richardson readout on
+    the solver's engine ('fused_train': kernel 4) against JAX's band; the
+    same readout on the scan under the same seed, within 3 SE of the
+    kernel's; both engines on one set of host-noise batches, within 0.1 SE
+    of each other; the committed refined net against JAX's readout on it;
+    and the torus family's kernels held to their plain version on the
+    refined net at its lambda (``compare_eigen``).  ``fp_leg.V_net`` holds
+    the refined net after it.  Returns the readings."""
+    import numpy as np
+    from pspde_torch.eval import eigen_power_refine
+    from pspde_torch.rollout import kernels as km
+    from pspde_torch.rollout.sampling import sample_domain
+
+    fp = fp_leg.problem
+
+    def fresh_mse(net):
+        with torch.no_grad():
+            return float(torch.mean((net(Xu)[:, 0] - fp.v_ref(Xu)) ** 2))
+
+    Xu = 2 * math.pi * torch.rand((10 ** 5, fp.d),
+                                  generator=torch.Generator(dev)
+                                  .manual_seed(123), device=dev)
+    mse0 = fresh_mse(fp_leg.V_net)
+    print(f"phase 38 (e): experiments/eigenvalue_fokker_planck.py "
+          f"--power-stages 3 on phase 21's net ({len(fp_leg.loss_log)} "
+          f"steps): eigen_power_refine {COR_FP}, then estimate_lambda and "
+          "estimate_lambda_richardson (K=8192, 16 batches)")
+    refined, hist = leg_run("e eigen_power_refine", lambda: eigen_power_refine(
+        fp, fp_leg.V_net, n_stages=3, generator=387, verbose=True, **COR_FP))
+    mse1 = fresh_mse(refined)
+    fp_leg.V_net.load_state_dict(refined.state_dict())
+    reset_counts(km.fused_stopped_train_rollout, "launches")
+    lam, lam_se = leg_run("e estimate_lambda", lambda: fp_leg.estimate_lambda(
+        K=8192, n_batches=16))
+    lam_r, lam_r_se = leg_run("e estimate_lambda_richardson",
+                              lambda: fp_leg.estimate_lambda_richardson(
+                                  K=8192, n_batches=16))
+    launches = km.fused_stopped_train_rollout.launches
+    lams = [v for v, _ in FP_LAMBDA_JAX]
+    lo, hi = min(lams), max(lams)
+    w = max(hi - lo, 3.0 * math.sqrt(max(e for _, e in FP_LAMBDA_JAX) ** 2
+                                     + lam_se ** 2))
+    print(f"  fresh MSE {mse0:.4e} -> {mse1:.4e} (JAX {FP_MSE_JAX}); "
+          f"lambda_growth {[round(h['lambda_growth'], 5) for h in hist]}; "
+          f"estimate_lambda {lam:.5f} +- {lam_se:.1e} (JAX "
+          f"{['%.5f +- %.1e' % v for v in FP_LAMBDA_JAX]}, band "
+          f"[{lo - w:.5f}, {hi + w:.5f}]); Richardson {lam_r:.5f} +- "
+          f"{lam_r_se:.1e} (JAX {['%.5f' % v for v, _ in FP_RICHARDSON_JAX]})"
+          f"; stopped-forward launches {launches}")
+    check(mse1 <= mse0 / 4.0, f"FP: fresh MSE {mse0:.4e} -> {mse1:.4e}, "
+          "less than a 4x fall")
+    check(lo - w <= lam <= hi + w and launches > 0,
+          f"FP: lambda {lam:.5f} outside JAX's band")
+
+    # the readout on the scan (the plain rollout, its own draws from the
+    # same seed) beside the kernel's, and both engines on one set of
+    # host-noise batches
+    engine = fp_leg.resolved_rollout_mode
+    fp_leg.resolved_rollout_mode = "scan"
+    try:
+        lam_s, lam_s_se = leg_run("e estimate_lambda on the scan",
+                                  lambda: fp_leg.estimate_lambda(
+                                      K=8192, n_batches=16))
+    finally:
+        fp_leg.resolved_rollout_mode = engine
+    # the readout on the committed refined net, which JAX read on the CPU
+    from pspde_torch.utils.convert import (eigen_params_from_flax,
+                                           load_control_npz)
+    root = os.path.dirname(os.path.abspath(__file__))
+    asset_net, _ = eigen_params_from_flax(
+        load_control_npz(os.path.join(root, "pspde_torch", "assets",
+                                      FP_ASSET))[0], device=dev)
+    moved = max(float((a - b).detach().abs().max()) for a, b in
+                zip(asset_net.parameters(), fp_leg.V_net.parameters()))
+    refined_state = {k: v.clone() for k, v in
+                     fp_leg.V_net.state_dict().items()}
+    fp_leg.V_net.load_state_dict(asset_net.state_dict())
+    try:
+        lam_a, lam_a_se = fp_leg.estimate_lambda(K=8192, n_batches=16)
+    finally:
+        fp_leg.V_net.load_state_dict(refined_state)
+    lams_a = [v for v, _ in FP_ASSET_LAMBDA_JAX]
+    lo_a, hi_a = min(lams_a), max(lams_a)
+    w_a = max(hi_a - lo_a, 3.0 * math.sqrt(
+        max(e for _, e in FP_ASSET_LAMBDA_JAX) ** 2 + lam_a_se ** 2))
+    print(f"  the committed refined net ({FP_ASSET}; this run's refined "
+          f"net parts from it by at most {moved:.2e}): estimate_lambda "
+          f"{lam_a:.5f} +- {lam_a_se:.1e} on fused_train against JAX's "
+          f"{['%.5f +- %.1e' % v for v in FP_ASSET_LAMBDA_JAX]} on the "
+          f"same net (band [{lo_a - w_a:.5f}, {hi_a + w_a:.5f}])")
+    check(lo_a - w_a <= lam_a <= hi_a + w_a,
+          f"FP: on the committed net lambda {lam_a:.5f} outside JAX's "
+          "band on that net")
+    gap = abs(lam_s - lam)
+    se = math.hypot(lam_se, lam_s_se)
+    print(f"  estimate_lambda on the scan {lam_s:.5f} +- {lam_s_se:.1e}, "
+          f"on fused_train {lam:.5f} +- {lam_se:.1e}: |difference| "
+          f"{gap:.2e} ({gap / se:.2f} SE)")
+    check(gap <= 3.0 * se, f"FP: estimate_lambda on the scan {lam_s:.5f} "
+          f"and on the kernel {lam:.5f} part by {gap / se:.2f} SE")
+    gen = torch.Generator(dev).manual_seed(388)
+    batches = [(sample_domain(gen, fp.geometry, 8192, fp.d),
+                torch.randn((fp_leg.N, 8192, fp.d), generator=gen,
+                            device=dev)) for _ in range(16)]
+    same = {}
+    for mode in ("scan", "fused_train"):
+        fp_leg.resolved_rollout_mode = mode
+        try:
+            same[mode] = fp_leg.estimate_lambda(batches=batches)
+        finally:
+            fp_leg.resolved_rollout_mode = engine
+    diff = abs(same["scan"][0] - same["fused_train"][0])
+    print(f"  on one set of host-noise batches: scan "
+          f"{same['scan'][0]:.7f} +- {same['scan'][1]:.1e}, fused_train "
+          f"{same['fused_train'][0]:.7f}: |difference| {diff:.2e}")
+    check(diff <= 0.1 * same["scan"][1],
+          f"FP: on the same noise the kernel's readout parts from the "
+          f"scan's by {diff:.2e} > 0.1 SE")
+    worst = {"out": 0.0, "grad": 0.0, "bwd": 0.0}
+    X0 = sample_domain(gen, fp.geometry, 8192, fp.d)
+    lam_value = float(fp_leg.lam_net.Y_0.detach())
+    compare_eigen(f"refined net, K=8192, lambda {lam_value:.4f}", fp,
+                  fp_leg.V_net, X0, fp_leg.N, fp_leg.delta_t,
+                  dict(seed=389), worst, lam_value=lam_value)
+    return dict(lam=(lam, lam_se), lam_scan=(lam_s, lam_s_se),
+                lam_asset=(lam_a, lam_a_se), same_noise=same,
+                richardson=(lam_r, lam_r_se), mse=(mse0, mse1))
+
+
+# phase 39: the three notebook recipes that no phase ran before, at their
+# scripts' widths from JAX's seed-42 initial nets on the scripts' engine
+# (the solvers' default scan): (a) experiments/parabolic_neumann.py, (b)
+# experiments/ou_moment_initializations.py, (c) experiments/
+# trajectory_length_study.py, also on fused_train at N = 1, 20, 100; then
+# (d) one short scan leg of each solver on the rest of problems/ (the
+# first-exit double well, the parabolic double-well committor, the general
+# solver's linear double well, the double well beside an OU block).  Each
+# recipe reading must fall in JAX's band [min - w, max + w], w = max(max -
+# min, 0.1 |mean|), of experiments/notebooks_11a_reference.py's three
+# seeds (42, 43, 44) at the same step counts.  Those cut the scripts'
+# 100k, 1000 and 20k steps so that the whole run fits the time limit on
+# the slowest host seen (PERF.md section 4; the phase prints each leg's
+# wall).  (a) and (b) also hold the fall of the test L2 and the move of
+# Y_0 to at least half of JAX's, which the bands alone do not show at
+# these counts.
+# The legs run NB_SPC steps a call (the scripts' 100 would capture 100
+# eager steps per leg; a chunked run is bitwise the per-step one).
+NB_L_A, NB_L_B, NB_L_C = 100, 50, 15
+NB_SPC = 5
+NB_A2S = (0.1, 1.0, 10.0, 100.0)
+NB_GRID_N = (1, 2, 5, 10, 20, 50, 100)
+NB_GRID_DT = (1e-3, 5e-4)
+NB_FUSED_N = (1, 20, 100)
+NB_A_JAX = {
+    "0.1": {"rel_abs": (0.6750110387802124, 0.6716272234916687,
+                        0.6738314628601074),
+            "test_L2": (9.072013854980469, 8.836319923400879,
+                        9.001175880432129)},
+    "1": {"rel_abs": (0.6838085651397705, 0.6786915063858032,
+                      0.683831512928009),
+          "test_L2": (9.344425201416016, 9.044926643371582,
+                      9.290127754211426)},
+    "10": {"rel_abs": (0.7276403903961182, 0.7216315865516663,
+                       0.7290241122245789),
+           "test_L2": (10.586390495300293, 10.226479530334473,
+                       10.569565773010254)},
+    "100": {"rel_abs": (0.7417216897010803, 0.7354323863983154,
+                        0.7441245913505554),
+            "test_L2": (11.029463768005371, 10.651236534118652,
+                        11.049269676208496)},
+}
+NB_B_JAX = {
+    "y0 = 0": {"Y_0": (-0.046857982873916626, -0.05670905485749245,
+                       -0.050069354474544525),
+               "u_L2": (0.9430469274520874, 0.9124717116355896,
+                        0.7978510856628418)},
+    "y0 = 10": {"Y_0": (9.948554992675781, 9.948779106140137,
+                        9.948633193969727),
+                "u_L2": (1.6572396755218506, 2.1134824752807617,
+                         1.785599946975708)},
+    "y0 exact": {"Y_0": (-4.285638332366943, -4.285297870635986,
+                         -4.285308361053467),
+                 "u_L2": (0.7114655375480652, 0.8216807246208191,
+                          0.6437411904335022)},
+}
+NB_C_JAX = {
+    "1 0.001": (5.355689525604248, 5.356393814086914, 5.353767395019531),
+    "2 0.001": (5.355689525604248, 5.356393814086914, 5.353766918182373),
+    "5 0.001": (5.355687618255615, 5.3563923835754395, 5.353766441345215),
+    "10 0.001": (5.355686664581299, 5.356389045715332, 5.353765487670898),
+    "20 0.001": (5.355677127838135, 5.356383323669434, 5.353764057159424),
+    "50 0.001": (5.35565710067749, 5.3563761711120605, 5.353762149810791),
+    "100 0.001": (5.355652332305908, 5.356374740600586, 5.353760719299316),
+    "1 0.0005": (5.355689525604248, 5.356394290924072, 5.353767395019531),
+    "2 0.0005": (5.355689525604248, 5.356393814086914, 5.353767395019531),
+    "5 0.0005": (5.355689525604248, 5.356393814086914, 5.353766918182373),
+    "10 0.0005": (5.355687141418457, 5.356391906738281, 5.353766441345215),
+    "20 0.0005": (5.35568380355835, 5.35638952255249, 5.353765964508057),
+    "50 0.0005": (5.355673789978027, 5.356382846832275, 5.353762149810791),
+    "100 0.0005": (5.355664253234863, 5.356374263763428, 5.353759288787842),
+}
+# the mean of JAX's first test L2 over the grid's 42 legs (one initial net)
+NB_C_FIRST_JAX = 5.476000842593965
+# (a): JAX's first test L2 of each a2's three legs (one initial net, each
+# seed's own test sample); (b): JAX's v(x_0, 0), the third leg's Y_0
+NB_A_FIRST_JAX = {
+    "0.1": (19.44320297241211, 19.584728240966797, 19.61106300354004),
+    "1": (19.443016052246094, 19.584747314453125, 19.611183166503906),
+    "10": (19.443178176879883, 19.584789276123047, 19.611364364624023),
+    "100": (19.443294525146484, 19.584848403930664, 19.61140251159668),
+}
+NB_B_V0_JAX = -4.3290019035339355
+# (d) general_linear: JAX's RMS of V against the product of the 1-d psi
+# (experiments/notebooks_11a_reference.py --part d, 150 steps from the
+# seed-42 initial net, seeds 42-44), before and after training
+NB_D_BEFORE_JAX = 0.3880120515823364
+NB_D_AFTER_JAX = (0.35953834652900696, 0.3633905053138733,
+                  0.3443801999092102)
+# the item-7 legs: steps, and tests/test_misc_coverage.py's settings
+NB_LEG_L = 150
+NB_LEG = dict(N=10, delta_t=0.01, K=64, K_boundary=16, verbose=False,
+              steps_per_call=NB_SPC)
+# fingerprints of the FD tables (float64) that the legs' problems build on
+# the host: per table (sum, sum of squares, entry len // 3), as the CPU
+# tests read them from the port's tables, which they hold bitwise to JAX's
+# (tests/test_torch_problems_rest.py)
+NB_FD_PRINTS = {
+    "stopping": [
+        177.91008422984433, 138.47318416881745, 0.0695405537446175,
+        302.19967881343024, 552.2301870526089, 1.518796018901325],
+    "general_linear": [
+        7699.656521608407, 6997.183464876924, 0.05035830544938706,
+        12490.972837614645, 28816.765456271503, -0.7173363468427585,
+        7699.656521608407, 6997.183464876924, 0.05035830544938706,
+        12490.972837614645, 28816.765456271503, -0.7173363468427585],
+    "committor": [],
+    "ou": [
+        97163.78664164615, 78857.35714556769, 0.07056698752446462,
+        133830.56702870116, 264141.7031578831, -0.21831448783284912],
+}
+
+
+def jax_band(vals):
+    """[min - w, max + w] with w = max(max - min, 0.1 |mean|): JAX's three
+    seeds, widened by their spread or a tenth of their mean (phase 32's
+    rule)."""
+    lo, hi = min(vals), max(vals)
+    w = max(hi - lo, 0.1 * abs(sum(vals) / len(vals)))
+    return lo - w, hi + w
+
+
+def in_band(tag, value, vals):
+    lo, hi = jax_band(vals)
+    ok = lo <= value <= hi
+    print(f"  {tag}: {value:.5g} (JAX {['%.5g' % v for v in vals]}, band "
+          f"[{lo:.5g}, {hi:.5g}]){'' if ok else ' OUTSIDE'}")
+    return ok
+
+
+def fd_fingerprint(*tables):
+    """Per table: its sum, its sum of squares (NaN entries left out) and
+    its entry at len // 3, in float64."""
+    import numpy as np
+    out = []
+    for a in tables:
+        a = np.asarray(a, dtype=np.float64).ravel()
+        out += [float(np.nansum(a)), float(np.nansum(a * a)),
+                float(a[len(a) // 3])]
+    return out
+
+
+def nb_problems(dev):
+    """The item-7 legs' problems, their FD tables built on the host: name
+    -> (problem, its tables)."""
+    from pspde_torch.problems import (Committor_DoubleWell, DoubleWell_OU,
+                                      DoubleWell_stopping, DoubleWellGeneral)
+    stop = DoubleWell_stopping(d=1, device=dev)
+    stop.compute_reference_solution()
+    lin = DoubleWellGeneral(d=2, d_1=1, d_2=1, T=0.5, eta=1.0, kappa=1.0,
+                            modus="linear", device=dev)
+    lin.compute_reference_solution(delta_t=0.01, nx=300)
+    ou = DoubleWell_OU(d=3, device=dev)
+    ou.compute_reference_solution()
+    com = Committor_DoubleWell(d=1, beta=1.0, eta=2.0, T=0.5, device=dev)
+    return {"stopping": (stop, (stop._psi_np, stop._u_np)),
+            "general_linear": (lin, (lin._psi1, lin._u1, lin._psi2,
+                                     lin._u2)),
+            "committor": (com, ()),
+            "ou": (ou, (ou._psi_np, ou._u_np))}
+
+
+def general_err(s, prob, dev):
+    """Phase 39 (d): the RMS error of a GeneralSolver's V(x, t) against the
+    linear modus' product of the 1-d psi at the grid times on 4096 points
+    of the square, the numpy draw at which experiments/
+    notebooks_11a_reference.py --part d reads JAX's."""
+    import numpy as np
+    ts = np.arange(s.N + 1) * s.delta_t
+    v_ref = prob.v_ref_fn(ts)
+    X = torch.as_tensor(np.random.default_rng(393).uniform(
+        -2.5, 2.5, (4096, prob.d)).astype(np.float32), device=dev)
+    with torch.no_grad():
+        err = [torch.mean((s.V(X, torch.full((4096,), float(t), device=dev))
+                           - v_ref(X, i)) ** 2) for i, t in enumerate(ts)]
+    return float(torch.sqrt(torch.mean(torch.stack(err))))
+
+
+def notebook_phase(dev, smi):
+    """Phase 39: the three recipes, the trajectory-length cells on
+    fused_train, and the item-7 legs."""
+    import numpy as np
+    from pspde_torch.problems import (LLGC, ExponentialOnBallNonlinearSin,
+                                      ExponentialOnSphereNonlinearParabolic)
+    from pspde_torch.rollout import kernels as km
+    from pspde_torch.rollout.sampling import sample_domain
+    from pspde_torch.solvers import EllipticSolver, GeneralSolver, HJBSolver
+    from pspde_torch.utils.convert import load_control_npz
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    t39 = time.perf_counter()
+    walls = {}
+
+    def asset(name):
+        return load_control_npz(os.path.join(root, "pspde_torch", "assets",
+                                             name))[0]
+
+    def fell(first, last, jax_first, jax_last, what):
+        """The fall from the leg's first reading at least half JAX's mean
+        fall (the band alone is wide against it after the cut step
+        counts)."""
+        mean = lambda v: sum(v) / len(v)  # noqa: E731
+        fall, jax_fall = first - last, mean(jax_first) - mean(jax_last)
+        print(f"    fall from the first {what} {first:.5g}: {fall:.4g} "
+              f"(JAX's mean {jax_fall:.4g}; at least half)")
+        return fall >= 0.5 * jax_fall
+
+    def train(tag, s):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s.train()
+        torch.cuda.synchronize()
+        walls[tag] = time.perf_counter() - t0
+        return walls[tag]
+
+    # -- (a) parabolic Neumann -----------------------------------------------
+    print(f"phase 39 (a): experiments/parabolic_neumann.py: GeneralSolver("
+          f"ExponentialOnSphereNonlinearParabolic(d=20, T=1, alpha=1)), "
+          f"Neumann, diffusion, N=20, dt 1e-3, K=200, K_boundary=50, alpha "
+          f"(1, 1, a2), lr 1e-3, K_test_log 10000, scan, {NB_L_A} steps "
+          f"({NB_SPC} a call) from JAX's initial net")
+    pa = ExponentialOnSphereNonlinearParabolic(d=20, T=1.0, alpha=1.0,
+                                               device=dev)
+    pa.boundary_type = "Neumann"
+    tree_a = asset("parabolic_neumann_d20_densenet.npz")
+    for a2 in NB_A2S:
+        s = GeneralSolver(pa, f"diffusion a2={a2:g}", seed=42, delta_t=1e-3,
+                          N=20, lr=1e-3, L=NB_L_A, K=200, K_boundary=50,
+                          alpha=(1.0, 1.0, a2), loss_method="diffusion",
+                          K_test_log=10000, steps_per_call=NB_SPC,
+                          print_every=max(NB_L_A // 20, 1), verbose=False,
+                          device=dev)
+        s.load_jax_params(tree_a)
+        check(s.resolved_rollout_mode == "scan" and s.boundary_type
+              == "Neumann", f"(a) a2={a2:g}: engine "
+              f"{s.resolved_rollout_mode}, {s.boundary_type}")
+        wall = train(f"a a2={a2:g}", s)
+        jax = NB_A_JAX[f"{a2:g}"]
+        print(f"  [a2={a2:g}] {len(s.loss_log)} steps in {wall:.2f} s "
+              f"({s.graph_stats['replays']} replays); test L2 every 50: "
+              f"{['%.4g' % v for v in s.V_test_L2[::50]]}")
+        ok = [in_band(f"a2={a2:g} V_test_rel_abs[-1]", s.V_test_rel_abs[-1],
+                      jax["rel_abs"]),
+              in_band(f"a2={a2:g} V_test_L2[-1]", s.V_test_L2[-1],
+                      jax["test_L2"]),
+              fell(s.V_test_L2[0], s.V_test_L2[-1],
+                   NB_A_FIRST_JAX[f"{a2:g}"], jax["test_L2"], "test L2")]
+        check(all(ok) and np.isfinite(s.loss_log).all(),
+              f"(a) a2={a2:g}: a reading outside JAX's band, or no fall")
+        del s
+
+    # -- (b) moment-loss initialisations ------------------------------------
+    pb = LLGC(d=20, T=1.0, seed=42, device=dev)
+    v0 = float(pb.v_ref(torch.zeros((1, 20), device=dev), 0.0)[0])
+    print(f"phase 39 (b): experiments/ou_moment_initializations.py: "
+          f"HJBSolver(LLGC(d=20, T=1)), moment loss, 'inner', dt 0.01, "
+          f"K=500, lr 1e-3, learn_Y_0, detach_forward, no early stopping, "
+          f"scan, {NB_L_B} steps ({NB_SPC} a call) from JAX's initial "
+          f"control; Y_0 set to 0, 10 and v(x_0, 0) = {v0:.5f} before "
+          "train()")
+    tree_b = asset("llgc_d20_tanhmlp.npz")
+    for name, y0 in (("y0 = 0", 0.0), ("y0 = 10", 10.0), ("y0 exact", v0)):
+        s = HJBSolver(name, pb, L=NB_L_B, lr=1e-3, seed=42, delta_t=0.01,
+                      K=500, time_approx="inner", loss_method="moment",
+                      learn_Y_0=True, detach_forward=True,
+                      print_every=max(NB_L_B // 10, 1),
+                      early_stopping_time=None, steps_per_call=NB_SPC,
+                      verbose=False, device=dev)
+        s.load_jax_params(tree_b)
+        with torch.no_grad():
+            s.y0_net.Y_0.fill_(y0)
+        check(s.resolved_rollout_mode == "scan",
+              f"(b) {name}: engine {s.resolved_rollout_mode}")
+        wall = train(f"b {name}", s)
+        jax = NB_B_JAX[name]
+        print(f"  [{name}] {len(s.loss_log)} steps in {wall:.2f} s "
+              f"({s.graph_stats['replays']} replays); Y_0 every 50: "
+              f"{['%.4f' % v for v in s.Y_0_log[::50]]}; u_L2 every 50: "
+              f"{['%.4g' % v for v in s.u_L2_loss[::50]]}")
+        ok = [in_band(f"{name} Y_0_log[-1] (exact {v0:.4f})", s.Y_0_log[-1],
+                      jax["Y_0"]),
+              in_band(f"{name} u_L2[-1]", s.u_L2_loss[-1], jax["u_L2"])]
+        # Y_0 has moved from where it was set at least half as far as
+        # JAX's did (the band alone holds the value it was set to)
+        y0_jax = NB_B_V0_JAX if name == "y0 exact" else y0
+        move = abs(s.Y_0_log[-1] - y0)
+        move_jax = sum(abs(v - y0_jax) for v in jax["Y_0"]) / len(jax["Y_0"])
+        print(f"    Y_0 moved {move:.4g} from {y0:.5g} (JAX's mean "
+              f"{move_jax:.4g}; at least half)")
+        check(all(ok) and move >= 0.5 * move_jax
+              and np.isfinite(s.loss_log).all(),
+              f"(b) {name}: a reading outside JAX's band, or Y_0 stayed")
+        del s
+
+    # -- (c) trajectory length -----------------------------------------------
+    print(f"phase 39 (c): experiments/trajectory_length_study.py: "
+          f"EllipticSolver(ExponentialOnBallNonlinearSin(d=10, alpha=1)), "
+          f"diffusion, K=200, K_boundary=50, lr 1e-3, K_test_log 10000, N in "
+          f"{NB_GRID_N} x dt in {NB_GRID_DT}, scan, {NB_L_C} steps "
+          f"({NB_SPC} a call) from JAX's initial net; then N in "
+          f"{NB_FUSED_N} at dt 1e-3 on fused_train, kernels 4 and 5 held to "
+          "their plain version at the first step")
+    pc = ExponentialOnBallNonlinearSin(d=10, alpha=1.0, device=dev)
+    tree_c = asset("trajectory_length_d10_densenet.npz")
+
+    def length_solver(N, dt, mode):
+        s = EllipticSolver(pc, f"N={N} dt={dt:g}", seed=42, delta_t=dt, N=N,
+                           lr=1e-3, L=NB_L_C, K=200, K_boundary=50,
+                           loss_method="diffusion", K_test_log=10000,
+                           steps_per_call=NB_SPC, verbose=False,
+                           rollout_mode=mode, device=dev)
+        s.load_jax_params(tree_c)
+        check(s.resolved_rollout_mode == mode,
+              f"(c) N={N} dt={dt:g}: engine {s.resolved_rollout_mode}")
+        return s
+
+    bad = []
+    for dt in NB_GRID_DT:
+        for N in NB_GRID_N:
+            s = length_solver(N, dt, "scan")
+            wall = train(f"c N={N} dt={dt:g}", s)
+            print(f"  [N={N} dt={dt:g}] {wall:.2f} s")
+            if not (in_band(f"N={N} dt={dt:g} V_test_L2[-1]",
+                            s.V_test_L2[-1], NB_C_JAX[f"{N} {dt:g}"])
+                    and fell(s.V_test_L2[0], s.V_test_L2[-1],
+                             (NB_C_FIRST_JAX,), NB_C_JAX[f"{N} {dt:g}"],
+                             "test L2")):
+                bad.append((N, dt))
+            del s
+    check(not bad, f"(c): readings outside JAX's band at {bad}")
+    worst = {"out": 0.0, "grad": 0.0, "bwd": 0.0}
+    for N in NB_FUSED_N:
+        s = length_solver(N, 1e-3, "fused_train")
+        X0 = sample_domain(torch.Generator(dev).manual_seed(390 + N),
+                           pc.geometry, 200, pc.d)
+        compare_stopped(f"(c) N={N}, K=200, the first step's net", pc,
+                        s.V_net, X0, torch.zeros(200, device=dev), N, 1e-3,
+                        dict(seed=391), worst, MASK_TOL)
+        zero_counts()
+        with PlainCalls(km) as plain_calls:
+            wall = train(f"c fused N={N}", s)
+        n = counted(km.fused_stopped_train_rollout, "launches",
+                    "backward_launches")
+        warm = s.graph_stats["warmup_steps"]
+        print(f"  [fused_train N={N}] {wall:.2f} s; launches forward {n[0]}, "
+              f"backward {n[1]} ({NB_L_C} steps and {warm} warm-up step(s));"
+              f" plain-version calls {plain_calls.n}")
+        check(n == (NB_L_C + warm, NB_L_C + warm) and plain_calls.n == 0,
+              f"(c) fused N={N}: one launch of each kernel a step, no plain "
+              "call")
+        check(in_band(f"fused_train N={N} V_test_L2[-1]", s.V_test_L2[-1],
+                      NB_C_JAX[f"{N} 0.001"])
+              and fell(s.V_test_L2[0], s.V_test_L2[-1], (NB_C_FIRST_JAX,),
+                       NB_C_JAX[f"{N} 0.001"], "test L2"),
+              f"(c) fused N={N}: the reading outside JAX's band, or no "
+              "fall")
+        del s
+    print(f"  kernels 4 and 5 against plain at N={NB_FUSED_N}: largest "
+          f"|difference| outputs {worst['out']:.2e}, loss gradients "
+          f"{worst['grad']:.2e}, backward {worst['bwd']:.2e}")
+
+    # -- (d) the rest of problems/ on the scan -------------------------------
+    print(f"phase 39 (d): the rest of problems/, one scan leg a solver, "
+          f"{NB_LEG_L} steps, diffusion or log-variance, {NB_LEG}")
+    probs = nb_problems(dev)
+    for name, (prob, tables) in probs.items():
+        got = fd_fingerprint(*tables)
+        want = NB_FD_PRINTS[name]
+        ok = len(got) == len(want) and np.allclose(got, want, rtol=1e-10,
+                                                   atol=0)
+        print(f"  [{name}] FD tables' fingerprint {got} (CPU {want})")
+        check(ok, f"(d) {name}: the host's FD tables differ from the CPU's")
+
+
+    legs = {
+        "stopping": lambda p: EllipticSolver(
+            p, "dw-stopping", loss_method="diffusion", L=NB_LEG_L,
+            device=dev, **NB_LEG),
+        "general_linear": lambda p: GeneralSolver(
+            p, "dw-linear", loss_method="diffusion", L=NB_LEG_L, device=dev,
+            **NB_LEG),
+        "committor": lambda p: GeneralSolver(
+            p, "dw-committor", loss_method="diffusion", L=NB_LEG_L,
+            device=dev, **NB_LEG),
+        "ou": lambda p: HJBSolver(
+            "dw-ou", p, L=NB_LEG_L, lr=1e-2, K=64, delta_t=0.05,
+            time_approx="inner", loss_method="log-variance",
+            detach_forward=True, verbose=False, early_stopping_time=None,
+            steps_per_call=NB_SPC, device=dev)}
+    for name, make in legs.items():
+        prob = probs[name][0]
+        s = make(prob)
+        if name == "general_linear":
+            # JAX's seed-42 initial net, which JAX's witness trained
+            s.load_jax_params(asset("dw_general_linear_d2_densenet.npz"))
+        check(s.resolved_rollout_mode == "scan", f"(d) {name}: engine")
+        before = general_err(s, prob, dev) if name == "general_linear" else None
+        wall = train(f"d {name}", s)
+        loss = np.asarray(s.loss_log)
+        if name == "stopping":
+            err = np.asarray(s.V_L2_log)
+            what = "V_L2 against the FD table"
+        elif name == "ou":
+            err = np.asarray(s.u_L2_loss)
+            what = "u_L2 against the FD and closed-form control"
+        elif name == "general_linear":
+            err = np.asarray([before, general_err(s, prob, dev)])
+            what = "RMS of V - the product of the 1-d psi"
+        else:
+            err = loss
+            what = "the loss (no reference exists)"
+        n = 1 if name == "general_linear" else 10
+        first, last = float(np.mean(err[:n])), float(np.mean(err[-n:]))
+        print(f"  [{name}] {type(s).__name__}, {len(loss)} steps in "
+              f"{wall:.2f} s; loss first {loss[0]:.4g}, last {loss[-1]:.4g}; "
+              f"{what}: first {first:.4g}, last {last:.4g} "
+              f"({'means of 10 steps' if n == 10 else 'before and after'})")
+        check(np.isfinite(loss).all() and last < first,
+              f"(d) {name}: finite losses and a falling error "
+              f"({first:.4g} -> {last:.4g})")
+        if name == "general_linear":
+            # the witness: JAX's same leg read at the same points, the
+            # untrained net's reading equal to JAX's on that net, the
+            # trained one in JAX's band and at least half JAX's fall
+            same = abs(first - NB_D_BEFORE_JAX) <= 1e-4 * NB_D_BEFORE_JAX
+            print(f"    before: {first:.6g} against JAX's {NB_D_BEFORE_JAX:.6g}"
+                  f" on the same net and points ({'equal' if same else 'DIFFER'}"
+                  " within 1e-4)")
+            ok = [same, in_band("general_linear RMS after training", last,
+                                NB_D_AFTER_JAX),
+                  fell(first, last, (NB_D_BEFORE_JAX,), NB_D_AFTER_JAX,
+                       "RMS")]
+            check(all(ok), f"(d) general_linear: against JAX's witness "
+                  f"({first:.4g} -> {last:.4g})")
+        del s
+    print("  walls: " + "; ".join(f"{k} {w:.2f} s" for k, w in walls.items()))
+    print(f"  card: {smi}")
+    print(f"  phase 39 took {time.perf_counter() - t39:.1f} s")
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
 """Host-side finite-difference references (the port's own copies of
-``pspde/problems/fd_oracles.py:parabolic_log_transform_reference`` and
-``generator_spectrum_periodic_1d``).
+``pspde/problems/fd_oracles.py:parabolic_log_transform_reference``,
+``elliptic_generator_reference`` and ``generator_spectrum_periodic_1d``).
 
 The 1-d backward PDE for psi = e^{-v} is solved once per problem on the
 host in float64 with NumPy and SciPy (implicit Euler on a symmetrised
@@ -8,6 +8,11 @@ banded generator, ``scipy.linalg.solve_banded`` each step); the problems
 move the resulting tables to their device, so that the training loop's
 reference lookups are gathers.  The JAX package can also run the sweep in
 its native C++ library; the port keeps the SciPy sweep only.
+
+``elliptic_generator_reference`` is the stationary solve (L - f) psi = rhs
+of the first-exit double-well problems (``problems/double_well.py``): a
+dense float64 system solved once with ``numpy.linalg.solve``, the JAX
+package's fallback to its native solver.
 
 ``generator_spectrum_periodic_1d`` is the dense float64 spectrum of the
 periodic 1-d Feynman-Kac generator, the oracle of ``eval/eigen_power.py:
@@ -77,6 +82,58 @@ def parabolic_log_transform_reference(
     logpsi = np.log(np.maximum(psi, 1e-300))
     u = -(2.0 / beta) * B00 * (logpsi[:, :-1] - logpsi[:, 1:]) / dx
     return xvec, psi, u, dx
+
+
+def elliptic_generator_reference(
+    grad_V: Callable[[np.ndarray], np.ndarray],
+    sigma: float,
+    f: float,
+    rhs: float,
+    bc_value: float,
+    bc_lo: int = 300,
+    bc_hi: int = 310,
+    xr: Tuple[float, float] = (-2.0, 2.0),
+    dx: float = 0.01,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Stationary solve (L - f) psi = rhs with pinned interior boundary rows.
+
+    The generator L = (sigma^2/2) d_xx - grad_V(x) d_x on the linspace grid
+    of [xr[0], xr[1]] with step ~dx, its first-order terms upwinded; rows
+    ``bc_lo:bc_hi`` pinned to ``bc_value``, and flat-psi Neumann rows at
+    both ends.  Returns (x_val, psi, u) with the control table
+    u = sigma (log psi_{i+1} - log psi_i) / dx.
+    """
+    Nx = int(np.ceil((xr[1] - xr[0]) / dx))
+    x_val = np.linspace(xr[0], xr[1], Nx)
+
+    L = np.zeros((Nx, Nx))
+    gv = grad_V(x_val)
+    L[0, 0] = -2 * sigma ** 2 / 2 / dx ** 2 - gv[0] / dx - f
+    L[0, 1] = sigma ** 2 / dx
+    L[Nx - 1, Nx - 2] = sigma ** 2 / 2 / dx ** 2 + gv[Nx - 1] / dx
+    L[Nx - 1, Nx - 1] = -sigma ** 2 / dx ** 2 - sigma * gv[Nx - 1] / dx - f
+    i = np.arange(1, Nx - 1)
+    L[i, i - 1] = sigma ** 2 / 2 / dx ** 2 + gv[i] / dx
+    L[i, i] = -sigma ** 2 / dx ** 2 - gv[i] / dx - f
+    L[i, i + 1] = sigma ** 2 / 2 / dx ** 2
+
+    d = np.full(Nx, rhs)
+
+    L[bc_lo:bc_hi, :] = 0.0
+    L[np.arange(bc_lo, bc_hi), np.arange(bc_lo, bc_hi)] = 1.0
+    d[bc_lo:bc_hi] = bc_value
+
+    L[0, :] = 0.0
+    L[0, 0], L[0, 1] = 1.0, -1.0
+    d[0] = 0.0
+    L[Nx - 1, :] = 0.0
+    L[Nx - 1, Nx - 1], L[Nx - 1, Nx - 2] = 1.0, -1.0
+    d[Nx - 1] = 0.0
+
+    psi = np.linalg.solve(L, d)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        u = sigma * (np.log(psi[1:]) - np.log(psi[:-1])) / dx
+    return x_val, psi, u
 
 
 def generator_spectrum_periodic_1d(

@@ -1,5 +1,6 @@
 """Ornstein-Uhlenbeck / linear-quadratic control problems (counterpart of
-``pspde/problems/ou.py``): ``LLGC`` and ``LQGC``.
+``pspde/problems/ou.py``): ``LLGC``, ``LLGC_general_f`` (a control cost
+that is not quadratic) and ``LQGC``.
 
 The closed forms (matrix exponentials, the Riccati recursion) are computed
 on the host with numpy/scipy exactly as in the JAX package and then moved
@@ -128,6 +129,57 @@ class LLGC(Problem):
             return x @ lins[i] - consts[i]
 
         return v_ref
+
+
+class LLGC_general_f(Problem):
+    """Brownian motion (A = 0) with a control cost that is not quadratic:
+    h(t, x, y, z) = -(0.8 ((-z)^2)^0.625 + x e^{T-t}
+    - 0.8 e^{1.25 (T-t)})[:, 0], g(x) = -sum x; the reference control
+    -B^T e^{B^T (T - t)} alpha is state-independent."""
+
+    h_is_y_free = True
+
+    def __init__(self, name="LLGC", d=1, off_diag=0.0, T=5.0, seed=42,
+                 device=None):
+        super().__init__(d=d, T=float(T), device=device)
+        self.name = name
+        rng = np.random.default_rng(seed)
+        self.A = self._t(np.zeros((d, d)))
+        B = np.eye(d, dtype=np.float32) + off_diag * _randn(rng, d, d)
+        self._B_np = B.astype(np.float64)
+        self.B = self._t(B)
+        self.alpha = -torch.ones((d,), dtype=torch.float32,
+                                 device=self.device)
+        self._sigma = DiffusionMatrix(B, device=self.device)
+
+    @property
+    def sigma_struct(self):
+        return self._sigma
+
+    def b(self, x):
+        return torch.zeros_like(x)
+
+    def f(self, x, t):
+        return torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
+
+    def h(self, t, x, y, z):
+        tau = torch.as_tensor(self.T - t, dtype=x.dtype, device=x.device)
+        return -(0.8 * ((-z) ** 2) ** 0.625 + x * torch.exp(tau)
+                 - 0.8 * torch.exp(1.25 * tau))[:, 0]
+
+    def g(self, x):
+        return x @ self.alpha
+
+    def u_ref_fn(self, ts: np.ndarray):
+        alpha = -np.ones((self.d,), dtype=np.float64)
+        tab = self._t(np.stack([-self._B_np.T @ expm(self._B_np.T
+                                                     * (self.T - t)) @ alpha
+                                for t in np.asarray(ts)]))
+
+        def u_ref(x, i):
+            return tab[i].expand(x.shape)
+
+        return u_ref
 
 
 class LQGC(Problem):

@@ -48,6 +48,19 @@ def unflatten_tree(flat: dict) -> dict:
     return tree
 
 
+def flatten_tree(tree: dict, prefix: str = "") -> dict:
+    """{'a': {'b': {'c': array}}} -> {'a/b/c': float32 array}, the flat
+    tree the assets hold (``unflatten_tree``'s inverse)."""
+    flat = {}
+    for key, val in tree.items():
+        name = f"{prefix}/{key}" if prefix else str(key)
+        if isinstance(val, dict):
+            flat.update(flatten_tree(val, name))
+        else:
+            flat[name] = np.asarray(val, dtype=np.float32)
+    return flat
+
+
 def _dense_layers(tree: dict):
     """The ordered (kernel, bias) pairs of a Flax MLP parameter tree."""
     params = tree["params"] if "params" in tree else tree
