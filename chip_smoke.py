@@ -995,6 +995,7 @@ def main():
                                           "train_forward_kernel",
                                           "controlled_rollout_kernel",
                                           "stopped_bwd_kernel",
+                                          "stopped_bwd_lane_kernel",
                                           "ablation_kernel"))
 
     def by_plan(counts):
@@ -1012,6 +1013,7 @@ def main():
     fwd_hmma = by_plan(hmma["train_forward_kernel"])
     serve_hmma = serve_keys(hmma["controlled_rollout_kernel"])
     stopped_hmma = sorted(hmma["stopped_bwd_kernel"].values())
+    lane_hmma = sorted(hmma["stopped_bwd_lane_kernel"].values())
     # the ladder's stages: 0 noise, 1 euler, 2 net, 3-6 full*
     ladder_hmma = {}
     for name, n in hmma["ablation_kernel"].items():
@@ -1022,7 +1024,8 @@ def main():
           f"{serve_hmma}; the HJB forward's: {fwd_hmma}; "
           f"the backward's: {train_hmma}; the ladder's stages (stage, "
           f"s/d plan): {dict(sorted(ladder_hmma.items()))}; the stopped "
-          f"backward's twenty-two instantiations: {stopped_hmma}")
+          f"backward's fourteen shared-plan instantiations: {stopped_hmma}, "
+          f"its device plan's eight (the lanes kernel): {lane_hmma}")
     check(len(train_hmma) == 2 and all(train_hmma.values()),
           "both plans of the HJB backward run TF32 mma")
     check(len(fwd_hmma) == 2 and all(fwd_hmma.values()),
@@ -1034,8 +1037,10 @@ def main():
           and all(ladder_hmma[f"{st}{p}"] for st in range(2, 7)
                   for p in "sd"),
           "the ladder's net and full stages run TF32 mma on both plans")
-    check(len(stopped_hmma) == 22 and all(stopped_hmma),
-          "every instantiation of the stopped backward runs TF32 mma")
+    check(len(stopped_hmma) == 14 and all(stopped_hmma)
+          and len(lane_hmma) == 8 and all(lane_hmma),
+          "every instantiation of the stopped backward, both plans, runs "
+          "TF32 mma")
     for kernel, what, keys, n in (
             ("controlled_rollout_kernel", "the serve kernel", serve_keys, 4),
             ("train_forward_kernel", "the HJB forward", by_plan, 2)):
@@ -1045,10 +1050,14 @@ def main():
         check(len(use) == n and all(u[1] == u[2] == 0 for u in use.values()),
               f"{what}'s instantiations spill no registers")
     stopped_use = ptxas_usage(info["log"], "stopped_fwd_kernel")
+    lane_use_regs = ptxas_usage(info["log"], "stopped_bwd_lane_kernel")
     print(f"  ptxas, the stopped forward's fourteen instantiations "
           f"(registers, spill store and load bytes): "
-          f"{sorted(stopped_use.values())}; the backward's twenty-two: "
-          f"{sorted(ptxas_usage(info['log'], 'stopped_bwd_kernel').values())}")
+          f"{sorted(stopped_use.values())}; the backward's shared plan's "
+          f"fourteen: "
+          f"{sorted(ptxas_usage(info['log'], 'stopped_bwd_kernel').values())}"
+          f"; its device plan's eight (the lanes kernel): "
+          f"{sorted(lane_use_regs.values())}")
     check(len(stopped_use) == 14
           and all(u[1] == u[2] == 0 for u in stopped_use.values()),
           "the stopped forward's instantiations spill no registers")
@@ -1646,6 +1655,108 @@ def lane_use(call, out, gY, torus=False):
           f"the backward's lane counts {measured} differ from the lane "
           f"model's {model}")
     return measured, model
+
+
+def bwd_layout(packed, dev):
+    """The stopped backward's launch for one packed call: its plan, tile
+    and threads a lane, where the lanes' arrays and the net sit, the grid,
+    the stride, the workspace's and a block's shared bytes, and the warps
+    per SM (the occupancy API's theoretical residency)."""
+    from pspde_torch.rollout import kernels as km
+    grid = km._stopped_bwd_grid(packed, dev)
+    ts = km._stopped_bwd_ts(packed, grid)
+    lay = km._stopped_bwd_lane_of(packed)
+    tile, tpp = packed.iargs[5], 1 if lay is None else lay.tpp
+    per_path = km._stopped_bwd_per_path(packed)
+    in_ws = lay is not None and not lay.smem
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    per_sm = km._stopped_bwd_slots(packed, dev) // sms
+    return {"plan": packed.layout[0], "tile": tile, "tpp": tpp,
+            "arrays": "workspace" if in_ws else "shared memory",
+            "net": "staged" if packed.iargs[6] else "device memory",
+            "grid": grid, "stride": ts, "per_path": per_path,
+            "workspace_bytes": 4 * per_path * ts if in_ws else 0,
+            "block_bytes": km._stopped_bwd_smem(packed, ts),
+            "warps_per_sm": per_sm * tile * tpp // 32}
+
+
+# the device plan's (tile, threads a lane) candidates of phase 32's sweep
+BWD_SWEEP = ((64, 4), (32, 4), (32, 8), (16, 4), (16, 8), (16, 16), (8, 16),
+             (8, 32))
+
+
+def bwd_layout_sweep(cells):
+    """The device plan's backward at each layout that fits (each (tile,
+    tpp) of BWD_SWEEP with the lanes' arrays in the workspace and the net
+    from device memory or staged, and with the arrays in shared memory
+    where they fit, the net staged beside them where it fits too): device
+    ms a launch (torch.profiler) for each cell {tag: (call, gY, reps)},
+    and the chosen layout's.  At the first cell the gradients of every
+    layout of one tile must be bitwise equal, and those of every tile
+    within BWD_REL_TOL of tile 64's (max |diff| / max |tile 64| over the
+    leaves).  Returns {"ms": {tag: {layout: ms}}, "chosen": {tag: ms},
+    "rel": {layout: rel}}."""
+    from pspde_torch.rollout import kernels as km
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "experiments"))
+    from torch_kernel_times import device_ms
+    first = next(iter(cells))
+    cands = []
+    for tile, tpp in BWD_SWEEP:
+        for smem in (False, True):
+            for stage in (False, True):
+                lay = km._BwdLayout(tile, tpp, smem, stage)
+                try:
+                    cells[first][0]._replace(bwd_layout=lay).pack(
+                        backward=True)
+                except ValueError:
+                    continue
+                cands.append(lay)
+    out = {"ms": {}, "chosen": {}, "rel": {}}
+    grads = {}
+    for tag, (call, gY, reps) in cells.items():
+        chosen = km._stopped_bwd_lane_of(call.pack(backward=True))
+        ms = out["ms"][tag] = {}
+        for lay in cands + ([] if chosen in cands else [chosen]):
+            c = call._replace(bwd_layout=lay)
+
+            def bwd(c=c):
+                return km._stopped_backward_kernel(c, gY)
+            # the profiler can drop a run's launches: up to three runs
+            dms = None
+            for _ in range(3):
+                dms, _ = device_ms(bwd, reps, "stopped_bwd")
+                if dms is not None:
+                    break
+            ms[lay] = float("nan") if dms is None else dms
+            if tag == first:
+                grads[lay] = bwd()
+        out["chosen"][tag] = ms[chosen]
+        print(f"  the device plan's layouts at {tag}, fastest first (tile, "
+              "threads a lane, arrays in shared memory, net staged: device "
+              "ms a launch): " + "; ".join(
+                  f"{tuple(lay)} {v:.3f}"
+                  for lay, v in sorted(ms.items(), key=lambda kv: kv[1]))
+              + f"; chosen {tuple(chosen)}: {ms[chosen]:.3f}, "
+              f"{ms[chosen] / min(ms.values()):.3f}x the fastest")
+    torch.cuda.synchronize()
+    ref = grads[next(lay for lay in cands if lay.tile == 64)]
+    for lay, g in grads.items():
+        same = grads[next(c for c in cands if c.tile == lay.tile)]
+        check(all(torch.equal(a, b) for a, b in zip(g, same)),
+              f"the device plan at {tuple(lay)} differs bitwise from the "
+              f"other layouts of tile {lay.tile}")
+        out["rel"][lay] = max(float((a - b).abs().max())
+                              / float(b.abs().max())
+                              for a, b in zip(g, ref))
+    worst = max(out["rel"].values())
+    print(f"  at {first}: every layout of one tile bitwise equal; against "
+          f"tile 64, max |diff| / max |64| " + ", ".join(
+              f"tile {t} {max(v for lay, v in out['rel'].items() if lay.tile == t):.3e}"
+              for t in sorted({lay.tile for lay in grads}, reverse=True)))
+    check(worst <= BWD_REL_TOL, f"the device plan's layouts against tile 64:"
+          f" {worst:.3e} > {BWD_REL_TOL:g}")
+    return out
 
 
 def print_lane_use(tag, use):
@@ -3610,19 +3721,12 @@ def allen_cahn_phases(dev, smi):
           "layouts")
     probe = ac_call(ac_net(1), Kc, N_AC)
     fwd_packed, bwd_packed = probe.pack(False), probe.pack(True)
-    bwd_grid = km._stopped_bwd_grid(bwd_packed, dev)
-    ts = km._stopped_bwd_ts(bwd_packed, bwd_grid)
-    per_path = km._stopped_bwd_per_path(bwd_packed)
     lay = km._FwdLayout(*fwd_packed.layout)
     print(f"  forward: {lay.tile} lanes x {lay.tpp} threads, "
           f"{'refilled' if lay.refill else 'one block a tile'}, net "
           f"{'staged' if fwd_packed.iargs[6] else 'read from device memory'}"
-          f" (stage {fwd_packed.iargs[6]}); backward: plan "
-          f"{bwd_packed.layout[0]}, tile {bwd_packed.iargs[5]}, {bwd_grid} "
-          f"blocks, {per_path} floats a path at stride {ts}: a workspace of "
-          f"{4 * per_path * ts} bytes, net "
-          f"{'staged' if bwd_packed.iargs[6] else 'from device memory'}, "
-          f"{km._stopped_bwd_smem(bwd_packed, ts)} shared bytes a block")
+          f" (stage {fwd_packed.iargs[6]}); backward: "
+          f"{bwd_layout(bwd_packed, dev)}")
     check(bwd_packed.layout[0] == "device",
           "the notebook net's backward takes the device plan")
     worst = {"out": 0.0, "grad": 0.0, "bwd": 0.0}
@@ -3668,9 +3772,12 @@ def allen_cahn_phases(dev, smi):
 
     # -- phase 31: the device plan against the shared plan -------------------
     t31 = time.perf_counter()
-    print("phase 31: the backward's device plan, forced, against the shared "
-          "plan on the older families at widths where both fit (the same "
-          "grid): bitwise equal gradient rows and block counts")
+    print("phase 31: the backward's device plan (the lanes kernel), forced "
+          "at tile 64, against the shared plan on the older families at "
+          "widths where both fit (the same grid): bitwise equal gradient "
+          "rows and block counts at the chosen layout (4 threads a lane) and "
+          "at 2 threads a lane with the arrays in the workspace and the net "
+          "in device memory")
     ball = ExponentialOnBallNonlinearSin(d=D_ELL, alpha=ALPHA_ELL,
                                          device=dev)
     gen50 = ExponentialOnSphereNonlinearParabolic(d=D_GEN, device=dev)
@@ -3706,18 +3813,24 @@ def allen_cahn_phases(dev, smi):
             check(shared.layout[0] == "shared", f"{tag}: the shared plan")
             grid = km._stopped_bwd_grid(shared, dev)
             rows_s = km._stopped_backward_rows(call, gY, grid)
-            forced = call._replace(plan="device")
+            forced = call._replace(plan="device", tile=64)
+            lay = km._stopped_bwd_lane_of(forced.pack(backward=True))
             rows_d = km._stopped_backward_rows(forced, gY, grid)
             again = km._stopped_backward_rows(forced, gY, grid)
+            other = km._stopped_backward_rows(
+                call._replace(bwd_layout=(64, 2, False, False)), gY, grid)
             torch.cuda.synchronize()
-            err = float((rows_s[0] - rows_d[0]).abs().max())
+            err = max(float((rows_s[0] - r[0]).abs().max())
+                      for r in (rows_d, other))
             plan_err = max(plan_err, err)
             print(f"  [{tag}{', adaptive' if adaptive else ''}] K={K}, "
-                  f"N={N}, {grid} blocks: device - shared max |row| "
+                  f"N={N}, {grid} blocks, device plan {tuple(lay)} and "
+                  f"(64, 2, False, False): device - shared max |row| "
                   f"{err:.3e}; block counts equal "
                   f"{torch.equal(rows_s[1], rows_d[1])}")
-            check(torch.equal(rows_s[0], rows_d[0])
-                  and torch.equal(rows_s[1], rows_d[1]),
+            check(all(torch.equal(rows_s[0], r[0])
+                      and torch.equal(rows_s[1], r[1])
+                      for r in (rows_d, other)),
                   f"{tag}: the device plan's gradient rows and block counts "
                   "equal the shared plan's bitwise")
             check(all(torch.equal(a, b) for a, b in zip(rows_d, again)),
@@ -3756,8 +3869,7 @@ def allen_cahn_phases(dev, smi):
     n_par = sum(p.numel() for p in net.parameters())
     v_f, fwd_f, bwd_f = stopped_flops(net, D_AC, adaptive=False, cubic=True)
     packed = call.pack(backward=True)
-    ws_bytes = 4 * km._stopped_bwd_per_path(packed) * km._stopped_bwd_ts(
-        packed, km._stopped_bwd_grid(packed, dev))
+    ws_bytes = bwd_layout(packed, dev)["workspace_bytes"]
     b_fwd = roofline((hit - adv) * v_f + adv * fwd_f,
                      4 * (n_par + Kb * (2 * D_AC + 7)))
     b_bwd = stopped_bwd_roofline(adv, bwd_f, net,
@@ -3775,7 +3887,7 @@ def allen_cahn_phases(dev, smi):
                  lambda: call.plain(), reps[0], "stopped_fwd_kernel"),
                 ("backward", lambda: km._stopped_backward_kernel(call, gY),
                  lambda: km._reference_stopped_backward(call, gY), reps[1],
-                 "stopped_bwd_kernel")):
+                 "stopped_bwd")):
             p1 = timed(plain_fn, 1) if plain else None
             k = [timed(kern_fn, n), timed(kern_fn, n)]
             p2 = timed(plain_fn, 1) if plain else None
@@ -3806,10 +3918,8 @@ def allen_cahn_phases(dev, smi):
     eout = km._stopped_forward_kernel(ecall)
     e_adv = float(eout.adv_steps.sum())
     dcall = ecall._replace(plan="device")
-    dpacked = dcall.pack(backward=True)
-    d_grid = km._stopped_bwd_grid(dpacked, dev)
-    d_ws = 4 * km._stopped_bwd_per_path(dpacked) * km._stopped_bwd_ts(
-        dpacked, d_grid)
+    d_lay = bwd_layout(dcall.pack(backward=True), dev)
+    d_ws = d_lay["workspace_bytes"]
     shared_t = kern_times("elliptic, shared plan", ecall, egY, plain=False)
     device_t = kern_times("elliptic, device plan", dcall, egY)
     # the device plan forced through the entry point, counted from 0: the
@@ -3840,7 +3950,7 @@ def allen_cahn_phases(dev, smi):
                                  4 * (2 * e_par + K_ELL_BENCH * (D_ELL + 1))
                                  + d_ws)
     print(f"  elliptic: {e_adv:.0f} advancing path-steps; the device plan "
-          f"on {d_grid} blocks, workspace {d_ws} bytes; backward shared "
+          f"{d_lay}; backward shared "
           f"{shared_t['backward'][0]:.3f} ms, device "
           f"{device_t['backward'][0]:.3f} ms; device-plan bound "
           f"{b_dev['bound_ms']:.4f} ms ({b_dev['bound_by']})")
@@ -3919,31 +4029,24 @@ def allen_cahn_phases(dev, smi):
     profile_steps(f"3 steps of the Allen-Cahn diffusion leg (K={K_AC})",
                   s.step)
 
-    # the device plan's tile at the notebook's K: 64 lanes a block (the
-    # default, 4 blocks) against 32 (7 blocks), 64, 32, 32, 64
+    # the device plan's layouts at the notebook's K (the trained net) and at
+    # K_AC_BENCH: each candidate's device time, its gradients at the
+    # notebook's K against tile 64's
     scall = ac_call(s.V_net, K_AC, N_AC)
     sgY = torch.randn(K_AC, generator=gen, device=dev) / K_AC
-    tile_ms, tile_g, tile_grid = {64: [], 32: []}, {}, {}
-    for t in (64, 32, 32, 64):
-        c = scall._replace(tile=t)
-        tile_grid[t] = km._stopped_bwd_grid(c.pack(backward=True), dev)
-
-        def bwd(c=c):
-            return km._stopped_backward_kernel(c, sgY)
-        dms, _ = device_ms(bwd, 5, "stopped_bwd_kernel")
-        tile_ms[t].append((timed(bwd, 5), dms))
-        tile_g[t] = bwd()
-    torch.cuda.synchronize()
-    tile_rel = max(float((a - b).abs().max()) / float(b.abs().max())
-                   for a, b in zip(tile_g[32], tile_g[64]))
-    print(f"  the device-plan backward at K={K_AC}, N={N_AC} (the trained "
-          "net): " + "; ".join(
-              f"tile {t} ({tile_grid[t]} blocks) " + ", ".join(
-                  f"{ms:.3f} ms (device {dms:.3f})" for ms, dms in v)
-              for t, v in tile_ms.items())
-          + f"; tile 32 against 64: max |diff| / max |64| {tile_rel:.3e}")
-    check(tile_rel <= BWD_REL_TOL, f"the device plan at tile 32 against 64: "
-          f"{tile_rel:.3e} > {BWD_REL_TOL:g}")
+    sweep = bwd_layout_sweep({f"K={K_AC}": (scall, sgY, 3),
+                              f"K={Kb}": (call, gY, 2)})
+    s_out = km._stopped_forward_kernel(scall)
+    s_adv = float(s_out.adv_steps.sum())
+    s_use = lane_use(scall, s_out, sgY)
+    print_lane_use(f"allen_cahn at K={K_AC}", s_use)
+    s_bwd = stopped_bwd_roofline(s_adv, bwd_f, net, 4 * (
+        2 * n_par + K_AC * (D_AC + 2)) + bwd_layout(
+            scall.pack(backward=True), dev)["workspace_bytes"])
+    print(f"  the chosen layout at K={K_AC}: "
+          f"{bwd_layout(scall.pack(backward=True), dev)}, {s_adv:.0f} "
+          f"advancing path-steps, bound {s_bwd['bound_ms']:.4f} ms "
+          f"({s_bwd['bound_by']}; all FP32 {s_bwd['bound_ms_fp32']:.4f})")
 
     # the same recipe on the scan engine, beside 'fused_train', from JAX's
     # initial net: step times at the notebook's K and at K_AC_CHECK
@@ -4020,9 +4123,13 @@ def allen_cahn_phases(dev, smi):
              max_abs_err=max(worst["grad"], worst["bwd"]),
              ms=times["backward"][0], device_ms=times["backward"][2],
              plain_ms=times["backward"][1], workspace_bytes=ws_bytes,
-             **dict(b_bwd, lanes=use[0],
-                    tile_ms_at_K200={t: min(ms for ms, _ in v)
-                                     for t, v in tile_ms.items()})),
+             **dict(b_bwd, lanes=use[0], layout=bwd_layout(packed, dev),
+                    device_ms_at_K200=sweep["chosen"][f"K={K_AC}"],
+                    bound_ms_at_K200=s_bwd["bound_ms"],
+                    lanes_at_K200=s_use[0],
+                    layout_device_ms={tag: {str(lay): ms
+                                            for lay, ms in v.items()}
+                                      for tag, v in sweep["ms"].items()})),
         dict(row, name="fused_stopped_train_rollout.backward.device_plan",
              replaces="pspde/rollout/kernels.py:1272", plan="device",
              shape=f"ExponentialOnBallNonlinearSin, d={D_ELL}, DenseNet "
@@ -4346,7 +4453,8 @@ def same_training(a, b, logs=None):
 STEPS_TIMED = 5
 # the kernels of the training legs, as the profiler names them
 TRAIN_KERNELS = ("train_forward_kernel", "train_backward_kernel",
-                 "stopped_fwd_kernel", "stopped_bwd_kernel")
+                 "stopped_fwd_kernel", "stopped_bwd_kernel",
+                 "stopped_bwd_lane_kernel")
 
 
 def chunk_phase(dev, smi, llgc):

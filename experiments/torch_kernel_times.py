@@ -63,7 +63,8 @@ bench shape (binom) and at config 5.  ``--allen-cahn`` times the stopped
 kernels at their cells (as ``--stopped-only``, without the steps) and,
 where the tree has them, the Allen-Cahn pair (AllenCahn d=100, T=0.3, the
 notebook's DenseNet (110, 110, 50) on [x, t] and sampling ball of radius
-7, K=65536, N=25; its backward on the device plan) and the stopped
+7, N=25, at K=65536 and at the notebook's K=200; its backward on the
+device plan) and the stopped
 backward's device plan forced at the elliptic (DenseNet (30, 30)) and
 heat cells beside the shared plan, with the profiler's device time; a
 tree without them reads None there.
@@ -611,8 +612,9 @@ def stopped_times(dev, gen, step=True):
 
 
 def allen_cahn_times(dev, gen):
-    """ms (CUDA events) and device ms a launch (``torch.profiler``) of the
-    Allen-Cahn pair at the notebook's width, K=65536, N=25, and of the
+    """ms (CUDA events) and device ms a launch (``torch.profiler``, either
+    backward kernel) of the Allen-Cahn pair at the notebook's width, N=25,
+    at K=65536 and at the notebook's K=200 (``_k200`` keys), and of the
     stopped backward with its plan forced, shared and device, at the
     elliptic (DenseNet (30, 30)) and heat cells of ``stopped_cells``; None
     where the tree has no backward plans (its family refuses the cubic)."""
@@ -637,29 +639,31 @@ def allen_cahn_times(dev, gen):
 
             name = f"stopped_bwd_{tag.replace('ell_', '')}_{plan}_plan"
             out[name] = timed(bwd, 5)
-            out[f"{name}_device"] = device_ms(bwd, 5,
-                                              "stopped_bwd_kernel")[0]
+            out[f"{name}_device"] = device_ms(bwd, 5, "stopped_bwd")[0]
     ac = AllenCahn(d=100, T=0.3, device=dev)
     ac.geometry = Geometry(kind="unbounded", boundary_distance=7.0)
-    K = 65536
     net = DenseNet(1, (110, 110, 50), d_in=101, device=dev,
                    generator=torch.Generator(dev).manual_seed(5))
-    X0 = sample_domain(gen, ac.geometry, K, 100, uniform_square=True)
-    call = stopped_call(km, (ac, net, X0, torch.rand(
-        K, generator=gen, device=dev) * ac.T, 25, 1e-3, None, True))
-    gY = torch.randn(K, generator=gen, device=dev) / K
+    for K, reps, tag in ((65536, 3, ""), (200, 10, "_k200")):
+        X0 = sample_domain(gen, ac.geometry, K, 100, uniform_square=True)
+        call = stopped_call(km, (ac, net, X0, torch.rand(
+            K, generator=gen, device=dev) * ac.T, 25, 1e-3, None, True))
+        gY = torch.randn(K, generator=gen, device=dev) / K
 
-    def fwd():
-        km._stopped_forward_kernel(call)
+        def fwd(call=call):
+            km._stopped_forward_kernel(call)
 
-    def bwd():
-        km._stopped_backward_kernel(call, gY)
+        def bwd(call=call, gY=gY):
+            km._stopped_backward_kernel(call, gY)
 
-    out["allen_cahn_fwd"] = timed(fwd, 5)
-    out["allen_cahn_fwd_device"] = device_ms(fwd, 5, "stopped_fwd_kernel")[0]
-    out["allen_cahn_bwd"] = timed(bwd, 3)
-    out["allen_cahn_bwd_device"] = device_ms(bwd, 3, "stopped_bwd_kernel")[0]
-    out["allen_cahn_bwd_plan"] = call.pack(backward=True).layout[0]
+        out[f"allen_cahn{tag}_fwd"] = timed(fwd, reps)
+        out[f"allen_cahn{tag}_fwd_device"] = device_ms(
+            fwd, reps, "stopped_fwd_kernel")[0]
+        out[f"allen_cahn{tag}_bwd"] = timed(bwd, reps)
+        out[f"allen_cahn{tag}_bwd_device"] = device_ms(bwd, reps,
+                                                       "stopped_bwd")[0]
+        out[f"allen_cahn{tag}_bwd_layout"] = list(
+            call.pack(backward=True).layout)
     return out
 
 

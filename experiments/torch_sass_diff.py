@@ -2,7 +2,8 @@
 """Compare the SASS of one CUDA source of the port between two trees.
 
     python3 experiments/torch_sass_diff.py --old build/parent \\
-        [--new .] [--source pspde_torch/csrc/stopped_rollout.cu]
+        [--new .] [--source pspde_torch/csrc/stopped_rollout.cu] \\
+        [--dropped stopped_bwd_kernel:5]
 
 Compiles the source of each tree with nvcc for sm_90a (the flags of
 ``pspde_torch/rollout/_build.py``) into a cubin, reads ``cuobjdump -sass``,
@@ -14,7 +15,13 @@ false>``; the stopped backward's memory plan, ``kDevice``, appended
 with ``false`` for the shared plan, renamed each of the older backward's
 instantiations so, and the Schroedinger family and the tanh features,
 ``kSch`` and ``kTanh``, appended last to both stopped kernels, rename
-every earlier instantiation to the name ending in ``false, false``).  It prints that name map first, old -> new (or "no
+every earlier instantiation to the name ending in ``false, false``).
+``--dropped NAME:POS`` pairs the other way where the new tree dropped a
+template parameter: an old instantiation of NAME whose argument at
+position POS (from 0) is ``false`` pairs with the new one without it, and
+one with another value there has no counterpart (the stopped backward's
+``kDevice``, position 5, went when the device plan moved to a kernel of
+its own).  It prints that name map first, old -> new (or "no
 counterpart"), then for each pair the instruction counts and the count of
 instructions that differ (addresses and encodings stripped; a line that
 differs only in a branch target's address still counts), and one JSON line
@@ -82,7 +89,14 @@ def main():
     ap.add_argument("--old", required=True, help="root of the old tree")
     ap.add_argument("--new", default=ROOT, help="root of the new tree")
     ap.add_argument("--source", default="pspde_torch/csrc/stopped_rollout.cu")
+    ap.add_argument("--dropped", action="append", default=[],
+                    metavar="NAME:POS",
+                    help="a template parameter the new tree dropped")
     args = ap.parse_args()
+    dropped = {}
+    for spec in args.dropped:
+        kernel, pos = spec.rsplit(":", 1)
+        dropped.setdefault(kernel, []).append(int(pos))
     old = sass_of(os.path.join(args.old, args.source))
     new = sass_of(os.path.join(args.new, args.source))
     new_by_key = {}
@@ -93,6 +107,11 @@ def main():
     for name in old:
         base, targs = split_template(name)
         name_map[name] = None
+        if base in dropped:
+            if any(targs[p] != "false" for p in dropped[base]):
+                continue
+            targs = [a for i, a in enumerate(targs)
+                     if i not in dropped[base]]
         for (nb, nt), nname in new_by_key.items():
             if (nb == base and len(nt) >= len(targs)
                     and list(nt[:len(targs)]) == targs

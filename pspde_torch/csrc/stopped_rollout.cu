@@ -197,11 +197,11 @@
 //     static ranges cost the per-SM balance that 1024 blocks of one tile
 //     get from the block scheduler: 4.1 ms there against 3.6 on 1024
 //     blocks (NVIDIA H100 80GB HBM3, 700 W).
-//   * The replay stays per thread: the X chain and the masks must
-//     regenerate bitwise, and they do only if each path runs the forward's
-//     arithmetic (value_forward and value_grad, whose sums the forward's
-//     lanes split without reordering one; torus_terms, torus_step, step_of,
-//     selected, draw4) in the forward's order.
+//   * The shared plan's replay runs one thread a path.  The X chain and
+//     the masks must regenerate bitwise, and they do only if each path
+//     runs the forward's arithmetic (value_forward and value_grad, whose
+//     sums the forward's lanes split without reordering one; torus_terms,
+//     torus_step, step_of, selected, draw4) in the forward's order.
 //   * Each step's weight-gradient sums, half of the work before (2 FMAs
 //     against 4 shared loads per path and entry, scalar), run on the
 //     tensor cores: for each hidden layer one product G_l += [f; f']^T
@@ -215,24 +215,42 @@
 //     bounds the products is latency (a warp per SM sub-partition, in
 //     order): with the replay's sweeps they are now ~20% of the elliptic
 //     backward, no faster than the scalar loop at the torus's 10 columns.
-//   * The per-path arrays are [row][tile + 4] (conflict-free fragments;
-//     tile + 1 for nets too wide for that) in shared memory, or, in the
-//     device plan (kDevice), [row][grid x tile] in a workspace of device
-//     memory, one column a lane: the notebook's Allen-Cahn net (d = 100,
-//     [x, t], DenseNet (110, 110, 50): 1,924 floats a path) fits no block
-//     even at tile 32 and stride 33.  The same step code runs on both,
-//     through a pointer and a stride, so the two plans' sums are bitwise
-//     alike (the mma fragments read the same values in the same order from
-//     either memory); only the ballots, and the net where it leaves room
-//     for two blocks an SM, stay in shared memory.
+//   * The shared plan's per-path arrays are [row][tile + 4] (conflict-free
+//     fragments; tile + 1 for nets too wide for that) in shared memory;
 //     the net is staged per block when it fits beside them, else read from
 //     device memory (broadcast loads that L1 serves; the notebook net
 //     DenseNet (70, 50, 50, 50), 131 KB of weights, fits beside no tile);
 //     the block's gradient row lives in device memory (the notebook net's
 //     29,491 entries would not fit in shared memory either); the lambda
 //     entry is summed in a register per lane and over the block once, at
-//     the end.  Shared memory still bounds the blocks per SM: moving the
-//     per-path arrays to device memory is the next step for both kernels.
+//     the end.
+//   * The device plan (stopped_bwd_lane_kernel) runs the same replay,
+//     refill and products on lanes of tpp threads, as the forward does:
+//     the value and tangent sweeps split their output chunks, grad V and
+//     the reverse pair sweep their rows, each sum in one thread in the
+//     one-thread order, so its gradient rows at one tile are the shared
+//     plan's bitwise.  It serves the nets whose arrays fit no block of the
+//     shared plan: the notebook's Allen-Cahn net (d = 100, [x, t],
+//     DenseNet (110, 110, 50): 1,924 floats a path) fits none even at tile
+//     32 and stride 33.  Its one-thread predecessor (the shared plan's code
+//     with the arrays in a workspace of device memory) ran 4 blocks of 64
+//     lanes at the notebook's K = 200: two warps on each of 4 SMs, each
+//     thread a chain of ~250k dependent FMAs a step, each after a load that
+//     waited on L1 or L2; 42.6-43.0 ms a launch, 91% of the notebook step's
+//     device time.  The lanes kernel's layout (_stopped_bwd_lane_layout)
+//     splits a path as far as K leaves the card idle and halves the tile
+//     until K gives the SMs blocks: at K = 200 25 blocks of 8 lanes of 16
+//     threads, the arrays in shared memory, 4.57-4.59 ms; at K = 65536 64
+//     lanes of 4 threads, the arrays in a workspace, 121.6-122.0 against
+//     156.5-157.1 ms; forced at the elliptic cell (d = 50, K = 65536, N =
+//     20) 0.82 against 2.82 ms, the shared plan's 1.78 (device ms by the
+//     profiler, parent and change in one call of experiments/
+//     torch_kernel_times.py --allen-cahn; NVIDIA H100 80GB HBM3 at 700.00
+//     W).  What bounds it now is latency, not the card's rates (170x the
+//     FLOP bound at K = 200, 14x at K = 65536): each lane's chain through
+//     the net, whose 214 KB of weights no block holds beside the arrays, so
+//     every row of every sweep waits on L1 or L2 (staged alone, the net
+//     leaves one block an SM and reads slower).
 //   * The torus's proposal takes the rows 0..d of grad V (forward) and of
 //     the step (backward), which are free by then.
 //
@@ -1131,11 +1149,12 @@ stopped_fwd_kernel(const StoppedArgs a, const float* __restrict__ P,
 // forward's stride: (g + c) mod 32, up to 4-way conflicts, the same sums
 // (pspde_torch/rollout/kernels.py: _stopped_bwd_stride).  A thread walking
 // its own path reads one word of each row, and any stride serves that.
-// Past that (about 1,760 floats a path) the device plan (kDevice) puts them
-// in a workspace of device memory, ts = grid x tile, block b's lanes at
-// columns b tile .. b tile + tile - 1: the fragments then read 4 rows of 8
-// consecutive words (4 sectors) where shared memory read 32 banks, the
-// same values in the same order (_stopped_bwd_ws).
+// Past that (about 1,760 floats a path) the device plan's lanes kernel
+// keeps them at stride tile + 4 in shared memory where its smaller tiles
+// let them fit, else in a workspace of device memory, ts = grid x tile,
+// block b's lanes at columns b tile .. b tile + tile - 1: the fragments
+// then read 4 rows of 8 consecutive words (4 sectors) where shared memory
+// read 32 banks, the same values in the same order (_stopped_bwd_ws).
 
 // The lane ballots of the refill: two slots of one word per warp, at the
 // start of the backward's shared memory (16 bytes, so the staged net after
@@ -1161,7 +1180,7 @@ constexpr int kUnitN = 4;   // n tiles (8 output columns each) of a unit
 
 // One warp's unit of one hidden layer's sums over the block's paths,
 //   G[r][j] += sum_{p < tile} in0_r[p] D0_j[p] + in1_r[p] D1_j[p],
-// for the 16 rows m0.. and the kUnitN x 8 columns n0.. of G (rows + 1,
+// for the 16 rows m0.. and the kN x 8 columns n0.. of G (rows + 1,
 // cols), row-major: one product of depth 2 tile, the features f against
 // the cotangents hbar of h and the tangents f' against those hbar' of h'.
 // Row r < rows of the left operands is row r of in0 / in1; row `rows` (the
@@ -1175,24 +1194,24 @@ constexpr int kUnitN = 4;   // n tiles (8 output columns each) of a unit
 // tensor cores (3xTF32: big big, big small, small big, in
 // three independent float32 accumulators); the old G is loaded before the
 // products and the step's sum added to it once.
-template <bool kShared>
+template <bool kShared, int kN = kUnitN>
 __device__ __forceinline__ void pair_tile_product(
     const float* in0, const float* D0, const float* in1, const float* D1,
     int rows, int cols, int ts, int tile, float* G, int m0, int n0) {
   const int lane = threadIdx.x & 31, g = lane >> 2, c = lane & 3;
-  const int nq = min(kUnitN, (cols - n0 + 7) >> 3);
-  // the lane's rows m0 + g and m0 + g + 8 of A, and its kUnitN rows of D
+  const int nq = min(kN, (cols - n0 + 7) >> 3);
+  // the lane's rows m0 + g and m0 + g + 8 of A, and its kN rows of D
   const int ra = m0 + g, rb = ra + 8;
   const bool fa = ra < rows, fb = rb < rows;
   const int oa = (fa ? ra : 0) * ts + c, ob = (fb ? rb : 0) * ts + c;
   const float ca = ra == rows ? 1.0f : 0.0f, cb = rb == rows ? 1.0f : 0.0f;
-  int oq[kUnitN];
+  int oq[kN];
 #pragma unroll
-  for (int q = 0; q < kUnitN; ++q)
+  for (int q = 0; q < kN; ++q)
     oq[q] = min(n0 + 8 * q + g, cols - 1) * ts + c;
-  float old[kUnitN][4];
+  float old[kN][4];
 #pragma unroll
-  for (int q = 0; q < kUnitN; ++q) {
+  for (int q = 0; q < kN; ++q) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int r = ra + 8 * (e >> 1), j = n0 + 8 * q + 2 * c + (e & 1);
@@ -1204,7 +1223,7 @@ __device__ __forceinline__ void pair_tile_product(
   // step's loads are issued a step ahead, so their latency overlaps the
   // step before's products.
   const PathRow<kShared> A0(in0), A1(in1), B0(D0), B1(D1);
-  auto load = [&](int kk, float (&fa_)[4], float (&fb_)[kUnitN][2]) {
+  auto load = [&](int kk, float (&fa_)[4], float (&fb_)[kN][2]) {
     const bool second = kk >= tile;
     const int k0 = second ? kk - tile : kk;
     const PathRow<kShared> A = second ? A1 : A0, B = second ? B1 : B0;
@@ -1213,15 +1232,15 @@ __device__ __forceinline__ void pair_tile_product(
     fa_[2] = A[oa + k0 + 4];
     fa_[3] = A[ob + k0 + 4];
 #pragma unroll
-    for (int q = 0; q < kUnitN; ++q) {
+    for (int q = 0; q < kN; ++q) {
       if (q < nq) {
         fb_[q][0] = B[oq[q] + k0];
         fb_[q][1] = B[oq[q] + k0 + 4];
       }
     }
   };
-  float bb_[kUnitN][4] = {}, bs_[kUnitN][4] = {}, sb_[kUnitN][4] = {};
-  float a[4], b[kUnitN][2] = {}, an[4], bn[kUnitN][2] = {};
+  float bb_[kN][4] = {}, bs_[kN][4] = {}, sb_[kN][4] = {};
+  float a[4], b[kN][2] = {}, an[4], bn[kN][2] = {};
   load(0, a, b);
 #pragma unroll 2
   for (int kk = 0; kk < 2 * tile; kk += 8) {
@@ -1234,7 +1253,7 @@ __device__ __forceinline__ void pair_tile_product(
     tf32_split(fa ? a[2] : ka, ab[2], as[2]);
     tf32_split(fb ? a[3] : kb, ab[3], as[3]);
 #pragma unroll
-    for (int q = 0; q < kUnitN; ++q) {
+    for (int q = 0; q < kN; ++q) {
       if (q < nq) {
         uint32_t bb[2], bs[2];
         tf32_split(b[q][0], bb[0], bs[0]);
@@ -1247,13 +1266,13 @@ __device__ __forceinline__ void pair_tile_product(
 #pragma unroll
     for (int e = 0; e < 4; ++e) a[e] = an[e];
 #pragma unroll
-    for (int q = 0; q < kUnitN; ++q) {
+    for (int q = 0; q < kN; ++q) {
       b[q][0] = bn[q][0];
       b[q][1] = bn[q][1];
     }
   }
 #pragma unroll
-  for (int q = 0; q < kUnitN; ++q) {
+  for (int q = 0; q < kN; ++q) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int r = ra + 8 * (e >> 1), j = n0 + 8 * q + 2 * c + (e & 1);
@@ -1270,8 +1289,10 @@ __device__ __forceinline__ void pair_tile_product(
 // sum_p alpha_p f_i[p] + f'_i[p] and G[bL] += sum_p alpha_p.  The arguments
 // are this thread's columns; a path without a gradient this step has zero
 // f', hbar, hbar' and alpha.  The caller synchronises before (the rows are
-// other threads') and after.  kShared: the rows are in shared memory.
-template <bool kTimed, bool kShared>
+// other threads') and after.  The rows are in shared memory (the shared
+// plan); lane_weight_grads is the same sums for the lanes kernel, written
+// apart so that this code, and the shared plan's SASS, stay as they were.
+template <bool kTimed>
 __device__ __forceinline__ void step_weight_grads(
     const StoppedArgs& a, const float* f, const float* fd, const float* gb,
     const float* gdb, const float* al, float* G, int ts) {
@@ -1291,10 +1312,10 @@ __device__ __forceinline__ void step_weight_grads(
     for (int u = ((warp - u0) % n_warps + n_warps) % n_warps; u < units;
          u += n_warps) {
       const int mt = u / n_groups;
-      pair_tile_product<kShared>(f, gb + n_in * ts, fd,
-                                 gdb + (n_in - d_in) * ts, n_in, w, ts,
-                                 a.tile, G + a.g_off[l], 16 * mt,
-                                 8 * kUnitN * (u - mt * n_groups));
+      pair_tile_product<true>(f, gb + n_in * ts, fd,
+                              gdb + (n_in - d_in) * ts, n_in, w, ts, a.tile,
+                              G + a.g_off[l], 16 * mt,
+                              8 * kUnitN * (u - mt * n_groups));
     }
     u0 += units;
     n_in += w;
@@ -1318,14 +1339,13 @@ __device__ __forceinline__ void step_weight_grads(
   }
 }
 
-// kDevice: the device plan, the per-path arrays at stride ts in the
-// workspace that follows the grid's gradient rows in `part` (not an
-// argument of its own: one more kernel parameter moved ptxas's register
-// allocation of the shared plan's dense-sigma instantiations, where the
-// kernel's parameters as they were keep every shared-plan instantiation's
-// SASS as it was before the plan; experiments/torch_sass_diff.py).
+// The shared plan: one thread a path, the per-path arrays at stride ts in
+// shared memory.  (Its kernel parameters are kept as they were: one more
+// moved ptxas's register allocation of the dense-sigma instantiations;
+// experiments/torch_sass_diff.py holds every instantiation's SASS to the
+// parent's.)
 template <bool kTimed, bool kTorus, bool kRelu, bool kFull, bool kBreadth,
-          bool kDevice, bool kSch, bool kTanh>
+          bool kSch, bool kTanh>
 __global__ void __launch_bounds__(kStoppedTile, kMinBlocksPerSm)
 stopped_bwd_kernel(const StoppedArgs a, const float* __restrict__ P,
                    const float* __restrict__ noise,
@@ -1341,9 +1361,6 @@ stopped_bwd_kernel(const StoppedArgs a, const float* __restrict__ P,
   const int lane = tid & 31, warp = tid >> 5, n_warps = tile >> 5;
   float* col = S + tid;
   const float* W = stage_net(a, P, S, &col);
-  if constexpr (kDevice)
-    col = part + static_cast<size_t>(gridDim.x) * a.n_grad +
-          blockIdx.x * tile + tid;
   float* G = part + static_cast<size_t>(blockIdx.x) * a.n_grad;
   for (int e = tid; e < a.n_grad; e += tile) G[e] = 0.0f;
   // the block's paths not yet started: next .. hi (the same in every thread)
@@ -1617,7 +1634,7 @@ stopped_bwd_kernel(const StoppedArgs a, const float* __restrict__ P,
     }
 
     if (__syncthreads_or(grad)) {
-      step_weight_grads<kTimed, !kDevice>(a, f, fd, gb, gdb, al, G, ts);
+      step_weight_grads<kTimed>(a, f, fd, gb, gdb, al, G, ts);
       __syncthreads();
     }
     if (busy) {
@@ -1645,31 +1662,421 @@ stopped_bwd_kernel(const StoppedArgs a, const float* __restrict__ P,
   }
 }
 
-// Shared memory of one block, in floats: the staged net and the per-path
-// arrays, of stride tile + 1 in the forward (bwd_ts = 0; the normals' d
-// rows too, and Z's with a dense sigma), and in the backward the lane
-// ballots first and the arrays at stride bwd_ts (with a dense sigma 2 d
-// more rows), which the device plan (`device`) keeps in its workspace
-// instead.  The wrapper's _stopped_smem_bytes and _stopped_per_path
-// compute the same.
-size_t smem_floats(const StoppedArgs& a, const StoppedExt& ext, int bwd_ts,
-                   bool device = false) {
-  const bool backward = bwd_ts > 0;
-  const size_t H = a.F - (a.time_stopping ? a.d + 1 : a.d);
-  const size_t full_rows = ext.sig_off >= 0 ? (backward ? 2 : 1) * a.d : 0;
-  const size_t per_path =
-      (backward ? 3 * a.F + 3 * H + 1 : 2 * a.F + H + a.d) + full_rows;
-  size_t net = a.stage ? a.n_params : 0;
-  if (!backward && a.stage) {   // the forward's row pads (FwdNet)
-    size_t n_in = a.F - H;
+// -- the device plan: the replay with several threads a path --------------
+
+// The lanes kernel's block: `tile` lanes of `tpp` threads (tile x tpp a
+// multiple of 32, at most kLaneThreads), as the forward's.  The bound caps
+// registers at 65,536 / (kLaneThreads x kLaneMinBlocks) = 128 a thread.
+constexpr int kLaneThreads = 256;
+constexpr int kLaneMinBlocks = 2;
+constexpr int kLaneWarps = kLaneThreads / 32;
+constexpr int kLaneUnitN = 2;   // n tiles of a unit of its products
+// The refill's ballots: two slots of one word per warp (64 bytes, so the
+// staged net after them keeps matvec_chunk's float4 alignment).
+constexpr int kLaneBallotWords = 2 * kLaneWarps;
+
+// The tangent sweep split over a lane's threads as lane_value_forward
+// splits the value sweep: thread q forms the output chunks q, q + p, ...
+// of h' = W_l f' (matvec_chunk, each sum over the input rows in order) and
+// the features' tangents 2 relu(h) h'; the threads meet after each layer.
+template <bool kTimed>
+__device__ void lane_tangent(const StoppedArgs& a, const FwdNet& net,
+                             const float* r, float* fd, float* hd, int ts,
+                             const Lane& ln) {
+  const int d_in = net_inputs<kTimed>(a);
+  int n_in = d_in;
+  for (int l = 0; l < a.L; ++l) {
+    const int w = a.width[l], wp = padded(w), ws = net.stride(a, l);
+    const float* Wl = net.w(a, l);
+    const float* rl = r + (n_in - d_in) * ts;
+    float* hdl = hd + (n_in - d_in) * ts;
+    for (int j0 = ln.q * kChunk; j0 < wp; j0 += ln.p * kChunk) {
+      float acc[kChunk];
+#pragma unroll
+      for (int c = 0; c < kChunk; ++c) acc[c] = 0.0f;
+      matvec_chunk(Wl, n_in, ws, j0, fd, ts, acc);
+#pragma unroll
+      for (int c = 0; c < kChunk; ++c) {
+        const int j = j0 + c;
+        if (j < w) {
+          hdl[j * ts] = acc[c];
+          fd[(n_in + j) * ts] = 2.0f * rl[j * ts] * acc[c];
+        }
+      }
+    }
+    n_in += w;
+    ln.sync();
+  }
+}
+
+// The reverse sweep over the pair (V, V') split over a lane's threads as
+// lane_value_grad splits grad V's: feature row i (i >= d_in) belongs to
+// thread i mod p, which forms its cotangents (the output row's alpha wL_i
+// and wL_i, each hidden layer's relu^2 pair, and the two sums a row over
+// the layer's outputs, in the one-thread sweep's order), two rows a pass;
+// the threads meet before each layer's sums, which read other threads'
+// rows.  The caller makes them meet after the last.
+template <bool kTimed>
+__device__ void lane_pair_reverse(const StoppedArgs& a, const FwdNet& net,
+                                  const float* r, const float* hd, float* gb,
+                                  float* gdb, float alpha, int ts,
+                                  const Lane& ln) {
+  const int d_in = net_inputs<kTimed>(a);
+  const float* wL = net.wL(a);
+  const int i0 = d_in + ((ln.q - d_in) & (ln.p - 1));   // this thread's rows
+  for (int i = i0; i < a.F; i += ln.p) {
+    gb[i * ts] = alpha * wL[i];
+    gdb[(i - d_in) * ts] = wL[i];
+  }
+  int o = a.F;
+  for (int l = a.L - 1; l >= 0; --l) {
+    const int w = a.width[l], ws = net.stride(a, l);
+    o -= w;
+    const float* rl = r + (o - d_in) * ts;
+    const float* hdl = hd + (o - d_in) * ts;
+    for (int j = (ln.q - o) & (ln.p - 1); j < w; j += ln.p) {
+      const float rv = rl[j * ts];
+      const float ab = gb[(o + j) * ts];
+      const float adb = gdb[(o + j - d_in) * ts];
+      gb[(o + j) * ts] =
+          rv > 0.0f ? 2.0f * rv * ab + 2.0f * hdl[j * ts] * adb : 0.0f;
+      gdb[(o + j - d_in) * ts] = 2.0f * rv * adb;
+    }
+    ln.sync();
+    const float* Wl = net.w(a, l);
+    for (int i = i0; i < o; i += 2 * ln.p) {
+      const int i2 = i + ln.p;
+      const float* Wi = Wl + i * ws;
+      const float* Wi2 = Wl + min(i2, o - 1) * ws;
+      float s = 0.0f, sd = 0.0f, s2 = 0.0f, sd2 = 0.0f;
+      for (int j = 0; j < w; ++j) {
+        const float gj = gb[(o + j) * ts];
+        const float gdj = gdb[(o + j - d_in) * ts];
+        s = fmaf(Wi[j], gj, s);
+        sd = fmaf(Wi[j], gdj, sd);
+        s2 = fmaf(Wi2[j], gj, s2);
+        sd2 = fmaf(Wi2[j], gdj, sd2);
+      }
+      gb[i * ts] += s;
+      gdb[(i - d_in) * ts] += sd;
+      if (i2 < o) {
+        gb[i2 * ts] += s2;
+        gdb[(i2 - d_in) * ts] += sd2;
+      }
+    }
+  }
+}
+
+// step_weight_grads for the lanes kernel: the same sums in units of
+// kLaneUnitN x 8 columns, dealt to the block's tile x tpp threads (its
+// warps take the units in turn, its threads the output row's entries); the
+// arguments point at path 0 of the rows, in shared memory (kShared) or in
+// the workspace.  Each entry of G is summed by one unit's mma in the same
+// order whatever the unit's width, so the sums are step_weight_grads'
+// bitwise; the narrower unit keeps the kernel within its registers.
+template <bool kTimed, bool kShared>
+__device__ __forceinline__ void lane_weight_grads(
+    const StoppedArgs& a, const float* f, const float* fd, const float* gb,
+    const float* gdb, const float* al, float* G, int ts) {
+  const int tid = threadIdx.x, warp = tid >> 5, n_warps = blockDim.x >> 5;
+  const int d_in = net_inputs<kTimed>(a);
+  int u0 = 0;
+  int n_in = d_in;
+  for (int l = 0; l < a.L; ++l) {
+    const int w = a.width[l];
+    const int n_groups = (w + 8 * kLaneUnitN - 1) / (8 * kLaneUnitN);
+    const int units = (n_in + 16) / 16 * n_groups;
+    for (int u = ((warp - u0) % n_warps + n_warps) % n_warps; u < units;
+         u += n_warps) {
+      const int mt = u / n_groups;
+      pair_tile_product<kShared, kLaneUnitN>(
+          f, gb + n_in * ts, fd, gdb + (n_in - d_in) * ts, n_in, w, ts,
+          a.tile, G + a.g_off[l], 16 * mt,
+          8 * kLaneUnitN * (u - mt * n_groups));
+    }
+    u0 += units;
+    n_in += w;
+  }
+  // entry e sums the paths from (q + e) mod tile, as step_weight_grads
+  float* GL = G + a.gL_off;
+  for (int e = tid; e <= a.F; e += blockDim.x) {
+    float s = 0.0f;
+    if (e == a.F) {
+      for (int p = 0; p < a.tile; ++p) s += al[p];
+    } else {
+      const float* fi = f + e * ts;
+      const float* fdi = fd + e * ts;
+      for (int q = 0; q < a.tile; ++q) {
+        const int p = (q + e) & (a.tile - 1);
+        s = fmaf(al[p], fi[p], s + fdi[p]);
+      }
+    }
+    GL[e] += s;
+  }
+}
+
+// The device plan's backward: stopped_bwd_kernel's replay, refill and
+// products with a lane of tpp threads carrying each path, as the forward's
+// lanes do.  The value and tangent sweeps split their output chunks, grad V
+// and the reverse pair sweep their rows (lane_value_forward, lane_tangent,
+// lane_value_grad, lane_pair_reverse), the normals their dimension groups;
+// every sum stays one thread's, in the one-thread replay's order, and every
+// thread of a lane holds the path's scalars (gy, t, r2, alpha, busy) alike,
+// so the X chain, the masks and every row the products read are bitwise
+// the shared plan's, and at one tile so are the gradient rows and the block
+// counts (whatever tpp, the staging and the arrays' memory).  The refill
+// ballots over the warps' lane leaders: lanes take the range's paths in
+// lane order, as the shared plan's threads do.  The lanes' arrays sit at
+// stride ts in shared memory (in_smem: ts = tile + 4, after the staged net)
+// or in the workspace `ws` (ts = grid x tile, block b's lanes at columns
+// b tile ..); the net is staged in FwdNet's padded layout where a.stage,
+// else read from device memory.  The breadth fields without the clock, a
+// dense sigma and the Schroedinger family have no device plan.  Its times
+// and what bounds it: the design note at the head of this file.  The bound
+// caps its registers at 128, which it keeps without a spill (126-128 in
+// the eight instantiations) since its products run in units of kLaneUnitN
+// n-tiles: at kUnitN's 4 it spilled 172-288 bytes and read 3% faster to 8%
+// slower; a cap of 255 (164-168 registers, 8-12 warps an SM) read 149-177
+// ms at the Allen-Cahn cell's K = 65536 against 114-122
+// (experiments/torch_bwd_layouts.py on copies of this file with the
+// constant changed; NVIDIA H100 80GB HBM3 at 700.00 W).
+template <bool kTimed, bool kTorus, bool kRelu, bool kBreadth>
+__global__ void __launch_bounds__(kLaneThreads, kLaneMinBlocks)
+stopped_bwd_lane_kernel(const StoppedArgs a, const float* __restrict__ P,
+                        const float* __restrict__ noise,
+                        const float* __restrict__ X0,
+                        const float* __restrict__ t0,
+                        const float* __restrict__ gY,
+                        float* __restrict__ part, int* __restrict__ counts,
+                        float* __restrict__ ws, const int ts, const int tpp,
+                        const int in_smem, const StoppedExt ext) {
+  static_assert(!kBreadth || kTimed, "the cubic is the one breadth family "
+                "with a device plan");
+  extern __shared__ float4 smem4[];
+  uint32_t* ballots = reinterpret_cast<uint32_t*>(smem4);
+  float* S = reinterpret_cast<float*>(smem4) + kLaneBallotWords;
+  const int tile = a.tile, tid = threadIdx.x;
+  const int warp = tid >> 5, n_warps = blockDim.x >> 5;
+  const Lane ln(tid, tpp);
+  const int slot = tid / tpp;            // the lane's column
+  float* base = S;
+  const FwdNet net = stage_fwd_net(a, P, S, &base);
+  float* col0 = in_smem ? base : ws + static_cast<size_t>(blockIdx.x) * tile;
+  float* G = part + static_cast<size_t>(blockIdx.x) * a.n_grad;
+  for (int e = tid; e < a.n_grad; e += blockDim.x) G[e] = 0.0f;
+  int next = range_start(blockIdx.x, a.K, tile, gridDim.x);
+  const int hi = range_start(blockIdx.x + 1, a.K, tile, gridDim.x);
+
+  const int d_in = net_inputs<kTimed>(a);
+  const int H = a.F - d_in;
+  const int rows = 3 * a.F + 3 * H + 1;  // a path's rows, f .. al
+  float* f = col0 + slot;                // as stopped_bwd_kernel's
+  float* r = f + a.F * ts;
+  float* fd = r + H * ts;
+  float* hd = fd + a.F * ts;
+  float* gb = hd + H * ts;
+  float* gdb = gb + a.F * ts;
+  float* al = gdb + H * ts;
+  for (int i = ln.q; i < rows; i += ln.p) f[i * ts] = 0.0f;
+  count_launch(a.launches);
+  const uint2 key = stopped_seed(a);
+  const float lam = kTorus ? P[a.lam_off] : 0.0f;
+  float g_lam = 0.0f;
+  // a lane leader's bit in each tpp bits of a warp's ballot
+  const uint32_t leads = tpp == 32 ? 1u : 0xFFFFFFFFu / ((1u << tpp) - 1u);
+
+  int k = 0, n = 0, bslot = 0;
+  float gy = 0.0f, t = 0.0f, r2 = 0.0f;
+  bool busy = false;
+  int block_steps = 0, lane_steps = 0;
+  auto takes_step = [&]() {
+    if (n >= a.N) return false;
+    if (kTorus) return true;
+    r2 = sq_norm(f, a.d, ts);
+    return selected<kTimed>(a, r2, t);
+  };
+
+  for (;;) {
+    // Refill, as stopped_bwd_kernel's, counting lanes: each warp's ballot
+    // keeps its lane leaders' bits.
+    int n_free;
+    for (;;) {
+      const uint32_t m = __ballot_sync(0xFFFFFFFFu, !busy) & leads;
+      if ((tid & 31) == 0) ballots[bslot * kLaneWarps + warp] = m;
+      __syncthreads();
+      int below = __popc(m & ((1u << ln.leader()) - 1u));
+      n_free = 0;
+      for (int w = 0; w < n_warps; ++w) {
+        const int cnt = __popc(ballots[bslot * kLaneWarps + w]);
+        n_free += cnt;
+        if (w < warp) below += cnt;
+      }
+      bslot ^= 1;
+      if (n_free == 0 || next >= hi) break;
+      if (!busy && next + below < hi) {
+        k = next + below;
+        for (int i = ln.q; i < rows; i += ln.p) f[i * ts] = 0.0f;
+        for (int j = ln.q; j < a.d; j += ln.p)
+          f[j * ts] = X0[static_cast<size_t>(k) * a.d + j];
+        gy = gY[k];
+        t = t0[k];
+        n = 0;
+        ln.sync();
+        busy = takes_step();
+      }
+      next = min(hi, next + n_free);
+    }
+    if (n_free == tile) break;
+    ++block_steps;
+    lane_steps += tile - n_free;
+
+    bool adv = false;
+    bool opened = false;   // with the clamp: adv and o > 0
+    if (busy) {
+      float s = 0.0f, qs = 0.0f;
+      if (kTorus) torus_terms(a, f, ts, &s, &qs);
+      if (kTimed) {
+        if (ln.q == 0) f[a.d * ts] = t;
+        ln.sync();
+      }
+      const float v_out = lane_value_forward<kTimed>(a, net, f, r, ts, ln);
+      const bool on = !kRelu || v_out > 0.0f;
+      const float V = on ? v_out : 0.0f;
+      if (a.adaptive && on) {
+        lane_value_grad<kTimed>(a, net, r, gb, ts, ln);
+        ln.sync();
+      }
+      const float m_cs = kTorus ? -cosf(s) : 0.0f;
+      bool inside = true;
+      for (int gi = ln.q; 4 * gi < a.d; gi += ln.p) {
+        float xi[4];
+        draw4(a, key, noise, k, n, gi, xi);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int j = 4 * gi + q;
+          if (j >= a.d) break;
+          const float c = a.adaptive && on ? -(a.sig * gb[j * ts]) : 0.0f;
+          fd[j * ts] = gy * (a.sig * (xi[q] * a.sq_dt + c * a.dt));
+          if (kTorus) {
+            const float st = torus_step(a, m_cs, f[j * ts], c, xi[q]);
+            inside = inside && in_box(a, __fadd_rn(f[j * ts], st));
+            gb[j * ts] = st;
+          } else {
+            gb[j * ts] = step_of(a, c, xi[q]);
+          }
+        }
+      }
+      if (kTorus) inside = __all_sync(ln.mask, inside);
+      adv = !kTorus || inside;
+      float alpha = 0.0f;
+      if (adv) {
+        opened = on;
+        if (kTorus) {
+          alpha = -gy * (torus_h_dy(s, qs) + lam) * a.dt;
+          g_lam = fmaf(-gy * V, a.dt, g_lam);
+        } else if constexpr (kBreadth) {
+          alpha = -gy * cubic_h_dy(a, ext, r2, t, V) * a.dt;
+        } else {
+          alpha = -gy * h_dy<kTimed>(a, r2, t, V) * a.dt;
+        }
+        if (ln.q == 0) {
+          *al = alpha;
+          if (kTimed) fd[a.d * ts] = 0.0f;
+        }
+        if (kTimed) t = __fadd_rn(t, a.dt);
+      }
+      ln.sync();   // the step's rows 0..d_in of fd and gb complete
+      if (adv && on) {
+        lane_tangent<kTimed>(a, net, r, fd, hd, ts, ln);
+        lane_pair_reverse<kTimed>(a, net, r, hd, gb, gdb, alpha, ts, ln);
+      }
+    }
+    const bool grad = kRelu ? opened : adv;
+    if (!grad) {   // this lane adds nothing this step
+      for (int i = ln.q; i < a.F; i += ln.p) fd[i * ts] = 0.0f;
+      for (int i = d_in + ((ln.q - d_in) & (ln.p - 1)); i < a.F;
+           i += ln.p) {
+        gb[i * ts] = 0.0f;
+        gdb[(i - d_in) * ts] = 0.0f;
+      }
+      if (ln.q == 0) *al = 0.0f;
+    }
+
+    if (__syncthreads_or(grad)) {
+      const float* f0 = f - slot;
+      if (in_smem)
+        lane_weight_grads<kTimed, true>(a, f0, fd - slot, gb - slot,
+                                        gdb - slot, al - slot, G, ts);
+      else
+        lane_weight_grads<kTimed, false>(a, f0, fd - slot, gb - slot,
+                                         gdb - slot, al - slot, G, ts);
+      __syncthreads();
+    }
+    if (busy) {
+      if (adv)
+        for (int j = ln.q; j < a.d; j += ln.p)
+          f[j * ts] = __fadd_rn(f[j * ts], gb[j * ts]);
+      ln.sync();
+      ++n;
+      busy = adv && takes_step();
+    }
+  }
+  if (kTorus) {
+    if (ln.q == 0) *al = g_lam;
+    __syncthreads();
+    if (tid == 0) {
+      float sum = 0.0f;
+      for (int p = 0; p < tile; ++p) sum += al[p];
+      G[a.g_lam] = sum;
+    }
+  }
+  if (tid == 0) {
+    counts[2 * blockIdx.x] = block_steps;
+    counts[2 * blockIdx.x + 1] = lane_steps;
+  }
+}
+
+// The staged net's floats: the packed buffer, with the forward's row pads
+// (FwdNet) where `padded`; 0 where a.stage is 0.
+size_t staged_net_floats(const StoppedArgs& a, bool padded) {
+  if (!a.stage) return 0;
+  size_t net = a.n_params;
+  if (padded) {
+    size_t n_in = a.time_stopping ? a.d + 1 : a.d;
     for (int l = 0; l < a.L; ++l) {
       net += kRowPad * n_in;
       n_in += a.width[l];
     }
   }
-  if (device) return kBallotWords + net;
+  return net;
+}
+
+// Shared memory of one block, in floats: the staged net and the per-path
+// arrays, of stride tile + 1 in the forward (bwd_ts = 0; the normals' d
+// rows too, and Z's with a dense sigma), and in the backward's shared plan
+// the lane ballots first and the arrays at stride bwd_ts (with a dense
+// sigma 2 d more rows).  The wrapper's _stopped_smem_bytes and
+// _stopped_per_path compute the same.
+size_t smem_floats(const StoppedArgs& a, const StoppedExt& ext, int bwd_ts) {
+  const bool backward = bwd_ts > 0;
+  const size_t H = a.F - (a.time_stopping ? a.d + 1 : a.d);
+  const size_t full_rows = ext.sig_off >= 0 ? (backward ? 2 : 1) * a.d : 0;
+  const size_t per_path =
+      (backward ? 3 * a.F + 3 * H + 1 : 2 * a.F + H + a.d) + full_rows;
+  const size_t net = staged_net_floats(a, !backward);
   return (backward ? kBallotWords : 0) + net +
          per_path * static_cast<size_t>(backward ? bwd_ts : a.tile + 1);
+}
+
+// Shared memory of one block of the lanes kernel, in floats: the ballots,
+// the staged net (FwdNet's padded rows) and, in_smem, the lanes' 3 F + 3 H
+// + 1 rows at stride ts.  The wrapper's _stopped_bwd_smem computes the
+// same.
+size_t lane_smem_floats(const StoppedArgs& a, int ts, bool in_smem) {
+  const size_t H = a.F - (a.time_stopping ? a.d + 1 : a.d);
+  const size_t per_path = 3 * a.F + 3 * H + 1;
+  return kLaneBallotWords + staged_net_floats(a, true) +
+         (in_smem ? per_path * static_cast<size_t>(ts) : 0);
 }
 
 // StoppedArgs from the wrapper's arrays, checked but for the tile, which
@@ -1725,9 +2132,40 @@ int unpack(const int* iargs, const float* fargs,
   return static_cast<int>(cudaSetDevice(device));
 }
 
-// The backward's block: tile 32 or 64, one thread a path.
+// The shared plan's block: tile 32 or 64, one thread a path.
 bool bwd_tile_ok(const StoppedArgs& a) {
   return a.tile > 0 && a.tile <= kStoppedTile && a.tile % 32 == 0;
+}
+
+// The backward's layout, the ints after StoppedArgs' and StoppedExt's: [ts,
+// grid, plan], and in the device plan [ts, grid, plan, tpp, in_smem].  The
+// shared plan (plan 0): stride tile + 4, or tile + 1 where that does not
+// fit (the note on the backward's arrays).  The device plan (plan 1, the
+// lanes kernel): tile a power of two from 8 to 64 (the products' depth
+// 2 tile a multiple of 8, the output row's rotation a mask), lanes of tpp
+// threads (a power of two up to 32; tile x tpp a multiple of 32 up to
+// kLaneThreads), the arrays in shared memory at stride tile + 4 (in_smem
+// 1) or in the workspace at a stride of at least the tile (grid x tile in
+// a launch).  Returns false for any other.
+struct BwdLayout {
+  int ts, grid, tpp, in_smem;
+  bool device;
+};
+
+bool unpack_bwd_layout(const StoppedArgs& a, const int* iargs,
+                       BwdLayout* lay) {
+  const int* l = iargs + kNumPackedInts;
+  if (l[2] == 0) {
+    *lay = BwdLayout{l[0], l[1], 1, 1, false};
+    return bwd_tile_ok(a) && (lay->ts == a.tile + 4 || lay->ts == a.tile + 1);
+  }
+  *lay = BwdLayout{l[0], l[1], l[3], l[4], true};
+  const int t = a.tile, p = lay->tpp;
+  return l[2] == 1 && t >= 8 && t <= 64 && (t & (t - 1)) == 0 && p >= 1 &&
+         p <= 32 && (p & (p - 1)) == 0 && (t * p) % 32 == 0 &&
+         t * p <= kLaneThreads &&
+         (lay->in_smem == 1 ? lay->ts == t + 4
+                            : lay->in_smem == 0 && lay->ts >= t);
 }
 
 // The forward's layout, the ints after StoppedArgs': tpp threads a lane
@@ -1749,38 +2187,30 @@ bool fwd_layout(const StoppedArgs& a, const int* iargs, int* tpp,
   return true;
 }
 
-// Lets `kernel` take the dynamic shared memory of one block (bwd_ts,
-// device: as smem_floats), once per kernel and size (allow_dynamic_smem).
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, const StoppedArgs& a,
-                       const StoppedExt& ext, int bwd_ts, size_t* smem,
-                       bool device = false) {
-  *smem = sizeof(float) * smem_floats(a, ext, bwd_ts, device);
-  return allow_dynamic_smem(reinterpret_cast<const void*>(kernel), *smem);
-}
-
+// Lets `kernel` take `smem` bytes of dynamic shared memory, once per
+// kernel and size (allow_dynamic_smem), and launches it with `args`.
 template <typename Kernel, typename... Args>
-int launch(Kernel kernel, const StoppedArgs& a, const StoppedExt& ext,
-           int bwd_ts, int grid, int threads, void* stream, Args... args) {
-  size_t smem = 0;
-  const cudaError_t e = allow_smem(kernel, a, ext, bwd_ts, &smem);
+int launch(Kernel kernel, size_t smem, int grid, int threads, void* stream,
+           Args... args) {
+  const cudaError_t e =
+      allow_dynamic_smem(reinterpret_cast<const void*>(kernel), smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   kernel<<<static_cast<unsigned>(grid), threads, smem,
-           static_cast<cudaStream_t>(stream)>>>(a, args..., ext);
+           static_cast<cudaStream_t>(stream)>>>(args...);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The blocks of `kernel` at `threads` a block that device `device` holds
-// on one SM (the shared memory, the registers and the threads allow) into
-// *per_sm, its SMs into *sms, the block's shared bytes into *smem.
+// The blocks of `kernel` at `threads` a block and `smem` shared bytes that
+// device `device` holds on one SM (the shared memory, the registers and the
+// threads allow) into *per_sm, its SMs into *sms.
 template <typename Kernel>
-int occupancy(Kernel kernel, const StoppedArgs& a, const StoppedExt& ext,
-              int bwd_ts, int threads, int device, int* per_sm, int* sms,
-              size_t* smem, bool in_device = false) {
-  cudaError_t e = allow_smem(kernel, a, ext, bwd_ts, smem, in_device);
+int occupancy(Kernel kernel, size_t smem, int threads, int device,
+              int* per_sm, int* sms) {
+  cudaError_t e =
+      allow_dynamic_smem(reinterpret_cast<const void*>(kernel), smem);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel,
-                                                      threads, *smem);
+                                                      threads, smem);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
   return static_cast<int>(e);
@@ -1823,22 +2253,20 @@ int with_family(const StoppedArgs& a, const StoppedExt& ext, Fn fn) {
                     : fn(Family<false, false, false, false, false>());
 }
 
-// The backward's instantiation: the family and the memory plan (fn takes
-// the Family and std::bool_constant<kDevice>).  The device plan is
-// instantiated for the ball, the clock's families (the cubic's too) and
-// the torus; the breadth families without the clock and the Schroedinger
-// family have none (ROADMAP.md Queue 2 item 4(f)) and are refused.
+// The device plan's instantiation of the lanes kernel (fn takes the
+// Family): the ball, the clock's families (the cubic's too) and the torus.
+// The breadth families without the clock and the Schroedinger family have
+// none (ROADMAP.md Queue 2 item 4(f)) and are refused.
 template <typename Fn>
-int with_bwd_family(const StoppedArgs& a, const StoppedExt& ext,
-                    bool device, Fn fn) {
-  if (device && (unclocked(a, ext) || ext.hfam == 1))
+int with_lane_family(const StoppedArgs& a, const StoppedExt& ext, Fn fn) {
+  if (unclocked(a, ext) || ext.hfam == 1)
     return static_cast<int>(cudaErrorInvalidValue);
   return with_family(a, ext, [&](auto fam) {
     using Fam = decltype(fam);
-    if constexpr ((Fam::breadth && !Fam::timed) || Fam::sch) {
-      return fn(fam, std::false_type());
+    if constexpr (Fam::full || Fam::sch || (Fam::breadth && !Fam::timed)) {
+      return static_cast<int>(cudaErrorInvalidValue);
     } else {
-      return device ? fn(fam, std::true_type()) : fn(fam, std::false_type());
+      return fn(fam);
     }
   });
 }
@@ -1880,8 +2308,9 @@ extern "C" int pspde_stopped_rollout_fwd(const float* params,
     return launch(stopped_fwd_kernel<Fam::timed, Fam::torus, Fam::relu,
                                      Fam::full, Fam::breadth, Fam::sch,
                                      Fam::tanh>,
-                  a, ext, 0, grid, a.tile * tpp, stream, params, host_noise,
-                  X0, t0, X_out, acc_out, queue, tpp);
+                  sizeof(float) * smem_floats(a, ext, 0), grid, a.tile * tpp,
+                  stream, a, params, host_noise, X0, t0, X_out, acc_out,
+                  queue, tpp, ext);
   });
 }
 
@@ -1901,42 +2330,28 @@ extern "C" int pspde_stopped_fwd_occupancy(const int* iargs,
     return static_cast<int>(cudaErrorInvalidValue);
   return with_family(a, ext, [&](auto fam) {
     using Fam = decltype(fam);
-    size_t smem = 0;
+    const size_t smem = sizeof(float) * smem_floats(a, ext, 0);
     out[1] = a.tile * tpp;
-    const int e = occupancy(
+    out[2] = static_cast<int>(smem);
+    return occupancy(
         stopped_fwd_kernel<Fam::timed, Fam::torus, Fam::relu, Fam::full,
                            Fam::breadth, Fam::sch, Fam::tanh>,
-        a, ext, 0, out[1], device, &out[0], &out[3], &smem);
-    out[2] = static_cast<int>(smem);
-    return e;
+        smem, out[1], device, &out[0], &out[3]);
   });
-}
-
-// The backward's stride and plan, the ints after StoppedArgs' and
-// StoppedExt's: [ts, grid, plan].  The shared plan (0): tile + 4, or tile +
-// 1 where that does not fit (the note on the backward's arrays); the device
-// plan (1, *device): the workspace's stride, at least the tile (grid x tile
-// in a launch).  0 if it is none of these.
-int unpack_bwd_stride(const StoppedArgs& a, const int* iargs, bool* device) {
-  const int ts = iargs[kNumPackedInts];
-  const int plan = iargs[kNumPackedInts + 2];
-  *device = plan == 1;
-  if (plan == 1) return ts >= a.tile ? ts : 0;
-  if (plan != 0) return 0;
-  return ts == a.tile + 4 || ts == a.tile + 1 ? ts : 0;
 }
 
 // Backward: X0, t0, gY (K,) -> grad_out (grid, n_grad), one row of
 // per-layer [W (n_in, width); b (1, width)] and [wL (F); bL] sums per block,
 // and on the torus the lambda entry last; counts (grid, 2): each block's
 // block-steps and its busy lanes summed over them.  `iargs` carries the
-// stride, the grid and the plan after StoppedArgs' and StoppedExt's ints:
-// 1 <= grid <= ceil(K / tile), at most the blocks the card holds at once
+// layout after StoppedArgs' and StoppedExt's ints (unpack_bwd_layout):
+// [ts, grid, plan(, tpp, in_smem)], 1 <= grid <= ceil(K / tile); on the
+// spheres at most the blocks the card holds at once
 // (pspde_stopped_bwd_slots); block b replays the paths of its range
-// (range_start).  The device plan's workspace `ws` (per-path rows x ts
-// floats, ts >= grid x tile) must follow the grid's rows, ws = grad_out +
-// grid x n_grad (the kernel finds it there); it is null in the shared
-// plan.
+// (range_start).  The shared plan launches stopped_bwd_kernel, the device
+// plan the lanes kernel, whose workspace `ws` (per-path rows x ts floats,
+// ts >= grid x tile) holds the lanes' arrays unless they sit in shared
+// memory; null where unused.
 extern "C" int pspde_stopped_rollout_bwd(const float* params,
                                          const float* host_noise,
                                          const float* X0, const float* t0,
@@ -1953,57 +2368,71 @@ extern "C" int pspde_stopped_rollout_bwd(const float* params,
   if (err != 0) return err;
   if (seed == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   a.launches = launches;
-  bool in_device = false;
-  const int ts = unpack_bwd_stride(a, iargs, &in_device);
-  const int grid = iargs[kNumPackedInts + 1];
-  if (!bwd_tile_ok(a) || ts == 0 || grid < 1 ||
-      grid > (a.K + a.tile - 1) / a.tile ||
-      (in_device && (ws != grad_out + static_cast<size_t>(grid) * a.n_grad ||
-                     static_cast<long long>(grid) * a.tile > ts)))
+  BwdLayout lay;
+  if (!unpack_bwd_layout(a, iargs, &lay) || lay.grid < 1 ||
+      lay.grid > (a.K + a.tile - 1) / a.tile ||
+      (lay.device && !lay.in_smem &&
+       (ws == nullptr ||
+        static_cast<long long>(lay.grid) * a.tile > lay.ts)))
     return static_cast<int>(cudaErrorInvalidValue);
-  return with_bwd_family(a, ext, in_device, [&](auto fam, auto dev) {
+  if (!lay.device)
+    return with_family(a, ext, [&](auto fam) {
+      using Fam = decltype(fam);
+      return launch(
+          stopped_bwd_kernel<Fam::timed, Fam::torus, Fam::relu, Fam::full,
+                             Fam::breadth, Fam::sch, Fam::tanh>,
+          sizeof(float) * smem_floats(a, ext, lay.ts), lay.grid, a.tile,
+          stream, a, params, host_noise, X0, t0, gY, grad_out, counts,
+          lay.ts, ext);
+    });
+  return with_lane_family(a, ext, [&](auto fam) {
     using Fam = decltype(fam);
-    constexpr bool kDev = decltype(dev)::value;
-    const auto kernel =
-        stopped_bwd_kernel<Fam::timed, Fam::torus, Fam::relu, Fam::full,
-                           Fam::breadth, kDev, Fam::sch, Fam::tanh>;
-    size_t smem = 0;
-    const cudaError_t e = allow_smem(kernel, a, ext, ts, &smem, kDev);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    kernel<<<static_cast<unsigned>(grid), a.tile, smem,
-             static_cast<cudaStream_t>(stream)>>>(a, params, host_noise, X0,
-                                                  t0, gY, grad_out, counts,
-                                                  ts, ext);
-    return static_cast<int>(cudaGetLastError());
+    return launch(
+        stopped_bwd_lane_kernel<Fam::timed, Fam::torus, Fam::relu,
+                                Fam::breadth>,
+        sizeof(float) * lane_smem_floats(a, lay.ts, lay.in_smem), lay.grid,
+        a.tile * lay.tpp, stream, a, params, host_noise, X0, t0, gY,
+        grad_out, counts, ws, lay.ts, lay.tpp, lay.in_smem, ext);
   });
 }
 
-// The blocks of the backward's instantiation for `iargs` (StoppedArgs' and
-// StoppedExt's ints, then the stride, the grid (not read) and the plan, as
-// the launch takes them) that device `device` holds at once (its SMs times
-// the blocks per SM that the shared memory, the registers and the threads
-// allow) into *slots: the most blocks worth launching, since each walks
-// its range to the end.
+// The blocks of the backward's kernel for `iargs` (StoppedArgs' and
+// StoppedExt's ints, then the layout as the launch takes it, its grid not
+// read) that device `device` holds at once (its SMs times the blocks per
+// SM that the shared memory, the registers and the threads allow) into
+// *slots: the most blocks worth launching, since each walks its range to
+// the end.
 extern "C" int pspde_stopped_bwd_slots(const int* iargs, const float* fargs,
                                        int device, int* slots) {
   StoppedArgs a;
   StoppedExt ext;
   const int err = unpack(iargs, fargs, nullptr, device, &a, &ext);
   if (err != 0) return err;
-  bool in_device = false;
-  const int ts = unpack_bwd_stride(a, iargs, &in_device);
-  if (!bwd_tile_ok(a) || ts == 0)
+  BwdLayout lay;
+  if (!unpack_bwd_layout(a, iargs, &lay))
     return static_cast<int>(cudaErrorInvalidValue);
-  return with_bwd_family(a, ext, in_device, [&](auto fam, auto dev) {
-    using Fam = decltype(fam);
-    constexpr bool kDev = decltype(dev)::value;
-    size_t smem = 0;
-    int per_sm = 0, sms = 0;
-    const int e = occupancy(
-        stopped_bwd_kernel<Fam::timed, Fam::torus, Fam::relu, Fam::full,
-                           Fam::breadth, kDev, Fam::sch, Fam::tanh>,
-        a, ext, ts, a.tile, device, &per_sm, &sms, &smem, kDev);
-    *slots = per_sm * sms;
-    return e;
-  });
+  int per_sm = 0, sms = 0;
+  const int e =
+      !lay.device
+          ? with_family(a, ext,
+                        [&](auto fam) {
+                          using Fam = decltype(fam);
+                          return occupancy(
+                              stopped_bwd_kernel<Fam::timed, Fam::torus,
+                                                 Fam::relu, Fam::full,
+                                                 Fam::breadth, Fam::sch,
+                                                 Fam::tanh>,
+                              sizeof(float) * smem_floats(a, ext, lay.ts),
+                              a.tile, device, &per_sm, &sms);
+                        })
+          : with_lane_family(a, ext, [&](auto fam) {
+              using Fam = decltype(fam);
+              return occupancy(
+                  stopped_bwd_lane_kernel<Fam::timed, Fam::torus, Fam::relu,
+                                          Fam::breadth>,
+                  sizeof(float) * lane_smem_floats(a, lay.ts, lay.in_smem),
+                  a.tile * lay.tpp, device, &per_sm, &sms);
+            });
+  *slots = per_sm * sms;
+  return e;
 }

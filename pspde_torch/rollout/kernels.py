@@ -21,9 +21,11 @@ launches the kernel or raises.  The serve and HJB training kernels have
 two memory plans (``_choose_plan``): the net staged in each block's shared
 memory beside its paths' arrays where that fits, else read from device
 memory with the arrays in a [row][K] workspace (d=1000).  The stopped
-backward has two too (``_stopped_bwd_plan``): its lanes' arrays in shared
-memory where a tile fits, else in a [row][grid x tile] workspace (the
-Allen-Cahn notebook's net at d=100).
+backward has two too (``_stopped_bwd_plan``): one thread a path with its
+arrays in shared memory where a tile fits, else lanes of several threads a
+path whose arrays sit in shared memory or in a [row][grid x tile]
+workspace (``_stopped_bwd_lane_layout``; the Allen-Cahn notebook's net at
+d=100).
 
 Noise is either given (``host_noise``, (N, K, d)) or drawn from a
 counter-based Philox4x32-10 stream keyed by (seed, path k, step n,
@@ -1192,6 +1194,13 @@ def reference_stopped_train_rollout(problem, v_net, X0: torch.Tensor,
 
 
 _STOPPED_BALLOT_WORDS = 4   # csrc kBallotWords: the backward's lane ballots
+# the device plan's lanes kernel (csrc stopped_bwd_lane_kernel)
+_STOPPED_LANE_BALLOT_WORDS = 16   # csrc kLaneBallotWords
+_STOPPED_LANE_THREADS = 256       # csrc kLaneThreads: tile x tpp at most
+_STOPPED_LANE_TILES = (64, 32, 16, 8)
+_STOPPED_LANE_TPP = (2, 4, 8, 16, 32)
+_STOPPED_LANE_SPREAD = 132        # blocks below which the tile halves
+_STOPPED_LANE_FILL = 2 ** 16      # lanes' threads that fill the card
 
 
 def _stopped_smem_bytes(n_stage: int, per_path: int, tile: int,
@@ -1257,27 +1266,107 @@ def _stopped_tile(n_params: int, per_path: int, tile: Optional[int],
                            "one block")
 
 
+class _BwdLayout(NamedTuple):
+    """The device plan's launch (csrc stopped_bwd_lane_kernel): blocks of
+    ``tile`` lanes of ``tpp`` threads (a lane carries one path at a time,
+    its threads split the replay's sweeps), the lanes' arrays in shared
+    memory at stride tile + 4 (``smem``) or in a workspace of device
+    memory, and the net staged in shared memory (``stage``, the forward's
+    padded rows) or read from device memory."""
+    tile: int
+    tpp: int
+    smem: bool
+    stage: bool
+
+
+def _stopped_bwd_lane_bytes(n_stage: int, per_path: int,
+                            lay: _BwdLayout) -> int:
+    """Shared memory of one block of the lanes kernel: the ballots, the
+    ``n_stage`` floats of the staged net (``_stopped_fwd_net_floats``)
+    where it is staged and the lanes' ``per_path`` floats at stride tile +
+    4 where they sit in shared memory - the formula of
+    stopped_rollout.cu:lane_smem_floats."""
+    return 4 * (_STOPPED_LANE_BALLOT_WORDS + (n_stage if lay.stage else 0)
+                + (per_path * (lay.tile + 4) if lay.smem else 0))
+
+
+def _stopped_bwd_lane_layout(n_stage: int, per_path: int, K: int,
+                             tile: Optional[int] = None,
+                             layout: Optional[tuple] = None) -> _BwdLayout:
+    """The device plan's layout (``_BwdLayout``): ``layout`` where given (a
+    forced one), else the fastest by device time, or within 7% of it, at
+    the cells of experiments/torch_bwd_layouts.py (the notebook's
+    Allen-Cahn net at K = 200, 8192 and 65536, DenseNet (30, 30) at the
+    elliptic cell at K = 8192 and 65536; PERF.md section 6):
+    - threads a lane: the fewest of 4, 8, 16 whose K x tpp threads reach
+      _STOPPED_LANE_FILL (the card holds 132 x 512 at 16 warps an SM), so
+      that each path's chain is split only as far as K leaves the card
+      idle;
+    - the largest tile of _STOPPED_LANE_TILES (``tile`` where given) whose
+      block stays within _STOPPED_LANE_THREADS, halved while K gives fewer
+      than _STOPPED_LANE_SPREAD blocks;
+    - the lanes' arrays in shared memory where they fit, and the net (its
+      ``n_stage`` floats, padded) staged beside them where it fits too;
+      with the arrays in the workspace the net is read from device memory
+      (staged alone it leaves one block an SM, and read slower).
+    Raises ValueError on a forced layout the kernel does not take or whose
+    block does not fit."""
+    if layout is not None:
+        lay = _BwdLayout(*layout)
+        if (lay.tile not in _STOPPED_LANE_TILES
+                or lay.tpp not in _STOPPED_LANE_TPP
+                or lay.tile * lay.tpp % 32
+                or lay.tile * lay.tpp > _STOPPED_LANE_THREADS
+                or _stopped_bwd_lane_bytes(n_stage, per_path, lay)
+                > _SMEM_LIMIT):
+            raise ValueError(
+                f"backward layout {lay}: tile in {_STOPPED_LANE_TILES}, tpp "
+                f"in {_STOPPED_LANE_TPP}, tile x tpp a multiple of 32 up to "
+                f"{_STOPPED_LANE_THREADS}, a block within {_SMEM_LIMIT} "
+                "bytes")
+        return lay
+    if tile is not None and tile not in _STOPPED_LANE_TILES:
+        raise ValueError(f"tile={tile} must be one of {_STOPPED_LANE_TILES}")
+    tpp = next((p for p in (4, 8) if K * p >= _STOPPED_LANE_FILL), 16)
+    if tile is not None:
+        tpp = min(tpp, _STOPPED_LANE_THREADS // tile)
+    tiles = [t for t in _STOPPED_LANE_TILES
+             if t * tpp <= _STOPPED_LANE_THREADS
+             and (tile is None or t == tile)]
+    while len(tiles) > 1 and -(-K // tiles[0]) < _STOPPED_LANE_SPREAD:
+        tiles = tiles[1:]
+    lay = _BwdLayout(tiles[0], tpp, True, True)
+    if _stopped_bwd_lane_bytes(n_stage, per_path, lay) <= _SMEM_LIMIT:
+        return lay
+    lay = lay._replace(stage=False)
+    return lay._replace(smem=_stopped_bwd_lane_bytes(0, per_path, lay)
+                        <= _SMEM_LIMIT)
+
+
 def _stopped_bwd_plan(n_params: int, per_path: int, tile: Optional[int],
-                      plan: Optional[str], device_ok: bool = True):
-    """(tile, stage, plan) of the backward.
+                      plan: Optional[str], device_ok: bool = True, *,
+                      n_stage: int = 0, K: int = 0,
+                      layout: Optional[tuple] = None):
+    """(tile, stage, layout) of the backward: ``layout`` ("shared",) or
+    ("device", tpp, smem).
 
     The shared plan keeps each lane's ``per_path`` floats in shared memory
-    (``_stopped_tile``: the tile, the stride and the staged net as before).
-    Where no tile fits (or ``plan='device'``), the device plan keeps them in
-    a [row][grid x tile] workspace of device memory (``_stopped_bwd_ws``):
-    tile 64 unless given, and the net staged in shared memory where the
-    ballots and the net take at most half a block's limit (an SM then still
-    holds two blocks), else read from device memory.  ``plan='shared'``
-    where no tile fits raises the family's ValueError; the device plan for
-    an instantiation that lacks it (``device_ok`` False: the committor's,
-    the dense sigma's and the Schroedinger family's) raises, naming
+    (``_stopped_tile``: the tile, the stride and the staged net as before),
+    one thread a path.  Where no tile fits (or ``plan='device'``), the
+    device plan runs the lanes kernel at ``_stopped_bwd_lane_layout`` of
+    the net's staged floats ``n_stage`` and K (``layout`` forces one,
+    ``tile`` the tile).  ``plan='shared'`` where no tile
+    fits raises the family's ValueError; the device plan for an
+    instantiation that lacks it (``device_ok`` False: the committor's, the
+    dense sigma's and the Schroedinger family's) raises, naming
     ROADMAP.md."""
     _check_plan(plan)
     if plan == "shared":
-        return (*_stopped_tile(n_params, per_path, tile, True), "shared")
-    if plan is None:
+        return (*_stopped_tile(n_params, per_path, tile, True), ("shared",))
+    if plan is None and layout is None:
         try:
-            return (*_stopped_tile(n_params, per_path, tile, True), "shared")
+            return (*_stopped_tile(n_params, per_path, tile, True),
+                    ("shared",))
         except ValueError:
             pass
     if not device_ok:
@@ -1286,18 +1375,16 @@ def _stopped_bwd_plan(n_params: int, per_path: int, tile: Optional[int],
             "families without time_stopping (the two spheres, a dense sigma, "
             "the committor's reference, c_ys1) and the Schroedinger family; "
             "ROADMAP.md Queue 2 item 4(f)")
-    if tile is not None and tile not in _STOPPED_TILES:
-        raise ValueError(f"tile={tile} must be one of {_STOPPED_TILES}")
-    t = max(_STOPPED_TILES) if tile is None else tile
-    stage = 2 * _stopped_smem_bytes(n_params, 0, t, True) <= _SMEM_LIMIT
-    return t, stage, "device"
+    lay = _stopped_bwd_lane_layout(n_stage, per_path, K, tile, layout)
+    return lay.tile, lay.stage, ("device", lay.tpp, int(lay.smem))
 
 
 def _stopped_bwd_ws(per_path: int, tile: int, grid: int) -> int:
-    """The device plan's workspace stride: one column a lane, grid x tile
-    (the backward refills its lanes, so the arrays belong to a lane, not to
-    a path); its per_path x stride floats are indexed with 32-bit ints, so
-    they must stay below 2^31."""
+    """The device plan's workspace stride where the lanes' arrays are not
+    in shared memory: one column a lane, grid x tile (the backward refills
+    its lanes, so the arrays belong to a lane, not to a path); its per_path
+    x stride floats are indexed with 32-bit ints, so they must stay below
+    2^31."""
     stride = grid * tile
     if per_path * stride >= 2 ** 31:
         raise _stopped_outside(
@@ -1495,7 +1582,7 @@ def _stopped_instance(packed: _Packed) -> tuple:
 def _pack_stopped(problem, v_net, hfam, vfam, K, N, delta_t, tile, *,
                   backward, host_noise, adaptive_forward, rng,
                   time_stopping=False, lam=None, fwd_layout=None,
-                  plan=None) -> _Packed:
+                  plan=None, bwd_layout=None) -> _Packed:
     """The stopped kernels' arguments (stopped_rollout.cu: StoppedArgs,
     then StoppedExt: ints [sig_off, vref, feat, hfam], floats [r_in, c_ys1,
     the committor's a^2, a^d, a^2 - c^(2-d) a^d, c_y3, and the
@@ -1508,8 +1595,9 @@ def _pack_stopped(problem, v_net, hfam, vfam, K, N, delta_t, tile, *,
     or full sigma is packed after the net as a (d, d) matrix.  The
     forward's
     ``layout`` is ``_stopped_fwd_layout`` (``fwd_layout`` where given), the
-    backward's ``(plan,)`` of ``_stopped_bwd_plan`` (``plan`` forces
-    one)."""
+    backward's ``_stopped_bwd_plan`` layout, ("shared",) or ("device",
+    tpp, smem) (``plan`` forces a plan, ``bwd_layout`` a device-plan
+    ``_BwdLayout``)."""
     d = problem.d
     geom = problem.geometry
     square = hfam[0] in _SQUARE_FAMILIES
@@ -1539,13 +1627,14 @@ def _pack_stopped(problem, v_net, hfam, vfam, K, N, delta_t, tile, *,
         else:
             a, c, dv = (float(v) for v in vfam[1:])
             vr = [a ** 2, a ** dv, a ** 2 - c ** (2 - dv) * a ** dv]
-    fwd = ()
     if backward:
-        tile, stage, plan = _stopped_bwd_plan(
+        tile, stage, fwd = _stopped_bwd_plan(
             n_params, per_path, tile, plan, device_ok=not (
                 sch or _stopped_unclocked(geom.kind, lay.sig_off, vref,
-                                          c_ys1)))
-        fwd = (plan,)
+                                          c_ys1)),
+            n_stage=_stopped_fwd_net_floats(n_params, lay.widths,
+                                            v_net.d_in),
+            K=K, layout=bwd_layout)
     else:
         fwd, stage = _stopped_fwd_layout(
             lay.widths, geom.kind, K,
@@ -1595,6 +1684,7 @@ class _StoppedCall(NamedTuple):
     lam: Optional[torch.Tensor] = None   # the torus family's lambda leaf
     fwd_layout: Optional[tuple] = None   # a forced _FwdLayout of the forward
     plan: Optional[str] = None           # a forced plan of the backward
+    bwd_layout: Optional[tuple] = None   # a forced _BwdLayout (device plan)
 
     def plain(self) -> FusedStoppedOut:
         return reference_stopped_train_rollout(
@@ -1610,7 +1700,8 @@ class _StoppedCall(NamedTuple):
             host_noise=o["host_noise"],
             adaptive_forward=o["adaptive_forward"], rng=o["rng"],
             time_stopping=o.get("time_stopping", False), lam=self.lam,
-            fwd_layout=self.fwd_layout, plan=self.plan)
+            fwd_layout=self.fwd_layout, plan=self.plan,
+            bwd_layout=self.bwd_layout)
 
 
 # the forward's occupancy per (device, tile, tpp, shared bytes,
@@ -1728,55 +1819,75 @@ def _stopped_bwd_per_path(packed: _Packed) -> int:
                              _stopped_full(packed))
 
 
+def _stopped_bwd_lane_of(packed: _Packed) -> Optional[_BwdLayout]:
+    """The device plan's ``_BwdLayout`` of a packed backward call; None in
+    the shared plan."""
+    if packed.layout[0] != "device":
+        return None
+    ia = packed.iargs
+    return _BwdLayout(ia[5], packed.layout[1], bool(packed.layout[2]),
+                      bool(ia[6]))
+
+
 def _stopped_bwd_ts(packed: _Packed, grid: Optional[int] = None) -> int:
     """The backward's stride for one packed call: in the shared plan
     ``_stopped_bwd_stride`` of its tile, staged net and per-path floats; in
-    the device plan the workspace's, grid x tile (``_stopped_bwd_ws``)."""
+    the device plan tile + 4 where the lanes' arrays sit in shared memory,
+    else the workspace's, grid x tile (``_stopped_bwd_ws``)."""
     ia = packed.iargs
     tile, stage, n_params = ia[5], ia[6], ia[7]
-    if packed.layout[0] == "device":
-        return _stopped_bwd_ws(_stopped_bwd_per_path(packed), tile, grid)
+    lay = _stopped_bwd_lane_of(packed)
+    if lay is not None:
+        return (tile + 4 if lay.smem else
+                _stopped_bwd_ws(_stopped_bwd_per_path(packed), tile, grid))
     return _stopped_bwd_stride(n_params if stage else 0,
                                _stopped_bwd_per_path(packed), tile)
 
 
 def _stopped_bwd_smem(packed: _Packed, ts: int) -> int:
-    """Shared bytes of one backward block (stopped_rollout.cu:smem_floats):
-    the ballots, the staged net and, in the shared plan, the per-path
-    arrays at stride ``ts``."""
+    """Shared bytes of one backward block (stopped_rollout.cu:smem_floats,
+    lane_smem_floats): in the shared plan the ballots, the staged net and
+    the per-path arrays at stride ``ts``; in the device plan
+    ``_stopped_bwd_lane_bytes``."""
     ia = packed.iargs
     tile, stage, n_params = ia[5], ia[6], ia[7]
-    per_path = (_stopped_bwd_per_path(packed)
-                if packed.layout[0] == "shared" else 0)
-    return _stopped_smem_bytes(n_params if stage else 0, per_path, tile,
-                               True, ts)
+    lay = _stopped_bwd_lane_of(packed)
+    if lay is not None:
+        d_in = ia[2] + ia[14]
+        return _stopped_bwd_lane_bytes(
+            _stopped_fwd_net_floats(n_params, ia[16:16 + ia[3]], d_in),
+            _stopped_bwd_per_path(packed), lay)
+    return _stopped_smem_bytes(n_params if stage else 0,
+                               _stopped_bwd_per_path(packed), tile, True, ts)
 
 
-def _stopped_bwd_grid(packed: _Packed, dev: torch.device) -> int:
-    """The backward's grid for one packed call on CUDA device ``dev``: on
-    the sphere and the two spheres ``_stopped_grid`` of the blocks its
-    instantiation keeps resident on the card (stopped_rollout.cu:
-    pspde_stopped_bwd_slots, asked once per device and instantiation, tile
-    and shared memory), whose lanes are refilled as paths exit; on the
-    whole space and the torus, where paths run their N steps and a refill
-    gains nothing, one block per tile paths (the block scheduler balances
-    the SMs)."""
-    ia = packed.iargs
-    K, tile = ia[0], ia[5]
-    if _GEOMETRIES[ia[15]] not in _EXITS:
-        return -(-K // tile)
+def _stopped_bwd_layout_ints(packed: _Packed, ts: int, grid: int) -> list:
+    """The ints a backward launch (or its slots' query) takes after the
+    packed ones: [ts, grid, plan], and in the device plan tpp and whether
+    the lanes' arrays sit in shared memory after them
+    (stopped_rollout.cu:unpack_bwd_layout)."""
     plan = packed.layout[0]
-    # the device plan's stride waits for the grid: the query reads none
-    ts = _stopped_bwd_ts(packed) if plan == "shared" else tile
+    return [ts, grid, PLANS.index(plan)] + list(packed.layout[1:])
+
+
+def _stopped_bwd_slots(packed: _Packed, dev: torch.device) -> int:
+    """The backward's blocks that CUDA device ``dev`` holds at once for one
+    packed call (stopped_rollout.cu: pspde_stopped_bwd_slots, asked once
+    per device, layout, shared memory and instantiation)."""
+    ia = packed.iargs
+    tile = ia[5]
+    # the workspace's stride waits for the grid: the query reads none
+    lay = _stopped_bwd_lane_of(packed)
+    ts = (_stopped_bwd_ts(packed) if lay is None or lay.smem else tile)
     smem = _stopped_bwd_smem(packed, ts)
     index = dev.index if dev.index is not None else \
         torch.cuda.current_device()
-    key = (index, tile, smem, _stopped_instance(packed), plan)
+    key = (index, tile, smem, _stopped_instance(packed), packed.layout)
     if key not in _STOPPED_BWD_SLOTS:
         from ._build import library
         lib = library()
         slots = ctypes.c_int(0)
-        ia = ia + [ts, 0, PLANS.index(plan)]
+        ia = ia + _stopped_bwd_layout_ints(packed, ts, 0)
         err = lib.pspde_stopped_bwd_slots(
             (ctypes.c_int * len(ia))(*ia),
             (ctypes.c_float * len(packed.fargs))(*packed.fargs), index,
@@ -1787,7 +1898,21 @@ def _stopped_bwd_grid(packed: _Packed, dev: torch.device) -> int:
                 "block on the card: "
                 + lib.pspde_cuda_error_string(err).decode())
         _STOPPED_BWD_SLOTS[key] = slots.value
-    return _stopped_grid(K, tile, _STOPPED_BWD_SLOTS[key])
+    return _STOPPED_BWD_SLOTS[key]
+
+
+def _stopped_bwd_grid(packed: _Packed, dev: torch.device) -> int:
+    """The backward's grid for one packed call on CUDA device ``dev``: on
+    the sphere and the two spheres ``_stopped_grid`` of the blocks its
+    kernel keeps resident on the card (``_stopped_bwd_slots``), whose lanes
+    are refilled as paths exit; on the whole space and the torus, where
+    paths run their N steps and a refill gains nothing, one block per tile
+    paths (the block scheduler balances the SMs)."""
+    ia = packed.iargs
+    K, tile = ia[0], ia[5]
+    if _GEOMETRIES[ia[15]] not in _EXITS:
+        return -(-K // tile)
+    return _stopped_grid(K, tile, _stopped_bwd_slots(packed, dev))
 
 
 def _stopped_backward_rows(call: _StoppedCall, gY,
@@ -1796,10 +1921,9 @@ def _stopped_backward_rows(call: _StoppedCall, gY,
     what each block ran, (grid, 2) int32: its block-steps and its busy
     lanes summed over them.  Each block replays its range of paths
     (``_stopped_ranges``) and writes the sums of their steps.  In the
-    device plan the lanes' arrays live in a workspace of per-path rows x
-    grid x tile floats (``_stopped_bwd_ws``) right after the rows, which
-    the kernel zeroes a lane's rows of as it takes a path, as it does in
-    shared memory.
+    device plan the lanes' arrays sit in shared memory or in a workspace
+    of per-path rows x grid x tile floats (``_stopped_bwd_ws``), which the
+    kernel zeroes a lane's rows of as it takes a path.
     ``grid`` forces the grid (1 .. ceil(K / tile)), so that two plans can
     be held to each other's rows."""
     X0 = call.X0
@@ -1808,17 +1932,16 @@ def _stopped_backward_rows(call: _StoppedCall, gY,
     if grid is None:
         grid = _stopped_bwd_grid(packed, X0.device)
     ts = _stopped_bwd_ts(packed, grid)
-    n_rows = grid * packed.iargs[13]
-    n_ws = _stopped_bwd_per_path(packed) * ts if plan == "device" else 0
-    # the workspace follows the rows in one buffer, where the kernel finds
-    # it (stopped_rollout.cu: stopped_bwd_kernel)
-    buf = torch.empty(n_rows + n_ws, dtype=torch.float32, device=X0.device)
-    part = buf[:n_rows].view(grid, packed.iargs[13])
-    ws = buf[n_rows:] if n_ws else None
+    lay = _stopped_bwd_lane_of(packed)
+    part = torch.empty((grid, packed.iargs[13]), dtype=torch.float32,
+                       device=X0.device)
+    ws = (torch.empty(_stopped_bwd_per_path(packed) * ts,
+                      dtype=torch.float32, device=X0.device)
+          if lay is not None and not lay.smem else None)
     counts = torch.empty((grid, 2), dtype=torch.int32, device=X0.device)
     _launch("pspde_stopped_rollout_bwd", "fused_stopped_train_rollout",
-            packed._replace(iargs=packed.iargs + [ts, grid,
-                                                  PLANS.index(plan)]),
+            packed._replace(iargs=packed.iargs
+                            + _stopped_bwd_layout_ints(packed, ts, grid)),
             [packed.params, call.opts["host_noise"], X0, call.t0,
              gY.contiguous(), part, counts, ws], call.seed, X0.device)
     if not _capturing(X0.device):
@@ -2108,14 +2231,15 @@ def _capturing(dev: torch.device) -> bool:
 def _count_word(fn_name: str, packed: _Packed, dev: torch.device) -> int:
     """The pointer of the count word of a launch of the training entry
     ``fn_name`` with ``packed`` (its plan: the train entries' iargs[-2],
-    the stopped backward's last) on ``dev``.  A device's words are made at
+    the stopped backward's third after the packed ints) on ``dev``.  A device's words are made at
     its first launch, which comes before any capture (the chunk's warm-up
     step): made in a capture, they would be zeroed at each replay."""
     fn, count, by_plan = _COUNT_OF_ENTRY[fn_name]
     key = (fn, count)
     if by_plan:
-        plan = packed.iargs[-1 if fn_name == "pspde_stopped_rollout_bwd"
-                            else -2]
+        plan = (packed.iargs[_STOPPED_N_PACKED_INTS + 2]
+                if fn_name == "pspde_stopped_rollout_bwd"
+                else packed.iargs[-2])
         key = (fn, count, PLANS[plan])
     words = _COUNT_WORDS.get(dev)
     if words is None:

@@ -236,31 +236,34 @@ def _notebook_call(K, arch=NOTEBOOK_ARCH, d=100, plan=None):
              time_stopping=True), None, plan=plan)
 
 
-@pytest.mark.parametrize("K,grid,ws_bytes", [(200, 4, 1924 * 256 * 4),
+@pytest.mark.parametrize("K,grid,ws_bytes", [(200, 25, 0),
                                              (65536, 1024,
                                               1924 * 65536 * 4)])
 def test_notebook_net_takes_the_device_plan(K, grid, ws_bytes):
     """At d=100 the notebook's net on [x, t] (F = 371, H = 270) keeps 3 F +
     3 H + 1 = 1,924 floats a path in the backward: 253,984 bytes at tile 32
     and stride 33, past the 232,448 of a block.  The front end takes the
-    device plan: tile 64, the net read from device memory (its 53,576
-    floats would leave one block an SM), 16 shared bytes a block (the
-    ballots), one block per tile on the whole space and a workspace of
-    1,924 x grid x 64 floats (~2 MB at the notebook's K=200, ~504 MB at
-    K=65536).  plan='shared' raises, naming the family, and so does a
-    workspace whose floats reach 2^31 (32-bit indices: K = 2^21).  The
-    forward fits as it is: 2 F + H + d = 1,112 floats a path, 16 lanes of
-    16 threads."""
+    device plan (the lanes kernel), the net read from device memory, one
+    block per tile on the whole space: at the notebook's K=200 8 lanes of
+    16 threads a block, their arrays in shared memory at stride 12 (92,416
+    bytes a block, no workspace); at K=65536 64 lanes of 4 threads and a
+    workspace of 1,924 x grid x 64 floats (~504 MB), 64 shared bytes a
+    block (the ballots).  plan='shared' raises, naming the family, and so
+    does a workspace whose floats reach 2^31 (32-bit indices: K = 2^21).
+    The forward fits as it is: 2 F + H + d = 1,112 floats a path, 16 lanes
+    of 16 threads."""
     call = _notebook_call(K)
     packed = call.pack(backward=True)
-    assert packed.layout == ("device",)
-    assert packed.iargs[5:8] == [64, 0, 53576]
+    tile, tpp, smem = (8, 16, 1) if K == 200 else (64, 4, 0)
+    assert packed.layout == ("device", tpp, smem)
+    assert packed.iargs[5:8] == [tile, 0, 53576]
     assert tk._stopped_bwd_per_path(packed) == 1924
     g = tk._stopped_bwd_grid(packed, torch.device("cpu"))
     assert g == grid
     ts = tk._stopped_bwd_ts(packed, g)
-    assert ts == grid * 64 and 4 * 1924 * ts == ws_bytes
-    assert tk._stopped_bwd_smem(packed, ts) == 16
+    assert ts == (tile + 4 if smem else grid * tile)
+    assert (0 if smem else 4 * 1924 * ts) == ws_bytes
+    assert tk._stopped_bwd_smem(packed, ts) == (92_416 if smem else 64)
     assert tk._stopped_smem_bytes(0, 1924, 32, True, 33) == 253_984
     with pytest.raises(ValueError, match="STOPPED_KERNEL_FAMILY") as e:
         _notebook_call(K, plan="shared").pack(backward=True)
@@ -282,8 +285,10 @@ def test_older_cells_keep_the_shared_plan(case, d_in, arch, timed, tile,
                                           stride):
     """The older cells keep the shared plan, their tile, stride and staged
     net, and their packed arguments but for the appended c_y3 (0); forced,
-    the device plan takes the same tile and a workspace stride of grid x
-    tile."""
+    the device plan takes its own layout at K=4096 (16 lanes of 16
+    threads, the arrays in shared memory at stride 20, the net staged
+    beside them where it fits), at tile=64 4 threads a lane, and with the
+    arrays forced into the workspace a stride of grid x tile."""
     problems = {
         "elliptic": tp.ExponentialOnBallNonlinearSin(d=50, alpha=0.1,
                                                       device="cpu"),
@@ -307,27 +312,34 @@ def test_older_cells_keep_the_shared_plan(case, d_in, arch, timed, tile,
     assert len(packed.fargs) == 13 + 10
     assert packed.iargs[6] == int(case != "notebook_elliptic")
     forced = call._replace(plan="device").pack(backward=True)
-    assert forced.layout == ("device",) and forced.iargs[5] == 64
+    assert forced.layout == ("device", 16, 1) and forced.iargs[5] == 16
+    assert forced.iargs[6] == int(case != "notebook_elliptic")
     assert forced.iargs[:5] == packed.iargs[:5]
     assert forced.fargs == packed.fargs
-    assert tk._stopped_bwd_ts(forced, 7) == 7 * 64
+    assert tk._stopped_bwd_ts(forced, 7) == 20
+    at64 = call._replace(plan="device", tile=64).pack(backward=True)
+    assert at64.layout[:2] == ("device", 4) and at64.iargs[5] == 64
+    ws = call._replace(bwd_layout=(64, 4, False, False)).pack(backward=True)
+    assert tk._stopped_bwd_ts(ws, 7) == 7 * 64
 
 
 def test_device_plan_launch(monkeypatch):
     """The device plan's launch, forced through
     ``fused_stopped_train_rollout(plan='device')``, against a fake library
     (the CPU backward routed to the kernel's wrapper): the slots asked
-    once with the plan (1) after the stride and an unread grid, the stride
-    grid x tile, the grid and the plan after StoppedArgs' and StoppedExt's
-    ints, a workspace of per-path rows x stride floats after the block
-    counts, the rows summed into the leaves' gradients, and the launch
-    counted by plan."""
+    once with the stride, an unread grid, the plan (1), tpp and the
+    arrays' place after StoppedArgs' and StoppedExt's ints; the launch with
+    the same ints and the grid, at K=500 8 lanes of 16 threads with the
+    arrays in shared memory (stride 12, no workspace); with the arrays
+    forced into the workspace a stride of grid x tile and a workspace of
+    per-path rows x stride floats; the rows summed into the leaves'
+    gradients, and the launch counted by plan."""
     n_ints = tk._STOPPED_N_INTS + 4
     asked, launched = [], []
 
     class FakeLib:
         def pspde_stopped_bwd_slots(self, iargs, fargs, index, out):
-            asked.append(list(iargs[n_ints:n_ints + 3]))
+            asked.append(list(iargs[n_ints:]))
             out._obj.value = 3
             return 0
 
@@ -335,7 +347,7 @@ def test_device_plan_launch(monkeypatch):
         assert fn == "pspde_stopped_rollout_bwd"
         part, counts, ws = tensors[-3:]
         launched.append((packed.iargs[n_ints:], tuple(part.shape),
-                         ws.numel()))
+                         None if ws is None else ws.numel()))
         part.fill_(1.0)
         counts.fill_(1)
 
@@ -355,12 +367,21 @@ def test_device_plan_launch(monkeypatch):
     grads = torch.autograd.grad(out.Y.sum(), list(net.parameters()))
     after = tk.fused_stopped_train_rollout.backward_launches_by_plan
     per_path = 3 * (6 + 11) + 3 * 11 + 1
-    assert asked == [[64, 0, 1]]
-    assert launched == [([3 * 64, 3, 1], (3, tk._stopped_layout(
-        net).n_grad), per_path * 3 * 64)]
+    n_grad = tk._stopped_layout(net).n_grad
+    assert asked == [[12, 0, 1, 16, 1]]
+    assert launched == [([12, 3, 1, 16, 1], (3, n_grad), None)]
     assert after["device"] == before["device"] + 1
     assert after["shared"] == before["shared"]
     assert all(torch.all(g == 3.0) for g in grads)
+    call = tk._StoppedCall(
+        prob, net, torch.zeros((K, 6)), torch.zeros(K), 20, 1e-3, 3,
+        tk._check_stopped_family(prob, net, "erfinv"),
+        dict(adaptive_forward=False, rng="erfinv", host_noise=None), None,
+        bwd_layout=(64, 2, False, False))
+    tk._stopped_backward_rows(call, torch.zeros(K))
+    assert asked[1] == [64, 0, 1, 2, 0]
+    assert launched[1] == ([3 * 64, 3, 1, 2, 0], (3, n_grad),
+                           per_path * 3 * 64)
 
 
 STEPS, KB = 20, 16

@@ -248,15 +248,16 @@ def test_backward_too_wide_raises():
     """A net whose backward arrays exceed one block even at tile 32 and
     stride 33 stays outside the shared plan: plan='shared' raises, naming
     the kernel family, and by default the backward takes the device plan
-    (tile 64, the net's 47,468 floats read from device memory: staged, they
-    would leave room for one block an SM)."""
+    (at K=64 8 lanes of 16 threads, their arrays in shared memory, the
+    net's 47,468 floats read from device memory: they do not fit beside
+    the arrays)."""
     call = _ball_call(64, d=50, arch=(100, 100, 100))
     call.pack(backward=False)
     with pytest.raises(ValueError, match="STOPPED_KERNEL_FAMILY"):
         call._replace(plan="shared").pack(backward=True)
     packed = call.pack(backward=True)
-    assert packed.layout == ("device",) and packed.iargs[5:8] == [64, 0,
-                                                                  47468]
+    assert packed.layout == ("device", 16, 1) and packed.iargs[5:8] == [
+        8, 0, 47468]
 
 
 def _grid_call(kind, K):
