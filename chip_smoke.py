@@ -1061,6 +1061,14 @@ def main():
     check(len(stopped_use) == 14
           and all(u[1] == u[2] == 0 for u in stopped_use.values()),
           "the stopped forward's instantiations spill no registers")
+    block_regs = ptxas_usage(info["log"], "stopped_fwd_block_kernel")
+    print(f"  ptxas, the stopped forward's block kernel (the nets no block "
+          f"stages), its eight instantiations (registers, spill store and "
+          f"load bytes): {sorted(block_regs.values())}")
+    check(len(block_regs) == 8
+          and all(u[1] == u[2] == 0 for u in block_regs.values()),
+          "the block forward's eight instantiations built, spilling no "
+          "registers")
 
     llgc = LLGC(d=D, T=T_END, device=dev)
     solver = HJBSolver("llgc_d100", llgc, K=1024, delta_t=1 / 32,
@@ -1579,7 +1587,12 @@ def fwd_lane_use(call, dev):
     over the lane-trips of the warps (each runs its busiest lane's trips);
     the model (``stopped_fwd_lane_schedule``) gives the same for the queue
     in lane order, and for the one-thread-a-path, one-tile-a-block schedule
-    of the parent.  Returns a dict for the reports."""
+    of the parent.  The block forward (the nets no block stages) counts
+    each path's trips; its tiles step together, so lane use = advancing
+    path-steps over its blocks' steps (the most trips of a tile) x tile,
+    and the model reads the same from the paths' active steps.  Returns a
+    dict for the reports."""
+    import numpy as np
     from pspde_torch.rollout import kernels as km
     packed = call.pack(backward=False)
     occ = km._stopped_fwd_occupancy(packed, dev)
@@ -1590,18 +1603,30 @@ def fwd_lane_use(call, dev):
     check(int(trips.sum()) == int(hit.sum()),
           f"the forward's lanes ran {int(trips.sum())} trips for "
           f"{int(hit.sum())} active path-steps")
-    lay = km._FwdLayout(*packed.layout)
-    busy = fwd_warp_lane_trips(trips, lay.tpp)
-    model = stopped_fwd_lane_schedule(hit, lay.tile, trips.shape[0],
-                                      lay.tpp)
     K, T = hit.shape[0], 64
     old = stopped_fwd_lane_schedule(hit, T, -(-K // T))
-    return {"layout": f"{lay.tile} lanes x {lay.tpp} threads, "
-                      f"{'refilled' if lay.refill else 'one block a tile'}",
+    block = km._stopped_fwd_block_of(packed)
+    if block is not None:
+        padded = np.zeros(trips.size, dtype=np.int64)
+        padded[:K] = hit
+        busy = int(trips.max(axis=1).sum()) * block.tile
+        model = int(padded.reshape(-1, block.tile).max(axis=1).sum()) \
+            * block.tile
+        layout = (f"block forward, tiles of {block.tile} paths on "
+                  f"{block.threads} threads, slices of {block.rows} rows in "
+                  f"{block.stages} buffers")
+    else:
+        lay = km._FwdLayout(*packed.layout)
+        busy = fwd_warp_lane_trips(trips, lay.tpp)
+        model = stopped_fwd_lane_schedule(hit, lay.tile, trips.shape[0],
+                                          lay.tpp)["busy"]
+        layout = (f"{lay.tile} lanes x {lay.tpp} threads, "
+                  f"{'refilled' if lay.refill else 'one block a tile'}")
+    return {"layout": layout,
             "grid": trips.shape[0], "warps_per_sm": occ["warps_per_sm"],
             "block_bytes": occ["smem_bytes"], "active": int(hit.sum()),
             "advancing": n_adv, "lane_use": n_adv / busy,
-            "lane_use_model": n_adv / model["busy"],
+            "lane_use_model": n_adv / model,
             "lane_use_parent_schedule": n_adv / old["busy"]}
 
 
@@ -1759,6 +1784,56 @@ def bwd_layout_sweep(cells):
     return out
 
 
+# the block forward's (tile, threads, slice rows, ring buffers) candidates of
+# phase 32's sweep, at the notebook's K and at the timing K
+FWD_SWEEP = {"small": ((1, 64, 16, 3), (2, 64, 16, 3), (2, 128, 8, 3),
+                       (2, 128, 16, 2), (4, 128, 16, 3), (4, 256, 16, 3)),
+             "large": ((16, 128, 4, 2), (16, 128, 8, 3), (16, 128, 16, 2),
+                       (16, 256, 16, 2), (32, 256, 8, 3), (32, 256, 16, 3))}
+
+
+def fwd_layout_sweep(cells):
+    """The block forward at each layout of FWD_SWEEP (and the chosen one)
+    for each cell {tag: (call, reps, candidates)}: device ms a launch
+    (torch.profiler; up to three runs where it drops the launches), the
+    outputs bitwise equal to the chosen layout's.  Returns {"ms": {tag:
+    {layout: ms}}, "chosen": {tag: ms}, "layout": {tag: chosen}}."""
+    from pspde_torch.rollout import kernels as km
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "experiments"))
+    from torch_kernel_times import device_ms
+    out = {"ms": {}, "chosen": {}, "layout": {}}
+    for tag, (call, reps, cands) in cells.items():
+        chosen = km._stopped_fwd_block_of(call.pack(backward=False))
+        ref = km._stopped_forward_kernel(call)
+        ms = out["ms"][tag] = {}
+        for lay in dict.fromkeys((chosen,) + tuple(
+                km._FwdBlockLayout(*c) for c in cands)):
+            c = call._replace(fwd_block=lay)
+            got = km._stopped_forward_kernel(c)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(got, ref)),
+                  f"the block forward at {tuple(lay)} differs bitwise from "
+                  f"the chosen layout at {tag}")
+            dms = None
+            for _ in range(3):
+                dms, _ = device_ms(lambda c=c: km._stopped_forward_kernel(c),
+                                   reps, "stopped_fwd_block")
+                if dms is not None:
+                    break
+            ms[lay] = float("nan") if dms is None else dms
+        out["chosen"][tag], out["layout"][tag] = ms[chosen], tuple(chosen)
+        fastest = min(v for v in ms.values() if v == v)
+        print(f"  the block forward's layouts at {tag}, fastest first (tile, "
+              "threads, slice rows, buffers: device ms a launch; outputs "
+              "bitwise equal): " + "; ".join(
+                  f"{tuple(lay)} {v:.3f}"
+                  for lay, v in sorted(ms.items(), key=lambda kv: kv[1]))
+              + f"; chosen {tuple(chosen)}: {ms[chosen]:.3f}, "
+              f"{ms[chosen] / fastest:.3f}x the fastest")
+    return out
+
+
 def print_lane_use(tag, use):
     measured, model = use
     print(f"  {tag} lanes: {measured['advancing_path_steps']} advancing "
@@ -1856,22 +1931,55 @@ def one_thread_layout(call):
     raise RuntimeError("no one-thread layout fits")
 
 
-def check_fwd_layouts(tag, call, kern):
-    """The forward's outputs bitwise equal across layouts: ``kern`` (the
-    main path's, at the chosen layout), the chosen layout launched again,
-    its other grid (refilled lanes or one block a tile) and one thread a
-    path at one tile a block; each launch's lanes ran as many trips as the
-    paths' active steps (each path once).  Returns the layouts' names."""
+def fwd_layout_name(packed):
+    """A packed forward call's kernel and layout, for the reports."""
     from pspde_torch.rollout import kernels as km
-    lay = km._FwdLayout(*call.pack(backward=False).layout)
+    block = km._stopped_fwd_block_of(packed)
+    if block is not None:
+        return (f"block {block.tile}x{block.threads} rows {block.rows} "
+                f"stages {block.stages}")
+    f = km._FwdLayout(*packed.layout)
+    return f"{f.tile}x{f.tpp}{' refilled' if f.refill else ''}"
+
+
+def other_block_layout(call, block):
+    """A block forward layout other than ``block`` in every field that
+    fits the call's net: half the tile (2 at tile 1), another thread
+    count, slice depth and ring."""
+    from pspde_torch.rollout import kernels as km
+    tile = block.tile // 2 if block.tile > 1 else 2
+    lay = km._FwdBlockLayout(tile, 128 if block.threads != 128 else 64,
+                             4 if block.rows != 4 else 8, 5 - block.stages)
+    call._replace(fwd_block=lay).pack(backward=False)
+    return lay
+
+
+def check_fwd_layouts(tag, call, kern):
+    """The forward's outputs bitwise equal across layouts and kernels:
+    ``kern`` (the main path's, at the chosen layout), the chosen layout
+    launched again, and for the lanes kernel its other grid (refilled lanes
+    or one block a tile) and one thread a path at one tile a block; for the
+    block forward (the nets no block stages) another block layout and the
+    lanes kernel (stopped_fwd_kernel) forced at its own layout and at one
+    thread a path.  Each launch's lanes ran as many trips as the paths'
+    active steps (each path once).  Returns the layouts' names."""
+    from pspde_torch.rollout import kernels as km
+    packed = call.pack(backward=False)
+    block = km._stopped_fwd_block_of(packed)
+    if block is None:
+        lay = km._FwdLayout(*packed.layout)
+        forced = [{}, dict(fwd_layout=(lay.tile, lay.tpp, not lay.refill)),
+                  dict(fwd_layout=one_thread_layout(call))]
+    else:
+        forced = [{}, dict(fwd_block=other_block_layout(call, block)),
+                  dict(fwd_kernel="lanes"),
+                  dict(fwd_layout=one_thread_layout(call))]
     names = []
-    for forced in (None, (lay.tile, lay.tpp, not lay.refill),
-                   one_thread_layout(call)):
-        out, trips = km._stopped_forward_launch(
-            call if forced is None else call._replace(fwd_layout=forced))
+    for kw in forced:
+        c = call._replace(**kw)
+        out, trips = km._stopped_forward_launch(c)
         torch.cuda.synchronize()
-        f = km._FwdLayout(*(forced or lay))
-        name = f"{f.tile}x{f.tpp}{' refilled' if f.refill else ''}"
+        name = fwd_layout_name(c.pack(backward=False))
         names.append(name)
         check(all(torch.equal(a.detach(), b.detach())
                   for a, b in zip(out, kern)),
@@ -2200,13 +2308,14 @@ def counted(fn, *names):
     """The launches that the training kernels under wrapper ``fn`` counted
     on the device since ``zero_counts`` (km.kernel_launch_counts: each
     launch that ran, a CUDA graph's replays' too), for each count name: an
-    int, or {plan: n} for a '_by_plan' name; one value for one name."""
+    int, or {plan: n} for a '_by_plan' name ({kernel: n} for a
+    '_by_kernel' one); one value for one name."""
     from pspde_torch.rollout import kernels as km
     c = km.kernel_launch_counts()
     out = tuple({k[2]: v for k, v in c.items() if k[:2] == (fn.__name__,
                                                             name)}
-                if name.endswith("_by_plan") else c[(fn.__name__, name)]
-                for name in names)
+                if name.endswith(("_by_plan", "_by_kernel"))
+                else c[(fn.__name__, name)] for name in names)
     return out[0] if len(out) == 1 else out
 
 
@@ -3713,40 +3822,44 @@ def allen_cahn_phases(dev, smi):
     Kc = K_AC_CHECK
     print(f"phase 30: the cubic family (h = y - y^3, the clock) vs plain, "
           f"AllenCahn(d={D_AC}, T={T_AC}) on the ball of radius {R_AC}, "
-          f"DenseNet {NET_AC} on [x, t], K={Kc}, N={N_AC}, dt {DT_AC}: the "
-          f"backward on its device plan; outputs rel {REL_TOL:g} and equal "
-          f"clocks and exit steps on all paths, gradients {GRAD_TOL:g} and "
-          f"the backward on plain cotangents {BWD_REL_TOL:g} x max|plain|, "
-          "two launches bitwise equal, the forward bitwise across its "
-          "layouts")
-    probe = ac_call(ac_net(1), Kc, N_AC)
-    fwd_packed, bwd_packed = probe.pack(False), probe.pack(True)
-    lay = km._FwdLayout(*fwd_packed.layout)
-    print(f"  forward: {lay.tile} lanes x {lay.tpp} threads, "
-          f"{'refilled' if lay.refill else 'one block a tile'}, net "
-          f"{'staged' if fwd_packed.iargs[6] else 'read from device memory'}"
-          f" (stage {fwd_packed.iargs[6]}); backward: "
-          f"{bwd_layout(bwd_packed, dev)}")
-    check(bwd_packed.layout[0] == "device",
-          "the notebook net's backward takes the device plan")
+          f"DenseNet {NET_AC} on [x, t], K={Kc} and K={K_AC}, N={N_AC}, dt "
+          f"{DT_AC}: the forward on the block kernel, the backward on its "
+          f"device plan; outputs rel {REL_TOL:g} and equal clocks and exit "
+          f"steps on all paths, gradients {GRAD_TOL:g} and the backward on "
+          f"plain cotangents {BWD_REL_TOL:g} x max|plain|, two launches "
+          "bitwise equal, the forward bitwise across its layouts and against "
+          "the lanes kernel (stopped_fwd_kernel) forced at its own layout "
+          "and at one thread a path")
     worst = {"out": 0.0, "grad": 0.0, "bwd": 0.0}
+    for K in (Kc, K_AC):
+        probe = ac_call(ac_net(1), K, N_AC)
+        fwd_packed, bwd_packed = probe.pack(False), probe.pack(True)
+        print(f"  K={K}: forward {fwd_layout_name(fwd_packed)}, net "
+              f"{'staged' if fwd_packed.iargs[6] else 'read from device memory'}"
+              f" (stage {fwd_packed.iargs[6]}); backward: "
+              f"{bwd_layout(bwd_packed, dev)}")
+        check(bwd_packed.layout[0] == "device",
+              "the notebook net's backward takes the device plan")
+        check(km._stopped_fwd_block_of(fwd_packed) is not None,
+              "the notebook net's forward takes the block kernel")
+        X0, t0 = starts(ac, K, D_AC, True)
+        noise = torch.randn((N_AC, K, D_AC), generator=gen, device=dev)
+        for relu, adaptive, cases in (
+                (False, False, ("erfinv", "binom", "host noise")),
+                (False, True, ("erfinv",)),
+                (True, False, ("erfinv",)),
+                (True, True, ("binom",))):
+            net = ac_net(1 + 2 * relu + adaptive, relu)
+            for what in cases:
+                kw = (dict(host_noise=noise) if what == "host noise"
+                      else dict(seed=4321, rng=what))
+                compare_stopped(
+                    f"[allen_cahn K={K}{', adaptive' if adaptive else ''}"
+                    f"{', clamp' if relu else ''}, {what}]", ac, net, X0, t0,
+                    N_AC, DT_AC, dict(kw, adaptive_forward=adaptive), worst,
+                    0.0, time_stopping=True)
+        del noise
     X0, t0 = starts(ac, Kc, D_AC, True)
-    noise = torch.randn((N_AC, Kc, D_AC), generator=gen, device=dev)
-    for relu, adaptive, cases in (
-            (False, False, ("erfinv", "binom", "host noise")),
-            (False, True, ("erfinv",)),
-            (True, False, ("erfinv",)),
-            (True, True, ("binom",))):
-        net = ac_net(1 + 2 * relu + adaptive, relu)
-        for what in cases:
-            kw = (dict(host_noise=noise) if what == "host noise"
-                  else dict(seed=4321, rng=what))
-            compare_stopped(
-                f"[allen_cahn{', adaptive' if adaptive else ''}"
-                f"{', clamp' if relu else ''}, {what}]", ac, net, X0, t0,
-                N_AC, DT_AC, dict(kw, adaptive_forward=adaptive), worst,
-                0.0, time_stopping=True)
-    del noise
     # the net the main path trains from, JAX's seed-42 initial net, on the
     # main path's drift; with the adaptive drift its V carries the plain
     # version itself past float32 on a few paths (printed, not checked)
@@ -3777,7 +3890,8 @@ def allen_cahn_phases(dev, smi):
           "widths where both fit (the same grid): bitwise equal gradient "
           "rows and block counts at the chosen layout (4 threads a lane) and "
           "at 2 threads a lane with the arrays in the workspace and the net "
-          "in device memory")
+          "in device memory; the block forward forced against "
+          "stopped_fwd_kernel on the same inputs: bitwise equal outputs")
     ball = ExponentialOnBallNonlinearSin(d=D_ELL, alpha=ALPHA_ELL,
                                          device=dev)
     gen50 = ExponentialOnSphereNonlinearParabolic(d=D_GEN, device=dev)
@@ -3809,6 +3923,21 @@ def allen_cahn_phases(dev, smi):
                 dict(adaptive_forward=adaptive, rng="erfinv",
                      host_noise=None, time_stopping=clock), None, lam)
             gY = torch.randn(K, generator=gen, device=dev) / K
+            # the block forward forced against the lanes kernel, which
+            # stages these nets
+            fwd_l = km._stopped_forward_kernel(call)
+            block = call._replace(fwd_kernel="block")
+            fwd_b = km._stopped_forward_kernel(block)
+            torch.cuda.synchronize()
+            fwd_same = all(torch.equal(a, b) for a, b in zip(fwd_l, fwd_b))
+            print(f"  [{tag}{', adaptive' if adaptive else ''}] the block "
+                  f"forward forced ({fwd_layout_name(block.pack(False))}) "
+                  f"against stopped_fwd_kernel "
+                  f"({fwd_layout_name(call.pack(False))}): seven outputs "
+                  f"bitwise equal {fwd_same}, "
+                  f"{float(fwd_l.adv_steps.sum()):.0f} advancing path-steps")
+            check(fwd_same, f"{tag}: the block forward's outputs equal "
+                  "stopped_fwd_kernel's bitwise")
             shared = call.pack(backward=True)
             check(shared.layout[0] == "shared", f"{tag}: the shared plan")
             grid = km._stopped_bwd_grid(shared, dev)
@@ -3851,13 +3980,28 @@ def allen_cahn_phases(dev, smi):
     print(f"  the committor on the device plan raises: {raised[:100]}")
     check("ROADMAP.md" in raised, "the device plan of a breadth family "
           "without it raises, naming ROADMAP.md")
+    try:
+        km._StoppedCall(
+            com, cnet, torch.zeros((64, D_COM), device=dev),
+            torch.zeros(64, device=dev), N_COM, DT_BR, 0,
+            km._check_stopped_family(com, cnet, "erfinv"),
+            dict(adaptive_forward=False, rng="erfinv", host_noise=None),
+            None, fwd_kernel="block").pack(backward=False)
+        raised = ""
+    except ValueError as e:
+        raised = str(e)
+    print(f"  the committor on the block forward raises: {raised[:100]}")
+    check("ROADMAP.md" in raised, "the block forward of a breadth family "
+          "without it raises, naming ROADMAP.md")
     print(f"  phase 31 took {time.perf_counter() - t31:.1f} s")
 
     # -- phase 32: times, the notebook's leg and the BSDE leg ---------------
     t32 = time.perf_counter()
     Kb = K_AC_BENCH
     print(f"phase 32: timing at K={Kb}, N={N_AC}, d={D_AC} (the Allen-Cahn "
-          f"pair, the backward on its device plan) and the device plan "
+          f"pair: the forward on the block kernel, the backward on its "
+          f"device plan; both kernels' layouts at K={K_AC} and K={Kb}) and "
+          f"the device plan "
           f"forced at the elliptic cell (d={D_ELL}, K={K_ELL_BENCH}, "
           f"N={N_ELL}, DenseNet (30, 30)); erfinv Philox noise; CUDA events "
           "and the profiler's device time")
@@ -3870,8 +4014,10 @@ def allen_cahn_phases(dev, smi):
     v_f, fwd_f, bwd_f = stopped_flops(net, D_AC, adaptive=False, cubic=True)
     packed = call.pack(backward=True)
     ws_bytes = bwd_layout(packed, dev)["workspace_bytes"]
+    # the block forward reads the packed net and its transpose once
+    n_wt = km._stopped_wt(net).numel()
     b_fwd = roofline((hit - adv) * v_f + adv * fwd_f,
-                     4 * (n_par + Kb * (2 * D_AC + 7)))
+                     4 * (n_par + n_wt + Kb * (2 * D_AC + 7)))
     b_bwd = stopped_bwd_roofline(adv, bwd_f, net,
                                  4 * (2 * n_par + Kb * (D_AC + 2))
                                  + ws_bytes)
@@ -3884,7 +4030,7 @@ def allen_cahn_phases(dev, smi):
         r = {}
         for name, kern_fn, plain_fn, n, key in (
                 ("forward", lambda: km._stopped_forward_kernel(call),
-                 lambda: call.plain(), reps[0], "stopped_fwd_kernel"),
+                 lambda: call.plain(), reps[0], "stopped_fwd"),
                 ("backward", lambda: km._stopped_backward_kernel(call, gY),
                  lambda: km._reference_stopped_backward(call, gY), reps[1],
                  "stopped_bwd")):
@@ -3993,8 +4139,9 @@ def allen_cahn_phases(dev, smi):
         s.train()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    *n, by_plan = counted(km.fused_stopped_train_rollout, "launches",
-                          "backward_launches", "backward_launches_by_plan")
+    *n, by_plan, by_kernel = counted(
+        km.fused_stopped_train_rollout, "launches", "backward_launches",
+        "backward_launches_by_plan", "launches_by_kernel")
     n = tuple(n)
     v_end = v00(s)
     tail = float(np.mean(s.loss_log[-50:]))
@@ -4002,7 +4149,8 @@ def allen_cahn_phases(dev, smi):
     move_jax = abs(mean - AC_V00_INIT_JAX)
     print(f"  [diffusion] {len(s.loss_log)} steps in {wall:.2f} s "
           f"({1e3 * wall / len(s.loss_log):.3f} ms a step); launches forward "
-          f"{n[0]}, backward {n[1]} (by plan {by_plan}); plain-version calls "
+          f"{n[0]} (by kernel {by_kernel}), backward {n[1]} (by plan "
+          f"{by_plan}); plain-version calls "
           f"{plain_calls.n}; loss every 200: "
           f"{['%.3e' % v for v in s.loss_log[::200]]}; tail-50 loss "
           f"{tail:.4e} (bound 3x JAX's {AC_TAIL_JAX:.4e}); v(0, 0) "
@@ -4015,10 +4163,11 @@ def allen_cahn_phases(dev, smi):
           "losses")
     warm = captured(s, L_AC)
     check(n == (L_AC + warm, L_AC + warm) and by_plan["device"] == L_AC + warm
+          and by_kernel == {"lanes": 0, "block": L_AC + warm}
           and plain_calls.n == 0,
           "diffusion leg: one forward and one backward launch a step (and in "
-          "the warm-up step), every backward on the device plan, no plain "
-          "call")
+          "the warm-up step), every forward on the block kernel, every "
+          "backward on the device plan, no plain call")
     check(lo - w <= v_end <= hi + w, f"diffusion leg: v(0, 0) {v_end:.6f} "
           f"outside [{lo - w:.6f}, {hi + w:.6f}]")
     check(tail <= 3.0 * AC_TAIL_JAX, f"diffusion leg: tail-50 loss "
@@ -4036,8 +4185,19 @@ def allen_cahn_phases(dev, smi):
     sgY = torch.randn(K_AC, generator=gen, device=dev) / K_AC
     sweep = bwd_layout_sweep({f"K={K_AC}": (scall, sgY, 3),
                               f"K={Kb}": (call, gY, 2)})
+    fsweep = fwd_layout_sweep({f"K={K_AC}": (scall, 10, FWD_SWEEP["small"]),
+                               f"K={Kb}": (call, 2, FWD_SWEEP["large"])})
     s_out = km._stopped_forward_kernel(scall)
     s_adv = float(s_out.adv_steps.sum())
+    s_hit = float(s_out.hitting.sum())
+    s_fwd = roofline((s_hit - s_adv) * v_f + s_adv * fwd_f,
+                     4 * (n_par + n_wt + K_AC * (2 * D_AC + 7)))
+    s_fwd_use = fwd_lane_use(scall, dev)
+    print_fwd_lane_use(f"allen_cahn at K={K_AC}", s_fwd_use)
+    print(f"  the block forward at K={K_AC}: {s_hit:.0f} active and "
+          f"{s_adv:.0f} advancing path-steps, device "
+          f"{fsweep['chosen'][f'K={K_AC}']:.4f} ms at the chosen layout, bound "
+          f"{s_fwd['bound_ms']:.4f} ms ({s_fwd['bound_by']})")
     s_use = lane_use(scall, s_out, sgY)
     print_lane_use(f"allen_cahn at K={K_AC}", s_use)
     s_bwd = stopped_bwd_roofline(s_adv, bwd_f, net, 4 * (
@@ -4086,19 +4246,22 @@ def allen_cahn_phases(dev, smi):
     b = leg("allen_cahn_bsde", L_AC_BSDE, loss_method="BSDE", N=N_AC_BSDE,
             alpha=(1.0, 1.0, 1.0))
     reset_counts(km.fused_stopped_train_rollout, "launches",
-                 "backward_launches")
+                 "backward_launches", "launches_by_kernel")
     step_ms = [timed(b.step, 1, warm=False) for _ in range(L_AC_BSDE)]
     n_b = (km.fused_stopped_train_rollout.launches,
            km.fused_stopped_train_rollout.backward_launches)
+    b_kernel = dict(km.fused_stopped_train_rollout.launches_by_kernel)
     print(f"  [BSDE] N={N_AC_BSDE}: {L_AC_BSDE} steps, median "
           f"{float(np.median(step_ms)):.2f} ms (min {min(step_ms):.2f}, max "
-          f"{max(step_ms):.2f}); launches forward {n_b[0]}, backward "
-          f"{n_b[1]}; loss {['%.3e' % v for v in b.loss_log[::5]]}; "
+          f"{max(step_ms):.2f}); launches forward {n_b[0]} (by kernel "
+          f"{b_kernel}), backward {n_b[1]}; loss "
+          f"{['%.3e' % v for v in b.loss_log[::5]]}; "
           f"advancing path-steps a step {np.mean(b.K_log):.0f} of K N = "
           f"{K_AC * N_AC_BSDE}")
-    check(n_b == (L_AC_BSDE, L_AC_BSDE)
+    check(n_b == (L_AC_BSDE, L_AC_BSDE) and b_kernel["block"] == L_AC_BSDE
           and all(math.isfinite(v) for v in b.loss_log),
-          "BSDE leg: one launch of each kernel a step, finite losses")
+          "BSDE leg: one launch of each kernel a step, the forward on the "
+          "block kernel, finite losses")
     print(f"  card: {smi}")
     print(f"  phase 32 took {time.perf_counter() - t32:.1f} s; phases 30-32 "
           f"{time.perf_counter() - t_phases:.1f} s")
@@ -4109,13 +4272,19 @@ def allen_cahn_phases(dev, smi):
            "launches_shape": f"phase 32's diffusion leg, K={K_AC}, "
                              f"N={N_AC}"}
     rows = [
-        dict(row, name="fused_stopped_train_rollout.forward.allen_cahn",
+        dict(row, name="fused_stopped_train_rollout.forward.block.allen_cahn",
+             kernel="stopped_fwd_block_kernel",
              replaces="pspde/rollout/kernels.py:1184",
              launches=leg_launches[0], max_abs_err=worst["out"],
              ms=times["forward"][0], device_ms=times["forward"][2],
              plain_ms=times["forward"][1],
              **dict(b_fwd, layout=fwd_use["layout"],
                     lane_use=fwd_use["lane_use"],
+                    device_ms_at_K200=fsweep["chosen"][f"K={K_AC}"],
+                    bound_ms_at_K200=s_fwd["bound_ms"],
+                    layout_device_ms={tag: {str(tuple(lay)): ms
+                                            for lay, ms in v.items()}
+                                      for tag, v in fsweep["ms"].items()},
                     step_ms={f"K={K}": med for K, med in engines.items()})),
         dict(row, name="fused_stopped_train_rollout.backward.allen_cahn",
              replaces="pspde/rollout/kernels.py:1272", plan="device",
@@ -4453,8 +4622,8 @@ def same_training(a, b, logs=None):
 STEPS_TIMED = 5
 # the kernels of the training legs, as the profiler names them
 TRAIN_KERNELS = ("train_forward_kernel", "train_backward_kernel",
-                 "stopped_fwd_kernel", "stopped_bwd_kernel",
-                 "stopped_bwd_lane_kernel")
+                 "stopped_fwd_kernel", "stopped_fwd_block_kernel",
+                 "stopped_bwd_kernel", "stopped_bwd_lane_kernel")
 
 
 def chunk_phase(dev, smi, llgc):

@@ -613,8 +613,10 @@ def stopped_times(dev, gen, step=True):
 
 def allen_cahn_times(dev, gen):
     """ms (CUDA events) and device ms a launch (``torch.profiler``, either
-    backward kernel) of the Allen-Cahn pair at the notebook's width, N=25,
-    at K=65536 and at the notebook's K=200 (``_k200`` keys), and of the
+    forward kernel and either backward kernel) of the Allen-Cahn pair at
+    the notebook's width, N=25, at K=65536 and at the notebook's K=200
+    (``_k200`` keys; ``_fwd_layout`` names the forward's kernel and
+    layout), and of the
     stopped backward with its plan forced, shared and device, at the
     elliptic (DenseNet (30, 30)) and heat cells of ``stopped_cells``; None
     where the tree has no backward plans (its family refuses the cubic)."""
@@ -657,8 +659,13 @@ def allen_cahn_times(dev, gen):
             km._stopped_backward_kernel(call, gY)
 
         out[f"allen_cahn{tag}_fwd"] = timed(fwd, reps)
+        # either forward: the lanes kernel (stopped_fwd_kernel) or, where
+        # the tree has it, the block kernel (stopped_fwd_block_kernel)
         out[f"allen_cahn{tag}_fwd_device"] = device_ms(
-            fwd, reps, "stopped_fwd_kernel")[0]
+            fwd, reps, "stopped_fwd")[0]
+        out[f"allen_cahn{tag}_fwd_layout"] = [
+            type(call.pack(backward=False).layout).__name__,
+            *call.pack(backward=False).layout]
         out[f"allen_cahn{tag}_bwd"] = timed(bwd, reps)
         out[f"allen_cahn{tag}_bwd_device"] = device_ms(bwd, reps,
                                                        "stopped_bwd")[0]

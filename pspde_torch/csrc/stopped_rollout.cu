@@ -175,6 +175,11 @@
 //     lane read at once, fell in one bank where a row held a multiple of 32
 //     floats; the staged copy pads each row by kRowPad floats (FwdNet).
 //   * The step that stops computes V only where v_l2 reads it.
+//   * Where the net fits no block beside the lanes' arrays (the Allen-Cahn
+//     notebook's), the forward is stopped_fwd_block_kernel instead: tiles
+//     of paths that step together, each layer one product over the tile
+//     with the weights streamed through shared memory, bitwise this
+//     kernel's (its note below).
 // The backward is built for the card:
 //   * Lanes are refilled.  With one block per tile paths for all N steps,
 //     a block ran until its slowest path stopped: at the elliptic cell
@@ -1137,6 +1142,467 @@ stopped_fwd_kernel(const StoppedArgs a, const float* __restrict__ P,
     }
   }
   if (ln.q == 0) queue[1 + blockIdx.x * a.tile + slot] = trips;
+}
+
+// -- the forward for nets that no block stages -------------------------------
+
+// stopped_fwd_block_kernel: the forward of stopped_fwd_kernel for the nets
+// whose weights fit no block beside the lanes' arrays (the Allen-Cahn
+// notebook's DenseNet (110, 110, 50) on [x, t] at d = 100: 53,576 packed
+// floats, 214 KB).  There each lane of stopped_fwd_kernel read the whole
+// net from device memory twice a step, the 16 lanes of a block the same
+// weights each on its own: 119.7 ms at K = 65536 and 3.36 ms at the
+// notebook's K = 200, against 49.6 and 1.31 ms with every row of each W
+// read at its row 0 (the same loads from an L1-resident window;
+// experiments/torch_fwd_bound_probe.py), so the loads that missed L1 took
+// ~60% of its time.  Here a block carries a tile of T paths that step
+// together, and each layer is one block-cooperative product over the
+// tile's paths:
+//   * the value sweep's layer l forms the T x w outputs, thread t the path t
+//     mod T and up to kBlockTiles output chunks (8 outputs each) in
+//     registers, each output's sum one fmaf chain over the input rows in
+//     ascending order from 0, then + b_j, relu and its square: matvec_chunk's
+//     arithmetic, so every feature is bitwise the one-thread sweep's;
+//   * the weights stream through shared memory: W_l (n_in x padded(w),
+//     row-major, as packed) in slices of whole rows, a ring of `stages`
+//     buffers of `cap` floats filled by cp.async while the block works on
+//     the slice before, so each weight comes from L2 once a block-step and
+//     feeds the tile's T paths;
+//   * grad V's layer l is the same product over W_l^T (w x padded(n_in),
+//     the wrapper's transposed copy): row i's sum over the layer's outputs
+//     is one thread's fmaf chain in ascending order, then g_i += s, as in
+//     value_grad;
+//   * the path's scalar chains (|X|^2, the output row V, the increment's
+//     sums over j, h, the exit and the clock) stay in one thread a path, the
+//     normals and the move of X are split over the block by (path,
+//     dimension group), each in the one-thread order.
+// So X, Y, stopped, hitting, v_l2, adv_steps and t are bitwise those of
+// stopped_fwd_kernel, whose chains stopped_bwd_lane_kernel replays.  A path
+// that stops idles in its tile until the tile ends (no refill): the family
+// set is the lanes backward's (the ball, the clock's families, the cubic,
+// the torus), and the nets no block stages run on the whole space.  g's
+// hidden rows share the features' rows (the features are not read after V),
+// so a path holds F + H + d_in + d floats.  FP32 FMAs throughout: a
+// tensor-core product would change the bits the backward replays.
+// Times (device ms by the profiler, parent and change in one call of
+// experiments/torch_kernel_times.py --allen-cahn; NVIDIA H100 80GB HBM3
+// at 700.00 W): K = 65536 119.0-119.8 -> 25.6-25.7 (tiles of 16 paths on
+// 128 threads, 3 blocks an SM), K = 200 3.26-3.31 -> 0.88-0.91 (tiles of
+// 2 on 128 threads); the layouts by experiments/torch_fwd_layouts.py.
+// What bounds it now is latency: each row of a product is one step of
+// every output's chain, ~33 cycles a row at K = 200 with a few warps an SM
+// (experiments/torch_fwd_block_phases.py), and at K = 65536 the products'
+// loads and FMAs at 12 warps an SM (5.4x the FP32 FLOP bound).
+constexpr int kBlockThreads = 256;   // at most, a block
+constexpr int kBlockMinBlocks = 2;
+constexpr int kBlockMaxTile = 32;    // paths a block, a power of two
+constexpr int kBlockTiles = 4;       // output chunks a thread holds a pass
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most stages - 2 of this thread's copy groups are pending
+// (stages 2 or 3).
+__device__ __forceinline__ void cp_async_wait_ring(int stages) {
+  if (stages >= 3)
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  else
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// The block's ring of weight slices: `stages` buffers of `cap` floats.
+struct Ring {
+  float* buf;
+  int cap, stages;
+};
+
+// Rows r0..r1 of M (row stride C floats, 16-byte aligned) into buffer s.
+__device__ __forceinline__ void ring_fill(const Ring& ring, int s,
+                                          const float* __restrict__ M, int C,
+                                          int r0, int r1) {
+  float* dst = ring.buf + s * ring.cap;
+  const float* src = M + static_cast<size_t>(r0) * C;
+  const int n4 = (r1 - r0) * C / 4;
+  for (int x = threadIdx.x; x < n4; x += blockDim.x)
+    cp_async16(dst + 4 * x, src + 4 * x);
+}
+
+// out[p][j] = sum_{i < R} in[i][p] M[i][j] for the T paths of the block (in
+// a [row][T] array) and the C columns of M (R x C row-major in device
+// memory, C a multiple of kChunk, at most the ring's cap): each sum one
+// fmaf chain over i ascending from 0, as matvec_chunk's.  Thread t takes
+// path t mod T and, in a pass, the chunks t / T + m NT / T (m < kM, the
+// fewest of 1, 2 and kBlockTiles that cover the matrix's chunks, so that
+// no thread runs tiles that no thread needs); more passes where the chunks
+// outnumber kBlockTiles NT / T, every thread in every pass (the block meets
+// in each).  M streams through the ring in slices of cap / C rows, the
+// next slices in flight while the block works on one.  epi(p, j0, acc)
+// takes the 8 sums of the chunk at column j0; the block meets before the
+// epilogues (the ring free again) and after them (their rows written).
+template <int kM, typename Epi>
+__device__ __forceinline__ void product_pass(const float* __restrict__ M,
+                                             int R, int C, const float* in,
+                                             const Ring& ring, int T,
+                                             int base, Epi epi) {
+  const int tid = threadIdx.x;
+  const int p = tid & (T - 1), slots = blockDim.x / T;
+  const int c0 = base + tid / T, n_chunks = C / kChunk;
+  const int S = ring.cap / C;
+  const int n_slices = (R + S - 1) / S;
+  const float* col = in + p;
+  // each tile's columns, a chunk past the matrix clamped to its last: the
+  // loop below has no branch, and the epilogue drops those sums
+  int cols[kM];
+  float acc[kM][kChunk];
+#pragma unroll
+  for (int m = 0; m < kM; ++m) {
+    cols[m] = min(c0 + m * slots, n_chunks - 1) * kChunk;
+#pragma unroll
+    for (int c = 0; c < kChunk; ++c) acc[m][c] = 0.0f;
+  }
+  for (int s = 0; s + 1 < ring.stages; ++s) {
+    if (s < n_slices) ring_fill(ring, s, M, C, s * S, min(R, (s + 1) * S));
+    cp_async_commit();
+  }
+  for (int k = 0; k < n_slices; ++k) {
+    cp_async_wait_ring(ring.stages);
+    __syncthreads();   // slice k in, and every read of slice k - 1 done
+    const int nx = k + ring.stages - 1;
+    if (nx < n_slices)
+      ring_fill(ring, nx % ring.stages, M, C, nx * S, min(R, (nx + 1) * S));
+    cp_async_commit();
+    const float* Ms = ring.buf + (k % ring.stages) * ring.cap;
+    const int i0 = k * S, rows = min(S, R - i0);
+#pragma unroll(kM == 1 ? 8 : kM == 2 ? 4 : 1)
+    for (int r = 0; r < rows; ++r) {
+      const float a = col[(i0 + r) * T];
+      const float* Mr = Ms + r * C;
+#pragma unroll
+      for (int m = 0; m < kM; ++m) {
+        const float4 w0 = *reinterpret_cast<const float4*>(Mr + cols[m]);
+        const float4 w1 = *reinterpret_cast<const float4*>(Mr + cols[m] + 4);
+        acc[m][0] = fmaf(a, w0.x, acc[m][0]);
+        acc[m][1] = fmaf(a, w0.y, acc[m][1]);
+        acc[m][2] = fmaf(a, w0.z, acc[m][2]);
+        acc[m][3] = fmaf(a, w0.w, acc[m][3]);
+        acc[m][4] = fmaf(a, w1.x, acc[m][4]);
+        acc[m][5] = fmaf(a, w1.y, acc[m][5]);
+        acc[m][6] = fmaf(a, w1.z, acc[m][6]);
+        acc[m][7] = fmaf(a, w1.w, acc[m][7]);
+      }
+    }
+  }
+  __syncthreads();   // every read of the ring done
+#pragma unroll
+  for (int m = 0; m < kM; ++m) {
+    const int c = c0 + m * slots;
+    if (c < n_chunks) epi(p, c * kChunk, acc[m]);
+  }
+}
+
+template <typename Epi>
+__device__ __forceinline__ void block_product(const float* __restrict__ M,
+                                              int R, int C, const float* in,
+                                              const Ring& ring, int T,
+                                              Epi epi) {
+  const int slots = blockDim.x / T, n_chunks = C / kChunk;
+  for (int base = 0; base < n_chunks; base += kBlockTiles * slots) {
+    const int m = (n_chunks - base + slots - 1) / slots;   // block-uniform
+    if (m <= 1)
+      product_pass<1>(M, R, C, in, ring, T, base, epi);
+    else if (m <= 2)
+      product_pass<2>(M, R, C, in, ring, T, base, epi);
+    else
+      product_pass<kBlockTiles>(M, R, C, in, ring, T, base, epi);
+  }
+  __syncthreads();
+}
+
+// The torus family's h = lambda V + V (-q sin(s) - cos(s) s) with each
+// rounding written out: the contraction that stopped_fwd_kernel's build of
+// torus_h_dy takes (the other two orders, fmaf(-q, sin(s), -(cos(s) s))
+// and no fma, move Y on ~1.5% of the torus's paths; NVIDIA H100 80GB HBM3).
+__device__ __forceinline__ float torus_h_block(float lam, float V, float s,
+                                               float q) {
+  const float dy = fmaf(-cosf(s), s, -__fmul_rn(q, sinf(s)));
+  return fmaf(lam, V, __fmul_rn(V, dy));
+}
+
+// The layout ints of a launch (after StoppedArgs' and StoppedExt's): the
+// block's threads, the ring's floats a buffer and its buffers.
+struct BlockLayout {
+  int threads, cap, stages;
+};
+
+// Shared memory of one block, in floats: the step's flags (two words a
+// path), the output row wL (F floats), the tile's F + H + d_in + d rows of
+// T floats, and the ring, each part a multiple of 4 floats (the ring's
+// float4 alignment).  The wrapper's _stopped_fwd_block_bytes computes the
+// same.
+size_t block_smem_floats(const StoppedArgs& a, const BlockLayout& lay) {
+  const size_t d_in = a.time_stopping ? a.d + 1 : a.d;
+  const size_t rows = a.F + (a.F - d_in) + d_in + a.d;
+  const size_t T = a.tile;
+  return (2 * T + 3) / 4 * 4 + (a.F + 3) / 4 * 4 + (rows * T + 3) / 4 * 4 +
+         static_cast<size_t>(lay.stages) * lay.cap;
+}
+
+template <bool kTimed, bool kTorus, bool kRelu, bool kBreadth>
+__global__ void __launch_bounds__(kBlockThreads, kBlockMinBlocks)
+stopped_fwd_block_kernel(const StoppedArgs a, const float* __restrict__ P,
+                         const float* __restrict__ WT,
+                         const float* __restrict__ noise,
+                         const float* __restrict__ X0,
+                         const float* __restrict__ t0,
+                         float* __restrict__ X_out,
+                         float* __restrict__ acc_out,
+                         int* __restrict__ trips_out, const int cap,
+                         const int stages, const StoppedExt ext) {
+  static_assert(!kBreadth || kTimed, "the cubic is the one breadth family "
+                "of this kernel");
+  extern __shared__ float4 smem4[];
+  const int T = a.tile, tid = threadIdx.x, NT = blockDim.x;
+  const int d_in = net_inputs<kTimed>(a), H = a.F - d_in, d = a.d;
+  int* flag = reinterpret_cast<int*>(smem4);   // the step's flags a path
+  float* mcs = reinterpret_cast<float*>(smem4) + T;   // the torus's -cos(s)
+  float* wL = reinterpret_cast<float*>(smem4) + (2 * T + 3) / 4 * 4;
+  float* f = wL + (a.F + 3) / 4 * 4;
+  float* r = f + a.F * T;        // relu(h) of the hidden layers
+  float* gin = r + H * T;        // dV/d(inputs); on the square rows 0..d
+                                 // then hold the proposal
+  float* xs = gin + d_in * T;    // the step's normals
+  const int n_rows = a.F + H + d_in + d;
+  const Ring ring{f + (n_rows * T + 3) / 4 * 4, cap, stages};
+  // g: rows 0..d_in in gin, the hidden rows in the features' rows
+  auto grow = [&](int i) { return i < d_in ? gin + i * T : f + i * T; };
+  int wt_floats = 0;   // W_l^T is w x padded(n_in), layer after layer
+  for (int l = 0, n_in = d_in; l < a.L; ++l) {
+    wt_floats += a.width[l] * padded(n_in);
+    n_in += a.width[l];
+  }
+  constexpr int kAdv = 1, kOn = 2, kInside = 4;
+
+  const int k0 = blockIdx.x * T;
+  const bool owner = tid < T;    // thread p carries path k0 + p's scalars
+  const int p = tid, k = k0 + tid;
+  bool running = owner && k < a.K;
+  float t = 0.0f, Y = 0.0f, hit = 0.0f, vl2 = 0.0f, advs = 0.0f;
+  float r2 = 0.0f, s = 0.0f, qs = 0.0f, V = 0.0f;
+  bool stopped = false, sel = true, on = true;
+  int trips = 0;
+  for (int x = tid; x < n_rows * T; x += NT) f[x] = 0.0f;
+  for (int x = tid; x < a.F; x += NT) wL[x] = P[a.wL_off + x];
+  __syncthreads();
+  for (int x = tid; x < T * d; x += NT) {
+    const int q = x / d, j = x - q * d;
+    if (k0 + q < a.K) f[j * T + q] = X0[static_cast<size_t>(k0 + q) * d + j];
+  }
+  if (running) t = t0[k];
+  count_launch(a.launches);
+  const uint2 key = stopped_seed(a);
+  const float lam = kTorus ? P[a.lam_off] : 0.0f;
+  const int G = (d + 3) / 4;   // dimension groups of the normals
+  __syncthreads();
+
+  for (int n = 0; n < a.N; ++n) {
+    // the exit and the clock test at the pre-step state, one thread a path
+    bool need = false;
+    if (running) {
+      if constexpr (kTorus) {
+        torus_terms(a, f + p, T, &s, &qs);
+      } else {
+        r2 = sq_norm(f + p, d, T);
+        sel = selected<kTimed>(a, r2, t);
+      }
+      hit += 1.0f;
+      ++trips;
+      if (!sel && !a.have_vref) {   // V would not be read: no net
+        stopped = true;
+        running = false;
+      } else {
+        need = true;
+        if (kTimed) f[d * T + p] = t;
+      }
+    }
+    if (!__syncthreads_or(need)) break;   // every path has ended
+
+    // the value sweep, one product a layer
+    int n_in = d_in;
+    for (int l = 0; l < a.L; ++l) {
+      const int w = a.width[l], wp = padded(w);
+      const float* bl = P + a.b_off[l];
+      float* rl = r + (n_in - d_in) * T;
+      float* fl = f + n_in * T;
+      block_product(P + a.w_off[l], n_in, wp, f, ring, T,
+                    [&](int q, int j0, const float(&acc)[kChunk]) {
+#pragma unroll
+                      for (int c = 0; c < kChunk; ++c) {
+                        const int j = j0 + c;
+                        if (j < w) {
+                          const float rv = fmaxf(acc[c] + bl[j], 0.0f);
+                          rl[j * T + q] = rv;
+                          fl[j * T + q] = rv * rv;
+                        }
+                      }
+                    });
+      n_in += w;
+    }
+
+    // V, v_l2 and the exit, one thread a path
+    bool adv = false;
+    if (need) {
+      float v = 0.0f;
+      for (int i = 0; i < a.F; ++i) v = fmaf(f[i * T + p], wL[i], v);
+      const float o = v + P[a.bL_off];
+      on = !kRelu || o > 0.0f;
+      V = on ? o : 0.0f;
+      if (a.have_vref) {
+        const float e = V - (kTorus ? expf(-sinf(s)) : expf(a.a_vref * r2));
+        vl2 += e * e * a.dt;
+      }
+      if (!sel) {
+        stopped = true;
+        running = false;
+      } else {
+        adv = true;
+      }
+    }
+    if (owner) flag[p] = (adv ? kAdv : 0) | (adv && on ? kOn : 0) | kInside;
+    if (!__syncthreads_or(adv)) continue;
+
+    // grad V where a path reads it (on): from wL down, one product a layer
+    if (__syncthreads_or(adv && on)) {
+      for (int x = tid; x < a.F * T; x += NT) {
+        const int i = x / T;
+        grow(i)[x - i * T] = wL[i];
+      }
+      __syncthreads();
+      int o = a.F, wt_off = wt_floats;
+      for (int l = a.L - 1; l >= 0; --l) {
+        const int w = a.width[l];
+        o -= w;   // layer l's outputs are feature rows o..o + w, its
+                  // inputs 0..o
+        wt_off -= w * padded(o);
+        const float* rl = r + (o - d_in) * T;
+        float* go = f + o * T;
+        for (int x = tid; x < w * T; x += NT)
+          go[x] = 2.0f * rl[x] * go[x];
+        __syncthreads();
+        block_product(WT + wt_off, w, padded(o), go, ring, T,
+                      [&](int q, int i0, const float(&acc)[kChunk]) {
+#pragma unroll
+                        for (int c = 0; c < kChunk; ++c) {
+                          const int i = i0 + c;
+                          if (i < o) grow(i)[q] += acc[c];
+                        }
+                      });
+      }
+    }
+
+    // the normals, and off the square the move of X, by (path, dimension
+    // group); consecutive threads take consecutive paths
+    for (int x = tid; x < T * G; x += NT) {
+      const int gi = x / T, q = x - gi * T;
+      const int fq = flag[q];
+      if (!(fq & kAdv)) continue;
+      float xi[4];
+      draw4(a, key, noise, k0 + q, n, gi, xi);
+#pragma unroll
+      for (int qq = 0; qq < 4; ++qq) {
+        const int j = 4 * gi + qq;
+        if (j >= d) break;
+        xs[j * T + q] = xi[qq];
+        if (!kTorus) {
+          const float z = (fq & kOn) ? a.sig * gin[j * T + q] : 0.0f;
+          const float c = a.adaptive ? -z : 0.0f;
+          f[j * T + q] = __fadd_rn(f[j * T + q], step_of(a, c, xi[qq]));
+        }
+      }
+    }
+    __syncthreads();
+
+    // the increment's sums over j, in order, one thread a path
+    float s_zc = 0.0f, s_zx = 0.0f, h = 0.0f;
+    if (adv) {
+      for (int j = 0; j < d; ++j) {
+        const float z = on ? a.sig * gin[j * T + p] : 0.0f;
+        const float c = a.adaptive ? -z : 0.0f;
+        s_zc = fmaf(z, c, s_zc);
+        s_zx = fmaf(z, xs[j * T + p], s_zx);
+      }
+      if constexpr (kBreadth) {
+        h = cubic_h_value(a, ext, r2, t, V);
+      } else if constexpr (kTorus) {
+        h = torus_h_block(lam, V, s, qs);
+      } else {
+        h = h_value<kTimed>(a, r2, t, V);
+      }
+    }
+    if constexpr (kTorus) {
+      // the proposal into rows 0..d of g (every read of them done), and
+      // whether it stays in the square; then a path that stays moves there
+      if (owner) mcs[p] = adv ? -cosf(s) : 0.0f;
+      __syncthreads();
+      for (int x = tid; x < T * G; x += NT) {
+        const int gi = x / T, q = x - gi * T;
+        const int fq = flag[q];
+        if (!(fq & kAdv)) continue;
+        bool inside = true;
+        for (int j = 4 * gi; j < min(4 * gi + 4, d); ++j) {
+          const float z = (fq & kOn) ? a.sig * gin[j * T + q] : 0.0f;
+          const float c = a.adaptive ? -z : 0.0f;
+          const float pj = __fadd_rn(
+              f[j * T + q],
+              torus_step(a, mcs[q], f[j * T + q], c, xs[j * T + q]));
+          inside = inside && in_box(a, pj);
+          gin[j * T + q] = pj;
+        }
+        if (!inside) atomicAnd(flag + q, ~kInside);
+      }
+      __syncthreads();
+      if (adv && !(flag[p] & kInside)) {   // the proposal left: no move, no
+        stopped = true;                    // increment
+        running = false;
+        adv = false;
+      }
+      __syncthreads();
+      if (owner) flag[p] = adv ? kAdv : 0;
+      __syncthreads();
+      for (int x = tid; x < T * d; x += NT) {
+        const int q = x / d, j = x - q * d;
+        if (flag[q] & kAdv) f[j * T + q] = gin[j * T + q];
+      }
+      __syncthreads();
+    }
+    if (adv) {
+      Y += (-h + s_zc) * a.dt + s_zx * a.sq_dt;
+      advs += 1.0f;
+      if (kTimed) t = __fadd_rn(t, a.dt);
+    }
+  }
+  __syncthreads();
+  for (int x = tid; x < T * d; x += NT) {
+    const int q = x / d, j = x - q * d;
+    if (k0 + q < a.K)
+      X_out[static_cast<size_t>(k0 + q) * d + j] = f[j * T + q];
+  }
+  if (owner && k < a.K) {
+    acc_out[k] = Y;
+    acc_out[a.K + k] = stopped ? 1.0f : 0.0f;
+    acc_out[2 * a.K + k] = hit;
+    acc_out[3 * a.K + k] = vl2;
+    acc_out[4 * a.K + k] = advs;
+    acc_out[5 * a.K + k] = t;
+  }
+  if (owner) trips_out[k] = trips;
 }
 
 // -- the replay backward ---------------------------------------------------
@@ -2187,6 +2653,36 @@ bool fwd_layout(const StoppedArgs& a, const int* iargs, int* tpp,
   return true;
 }
 
+// The block kernel's layout, the ints after StoppedArgs' and StoppedExt's:
+// [threads, cap, stages, grid]: threads a block (a multiple of 32 up to
+// kBlockThreads), the ring's floats a buffer (a multiple of 4 that holds a
+// row of every W_l and W_l^T) and its buffers (2 or 3); the tile a power of
+// two up to kBlockMaxTile, the net not staged, one block per tile (grid =
+// ceil(K / tile)).  Writes the layout and the grid (grid may be null), or
+// returns false.
+bool unpack_block_layout(const StoppedArgs& a, const int* iargs,
+                         BlockLayout* lay, int* grid) {
+  const int* l = iargs + kNumPackedInts;
+  *lay = BlockLayout{l[0], l[1], l[2]};
+  const int t = a.tile, nt = lay->threads;
+  if (t < 1 || t > kBlockMaxTile || (t & (t - 1)) != 0 || nt < 32 ||
+      nt > kBlockThreads || nt % 32 != 0 || a.stage != 0 ||
+      (lay->stages != 2 && lay->stages != 3) || lay->cap % 4 != 0)
+    return false;
+  int n_in = a.time_stopping ? a.d + 1 : a.d;
+  for (int i = 0; i < a.L; ++i) {
+    const int wp = (a.width[i] + kChunk - 1) / kChunk * kChunk;
+    const int np = (n_in + kChunk - 1) / kChunk * kChunk;
+    if (wp > lay->cap || np > lay->cap) return false;
+    n_in += a.width[i];
+  }
+  if (grid != nullptr) {
+    *grid = l[3];
+    if (*grid != (a.K + t - 1) / t) return false;
+  }
+  return true;
+}
+
 // Lets `kernel` take `smem` bytes of dynamic shared memory, once per
 // kernel and size (allow_dynamic_smem), and launches it with `args`.
 template <typename Kernel, typename... Args>
@@ -2337,6 +2833,63 @@ extern "C" int pspde_stopped_fwd_occupancy(const int* iargs,
         stopped_fwd_kernel<Fam::timed, Fam::torus, Fam::relu, Fam::full,
                            Fam::breadth, Fam::sch, Fam::tanh>,
         smem, out[1], device, &out[0], &out[3]);
+  });
+}
+
+// The forward for nets that no block stages (stopped_fwd_block_kernel):
+// as pspde_stopped_rollout_fwd, with `wt` the net's W_l^T (w x padded(n_in)
+// row-major, layer after layer) and the layout [threads, cap, stages, grid]
+// after StoppedArgs' and StoppedExt's ints (unpack_block_layout); `queue`
+// (1 + grid tile ints): each path's trips after the first.  The families of
+// the lanes backward (with_lane_family); the others are refused.
+extern "C" int pspde_stopped_rollout_fwd_block(
+    const float* params, const float* wt, const float* host_noise,
+    const float* X0, const float* t0, float* X_out, float* acc_out,
+    int* queue, const int* iargs, const float* fargs,
+    const unsigned long long* seed, unsigned long long* launches, int device,
+    void* stream) {
+  StoppedArgs a;
+  StoppedExt ext;
+  const int err = unpack(iargs, fargs, seed, device, &a, &ext);
+  if (err != 0) return err;
+  if (seed == nullptr || wt == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  a.launches = launches;
+  BlockLayout lay;
+  int grid = 0;
+  if (!unpack_block_layout(a, iargs, &lay, &grid))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return with_lane_family(a, ext, [&](auto fam) {
+    using Fam = decltype(fam);
+    return launch(stopped_fwd_block_kernel<Fam::timed, Fam::torus, Fam::relu,
+                                           Fam::breadth>,
+                  sizeof(float) * block_smem_floats(a, lay), grid,
+                  lay.threads, stream, a, params, wt, host_noise, X0, t0,
+                  X_out, acc_out, queue + 1, lay.cap, lay.stages, ext);
+  });
+}
+
+// The block kernel's launch for `iargs` (StoppedArgs' and StoppedExt's
+// ints and the layout, its grid not read): out as
+// pspde_stopped_fwd_occupancy's.
+extern "C" int pspde_stopped_fwd_block_occupancy(const int* iargs,
+                                                 const float* fargs,
+                                                 int device, int* out) {
+  StoppedArgs a;
+  StoppedExt ext;
+  const int err = unpack(iargs, fargs, nullptr, device, &a, &ext);
+  if (err != 0) return err;
+  BlockLayout lay;
+  if (!unpack_block_layout(a, iargs, &lay, nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return with_lane_family(a, ext, [&](auto fam) {
+    using Fam = decltype(fam);
+    const size_t smem = sizeof(float) * block_smem_floats(a, lay);
+    out[1] = lay.threads;
+    out[2] = static_cast<int>(smem);
+    return occupancy(stopped_fwd_block_kernel<Fam::timed, Fam::torus,
+                                              Fam::relu, Fam::breadth>,
+                     smem, lay.threads, device, &out[0], &out[3]);
   });
 }
 

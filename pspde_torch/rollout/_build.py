@@ -61,6 +61,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     for name, n_ptr in (("pspde_train_rollout_fwd", 7),
                         ("pspde_train_rollout_bwd", 6),
                         ("pspde_stopped_rollout_fwd", 7),
+                        ("pspde_stopped_rollout_fwd_block", 8),
                         ("pspde_stopped_rollout_bwd", 8)):
         fn = getattr(lib, name)
         fn.argtypes = [vp] * n_ptr + tail[:2] + [vp, vp] + tail[3:]
@@ -73,13 +74,17 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.pspde_normals_sum.argtypes = [vp, c_int, c_int, c_int, c_int,
                                       ctypes.c_ulonglong, c_int, vp]
     for name in ("pspde_stopped_bwd_slots", "pspde_train_fwd_occupancy",
-                 "pspde_stopped_fwd_occupancy", "pspde_serve_occupancy"):
+                 "pspde_stopped_fwd_occupancy",
+                 "pspde_stopped_fwd_block_occupancy",
+                 "pspde_serve_occupancy"):
         getattr(lib, name).argtypes = [
             ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_float),
             c_int, ctypes.POINTER(ctypes.c_int)]
     for name in ("pspde_ablation", "pspde_fma_chain", "pspde_normals_sum",
                  "pspde_stopped_bwd_slots", "pspde_train_fwd_occupancy",
-                 "pspde_stopped_fwd_occupancy", "pspde_serve_occupancy"):
+                 "pspde_stopped_fwd_occupancy",
+                 "pspde_stopped_fwd_block_occupancy",
+                 "pspde_serve_occupancy"):
         getattr(lib, name).restype = ctypes.c_int
     lib.pspde_cuda_error_string.argtypes = [ctypes.c_int]
     lib.pspde_cuda_error_string.restype = ctypes.c_char_p

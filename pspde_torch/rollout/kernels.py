@@ -467,6 +467,7 @@ _M64 = 0xFFFFFFFFFFFFFFFF
 # kernels); the serve kernel takes it by value
 _DEVICE_SEED_ENTRIES = ("pspde_train_rollout_fwd", "pspde_train_rollout_bwd",
                         "pspde_stopped_rollout_fwd",
+                        "pspde_stopped_rollout_fwd_block",
                         "pspde_stopped_rollout_bwd")
 
 
@@ -1456,6 +1457,108 @@ def _stopped_fwd_layout(widths, geom: str, K: int, n_stage: int,
     return _FwdLayout(t, tpp, refill), stage
 
 
+# the forward for nets that no block stages (csrc stopped_fwd_block_kernel):
+# blocks of `tile` paths (a power of two up to csrc kBlockMaxTile) on
+# `threads` threads (a multiple of 32 up to _STOPPED_BLOCK_THREADS)
+STOPPED_FWD_KERNELS = ("lanes", "block")
+_STOPPED_BLOCK_THREADS = 256      # csrc kBlockThreads
+_STOPPED_BLOCK_TILES = (32, 16, 8, 4, 2, 1)
+# the chosen layouts by K (the fastest of experiments/torch_fwd_layouts.py at
+# the Allen-Cahn net, PERF.md section 6): up to the first K, tiles of 2
+# paths on 128 threads; up to the second, 32 on 256; past it, 16 on 128
+_STOPPED_BLOCK_BY_K = ((2048, (2, 128, 16, 3)), (32768, (32, 256, 16, 3)),
+                       (None, (16, 128, 8, 2)))
+
+
+class _FwdBlockLayout(NamedTuple):
+    """The block forward's launch (csrc stopped_fwd_block_kernel): one block
+    of ``threads`` threads per ``tile`` paths, which step together; each
+    layer's weights stream through a ring of ``stages`` buffers of
+    ``rows`` rows of the widest matrix (the net's W_l and W_l^T)."""
+    tile: int
+    threads: int
+    rows: int
+    stages: int
+
+
+def _stopped_block_cols(widths, d_in: int) -> int:
+    """The widest row of the block forward's matrices: padded(w) of each
+    W_l and padded(n_in) of each W_l^T."""
+    n_in = [d_in + sum(widths[:l]) for l in range(len(widths))]
+    return max(_ceil_to(v, _CHUNK) for v in list(widths) + n_in)
+
+
+def _stopped_fwd_block_bytes(widths, d_in: int, d: int,
+                             lay: _FwdBlockLayout, cols: int) -> int:
+    """Shared memory of one block of the block forward: the step's flags
+    (2 words a path), the output row wL (F floats), the tile's F + H + d_in
+    + d rows and the ring of ``stages`` x ``rows`` x ``cols`` floats, each
+    part rounded up to 4 floats - the formula of
+    stopped_rollout.cu:block_smem_floats."""
+    T, H = lay.tile, sum(widths)
+    F = d_in + H
+    return 4 * (_ceil_to(2 * T, 4) + _ceil_to(F, 4)
+                + _ceil_to((F + H + d_in + d) * T, 4)
+                + lay.stages * lay.rows * cols)
+
+
+def _stopped_fwd_block_layout(widths, d_in: int, d: int, K: int,
+                              layout: Optional[tuple] = None
+                              ) -> _FwdBlockLayout:
+    """The block forward's layout: ``layout`` where given (a forced one),
+    else _STOPPED_BLOCK_BY_K's at K, the fastest by device time at the
+    Allen-Cahn net's K = 200, 8192 and 65536: at the notebook's K=200,
+    100 blocks of 2 paths (a step is a latency chain, and 4 warps a block
+    spread it; 1 path a block reads 1.4x slower); at K=8192 tiles of 32 on
+    256 threads, slices of 16 rows; at K=65536 tiles of 16 on 128 threads,
+    3 blocks an SM (12 warps, 8 at tile 32), slices of 8 rows in 2
+    buffers.  The tile halves while a block does not fit.  Raises
+    ValueError on a forced layout the kernel does not take or whose block
+    does not fit."""
+    cols = _stopped_block_cols(widths, d_in)
+
+    def fits(lay):
+        return (_stopped_fwd_block_bytes(widths, d_in, d, lay, cols)
+                <= _SMEM_LIMIT)
+
+    if layout is not None:
+        lay = _FwdBlockLayout(*layout)
+        if (lay.tile not in _STOPPED_BLOCK_TILES
+                or lay.threads % 32 or not 32 <= lay.threads
+                <= _STOPPED_BLOCK_THREADS or lay.rows < 1
+                or lay.stages not in (2, 3) or not fits(lay)):
+            raise ValueError(
+                f"block forward layout {lay}: tile in "
+                f"{_STOPPED_BLOCK_TILES}, threads a multiple of 32 up to "
+                f"{_STOPPED_BLOCK_THREADS}, rows >= 1, stages 2 or 3, a "
+                f"block within {_SMEM_LIMIT} bytes")
+        return lay
+    lay = _FwdBlockLayout(*next(v for k, v in _STOPPED_BLOCK_BY_K
+                                if k is None or K <= k))
+    for t in _STOPPED_BLOCK_TILES:
+        if t <= lay.tile and fits(lay._replace(tile=t)):
+            return lay._replace(tile=t)
+    raise _stopped_outside(
+        f"{_stopped_fwd_block_bytes(widths, d_in, d, lay, cols)} bytes of the "
+        f"block forward at tile 1 exceed the {_SMEM_LIMIT}-byte limit of "
+        "one block")
+
+
+def _stopped_wt(v_net: ConcatSkipNet) -> torch.Tensor:
+    """The block forward's transposed net: per hidden layer W_l^T (width x
+    padded(n_in), row-major: the nn.Linear weight, its columns padded to
+    _CHUNK), one layer after the other."""
+    parts, n_in = [], v_net.d_in
+    for lin in v_net.layers[:-1]:
+        w = lin.out_features
+        WT = torch.zeros((w, _ceil_to(n_in, _CHUNK)), dtype=torch.float32,
+                         device=lin.weight.device)
+        WT[:, :n_in] = lin.weight.detach()
+        parts.append(WT.reshape(-1))
+        n_in += w
+    return torch.cat(parts)
+
+
 def _stopped_grid(K: int, tile: int, slots: int) -> int:
     """The backward's grid: one block per ``tile`` paths, at most ``slots``
     blocks (what the card holds at once), at least one."""
@@ -1582,7 +1685,8 @@ def _stopped_instance(packed: _Packed) -> tuple:
 def _pack_stopped(problem, v_net, hfam, vfam, K, N, delta_t, tile, *,
                   backward, host_noise, adaptive_forward, rng,
                   time_stopping=False, lam=None, fwd_layout=None,
-                  plan=None, bwd_layout=None) -> _Packed:
+                  plan=None, bwd_layout=None, fwd_kernel=None,
+                  fwd_block=None) -> _Packed:
     """The stopped kernels' arguments (stopped_rollout.cu: StoppedArgs,
     then StoppedExt: ints [sig_off, vref, feat, hfam], floats [r_in, c_ys1,
     the committor's a^2, a^d, a^2 - c^(2-d) a^d, c_y3, and the
@@ -1594,10 +1698,14 @@ def _pack_stopped(problem, v_net, hfam, vfam, K, N, delta_t, tile, *,
     packed net (``lam``, or 0 without it) and its gradient entry; a diag
     or full sigma is packed after the net as a (d, d) matrix.  The
     forward's
-    ``layout`` is ``_stopped_fwd_layout`` (``fwd_layout`` where given), the
-    backward's ``_stopped_bwd_plan`` layout, ("shared",) or ("device",
-    tpp, smem) (``plan`` forces a plan, ``bwd_layout`` a device-plan
-    ``_BwdLayout``)."""
+    ``layout`` is ``_stopped_fwd_layout``'s ``_FwdLayout`` (the lanes
+    kernel, ``fwd_layout`` where given) where its net is staged, else
+    ``_stopped_fwd_block_layout``'s ``_FwdBlockLayout`` (the block
+    kernel; ``fwd_block`` forces a layout); ``fwd_kernel`` ('lanes' or
+    'block') forces the kernel; the block kernel outside its families
+    (those of the backward's device plan) raises.  The backward's is
+    ``_stopped_bwd_plan``'s, ("shared",) or ("device", tpp, smem) (``plan``
+    forces a plan, ``bwd_layout`` a device-plan ``_BwdLayout``)."""
     d = problem.d
     geom = problem.geometry
     square = hfam[0] in _SQUARE_FAMILIES
@@ -1627,19 +1735,42 @@ def _pack_stopped(problem, v_net, hfam, vfam, K, N, delta_t, tile, *,
         else:
             a, c, dv = (float(v) for v in vfam[1:])
             vr = [a ** 2, a ** dv, a ** 2 - c ** (2 - dv) * a ** dv]
+    # the families of the backward's device plan and the block forward
+    lanes_family = not (sch or _stopped_unclocked(geom.kind, lay.sig_off,
+                                                  vref, c_ys1))
+    n_stage = _stopped_fwd_net_floats(n_params, lay.widths, v_net.d_in)
     if backward:
         tile, stage, fwd = _stopped_bwd_plan(
-            n_params, per_path, tile, plan, device_ok=not (
-                sch or _stopped_unclocked(geom.kind, lay.sig_off, vref,
-                                          c_ys1)),
-            n_stage=_stopped_fwd_net_floats(n_params, lay.widths,
-                                            v_net.d_in),
-            K=K, layout=bwd_layout)
+            n_params, per_path, tile, plan, device_ok=lanes_family,
+            n_stage=n_stage, K=K, layout=bwd_layout)
     else:
-        fwd, stage = _stopped_fwd_layout(
-            lay.widths, geom.kind, K,
-            _stopped_fwd_net_floats(n_params, lay.widths, v_net.d_in),
-            per_path, tile, fwd_layout)
+        if fwd_kernel not in (None, *STOPPED_FWD_KERNELS):
+            raise ValueError(f"fwd_kernel={fwd_kernel!r} must be one of "
+                             f"{STOPPED_FWD_KERNELS}")
+        kernel = ("lanes" if fwd_layout is not None
+                  else "block" if fwd_block is not None else fwd_kernel)
+        if kernel != "block":
+            try:
+                fwd, stage = _stopped_fwd_layout(
+                    lay.widths, geom.kind, K, n_stage, per_path, tile,
+                    fwd_layout)
+            except ValueError:
+                if kernel == "lanes" or not lanes_family:
+                    raise
+                stage = False
+            if kernel is None and not stage:
+                kernel = "block"
+        if kernel == "block":
+            if not lanes_family:
+                raise _stopped_outside(
+                    "the block forward (the forward of nets that no block "
+                    "stages) is not instantiated for the breadth families "
+                    "without time_stopping (the two spheres, a dense sigma, "
+                    "the committor's reference, c_ys1) and the Schroedinger "
+                    "family; ROADMAP.md Queue 2 item 4(f)")
+            fwd = _stopped_fwd_block_layout(lay.widths, v_net.d_in, d, K,
+                                            fwd_block)
+            stage = False
         tile = fwd.tile
     two = geom.kind == "two_spheres"
     iargs = [K, N, d, len(lay.widths), lay.F, tile, int(stage), n_params,
@@ -1685,6 +1816,8 @@ class _StoppedCall(NamedTuple):
     fwd_layout: Optional[tuple] = None   # a forced _FwdLayout of the forward
     plan: Optional[str] = None           # a forced plan of the backward
     bwd_layout: Optional[tuple] = None   # a forced _BwdLayout (device plan)
+    fwd_kernel: Optional[str] = None     # a forced forward: 'lanes', 'block'
+    fwd_block: Optional[tuple] = None    # a forced _FwdBlockLayout
 
     def plain(self) -> FusedStoppedOut:
         return reference_stopped_train_rollout(
@@ -1701,7 +1834,8 @@ class _StoppedCall(NamedTuple):
             adaptive_forward=o["adaptive_forward"], rng=o["rng"],
             time_stopping=o.get("time_stopping", False), lam=self.lam,
             fwd_layout=self.fwd_layout, plan=self.plan,
-            bwd_layout=self.bwd_layout)
+            bwd_layout=self.bwd_layout, fwd_kernel=self.fwd_kernel,
+            fwd_block=self.fwd_block)
 
 
 # the forward's occupancy per (device, tile, tpp, shared bytes,
@@ -1709,12 +1843,36 @@ class _StoppedCall(NamedTuple):
 _STOPPED_FWD_OCC: dict = {}
 
 
+def _stopped_fwd_block_of(packed: _Packed) -> Optional[_FwdBlockLayout]:
+    """The block forward's ``_FwdBlockLayout`` of a packed forward call;
+    None where it runs the lanes kernel."""
+    return (packed.layout if isinstance(packed.layout, _FwdBlockLayout)
+            else None)
+
+
+def _stopped_fwd_block_ints(packed: _Packed, grid: int) -> list:
+    """The ints a block forward's launch (or its occupancy query) takes
+    after the packed ones: [threads, cap, stages, grid], the ring's cap the
+    layout's rows of the widest matrix (stopped_rollout.cu:
+    unpack_block_layout)."""
+    ia = packed.iargs
+    lay = _stopped_fwd_block_of(packed)
+    cols = _stopped_block_cols(ia[16:16 + ia[3]], ia[2] + ia[14])
+    return [lay.threads, lay.rows * cols, lay.stages, grid]
+
+
 def _stopped_fwd_smem_bytes(packed: _Packed) -> int:
     """Shared memory of one forward block of a packed call (the formula of
-    stopped_rollout.cu:smem_floats)."""
+    stopped_rollout.cu:smem_floats, or of block_smem_floats for the block
+    forward)."""
     ia = packed.iargs
     d, L, F, tile, stage, n_params = ia[2], ia[3], ia[4], ia[5], ia[6], ia[7]
     d_in = d + ia[14]
+    block = _stopped_fwd_block_of(packed)
+    if block is not None:
+        return _stopped_fwd_block_bytes(
+            ia[16:16 + L], d_in, d, block,
+            _stopped_block_cols(ia[16:16 + L], d_in))
     n_stage = _stopped_fwd_net_floats(n_params, ia[16:16 + L], d_in)
     return _stopped_smem_bytes(
         n_stage if stage else 0,
@@ -1725,23 +1883,30 @@ def _stopped_fwd_smem_bytes(packed: _Packed) -> int:
 def _stopped_fwd_occupancy(packed: _Packed, dev: torch.device) -> dict:
     """The forward's launch for one packed call on CUDA device ``dev``: its
     blocks resident on one SM (stopped_rollout.cu:
-    pspde_stopped_fwd_occupancy, the runtime's theoretical residency),
-    threads a block, warps an SM, bytes of shared memory a block, the SMs,
-    and the layout."""
+    pspde_stopped_fwd_occupancy, or pspde_stopped_fwd_block_occupancy for
+    the block forward: the runtime's theoretical residency), threads a
+    block, warps an SM, bytes of shared memory a block, the SMs, and the
+    layout."""
     ia = packed.iargs
-    lay = _FwdLayout(*packed.layout)
+    block = _stopped_fwd_block_of(packed)
+    lay = block if block is not None else _FwdLayout(*packed.layout)
     index = dev.index if dev.index is not None else \
         torch.cuda.current_device()
-    key = (index, lay.tile, lay.tpp, _stopped_fwd_smem_bytes(packed),
+    key = (index, type(lay).__name__, *lay, _stopped_fwd_smem_bytes(packed),
            _stopped_instance(packed))
     if key not in _STOPPED_FWD_OCC:
         from ._build import library
         lib = library()
         out = (ctypes.c_int * 4)()
-        iargs = ia + [lay.tpp]
-        err = lib.pspde_stopped_fwd_occupancy(
-            (ctypes.c_int * len(iargs))(*iargs),
-            (ctypes.c_float * len(packed.fargs))(*packed.fargs), index, out)
+        if block is not None:
+            entry = lib.pspde_stopped_fwd_block_occupancy
+            iargs = ia + _stopped_fwd_block_ints(packed, 0)
+        else:
+            entry = lib.pspde_stopped_fwd_occupancy
+            iargs = ia + [lay.tpp]
+        err = entry((ctypes.c_int * len(iargs))(*iargs),
+                    (ctypes.c_float * len(packed.fargs))(*packed.fargs),
+                    index, out)
         if err != 0 or out[0] < 1:
             raise RuntimeError(
                 "fused_stopped_train_rollout: the forward kernel fits no "
@@ -1756,9 +1921,12 @@ def _stopped_fwd_occupancy(packed: _Packed, dev: torch.device) -> dict:
 
 def _stopped_fwd_grid(packed: _Packed, dev: torch.device) -> int:
     """The forward's grid: with refilled lanes ``_stopped_grid`` of the
-    blocks the card holds at once, else one block per tile paths."""
-    lay = _FwdLayout(*packed.layout)
+    blocks the card holds at once, else (and in the block forward) one
+    block per tile paths."""
     K = packed.iargs[0]
+    if _stopped_fwd_block_of(packed) is not None:
+        return -(-K // packed.iargs[5])
+    lay = _FwdLayout(*packed.layout)
     if not lay.refill:
         return -(-K // lay.tile)
     occ = _stopped_fwd_occupancy(packed, dev)
@@ -1767,25 +1935,41 @@ def _stopped_fwd_grid(packed: _Packed, dev: torch.device) -> int:
 
 def _stopped_forward_launch(call: _StoppedCall):
     """The forward kernel's outputs and what its lanes ran: (grid, tile)
-    int32, each lane's trips (the steps of all the paths it carried)."""
+    int32, each lane's trips (the steps of all the paths it carried; in
+    the block forward each path's steps).  Counted in
+    ``fused_stopped_train_rollout.launches`` and, per kernel,
+    ``.launches_by_kernel``."""
     X0 = call.X0
     K, d = X0.shape
     packed = call.pack(backward=False)
-    lay = _FwdLayout(*packed.layout)
+    block = _stopped_fwd_block_of(packed)
+    tile = packed.iargs[5]
     grid = _stopped_fwd_grid(packed, X0.device)
     X = torch.empty((K, d), dtype=torch.float32, device=X0.device)
     acc = torch.empty((6, K), dtype=torch.float32, device=X0.device)
     # the queue's path counter (0), then each lane's trips
-    queue = torch.zeros(1 + grid * lay.tile, dtype=torch.int32,
+    queue = torch.zeros(1 + grid * tile, dtype=torch.int32,
                         device=X0.device)
-    _launch("pspde_stopped_rollout_fwd", "fused_stopped_train_rollout",
-            packed._replace(iargs=packed.iargs + [lay.tpp, grid]),
-            [packed.params, call.opts["host_noise"], X0, call.t0, X, acc,
-             queue], call.seed, X0.device)
+    if block is not None:
+        _launch("pspde_stopped_rollout_fwd_block",
+                "fused_stopped_train_rollout",
+                packed._replace(iargs=packed.iargs
+                                + _stopped_fwd_block_ints(packed, grid)),
+                [packed.params, _stopped_wt(call.v_net),
+                 call.opts["host_noise"], X0, call.t0, X, acc, queue],
+                call.seed, X0.device)
+    else:
+        _launch("pspde_stopped_rollout_fwd", "fused_stopped_train_rollout",
+                packed._replace(iargs=packed.iargs
+                                + [_FwdLayout(*packed.layout).tpp, grid]),
+                [packed.params, call.opts["host_noise"], X0, call.t0, X, acc,
+                 queue], call.seed, X0.device)
     if not _capturing(X0.device):
-        fused_stopped_train_rollout.launches += 1
+        fst = fused_stopped_train_rollout
+        fst.launches += 1
+        fst.launches_by_kernel["lanes" if block is None else "block"] += 1
     return (FusedStoppedOut(X, acc[0], acc[5], *acc[1:5]),
-            queue[1:].view(grid, lay.tile))
+            queue[1:].view(grid, tile))
 
 
 def _stopped_forward_kernel(call: _StoppedCall) -> FusedStoppedOut:
@@ -2142,9 +2326,11 @@ def fused_stopped_train_rollout(problem, v_net, X0: torch.Tensor,
     The device is the problem's: the net, X0, t0, ``lam`` and
     ``host_noise`` (N, K, d) must live there.  CPU: the plain version
     (forward, and ``_reference_stopped_backward``).  CUDA: the kernels of
-    ``csrc/stopped_rollout.cu``, counted by
-    ``fused_stopped_train_rollout.launches`` and ``.backward_launches``
-    (per memory plan of the backward: ``.backward_launches_by_plan``).
+    ``csrc/stopped_rollout.cu`` (the forward's lanes kernel where its net
+    is staged, else the block kernel), counted by
+    ``fused_stopped_train_rollout.launches`` (per forward kernel:
+    ``.launches_by_kernel``) and ``.backward_launches`` (per memory plan
+    of the backward: ``.backward_launches_by_plan``).
     ``plan`` forces the backward's plan, 'shared' or 'device'
     (``_stopped_bwd_plan``; None: shared where a block fits).
     Noise is ``host_noise`` or the Philox stream of ``seed`` through
@@ -2189,6 +2375,8 @@ def fused_stopped_train_rollout(problem, v_net, X0: torch.Tensor,
 
 
 fused_stopped_train_rollout.launches = 0
+fused_stopped_train_rollout.launches_by_kernel = dict.fromkeys(
+    STOPPED_FWD_KERNELS, 0)
 fused_stopped_train_rollout.backward_launches = 0
 fused_stopped_train_rollout.backward_launches_by_plan = dict.fromkeys(PLANS,
                                                                       0)
@@ -2198,27 +2386,33 @@ fused_stopped_train_rollout.backward_launches_by_plan = dict.fromkeys(PLANS,
 #
 # Each wrapper counts the launches it makes (``.launches``,
 # ``.backward_launches``, per plan ``.launches_by_plan``,
-# ``.backward_launches_by_plan``).  The four training kernels also count
-# their own launches on the device: each launch gets the pointer of one
-# 64-bit word of its device's count words (its C entry's, and its plan's),
+# ``.backward_launches_by_plan``, per kernel the stopped forward's
+# ``.launches_by_kernel``).  The training kernels also count their own
+# launches on the device: each launch gets the pointer of one 64-bit word
+# of its device's count words (its count's, and its plan's or kernel's),
 # to which its block 0's thread 0 adds one as it runs (csrc/common.cuh:
 # count_launch).  A launch recorded in a CUDA graph's capture is made by the
 # graph, at each replay: the wrapper counts none at capture, and the word
 # counts each replay's (``kernel_launch_counts``).
 
-# the count words of a device, in this order: (wrapper, count, plan) where
-# the entry has memory plans, (wrapper, count) where it has one
+# each C entry's (wrapper, count, what the count is kept by: 'plan' or
+# 'kernel'), and the values of each
 _COUNT_OF_ENTRY = {
-    "pspde_train_rollout_fwd": ("fused_train_rollout", "launches", True),
+    "pspde_train_rollout_fwd": ("fused_train_rollout", "launches", "plan"),
     "pspde_train_rollout_bwd": ("fused_train_rollout", "backward_launches",
-                                True),
+                                "plan"),
     "pspde_stopped_rollout_fwd": ("fused_stopped_train_rollout", "launches",
-                                  False),
+                                  "kernel"),
+    "pspde_stopped_rollout_fwd_block": ("fused_stopped_train_rollout",
+                                        "launches", "kernel"),
     "pspde_stopped_rollout_bwd": ("fused_stopped_train_rollout",
-                                  "backward_launches", True)}
-_COUNT_KEYS = [k for fn, count, by_plan in _COUNT_OF_ENTRY.values()
-               for k in ([(fn, count, plan) for plan in PLANS] if by_plan
-                         else [(fn, count)])]
+                                  "backward_launches", "plan")}
+_COUNT_BY = {"plan": PLANS, "kernel": STOPPED_FWD_KERNELS}
+# the count words of a device, in this order: (wrapper, count, plan or
+# kernel)
+_COUNT_KEYS = list(dict.fromkeys(
+    (fn, count, v) for fn, count, by in _COUNT_OF_ENTRY.values()
+    for v in _COUNT_BY[by]))
 _COUNT_WORDS: dict = {}   # device -> int64 tensor (len(_COUNT_KEYS),)
 
 
@@ -2231,16 +2425,18 @@ def _capturing(dev: torch.device) -> bool:
 def _count_word(fn_name: str, packed: _Packed, dev: torch.device) -> int:
     """The pointer of the count word of a launch of the training entry
     ``fn_name`` with ``packed`` (its plan: the train entries' iargs[-2],
-    the stopped backward's third after the packed ints) on ``dev``.  A device's words are made at
-    its first launch, which comes before any capture (the chunk's warm-up
-    step): made in a capture, they would be zeroed at each replay."""
-    fn, count, by_plan = _COUNT_OF_ENTRY[fn_name]
-    key = (fn, count)
-    if by_plan:
-        plan = (packed.iargs[_STOPPED_N_PACKED_INTS + 2]
-                if fn_name == "pspde_stopped_rollout_bwd"
-                else packed.iargs[-2])
-        key = (fn, count, PLANS[plan])
+    the stopped backward's third after the packed ints; the stopped
+    forward's kernel: its entry's) on ``dev``.  A device's words are made
+    at its first launch, which comes before any capture (the chunk's
+    warm-up step): made in a capture, they would be zeroed at each
+    replay."""
+    fn, count, by = _COUNT_OF_ENTRY[fn_name]
+    if by == "kernel":
+        sub = "block" if fn_name.endswith("_block") else "lanes"
+    else:
+        sub = PLANS[packed.iargs[_STOPPED_N_PACKED_INTS + 2]
+                    if fn_name == "pspde_stopped_rollout_bwd"
+                    else packed.iargs[-2]]
     words = _COUNT_WORDS.get(dev)
     if words is None:
         if _capturing(dev):
@@ -2249,7 +2445,8 @@ def _count_word(fn_name: str, packed: _Packed, dev: torch.device) -> int:
                 "capture: launch the step once eagerly first")
         words = _COUNT_WORDS[dev] = torch.zeros(
             len(_COUNT_KEYS), dtype=torch.int64, device=dev)
-    return words.data_ptr() + words.element_size() * _COUNT_KEYS.index(key)
+    return (words.data_ptr()
+            + words.element_size() * _COUNT_KEYS.index((fn, count, sub)))
 
 
 def _counted():
@@ -2259,33 +2456,35 @@ def _counted():
 
 def launch_counts() -> dict:
     """The kernel wrappers' counts of the launches they made, flat:
-    {(wrapper, count): n} and {(wrapper, count_by_plan, plan): n}."""
+    {(wrapper, count): n} and {(wrapper, count_by_plan, plan): n},
+    {(wrapper, count_by_kernel, kernel): n}."""
     out = {}
     for fn in _counted():
         for name, val in vars(fn).items():
             if name.endswith("launches"):
                 out[(fn.__name__, name)] = val
-            elif name.endswith("launches_by_plan"):
-                out.update(((fn.__name__, name, plan), v)
-                           for plan, v in val.items())
+            elif name.endswith(("launches_by_plan", "launches_by_kernel")):
+                out.update(((fn.__name__, name, sub), v)
+                           for sub, v in val.items())
     return out
 
 
 def kernel_launch_counts() -> dict:
-    """The four training kernels' launches as they counted them on the
-    device, summed over the devices (one read of each device's words):
-    {(wrapper, count): n} and, where the entry has plans,
-    {(wrapper, count + '_by_plan', plan): n}, keyed as ``launch_counts``.
-    Every launch that ran is counted, a CUDA graph's replays' too."""
+    """The training kernels' launches as they counted them on the device,
+    summed over the devices (one read of each device's words): {(wrapper,
+    count): n} and {(wrapper, count + '_by_plan', plan): n} (the stopped
+    forward's {(wrapper, 'launches_by_kernel', kernel): n}), keyed as
+    ``launch_counts``.  Every launch that ran is counted, a CUDA graph's
+    replays' too."""
     totals = dict.fromkeys(_COUNT_KEYS, 0)
     for words in _COUNT_WORDS.values():
         for key, n in zip(_COUNT_KEYS, words.tolist()):
             totals[key] += n
+    by = {(fn, count): b for fn, count, b in _COUNT_OF_ENTRY.values()}
     out = {}
-    for key, n in totals.items():
-        out[key[:2]] = out.get(key[:2], 0) + n
-        if len(key) == 3:
-            out[(key[0], key[1] + "_by_plan", key[2])] = n
+    for (fn, count, sub), n in totals.items():
+        out[(fn, count)] = out.get((fn, count), 0) + n
+        out[(fn, f"{count}_by_{by[(fn, count)]}", sub)] = n
     return out
 
 
@@ -2295,7 +2494,7 @@ def reset_launch_counts() -> None:
         for name, val in list(vars(fn).items()):
             if name.endswith("launches"):
                 setattr(fn, name, 0)
-            elif name.endswith("launches_by_plan"):
+            elif name.endswith(("launches_by_plan", "launches_by_kernel")):
                 setattr(fn, name, dict.fromkeys(val, 0))
     for words in _COUNT_WORDS.values():
         words.zero_()

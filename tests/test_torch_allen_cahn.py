@@ -250,8 +250,9 @@ def test_notebook_net_takes_the_device_plan(K, grid, ws_bytes):
     workspace of 1,924 x grid x 64 floats (~504 MB), 64 shared bytes a
     block (the ballots).  plan='shared' raises, naming the family, and so
     does a workspace whose floats reach 2^31 (32-bit indices: K = 2^21).
-    The forward fits as it is: 2 F + H + d = 1,112 floats a path, 16 lanes
-    of 16 threads."""
+    The forward's net is staged in no block either: it takes the block
+    kernel (tiles of paths that step together, the weights streamed
+    through shared memory), 2 paths a block at K=200, 16 at K=65536."""
     call = _notebook_call(K)
     packed = call.pack(backward=True)
     tile, tpp, smem = (8, 16, 1) if K == 200 else (64, 4, 0)
@@ -269,7 +270,8 @@ def test_notebook_net_takes_the_device_plan(K, grid, ws_bytes):
         _notebook_call(K, plan="shared").pack(backward=True)
     assert "253984 bytes" in str(e.value)
     fwd = call.pack(backward=False)
-    assert tk._FwdLayout(*fwd.layout).tpp == 16 and fwd.iargs[6] == 0
+    block = tk._stopped_fwd_block_of(fwd)
+    assert block.tile == (2 if K == 200 else 16) and fwd.iargs[6] == 0
     assert tk._stopped_fwd_smem_bytes(fwd) <= tk._SMEM_LIMIT
     with pytest.raises(ValueError, match="32-bit indices"):
         tk._stopped_bwd_ws(1924, 64, 2 ** 21 // 64)

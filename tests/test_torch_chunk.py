@@ -412,9 +412,11 @@ def test_bind_declares_the_seed_pointer():
         name: types.SimpleNamespace() for name in (
             "pspde_controlled_rollout", "pspde_train_rollout_fwd",
             "pspde_train_rollout_bwd", "pspde_stopped_rollout_fwd",
+            "pspde_stopped_rollout_fwd_block",
             "pspde_stopped_rollout_bwd", "pspde_ablation", "pspde_fma_chain",
             "pspde_normals_sum", "pspde_stopped_bwd_slots",
             "pspde_train_fwd_occupancy", "pspde_stopped_fwd_occupancy",
+            "pspde_stopped_fwd_block_occupancy",
             "pspde_serve_occupancy", "pspde_cuda_error_string")})
     _build.bind(lib)
     assert lib.pspde_controlled_rollout.argtypes[-3] is ctypes.c_ulonglong
@@ -570,6 +572,7 @@ def test_training_kernels_count_their_launches(fake_lib, monkeypatch):
             ("fused_train_rollout", "backward_launches"): 1,
             ("fused_train_rollout", "backward_launches_by_plan", plan): 1,
             ("fused_stopped_train_rollout", "launches"): 1,
+            ("fused_stopped_train_rollout", "launches_by_kernel", "lanes"): 1,
             ("fused_stopped_train_rollout", "backward_launches"): 1,
             ("fused_stopped_train_rollout", "backward_launches_by_plan",
              "device"): 1}
