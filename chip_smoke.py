@@ -337,6 +337,12 @@ BWD_REL_TOL = 1e-5
 SERVE_SOURCE = "pspde_torch/csrc/controlled_rollout.cu"
 TRAIN_SOURCE = "pspde_torch/csrc/train_rollout.cu"
 STOPPED_SOURCE = "pspde_torch/csrc/stopped_rollout.cu"
+# the stopped backward's device plan, the lanes kernel
+LANES_SOURCE = "pspde_torch/csrc/stopped_bwd_lanes.cu"
+# the profiler's key of the backward's kernel on each plan (a substring of
+# its name and of no other's)
+BWD_KEY = {"shared": "stopped_bwd_kernel",
+           "device": "stopped_bwd_lane_kernel"}
 N_TRAIN, DT_TRAIN = 32, 1.0 / 32
 K_TRAIN_CHECK, K_BENCH = 8192, 131072
 # the stopped slice (experiments/proto_fused_stopped.py:27-42)
@@ -409,6 +415,7 @@ L_DW_TEST, L_LQ, K_DW_TRUE = 400, 400, 100_000
 # at K_BR_BENCH; the notebooks' legs cut to L_BR_DIFF and L_BR_PINN steps
 D_COM, N_COM, N_COM_BENCH, D_HES, N_HES, DT_BR = 10, 50, 25, 20, 20, 1e-3
 K_BR_CHECK, K_BR_BENCH, L_BR_DIFF, L_BR_PINN = 8192, 65536, 1000, 500
+K_BR_LEG = 200   # the notebooks' K, at which phase 27 checks the committor too
 # the JAX package's runs of those legs at those step counts from the same
 # initial nets (seed 42, CPU; experiments/stopped_breadth_reference.py):
 # the mean of the last 50 test L2 (K_test_log=10000) and the first one; the
@@ -590,6 +597,14 @@ def ptxas_usage(log, kernel):
             usage[fn] = (int(m.group(1)),) + spill
             fn, spill = None, (0, 0)
     return usage
+
+
+def lane_args(mangled):
+    """The template booleans of a mangled kernel instantiation, as 0s and
+    1s in order (e.g. '000011')."""
+    import re
+    m = re.search(r"I((?:Lb[01]E)+)E", mangled)
+    return "".join(re.findall(r"Lb([01])E", m.group(1))) if m else mangled
 
 
 def sass_text(lib_path):
@@ -1025,7 +1040,7 @@ def main():
           f"the backward's: {train_hmma}; the ladder's stages (stage, "
           f"s/d plan): {dict(sorted(ladder_hmma.items()))}; the stopped "
           f"backward's fourteen shared-plan instantiations: {stopped_hmma}, "
-          f"its device plan's eight (the lanes kernel): {lane_hmma}")
+          f"its device plan's twelve (the lanes kernel): {lane_hmma}")
     check(len(train_hmma) == 2 and all(train_hmma.values()),
           "both plans of the HJB backward run TF32 mma")
     check(len(fwd_hmma) == 2 and all(fwd_hmma.values()),
@@ -1038,7 +1053,7 @@ def main():
                   for p in "sd"),
           "the ladder's net and full stages run TF32 mma on both plans")
     check(len(stopped_hmma) == 14 and all(stopped_hmma)
-          and len(lane_hmma) == 8 and all(lane_hmma),
+          and len(lane_hmma) == 12 and all(lane_hmma),
           "every instantiation of the stopped backward, both plans, runs "
           "TF32 mma")
     for kernel, what, keys, n in (
@@ -1056,8 +1071,14 @@ def main():
           f"{sorted(stopped_use.values())}; the backward's shared plan's "
           f"fourteen: "
           f"{sorted(ptxas_usage(info['log'], 'stopped_bwd_kernel').values())}"
-          f"; its device plan's eight (the lanes kernel): "
-          f"{sorted(lane_use_regs.values())}")
+          f"; its device plan's twelve (the lanes kernel, "
+          f"stopped_bwd_lane_kernel<kTimed, kTorus, kRelu, kBreadth, kSch, "
+          f"kTanh>): " + "; ".join(
+              f"{lane_args(k)} {v}" for k, v in sorted(
+                  lane_use_regs.items(), key=lambda kv: lane_args(kv[0]))))
+    check(len(lane_use_regs) == 12, "the lanes kernel's twelve "
+          "instantiations built (the Schroedinger family's and the "
+          "committor's among them)")
     check(len(stopped_use) == 14
           and all(u[1] == u[2] == 0 for u in stopped_use.values()),
           "the stopped forward's instantiations spill no registers")
@@ -1876,6 +1897,40 @@ class PlainCalls:
          self.km._reference_stopped_backward) = self.originals
 
 
+def check_lane_layouts(tag, call, gY, rows):
+    """The device plan's gradient rows and block counts ``rows`` (at the
+    layout the packer chose) against the lanes kernel at every other
+    threads-a-lane that the chosen tile takes, and with the lanes' arrays
+    in the workspace and the net in device memory, on the same grid:
+    bitwise equal (each sum stays one thread's chain in the one-thread
+    order whatever the lane's width, so a wrong split fails here).  None
+    on the shared plan; else the chosen layout and those held to it."""
+    from pspde_torch.rollout import kernels as km
+    chosen = km._stopped_bwd_lane_of(call.pack(backward=True))
+    if chosen is None:
+        return None
+    grid = rows[0].shape[0]
+    held = []
+    for lay in ([chosen._replace(tpp=p) for p in km._STOPPED_LANE_TPP]
+                + [chosen._replace(smem=False, stage=False)]):
+        c = call._replace(bwd_layout=lay)
+        try:
+            c.pack(backward=True)
+        except ValueError:
+            continue
+        if lay == chosen or lay in held:
+            continue
+        other = km._stopped_backward_rows(c, gY, grid)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(rows, other)),
+              f"{tag}: the lanes kernel's gradient rows or block counts at "
+              f"{tuple(lay)} differ bitwise from the chosen {tuple(chosen)}")
+        held.append(lay)
+    check(len(held) > 0, f"{tag}: no other layout of the chosen "
+          f"{tuple(chosen)}")
+    return tuple(chosen), [tuple(lay) for lay in held]
+
+
 def check_backward(tag, call, net, gY, agree, worst, zero_leaves=(),
                    lam_scale=None):
     """The backward kernel against the plain backward on the plain outputs'
@@ -1884,8 +1939,10 @@ def check_backward(tag, call, net, gY, agree, worst, zero_leaves=(),
     (``zero_leaves``, whose gradient vanishes by construction: of 1e-3 of
     the largest leaf's), and with ``call.lam`` lambda's entry within
     BWD_REL_TOL of ``lam_scale``.  Two launches must give bitwise-equal
-    gradient rows and the same block counts.  Updates worst["bwd"];
-    returns the per-leaf ratios."""
+    gradient rows and the same block counts, and on the device plan the
+    other layouts of its tile the same again (``check_lane_layouts``).
+    Updates worst["bwd"]; returns the per-leaf ratios, lambda's error, the
+    blocks and the layouts held."""
     from pspde_torch.rollout import kernels as km
     gY = gY * agree.to(gY.dtype)
     rows = km._stopped_backward_rows(call, gY)
@@ -1896,6 +1953,7 @@ def check_backward(tag, call, net, gY, agree, worst, zero_leaves=(),
     check(all(torch.equal(a, b) for a, b in zip(rows, again)),
           f"{tag}: two launches of the backward gave different gradient "
           "rows or block counts")
+    lanes = check_lane_layouts(tag, call, gY, rows)
     names = [n for n, _ in net.named_parameters()]
     n_net = len(names)
     top = max(float(b.abs().max()) for b in g_ref[:n_net])
@@ -1915,7 +1973,16 @@ def check_backward(tag, call, net, gY, agree, worst, zero_leaves=(),
         check(lam_err <= BWD_REL_TOL * lam_scale,
               f"{tag} backward lambda {lam_err:.3e} > {BWD_REL_TOL} * "
               f"{lam_scale:.3e}")
-    return rels, lam_err, rows[0].shape[0]
+    return rels, lam_err, rows[0].shape[0], lanes
+
+
+def lanes_note(lanes):
+    """check_backward's layouts held, for the reports."""
+    if lanes is None:
+        return "shared plan"
+    chosen, held = lanes
+    return (f"lanes kernel at {chosen}, rows bitwise at "
+            + ", ".join(str(lay) for lay in held))
 
 
 def one_thread_layout(call):
@@ -2062,7 +2129,7 @@ def compare_stopped(tag, prob, net, X0, t0, N, dt, kw, worst, mask_tol,
     # the backward on the plain outputs' cotangents
     Y = plain.Y.detach().requires_grad_()
     (gY,) = torch.autograd.grad(diffusion_loss(plain._replace(Y=Y)), [Y])
-    bwd, _, grid = check_backward(
+    bwd, _, grid, lanes = check_backward(
         tag, call, net, gY, agree, worst,
         zero_leaves if bwd_zero_leaves is None else bwd_zero_leaves)
     print(f"  {tag}: forward layouts {layouts} bitwise equal; exit step "
@@ -2070,8 +2137,8 @@ def compare_stopped(tag, prob, net, X0, t0, N, dt, kw, worst, mask_tol,
           f"{float(plain.adv_steps.sum()):.0f}; outputs ok; grad "
           f"max|kern-plain|/max|plain| per leaf "
           f"{['%.1e' % r for r in rels]}; backward on plain cotangents "
-          f"{['%.1e' % r for r in bwd]} ({grid} blocks), two launches "
-          "bitwise equal")
+          f"{['%.1e' % r for r in bwd]} ({grid} blocks, "
+          f"{lanes_note(lanes)}), two launches bitwise equal")
 
 
 def stopped_phases(dev, smi, timed):
@@ -3067,13 +3134,14 @@ def compare_eigen(tag, prob, net, X0, N, dt, kw, worst, lam_value=LAM_EIG):
              - km.reference_stopped_train_rollout(
                  prob, net, X0, t0, N, dt, lam=1.0 + 0.0 * lam, **kw).Y)
     lam_scale = float(torch.sum((gY * agree.to(gY.dtype) * S).abs()))
-    bwd, lam_err, grid = check_backward(tag, call, net, gY, agree, worst,
-                                        lam_scale=lam_scale)
+    bwd, lam_err, grid, lanes = check_backward(tag, call, net, gY, agree,
+                                               worst, lam_scale=lam_scale)
     print(f"  {tag}: forward layouts {layouts} bitwise equal; exit step "
           f"differs on {n_dis} of {K} paths; advancing "
           f"steps {float(plain.adv_steps.sum()):.0f}; outputs ok; "
           f"{loss_rels}; backward {['%.1e' % r for r in bwd]} ({grid} "
-          f"blocks, two launches bitwise equal); backward lambda "
+          f"blocks, {lanes_note(lanes)}, two launches bitwise equal); "
+          f"backward lambda "
           f"{lam_err:.2e} of sum|gY S| {lam_scale:.2e} (|d/dlambda| "
           f"{float(g_plain[-1].abs()):.2e})")
 
@@ -3564,21 +3632,34 @@ def breadth_phases(dev, smi):
           f"{REL_TOL:g} on agreeing paths, exit-step disagreements <= "
           f"{MASK_TOL:g} K, gradients {GRAD_TOL:g} and the backward on plain "
           f"cotangents {BWD_REL_TOL:g} x max|plain|; the forward bitwise "
-          "across its layouts")
+          "across its layouts; the committor's backward on the lanes kernel "
+          "(its layout at this K, its rows bitwise across the other layouts "
+          "of its tile), the Hessian's on the shared plan; the committor "
+          f"again at the notebook's K={K_BR_LEG}, where its main path "
+          "launches the backward")
     worst = {tag: {"out": 0.0, "grad": 0.0, "bwd": 0.0} for tag in fams}
-    for tag, (prob, d, N, _, zero, _) in fams.items():
-        X0 = sample_domain(gen, prob.geometry, Kc, d)
-        t0 = torch.zeros(Kc, device=dev)
-        noise = torch.randn((N, Kc, d), generator=gen, device=dev)
+    # at the notebooks' K both instantiations (the clamp or not), one of
+    # them adaptive: the script's time limit
+    cells = [(tag, Kc, gen) for tag in fams] + [
+        ("committor", K_BR_LEG,
+         torch.Generator(device=dev).manual_seed(270))]
+    for tag, K, g in cells:
+        prob, d, N, _, zero, _ = fams[tag]
+        X0 = sample_domain(g, prob.geometry, K, d)
+        t0 = torch.zeros(K, device=dev)
+        noise = torch.randn((N, K, d), generator=g, device=dev)
         for relu in (False, True):
             for adaptive in (False, True):
+                if K != Kc and adaptive != relu:
+                    continue
                 net = net_of(d, 1 + 2 * relu + adaptive, relu)
                 cases = [("erfinv", dict(seed=4321, rng="erfinv"))]
-                if not relu and not adaptive:
+                if not relu and not adaptive and K == Kc:
                     cases.append(("host noise", dict(host_noise=noise)))
                 for what, kw in cases:
                     compare_stopped(
-                        f"[{tag}{', adaptive' if adaptive else ''}"
+                        f"[{tag}{'' if K == Kc else f' K={K}'}"
+                        f"{', adaptive' if adaptive else ''}"
                         f"{', clamp' if relu else ''}, {what}]", prob, net,
                         X0, t0, N, DT_BR,
                         dict(kw, adaptive_forward=adaptive), worst[tag],
@@ -3588,71 +3669,93 @@ def breadth_phases(dev, smi):
 
     # -- phase 28: times ------------------------------------------------------
     Kb = K_BR_BENCH
-    print(f"phase 28: timing at K={Kb}: the committor at JAX's 'com10' cell "
-          f"(d={D_COM}, N={N_COM_BENCH}, dt {DT_BR}) and the Hessian (d="
-          f"{D_HES}, N={N_HES}); erfinv Philox noise; CUDA events and the "
-          "profiler's device time")
+    print(f"phase 28: timing at K=200 (the notebooks' legs: the committor "
+          f"N={N_COM}, the Hessian N={N_HES}) and at K={Kb} (the committor "
+          f"at JAX's 'com10' cell, N={N_COM_BENCH}; the Hessian N={N_HES}), "
+          f"d={D_COM} and d={D_HES}; erfinv Philox noise; CUDA events and "
+          "the profiler's device time; the backward on both plans where "
+          "both run (the committor: the lanes kernel chosen, the shared "
+          "plan forced)")
     times = {}
-    for tag, (prob, d, _, N, _, _) in fams.items():
-        net = net_of(d, 5)
-        X0 = sample_domain(gen, prob.geometry, Kb, d)
-        gY = torch.randn(Kb, generator=gen, device=dev) / Kb
-        call = km._StoppedCall(
-            prob, net, X0, torch.zeros(Kb, device=dev), N, DT_BR, 17,
-            km._check_stopped_family(prob, net, "erfinv"),
-            dict(adaptive_forward=False, rng="erfinv", host_noise=None),
-            None)
-        probe = km._stopped_forward_kernel(call)
-        hit = float(probe.hitting.sum())
-        adv = float(probe.adv_steps.sum())
-        full = prob.sigma_struct.kind != "scalar"
-        n_par = sum(p.numel() for p in net.parameters())
-        n_sig = d * d if full else 0
-        v_f, fwd_f, bwd_f = stopped_flops(net, d, adaptive=False, full=full)
-        b_fwd = roofline((hit - adv) * v_f + adv * fwd_f,
-                         4 * (n_par + n_sig + Kb * (2 * d + 5)))
-        b_bwd = stopped_bwd_roofline(adv, bwd_f, net,
-                                     4 * (2 * n_par + n_sig + Kb * (d + 1)))
-        use = lane_use(call, probe, gY)
-        print_lane_use(tag, use)
-        fwd_use = fwd_lane_use(call, dev)
-        print_fwd_lane_use(tag, fwd_use)
+    for tag, (prob, d, N_leg, N_bench, _, _) in fams.items():
+        for K, N in ((200, N_leg), (Kb, N_bench)):
+            net = net_of(d, 5)
+            X0 = sample_domain(gen, prob.geometry, K, d)
+            gY = torch.randn(K, generator=gen, device=dev) / K
+            call = km._StoppedCall(
+                prob, net, X0, torch.zeros(K, device=dev), N, DT_BR, 17,
+                km._check_stopped_family(prob, net, "erfinv"),
+                dict(adaptive_forward=False, rng="erfinv", host_noise=None),
+                None)
+            probe = km._stopped_forward_kernel(call)
+            hit = float(probe.hitting.sum())
+            adv = float(probe.adv_steps.sum())
+            full = prob.sigma_struct.kind != "scalar"
+            n_par = sum(p.numel() for p in net.parameters())
+            n_sig = d * d if full else 0
+            v_f, fwd_f, bwd_f = stopped_flops(net, d, adaptive=False,
+                                              full=full)
+            b_fwd = roofline((hit - adv) * v_f + adv * fwd_f,
+                             4 * (n_par + n_sig + K * (2 * d + 5)))
+            b_bwd = stopped_bwd_roofline(
+                adv, bwd_f, net, 4 * (2 * n_par + n_sig + K * (d + 1)))
+            packed = call.pack(backward=True)
+            lay = bwd_layout(packed, dev)
+            print(f"  {tag} K={K}: backward {lay}")
+            use = lane_use(call, probe, gY)
+            print_lane_use(f"{tag} K={K}", use)
+            fwd_use = fwd_lane_use(call, dev)
+            print_fwd_lane_use(f"{tag} K={K}", fwd_use)
+            plan = packed.layout[0]
+            other = {"shared": "device", "device": "shared"}[plan]
+            try:
+                call._replace(plan=other).pack(backward=True)
+            except ValueError:
+                other = None
 
-        def fwd():
-            km._stopped_forward_kernel(call)
+            def plain_fwd(call=call):
+                with torch.no_grad():
+                    call.plain()
 
-        def plain_fwd():
-            with torch.no_grad():
-                call.plain()
+            def bwd_on(p, call=call, gY=gY):
+                c = call._replace(plan=p)
+                return lambda: km._stopped_backward_kernel(c, gY)
 
-        def bwd():
-            km._stopped_backward_kernel(call, gY)
-
-        def plain_bwd():
-            km._reference_stopped_backward(call, gY)
-
-        r = {}
-        for name, kern_fn, plain_fn, reps, key in (
-                ("forward", fwd, plain_fwd, 10, "stopped_fwd_kernel"),
-                ("backward", bwd, plain_bwd, 5, "stopped_bwd_kernel")):
-            p1 = timed(plain_fn, 1)
-            k = [timed(kern_fn, reps), timed(kern_fn, reps)]
-            p2 = timed(plain_fn, 1)
-            dms, seen = device_ms(kern_fn, reps, key)
-            r[name] = (min(k), min(p1, p2), dms)
-            print(f"  {tag:9s} {name:8s} kernel {k[0]:.3f}, {k[1]:.3f} ms "
-                  f"(device {'none' if dms is None else f'{dms:.3f}'} ms a"
-                  f" launch over the {seen} of {reps} launches the profiler "
-                  f"recorded); plain {p1:.3f}, "
-                  f"{p2:.3f} ms")
-        print(f"  {tag}: {hit:.0f} active and {adv:.0f} advancing "
-              f"path-steps of K N = {Kb * N}; bound forward "
-              f"{b_fwd['bound_ms']:.4f} ms, backward {b_bwd['bound_ms']:.4f}"
-              f" ms (all FP32 {b_bwd['bound_ms_fp32']:.4f}; "
-              f"{b_fwd['bound_by']})")
-        times[tag] = (r, dict(b_fwd, layout=fwd_use["layout"],
-                              lane_use=fwd_use["lane_use"]),
-                      dict(b_bwd, lanes=use[0]))
+            r = {}
+            for name, kern_fn, plain_fn, reps, key in (
+                    ("forward", lambda call=call: km._stopped_forward_kernel(
+                        call), plain_fwd, 10, "stopped_fwd_kernel"),
+                    ("backward", bwd_on(plan),
+                     lambda call=call, gY=gY: km._reference_stopped_backward(
+                         call, gY), 5, BWD_KEY[plan]),
+                    ("other plan", None if other is None else bwd_on(other),
+                     None, 5, None if other is None else BWD_KEY[other])):
+                if kern_fn is None:
+                    continue
+                p1 = timed(plain_fn, 1) if plain_fn else None
+                k = [timed(kern_fn, reps), timed(kern_fn, reps)]
+                p2 = timed(plain_fn, 1) if plain_fn else None
+                dms, seen = device_ms(kern_fn, reps, key)
+                r[name] = (min(k), None if p1 is None else min(p1, p2), dms)
+                what = (f"{name} ({other} plan)" if name == "other plan"
+                        else name if name == "forward" else
+                        f"{name} ({plan} plan)")
+                print(f"  {tag:9s} K={K:5d} {what:24s} kernel {k[0]:.3f}, "
+                      f"{k[1]:.3f} ms (device "
+                      f"{'none' if dms is None else f'{dms:.4f}'} ms a "
+                      f"launch over the {seen} of {reps} launches the "
+                      f"profiler recorded)" + (
+                          "" if p1 is None else
+                          f"; plain {p1:.3f}, {p2:.3f} ms"))
+            print(f"  {tag} K={K}: {hit:.0f} active and {adv:.0f} advancing "
+                  f"path-steps of K N = {K * N}; bound forward "
+                  f"{b_fwd['bound_ms']:.5f} ms, backward "
+                  f"{b_bwd['bound_ms']:.5f} ms (all FP32 "
+                  f"{b_bwd['bound_ms_fp32']:.5f}; {b_fwd['bound_by']})")
+            times[tag, K] = (r, dict(b_fwd, layout=fwd_use["layout"],
+                                     lane_use=fwd_use["lane_use"]),
+                             dict(b_bwd, lanes=use[0], plan=plan,
+                                  layout=lay))
     print(f"  card: {smi}")
 
     # -- phase 29: the notebooks' legs ----------------------------------------
@@ -3708,13 +3811,16 @@ def breadth_phases(dev, smi):
         wall = time.perf_counter() - t0
         n = counted(km.fused_stopped_train_rollout, "launches",
                     "backward_launches")
+        by_plan = counted(km.fused_stopped_train_rollout,
+                          "backward_launches_by_plan")
         tail = float(np.mean(s.V_test_L2[-50:]))
         bound = 3.0 * BR_TAIL_JAX[leg]
         fall = s.V_test_L2[0] - tail
         fall_jax = BR_FIRST_JAX[leg] - BR_TAIL_JAX[leg]
         print(f"  [{leg}] {len(s.loss_log)} steps in {wall:.2f} s "
               f"({1e3 * wall / len(s.loss_log):.3f} ms a step); launches "
-              f"forward {n[0]}, backward {n[1]}; plain-version calls "
+              f"forward {n[0]}, backward {n[1]} (by plan {by_plan}); "
+              f"plain-version calls "
               f"{plain_calls.n}; test L2 every 100: "
               f"{['%.3e' % v for v in s.V_test_L2[::100]]}; tail-50 "
               f"{tail:.4e} (bound {bound:.4e}, JAX {BR_TAIL_JAX[leg]:.4e}); "
@@ -3728,6 +3834,12 @@ def breadth_phases(dev, smi):
               f"{leg}: one forward and one backward launch a step (and in "
               "the warm-up step) on 'fused_train' and none on PINN, no "
               "plain call")
+        if fused:
+            # the committor's backward on the lanes kernel, the Hessian's
+            # dense sigma on the shared plan
+            want = "device" if tag == "committor" else "shared"
+            check(by_plan[want] == n[1], f"{leg}: all {n[1]} backward "
+                  f"launches on the {want} plan ({by_plan})")
         check(tail <= bound, f"{leg}: tail-50 test L2 {tail:.4e} > "
               f"{bound:.4e}")
         check(fall >= 0.5 * fall_jax, f"{leg}: the test L2 fell by "
@@ -3742,26 +3854,49 @@ def breadth_phases(dev, smi):
 
     rows = []
     for tag in fams:
-        r, b_fwd, b_bwd = times[tag]
-        prob, d, _, N = fams[tag][:4]
-        # "shape" is phase 28's timed call; the launches are phase 29's
-        # diffusion leg, at K=200 and the leg's N
-        row = {"route": "cuda", "source": STOPPED_SOURCE,
-               "shape": f"{type(prob).__name__}, d={d}, K={Kb}, N={N}",
+        (r, b_fwd, b_bwd), (rb, bb_fwd, bb_bwd) = (times[tag, 200],
+                                                   times[tag, Kb])
+        prob, d, N_leg, N = fams[tag][:4]
+        # the main keys at phase 29's launches' shape (K=200, the leg's N);
+        # the *_K65536 keys phase 28's timed call at K_BR_BENCH
+        row = {"route": "cuda",
+               "shape": f"{type(prob).__name__}, d={d}, K=200, N={N_leg}",
+               "shape_K65536": f"{type(prob).__name__}, d={d}, K={Kb}, "
+                               f"N={N}",
                "launches_shape": f"phase 29's {tag}_diffusion leg, d={d}, "
-                                 f"K=200, N={fams[tag][2]}"}
+                                 f"K=200, N={N_leg}"}
+
+        def at_kb(name, res, bound):
+            out = {"ms_K65536": res[name][0],
+                   "device_ms_K65536": res[name][2],
+                   "plain_ms_K65536": res[name][1],
+                   "bound_ms_K65536": bound["bound_ms"]}
+            if name == "backward" and "other plan" in res:
+                out["other_plan_device_ms_K65536"] = res["other plan"][2]
+            return out
+
+        bwd_other = ({"other_plan": {"shared": "device",
+                                     "device": "shared"}[b_bwd["plan"]],
+                      "other_plan_ms": r["other plan"][0],
+                      "other_plan_device_ms": r["other plan"][2]}
+                     if "other plan" in r else {})
         rows += [
             dict(row, name=f"fused_stopped_train_rollout.forward.{tag}",
+                 source=STOPPED_SOURCE,
                  replaces="pspde/rollout/kernels.py:1184",
                  launches=launches[tag][0], max_abs_err=worst[tag]["out"],
                  ms=r["forward"][0], device_ms=r["forward"][2],
-                 plain_ms=r["forward"][1], **b_fwd),
+                 plain_ms=r["forward"][1], **b_fwd,
+                 **at_kb("forward", rb, bb_fwd)),
             dict(row, name=f"fused_stopped_train_rollout.backward.{tag}",
+                 source=(LANES_SOURCE if b_bwd["plan"] == "device"
+                         else STOPPED_SOURCE),
                  replaces="pspde/rollout/kernels.py:1272",
                  launches=launches[tag][1],
                  max_abs_err=max(worst[tag]["grad"], worst[tag]["bwd"]),
                  ms=r["backward"][0], device_ms=r["backward"][2],
-                 plain_ms=r["backward"][1], **b_bwd)]
+                 plain_ms=r["backward"][1], **b_bwd, **bwd_other,
+                 **at_kb("backward", rb, bb_bwd))]
     return rows, committor_leg
 
 
@@ -3891,7 +4026,10 @@ def allen_cahn_phases(dev, smi):
           "rows and block counts at the chosen layout (4 threads a lane) and "
           "at 2 threads a lane with the arrays in the workspace and the net "
           "in device memory; the block forward forced against "
-          "stopped_fwd_kernel on the same inputs: bitwise equal outputs")
+          "stopped_fwd_kernel on the same inputs: bitwise equal outputs; "
+          "the same backward checks on the Schroedinger family and the "
+          "committor (whose main paths take the lanes kernel) against the "
+          "shared plan forced, with and without the clamp, adaptive or not")
     ball = ExponentialOnBallNonlinearSin(d=D_ELL, alpha=ALPHA_ELL,
                                          device=dev)
     gen50 = ExponentialOnSphereNonlinearParabolic(d=D_GEN, device=dev)
@@ -3964,22 +4102,84 @@ def allen_cahn_phases(dev, smi):
                   "equal the shared plan's bitwise")
             check(all(torch.equal(a, b) for a, b in zip(rows_d, again)),
                   f"{tag}: two launches of the device plan differ")
-    from pspde_torch.problems import Committor
+    from pspde_torch.ansatz import DenseNetTanh
+    from pspde_torch.problems import (Committor,
+                                      ExponentialOnBallNonlinearSinHessian,
+                                      SchrodingerEigen)
     com = Committor(d=D_COM, device=dev)
-    cnet = DenseNet(1, (30, 30), d_in=D_COM, device=dev)
+    sch = SchrodingerEigen(d=D_SCH, device=dev)
+    new_fams = {  # problem, d, K, N, dt, lambda, the net of a seed and clamp
+        "schrodinger": (sch, D_SCH, K_SCH_CHECK, N_SCH, DT_SCH,
+                        torch.full((1,), LAM_SCH, device=dev),
+                        lambda seed, relu: DenseNetTanh(
+                            1, NET_SCH, d_in=D_SCH, output_relu=relu,
+                            device=dev,
+                            generator=torch.Generator(dev).manual_seed(
+                                seed))),
+        "committor": (com, D_COM, K_BR_CHECK, N_COM, DT_BR, None,
+                      lambda seed, relu: DenseNet(
+                          1, (30, 30), d_in=D_COM, output_relu=relu,
+                          device=dev,
+                          generator=torch.Generator(dev).manual_seed(seed)))}
+    for tag, (prob, d, K, N, dt, lam, net_of) in new_fams.items():
+        X0 = sample_domain(gen, prob.geometry, K, d)
+        t0 = torch.zeros(K, device=dev)
+        gY = torch.randn(K, generator=gen, device=dev) / K
+        for relu in (False, True):
+            for adaptive in (False, True):
+                net = net_of(31 + 2 * relu + adaptive, relu)
+                call = km._StoppedCall(
+                    prob, net, X0, t0, N, dt, 4321,
+                    km._check_stopped_family(prob, net, "erfinv", lam=lam),
+                    dict(adaptive_forward=adaptive, rng="erfinv",
+                         host_noise=None, time_stopping=False), None, lam)
+                check(call.pack(backward=True).layout[0] == "device",
+                      f"{tag}: the main path's backward on the lanes kernel")
+                shared = call._replace(plan="shared")
+                grid = km._stopped_bwd_grid(shared.pack(backward=True), dev)
+                rows_s = km._stopped_backward_rows(shared, gY, grid)
+                forced = call._replace(plan="device", tile=64)
+                lay = km._stopped_bwd_lane_of(forced.pack(backward=True))
+                rows_d = km._stopped_backward_rows(forced, gY, grid)
+                again = km._stopped_backward_rows(forced, gY, grid)
+                other = km._stopped_backward_rows(
+                    call._replace(bwd_layout=(64, 2, False, False)), gY,
+                    grid)
+                torch.cuda.synchronize()
+                err = max(float((rows_s[0] - r[0]).abs().max())
+                          for r in (rows_d, other))
+                plan_err = max(plan_err, err)
+                what = (f"{tag}{', clamp' if relu else ''}"
+                        f"{', adaptive' if adaptive else ''}")
+                print(f"  [{what}] K={K}, N={N}, {grid} blocks, device plan "
+                      f"{tuple(lay)} and (64, 2, False, False): device - "
+                      f"shared max |row| {err:.3e}; block counts equal "
+                      f"{torch.equal(rows_s[1], rows_d[1])}")
+                check(all(torch.equal(rows_s[0], r[0])
+                          and torch.equal(rows_s[1], r[1])
+                          for r in (rows_d, other)),
+                      f"{what}: the device plan's gradient rows and block "
+                      "counts equal the shared plan's bitwise")
+                check(all(torch.equal(a, b) for a, b in zip(rows_d, again)),
+                      f"{what}: two launches of the device plan differ")
+    hes = ExponentialOnBallNonlinearSinHessian(d=D_HES, alpha=1.0,
+                                               device=dev)
+    hnet = DenseNet(1, (30, 30), d_in=D_HES, device=dev)
     try:
         km._StoppedCall(
-            com, cnet, torch.zeros((64, D_COM), device=dev),
-            torch.zeros(64, device=dev), N_COM, DT_BR, 0,
-            km._check_stopped_family(com, cnet, "erfinv"),
+            hes, hnet, torch.zeros((64, D_HES), device=dev),
+            torch.zeros(64, device=dev), N_HES, DT_BR, 0,
+            km._check_stopped_family(hes, hnet, "erfinv"),
             dict(adaptive_forward=False, rng="erfinv", host_noise=None),
             None, plan="device").pack(backward=True)
         raised = ""
     except ValueError as e:
         raised = str(e)
-    print(f"  the committor on the device plan raises: {raised[:100]}")
-    check("ROADMAP.md" in raised, "the device plan of a breadth family "
-          "without it raises, naming ROADMAP.md")
+    print(f"  a dense sigma (the Hessian) on the device plan raises: "
+          f"{raised[:100]}")
+    check("Queue 2 item 4(f)" in raised, "the device plan of a dense sigma "
+          "raises, naming ROADMAP.md Queue 2 item 4(f)")
+    cnet = DenseNet(1, (30, 30), d_in=D_COM, device=dev)
     try:
         km._StoppedCall(
             com, cnet, torch.zeros((64, D_COM), device=dev),
@@ -4287,6 +4487,7 @@ def allen_cahn_phases(dev, smi):
                                       for tag, v in fsweep["ms"].items()},
                     step_ms={f"K={K}": med for K, med in engines.items()})),
         dict(row, name="fused_stopped_train_rollout.backward.allen_cahn",
+             source=LANES_SOURCE,
              replaces="pspde/rollout/kernels.py:1272", plan="device",
              launches=leg_launches[1],
              max_abs_err=max(worst["grad"], worst["bwd"]),
@@ -4300,6 +4501,7 @@ def allen_cahn_phases(dev, smi):
                                             for lay, ms in v.items()}
                                       for tag, v in sweep["ms"].items()})),
         dict(row, name="fused_stopped_train_rollout.backward.device_plan",
+             source=LANES_SOURCE,
              replaces="pspde/rollout/kernels.py:1272", plan="device",
              shape=f"ExponentialOnBallNonlinearSin, d={D_ELL}, DenseNet "
                    f"(30, 30), K={K_ELL_BENCH}, N={N_ELL}, the device plan "
@@ -4360,7 +4562,9 @@ def schrodinger_phases(dev, smi):
           f"disagreements <= {MASK_TOL:g} K, loss gradients {GRAD_TOL:g} "
           f"and the backward on plain cotangents {BWD_REL_TOL:g} x "
           "max|plain|, two launches bitwise equal, the forward bitwise "
-          "across its layouts")
+          "across its layouts; the backward on the lanes kernel, its rows "
+          "bitwise across the other layouts of its tile; the same at the "
+          f"notebook's K={K_SCH}")
     probe_lam = torch.full((1,), LAM_SCH, device=dev)
     probe = km._StoppedCall(
         sch, jax_net, torch.zeros((Kc, d), device=dev),
@@ -4368,41 +4572,49 @@ def schrodinger_phases(dev, smi):
         km._check_stopped_family(sch, jax_net, "erfinv", lam=probe_lam),
         dict(adaptive_forward=False, rng="erfinv", host_noise=None,
              time_stopping=False), None, probe_lam)
-    fwd_packed, bwd_packed = probe.pack(False), probe.pack(True)
+    fwd_packed = probe.pack(False)
     lay = km._FwdLayout(*fwd_packed.layout)
-    bwd_ts = km._stopped_bwd_ts(bwd_packed)
     print(f"  forward: {lay.tile} lanes x {lay.tpp} threads, "
           f"{'refilled' if lay.refill else 'one block a tile'}, net "
-          f"{'staged' if fwd_packed.iargs[6] else 'from device memory'}; "
-          f"backward: plan {bwd_packed.layout[0]}, tile "
-          f"{bwd_packed.iargs[5]}, {km._stopped_bwd_per_path(bwd_packed)} "
-          f"floats a path at stride {bwd_ts}, net "
-          f"{'staged' if bwd_packed.iargs[6] else 'from device memory'}, "
-          f"{km._stopped_bwd_smem(bwd_packed, bwd_ts)} shared bytes a block")
-    check(bwd_packed.layout[0] == "shared" and bwd_packed.iargs[5] == 64
-          and bwd_packed.iargs[6] == 1, "the notebook net's backward: the "
-          "shared plan, tile 64, the net staged")
+          f"{'staged' if fwd_packed.iargs[6] else 'from device memory'}")
+    for K in (K_SCH, Kc, K_SCH_BENCH):
+        bwd_packed = probe._replace(X0=torch.zeros((K, d), device=dev),
+                                    t0=torch.zeros(K, device=dev)).pack(True)
+        print(f"  backward at K={K}: {bwd_layout(bwd_packed, dev)}")
+        check(bwd_packed.layout[0] == "device", f"the notebook net's "
+              f"backward at K={K}: the lanes kernel")
     worst = {"out": 0.0, "grad": 0.0, "bwd": 0.0}
-    X0 = sample_domain(gen, sch.geometry, Kc, d)
-    noise = torch.randn((N, Kc, d), generator=gen, device=dev)
     cases = [("clamp", True, False, ("host noise", "erfinv", "binom")),
              ("clamp", True, True, ("host noise", "erfinv", "binom")),
              ("no clamp", False, False, ("erfinv",)),
              ("no clamp", False, True, ("binom",)),
              ("JAX's initial net", None, False, ("erfinv",)),
              ("JAX's initial net", None, True, ("binom",))]
-    for tag, clamp, adaptive, maps in cases:
-        net = jax_net if clamp is None else net_of(1 + 2 * clamp + adaptive,
-                                                   clamp)
-        for what in maps:
-            kw = (dict(host_noise=noise) if what == "host noise"
-                  else dict(seed=4321, rng=what))
-            compare_eigen(f"[schrodinger, {tag}"
-                          f"{', adaptive' if adaptive else ''}, {what}]",
-                          sch, net, X0, N, dt,
-                          dict(kw, adaptive_forward=adaptive), worst,
-                          lam_value=LAM_SCH)
-    del noise
+    # at the check K and at the notebook's, where the main path launches
+    # the backward: there both instantiations (the clamp or not) and JAX's
+    # initial net, one case a net and the clamp's also adaptive (the
+    # script's time limit)
+    small = [("clamp", True, False, ("erfinv",)),
+             ("clamp", True, True, ("binom",)),
+             ("no clamp", False, False, ("erfinv",)),
+             ("JAX's initial net", None, False, ("erfinv",))]
+    for K, g, K_cases in (
+            (Kc, gen, cases),
+            (K_SCH, torch.Generator(device=dev).manual_seed(330), small)):
+        X0 = sample_domain(g, sch.geometry, K, d)
+        noise = torch.randn((N, K, d), generator=g, device=dev)
+        for tag, clamp, adaptive, maps in K_cases:
+            net = (jax_net if clamp is None
+                   else net_of(1 + 2 * clamp + adaptive, clamp))
+            for what in maps:
+                kw = (dict(host_noise=noise) if what == "host noise"
+                      else dict(seed=4321, rng=what))
+                compare_eigen(f"[schrodinger{'' if K == Kc else f' K={K}'}"
+                              f", {tag}{', adaptive' if adaptive else ''}, "
+                              f"{what}]", sch, net, X0, N, dt,
+                              dict(kw, adaptive_forward=adaptive), worst,
+                              lam_value=LAM_SCH)
+        del noise
     print(f"  phase 33 took {time.perf_counter() - t33:.1f} s")
 
     # -- phase 34: times -----------------------------------------------------
@@ -4410,8 +4622,9 @@ def schrodinger_phases(dev, smi):
     print(f"phase 34: timing at K={K_SCH} and K={K_SCH_BENCH}, N={N}, d={d}, "
           f"DenseNetTanh {NET_SCH} with the clamp (JAX's initial net), "
           f"lambda {LAM_SCH}, erfinv Philox noise; CUDA events and the "
-          "profiler's device time a launch; the notebook's step on "
-          "'fused_train' and on 'scan'")
+          "profiler's device time a launch, the backward on both plans (the "
+          "lanes kernel chosen, the shared plan forced); the notebook's step "
+          "on 'fused_train' and on 'scan'")
 
     def recipe(K, mode, L=L_SCH):
         s = EigenSolver(
@@ -4454,28 +4667,36 @@ def schrodinger_phases(dev, smi):
             with torch.no_grad():
                 call.plain()
 
+        shared = call._replace(plan="shared")
+        check(call.pack(backward=True).layout[0] == "device",
+              f"K={K}: the backward on the lanes kernel")
         r = {}
         for name, kern_fn, plain_fn, reps, key in (
                 ("forward", lambda: km._stopped_forward_kernel(call),
                  plain_fwd, 20, "stopped_fwd_kernel"),
                 ("backward", lambda: km._stopped_backward_kernel(call, gY),
                  lambda: km._reference_stopped_backward(call, gY), 10,
-                 "stopped_bwd_kernel")):
-            p1 = timed(plain_fn, 1)
+                 BWD_KEY["device"]),
+                ("shared plan",
+                 lambda: km._stopped_backward_kernel(shared, gY), None, 10,
+                 BWD_KEY["shared"])):
+            p1 = timed(plain_fn, 1) if plain_fn else None
             k = [timed(kern_fn, reps), timed(kern_fn, reps)]
-            p2 = timed(plain_fn, 1)
+            p2 = timed(plain_fn, 1) if plain_fn else None
             dms, seen = device_ms(kern_fn, reps, key)
-            r[name] = (min(k), min(p1, p2), dms)
-            print(f"  K={K:6d} {name:8s} kernel {k[0]:.3f}, {k[1]:.3f} ms "
+            r[name] = (min(k), None if p1 is None else min(p1, p2), dms)
+            print(f"  K={K:6d} {name:11s} kernel {k[0]:.3f}, {k[1]:.3f} ms "
                   f"(device {'none' if dms is None else f'{dms:.4f}'} ms a "
                   f"launch over the {seen} of {reps} launches the profiler "
-                  f"recorded); plain {p1:.3f}, {p2:.3f} ms")
+                  f"recorded)" + ("" if p1 is None else
+                                  f"; plain {p1:.3f}, {p2:.3f} ms"))
         print(f"  K={K}: {hit:.0f} active and {adv:.0f} advancing path-steps "
               f"of K N = {K * N}; bound forward {b_fwd['bound_ms']:.5f} ms, "
               f"backward {b_bwd['bound_ms']:.5f} ms (all FP32 "
               f"{b_bwd['bound_ms_fp32']:.5f}; {b_fwd['bound_by']})")
         times[K] = (r, dict(b_fwd, layout=fwd_use["layout"]),
-                    dict(b_bwd, lanes=use[0]))
+                    dict(b_bwd, lanes=use[0],
+                         layout=bwd_layout(call.pack(backward=True), dev)))
     # the notebook's step at K=500 on both engines, from JAX's initial net:
     # fused, scan, scan, fused
     solvers = {m: recipe(K_SCH, m, L=1) for m in ("fused_train", "scan")}
@@ -4521,6 +4742,8 @@ def schrodinger_phases(dev, smi):
     wall = time.perf_counter() - t0
     launches = counted(km.fused_stopped_train_rollout, "launches",
                        "backward_launches")
+    by_plan = counted(km.fused_stopped_train_rollout,
+                      "backward_launches_by_plan")
     steps = len(main.loss_log)
     lam_tail = main.lambda_tail_mean()
     lam_first = main.lambda_log[0]
@@ -4528,8 +4751,9 @@ def schrodinger_phases(dev, smi):
     v_bound = 3.0 * SCH_V_L2_TAIL_JAX
     move = abs(lam_tail - lam_first)
     print(f"  {steps} steps in {wall:.2f} s ({1e3 * wall / steps:.3f} ms a "
-          f"step); launches forward {launches[0]}, backward {launches[1]}; "
-          f"plain-version calls {plain_calls.n}; lambda every 200: "
+          f"step); launches forward {launches[0]}, backward {launches[1]} "
+          f"(by plan {by_plan}); plain-version calls {plain_calls.n}; "
+          f"lambda every 200: "
           f"{['%.4f' % v for v in main.lambda_log[::200]]}; V_L2 every 200: "
           f"{['%.3e' % v for v in main.V_L2_log[::200]]}")
     jax_tails = ['%.4f' % v for v in SCH_LAMBDA_TAIL_JAX]
@@ -4542,6 +4766,8 @@ def schrodinger_phases(dev, smi):
           and plain_calls.n == 0,
           "the main path: one backward launch a step (and in the warm-up "
           "step), at least one forward launch a step, no plain call")
+    check(by_plan["device"] == launches[1], f"the main path: all "
+          f"{launches[1]} backward launches on the lanes kernel ({by_plan})")
     check(all(math.isfinite(v) for v in main.loss_log + main.lambda_log
               + main.V_L2_log), "finite losses, lambdas and V_L2")
     check(lo - w <= lam_tail <= hi + w, f"lambda tail mean {lam_tail:.4f} "
@@ -4566,12 +4792,13 @@ def schrodinger_phases(dev, smi):
 
     (r, b_fwd, b_bwd), (rb, bb_fwd, bb_bwd) = (times[K_SCH],
                                                times[K_SCH_BENCH])
-    row = {"route": "cuda", "source": STOPPED_SOURCE,
+    row = {"route": "cuda",
            "shape": f"SchrodingerEigen, d={d}, DenseNetTanh {NET_SCH} with "
                     f"the clamp, K={K_SCH}, N={N}, lambda",
            "launches_shape": f"phase 35's {L_SCH} steps, K={K_SCH}"}
     rows = [
         dict(row, name="fused_stopped_train_rollout.forward.schrodinger",
+             source=STOPPED_SOURCE,
              replaces="pspde/rollout/kernels.py:1184", launches=launches[0],
              max_abs_err=worst["out"], ms=r["forward"][0],
              device_ms=r["forward"][2], plain_ms=r["forward"][1], **b_fwd,
@@ -4581,13 +4808,18 @@ def schrodinger_phases(dev, smi):
              layout_K65536=bb_fwd["layout"],
              step_ms={m: v for m, v in engines.items()}),
         dict(row, name="fused_stopped_train_rollout.backward.schrodinger",
+             source=LANES_SOURCE, plan="device",
              replaces="pspde/rollout/kernels.py:1272", launches=launches[1],
              max_abs_err=max(worst["grad"], worst["bwd"]),
              ms=r["backward"][0], device_ms=r["backward"][2],
              plain_ms=r["backward"][1], **b_bwd,
+             shared_plan_ms=r["shared plan"][0],
+             shared_plan_device_ms=r["shared plan"][2],
              ms_K65536=rb["backward"][0], device_ms_K65536=rb["backward"][2],
              plain_ms_K65536=rb["backward"][1],
-             bound_ms_K65536=bb_bwd["bound_ms"]),
+             bound_ms_K65536=bb_bwd["bound_ms"],
+             layout_K65536=bb_bwd["layout"],
+             shared_plan_device_ms_K65536=rb["shared plan"][2]),
     ]
     return rows, main
 

@@ -4,7 +4,7 @@ kernels at the bench shapes on one CUDA card, and print one JSON line.
 
     python3 experiments/torch_kernel_times.py [--root DIR] [--hjb-only]
         [--stopped-only] [--serve-only] [--layouts [hjb|stopped|serve]]
-        [--fwd-bwd] [--allen-cahn]
+        [--fwd-bwd] [--allen-cahn] [--sch-committor]
 
 ``--root`` names the checkout whose ``pspde_torch`` is timed (default:
 the one this script lives in).  Two trees are compared on one card in one
@@ -67,7 +67,14 @@ notebook's DenseNet (110, 110, 50) on [x, t] and sampling ball of radius
 device plan) and the stopped
 backward's device plan forced at the elliptic (DenseNet (30, 30)) and
 heat cells beside the shared plan, with the profiler's device time; a
-tree without them reads None there.
+tree without them reads None there.  ``--sch-committor`` times only the
+stopped pair of the Schroedinger notebook (SchrodingerEigen d=10, JAX's
+initial DenseNetTanh (15, 15, 15, 15) with the clamp, lambda -2.5, N=20)
+at its K=500 and at K=65536, and of the committor notebook (Committor
+d=10, JAX's initial DenseNet (30, 30)) at its K=200, N=50 and at JAX's
+'com10' cell, K=65536, N=25: CUDA events and the profiler's device ms a
+launch of either forward and either backward kernel, and the backward's
+plan and layout as the tree chooses them.
 """
 
 import argparse
@@ -146,6 +153,9 @@ def main():
     ap.add_argument("--allen-cahn", action="store_true",
                     help="time the stopped kernels, the Allen-Cahn pair and "
                          "the stopped backward's forced device plan only")
+    ap.add_argument("--sch-committor", action="store_true",
+                    help="time the Schroedinger and committor notebooks' "
+                         "stopped pairs only")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("torch_kernel_times: this script needs one CUDA card")
@@ -206,6 +216,10 @@ def main():
     out = {"root": os.path.relpath(root, here), "card": card}
     if args.serve_only:
         out.update(serve_times(llgc, solver.z_net, dev))
+        print(json.dumps(out))
+        return
+    if args.sch_committor:
+        out.update(sch_committor_times(root, dev, gen))
         print(json.dumps(out))
         return
     if args.allen_cahn:
@@ -671,6 +685,62 @@ def allen_cahn_times(dev, gen):
                                                        "stopped_bwd")[0]
         out[f"allen_cahn{tag}_bwd_layout"] = list(
             call.pack(backward=True).layout)
+    return out
+
+
+def sch_committor_times(root, dev, gen):
+    """ms (CUDA events) and device ms a launch (``torch.profiler``) of the
+    Schroedinger and committor notebooks' stopped pairs, JAX's initial nets
+    from ``root``'s assets, at the notebooks' K and at K=65536 (keys
+    ``sch_k500_*``, ``com_k200_*``, ...; ``*_bwd_layout`` the backward's
+    plan, and its (tile, threads a lane, arrays in shared memory, net
+    staged) on the device plan)."""
+    from pspde_torch.ansatz import DenseNetTanh
+    from pspde_torch.problems import Committor, SchrodingerEigen
+    from pspde_torch.rollout import kernels as km
+    from pspde_torch.rollout.sampling import sample_domain
+    from pspde_torch.utils.convert import (dense_net_from_flax,
+                                           eigen_params_from_flax,
+                                           load_control_npz)
+
+    assets = os.path.join(root, "pspde_torch", "assets")
+    sch = SchrodingerEigen(d=10, device=dev)
+    tree, _ = load_control_npz(os.path.join(
+        assets, "schrodinger_d10_densenet_tanh.npz"))
+    sch_net, _ = eigen_params_from_flax(tree, output_relu=True, device=dev,
+                                        cls=DenseNetTanh)
+    com = Committor(d=10, device=dev)
+    tree, _ = load_control_npz(os.path.join(assets,
+                                            "committor_d10_densenet.npz"))
+    com_net = dense_net_from_flax(tree, device=dev)
+    out = {}
+    for tag, prob, net, K, N, lam, reps in (
+            ("sch_k500", sch, sch_net, 500, 20, -2.5, 20),
+            ("sch_k65536", sch, sch_net, 65536, 20, -2.5, 5),
+            ("com_k200", com, com_net, 200, 50, None, 20),
+            ("com_k65536", com, com_net, 65536, 25, None, 5)):
+        lam_t = None if lam is None else torch.full((1,), lam, device=dev)
+        X0 = sample_domain(gen, prob.geometry, K, 10)
+        call = km._StoppedCall(
+            prob, net, X0, torch.zeros(K, device=dev), N, 1e-3, 17,
+            km._check_stopped_family(prob, net, "erfinv", lam=lam_t),
+            dict(adaptive_forward=False, rng="erfinv", host_noise=None),
+            None, lam_t)
+        gY = torch.randn(K, generator=gen, device=dev) / K
+
+        def fwd(call=call):
+            km._stopped_forward_kernel(call)
+
+        def bwd(call=call, gY=gY):
+            km._stopped_backward_kernel(call, gY)
+
+        packed = call.pack(backward=True)
+        out[f"{tag}_fwd"] = timed(fwd, reps)
+        out[f"{tag}_fwd_device"] = device_ms(fwd, reps, "stopped_fwd")[0]
+        out[f"{tag}_bwd"] = timed(bwd, reps)
+        out[f"{tag}_bwd_device"] = device_ms(bwd, reps, "stopped_bwd")[0]
+        out[f"{tag}_bwd_layout"] = (
+            list(packed.layout) + [packed.iargs[5], packed.iargs[6]])
     return out
 
 

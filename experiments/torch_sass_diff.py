@@ -1,13 +1,17 @@
 #!/usr/bin/env python3
-"""Compare the SASS of one CUDA source of the port between two trees.
+"""Compare the SASS of CUDA sources of the port between two trees.
 
     python3 experiments/torch_sass_diff.py --old build/parent \\
-        [--new .] [--source pspde_torch/csrc/stopped_rollout.cu] \\
+        [--new .] [--source pspde_torch/csrc/stopped_rollout.cu \\
+        --source pspde_torch/csrc/stopped_bwd_lanes.cu] \\
         [--dropped stopped_bwd_kernel:5]
 
-Compiles the source of each tree with nvcc for sm_90a (the flags of
-``pspde_torch/rollout/_build.py``) into a cubin, reads ``cuobjdump -sass``,
-and pairs every kernel of the old tree with the new kernel of the same name
+Compiles each ``--source`` (default: stopped_rollout.cu) that a tree has
+with nvcc for sm_90a (the flags of ``pspde_torch/rollout/_build.py``) into
+a cubin, reads ``cuobjdump -sass``, takes the kernels of all of a tree's
+sources together (so that a kernel moved to a source of its own pairs with
+its old self), and pairs every kernel of the old tree with the new kernel
+of the same name
 whose template arguments extend the old ones by ``false`` (a template
 parameter added after the old ones, at its value for the old family: e.g.
 ``stopped_fwd_kernel<false>`` and ``stopped_fwd_kernel<false, false,
@@ -88,7 +92,9 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--old", required=True, help="root of the old tree")
     ap.add_argument("--new", default=ROOT, help="root of the new tree")
-    ap.add_argument("--source", default="pspde_torch/csrc/stopped_rollout.cu")
+    ap.add_argument("--source", action="append", default=[],
+                    help="a source, relative to each tree's root (repeat "
+                         "for several; default stopped_rollout.cu)")
     ap.add_argument("--dropped", action="append", default=[],
                     metavar="NAME:POS",
                     help="a template parameter the new tree dropped")
@@ -97,8 +103,17 @@ def main():
     for spec in args.dropped:
         kernel, pos = spec.rsplit(":", 1)
         dropped.setdefault(kernel, []).append(int(pos))
-    old = sass_of(os.path.join(args.old, args.source))
-    new = sass_of(os.path.join(args.new, args.source))
+    sources = args.source or ["pspde_torch/csrc/stopped_rollout.cu"]
+
+    def kernels_of(root):
+        out = {}
+        for src in sources:
+            path = os.path.join(root, src)
+            if os.path.isfile(path):
+                out.update(sass_of(path))
+        return out
+
+    old, new = kernels_of(args.old), kernels_of(args.new)
     new_by_key = {}
     for name in new:
         base, targs = split_template(name)
@@ -141,7 +156,7 @@ def main():
         pairs.append({"old": name, "new": match, "n_old": len(code),
                       "n_new": len(new[match]), "changed": n_diff,
                       "identical": code == new[match]})
-    print(json.dumps({"source": args.source, "pairs": pairs,
+    print(json.dumps({"sources": sources, "pairs": pairs,
                       "name_map": name_map, "new_kernels": sorted(new)}))
 
 

@@ -1286,7 +1286,7 @@ def _stopped_bwd_lane_bytes(n_stage: int, per_path: int,
     ``n_stage`` floats of the staged net (``_stopped_fwd_net_floats``)
     where it is staged and the lanes' ``per_path`` floats at stride tile +
     4 where they sit in shared memory - the formula of
-    stopped_rollout.cu:lane_smem_floats."""
+    stopped_bwd_lanes.cu:lane_smem_floats."""
     return 4 * (_STOPPED_LANE_BALLOT_WORDS + (n_stage if lay.stage else 0)
                 + (per_path * (lay.tile + 4) if lay.smem else 0))
 
@@ -1298,7 +1298,8 @@ def _stopped_bwd_lane_layout(n_stage: int, per_path: int, K: int,
     forced one), else the fastest by device time, or within 7% of it, at
     the cells of experiments/torch_bwd_layouts.py (the notebook's
     Allen-Cahn net at K = 200, 8192 and 65536, DenseNet (30, 30) at the
-    elliptic cell at K = 8192 and 65536; PERF.md section 6):
+    elliptic cell at K = 8192 and 65536; the Schroedinger and committor
+    notebooks' nets at their K, 500 and 200; PERF.md section 6):
     - threads a lane: the fewest of 4, 8, 16 whose K x tpp threads reach
       _STOPPED_LANE_FILL (the card holds 132 x 512 at 16 warps an SM), so
       that each path's chain is split only as far as K leaves the card
@@ -1347,24 +1348,25 @@ def _stopped_bwd_lane_layout(n_stage: int, per_path: int, K: int,
 def _stopped_bwd_plan(n_params: int, per_path: int, tile: Optional[int],
                       plan: Optional[str], device_ok: bool = True, *,
                       n_stage: int = 0, K: int = 0,
-                      layout: Optional[tuple] = None):
+                      layout: Optional[tuple] = None,
+                      lanes_first: bool = False):
     """(tile, stage, layout) of the backward: ``layout`` ("shared",) or
     ("device", tpp, smem).
 
     The shared plan keeps each lane's ``per_path`` floats in shared memory
     (``_stopped_tile``: the tile, the stride and the staged net as before),
-    one thread a path.  Where no tile fits (or ``plan='device'``), the
-    device plan runs the lanes kernel at ``_stopped_bwd_lane_layout`` of
-    the net's staged floats ``n_stage`` and K (``layout`` forces one,
-    ``tile`` the tile).  ``plan='shared'`` where no tile
-    fits raises the family's ValueError; the device plan for an
-    instantiation that lacks it (``device_ok`` False: the committor's, the
-    dense sigma's and the Schroedinger family's) raises, naming
-    ROADMAP.md."""
+    one thread a path.  It runs wherever a tile fits, but for the families
+    whose backward takes the device plan first (``lanes_first``).  Where no
+    tile fits (or ``plan='device'``, or ``lanes_first``), the device plan
+    runs the lanes kernel at ``_stopped_bwd_lane_layout`` of the net's
+    staged floats ``n_stage`` and K (``layout`` forces one).
+    ``plan='shared'`` where no tile fits raises the family's ValueError;
+    the device plan for an instantiation that lacks it (``device_ok``
+    False: a dense sigma's) raises, naming ROADMAP.md."""
     _check_plan(plan)
     if plan == "shared":
         return (*_stopped_tile(n_params, per_path, tile, True), ("shared",))
-    if plan is None and layout is None:
+    if plan is None and layout is None and not lanes_first:
         try:
             return (*_stopped_tile(n_params, per_path, tile, True),
                     ("shared",))
@@ -1372,10 +1374,9 @@ def _stopped_bwd_plan(n_params: int, per_path: int, tile: Optional[int],
             pass
     if not device_ok:
         raise _stopped_outside(
-            "the backward's device plan is not instantiated for the breadth "
-            "families without time_stopping (the two spheres, a dense sigma, "
-            "the committor's reference, c_ys1) and the Schroedinger family; "
-            "ROADMAP.md Queue 2 item 4(f)")
+            "the backward's device plan (the lanes kernel) is not "
+            "instantiated for a dense sigma (diag or full: its normals and Z "
+            "in 2 d more rows a path); ROADMAP.md Queue 2 item 4(f)")
     lay = _stopped_bwd_lane_layout(n_stage, per_path, K, tile, layout)
     return lay.tile, lay.stage, ("device", lay.tpp, int(lay.smem))
 
@@ -1663,8 +1664,9 @@ def _stopped_full(packed: _Packed) -> bool:
 def _stopped_unclocked(geom: str, sig_off: int, vref: str, c_ys1) -> bool:
     """Whether a call carries a breadth term that goes without the clock
     (csrc unclocked): the two spheres, a dense sigma, the committor's
-    reference, c_ys1.  Their instantiations have no device plan for the
-    backward (ROADMAP.md Queue 2 item 4(f))."""
+    reference, c_ys1.  Their instantiations have no block forward
+    (ROADMAP.md Queue 2 item 4(f)); the backward's lanes kernel takes them
+    on a scalar sigma."""
     return (geom == "two_spheres" or sig_off >= 0 or vref != "exp_r2"
             or c_ys1 != 0.0)
 
@@ -1703,9 +1705,11 @@ def _pack_stopped(problem, v_net, hfam, vfam, K, N, delta_t, tile, *,
     ``_stopped_fwd_block_layout``'s ``_FwdBlockLayout`` (the block
     kernel; ``fwd_block`` forces a layout); ``fwd_kernel`` ('lanes' or
     'block') forces the kernel; the block kernel outside its families
-    (those of the backward's device plan) raises.  The backward's is
-    ``_stopped_bwd_plan``'s, ("shared",) or ("device", tpp, smem) (``plan``
-    forces a plan, ``bwd_layout`` a device-plan ``_BwdLayout``)."""
+    (the ball, the clock's families and the torus) raises.  The backward's
+    is ``_stopped_bwd_plan``'s, ("shared",) or ("device", tpp, smem), the
+    device plan first for the Schroedinger family and the breadth families
+    without the clock on a scalar sigma (the committor's) (``plan`` forces
+    a plan, ``bwd_layout`` a device-plan ``_BwdLayout``)."""
     d = problem.d
     geom = problem.geometry
     square = hfam[0] in _SQUARE_FAMILIES
@@ -1735,14 +1739,18 @@ def _pack_stopped(problem, v_net, hfam, vfam, K, N, delta_t, tile, *,
         else:
             a, c, dv = (float(v) for v in vfam[1:])
             vr = [a ** 2, a ** dv, a ** 2 - c ** (2 - dv) * a ** dv]
-    # the families of the backward's device plan and the block forward
-    lanes_family = not (sch or _stopped_unclocked(geom.kind, lay.sig_off,
-                                                  vref, c_ys1))
+    # the block forward's families; the backward's lanes kernel takes every
+    # family but a dense sigma, and two of them first: their notebooks' K
+    # leave the shared plan's one-thread paths on a few SMs (PERF.md
+    # section 6, rows 5s and 5c)
+    unclocked = _stopped_unclocked(geom.kind, lay.sig_off, vref, c_ys1)
+    block_family = not (sch or unclocked)
     n_stage = _stopped_fwd_net_floats(n_params, lay.widths, v_net.d_in)
     if backward:
         tile, stage, fwd = _stopped_bwd_plan(
-            n_params, per_path, tile, plan, device_ok=lanes_family,
-            n_stage=n_stage, K=K, layout=bwd_layout)
+            n_params, per_path, tile, plan, device_ok=not full,
+            n_stage=n_stage, K=K, layout=bwd_layout,
+            lanes_first=sch or (unclocked and not full))
     else:
         if fwd_kernel not in (None, *STOPPED_FWD_KERNELS):
             raise ValueError(f"fwd_kernel={fwd_kernel!r} must be one of "
@@ -1755,13 +1763,13 @@ def _pack_stopped(problem, v_net, hfam, vfam, K, N, delta_t, tile, *,
                     lay.widths, geom.kind, K, n_stage, per_path, tile,
                     fwd_layout)
             except ValueError:
-                if kernel == "lanes" or not lanes_family:
+                if kernel == "lanes" or not block_family:
                     raise
                 stage = False
             if kernel is None and not stage:
                 kernel = "block"
         if kernel == "block":
-            if not lanes_family:
+            if not block_family:
                 raise _stopped_outside(
                     "the block forward (the forward of nets that no block "
                     "stages) is not instantiated for the breadth families "
@@ -2030,9 +2038,9 @@ def _stopped_bwd_ts(packed: _Packed, grid: Optional[int] = None) -> int:
 
 def _stopped_bwd_smem(packed: _Packed, ts: int) -> int:
     """Shared bytes of one backward block (stopped_rollout.cu:smem_floats,
-    lane_smem_floats): in the shared plan the ballots, the staged net and
-    the per-path arrays at stride ``ts``; in the device plan
-    ``_stopped_bwd_lane_bytes``."""
+    stopped_bwd_lanes.cu:lane_smem_floats): in the shared plan the ballots,
+    the staged net and the per-path arrays at stride ``ts``; in the device
+    plan ``_stopped_bwd_lane_bytes``."""
     ia = packed.iargs
     tile, stage, n_params = ia[5], ia[6], ia[7]
     lay = _stopped_bwd_lane_of(packed)
@@ -2049,7 +2057,8 @@ def _stopped_bwd_layout_ints(packed: _Packed, ts: int, grid: int) -> list:
     """The ints a backward launch (or its slots' query) takes after the
     packed ones: [ts, grid, plan], and in the device plan tpp and whether
     the lanes' arrays sit in shared memory after them
-    (stopped_rollout.cu:unpack_bwd_layout)."""
+    (stopped_rollout.cu:unpack_bwd_layout, stopped_bwd_lanes.cu:
+    unpack_lane_layout)."""
     plan = packed.layout[0]
     return [ts, grid, PLANS.index(plan)] + list(packed.layout[1:])
 
@@ -2327,12 +2336,14 @@ def fused_stopped_train_rollout(problem, v_net, X0: torch.Tensor,
     ``host_noise`` (N, K, d) must live there.  CPU: the plain version
     (forward, and ``_reference_stopped_backward``).  CUDA: the kernels of
     ``csrc/stopped_rollout.cu`` (the forward's lanes kernel where its net
-    is staged, else the block kernel), counted by
+    is staged, else the block kernel; the backward's shared plan) and
+    ``csrc/stopped_bwd_lanes.cu`` (the backward's device plan), counted by
     ``fused_stopped_train_rollout.launches`` (per forward kernel:
     ``.launches_by_kernel``) and ``.backward_launches`` (per memory plan
     of the backward: ``.backward_launches_by_plan``).
     ``plan`` forces the backward's plan, 'shared' or 'device'
-    (``_stopped_bwd_plan``; None: shared where a block fits).
+    (``_stopped_bwd_plan``; None: the Schroedinger family and the
+    committor's device plan, the others shared where a block fits).
     Noise is ``host_noise`` or the Philox stream of ``seed`` through
     ``rng`` ('erfinv', the default, or 'binom'); on CUDA the seed is a
     device word as in ``fused_train_rollout``.  ``time_stopping`` (the

@@ -237,9 +237,12 @@ def test_pack_schrodinger(backward):
     c_tor) and appends StoppedExt's feat = 1 (tanh), hfam = 1 and -1/c^2,
     1/c, 2/d, 1/d as float32 rounds the Python floats; at d=10 with the
     notebook's DenseNetTanh (15, 15, 15, 15) the backward keeps 3 F + 3 H
-    + 1 = 391 floats a path on the shared plan at tile 64 and stride 68,
-    the net staged (101,660 bytes of arrays), and the forward at K=500
-    takes 4 lanes of 16 threads, one block a tile."""
+    + 1 = 391 floats a path and at K=500 takes the lanes kernel (the
+    device plan, its general rule): 8 lanes of 16 threads, the arrays in
+    shared memory at stride 12, the net staged (29,808 bytes a block);
+    forced, the shared plan keeps tile 64 and stride 68, the net staged
+    (101,660 bytes of arrays); and the forward at K=500 takes 4 lanes of
+    16 threads, one block a tile."""
     d = 10
     pt, net, _ = _torch_sch(d, (15, 15, 15, 15), True, 0.0)
     lam = torch.tensor([-2.25])
@@ -267,16 +270,21 @@ def test_pack_schrodinger(backward):
     F, H = lay.F, lay.F - d
     assert (F, H) == (70, 60)
     if backward:
-        assert packed.layout == ("shared",) and (ia[5], ia[6]) == (64, 1)
+        assert packed.layout == ("device", 16, 1) and (ia[5], ia[6]) == (8, 1)
         per_path = tk._stopped_bwd_per_path(packed)
         assert per_path == 3 * F + 3 * H + 1 == 391
-        assert tk._stopped_bwd_ts(packed) == 68
+        assert tk._stopped_bwd_ts(packed, 63) == 12
+        assert tk._stopped_bwd_smem(packed, 12) == 29808
+        for plan, want in (("device", ("device", 16, 1)),
+                           ("shared", ("shared",))):
+            forced = tk._pack_stopped(pt, net, *fam, 500, 20, 1e-3, None,
+                                      backward=True, host_noise=None,
+                                      adaptive_forward=False, rng="erfinv",
+                                      lam=lam, plan=plan)
+            assert forced.layout == want
+        assert (forced.iargs[5], forced.iargs[6]) == (64, 1)
+        assert tk._stopped_bwd_ts(forced) == 68
         assert 4 * per_path * 65 == 101660
-        with pytest.raises(ValueError, match="4\\(f\\)"):
-            tk._pack_stopped(pt, net, *fam, 500, 20, 1e-3, None,
-                             backward=True, host_noise=None,
-                             adaptive_forward=False, rng="erfinv", lam=lam,
-                             plan="device")
     else:
         assert tk._FwdLayout(*packed.layout) == (4, 16, False)
 

@@ -54,8 +54,9 @@ from pspde_torch.utils.convert import dense_net_from_flax, dense_net_to_flax
 K, D, N, DT = 64, 5, 16, 0.01
 X_RTOL, X_ATOL, Y_RTOL, Y_ATOL = 2e-5, 2e-6, 2e-4, 1e-5
 G_RTOL, G_ATOL = 5e-3, 1e-5
+# the stopped kernels' shared header, where their argument structs live
 CU = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "pspde_torch", "csrc", "stopped_rollout.cu")
+    __file__))), "pspde_torch", "csrc", "stopped_common.cuh")
 
 PROBLEMS = {
     "committor": ("Committor", dict(d=D)),
@@ -222,7 +223,7 @@ def test_reference_backward_matches_double_backward(case, adaptive, relu,
 
 
 def _cu_struct(name):
-    """The field names of a struct of csrc/stopped_rollout.cu, in order."""
+    """The field names of a struct of csrc/stopped_common.cuh, in order."""
     src = open(CU).read()
     body = re.search(r"struct %s \{(.*?)\n\};" % name, src, re.S).group(1)
     body = re.sub(r"//[^\n]*", "", body)
@@ -238,7 +239,7 @@ def _cu_struct(name):
 
 
 def _cu_int_fields(name):
-    """The names of a struct's int fields in csrc/stopped_rollout.cu."""
+    """The names of a struct's int fields in csrc/stopped_common.cuh."""
     body = re.search(r"struct %s \{(.*?)\n\};" % name, open(CU).read(),
                      re.S).group(1)
     body = re.sub(r"//[^\n]*", "", body)
@@ -317,6 +318,35 @@ def test_pack_breadth_fields_against_the_cu():
             assert tk._stopped_instance(p)[3:] == (ext["sig_off"],
                                                    ext["vref"], full, False,
                                                    ext["feat"], ext["hfam"])
+
+
+@pytest.mark.parametrize("case", ["hessian", "committor"])
+def test_device_plan_of_a_dense_sigma_raises(case):
+    """The backward's device plan (the lanes kernel) takes the committor
+    (the two spheres, its reference: first, and forced) but not a dense
+    sigma: the Hessian's backward stays on the shared plan, and
+    plan='device' there raises naming ROADMAP.md Queue 2 item 4(f), at the
+    pack and through fused_stopped_train_rollout's backward."""
+    name, kw = PROBLEMS[case]
+    prob = getattr(tp, name)(device="cpu", **kw)
+    net = DenseNet(1, (8, 8), d_in=D, device="cpu")
+    fam = tk._check_stopped_family(prob, net, "erfinv")
+
+    def pack(**opts):
+        return tk._pack_stopped(prob, net, *fam, 200, N, DT, None,
+                                backward=True, host_noise=None,
+                                adaptive_forward=False, rng="erfinv", **opts)
+
+    if case == "committor":
+        assert pack().layout[0] == "device"
+        assert pack(plan="device").layout[0] == "device"
+        assert pack(plan="shared").layout == ("shared",)
+        return
+    assert pack().layout == ("shared",)
+    with pytest.raises(ValueError, match=r"dense sigma.*Queue 2 item 4\(f\)"):
+        pack(plan="device")
+    with pytest.raises(ValueError, match=r"Queue 2 item 4\(f\)"):
+        pack(bwd_layout=(8, 16, True, True))
 
 
 def _fma(a, b, c):
